@@ -1,0 +1,19 @@
+"""Kernels of the port: each a hand-written CUDA kernel with its plain
+PyTorch version beside it (the CPU path and the oracle)."""
+
+from .flash_decode import (aligned_cache_length, decode_attention,
+                           decode_attention_lse, decode_attention_reference,
+                           decode_attention_reference_lse, flash_decode_lse)
+from .layer_norm import fused_layer_norm, layer_norm, layer_norm_reference
+
+__all__ = [
+    "aligned_cache_length",
+    "decode_attention",
+    "decode_attention_lse",
+    "decode_attention_reference",
+    "decode_attention_reference_lse",
+    "flash_decode_lse",
+    "fused_layer_norm",
+    "layer_norm",
+    "layer_norm_reference",
+]
