@@ -5,10 +5,12 @@ slice by slice with the same parameter names, layouts and semantics. Every
 Pallas kernel of a ported slice becomes a hand-written CUDA kernel under
 ``ops/csrc/``, built with ``nvcc`` at first use (``ops/_build.py``).
 
-This slice holds the dense serving path: :class:`~.models.TransformerLM`
+Ported so far: the dense serving path, :class:`~.models.TransformerLM`
 (``decode_step`` / ``decode_chunk`` / ``prefill_slot``) under
 :class:`~.serving.ServingEngine`, with the fused LayerNorm and flash-decode
-kernels.
+kernels; and LM training and generation (``apply``,
+``build_lm_train_step``, the optimizers, ``prefill``, ``generate``), with
+the flash-attention kernels (forward, dq, dkv) and the LayerNorm backward.
 
 Device policy: every entry point takes ``device=`` and defaults to
 ``"cuda"``. Without a CUDA device the entry points raise unless the caller

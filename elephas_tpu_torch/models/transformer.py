@@ -1,28 +1,40 @@
-"""Decoder-only transformer LM for serving (port of the serving half of
-``elephas_tpu/models/transformer.py``).
+"""Decoder-only transformer LM (port of ``elephas_tpu/models/transformer.py``):
+serving, teacher-forced training and batched generation.
 
 The model keeps the reference's functional shape: parameters are a flat
 dict of named tensors with the same names and stacked ``[L, ...]`` layouts
 (so a checkpoint moves between the packages with no mapping, see
 ``convert.py``), and every method takes ``params`` explicitly, which is what
-lets the serving engine hot-swap weights. What this slice ports is the
-cached inference path the serving engine runs: :meth:`decode_step` (one
-token per row, attention in the flash-decode kernel), :meth:`decode_chunk`
-(a block of tokens, plain attention — prefill and chunked prefill) and
-:meth:`prefill_slot`. Every LayerNorm goes through the fused kernel on the
-card.
+lets the serving engine hot-swap weights and the train step stay a pure
+function of ``(params, opt_state, batch)``.
 
-Architecture knobs ported: relu / gelu (tanh) / swiglu, layernorm /
-rmsnorm, attention and FFN biases, learned / rotary positions, tied
+- Serving: :meth:`~TransformerLM.decode_step` (one token per row,
+  attention in the flash-decode kernel), :meth:`~TransformerLM.decode_chunk`
+  (a block of tokens, plain attention against the cache) and
+  :meth:`~TransformerLM.prefill_slot`.
+- Training: :meth:`~TransformerLM.apply` / ``apply_with_aux`` /
+  ``apply_hidden`` (the teacher-forced forward, attention ``"dense"`` in
+  plain PyTorch or ``"flash"`` through the flash-attention kernels, forward
+  and backward), the losses (:func:`chunked_summed_xent` streams the head),
+  per-layer rematerialisation, and :func:`build_lm_train_step` /
+  :func:`build_lm_eval_step` on one device.
+- Generation: :meth:`~TransformerLM.prefill` (the full forward over the
+  prompt, flash attention) and :meth:`~TransformerLM.generate` (one prefill,
+  then a loop of cached decode steps; greedy, temperature, top-k, top-p).
+
+Every LayerNorm goes through the fused kernels on the card, backward
+included. Architecture knobs ported: relu / gelu (tanh) / swiglu, layernorm
+/ rmsnorm, attention and FFN biases, learned / rotary positions, tied
 embeddings, grouped-query attention, float32 or bfloat16 compute. Sliding
-windows with rolling caches, teacher-forced ``apply``, ``prefill`` and
-``generate`` (which need the flash-attention kernel), MoE and LoRA are later
-slices and raise ``NotImplementedError``.
+windows with rolling caches, MoE, LoRA, sequence parallelism (``mesh``,
+``attn="ring"``/``"ulysses"``) and ``overlap_grads`` are later slices and
+raise ``NotImplementedError``.
 
 JAX's arrays are immutable and its serving kernels donate the KV cache so
 XLA updates it in place; here the cache is updated in place explicitly
 (slice assignment or ``scatter_``), and the methods return the same dict
-they were given.
+they were given. The train step returns new parameter and optimizer-state
+dicts and leaves its arguments untouched.
 """
 
 from __future__ import annotations
@@ -34,8 +46,11 @@ import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .. import DeviceLike, resolve_device
+from ..ops.flash_attention import attention_reference, flash_attention
 from ..ops.flash_decode import aligned_cache_length, decode_attention
 from ..ops.layer_norm import layer_norm
 
@@ -109,6 +124,151 @@ def select_slot_tokens(logits, out_pos, temps, seeds,
     scaled = logits.to(torch.float32) / temps.clamp_min(1e-6)[:, None]
     drawn = (scaled + _gumbel(seeds, out_pos, logits.shape[-1])).argmax(dim=-1)
     return torch.where(temps > 0, drawn, greedy)
+
+
+def _row_seeds(seed: int, rows):
+    """Per-row generator seeds: ``seed`` in the high 32 bits, the row index
+    in the low, so a row's draws depend on ``(seed, row)`` alone."""
+    return ((int(seed) & 0x7FFFFFFF) << 32) | rows.to(torch.int64)
+
+
+def nucleus_mask(logits, top_p: float):
+    """Boolean keep-mask of the top-p nucleus, per row of ``[B, V]`` logits:
+    a token is kept iff the probability mass sorted before it is still
+    ``< top_p`` (so the argmax always survives). The mask is scattered back
+    through the sort permutation, so a boundary logit's duplicates outside
+    the prefix are cut by rank, as in the reference (a stable ascending
+    sort, reversed)."""
+    sort_ix = torch.argsort(logits, dim=-1, stable=True).flip(-1)
+    probs = torch.softmax(logits.gather(-1, sort_ix).to(torch.float32), dim=-1)
+    keep = (probs.cumsum(dim=-1) - probs) < float(top_p)
+    return torch.zeros_like(keep).scatter(-1, sort_ix, keep)
+
+
+def select_tokens(logits, seed: int, position, temperature: float = 0.0,
+                  top_k: Optional[int] = None, top_p: Optional[float] = None,
+                  row_offset: int = 0):
+    """The generation sampling rule: greedy at ``temperature <= 0``;
+    otherwise sample ``softmax(logits / temperature)`` restricted by top-k,
+    then by the top-p nucleus (the most probable token always survives).
+    ``logits`` ``[B, V]`` → ``[B]`` int64.
+
+    Row ``i`` draws by the Gumbel-max rule with noise keyed by ``(seed,
+    row_offset + i, position)``, ``position`` being the absolute position
+    the token will occupy (an int or ``[B]`` tensor): a counter-based
+    generator on the logits' device, so a draw needs no host sync and a
+    row's tokens do not depend on its batch neighbours. The draws differ
+    from the reference's ``jax.random`` draws (another generator; the
+    distribution and the keying contract are what is ported)."""
+    if temperature <= 0.0:
+        return logits.argmax(dim=-1)
+    scaled = logits.to(torch.float32) / float(temperature)
+    if top_k is not None:
+        kth = torch.topk(scaled, int(top_k), dim=-1).values[:, -1:]
+        scaled = scaled.masked_fill(scaled < kth, float("-inf"))
+    if top_p is not None and float(top_p) < 1.0:
+        scaled = scaled.masked_fill(~nucleus_mask(scaled, float(top_p)),
+                                    float("-inf"))
+    B, V = scaled.shape
+    rows = row_offset + torch.arange(B, device=scaled.device)
+    pos, _ = _positions(position, B, scaled.device)
+    return (scaled + _gumbel(_row_seeds(seed, rows), pos, V)).argmax(dim=-1)
+
+
+# -- losses ----------------------------------------------------------------------
+
+
+def _summed_xent(logits, targets):
+    """Summed next-token cross-entropy ``Σ (logsumexp - logit_at_target)``
+    by max/lse (the ``[B, T, V]`` log-probabilities never exist)."""
+    m = logits.amax(dim=-1).detach()
+    lse = m + torch.log(torch.exp(logits - m[..., None]).sum(dim=-1))
+    at = logits.gather(-1, targets[..., None])[..., 0]
+    return (lse - at).sum()
+
+
+class _ChunkedXent(torch.autograd.Function):
+    """:func:`chunked_summed_xent`: an online logsumexp over vocab blocks
+    forward; the backward recomputes each block's logits from the saved
+    lse and emits ``(softmax - onehot) @ wᵀ`` and ``hᵀ @ (softmax -
+    onehot)`` block by block. Plain PyTorch, float32."""
+
+    @staticmethod
+    def forward(ctx, h, w, targets, block):
+        hf = h.to(torch.float32)
+        m = torch.full(targets.shape, float("-inf"), device=h.device)
+        s = torch.zeros(targets.shape, device=h.device)
+        at = torch.zeros(targets.shape, device=h.device)
+        for off in range(0, w.shape[1], block):
+            logits = hf @ w[:, off:off + block].to(torch.float32)
+            width = logits.shape[-1]
+            nm = torch.maximum(m, logits.amax(dim=-1))
+            s = s * torch.exp(m - nm) + torch.exp(logits - nm[..., None]).sum(-1)
+            t_off = targets - off
+            inb = (t_off >= 0) & (t_off < width)
+            got = logits.gather(-1, t_off.clamp(0, width - 1)[..., None])[..., 0]
+            at = at + torch.where(inb, got, torch.zeros_like(got))
+            m = nm
+        lse = m + torch.log(s)
+        ctx.save_for_backward(h, w, targets, lse)
+        ctx.block = block
+        return (lse - at).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, targets, lse = ctx.saved_tensors
+        hf = h.to(torch.float32)
+        h2 = hf.reshape(-1, h.shape[-1])
+        dh = torch.zeros_like(hf)
+        dw = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+        for off in range(0, w.shape[1], ctx.block):
+            wb = w[:, off:off + ctx.block].to(torch.float32)
+            p = torch.exp(hf @ wb - lse[..., None])
+            cols = torch.arange(p.shape[-1], device=p.device)
+            q = p - (cols == (targets - off)[..., None]).to(torch.float32)
+            dh = dh + q @ wb.T
+            dw[:, off:off + ctx.block] = h2.T @ q.reshape(-1, q.shape[-1])
+        return (g * dh).to(h.dtype), (g * dw).to(w.dtype), None, None
+
+
+def chunked_summed_xent(h, w, targets, block: int = 8192):
+    """:func:`_summed_xent` over ``logits = h @ w`` without materialising
+    ``[B, T, V]``: the head streams in ``block``-column chunks forward and
+    backward. ``h`` ``[..., D]``, ``w`` ``[D, V]`` (``params["tok"].T`` for
+    tied embeddings; autograd carries the gradient back through the
+    transpose), integer ``targets`` shaped like ``h``'s leading dims.
+    Returns the summed cross-entropy."""
+    return _ChunkedXent.apply(h, w, _as_index(targets, h.device), int(block))
+
+
+# -- rematerialisation ---------------------------------------------------------
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy: keep matmul outputs, recompute the rest
+    (the reference's ``checkpoint_dots``)."""
+    if op in _DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, remat: str):
+    """The per-layer remat policy: ``"none"`` stores every residual,
+    ``"dots"`` saves matmul outputs and recomputes the elementwise, norm
+    and attention work, ``"full"`` recomputes the whole block from its
+    input in the backward."""
+    if remat == "none":
+        return fn
+    if remat == "dots":
+        return lambda *a: checkpoint(
+            fn, *a, use_reentrant=False,
+            context_fn=lambda: create_selective_checkpoint_contexts(_save_dots))
+    if remat == "full":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    raise ValueError(f"Unknown remat policy: {remat!r} (none|dots|full)")
 
 
 # -- cache helpers ---------------------------------------------------------------
@@ -216,7 +376,7 @@ class TransformerLM(nn.Module):
         if attn_window is not None:
             raise NotImplementedError(
                 "sliding-window attention and rolling caches are not ported "
-                "yet (ROADMAP.md queue 1, 'LM training and generation')")
+                "yet (ROADMAP.md queue 1, 'LM remainder')")
         self.device = resolve_device(device)
         self.vocab = vocab
         self.d_model = d_model
@@ -478,21 +638,155 @@ class TransformerLM(nn.Module):
         logits, slot_cache = self.decode_chunk(params, tokens, pos0, slot_cache)
         return logits, cache_scatter_slot(cache, slot, slot_cache)
 
-    # -- later slices ----------------------------------------------------------
-    def apply(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the teacher-forced forward is not ported yet (ROADMAP.md queue "
-            "1, 'LM training and generation')")
+    # -- teacher-forced forward (training) ------------------------------------
+    def _layers(self, params):
+        """Per-layer views of the stacked ``[L, ...]`` params (``unbind``,
+        whose backward stacks the layer gradients in one copy)."""
+        keys = self._block_keys()
+        return [dict(zip(keys, vals))
+                for vals in zip(*(params[k].unbind(0) for k in keys))]
 
-    def prefill(self, *args, **kwargs):
-        raise NotImplementedError(
-            "batched prefill needs the flash-attention kernel K2, not ported "
-            "yet (ROADMAP.md queue 1, 'LM training and generation')")
+    def _attend(self, q, k, v, attn: str):
+        """Causal attention over a full sequence: ``"dense"`` is the plain
+        oracle (autograd through PyTorch ops), ``"flash"`` the
+        flash-attention kernels on the card (their plain versions on the
+        CPU). KV heads are never repeated on the flash path."""
+        if attn == "dense":
+            return attention_reference(q, k, v, causal=True)
+        if attn == "flash":
+            return flash_attention(q, k, v, causal=True)
+        if attn in ("ring", "ulysses"):
+            raise NotImplementedError(
+                f"attn={attn!r} needs sequence parallelism, not ported yet "
+                "(ROADMAP.md queue 1, 'Parallel extensions')")
+        raise ValueError(f"Unknown attn: {attn}")
 
-    def generate(self, *args, **kwargs):
-        raise NotImplementedError(
-            "generate needs prefill and the flash-attention kernel K2, not "
-            "ported yet (ROADMAP.md queue 1, 'LM training and generation')")
+    def _block_fwd(self, h, lp, attn: str, rope=None):
+        """One transformer block on ``h`` ``[B, T, D]``, the block math
+        shared by the teacher-forced forward and :meth:`prefill`. Layernorm
+        runs in float32, everything else in the compute dtype; under rotary
+        positions q and k rotate by ``rope`` before attention (so the
+        returned, cacheable k is pre-rotated). Returns ``(h, k, v)`` with
+        ``k``/``v`` ``[B, T, Hkv, Dh]``."""
+        B, T = h.shape[0], h.shape[1]
+        H, Hkv = self.n_heads, self.n_kv_heads
+        Dh = self.d_model // H
+        cd = self.compute_dtype
+        x = self._norm_h(lp, "ln1", h).to(cd)
+        q = self._attn_proj(lp, "q", x).reshape(B, T, H, Dh)
+        k = self._attn_proj(lp, "k", x).reshape(B, T, Hkv, Dh)
+        v = self._attn_proj(lp, "v", x).reshape(B, T, Hkv, Dh)
+        if rope is not None:
+            q = _rope_rotate(q, *rope)
+            k = _rope_rotate(k, *rope)
+        a = self._attend(q, k, v, attn).to(cd)
+        h = h + self._attn_proj(lp, "o", a.reshape(B, T, self.d_model))
+        x = self._norm_h(lp, "ln2", h).to(cd)
+        return h + self._ffn(lp, x).to(cd), k, v
+
+    def apply_hidden(self, params, tokens, positions, attn: str = "dense",
+                     remat: str = "none"):
+        """The forward up to and including the final norm: ``tokens`` and
+        ``positions`` (absolute) int ``[B, T]`` → ``(h [B, T, D], aux)``,
+        ``aux`` the summed auxiliary loss (0 for this dense model). Lets a
+        large-vocab loss stream the head (:func:`chunked_summed_xent`).
+        ``remat`` is the per-layer rematerialisation policy
+        (``"none"|"dots"|"full"``)."""
+        dev = params["tok"].device
+        tokens, positions = _as_index(tokens, dev), _as_index(positions, dev)
+        h = self._embed(params, tokens, positions)
+        rope = self._rope_for(positions)
+        block = _remat_wrap(lambda h, lp: self._block_fwd(h, lp, attn, rope)[0],
+                            remat)
+        for lp in self._layers(params):
+            h = block(h, lp)
+        h = self._norm_h(params, "lnf", h)
+        return h, torch.zeros((), dtype=torch.float32, device=dev)
+
+    def apply_with_aux(self, params, tokens, positions, attn: str = "dense",
+                       remat: str = "none"):
+        """:meth:`apply` plus the summed auxiliary loss (0 here)."""
+        h, aux = self.apply_hidden(params, tokens, positions, attn, remat)
+        return self._logits(params, h), aux
+
+    def apply(self, params, tokens, positions, attn: str = "dense"):
+        """Teacher-forced logits ``[B, T, V]`` (float32) for ``tokens`` at
+        absolute ``positions``, both int ``[B, T]``."""
+        return self.apply_with_aux(params, tokens, positions, attn)[0]
+
+    def loss(self, params, tokens, positions, targets, attn: str = "dense"):
+        """Summed next-token cross-entropy over the batch."""
+        logits = self.apply(params, tokens, positions, attn)
+        return _summed_xent(logits, _as_index(targets, logits.device))
+
+    # -- generation ------------------------------------------------------------
+    def prefill(self, params, tokens, cache):
+        """Batched prompt ingestion: the full forward over ``tokens`` ``[B,
+        T0]`` (flash attention: the kernel on the card), writing every
+        position's K/V into ``cache`` at offset 0 in place. Returns
+        ``(logits [B, T0, V], cache)``."""
+        dev = params["tok"].device
+        tokens = _as_index(tokens, dev)
+        B, T0 = tokens.shape
+        if T0 > cache["k"].shape[3]:
+            raise ValueError(f"prompt of {T0} tokens does not fit a cache of "
+                             f"{cache['k'].shape[3]}")
+        positions = torch.arange(T0, device=dev).expand(B, T0)
+        h = self._embed(params, tokens, positions)
+        rope = self._rope_for(positions)
+        for l, lp in enumerate(self._layers(params)):
+            h, k, v = self._block_fwd(h, lp, "flash", rope)
+            cache["k"][l, :, :, :T0] = k.transpose(1, 2)
+            cache["v"][l, :, :, :T0] = v.transpose(1, 2)
+        h = self._norm_h(params, "lnf", h)
+        return self._logits(params, h), cache
+
+    def generate(self, params, prompt, n_new: int, temperature: float = 0.0,
+                 top_k: Optional[int] = None, top_p: Optional[float] = None,
+                 seed: int = 0):
+        """Autoregressive continuation: ``prompt`` int ``[B, T0]`` → int32
+        ``[B, T0 + n_new]`` on the params' device. One batched
+        :meth:`prefill` over the prompt, then a loop of cached
+        :meth:`decode_step` calls; the cache is sized to the horizon, not
+        ``max_len``.
+
+        ``temperature=0`` (default) is greedy; ``> 0`` samples from
+        ``softmax(logits / temperature)``, optionally restricted to the
+        ``top_k`` most probable tokens and then to the ``top_p`` nucleus,
+        deterministically per ``seed`` (see :func:`select_tokens`: draws
+        keyed by ``(seed, row, position)``, other bits than the
+        reference's ``jax.random``). No step syncs with the host."""
+        dev = params["tok"].device
+        prompt = _as_index(prompt, dev)
+        B, T0 = prompt.shape
+        total = T0 + int(n_new)
+        if total > self.max_len:
+            raise ValueError(
+                f"prompt {T0} + n_new {n_new} exceeds max_len {self.max_len}")
+        if top_k is not None and not 1 <= int(top_k) <= self.vocab:
+            raise ValueError(
+                f"top_k must be in [1, vocab={self.vocab}], got {top_k}")
+        if top_p is not None and not 0.0 < float(top_p) <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        if n_new < 1:
+            return prompt.to(torch.int32)
+
+        def select(logits, position):
+            return select_tokens(logits, seed, position, temperature, top_k,
+                                 top_p)
+
+        with torch.no_grad():
+            logits, cache = self.prefill(params, prompt,
+                                         self.init_cache(B, total))
+            buf = torch.empty((B, total), dtype=torch.int64, device=dev)
+            buf[:, :T0] = prompt
+            tok = select(logits[:, -1], T0)
+            buf[:, T0] = tok
+            for t in range(T0, total - 1):
+                logits, cache = self.decode_step(params, tok, t, cache)
+                tok = select(logits, t + 1)
+                buf[:, t + 1] = tok
+        return buf.to(torch.int32)
 
 
 class MoETransformerLM:
@@ -513,3 +807,151 @@ class MultiTenantLM:
         raise NotImplementedError(
             "multi-tenant LoRA serving rides the paged engine, not ported yet "
             "(ROADMAP.md queue 1, 'Paged serving (K5)')")
+
+
+# -- training ------------------------------------------------------------------
+
+
+def _as_index(x, device):
+    """An int array or tensor as an int64 tensor on ``device``."""
+    return torch.as_tensor(x, device=device).to(torch.int64)
+
+
+def make_lm_batches(token_rows: np.ndarray):
+    """Host-side prep: ``[B, T+1]`` int rows → ``(tokens, positions,
+    targets)`` each int32 ``[B, T]``, targets pre-shifted."""
+    tokens = token_rows[:, :-1]
+    targets = token_rows[:, 1:]
+    positions = np.broadcast_to(
+        np.arange(tokens.shape[1], dtype=np.int32), tokens.shape)
+    return tokens.astype(np.int32), positions.copy(), targets.astype(np.int32)
+
+
+def _validate_lm_step(model: TransformerLM, mesh, attn: str) -> None:
+    """Build-time validation shared by the train and eval builders."""
+    if attn not in ("dense", "flash", "ring", "ulysses"):
+        raise ValueError(f"Unknown attn: {attn}")
+    if mesh is not None:
+        raise NotImplementedError(
+            "a device mesh (data or sequence parallelism) is not ported yet; "
+            "pass mesh=None for one device (ROADMAP.md queue 1, "
+            "'Speculation and sharding' and 'Parallel extensions')")
+    if attn in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"attn={attn!r} needs sequence parallelism, not ported yet; use "
+            "'flash' or 'dense' (ROADMAP.md queue 1, 'Parallel extensions')")
+
+
+def _check_seq_len(model: TransformerLM, t: int) -> None:
+    """Call-time guard shared by the train and eval steps: a position past
+    ``max_len`` has no learned embedding."""
+    if t > model.max_len:
+        raise ValueError(f"sequence length {t} exceeds max_len {model.max_len}")
+
+
+def build_lm_train_step(model: TransformerLM, mesh, optimizer,
+                        attn: str = "ring", accum_steps: int = 1,
+                        vocab_block: Optional[int] = None,
+                        overlap_grads=False, fused_apply: bool = False,
+                        remat: str = "none"):
+    """One LM training step on one device.
+
+    Returns ``(step, opt_init)``: ``step(params, opt_state, tokens,
+    positions, targets) -> (params, opt_state, loss)`` with the three int
+    arrays ``[B, T]`` (numpy or tensors) and ``loss`` the token-mean
+    cross-entropy as a 0-d tensor on the device (no host sync per step);
+    ``opt_init(params) -> opt_state``. The step returns new params and
+    state and leaves its arguments untouched. ``step.grad(params, tokens,
+    positions, targets) -> (loss, grads)`` is the forward and backward
+    alone.
+
+    The signature is the reference's. ``mesh`` must be ``None`` (one
+    device); a mesh, ``attn="ring"``/``"ulysses"`` (the default, kept from
+    the reference) and ``overlap_grads`` raise ``NotImplementedError``.
+    ``attn="flash"`` runs the flash-attention kernels forward and backward
+    on the card. ``vocab_block`` streams the loss head in that many vocab
+    columns (:func:`chunked_summed_xent`). ``accum_steps > 1`` splits the
+    batch into that many micro-batches whose gradients are summed before
+    one optimizer step. ``fused_apply`` uses ``optimizer.fused_apply``
+    (bit-identical to ``update`` + apply). ``remat`` is the per-layer
+    rematerialisation policy (``"none"|"dots"|"full"``)."""
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    if overlap_grads not in (False, True, "ring"):
+        raise ValueError(f"overlap_grads must be False, True, or 'ring', "
+                         f"got {overlap_grads!r}")
+    if remat not in ("none", "dots", "full"):
+        raise ValueError(f"Unknown remat policy: {remat!r} (none|dots|full)")
+    if fused_apply and not hasattr(optimizer, "fused_apply"):
+        raise ValueError(
+            "fused_apply=True needs an optimizer exposing fused_apply(grads, "
+            "opt_state, params); use adam_compact / fused_adam from "
+            "models/optimizers.py")
+    _validate_lm_step(model, mesh, attn)
+    if overlap_grads:
+        raise NotImplementedError(
+            "overlap_grads buckets the gradient all-reduce across devices, "
+            "not ported yet (ROADMAP.md queue 1, 'LM remainder')")
+
+    def objective(params, tokens, positions, targets, ntok):
+        if vocab_block is None:
+            logits, _ = model.apply_with_aux(params, tokens, positions, attn,
+                                             remat)
+            ce = _summed_xent(logits, targets)
+        else:
+            h, _ = model.apply_hidden(params, tokens, positions, attn, remat)
+            ce = chunked_summed_xent(h, model.head_weight(params), targets,
+                                     vocab_block)
+        return ce / ntok
+
+    def grad(params, tokens, positions, targets):
+        dev = params["tok"].device
+        tokens, positions, targets = (_as_index(a, dev)
+                                      for a in (tokens, positions, targets))
+        _check_seq_len(model, tokens.shape[1])
+        B = tokens.shape[0]
+        if B % accum_steps:
+            raise ValueError(f"local batch {B} not divisible by accum_steps "
+                             f"{accum_steps}")
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        ntok = float(tokens.numel())
+        micro = B // accum_steps
+        loss, grads = None, None
+        for i in range(accum_steps):
+            rows = slice(i * micro, (i + 1) * micro)
+            obj = objective(leaves, tokens[rows], positions[rows],
+                            targets[rows], ntok)
+            g = torch.autograd.grad(obj, list(leaves.values()),
+                                    allow_unused=True, materialize_grads=True)
+            obj = obj.detach()
+            loss = obj if loss is None else loss + obj
+            grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+        return loss, dict(zip(leaves, grads))
+
+    def step(params, opt_state, tokens, positions, targets):
+        loss, grads = grad(params, tokens, positions, targets)
+        if fused_apply:
+            params, opt_state = optimizer.fused_apply(grads, opt_state, params)
+        else:
+            updates, opt_state = optimizer.update(grads, opt_state, params)
+            params = {k: (p + updates[k]).to(p.dtype) for k, p in params.items()}
+        return params, opt_state, loss
+
+    step.grad = grad
+    return step, optimizer.init
+
+
+def build_lm_eval_step(model: TransformerLM, mesh, attn: str = "ring"):
+    """``eval_fn(params, tokens, positions, targets) -> mean next-token
+    cross-entropy`` (a 0-d tensor; perplexity is its ``exp``) on one
+    device, under the train step's validation rules."""
+    _validate_lm_step(model, mesh, attn)
+
+    def eval_fn(params, tokens, positions, targets):
+        tokens = _as_index(tokens, params["tok"].device)
+        _check_seq_len(model, tokens.shape[1])
+        with torch.no_grad():
+            return model.loss(params, tokens, positions, targets,
+                              attn=attn) / tokens.numel()
+
+    return eval_fn

@@ -16,7 +16,8 @@ ROOT = Path(__file__).resolve().parents[1]
 _PROBE = """
 import sys
 import elephas_tpu_torch, elephas_tpu_torch.ops, elephas_tpu_torch.models
-import elephas_tpu_torch.serving
+import elephas_tpu_torch.serving, elephas_tpu_torch.models.optimizers
+import elephas_tpu_torch.ops.flash_attention
 bad = sorted(m for m in sys.modules
              if m in ("jax", "keras", "elephas_tpu")
              or m.startswith(("jax.", "keras.", "elephas_tpu.")))
@@ -38,7 +39,9 @@ def no_cuda():
 
 
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
-    from elephas_tpu_torch.models import TransformerLM, from_jax_params
+    from elephas_tpu_torch.models import (TransformerLM, adam_compact,
+                                          build_lm_train_step, from_jax_params,
+                                          make_lm_batches)
     from elephas_tpu_torch.serving import ServingEngine
 
     cfg = dict(vocab=11, d_model=8, n_heads=2, n_layers=1, d_ff=16,
@@ -54,6 +57,14 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         from_jax_params({"tok": np.zeros((2, 2), np.float32)})
     ServingEngine(model, params, device="cpu")     # asked for: fine
+    # training and generation run where the params are: CPU params stay on
+    # the CPU, and nothing moves them to another device
+    step, opt_init = build_lm_train_step(model, None, adam_compact(1e-3),
+                                         attn="flash")
+    tok, pos, tg = make_lm_batches(np.zeros((2, 9), np.int32))
+    new, _, loss = step(params, opt_init(params), tok, pos, tg)
+    assert loss.device.type == "cpu" and new["tok"].device.type == "cpu"
+    assert model.generate(params, tok, 2).device.type == "cpu"
 
 
 def test_chip_smoke_refuses_without_cuda(no_cuda, tmp_path):

@@ -137,12 +137,15 @@ def test_bfloat16_compute_tracks_jax():
 
 
 def test_later_slices_raise_not_implemented():
+    """Sliding windows, sequence-parallel attention, MoE and LoRA are later
+    slices (``apply``/``prefill``/``generate`` are ported since)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TransformerLM(**BASE, attn_window=8, device="cpu")
     tm = TransformerLM(**BASE, device="cpu")
-    for fn in (tm.prefill, tm.generate, tm.apply):
+    tokens = np.zeros((1, 4), np.int64)
+    for attn in ("ring", "ulysses"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(tm.init(0), None)
+            tm.apply(tm.init(0), tokens, tokens, attn=attn)
     for cls in (MoETransformerLM, MultiTenantLM):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cls(**BASE)
