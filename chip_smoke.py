@@ -44,6 +44,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
    L flash-attention launches (the prefill) and L flash-decode launches
    per decode step; its tokens equal the ``ServingEngine``'s on the same
    prompts up to the first near tie (top-2 logit gap 1e-3 or less).
+9. ``kernel`` ``paged_attention``: the paged-attention kernels (decode and
+   chunk) against their plain versions over a page pool read through a
+   block table (GPT-2 serving shape, GQA, a window, pages 8 and 64, a bf16
+   pool, chunks of 256 rows at an empty and at an adopted prefix, chunks of
+   4 at per-row positions), timed beside the plain version, SDPA over the
+   equivalent dense cache with an explicit mask, and the bound.
+10. ``serve_paged``: the ``serve`` mix through ``ServingEngine(paged=True,
+    page_size=16)``: L paged-decode launches per decode step, L paged-chunk
+    launches per prefill insert, no dense flash-decode launch, 2L+1
+    LayerNorm launches per step and insert; greedy tokens equal the dense
+    engine's up to the first near tie; ``kv.check()`` passes. Then
+    ``profile_paged``: ten paged decode steps under ``torch.profiler``.
+11. ``prefix``: 16 requests sharing a 192-token prefix (distinct 16-64-token
+    suffixes, 32 new tokens), with and without the prefix cache: the pages
+    adopted equal the CPU paged engine's count on the same mix, and the
+    tokens agree up to near ties.
+12. ``preempt``: 8 requests of 256 + 64 tokens in a pool that cannot hold
+    them all: preemptions happen, the tokens equal an unpressured paged
+    run's up to near ties, and every page comes back.
+13. ``paged_cross_check``: two requests, 8 new tokens, on a ``device="cpu"``
+    paged engine against the card's paged tokens.
 
 Then the kernel summary line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -486,6 +507,159 @@ def check_flash_decode(card):
     return row
 
 
+def _paged_inputs(gen, S, hkv, g, dh, page, M, dtype, pos, C=None):
+    """q, a pool of S*M + 1 pages (page 0 the trash page, filled with 1e4:
+    finite garbage that must never reach an output) and a table mapping
+    each slot's live pages to a random permutation of pool pages; cells
+    past the last position a slot can see stay 0 (unmapped), as the
+    engine leaves them."""
+    dev = torch.device("cuda")
+    P = S * M + 1
+    kp = gen.normal(size=(P, hkv, page, dh)).astype(np.float32)
+    vp = gen.normal(size=(P, hkv, page, dh)).astype(np.float32)
+    kp[0] = vp[0] = 1e4
+    table = (1 + gen.permutation(S * M)).reshape(S, M).astype(np.int32)
+    last = np.asarray(pos) + (0 if C is None else C - 1)
+    for s in range(S):
+        table[s, last[s] // page + 1:] = 0
+    shape = (S, hkv, g, dh) if C is None else (S, hkv, g, C, dh)
+    q = gen.normal(size=shape).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return (t(q), t(kp).to(dtype), t(vp).to(dtype), t(table),
+            torch.tensor(np.asarray(pos), dtype=torch.int32, device=dev))
+
+
+def _dense_view(kp, vp, table, page):
+    from elephas_tpu_torch.ops.paged_attention import paged_view_rows
+
+    return paged_view_rows(kp, table, page), paged_view_rows(vp, table, page)
+
+
+def check_paged_attention(card):
+    """K5-decode and K5-chunk against their plain versions (which gather
+    the table's view and run the dense plain attention) on the same pool,
+    table and positions; then timed at the serving decode shape and the
+    prefill insert shape. Tolerance: atol = rtol = 2e-5 in float32 and
+    2e-2 with a bf16 pool (the reference's pins for K2/K4)."""
+    from elephas_tpu_torch.ops.paged_attention import (
+        paged_chunk_reference, paged_decode_reference_lse, paged_flash_chunk,
+        paged_flash_decode_lse)
+
+    gen = np.random.default_rng(SEED + 8)
+    f32, bf16 = torch.float32, torch.bfloat16
+    # positions 31-1023 with page-edge values (15, 16, 511, 512)
+    gpt2_pos = [31, 15, 16, 511, 512, 700, 1000, 1023]
+    dec_cases = [
+        ("gpt2_f32", dict(S=8, hkv=12, g=1, dh=64, page=16, M=64), f32, gpt2_pos, None, 2e-5),
+        ("gqa_dh128_f32", dict(S=4, hkv=2, g=4, dh=128, page=16, M=64), f32, [31, 512, 700, 1023], None, 2e-5),
+        ("window100_f32", dict(S=8, hkv=12, g=1, dh=64, page=16, M=64), f32, gpt2_pos, 100, 2e-5),
+        ("page8_f32", dict(S=8, hkv=12, g=1, dh=64, page=8, M=128), f32, [7, 8, 31, 511, 512, 700, 1000, 1023], None, 2e-5),
+        ("page64_f32", dict(S=8, hkv=12, g=1, dh=64, page=64, M=16), f32, [63, 64, 31, 511, 512, 700, 1000, 1023], None, 2e-5),
+        ("gpt2_bf16", dict(S=8, hkv=12, g=1, dh=64, page=16, M=64), bf16, gpt2_pos, None, 2e-2),
+    ]
+    checks, worst = [], {"decode": 0.0, "chunk": 0.0}
+    for name, shp, dtype, pos, window, tol in dec_cases:
+        q, kp, vp, table, pos_t = _paged_inputs(gen, shp["S"], shp["hkv"], shp["g"], shp["dh"],
+                                                shp["page"], shp["M"], dtype, pos)
+        o, lse = paged_flash_decode_lse(q, kp, vp, table, pos_t, shp["page"], window)
+        torch.cuda.synchronize()
+        wo, wl = paged_decode_reference_lse(q, kp, vp, table, pos_t, shp["page"], window)
+        errs = [_allclose_err(o, wo, tol), _allclose_err(lse, wl, tol)]
+        err = max(e for e, _ in errs)
+        require(all(ok for _, ok in errs) and bool(torch.isfinite(o).all()),
+                f"paged decode {name}: max abs err {err} beyond atol = rtol = {tol}")
+        if dtype == f32:
+            worst["decode"] = max(worst["decode"], err)
+        checks.append({"kernel": "decode", "case": name, "shape": shp, "dtype": str(dtype),
+                       "pos": pos, "window": window, "max_abs_err": err, "atol": tol,
+                       "rtol": tol})
+    chunk_cases = [
+        ("prefill256_pos0_f32", dict(S=1, hkv=12, g=1, dh=64, page=16, M=64, C=256), f32, [0], None, 2e-5),
+        ("prefill256_pos128_f32", dict(S=1, hkv=12, g=1, dh=64, page=16, M=64, C=256), f32, [128], None, 2e-5),
+        ("c4_rows_f32", dict(S=8, hkv=12, g=1, dh=64, page=16, M=64, C=4), f32, [0, 15, 16, 29, 511, 700, 1000, 1020], None, 2e-5),
+        ("gqa_dh128_c4_f32", dict(S=4, hkv=2, g=4, dh=128, page=16, M=64, C=4), f32, [31, 512, 700, 1020], None, 2e-5),
+        ("window100_c256_f32", dict(S=2, hkv=12, g=1, dh=64, page=16, M=64, C=256), f32, [0, 300], 100, 2e-5),
+        ("page8_c256_f32", dict(S=2, hkv=12, g=1, dh=64, page=8, M=128, C=256), f32, [0, 128], None, 2e-5),
+        ("page64_c256_f32", dict(S=2, hkv=12, g=1, dh=64, page=64, M=16, C=256), f32, [0, 128], None, 2e-5),
+        ("prefill256_bf16", dict(S=1, hkv=12, g=1, dh=64, page=16, M=64, C=256), bf16, [128], None, 2e-2),
+    ]
+    for name, shp, dtype, pos0, window, tol in chunk_cases:
+        q, kp, vp, table, pos_t = _paged_inputs(gen, shp["S"], shp["hkv"], shp["g"], shp["dh"],
+                                                shp["page"], shp["M"], dtype, pos0, shp["C"])
+        got = paged_flash_chunk(q, kp, vp, table, pos_t, shp["page"], window)
+        torch.cuda.synchronize()
+        want = paged_chunk_reference(q, kp, vp, table, pos_t, shp["page"], window)
+        err, ok = _allclose_err(got, want, tol)
+        require(ok and bool(torch.isfinite(got).all()),
+                f"paged chunk {name}: max abs err {err} beyond atol = rtol = {tol}")
+        if dtype == f32:
+            worst["chunk"] = max(worst["chunk"], err)
+        checks.append({"kernel": "chunk", "case": name, "shape": shp, "dtype": str(dtype),
+                       "pos0": pos0, "window": window, "max_abs_err": err, "atol": tol,
+                       "rtol": tol})
+        del q, kp, vp, table, got, want
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    # decode at the serving shape: 8 pools of 50 MB so the reads miss the L2
+    S, hkv, g, dh, page, M = 8, 12, 1, 64, 16, 64
+    T = M * page
+    sets = [_paged_inputs(gen, S, hkv, g, dh, page, M, f32, gpt2_pos) for _ in range(8)]
+    ms = device_ms(lambda q, kp, vp, t, p: paged_flash_decode_lse(q, kp, vp, t, p, page), sets)
+    plain_ms = device_ms(lambda q, kp, vp, t, p: paged_decode_reference_lse(q, kp, vp, t, p, page), sets)
+    slots = torch.arange(T, device="cuda")
+    lib_sets = []
+    for q, kp, vp, t, p in sets:
+        kd, vd = _dense_view(kp, vp, t, page)
+        lib_sets.append((q, kd, vd, (slots[None, :] <= p[:, None].long())[:, None, None, :]))
+    lib_ms = device_ms(lambda q, k, v, m: sdpa(q, k, v, attn_mask=m), lib_sets)
+    del sets, lib_sets
+    vis = sum(_visible(gpt2_pos, T))
+    live_pages = sum(p // page + 1 for p in gpt2_pos)
+    n_bytes = (vis * hkv * dh * 2 * 4 + (2 * S * hkv * g * dh + S * hkv * g + S) * 4
+               + live_pages * 4)
+    bms, by = bound_ms(n_bytes, vis * hkv * g * dh * 4)
+    rows.append({"name": "paged_flash_decode_lse", "route": "cuda",
+                 "source": "elephas_tpu_torch/ops/csrc/paged_attention.cu",
+                 "replaces": "elephas_tpu/ops/paged_attention.py:178",
+                 "max_abs_err": worst["decode"], "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+                 "library": "F.scaled_dot_product_attention over the equivalent dense "
+                            "cache with an explicit mask (no PyTorch call reads a block table)",
+                 "timed_shape": {"S": S, "Hkv": hkv, "G": g, "Dh": dh, "page": page, "M": M,
+                                 "pos": gpt2_pos, "kv_dtype": "float32"}})
+    # chunk at the prefill insert shape: one slot, a 256-token bucket at 0
+    C = 256
+    sets = [_paged_inputs(gen, 1, hkv, g, dh, page, M, f32, [0], C) for _ in range(8)]
+    cms = device_ms(lambda q, kp, vp, t, p: paged_flash_chunk(q, kp, vp, t, p, page), sets)
+    cplain_ms = device_ms(lambda q, kp, vp, t, p: paged_chunk_reference(q, kp, vp, t, p, page), sets)
+    rows_pos = torch.arange(C, device="cuda")
+    cmask = (slots[None, :] <= rows_pos[:, None])[None, None]
+    lib_sets = []
+    for q, kp, vp, t, p in sets:
+        kd, vd = _dense_view(kp, vp, t, page)
+        lib_sets.append((q[:, :, 0], kd, vd))
+    clib_ms = device_ms(lambda q, k, v: sdpa(q, k, v, attn_mask=cmask), lib_sets)
+    del sets, lib_sets
+    pairs = hkv * g * C * (C + 1) // 2
+    n_bytes = (C * hkv * dh * 2 * 4 + 2 * hkv * g * C * dh * 4 + (C // page) * 4 + 4)
+    cbms, cby = bound_ms(n_bytes, 4 * dh * pairs)
+    rows.append({"name": "paged_flash_chunk", "route": "cuda",
+                 "source": "elephas_tpu_torch/ops/csrc/paged_attention.cu",
+                 "replaces": "elephas_tpu/ops/paged_attention.py:305",
+                 "max_abs_err": worst["chunk"], "ms": cms, "plain_ms": cplain_ms,
+                 "bound_ms": cbms, "bound_by": cby, "library_ms": clib_ms,
+                 "library": "F.scaled_dot_product_attention over the equivalent dense "
+                            "cache with an explicit mask (no PyTorch call reads a block table)",
+                 "timed_shape": {"S": 1, "Hkv": hkv, "G": g, "C": C, "Dh": dh, "page": page,
+                                 "M": M, "pos0": [0], "kv_dtype": "float32"}})
+    emit({"phase": "kernel", "kernel": "paged_attention", "checks": checks,
+          "timing": [{k_: r[k_] for k_ in ("name", "ms", "plain_ms", "library_ms",
+                                           "bound_ms", "bound_by")} for r in rows],
+          "card": card})
+    return rows
+
+
 # -- phases 3 and 4 -------------------------------------------------------------
 
 
@@ -538,25 +712,30 @@ def serve(card):
     require(k3 == (2 * L + 1) * (steps + prefills),
             f"layer_norm launches {k3} != {2 * L + 1} x ({steps} decode steps "
             f"+ {prefills} prefills)")
-    n_tok = sum(len(fin[r].tokens) for r in ids)
-    ttft = snap["requests"]["ttft_s"]
-    itl = snap["fastpath"]["inter_token_latency_s"]
+    stats = _serving_stats(snap, [fin[r] for r in ids], wall)
     emit({"phase": "serve", "model": "gpt2-small (random weights, seed 0)",
           "requests": 16, "new_tokens_each": max_new,
           "prompt_lens": [int(len(p)) for p in prompts],
           "decode_steps": steps, "prefills": prefills,
           "launches": {"flash_decode_lse": k4, "layer_norm_fwd": k3},
           "launches_per_decode_step": {"flash_decode_lse": k4 / steps},
-          "tokens": n_tok, "wall_s": wall, "tok_per_s": n_tok / wall,
-          "ttft_p50_s": ttft["p50"], "ttft_p95_s": ttft["p95"],
-          "decode_ms_per_step_p50": itl["p50"] * 1e3,
-          "decode_ms_per_step_mean": itl["mean"] * 1e3,
-          "batch_occupancy": snap["engine"]["batch_occupancy"],
-          "weights_setup_s": setup_s,
+          **stats, "weights_setup_s": setup_s,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "card": card})
     return params, prompts, [fin[r].tokens for r in ids], {
-        "flash_decode_lse": k4, "layer_norm_fwd": k3}
+        "flash_decode_lse": k4, "layer_norm_fwd": k3}, stats
+
+
+def _serving_stats(snap, finished, wall):
+    """The end-to-end serving numbers of one drained run."""
+    n_tok = sum(len(f.tokens) for f in finished)
+    ttft = snap["requests"]["ttft_s"]
+    itl = snap["fastpath"]["inter_token_latency_s"]
+    return {"tokens": n_tok, "wall_s": wall, "tok_per_s": n_tok / wall,
+            "ttft_p50_s": ttft["p50"], "ttft_p95_s": ttft["p95"],
+            "decode_ms_per_step_p50": itl["p50"] * 1e3,
+            "decode_ms_per_step_mean": itl["mean"] * 1e3,
+            "batch_occupancy": snap["engine"]["batch_occupancy"]}
 
 
 def cross_check(card, params, prompts, gpu_tokens):
@@ -649,12 +828,16 @@ def _counters():
     from elephas_tpu_torch.ops.flash_decode import flash_decode_lse
     from elephas_tpu_torch.ops.layer_norm import (fused_layer_norm,
                                                   fused_layer_norm_bwd)
+    from elephas_tpu_torch.ops.paged_attention import (paged_flash_chunk,
+                                                       paged_flash_decode_lse)
 
     return {"layer_norm_fwd": fused_layer_norm, "layer_norm_bwd": fused_layer_norm_bwd,
             "flash_decode_lse": flash_decode_lse,
             "flash_attention_fwd": flash_attention_fwd,
             "flash_attention_dq": flash_attention_dq,
-            "flash_attention_dkv": flash_attention_dkv}
+            "flash_attention_dkv": flash_attention_dkv,
+            "paged_flash_decode_lse": paged_flash_decode_lse,
+            "paged_flash_chunk": paged_flash_chunk}
 
 
 def _zero_counters():
@@ -831,6 +1014,222 @@ def generate_phase(card, params):
           "min_gap": float(gaps.min()), "card": card})
     return counts
 
+# -- phases 10 to 13: paged serving ------------------------------------------------
+
+
+def _top2_gaps(model, params, prompt, tokens):
+    """Top-1 minus top-2 logit at each generated position, from one
+    teacher-forced pass on the params' device."""
+    seq = np.concatenate([prompt, np.asarray(tokens[:-1], np.int32)]).astype(np.int64)
+    with torch.no_grad():
+        logits, _ = model.decode_chunk(
+            params, torch.from_numpy(seq)[None].to(params["tok"].device), 0,
+            model.init_cache(1, len(seq)))
+        top = torch.topk(logits[0, len(prompt) - 1:], 2, dim=-1).values.cpu()
+    return (top[:, 0] - top[:, 1]).tolist()
+
+
+def _agree(what, model, params, prompts, got, want):
+    """Tokens of two runs agree up to each request's first near tie (top-2
+    gap 1e-3 or less, where either choice is right); returns how many
+    positions each request compared."""
+    compared = []
+    for i, (prompt, a, b) in enumerate(zip(prompts, got, want)):
+        gaps = _top2_gaps(model, params, prompt, b)
+        n = 0
+        while n < len(b) and gaps[n] > 1e-3:
+            require(a[n] == b[n], f"{what}: request {i} position {n}: {a[n]} != {b[n]} "
+                                  f"(gap {gaps[n]})")
+            n += 1
+        compared.append(n)
+    return compared
+
+
+def _drain(eng, prompts, max_new):
+    t0 = time.perf_counter()
+    ids = [eng.submit(p, max_new) for p in prompts]
+    fin = eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(len(fin) == len(ids), f"{len(fin)} of {len(ids)} requests finished")
+    for rid in ids:
+        require(fin[rid].finish_reason == "length" and len(fin[rid].tokens) == max_new,
+                f"{rid}: {fin[rid].finish_reason}, {len(fin[rid].tokens)} tokens")
+    return [fin[r] for r in ids], wall
+
+
+def serve_paged(card, params, prompts, dense_tokens, dense_stats):
+    """The ``serve`` mix through the paged engine: launch counts per decode
+    step and per insert, tokens against the dense engine's, ``kv.check``."""
+    from elephas_tpu_torch.models import TransformerLM
+    from elephas_tpu_torch.serving import ServingEngine
+
+    model = TransformerLM(**GPT2_SMALL, device="cuda")
+    L = GPT2_SMALL["n_layers"]
+    warm = ServingEngine(model, params, n_slots=8, paged=True, page_size=16, device="cuda")
+    _drain(warm, [p[:32] for p in prompts[:2]], 4)
+    del warm
+    eng = ServingEngine(model, params, n_slots=8, paged=True, page_size=16, device="cuda")
+    _zero_counters()
+    fin, wall = _drain(eng, prompts, 64)
+    counts = _read_counters()
+    snap = eng.snapshot()
+    steps, inserts = snap["engine"]["decode_steps"], snap["engine"]["prefills"]
+    eng.kv.check()
+    require(steps > 0 and counts["paged_flash_decode_lse"] == L * steps,
+            f"serve_paged: paged decode launched {counts['paged_flash_decode_lse']} "
+            f"times, want {L} x {steps} decode steps")
+    require(counts["paged_flash_chunk"] == L * inserts,
+            f"serve_paged: paged chunk launched {counts['paged_flash_chunk']} times, "
+            f"want {L} x {inserts} inserts")
+    require(counts["flash_decode_lse"] == 0, "serve_paged: the dense decode kernel ran")
+    require(counts["layer_norm_fwd"] == (2 * L + 1) * (steps + inserts),
+            f"serve_paged: layer_norm launches {counts['layer_norm_fwd']}")
+    tokens = [f.tokens for f in fin]
+    compared = _agree("serve_paged vs serve", model, params, prompts, tokens, dense_tokens)
+    stats = _serving_stats(snap, fin, wall)
+    # the host's share of a step moves from run to run: dense and paged
+    # again, three of each in turns, for a like-for-like step time
+    turns = []
+    for paged in (False, True, True, False, False, True):
+        e = ServingEngine(model, params, n_slots=8, paged=paged, page_size=16,
+                          device="cuda")
+        f, w = _drain(e, prompts, 64)
+        st = _serving_stats(e.snapshot(), f, w)
+        turns.append({"engine": "paged" if paged else "dense",
+                      **{k: st[k] for k in ("decode_ms_per_step_p50", "tok_per_s",
+                                            "ttft_p50_s")}})
+    emit({"phase": "serve_paged", "page_size": 16, "decode_steps": steps,
+          "inserts": inserts, "launches": counts,
+          "launches_per_decode_step": {"paged_flash_decode_lse":
+                                       counts["paged_flash_decode_lse"] / steps},
+          "launches_per_insert": {"paged_flash_chunk": counts["paged_flash_chunk"] / inserts},
+          **stats, "dense_same_call": dense_stats, "in_turns": turns,
+          "in_turns_mean_ms_per_step": {
+              e_: float(np.mean([t["decode_ms_per_step_p50"] for t in turns
+                                 if t["engine"] == e_])) for e_ in ("dense", "paged")},
+          "tokens_compared_with_dense": compared, "memory": snap["memory"],
+          "card": card})
+    return tokens, counts
+
+
+def profile_paged(card, params, prompts):
+    """Ten paged decode steps of a full 8-slot batch under ``torch.profiler``."""
+    from elephas_tpu_torch.models import TransformerLM
+    from elephas_tpu_torch.serving import ServingEngine
+
+    model = TransformerLM(**GPT2_SMALL, device="cuda")
+    eng = ServingEngine(model, params, n_slots=8, paged=True, page_size=16, device="cuda")
+    for p in prompts[:8]:
+        eng.submit(p, 32)
+    while eng.kv.free_slots:
+        eng.step()
+
+    def run():
+        require(eng.step() == "decode", "profile_paged window left the decode loop")
+
+    emit({"phase": "profile_paged", "decode_steps": 10, **profiled(run, 10),
+          "card": card})
+
+
+def prefix(card, params):
+    """A shared 192-token prefix: pages adopted against the CPU paged
+    engine's count on the same mix, tokens with and without the cache."""
+    from elephas_tpu_torch.models import TransformerLM
+    from elephas_tpu_torch.serving import ServingEngine
+
+    gen = np.random.default_rng(SEED + 9)
+    V = GPT2_SMALL["vocab"]
+    shared = gen.integers(0, V, size=192).astype(np.int32)
+    prompts = [np.concatenate([shared, gen.integers(0, V, size=int(n)).astype(np.int32)])
+               for n in gen.integers(16, 65, size=16)]
+    model = TransformerLM(**GPT2_SMALL, device="cuda")
+    runs = {}
+    for cache_on in (True, False):
+        eng = ServingEngine(model, params, n_slots=8, paged=True, page_size=16,
+                            prefix_cache=cache_on, device="cuda")
+        fin, wall = _drain(eng, prompts, 32)
+        eng.kv.check()
+        runs[cache_on] = (fin, wall, eng.snapshot())
+    # the page bookkeeping reads no weights: the CPU engine runs the same
+    # mix at GPT-2 width with the depth cut to 2 layers
+    cpu_model = TransformerLM(**dict(GPT2_SMALL, n_layers=2), device="cpu")
+    shapes = cpu_model.param_shapes()
+    cpu_params = {k: v[:shapes[k][0]].cpu() for k, v in params.items()}
+    cpu = ServingEngine(cpu_model, cpu_params, n_slots=8, paged=True, page_size=16,
+                        device="cpu")
+    for p in prompts:
+        cpu.submit(p, 32)
+    cpu.drain()
+    cpu_hits = cpu.kv.memory_stats()["prefix"]["hits_pages"]
+    on, off = runs[True][2]["memory"]["prefix"], runs[False][2]["memory"]["prefix"]
+    require(on["hits_pages"] == cpu_hits,
+            f"prefix: {on['hits_pages']} pages adopted on the card, {cpu_hits} on the CPU")
+    require(on["hits_pages"] > 0 and off["hits_pages"] == 0, f"prefix: hits {on} / {off}")
+    compared = _agree("prefix on vs off", model, params, prompts,
+                      [f.tokens for f in runs[True][0]], [f.tokens for f in runs[False][0]])
+    emit({"phase": "prefix", "shared_prefix": 192, "requests": 16, "new_tokens_each": 32,
+          "suffix_lens": [int(len(p)) - 192 for p in prompts],
+          "hits_pages": on["hits_pages"], "lookups_pages": on["lookups_pages"],
+          "cpu_hits_pages": cpu_hits,
+          "cache_on": _serving_stats(runs[True][2], runs[True][0], runs[True][1]),
+          "cache_off": _serving_stats(runs[False][2], runs[False][0], runs[False][1]),
+          "tokens_compared": compared, "card": card})
+
+
+def preempt(card, params):
+    """8 requests of 256 + 64 tokens (20 pages of 16 each, 160 in all) in a
+    pool of 144 usable pages: all are admitted (17 pages each), growth
+    preempts the newest, and every stream matches an unpressured run."""
+    from elephas_tpu_torch.models import TransformerLM
+    from elephas_tpu_torch.serving import ServingEngine
+
+    gen = np.random.default_rng(SEED + 10)
+    prompts = [gen.integers(0, GPT2_SMALL["vocab"], size=256).astype(np.int32)
+               for _ in range(8)]
+    model = TransformerLM(**GPT2_SMALL, device="cuda")
+    runs = {}
+    for pool in (None, 145):
+        eng = ServingEngine(model, params, n_slots=8, paged=True, page_size=16,
+                            pages_per_partition=pool, prefix_cache=False, device="cuda")
+        fin, wall = _drain(eng, prompts, 64)
+        eng.kv.check()
+        runs[pool] = (fin, wall, eng.kv.memory_stats(), eng.snapshot())
+    mem = runs[145][2]
+    require(mem["preemptions"] > 0, "preempt: no preemption under pressure")
+    require(mem["pages_used"] == 0, f"preempt: {mem['pages_used']} pages still held")
+    compared = _agree("preempt vs unpressured", model, params, prompts,
+                      [f.tokens for f in runs[145][0]], [f.tokens for f in runs[None][0]])
+    emit({"phase": "preempt", "requests": 8, "prompt_len": 256, "new_tokens_each": 64,
+          "pages_per_partition": 145, "preemptions": mem["preemptions"],
+          "pages_used_after": mem["pages_used"],
+          "pressured": _serving_stats(runs[145][3], runs[145][0], runs[145][1]),
+          "unpressured": _serving_stats(runs[None][3], runs[None][0], runs[None][1]),
+          "tokens_compared": compared, "card": card})
+
+
+def paged_cross_check(card, params, prompts, gpu_tokens):
+    """Two requests of the serve mix, 8 new tokens, on a ``device="cpu"``
+    paged engine (the plain paged path) against the card's paged tokens."""
+    from elephas_tpu_torch.models import TransformerLM
+    from elephas_tpu_torch.serving import ServingEngine
+
+    model = TransformerLM(**GPT2_SMALL, device="cpu")
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    order = np.argsort([len(p) for p in prompts])[:2]
+    eng = ServingEngine(model, cpu_params, n_slots=2, paged=True, page_size=16,
+                        device="cpu")
+    ids = [eng.submit(prompts[i], 8) for i in order]
+    fin = eng.drain()
+    eng.kv.check()
+    cpu = [fin[r].tokens for r in ids]
+    sel = [prompts[i] for i in order]
+    compared = _agree("paged_cross_check", model, cpu_params, sel,
+                      [gpu_tokens[i][:8] for i in order], cpu)
+    emit({"phase": "paged_cross_check", "requests": [int(i) for i in order],
+          "compared": compared, "cpu": cpu, "gpu": [gpu_tokens[i][:8] for i in order],
+          "card": card})
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -852,31 +1251,42 @@ def main() -> int:
           "cuda": torch.version.cuda,
           "count": torch.cuda.device_count()})
     t0 = time.perf_counter()
-    built = _build.build(["layer_norm", "flash_decode", "flash_attention"])
+    built = _build.build(["layer_norm", "flash_decode", "flash_attention",
+                          "paged_attention"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": built, "card": card})
     try:
         ln_fwd, ln_bwd = check_layer_norm(card), check_layer_norm_bwd(card)
         decode = check_flash_decode(card)
         attn_rows = check_flash_attention(card)
-        params, prompts, gpu_tokens, serve_counts = serve(card)
+        params, prompts, gpu_tokens, serve_counts, serve_stats = serve(card)
         cross_check(card, params, prompts, gpu_tokens)
         profile_decode(card, params, prompts)
         train_counts = train(card, params)
         train_cross_check(card, params)
         gen_counts = generate_phase(card, params)
+        paged_rows = check_paged_attention(card)
+        paged_tokens, paged_counts = serve_paged(card, params, prompts, gpu_tokens,
+                                                 serve_stats)
+        profile_paged(card, params, prompts)
+        prefix(card, params)
+        preempt(card, params)
+        paged_cross_check(card, params, prompts, paged_tokens)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    # each row's `launches` is its own slice's main path: serving for
-    # K3-fwd and K4, the five timed train steps for the rest
-    rows = [ln_fwd, ln_bwd, decode, *attn_rows]
+    # each row's `launches` is its own slice's main path: dense serving for
+    # K3-fwd and K4, the five timed train steps for K2 and K3-bwd, paged
+    # serving for K5
+    rows = [ln_fwd, ln_bwd, decode, *attn_rows, *paged_rows]
+    paths = {"serve": serve_counts, "train_5_steps": train_counts,
+             "generate": gen_counts, "serve_paged": paged_counts}
     for row in rows:
         name = row["name"]
-        row["launches"] = (serve_counts if name in serve_counts else train_counts)[name]
-        row["launches_by_path"] = {"serve": serve_counts.get(name, 0),
-                                   "train_5_steps": train_counts[name],
-                                   "generate": gen_counts[name]}
+        main_path = ("serve_paged" if name.startswith("paged") else
+                     "serve" if name in serve_counts else "train_5_steps")
+        row["launches"] = paths[main_path][name]
+        row["launches_by_path"] = {k: v.get(name, 0) for k, v in paths.items()}
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,10 @@ Ported so far: the dense serving path, :class:`~.models.TransformerLM`
 :class:`~.serving.ServingEngine`, with the fused LayerNorm and flash-decode
 kernels; and LM training and generation (``apply``,
 ``build_lm_train_step``, the optimizers, ``prefill``, ``generate``), with
-the flash-attention kernels (forward, dq, dkv) and the LayerNorm backward.
+the flash-attention kernels (forward, dq, dkv) and the LayerNorm backward;
+and paged serving (``ServingEngine(paged=True)``: block allocator, radix
+prefix cache, preemption), with the paged-attention kernels (decode and
+chunk).
 
 Device policy: every entry point takes ``device=`` and defaults to
 ``"cuda"``. Without a CUDA device the entry points raise unless the caller

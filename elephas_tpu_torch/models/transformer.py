@@ -51,8 +51,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from .. import DeviceLike, resolve_device
 from ..ops.flash_attention import attention_reference, flash_attention
-from ..ops.flash_decode import aligned_cache_length, decode_attention
+from ..ops.flash_decode import (aligned_cache_length, chunk_attention_reference,
+                                decode_attention)
 from ..ops.layer_norm import layer_norm
+from ..ops.paged_attention import paged_chunk_attention, paged_decode_attention
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -591,14 +593,11 @@ class TransformerLM(nn.Module):
         Dh = self.d_model // H
         G = H // Hkv
         cd = self.compute_dtype
-        T = cache["k"].shape[3]
         dev = tokens.device
         base, per_row = _positions(pos0, B, dev)
         pos_b = base[:, None] + torch.arange(S, device=dev)[None, :]   # [B, S]
         h = self._embed(params, tokens, pos_b)  # [B, S, D]
         rope = self._rope_for(pos_b)
-        slots = torch.arange(T, device=dev)[None, None, :]
-        visible = (slots <= pos_b[:, :, None])[:, None, None]   # [B,1,1,S,T]
         for l in range(self.n_layers):
             lp = self._layer(params, l)
             kc, vc = cache["k"][l], cache["v"][l]
@@ -612,12 +611,7 @@ class TransformerLM(nn.Module):
             _cache_update_rows(kc, k_new.transpose(1, 2), pos0, per_row)
             _cache_update_rows(vc, v_new.transpose(1, 2), pos0, per_row)
             qg = q.transpose(1, 2).reshape(B, Hkv, G, S, Dh)
-            scores = torch.einsum("bkgsd,bktd->bkgst", qg.to(torch.float32),
-                                  kc.to(torch.float32)) * (Dh ** -0.5)
-            probs = torch.softmax(scores.masked_fill(~visible, float("-inf")),
-                                  dim=-1)
-            a = torch.einsum("bkgst,bktd->bkgsd", probs,
-                             vc.to(torch.float32)).to(cd)
+            a = chunk_attention_reference(qg, kc, vc, pos_b).to(cd)
             a = a.reshape(B, H, S, Dh).transpose(1, 2)
             h = h + self._attn_proj(lp, "o", a.reshape(B, S, self.d_model))
             x = self._norm_h(lp, "ln2", h).to(cd)
@@ -637,6 +631,118 @@ class TransformerLM(nn.Module):
         slot_cache = cache_gather_slot(cache, slot)
         logits, slot_cache = self.decode_chunk(params, tokens, pos0, slot_cache)
         return logits, cache_scatter_slot(cache, slot, slot_cache)
+
+    # -- paged KV pool -------------------------------------------------------
+    def _page_rows(self, pos_b, table, page: int):
+        """Pool rows written by absolute positions ``pos_b`` (``[B]`` or
+        ``[B, S]`` int64) through ``table`` ``[B, M]``: one row id per
+        (position, KV head) in a layer's pool viewed as ``[P·Hkv·page,
+        Dh]``, ordered as the new K/V rows are. Positions past the table's
+        ``M·page`` and unmapped cells both land in the trash page 0 (the
+        reference's ``mode="drop"`` scatter has no torch counterpart, so the
+        ids are built here and a write never leaves the pool). Computed once
+        per call, shared by every layer."""
+        M, Hkv = table.shape[1], self.n_kv_heads
+        p2 = pos_b.reshape(pos_b.shape[0], -1)
+        cell = torch.clamp(p2 // page, 0, M - 1)
+        pids = torch.where(p2 < M * page, table.gather(1, cell).to(torch.int64),
+                           torch.zeros_like(p2))
+        heads = torch.arange(Hkv, device=pos_b.device)
+        rows = (pids[..., None] * Hkv + heads) * page + (p2 % page)[..., None]
+        return rows.reshape(-1)
+
+    @staticmethod
+    def _write_rows(pool_l, rows, new):
+        """``new`` ``[..., Dh]`` into one layer's pool ``[P, Hkv, page, Dh]``
+        at flat ``rows``, in place (one ``index_copy_``)."""
+        dh = pool_l.shape[-1]
+        pool_l.view(-1, dh).index_copy_(0, rows, new.reshape(-1, dh))
+
+    def decode_step_paged(self, params, token, pos, pool, table, page: int):
+        """One cached decode step straight over a paged KV pool: ``token``
+        ``[B]`` at positions ``pos`` (int or per-row ``[B]``) against ``pool``
+        ``{"k"/"v": [L, P, Hkv, page, Dh]}`` read through ``table`` ``[B, M]``
+        int32 → ``(logits [B, V], pool)``. The layer body of
+        :meth:`decode_step`, but each layer writes only the new K/V row into
+        its owning page, in place, and attends through the table (the
+        paged-attention kernel on the card; on the CPU the plain version,
+        which keeps the logits bitwise equal to :meth:`decode_step` on the
+        equivalent dense cache). Rows whose cell at the write position is
+        unmapped (parked or free slots) write into the trash page."""
+        B = token.shape[0]
+        H, Hkv = self.n_heads, self.n_kv_heads
+        Dh = self.d_model // H
+        cd = self.compute_dtype
+        pos_b, _ = _positions(pos, B, token.device)
+        pos32 = pos_b.to(torch.int32)
+        rows = self._page_rows(pos_b, table, page)
+        h = self._embed(params, token, pos_b)  # [B, D]
+        if self.pos_encoding == "rotary":
+            r_cos, r_sin = _rope_angles(pos_b, Dh, self.rope_theta)
+            r_cos, r_sin = r_cos[:, None, :], r_sin[:, None, :]
+        for l in range(self.n_layers):
+            lp = self._layer(params, l)
+            kp, vp = pool["k"][l], pool["v"][l]
+            x = self._norm_h(lp, "ln1", h).to(cd)
+            q = self._attn_proj(lp, "q", x).reshape(B, H, Dh)
+            k_new = self._attn_proj(lp, "k", x).reshape(B, Hkv, Dh)
+            v_new = self._attn_proj(lp, "v", x).reshape(B, Hkv, Dh)
+            if self.pos_encoding == "rotary":
+                # pages store PRE-ROTATED keys, like the dense cache
+                q = _rope_rotate(q, r_cos, r_sin)
+                k_new = _rope_rotate(k_new, r_cos, r_sin)
+            self._write_rows(kp, rows, k_new)
+            self._write_rows(vp, rows, v_new)
+            qg = q.reshape(B, Hkv, H // Hkv, Dh)
+            a = paged_decode_attention(qg, kp, vp, table, pos32, page).to(cd)
+            h = h + self._attn_proj(lp, "o", a.reshape(B, self.d_model))
+            x = self._norm_h(lp, "ln2", h).to(cd)
+            h = h + self._ffn(lp, x).to(cd)
+        h = self._norm_h(params, "lnf", h)
+        return self._logits(params, h), pool
+
+    def decode_chunk_paged(self, params, tokens, pos0, pool, table, page: int):
+        """Cached forward of ``S`` tokens per row straight over a paged pool,
+        the paged sibling of :meth:`decode_chunk` (paged prefill-insert,
+        chunked-prefill continuations, prefix-adopted suffixes): ``tokens``
+        ``[B, S]`` at positions ``pos0..pos0+S-1`` (``pos0`` an int or
+        per-row ``[B]``) → ``(logits [B, S, V], pool)``. Each layer writes
+        the chunk's own K/V rows into their pages in place (shared prefix
+        pages are attended, never rewritten) and attends all queries through
+        the table. Positions past the table's capacity or without a mapped
+        page (bucket padding) write into the trash page."""
+        B, S = tokens.shape
+        H, Hkv = self.n_heads, self.n_kv_heads
+        Dh = self.d_model // H
+        G = H // Hkv
+        cd = self.compute_dtype
+        dev = tokens.device
+        base, _ = _positions(pos0, B, dev)
+        pos_b = base[:, None] + torch.arange(S, device=dev)[None, :]   # [B, S]
+        base32 = base.to(torch.int32)
+        rows = self._page_rows(pos_b, table, page)
+        h = self._embed(params, tokens, pos_b)  # [B, S, D]
+        rope = self._rope_for(pos_b)
+        for l in range(self.n_layers):
+            lp = self._layer(params, l)
+            kp, vp = pool["k"][l], pool["v"][l]
+            x = self._norm_h(lp, "ln1", h).to(cd)
+            q = self._attn_proj(lp, "q", x).reshape(B, S, H, Dh)
+            k_new = self._attn_proj(lp, "k", x).reshape(B, S, Hkv, Dh)
+            v_new = self._attn_proj(lp, "v", x).reshape(B, S, Hkv, Dh)
+            if rope is not None:
+                q = _rope_rotate(q, *rope)
+                k_new = _rope_rotate(k_new, *rope)
+            self._write_rows(kp, rows, k_new)
+            self._write_rows(vp, rows, v_new)
+            qg = q.transpose(1, 2).reshape(B, Hkv, G, S, Dh)
+            a = paged_chunk_attention(qg, kp, vp, table, base32, page).to(cd)
+            a = a.reshape(B, H, S, Dh).transpose(1, 2)
+            h = h + self._attn_proj(lp, "o", a.reshape(B, S, self.d_model))
+            x = self._norm_h(lp, "ln2", h).to(cd)
+            h = h + self._ffn(lp, x).to(cd)
+        h = self._norm_h(params, "lnf", h)
+        return self._logits(params, h), pool
 
     # -- teacher-forced forward (training) ------------------------------------
     def _layers(self, params):

@@ -1,5 +1,5 @@
-"""Continuous-batching LM serving on the dense slot cache (port of
-``elephas_tpu/serving``).
+"""Continuous-batching LM serving on a dense slot cache or a paged pool
+(port of ``elephas_tpu/serving``).
 
 - :mod:`~elephas_tpu_torch.serving.cache` — ``SlotKVCache``: one fixed
   ``[L, slots, Hkv, T, Dh]`` KV buffer whose batch axis is the SLOT axis.
@@ -11,18 +11,26 @@
 - :mod:`~elephas_tpu_torch.serving.metrics` — per-request TTFT / queue-wait
   / decode throughput and engine gauges as a JSON snapshot.
 
-The paged KV memory (``serving/memory.py`` in the reference) is a later
-slice.
+- :mod:`~elephas_tpu_torch.serving.memory` — ``PagedKVCache``: the paged
+  alternative (``paged=True`` on the engine): KV in a pool of fixed-size
+  pages behind per-slot block tables, refcounted by ``BlockAllocator``,
+  with a ``RadixPrefixCache`` sharing prompt-prefix pages between requests.
 """
 
 from .cache import SlotKVCache, bucket_length
 from .engine import FinishedRequest, ServingEngine
+from .memory import (BlockAllocator, PagedKVCache, PagesExhausted,
+                     RadixPrefixCache)
 from .metrics import RequestTiming, ServingMetrics
 from .scheduler import AdmissionError, Scheduler, ServingRequest
 
 __all__ = [
     "AdmissionError",
+    "BlockAllocator",
     "FinishedRequest",
+    "PagedKVCache",
+    "PagesExhausted",
+    "RadixPrefixCache",
     "RequestTiming",
     "Scheduler",
     "ServingEngine",

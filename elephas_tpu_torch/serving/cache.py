@@ -31,6 +31,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..models.transformer import select_slot_tokens
+
 
 def bucket_length(n: int, minimum: int = 8) -> int:
     """Smallest power of two >= ``n`` (and >= ``minimum``): the prompt pad
@@ -39,6 +41,28 @@ def bucket_length(n: int, minimum: int = 8) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def decode_block(step, params, cache, tokens, pos, temps, seeds, live,
+                 n_steps: int, sampled: bool):
+    """``n_steps`` batched decode steps over every slot, each with per-slot
+    selection: ``step(params, tokens, pos, cache) -> (logits, cache)`` is the
+    model's one-token step over the engine's KV state (dense or paged);
+    ``tokens``/``pos``/``temps``/``seeds``/``live`` ``[S]`` → ``(emitted [S,
+    n_steps], tokens, pos)``. Live rows advance their carry token and
+    position on the device; non-live rows neither advance nor change their
+    carry (their emitted entries are garbage the host ignores). The cache is
+    written in place. Rows are independent and selection is ``(seed,
+    position)``-keyed, so ``n_steps`` steps here emit exactly what
+    ``n_steps`` single-step calls would."""
+    emitted = []
+    for _ in range(n_steps):
+        logits, cache = step(params, tokens, pos, cache)
+        emit = select_slot_tokens(logits, pos + 1, temps, seeds, sampled)
+        tokens = torch.where(live, emit, tokens)
+        pos = torch.where(live, pos + 1, pos)
+        emitted.append(emit)
+    return torch.stack(emitted, dim=1), tokens, pos
 
 
 class SlotKVCache:

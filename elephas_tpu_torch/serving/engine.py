@@ -1,5 +1,5 @@
-"""The continuous-batching serving loop (port of the dense path of
-``elephas_tpu/serving/engine.py``).
+"""The continuous-batching serving loop (port of the local dense and paged
+paths of ``elephas_tpu/serving/engine.py``).
 
 ``ServingEngine`` multiplexes every in-flight request through one batched
 decode step over all slots:
@@ -36,8 +36,16 @@ a request's sample stream is keyed by ``(seed, position)``, independent of
 slot assignment and of what else is co-batched. Greedy outputs match the
 reference's per-request ``TransformerLM.generate``.
 
-Paged KV memory, meshes, speculative decoding and fault injection are later
-slices of the port and raise ``NotImplementedError``.
+``paged=True`` swaps the dense slot cache for the paged pool
+(:class:`~elephas_tpu_torch.serving.memory.PagedKVCache`): KV memory scales
+with live tokens, a radix prefix cache lets requests with a shared prompt
+prefix adopt its pages and skip their prefill, and admission gates on free
+pages. Under page pressure the engine evicts clean prefix pages, then
+preempts the newest request, which later resumes from prompt ++ generated
+with an unchanged token stream. The paged engine emits exactly the dense
+engine's tokens on the CPU. Meshes, speculative decoding, multi-tenant
+adapters and fault injection are later slices of the port and raise
+``NotImplementedError``.
 
 Time is injectable (``clock=``): latency tests pin exact TTFT/queue-wait
 numbers with a fake clock. The latency histograms read a separate
@@ -46,8 +54,10 @@ numbers with a fake clock. The latency histograms read a separate
 
 from __future__ import annotations
 
+import itertools
 import time
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -55,29 +65,10 @@ import torch
 
 from .. import DeviceLike, resolve_device
 from ..models.transformer import select_slot_tokens
-from .cache import SlotKVCache, bucket_length
+from .cache import SlotKVCache, bucket_length, decode_block
+from .memory import PagedKVCache, PagesExhausted
 from .metrics import RequestTiming, ServingMetrics
 from .scheduler import AdmissionError, Scheduler, ServingRequest
-
-
-def _decode_block(model, params, cache, tokens, pos, temps, seeds, live,
-                  n_steps: int, sampled: bool):
-    """``n_steps`` batched decode steps over every slot, each with per-slot
-    selection: ``tokens``/``pos``/``temps``/``seeds``/``live`` ``[S]`` →
-    ``(emitted [S, n_steps], tokens, pos)``. Live rows advance their carry
-    token and position on the device; non-live rows neither advance nor
-    change their carry (their emitted entries are garbage the host
-    ignores). The cache is written in place. Rows are independent and
-    selection is ``(seed, position)``-keyed, so ``n_steps`` steps here
-    emit exactly what ``n_steps`` single-step calls would."""
-    emitted = []
-    for _ in range(n_steps):
-        logits, cache = model.decode_step(params, tokens, pos, cache)
-        emit = select_slot_tokens(logits, pos + 1, temps, seeds, sampled)
-        tokens = torch.where(live, emit, tokens)
-        pos = torch.where(live, pos + 1, pos)
-        emitted.append(emit)
-    return torch.stack(emitted, dim=1), tokens, pos
 
 
 def _wait(t: torch.Tensor) -> None:
@@ -118,16 +109,14 @@ class ServingEngine:
                  mesh=None, clock: Callable[[], float] = time.monotonic,
                  metrics_window: int = 1024, max_finished: int = 1024,
                  fault_plan=None, prefill_chunk: Optional[int] = None,
-                 fuse_k: int = 1, paged: bool = False,
-                 speculate_k: int = 1, drafter=None,
+                 fuse_k: int = 1, paged: bool = False, page_size: int = 16,
+                 pages_per_partition: Optional[int] = None,
+                 prefix_cache: bool = True, speculate_k: int = 1,
+                 drafter=None,
                  perf_clock: Callable[[], float] = time.perf_counter,
                  itl_estimate_s: Optional[float] = None,
                  device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
-        if paged:
-            raise NotImplementedError(
-                "the paged KV engine needs the paged-attention kernel K5, not "
-                "ported yet (ROADMAP.md queue 1, 'Paged serving (K5)')")
         if mesh is not None or speculate_k > 1 or drafter is not None:
             raise NotImplementedError(
                 "mesh serving and speculative decoding are not ported yet "
@@ -171,7 +160,18 @@ class ServingEngine:
         self.fuse_k = int(fuse_k)
         self.scheduler = Scheduler(max_queue=max_queue)
         self.metrics = ServingMetrics(n_slots=n_slots, window=metrics_window)
-        self.kv = SlotKVCache(model, params, n_slots, max_len=max_len)
+        self._paged = bool(paged)
+        if self._paged:
+            # the pool and block tables live in PagedKVCache, which speaks
+            # the insert/decode surface the loop below drives
+            self.kv = PagedKVCache(
+                model, params, n_slots, max_len=max_len, page_size=page_size,
+                pages_per_partition=pages_per_partition,
+                prefix_cache=prefix_cache)
+            self._decode_block = self.kv.fused_fn
+        else:
+            self.kv = SlotKVCache(model, params, n_slots, max_len=max_len)
+            self._decode_block = partial(decode_block, model.decode_step)
         # per-slot step state, DEVICE-resident: the decode step advances it;
         # the host writes single rows at admission/release
         S, dev = self.kv.n_slots, self.device
@@ -187,6 +187,7 @@ class ServingEngine:
         self._requests: Dict[str, ServingRequest] = {}
         self._finished: Dict[str, FinishedRequest] = {}
         self._next_id = 0
+        self._admit_seq = itertools.count()  # preemption recency order
 
     def _check_params(self, params) -> None:
         for k, v in params.items():
@@ -236,6 +237,12 @@ class ServingEngine:
                 raise AdmissionError(
                     "bad_request",
                     f"prompt token ids must be in [0, {self.model.vocab})")
+            if self._paged and not self.kv.fits(T0 + int(max_new)):
+                raise AdmissionError(
+                    "length_exceeds_cache",
+                    f"prompt {T0} + max_new {max_new} cannot fit the page "
+                    f"pool even alone ({self.kv.pages_per_partition - 1} "
+                    f"usable pages of {self.kv.page} tokens)")
             submitted_at = self.clock()
             req = ServingRequest(
                 request_id=rid, prompt=prompt, max_new=int(max_new),
@@ -262,10 +269,12 @@ class ServingEngine:
         before this step's work is chosen."""
         self._shed_unmeetable()
         self._reap_expired()
+        free_pages, need_pages = self._admission_budget()
         action = self.scheduler.decide(
             self.kv.free_slots, len(self._slot_req),
             has_partial=self._partial is not None,
-            last_action=self._last_action)
+            last_action=self._last_action,
+            free_pages=free_pages, need_pages=need_pages)
         if action == "prefill":
             req = self.scheduler.pop()
             if req is not None:
@@ -277,6 +286,22 @@ class ServingEngine:
         self._last_action = action
         return action
 
+    def _admission_budget(self):
+        """``(free_pages, need_pages)`` for the queue HEAD on the paged
+        engine — what :meth:`Scheduler.decide` gates admission on —
+        ``(None, None)`` whenever pages are not the binding constraint
+        (dense engine, empty queue, no free slot, open chunk train). The
+        need counts only pages beyond the head's cached prefix, and the
+        check may evict clean prefix pages to make room."""
+        if (not self._paged or self._partial is not None
+                or not self.scheduler.queue_depth
+                or self.kv.free_slots == 0):
+            return None, None
+        head = self.scheduler.peek()
+        if head is None:
+            return None, None
+        return self.kv.admission_check(self._req_prompt(head))
+
     # -- weight rollover ---------------------------------------------------
     def swap_params(self, params, version: Optional[int] = None) -> int:
         """Hot-swap the serving weights WITHOUT draining slots (call between
@@ -284,7 +309,9 @@ class ServingEngine:
         decode round runs under one params dict, so each emitted token is
         attributable to exactly one version. In-flight requests keep their
         slots, carries and K/V. ``version`` stamps the new weights (default:
-        previous + 1); a rollback republishes an older stamp."""
+        previous + 1); a rollback republishes an older stamp. On the paged
+        engine the prefix cache is flushed (its pages hold K/V computed
+        under the old weights); live slots keep their own page references."""
         self._check_params(params)
         self.params = params
         self.kv.set_params(params)
@@ -378,10 +405,13 @@ class ServingEngine:
             self.metrics.observe_result_evicted()
 
     def snapshot(self) -> Dict[str, object]:
-        """Engine + request metrics as one JSON-able dict."""
+        """Engine + request metrics as one JSON-able dict; on the paged
+        engine a ``"memory"`` section reports page utilization, pool bytes,
+        preemptions and the prefix-cache hit ratio."""
         return self.metrics.snapshot(
             active_slots=self.kv.active_slots,
-            queue_depth=self.scheduler.queue_depth)
+            queue_depth=self.scheduler.queue_depth,
+            memory=self.kv.memory_stats() if self._paged else None)
 
     # -- device step state -------------------------------------------------
     def _set_row(self, slot: int, tok: int, pos: int, temp: float,
@@ -400,31 +430,47 @@ class ServingEngine:
         self._set_row(slot, 0, 0, 0.0, 0, False)
 
     # -- internals -------------------------------------------------------
+    @staticmethod
+    def _req_prompt(req: ServingRequest) -> np.ndarray:
+        """The tokens this admission must prefill: the original prompt, or,
+        after a preemption, prompt ++ already-generated (selection is
+        ``(seed, position)``-keyed, so the resumed stream is unchanged)."""
+        return req.prompt if req.resume_prompt is None else req.resume_prompt
+
     def _do_prefill(self, req: ServingRequest) -> None:
         slot = self.kv.allocate()
         req.timing.admitted_at = self.clock()
         req.slot = slot
+        req.prefill_version = self.weights_version
+        req.prefill_pos = 0
         self.metrics.observe_prefill()
-        T0 = int(req.prompt.shape[0])
+        prompt = self._req_prompt(req)
+        T0 = int(prompt.shape[0])
+        if self._paged:
+            req.admit_seq = next(self._admit_seq)
+            # prefix-cache hit: adopted pages skip their prefill outright
+            req.prefill_pos = self.kv.adopt_prefix(slot, prompt)
         C = self.prefill_chunk
-        if C is not None and T0 > C:
+        if C is not None and T0 - req.prefill_pos > C:
             # long prompt: open a chunk train — first chunk now, the rest
             # interleaved with decode by the scheduler
             self._partial = req
             self._do_prefill_chunk()
             return
-        last = self.kv.insert(slot, req.prompt)
+        last = self._insert_guarded(req, prompt[req.prefill_pos:],
+                                    req.prefill_pos)
         self._start_decoding(req, last)
 
     def _do_prefill_chunk(self) -> None:
         """Advance the open chunk train by one chunk; the FINAL chunk's
         last real logits select the first token and the slot goes live."""
         req = self._partial
-        T0 = int(req.prompt.shape[0])
+        prompt = self._req_prompt(req)
+        T0 = int(prompt.shape[0])
         start = req.prefill_pos
         end = min(start + self.prefill_chunk, T0)
         t0 = self._perf()
-        last = self.kv.insert(req.slot, req.prompt[start:end], pos0=start)
+        last = self._insert_guarded(req, prompt[start:end], start)
         _wait(last)
         self.metrics.observe_prefill_chunk(
             end - start, len(self._slot_req), self._perf() - t0)
@@ -441,17 +487,84 @@ class ServingEngine:
     def _start_decoding(self, req: ServingRequest, last) -> None:
         """Select the first token from the prompt's last real logits, stamp
         timing, and make the slot a live decode row."""
-        T0 = int(req.prompt.shape[0])
+        prompt = self._req_prompt(req)
+        T0 = int(prompt.shape[0])
         dev = self.device
         tok = int(select_slot_tokens(
             last[None], torch.tensor([T0], device=dev),
             torch.tensor([req.temperature], device=dev),
             torch.tensor([req.seed], device=dev),
             sampled=req.temperature > 0)[0])
-        req.timing.first_token_at = self.clock()
+        if req.timing.first_token_at is None:   # a resume keeps its TTFT
+            req.timing.first_token_at = self.clock()
+        if self._paged and req.prefill_version == self.weights_version:
+            # publish the complete prompt pages for later prefix hits; a
+            # chunked prefill that spanned a swap holds mixed-version K/V
+            # and is left out
+            self.kv.register_prefix(req.slot, prompt)
         self._slot_req[req.slot] = req
         self._set_row(req.slot, tok, T0, req.temperature, req.seed, True)
         self._emit(req, tok)
+
+    # -- page pressure (paged engine only) --------------------------------
+    def _insert_guarded(self, req: ServingRequest, chunk, pos0: int):
+        """``kv.insert`` with page-pressure recovery: on
+        :class:`PagesExhausted`, evict clean prefix pages — failing that,
+        preempt the newest other request — and retry. A request alone
+        always fits (``kv.fits`` is checked at submit), so the loop ends."""
+        while True:
+            try:
+                return self.kv.insert(req.slot, chunk, pos0=pos0)
+            except PagesExhausted as e:
+                self._relieve_pressure(e, exclude=req)
+
+    def _ensure_decode_guarded(self, n_steps: int) -> None:
+        """Allocate the pages the next decode block will write, with the
+        same evict-then-preempt recovery as inserts."""
+        while True:
+            try:
+                self.kv.ensure_decode(list(self._slot_req), n_steps)
+                return
+            except PagesExhausted as e:
+                self._relieve_pressure(e)
+
+    def _relieve_pressure(self, exc: PagesExhausted,
+                          exclude: Optional[ServingRequest] = None) -> None:
+        """Free pages: clean (cache-only) prefix pages first, else preempt
+        the newest request. Raises ``exc`` when neither is possible —
+        unreachable while the submit-time ``fits`` invariant holds."""
+        if self.kv.evict_pages(exc.partition, exc.shortfall) >= exc.shortfall:
+            return
+        cands = [r for r in self._slot_req.values() if r is not exclude]
+        if self._partial is not None and self._partial is not exclude:
+            cands.append(self._partial)
+        if not cands:
+            raise exc
+        # LIFO: the oldest admitted work is the last to lose its slot
+        self._preempt(max(cands, key=lambda r: r.admit_seq))
+
+    def _preempt(self, victim: ServingRequest) -> None:
+        """Evict a live request under page pressure: return every page it
+        holds, park its row, and requeue it at the FRONT of its priority
+        class. On re-admission it prefills prompt ++ generated-so-far and
+        continues its exact token stream — preemption is invisible in the
+        output."""
+        slot = victim.slot
+        if victim is self._partial:
+            self._partial = None
+        self._slot_req.pop(slot, None)
+        self.kv.release(slot)
+        self._park(slot)
+        # always original prompt ++ ALL generated (not _req_prompt: a
+        # second preemption must not re-append tokens already folded in)
+        victim.resume_prompt = np.concatenate(
+            [np.asarray(victim.prompt, np.int32),
+             np.asarray(victim.generated, np.int32)])
+        victim.slot = None
+        victim.prefill_pos = 0
+        victim.preemptions += 1
+        self.kv.preemptions += 1
+        self.scheduler.requeue(victim)
 
     def _fuse_window(self) -> int:
         """How many decode steps the next decode block may run before the
@@ -474,11 +587,17 @@ class ServingEngine:
 
     def _do_decode(self) -> None:
         K = self._fuse_window()
+        if self._paged:
+            # decode writes land in allocated pages only: grow each active
+            # slot's tail first (may evict or preempt under pressure)
+            self._ensure_decode_guarded(K)
+            if not self._slot_req:
+                return
         n_active = len(self._slot_req)
         sampled = any(r.temperature > 0 for r in self._slot_req.values())
         t0 = self._perf()
-        emit, self._tok, self._pos = _decode_block(
-            self.model, self.params, self.kv.cache, self._tok, self._pos,
+        emit, self._tok, self._pos = self._decode_block(
+            self.params, self.kv.cache, self._tok, self._pos,
             self._temps, self._seeds, self._live, K, sampled)
         toks = emit.cpu().numpy()                    # [S, K]
         t1 = self._perf()

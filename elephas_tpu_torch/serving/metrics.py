@@ -275,7 +275,7 @@ class ServingMetrics:
         the ENGINE's to report (the metrics object never reaches into the
         scheduler), so they arrive as arguments — ``memory`` is the paged
         engine's page/prefix-cache section
-        (``PagedKVCache.memory_stats``, a later slice of the port),
+        (:meth:`~elephas_tpu_torch.serving.memory.PagedKVCache.memory_stats`),
         included only when provided."""
         fin = list(self._finished)
         out = {

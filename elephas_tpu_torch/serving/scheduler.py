@@ -2,7 +2,7 @@
 
 A copy of ``elephas_tpu/serving/scheduler.py`` (framework-free), kept here
 so the port imports nothing of the JAX package. The page-budget arguments
-of :meth:`Scheduler.decide` serve the paged engine, a later slice.
+of :meth:`Scheduler.decide` serve the paged engine.
 
 The scheduler is pure host-side bookkeeping (no array library): a BOUNDED
 FIFO+priority queue in front of the slot budget. Boundedness is the

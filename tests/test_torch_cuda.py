@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at edge shapes the serving and training runs do not reach (scalar-load
 head dims, odd group sizes, caches and sequences shorter than a tile,
-every mask mode), the wrappers' refusals, and the serving engine, the
-train step and ``generate`` on the card against the same code on the CPU.
+every mask mode, pages smaller and larger than a key tile), the wrappers'
+refusals, and the serving engine (dense and paged), the train step and
+``generate`` on the card against the same code on the CPU.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside the
 test, never at import). This file imports no JAX, so it runs on a machine
@@ -23,6 +24,9 @@ from elephas_tpu_torch.ops.flash_decode import (decode_attention_reference_lse,
 from elephas_tpu_torch.ops.layer_norm import (fused_layer_norm,
                                               fused_layer_norm_bwd,
                                               layer_norm_reference)
+from elephas_tpu_torch.ops.paged_attention import (
+    paged_chunk_reference, paged_decode_reference_lse, paged_flash_chunk,
+    paged_flash_decode_lse)
 from elephas_tpu_torch.serving import ServingEngine
 
 pytestmark = pytest.mark.cuda
@@ -228,3 +232,83 @@ def test_train_step_and_generate_on_card_match_cpu(cuda):
                 break
             t = prompt.shape[1] + n
             assert int(out["cuda"][1][row, t]) == int(seq[row, t]), (row, n)
+
+
+def _paged(rng, S, hkv, g, dh, page, M, last, C=None, dtype=torch.float32):
+    """q, a pool with a trash page of finite garbage, and a table of
+    scattered pages left unmapped past each slot's last position."""
+    P = S * M + 1
+    kp, vp = _t(rng, P, hkv, page, dh, dtype=dtype), _t(rng, P, hkv, page, dh, dtype=dtype)
+    kp[0] = vp[0] = 1e4
+    table = (1 + rng.permutation(S * M)).reshape(S, M).astype(np.int32)
+    for s, p in enumerate(last):
+        table[s, p // page + 1:] = 0
+    q = _t(rng, S, hkv, g, dh) if C is None else _t(rng, S, hkv, g, C, dh)
+    return q, kp, vp, torch.from_numpy(table).cuda()
+
+
+@pytest.mark.parametrize("S,hkv,g,dh,page,M", [
+    (3, 2, 5, 6, 4, 9),        # odd group, scalar loads, pages of 4
+    (2, 1, 1, 128, 128, 3),    # a page longer than the key tile
+    (4, 3, 2, 32, 1, 70),      # one position per page
+])
+@pytest.mark.parametrize("window", [None, 7])
+def test_paged_kernels_match_plain(cuda, S, hkv, g, dh, page, M, window):
+    """K5-decode and K5-chunk against their plain versions; atol/rtol 2e-5
+    as the reference pins its attention kernels."""
+    rng = np.random.default_rng(10)
+    T = M * page
+    pos = np.linspace(0, T - 1, S).astype(np.int32)
+    q, kp, vp, table = _paged(rng, S, hkv, g, dh, page, M, pos)
+    pos_t = torch.from_numpy(pos).cuda()
+    for a, w in zip(paged_flash_decode_lse(q, kp, vp, table, pos_t, page, window),
+                    paged_decode_reference_lse(q, kp, vp, table, pos_t, page, window)):
+        torch.testing.assert_close(a, w, atol=2e-5, rtol=2e-5)
+    C = min(5, T)
+    pos0 = np.minimum(pos, T - C)
+    q, kp, vp, table = _paged(rng, S, hkv, g, dh, page, M, pos0 + C - 1, C)
+    p0 = torch.from_numpy(pos0).cuda()
+    torch.testing.assert_close(paged_flash_chunk(q, kp, vp, table, p0, page, window),
+                               paged_chunk_reference(q, kp, vp, table, p0, page, window),
+                               atol=2e-5, rtol=2e-5)
+
+
+def test_paged_wrappers_refuse_bad_input(cuda):
+    rng = np.random.default_rng(11)
+    q, kp, vp, table = _paged(rng, 2, 1, 1, 8, 4, 3, [5, 5])
+    with pytest.raises(ValueError, match="page"):
+        paged_flash_decode_lse(q, kp, vp, table, 5, 8)
+    with pytest.raises(ValueError, match="int32"):
+        paged_flash_decode_lse(q, kp, vp, table.long(), 5, 4)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        paged_flash_chunk(q[:, :, :, None], kp.cpu(), vp, table, 5, 4)
+    with pytest.raises(ValueError, match="head dim"):
+        wide = _t(rng, 2, 1, 4, 264)
+        paged_flash_decode_lse(_t(rng, 2, 1, 1, 264), wide, wide, table, 5, 4)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(prefill_chunk=8, fuse_k=3),
+                                dict(pages_per_partition=12, prefix_cache=False)])
+def test_paged_engine_on_card_matches_dense_and_cpu(cuda, kw):
+    """The paged engine on the card (K5) against the dense engine on the
+    card and the paged engine on the CPU, on a mix with a shared prefix;
+    with a small pool it preempts. Greedy tokens, no near tie at this
+    size."""
+    cfg = dict(vocab=97, d_model=64, n_heads=4, n_kv_heads=2, n_layers=2,
+               d_ff=128, max_len=64, activation="gelu", attn_bias=True,
+               tie_embeddings=True)
+    rng = np.random.default_rng(12)
+    system = rng.integers(0, 97, size=16).astype(np.int32)
+    prompts = [np.concatenate([system, rng.integers(0, 97, size=n).astype(np.int32)])
+               for n in (3, 9, 5, 7)]
+    out = {}
+    for dev, paged in (("cuda", False), ("cuda", True), ("cpu", True)):
+        model = TransformerLM(**cfg, device=dev)
+        eng = ServingEngine(model, model.init(5), n_slots=4, device=dev,
+                            **(dict(paged=True, page_size=8, **kw) if paged else {}))
+        ids = [eng.submit(p, 16) for p in prompts]
+        fin = eng.drain()
+        out[(dev, paged)] = [fin[i].tokens for i in ids]
+        if paged:
+            eng.kv.check()
+    assert out[("cuda", True)] == out[("cuda", False)] == out[("cpu", True)]

@@ -17,7 +17,8 @@ _PROBE = """
 import sys
 import elephas_tpu_torch, elephas_tpu_torch.ops, elephas_tpu_torch.models
 import elephas_tpu_torch.serving, elephas_tpu_torch.models.optimizers
-import elephas_tpu_torch.ops.flash_attention
+import elephas_tpu_torch.ops.flash_attention, elephas_tpu_torch.ops.paged_attention
+import elephas_tpu_torch.serving.memory
 bad = sorted(m for m in sys.modules
              if m in ("jax", "keras", "elephas_tpu")
              or m.startswith(("jax.", "keras.", "elephas_tpu.")))

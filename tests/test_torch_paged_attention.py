@@ -1,0 +1,222 @@
+"""The port's paged attention (``ops/paged_attention.py``) and the model's
+paged methods on the CPU path.
+
+- The plain versions against the JAX package's plain references
+  (``paged_decode_reference_lse``, ``paged_chunk_reference``) on the same
+  numpy pool and table, with a trash page poisoned by finite garbage:
+  allclose at atol = rtol = 1e-5 in float32. The reference's own tests pin
+  its Pallas kernels (interpret mode) to those references.
+- Paged plain == dense plain bitwise within torch: the identity the paged
+  engine's token equality rests on.
+- ``decode_chunk_paged`` then ``decode_step_paged`` equal the dense
+  ``decode_chunk`` / ``decode_step`` bitwise; an unmapped write lands in the
+  trash page; ``decode_step_paged``'s logits match the JAX package's.
+"""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from elephas_tpu.models.transformer import TransformerLM as JaxLM
+from elephas_tpu_torch.models import TransformerLM, from_jax_params
+from elephas_tpu_torch.ops.flash_decode import (chunk_attention_reference,
+                                                decode_attention_reference_lse)
+from elephas_tpu_torch.ops.paged_attention import (
+    paged_chunk_attention, paged_chunk_reference, paged_decode_attention_lse,
+    paged_decode_reference_lse, paged_flash_chunk, paged_flash_decode_lse,
+    paged_view_rows)
+
+jax_pa = importlib.import_module("elephas_tpu.ops.paged_attention")
+
+S, Hkv, G, Dh = 3, 2, 2, 16
+M = 5
+
+
+def _setup(page, seed=0, trash=7.25, C=None):
+    """numpy q, pools and table: a distinct page per (slot, logical page),
+    scattered over the pool, and a trash page 0 of finite garbage."""
+    rng = np.random.default_rng(seed)
+    P = S * M + 1
+    kp = rng.standard_normal((P, Hkv, page, Dh)).astype(np.float32)
+    vp = rng.standard_normal((P, Hkv, page, Dh)).astype(np.float32)
+    kp[0] = vp[0] = trash
+    table = (1 + rng.permutation(S * M)).reshape(S, M).astype(np.int32)
+    shape = (S, Hkv, G, Dh) if C is None else (S, Hkv, G, C, Dh)
+    q = rng.standard_normal(shape).astype(np.float32)
+    return q, kp, vp, table
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("page", [4, 8])
+@pytest.mark.parametrize("window", [None, 11])
+def test_decode_plain_matches_jax_reference(page, window):
+    q, kp, vp, table = _setup(page, seed=page)
+    T = M * page
+    pos = np.array([5, 2 * page - 1, T - 1], np.int32)   # mid, edge, last
+    table[0, 5 // page + 1:] = 0                          # unmapped tail
+    o, l = paged_decode_reference_lse(*_t(q, kp, vp, table),
+                                      torch.from_numpy(pos), page, window)
+    jo, jl = jax_pa.paged_decode_reference_lse(
+        *(jnp.asarray(a) for a in (q, kp, vp, table, pos)), page,
+        window=window)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(l.numpy(), np.asarray(jl), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("page", [4, 8])
+@pytest.mark.parametrize("window", [None, 11])
+def test_chunk_plain_matches_jax_reference(page, window):
+    C = 4
+    q, kp, vp, table = _setup(page, seed=10 + page, C=C)
+    T = M * page
+    pos0 = np.array([3, page - 1, T - C], np.int32)   # straddles, edge, end
+    got = paged_chunk_reference(*_t(q, kp, vp, table), torch.from_numpy(pos0),
+                                page, window)
+    want = jax_pa.paged_chunk_reference(
+        *(jnp.asarray(a) for a in (q, kp, vp, table, pos0)), page,
+        window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("window", [None, 11])
+def test_paged_plain_bitwise_equals_dense_plain(window):
+    """Decode and chunk through the table equal the dense functions on the
+    gathered cache bit for bit; a trash page at 1e4 inside the visible
+    range's pages is masked exactly."""
+    page = 8
+    q, kp, vp, table = _setup(page, seed=3, trash=1e4)
+    table[1, 1:] = 0
+    q, kp, vp, table = _t(q, kp, vp, table)
+    kd, vd = paged_view_rows(kp, table, page), paged_view_rows(vp, table, page)
+    pos = torch.tensor([5, 4, M * page - 1], dtype=torch.int32)
+    for a, b in zip(paged_decode_reference_lse(q, kp, vp, table, pos, page,
+                                               window),
+                    decode_attention_reference_lse(q, kd, vd, pos, window)):
+        assert torch.equal(a, b)
+    C = 4
+    qc = torch.from_numpy(_setup(page, seed=4, C=C)[0])
+    pos0 = torch.tensor([3, 0, 30])
+    pos_b = pos0[:, None] + torch.arange(C)
+    assert torch.equal(
+        paged_chunk_reference(qc, kp, vp, table, pos0, page, window),
+        chunk_attention_reference(qc, kd, vd, pos_b, window))
+
+
+def test_kernel_wrappers_raise_on_cpu_tensors():
+    q, kp, vp, table = _t(*_setup(8))
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_flash_decode_lse(q, kp, vp, table, 3, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_flash_chunk(q[:, :, :, None], kp, vp, table, 3, 8)
+    # the dispatchers take the plain versions for CPU tensors
+    assert paged_decode_attention_lse(q, kp, vp, table, 3, 8)[0].shape == q.shape
+    assert paged_chunk_attention(q[:, :, :, None], kp, vp, table, 3,
+                                 8).shape == q[:, :, :, None].shape
+
+
+# -- the model's paged methods ---------------------------------------------------
+
+CFG = dict(vocab=17, d_model=16, n_heads=4, n_layers=2, d_ff=32, max_len=64)
+PAGE = 8
+
+
+def _pools(model, B, M_, fill=7.25):
+    """Dense cache, the pool (trash page 0 of finite garbage) and a table
+    giving slot b the pages 1 + b*M_ .. (b+1)*M_."""
+    L, hkv, dh = model.n_layers, model.n_kv_heads, model.d_model // model.n_heads
+    cache = {k: torch.zeros((L, B, hkv, M_ * PAGE, dh)) for k in ("k", "v")}
+    pool = {k: torch.full((L, B * M_ + 1, hkv, PAGE, dh), fill)
+            for k in ("k", "v")}
+    table = torch.from_numpy(
+        (1 + np.arange(B * M_)).reshape(B, M_).astype(np.int32))
+    return cache, pool, table
+
+
+@pytest.mark.parametrize("kw", [{}, dict(pos_encoding="rotary", n_kv_heads=2,
+                                         activation="swiglu", norm="rmsnorm")])
+def test_paged_methods_bitwise_equal_dense(kw):
+    """A chunk at 0 then eight single steps (across a page edge), and a
+    per-row chunk at uneven positions: logits and written K/V equal the
+    dense path's bit for bit."""
+    model = TransformerLM(**CFG, **kw, device="cpu")
+    params = model.init(0)
+    rng = np.random.default_rng(0)
+    B, M_ = 3, 8
+    cache, pool, table = _pools(model, B, M_)
+    toks = torch.from_numpy(rng.integers(0, 17, (B, 11)))
+    lg_d, _ = model.decode_chunk(params, toks, 0, cache)
+    lg_p, _ = model.decode_chunk_paged(params, toks, 0, pool, table, PAGE)
+    assert torch.equal(lg_d, lg_p)
+    for key in ("k", "v"):
+        for l in range(model.n_layers):
+            view = paged_view_rows(pool[key][l], table, PAGE)
+            assert torch.equal(cache[key][l][:, :, :11], view[:, :, :11])
+    pos = torch.full((B,), 11, dtype=torch.int64)
+    for step in range(8):
+        tok = torch.from_numpy(rng.integers(0, 17, (B,)))
+        lg_d, _ = model.decode_step(params, tok, pos, cache)
+        lg_p, _ = model.decode_step_paged(params, tok, pos, pool, table, PAGE)
+        assert torch.equal(lg_d, lg_p), step
+        pos = pos + 1
+    pos0 = torch.tensor([19, 12, 16])
+    ch = torch.from_numpy(rng.integers(0, 17, (B, 5)))
+    lg_d, _ = model.decode_chunk(params, ch, pos0, cache)
+    lg_p, _ = model.decode_chunk_paged(params, ch, pos0, pool, table, PAGE)
+    assert torch.equal(lg_d, lg_p)
+
+
+def test_unmapped_write_lands_in_trash():
+    """Positions past the table's capacity write into page 0 and never touch
+    a mapped page."""
+    model = TransformerLM(**CFG, device="cpu")
+    params = model.init(0)
+    rng = np.random.default_rng(2)
+    B, M_ = 3, 6
+    _, pool, table = _pools(model, B, M_)
+    toks = torch.from_numpy(rng.integers(0, 17, (B, 9)))
+    model.decode_chunk_paged(params, toks, 0, pool, table, PAGE)
+    before = {k: v.clone() for k, v in pool.items()}
+    tok = torch.from_numpy(rng.integers(0, 17, (B,)))
+    model.decode_step_paged(params, tok, torch.full((B,), 20), pool,
+                            table[:, :2].contiguous(), PAGE)   # capacity 16
+    for key in ("k", "v"):
+        assert torch.equal(pool[key][:, 1:], before[key][:, 1:])
+        assert not torch.equal(pool[key][:, 0], before[key][:, 0])
+
+
+def test_decode_step_paged_matches_jax():
+    """Same weights, pool and table in both packages: a chunk then two steps
+    of ``decode_step_paged``, logits within 1e-5."""
+    jm = JaxLM(**CFG, n_kv_heads=2)
+    np_params = jm.init(3)
+    jparams = {k: jnp.asarray(v) for k, v in np_params.items()}
+    model = TransformerLM(**CFG, n_kv_heads=2, device="cpu")
+    params = from_jax_params(np_params, device="cpu")
+    rng = np.random.default_rng(4)
+    B, M_ = 3, 6
+    _, pool, table = _pools(model, B, M_)
+    jpool = {k: jnp.asarray(v.numpy()) for k, v in pool.items()}
+    jtable = jnp.asarray(table.numpy())
+    toks = rng.integers(0, 17, (B, 10)).astype(np.int32)
+    _, jpool = jm.decode_chunk_paged(jparams, jnp.asarray(toks), 0, jpool,
+                                     jtable, PAGE)
+    model.decode_chunk_paged(params, torch.from_numpy(toks).long(), 0, pool,
+                             table, PAGE)
+    pos = np.array([10, 10, 10], np.int32)
+    for _ in range(2):
+        tok = rng.integers(0, 17, (B,)).astype(np.int32)
+        jl, jpool = jm.decode_step_paged(jparams, jnp.asarray(tok),
+                                         jnp.asarray(pos), jpool, jtable, PAGE)
+        tl, _ = model.decode_step_paged(params, torch.from_numpy(tok).long(),
+                                        torch.from_numpy(pos), pool, table,
+                                        PAGE)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-5,
+                                   rtol=1e-5)
+        pos = pos + 1
