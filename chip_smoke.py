@@ -65,6 +65,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
     run's up to near ties, and every page comes back.
 13. ``paged_cross_check``: two requests, 8 new tokens, on a ``device="cpu"``
     paged engine against the card's paged tokens.
+14. ``kernel`` ``grouped_matmul``: K6-gmm (``gmm``, ``gmm_t``) and K6-tgmm
+    against their plain versions at the MoE serving decode layout (8 routed
+    rows in 1152), the training layout (9216 rows, the w1 and w2 shapes), a
+    hungry expert, ragged K/N and bf16 inputs; timed beside the plain
+    version, a per-expert ``torch.matmul`` (``tgmm``: per-tile ``bmm``)
+    yardstick, ``torch._grouped_mm`` in bf16 where it exists, and the bound.
+15. ``serve_moe``: Mixtral-8x7B's widths at 4 of 32 layers (float32, random
+    weights drawn on the card, cache 2048), ``moe_dispatch="gmm"``, behind
+    ``ServingEngine(n_slots=8)``: 16 greedy requests, prompts of 32-256
+    tokens, 32 new each; exactly 3L ``gmm`` launches per decode step and per
+    insert, L flash-decode per step, no backward kernel; a profiled decode
+    window. Then ``serve_moe_paged``: the same mix on ``paged=True``, L
+    paged-decode per step, tokens equal to the dense run's up to near ties.
+16. ``moe_cross_check``: one layer at full width, two requests, 8 new tokens,
+    card against a ``device="cpu"`` engine.
+17. ``train_moe``: 2 layers, float32, ``adam_compact(1e-3)``, ``attn="flash"``,
+    B 4 x T 1024: 2 warm-up and 3 timed steps, falling finite losses, per
+    step exactly 5L ``gmm``, 3L ``gmm_t``, 3L ``tgmm`` and L of each
+    flash-attention kernel; a profiled step.
+18. ``train_moe_cross_check``: one layer, B 1, T 64: loss and gradients on
+    the card against the CPU.
 
 Then the kernel summary line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -826,6 +847,7 @@ def _counters():
                                                        flash_attention_dq,
                                                        flash_attention_fwd)
     from elephas_tpu_torch.ops.flash_decode import flash_decode_lse
+    from elephas_tpu_torch.ops.grouped_matmul import gmm, gmm_t, tgmm
     from elephas_tpu_torch.ops.layer_norm import (fused_layer_norm,
                                                   fused_layer_norm_bwd)
     from elephas_tpu_torch.ops.paged_attention import (paged_flash_chunk,
@@ -837,7 +859,8 @@ def _counters():
             "flash_attention_dq": flash_attention_dq,
             "flash_attention_dkv": flash_attention_dkv,
             "paged_flash_decode_lse": paged_flash_decode_lse,
-            "paged_flash_chunk": paged_flash_chunk}
+            "paged_flash_chunk": paged_flash_chunk,
+            "gmm": gmm, "gmm_t": gmm_t, "tgmm": tgmm}
 
 
 def _zero_counters():
@@ -1231,6 +1254,497 @@ def paged_cross_check(card, params, prompts, gpu_tokens):
           "card": card})
 
 
+# -- phases 14 to 18: the mixture-of-experts LM -------------------------------------
+
+# Mixtral-8x7B-v0.1's published widths (its config.json), with the MoE
+# settings models/hf_import.py applies (capacity E/k: exact routing); depth
+# and the cache length are cut to fit one 80 GB card, nothing else
+MIXTRAL_8X7B = dict(vocab=32000, d_model=4096, n_heads=32, n_kv_heads=8,
+                    d_ff=14336, n_experts=8, k=2, capacity_factor=4.0,
+                    aux_weight=0.02, activation="swiglu", ffn_bias=False,
+                    norm="rmsnorm", norm_eps=1e-5, pos_encoding="rotary",
+                    rope_theta=1e6, attn_bias=False, tie_embeddings=False,
+                    moe_dispatch="gmm", max_len=2048)
+MOE_SERVE_LAYERS = 4
+MOE_TRAIN_LAYERS = 2
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
+GMM_TOL = {torch.float32: 2e-5, torch.bfloat16: 8e-3}
+
+
+def draw_params(model, seed: int):
+    """Random weights for ``model`` drawn on the card from a seeded
+    ``torch.Generator``, one layer at a time, with ``init``'s distributions
+    (glorot-uniform weights, N(0, 0.02) embeddings, unit norm scales, zero
+    biases): ``model.init`` would draw billions of float64 numbers on the
+    host at these widths."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    block = set(model._block_keys())
+    out = {}
+    for name, shape in model.param_shapes().items():
+        t = torch.empty(shape, dtype=torch.float32, device="cuda")
+        if name in ("ln1_s", "ln2_s", "lnf_s"):
+            t.fill_(1.0)
+        elif name.startswith(("ln", "b")):
+            t.zero_()
+        elif name in ("tok", "pos"):
+            t.normal_(0.0, 0.02, generator=gen)
+        else:
+            limit = (6.0 / (shape[-2] + shape[-1])) ** 0.5
+            for layer in (t if name in block else [t]):
+                layer.uniform_(-limit, limit, generator=gen)
+        out[name] = t
+    for name in model.moe.expert_keys():
+        out[name] = out[name].to(model.moe.param_dtype)
+    return out
+
+
+def _layer_slice(model, params, device):
+    """``params`` cut to ``model``'s depth (the first layers), on ``device``."""
+    shapes = model.param_shapes()
+    return {k: v[:shapes[k][0]].to(device) for k, v in params.items()}
+
+
+def _moe_layout(n_tokens, gen, tm=128, hungry=None):
+    """A real routing of ``n_tokens`` random tokens through a random Mixtral
+    router (experts never chosen when ``hungry`` is set): the tile layout
+    ``(tok_of_row, gmap)`` the grouped matmuls run on."""
+    from elephas_tpu_torch.parallel.expert import MoEFeedForward, _top_k_select
+
+    cfg = MIXTRAL_8X7B
+    moe = MoEFeedForward(cfg["d_model"], cfg["d_ff"], cfg["n_experts"], k=cfg["k"],
+                         capacity_factor=cfg["capacity_factor"], activation="swiglu",
+                         bias=False)
+    x = torch.randn(n_tokens, cfg["d_model"], device="cuda", generator=gen)
+    wg = torch.randn(cfg["d_model"], cfg["n_experts"], device="cuda", generator=gen) * 0.02
+    if hungry is not None:
+        x[:, 0] = 1.0
+        wg[0, hungry] = -1e3
+    gates = torch.softmax(x @ wg, dim=-1)
+    eidx, slot, _, _ = _top_k_select(gates, moe.capacity(n_tokens), moe.k)
+    _, _, tok_of_row, gmap = moe._tile_layout(eidx, slot, n_tokens, tm)
+    return x, tok_of_row, gmap
+
+
+def _gmm_bound(m_pad, K, N, gmap, itemsize, out_itemsize, ops_rate):
+    """Least time of one grouped product: lhs, each tiled expert's weight
+    panel and the output once each over 3.35 TB/s, or 2 M K N operations
+    over ``ops_rate``; ``(ms, "bytes"|"operations")``."""
+    experts = len(set(gmap.tolist()))
+    n_bytes = (m_pad * K + experts * K * N) * itemsize + m_pad * N * out_itemsize
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * m_pad * K * N / ops_rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _runs(gmap, tm):
+    """``(expert, first row, end row)`` of each expert's contiguous rows."""
+    from elephas_tpu_torch.ops.grouped_matmul import _runs as runs
+
+    return [(e, a * tm, b * tm) for e, a, b in runs(gmap)]
+
+
+def check_grouped_matmul(card):
+    """K6-gmm (``gmm``, ``gmm_t``) and K6-tgmm against their plain versions
+    on the card, tolerance max |diff| / max |plain| (float32 2e-5: sums over
+    up to 14336 terms in another order; bf16 outputs 8e-3, one bf16 rounding
+    of the same float32 sum), each case timed beside the plain version, a
+    library yardstick the port never calls and the bound."""
+    from elephas_tpu_torch.ops import grouped_matmul as G
+
+    cfg = MIXTRAL_8X7B
+    D, Fd, E = cfg["d_model"], cfg["d_ff"], cfg["n_experts"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def weights(*shape, dtype=f32):
+        limit = (6.0 / (shape[-2] + shape[-1])) ** 0.5
+        return (torch.rand(shape, device="cuda", generator=gen) * 2 - 1).mul_(limit).to(dtype)
+
+    def errors(got, want):
+        """``(max |diff|, max |diff| / max |plain|)``."""
+        diff = float((got.double() - want.double()).abs().max())
+        return diff, diff / max(float(want.double().abs().max()), 1e-30)
+
+    def lib_gmm(lhs, w, gmap, transpose):
+        tm = lhs.shape[0] // gmap.numel()
+        runs = _runs(gmap, tm)
+        out = torch.empty(lhs.shape[0], w.shape[1] if transpose else w.shape[2],
+                          dtype=lhs.dtype, device="cuda")
+
+        def run():
+            for e, a, b in runs:
+                torch.matmul(lhs[a:b], w[e].T if transpose else w[e], out=out[a:b])
+        return run
+
+    def lib_tgmm(lhs, g, gmap):
+        nm, tm = gmap.numel(), lhs.shape[0] // gmap.numel()
+        runs = [(e, a // tm, b // tm) for e, a, b in _runs(gmap, tm)]
+        lb = lhs.reshape(nm, tm, -1).transpose(1, 2)
+        gb = g.reshape(nm, tm, -1)
+
+        def run():
+            per_tile = torch.bmm(lb, gb)
+            return torch.stack([per_tile[a:b].sum(0) for _, a, b in runs])
+        return run
+
+    def grouped_mm_yardstick(lhs, w, gmap):
+        """``torch._grouped_mm`` in bf16 over the same rows, where the
+        card's torch has it (B column-major per group, as it wants)."""
+        if not hasattr(torch, "_grouped_mm"):
+            return None, "torch._grouped_mm absent"
+        tm = lhs.shape[0] // gmap.numel()
+        ends = torch.tensor([b for _, _, b in _runs(gmap, tm)], dtype=torch.int32,
+                            device="cuda")
+        a = lhs.to(bf16)
+        b = w.to(bf16).transpose(1, 2).contiguous().transpose(1, 2)
+        b = b[sorted({e for e, _, _ in _runs(gmap, tm)})]
+        ms = device_ms(lambda: torch._grouped_mm(a, b, offs=ends), [()], n_iter=10)
+        return ms, "torch._grouped_mm (bf16, per-expert offsets)"
+
+    checks, timings = [], []
+
+    def case(name, lhs, w, g, gmap, dtype):
+        """gmm(lhs, w), gmm_t(g, w) and tgmm(lhs, g) at one layout, checked
+        and timed."""
+        K, N = w.shape[1], w.shape[2]
+        m_pad, tm = lhs.shape[0], lhs.shape[0] // gmap.numel()
+        tol = GMM_TOL[dtype]
+        row = {"case": name, "M_pad": m_pad, "K": K, "N": N, "tm": tm,
+               "dtype": str(dtype), "tiles_per_expert": np.bincount(
+                   gmap.cpu().numpy(), minlength=E).tolist()}
+        errs, abs_errs = {}, {}
+        got, want = G.gmm(lhs, w, gmap), G.gmm_reference(lhs, w, gmap)
+        abs_errs["gmm"], errs["gmm"] = errors(got, want)
+        got, want = G.gmm_t(g, w, gmap), G.gmm_reference(g, w, gmap, True)
+        abs_errs["gmm_t"], errs["gmm_t"] = errors(got, want)
+        got = G.tgmm(lhs, g, gmap, E)
+        want = G.tgmm_reference(lhs, g, gmap, E)
+        abs_errs["tgmm"], errs["tgmm"] = errors(got, want)
+        empty = [e for e in range(E) if e not in set(gmap.tolist())]
+        if dtype == bf16:
+            got16 = G.tgmm(lhs, g, gmap, E, bf16)
+            abs_errs["tgmm_bf16_out"], errs["tgmm_bf16_out"] = errors(got16, want.to(bf16))
+        torch.cuda.synchronize()
+        for k_, e in errs.items():
+            tol_k = GMM_TOL[f32] if k_ == "tgmm" else tol
+            require(e <= tol_k, f"grouped_matmul {name} {k_}: max|diff|/max|plain| "
+                                f"{e} > {tol_k}")
+        require(all(bool((got[e] == 0).all()) for e in empty),
+                f"grouped_matmul {name}: an expert without rows got a nonzero gradient")
+        row.update({"max_rel_err": errs, "max_abs_err": abs_errs, "tol": tol,
+                    "tgmm_tol": GMM_TOL[f32], "experts_without_rows": empty})
+        checks.append(row)
+        del got, want
+        isz = lhs.element_size()
+        rate = BF16_OPS_PER_S if dtype == bf16 else F32_OPS_PER_S
+        n_it = 10 if m_pad * K * N < 1e11 else 4
+        for fn_name, fn, plain, lib, M_, K_, N_, out_isz in (
+                ("gmm", lambda: G.gmm(lhs, w, gmap),
+                 lambda: G.gmm_reference(lhs, w, gmap), lib_gmm(lhs, w, gmap, False),
+                 m_pad, K, N, isz),
+                ("gmm_t", lambda: G.gmm_t(g, w, gmap),
+                 lambda: G.gmm_reference(g, w, gmap, True), lib_gmm(g, w, gmap, True),
+                 m_pad, N, K, isz),
+                ("tgmm", lambda: G.tgmm(lhs, g, gmap, E),
+                 lambda: G.tgmm_reference(lhs, g, gmap, E), lib_tgmm(lhs, g, gmap),
+                 K, m_pad, N, 4)):
+            ms = device_ms(fn, [()], n_iter=n_it)
+            plain_ms = device_ms(plain, [()], n_iter=n_it)
+            lib_ms = device_ms(lib, [()], n_iter=n_it)
+            if fn_name == "tgmm":
+                # lhs and g read once, the [E', K, N] float32 output written once
+                experts = len(set(gmap.tolist()))
+                n_bytes = (m_pad * K + m_pad * N) * isz + experts * K * N * 4
+                t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+                t_o = 2.0 * m_pad * K * N / rate * 1e3
+                bms, by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+            else:
+                bms, by = _gmm_bound(M_, K_, N_, gmap, isz, out_isz, rate)
+            t = {"case": name, "kernel": fn_name, "ms": ms, "plain_ms": plain_ms,
+                 "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+                 "tflops": 2.0 * m_pad * K * N / ms / 1e9}
+            if fn_name == "gmm" and name in ("decode_w1", "train_w1"):
+                t["grouped_mm_bf16_ms"], t["grouped_mm_note"] = grouped_mm_yardstick(
+                    lhs, w, gmap)
+            timings.append(t)
+
+    # the serving decode layout: 8 rows routed, k 2, E 8, tm 128 -> 1152 rows
+    x, tok, gmap = _moe_layout(8, gen)
+    from elephas_tpu_torch.parallel.expert import _gather_rows
+
+    lhs = _gather_rows(x, tok)
+    w1 = weights(E, D, Fd)
+    g = torch.randn(lhs.shape[0], Fd, device="cuda", generator=gen)
+    case("decode_w1", lhs, w1, g, gmap, f32)
+    live = int((tok < 8).sum())
+    decode_live = {"live_rows": live, "M_pad": lhs.shape[0],
+                   "live_share": live / lhs.shape[0]}
+    case("decode_w1_bf16", lhs.to(bf16), w1.to(bf16), g.to(bf16), gmap, bf16)
+    del lhs, g
+    # the training layout: B 4 x T 1024 tokens -> 9216 rows; w1 and w2 shapes
+    x, tok, gmap = _moe_layout(4096, gen)
+    xs = _gather_rows(x, tok)
+    h = torch.randn(xs.shape[0], Fd, device="cuda", generator=gen)
+    case("train_w1", xs, w1, h, gmap, f32)
+    del w1
+    w2 = weights(E, Fd, D)
+    dout = torch.randn(xs.shape[0], D, device="cuda", generator=gen)
+    case("train_w2", h, w2, dout, gmap, f32)
+    del w2, xs, h, dout
+    # a hungry expert: expert 3 never chosen, only its all-sentinel tile
+    x, tok, gmap = _moe_layout(64, gen, hungry=3)
+    require(bool((gmap == 3).sum() == 1) and bool((tok[gmap.repeat_interleave(128) == 3] == 64).all()),
+            "grouped_matmul: the hungry expert's layout is not one all-sentinel tile")
+    lhs = _gather_rows(x, tok)
+    case("hungry_expert", lhs, weights(E, D, 512), torch.randn(lhs.shape[0], 512,
+         device="cuda", generator=gen), gmap, f32)
+    # ragged K and N, no multiple of any tile
+    gmap = torch.tensor([0, 1, 1, 2], dtype=torch.int32, device="cuda")
+    lhs = torch.randn(512, 200, device="cuda", generator=gen)
+    case("ragged_k200_n100", lhs, weights(3, 200, 100),
+         torch.randn(512, 100, device="cuda", generator=gen), gmap, f32)
+    case("ragged_k200_n100_bf16", lhs.to(bf16), weights(3, 200, 100, dtype=bf16),
+         torch.randn(512, 100, device="cuda", generator=gen).to(bf16), gmap, bf16)
+
+    f32_checks = [c for c in checks if c["dtype"] == str(f32)]
+    worst = {n: max(c["max_rel_err"][n] for c in f32_checks) for n in ("gmm", "gmm_t", "tgmm")}
+    worst_abs = {n: max(c["max_abs_err"][n] for c in f32_checks)
+                 for n in ("gmm", "gmm_t", "tgmm")}
+    rows = []
+    for name, main_case, repl in (
+            ("gmm", "decode_w1", "elephas_tpu/ops/grouped_matmul.py:237"),
+            ("gmm_t", "train_w1", "elephas_tpu/ops/grouped_matmul.py:237"),
+            ("tgmm", "train_w1", "elephas_tpu/ops/grouped_matmul.py:321")):
+        t = next(t for t in timings if t["case"] == main_case and t["kernel"] == name)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "elephas_tpu_torch/ops/csrc/grouped_matmul.cu",
+                     "replaces": repl, "max_abs_err": worst_abs[name],
+                     "max_rel_err": worst[name],
+                     "error_measure": "worst of the float32 cases; max_rel_err is "
+                                      "max |diff| / max |plain|, held to its tolerance",
+                     "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                     "library": ("per-tile torch.bmm + per-expert sum" if name == "tgmm"
+                                 else "per-expert torch.matmul over contiguous rows"),
+                     "timed_shape": {k_: c[k_] for c in checks if c["case"] == main_case
+                                     for k_ in ("M_pad", "K", "N", "tm", "dtype")}})
+    emit({"phase": "kernel", "kernel": "grouped_matmul", "checks": checks,
+          "timing": timings, "decode_layout": decode_live, "card": card})
+    return rows
+
+
+def serve_moe(card):
+    """The Mixtral-width MoE LM (4 layers, float32, ``moe_dispatch="gmm"``)
+    behind ``ServingEngine(n_slots=8)``: 16 greedy requests of 32-256-token
+    prompts and 32 new tokens; exactly 3L ``gmm`` launches per decode step
+    and per prefill insert, L flash-decode launches per decode step, no
+    ``gmm_t``/``tgmm``; then ten decode steps under the profiler."""
+    from elephas_tpu_torch.models import MoETransformerLM
+    from elephas_tpu_torch.serving import ServingEngine
+
+    L = MOE_SERVE_LAYERS
+    t0 = time.perf_counter()
+    model = MoETransformerLM(**dict(MIXTRAL_8X7B, n_layers=L), device="cuda")
+    params = draw_params(model, SEED + 20)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    gen = np.random.default_rng(SEED + 21)
+    V = MIXTRAL_8X7B["vocab"]
+    prompts = [gen.integers(0, V, size=int(n)).astype(np.int32)
+               for n in gen.integers(32, 257, size=16)]
+    warm = ServingEngine(model, params, n_slots=8, device="cuda")
+    _drain(warm, [p[:32] for p in prompts[:2]], 4)
+    del warm
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(model, params, n_slots=8, device="cuda")
+    _zero_counters()
+    fin, wall = _drain(eng, prompts, 32)
+    counts = _read_counters()
+    snap = eng.snapshot()
+    steps, inserts = snap["engine"]["decode_steps"], snap["engine"]["prefills"]
+    require(steps > 0 and counts["gmm"] == 3 * L * (steps + inserts),
+            f"serve_moe: gmm launched {counts['gmm']} times, want 3 x {L} x "
+            f"({steps} decode steps + {inserts} inserts)")
+    require(counts["flash_decode_lse"] == L * steps,
+            f"serve_moe: flash decode launched {counts['flash_decode_lse']} times, "
+            f"want {L} x {steps}")
+    require(counts["gmm_t"] + counts["tgmm"] + counts["layer_norm_fwd"] == 0,
+            f"serve_moe: unexpected launches {counts}")
+    tokens = [f.tokens for f in fin]
+    for t in tokens:
+        require(all(0 <= x < V for x in t), "serve_moe: token out of range")
+    stats = _serving_stats(snap, fin, wall)
+    peak = torch.cuda.max_memory_allocated()
+    eng2 = ServingEngine(model, params, n_slots=8, device="cuda")
+    for p in prompts[:8]:
+        eng2.submit(p, 32)
+    while eng2.kv.free_slots:
+        eng2.step()
+
+    def run():
+        require(eng2.step() == "decode", "serve_moe profile window left the decode loop")
+
+    prof = profiled(run, 10, top_n=10)
+    del eng2
+    emit({"phase": "serve_moe", "model": "Mixtral-8x7B widths, 4 of 32 layers "
+          "(random weights, seed 20)", "dtype": "float32", "max_len": MIXTRAL_8X7B["max_len"],
+          "requests": 16, "new_tokens_each": 32, "prompt_lens": [int(len(p)) for p in prompts],
+          "decode_steps": steps, "inserts": inserts, "launches": counts,
+          "launches_per_decode_step_and_insert": {"gmm": counts["gmm"] / (steps + inserts)},
+          "launches_per_decode_step": {"flash_decode_lse": counts["flash_decode_lse"] / steps},
+          **stats, "weights_setup_s": setup_s, "peak_mem_gb": peak / 1e9,
+          "profiled_decode": prof, "card": card})
+    return model, params, prompts, tokens, counts, stats
+
+
+def serve_moe_paged(card, model, params, prompts, dense_tokens, dense_stats):
+    """The ``serve_moe`` mix on ``paged=True, page_size=16``: L paged-decode
+    launches per decode step and 3L ``gmm`` per step and insert, greedy tokens
+    equal to the dense MoE run's up to the first near tie."""
+    from elephas_tpu_torch.serving import ServingEngine
+
+    L = MOE_SERVE_LAYERS
+    eng = ServingEngine(model, params, n_slots=8, paged=True, page_size=16, device="cuda")
+    _zero_counters()
+    fin, wall = _drain(eng, prompts, 32)
+    counts = _read_counters()
+    snap = eng.snapshot()
+    steps, inserts = snap["engine"]["decode_steps"], snap["engine"]["prefills"]
+    eng.kv.check()
+    require(steps > 0 and counts["paged_flash_decode_lse"] == L * steps,
+            f"serve_moe_paged: paged decode launched {counts['paged_flash_decode_lse']} "
+            f"times, want {L} x {steps}")
+    require(counts["paged_flash_chunk"] == L * inserts,
+            f"serve_moe_paged: paged chunk launched {counts['paged_flash_chunk']} times")
+    require(counts["gmm"] == 3 * L * (steps + inserts),
+            f"serve_moe_paged: gmm launched {counts['gmm']} times")
+    require(counts["flash_decode_lse"] + counts["gmm_t"] + counts["tgmm"] == 0,
+            f"serve_moe_paged: unexpected launches {counts}")
+    tokens = [f.tokens for f in fin]
+    compared = _agree("serve_moe_paged vs serve_moe", model, params, prompts, tokens,
+                      dense_tokens)
+    emit({"phase": "serve_moe_paged", "page_size": 16, "decode_steps": steps,
+          "inserts": inserts, "launches": counts,
+          "launches_per_decode_step": {"paged_flash_decode_lse":
+                                       counts["paged_flash_decode_lse"] / steps},
+          **_serving_stats(snap, fin, wall), "dense_same_call": dense_stats,
+          "tokens_compared_with_dense": compared, "memory": snap["memory"],
+          "card": card})
+    return counts
+
+
+def moe_cross_check(card, params, prompts):
+    """Full width, one layer: two requests of the mix, 8 new tokens, on the
+    card and on a ``device="cpu"`` engine from the same weights, equal up
+    to each request's first near tie."""
+    from elephas_tpu_torch.models import MoETransformerLM
+    from elephas_tpu_torch.serving import ServingEngine
+
+    order = np.argsort([len(p) for p in prompts])[:2]
+    sel = [prompts[i] for i in order]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = MoETransformerLM(**dict(MIXTRAL_8X7B, n_layers=1), device=dev)
+        p = _layer_slice(model, params, dev)
+        eng = ServingEngine(model, p, n_slots=2, device=dev)
+        ids = [eng.submit(q, 8) for q in sel]
+        fin = eng.drain()
+        out[dev] = (model, p, [fin[r].tokens for r in ids])
+    cpu_model, cpu_params, cpu = out["cpu"]
+    compared = _agree("moe_cross_check", cpu_model, cpu_params, sel, out["cuda"][2], cpu)
+    emit({"phase": "moe_cross_check", "layers": 1, "requests": [int(i) for i in order],
+          "compared": compared, "cpu": cpu, "gpu": out["cuda"][2], "card": card})
+
+
+def train_moe(card):
+    """Two Mixtral-width layers, float32, trained by ``build_lm_train_step(
+    model, None, adam_compact(1e-3), attn="flash")`` on one fixed batch of
+    4 x 1024 tokens: 2 warm-up and 3 timed steps with finite, falling
+    losses; per timed step exactly 5L gmm, 3L gmm_t, 3L tgmm and L of each
+    flash-attention kernel."""
+    from elephas_tpu_torch.models import (MoETransformerLM, adam_compact,
+                                          build_lm_train_step, make_lm_batches)
+
+    L = MOE_TRAIN_LAYERS
+    model = MoETransformerLM(**dict(MIXTRAL_8X7B, n_layers=L), device="cuda")
+    params = draw_params(model, SEED + 22)
+    B, T = 4, 1024
+    rows = np.random.default_rng(SEED + 23).integers(0, MIXTRAL_8X7B["vocab"],
+                                                     size=(B, T + 1))
+    batch = tuple(torch.from_numpy(a).cuda() for a in make_lm_batches(rows))
+    step, opt_init = build_lm_train_step(model, None, adam_compact(1e-3), attn="flash")
+    state = opt_init(params)
+    losses = []
+    for _ in range(2):
+        params, state, loss = step(params, state, *batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_steps = 3
+    _zero_counters()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        params, state, loss = step(params, state, *batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    require(all(np.isfinite(losses)), f"train_moe: non-finite loss in {losses}")
+    require(losses[-1] < losses[0], f"train_moe: loss did not fall: {losses}")
+    want = {"gmm": 5 * L, "gmm_t": 3 * L, "tgmm": 3 * L, "flash_attention_fwd": L,
+            "flash_attention_dq": L, "flash_attention_dkv": L, "layer_norm_fwd": 0}
+    for name, per_step in want.items():
+        require(counts[name] == per_step * n_steps,
+                f"train_moe: {name} launched {counts[name]} times in {n_steps} "
+                f"steps, want {per_step} per step")
+    prof = profiled(lambda: step(params, state, *batch), 1, top_n=12)
+    emit({"phase": "train_moe", "model": "Mixtral-8x7B widths, 2 of 32 layers "
+          "(random weights, seed 22)", "dtype": "float32",
+          "optimizer": "adam_compact(1e-3)", "attn": "flash", "batch": B, "seq_len": T,
+          "warmup_steps": 2, "timed_steps": n_steps, "ms_per_step": wall * 1e3 / n_steps,
+          "tokens_per_s": n_steps * B * T / wall, "peak_mem_gb": peak / 1e9,
+          "losses": losses, "launches": counts,
+          "launches_per_step": {k: v / n_steps for k, v in counts.items()},
+          "profiled_step": prof, "card": card})
+    return model, params, counts
+
+
+def train_moe_cross_check(card, params):
+    """One layer at full width, B 1, T 64: the loss and every gradient on
+    the card against ``device="cpu"`` from the same weights, at
+    ``train_cross_check``'s tolerances (loss rtol 1e-4; each gradient within
+    1e-3 of its scale, floored at 1e-4 of the largest entry)."""
+    from elephas_tpu_torch.models import (MoETransformerLM, adam_compact,
+                                          build_lm_train_step, make_lm_batches)
+
+    rows = np.random.default_rng(SEED + 24).integers(0, MIXTRAL_8X7B["vocab"],
+                                                     size=(1, 65))
+    batch = make_lm_batches(rows)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = MoETransformerLM(**dict(MIXTRAL_8X7B, n_layers=1), device=dev)
+        p = _layer_slice(model, params, dev)
+        step, _ = build_lm_train_step(model, None, adam_compact(1e-3), attn="flash")
+        loss, grads = step.grad(p, *batch)
+        out[dev] = (float(loss), {k: g.cpu().double() for k, g in grads.items()})
+        del p, grads
+    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+    loss_rel = abs(lg - lc) / abs(lc)
+    require(loss_rel <= 1e-4, f"train_moe_cross_check: loss {lg} vs cpu {lc}")
+    floor = 1e-4 * max(float(g.abs().max()) for g in gc.values())
+    grad_rel = {k: float((gg[k] - gc[k]).abs().max()) / max(float(gc[k].abs().max()), floor)
+                for k in gc}
+    worst = max(grad_rel, key=grad_rel.get)
+    require(grad_rel[worst] <= 1e-3, f"train_moe_cross_check: gradient of {worst} off "
+                                     f"by {grad_rel[worst]} of its scale")
+    emit({"phase": "train_moe_cross_check", "layers": 1, "batch": 1, "seq_len": 64,
+          "loss_gpu": lg, "loss_cpu": lc, "loss_rel_diff": loss_rel, "loss_rtol": 1e-4,
+          "grad_err_rel_to_scale": grad_rel, "scale_floor": floor, "grad_tol": 1e-3,
+          "card": card})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script drives the "
@@ -1252,7 +1766,7 @@ def main() -> int:
           "count": torch.cuda.device_count()})
     t0 = time.perf_counter()
     built = _build.build(["layer_norm", "flash_decode", "flash_attention",
-                          "paged_attention"])
+                          "paged_attention", "grouped_matmul"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": built, "card": card})
     try:
@@ -1272,19 +1786,36 @@ def main() -> int:
         prefix(card, params)
         preempt(card, params)
         paged_cross_check(card, params, prompts, paged_tokens)
+        gmm_rows = check_grouped_matmul(card)
+        moe_model, moe_params, moe_prompts, moe_tokens, moe_counts, moe_stats = \
+            serve_moe(card)
+        moe_paged_counts = serve_moe_paged(card, moe_model, moe_params, moe_prompts,
+                                           moe_tokens, moe_stats)
+        moe_cross_check(card, moe_params, moe_prompts)
+        del moe_model, moe_params
+        torch.cuda.empty_cache()
+        _, moe_train_params, moe_train_counts = train_moe(card)
+        train_moe_cross_check(card, moe_train_params)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     # each row's `launches` is its own slice's main path: dense serving for
     # K3-fwd and K4, the five timed train steps for K2 and K3-bwd, paged
-    # serving for K5
-    rows = [ln_fwd, ln_bwd, decode, *attn_rows, *paged_rows]
+    # serving for K5, MoE serving for K6-gmm, the three timed MoE train
+    # steps for gmm_t and K6-tgmm
+    rows = [ln_fwd, ln_bwd, decode, *attn_rows, *paged_rows, *gmm_rows]
     paths = {"serve": serve_counts, "train_5_steps": train_counts,
-             "generate": gen_counts, "serve_paged": paged_counts}
+             "generate": gen_counts, "serve_paged": paged_counts,
+             "serve_moe": moe_counts, "serve_moe_paged": moe_paged_counts,
+             "train_moe_3_steps": moe_train_counts}
+    main_paths = {"layer_norm_fwd": "serve", "flash_decode_lse": "serve",
+                  "paged_flash_decode_lse": "serve_paged",
+                  "paged_flash_chunk": "serve_paged", "gmm": "serve_moe",
+                  "gmm_t": "train_moe_3_steps", "tgmm": "train_moe_3_steps"}
     for row in rows:
         name = row["name"]
-        main_path = ("serve_paged" if name.startswith("paged") else
-                     "serve" if name in serve_counts else "train_5_steps")
+        main_path = main_paths.get(name, "train_5_steps")
+        row["main_path"] = main_path
         row["launches"] = paths[main_path][name]
         row["launches_by_path"] = {k: v.get(name, 0) for k, v in paths.items()}
     print(json.dumps({"kernels": rows}), flush=True)

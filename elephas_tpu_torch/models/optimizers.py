@@ -73,11 +73,28 @@ def _adam_fns(learning_rate: float, b1: float, b2: float, eps: float,
         one = torch.ones((), dtype=torch.float32, device=c.device)
         return (1.0 - torch.pow(one * b1, c), 1.0 - torch.pow(one * b2, c))
 
+    # Every step below rounds exactly as the out-of-place expression in its
+    # comment; the in-place forms work on fresh float32 temporaries only
+    # (never on an argument), which keeps one parameter's transient memory
+    # at about two float32 copies of it: at Mixtral width one expert stack
+    # is 3.8 GB.
     def moments(g, m, v):
         g32 = g.to(torch.float32)
-        m32 = b1 * m.to(torch.float32) + (1.0 - b1) * g32
-        v32 = b2 * v.to(torch.float32) + (1.0 - b2) * g32 * g32
+        # b1 * m + (1 - b1) * g
+        m32 = m.to(torch.float32, copy=True).mul_(b1).add_((1.0 - b1) * g32)
+        # b2 * v + (1 - b2) * g * g
+        v32 = v.to(torch.float32, copy=True).mul_(b2).add_((1.0 - b2) * g32 * g32)
         return m32, v32
+
+    def step_and_moments(g, m, v, bc1, bc2):
+        """``(u, mu, nu)``: the scaled update ``((m / bc1) / (sqrt(v / bc2)
+        + eps)) * step_size`` in float32 and the new stored moments."""
+        m32, v32 = moments(g, m, v)
+        # copies even for float32 moments: m32 and v32 are reused in place
+        mu = m32.to(moment_dtype, copy=True)
+        nu = v32.to(moment_dtype, copy=True)
+        den = v32.div_(bc2).sqrt_().add_(eps)
+        return m32.div_(bc1).div_(den).mul_(step_size), mu, nu
 
     def update(grads: Params, state: AdamState, params=None):
         del params
@@ -85,10 +102,9 @@ def _adam_fns(learning_rate: float, b1: float, b2: float, eps: float,
         bc1, bc2 = corrections(count)
         updates, mu, nu = {}, {}, {}
         for k, g in grads.items():
-            m32, v32 = moments(g, state.mu[k], state.nu[k])
-            u = (m32 / bc1) / (torch.sqrt(v32 / bc2) + eps)
-            updates[k] = u * step_size      # optax.scale(-learning_rate)
-            mu[k], nu[k] = m32.to(moment_dtype), v32.to(moment_dtype)
+            # optax.scale(-learning_rate) is the step_size factor
+            updates[k], mu[k], nu[k] = step_and_moments(
+                g, state.mu[k], state.nu[k], bc1, bc2)
         return updates, AdamState(count, mu, nu)
 
     def fused_apply(grads: Params, state: AdamState, params: Params):
@@ -96,11 +112,10 @@ def _adam_fns(learning_rate: float, b1: float, b2: float, eps: float,
         bc1, bc2 = corrections(count)
         out, mu, nu = {}, {}, {}
         for k, g in grads.items():
-            m32, v32 = moments(g, state.mu[k], state.nu[k])
-            u = ((m32 / bc1) / (torch.sqrt(v32 / bc2) + eps)) * step_size
+            u, mu[k], nu[k] = step_and_moments(g, state.mu[k], state.nu[k],
+                                               bc1, bc2)
             p = params[k]
             out[k] = (p + u).to(p.dtype)
-            mu[k], nu[k] = m32.to(moment_dtype), v32.to(moment_dtype)
         return out, AdamState(count, mu, nu)
 
     return init, update, fused_apply

@@ -25,10 +25,12 @@ function of ``(params, opt_state, batch)``.
 Every LayerNorm goes through the fused kernels on the card, backward
 included. Architecture knobs ported: relu / gelu (tanh) / swiglu, layernorm
 / rmsnorm, attention and FFN biases, learned / rotary positions, tied
-embeddings, grouped-query attention, float32 or bfloat16 compute. Sliding
-windows with rolling caches, MoE, LoRA, sequence parallelism (``mesh``,
-``attn="ring"``/``"ulysses"``) and ``overlap_grads`` are later slices and
-raise ``NotImplementedError``.
+embeddings, grouped-query attention, float32 or bfloat16 compute, and the
+mixture-of-experts variant :class:`MoETransformerLM` (routed expert FFNs
+on the grouped-matmul kernels, its load-balancing loss in the training
+objective). Sliding windows with rolling caches, LoRA, sequence and expert
+parallelism (``mesh``, ``attn="ring"``/``"ulysses"``) and ``overlap_grads``
+are later slices and raise ``NotImplementedError``.
 
 JAX's arrays are immutable and its serving kernels donate the KV cache so
 XLA updates it in place; here the cache is updated in place explicitly
@@ -348,6 +350,8 @@ class TransformerLM(nn.Module):
     :meth:`init` and :meth:`init_cache` put their tensors (default
     ``"cuda"``; raises without CUDA unless ``"cpu"`` is asked for)."""
 
+    _supports_speculative = True
+
     def __init__(self, vocab: int, d_model: int, n_heads: int, n_layers: int,
                  d_ff: int, max_len: int, compute_dtype: str = "float32",
                  pos_encoding: str = "learned", tie_embeddings: bool = False,
@@ -396,6 +400,7 @@ class TransformerLM(nn.Module):
         self.rope_theta = float(rope_theta)
         self.tie_embeddings = bool(tie_embeddings)
         self.compute_dtype = _DTYPES[compute_dtype]
+        self.aux_weight = 0.0  # the MoE variant weighs its aux loss
 
     # -- parameters ---------------------------------------------------------
     def param_shapes(self) -> Dict[str, Tuple[int, ...]]:
@@ -500,7 +505,11 @@ class TransformerLM(nn.Module):
             y = y + lp["b" + name].to(x.dtype)
         return y
 
-    def _ffn(self, lp, x):
+    def _ffn(self, lp, x, attn: str = "dense", ep_groups: Optional[int] = None):
+        """Per-block FFN → ``(residual delta, aux loss)``; the aux is 0.0
+        here. The MoE variant routes through experts and uses ``attn`` and
+        ``ep_groups`` to pick its dispatch groups (decode passes 1)."""
+        del attn, ep_groups
         cd = x.dtype
         u = x @ lp["w1"].to(cd)
         if self.ffn_bias:
@@ -515,7 +524,7 @@ class TransformerLM(nn.Module):
         out = u @ lp["w2"].to(cd)
         if self.ffn_bias:
             out = out + lp["b2"].to(cd)
-        return out
+        return out, 0.0
 
     def _rope_for(self, positions):
         """``(cos, sin)`` shaped ``[B, T, 1, Dh/2]`` for rotary models, else
@@ -576,7 +585,8 @@ class TransformerLM(nn.Module):
             a = decode_attention(qg, kc, vc, pos32).to(cd)
             h = h + self._attn_proj(lp, "o", a.reshape(B, self.d_model))
             x = self._norm_h(lp, "ln2", h).to(cd)
-            h = h + self._ffn(lp, x).to(cd)
+            out, _ = self._ffn(lp, x[:, None, :], "dense", ep_groups=1)
+            h = h + out[:, 0].to(cd)
         h = self._norm_h(params, "lnf", h)
         return self._logits(params, h), cache
 
@@ -615,7 +625,8 @@ class TransformerLM(nn.Module):
             a = a.reshape(B, H, S, Dh).transpose(1, 2)
             h = h + self._attn_proj(lp, "o", a.reshape(B, S, self.d_model))
             x = self._norm_h(lp, "ln2", h).to(cd)
-            h = h + self._ffn(lp, x).to(cd)
+            out, _ = self._ffn(lp, x, "dense", ep_groups=1)
+            h = h + out.to(cd)
         h = self._norm_h(params, "lnf", h)
         return self._logits(params, h), cache
 
@@ -697,7 +708,8 @@ class TransformerLM(nn.Module):
             a = paged_decode_attention(qg, kp, vp, table, pos32, page).to(cd)
             h = h + self._attn_proj(lp, "o", a.reshape(B, self.d_model))
             x = self._norm_h(lp, "ln2", h).to(cd)
-            h = h + self._ffn(lp, x).to(cd)
+            out, _ = self._ffn(lp, x[:, None, :], "dense", ep_groups=1)
+            h = h + out[:, 0].to(cd)
         h = self._norm_h(params, "lnf", h)
         return self._logits(params, h), pool
 
@@ -740,7 +752,8 @@ class TransformerLM(nn.Module):
             a = a.reshape(B, H, S, Dh).transpose(1, 2)
             h = h + self._attn_proj(lp, "o", a.reshape(B, S, self.d_model))
             x = self._norm_h(lp, "ln2", h).to(cd)
-            h = h + self._ffn(lp, x).to(cd)
+            out, _ = self._ffn(lp, x, "dense", ep_groups=1)
+            h = h + out.to(cd)
         h = self._norm_h(params, "lnf", h)
         return self._logits(params, h), pool
 
@@ -767,13 +780,15 @@ class TransformerLM(nn.Module):
                 "(ROADMAP.md queue 1, 'Parallel extensions')")
         raise ValueError(f"Unknown attn: {attn}")
 
-    def _block_fwd(self, h, lp, attn: str, rope=None):
+    def _block_fwd(self, h, lp, attn: str, rope=None,
+                   ep_groups: Optional[int] = None):
         """One transformer block on ``h`` ``[B, T, D]``, the block math
         shared by the teacher-forced forward and :meth:`prefill`. Layernorm
         runs in float32, everything else in the compute dtype; under rotary
         positions q and k rotate by ``rope`` before attention (so the
-        returned, cacheable k is pre-rotated). Returns ``(h, k, v)`` with
-        ``k``/``v`` ``[B, T, Hkv, Dh]``."""
+        returned, cacheable k is pre-rotated). ``attn`` and ``ep_groups``
+        reach :meth:`_ffn` too. Returns ``(h, aux, k, v)`` with ``k``/``v``
+        ``[B, T, Hkv, Dh]``."""
         B, T = h.shape[0], h.shape[1]
         H, Hkv = self.n_heads, self.n_kv_heads
         Dh = self.d_model // H
@@ -788,13 +803,15 @@ class TransformerLM(nn.Module):
         a = self._attend(q, k, v, attn).to(cd)
         h = h + self._attn_proj(lp, "o", a.reshape(B, T, self.d_model))
         x = self._norm_h(lp, "ln2", h).to(cd)
-        return h + self._ffn(lp, x).to(cd), k, v
+        out, aux = self._ffn(lp, x, attn, ep_groups)
+        return h + out.to(cd), aux, k, v
 
     def apply_hidden(self, params, tokens, positions, attn: str = "dense",
                      remat: str = "none"):
         """The forward up to and including the final norm: ``tokens`` and
         ``positions`` (absolute) int ``[B, T]`` → ``(h [B, T, D], aux)``,
-        ``aux`` the summed auxiliary loss (0 for this dense model). Lets a
+        ``aux`` the auxiliary loss summed over the layers (0 for the dense
+        FFN, the load-balancing loss for MoE). Lets a
         large-vocab loss stream the head (:func:`chunked_summed_xent`).
         ``remat`` is the per-layer rematerialisation policy
         (``"none"|"dots"|"full"``)."""
@@ -802,16 +819,18 @@ class TransformerLM(nn.Module):
         tokens, positions = _as_index(tokens, dev), _as_index(positions, dev)
         h = self._embed(params, tokens, positions)
         rope = self._rope_for(positions)
-        block = _remat_wrap(lambda h, lp: self._block_fwd(h, lp, attn, rope)[0],
+        block = _remat_wrap(lambda h, lp: self._block_fwd(h, lp, attn, rope)[:2],
                             remat)
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
         for lp in self._layers(params):
-            h = block(h, lp)
+            h, a = block(h, lp)
+            aux = aux + a
         h = self._norm_h(params, "lnf", h)
-        return h, torch.zeros((), dtype=torch.float32, device=dev)
+        return h, aux
 
     def apply_with_aux(self, params, tokens, positions, attn: str = "dense",
                        remat: str = "none"):
-        """:meth:`apply` plus the summed auxiliary loss (0 here)."""
+        """:meth:`apply` plus the summed auxiliary loss."""
         h, aux = self.apply_hidden(params, tokens, positions, attn, remat)
         return self._logits(params, h), aux
 
@@ -841,7 +860,7 @@ class TransformerLM(nn.Module):
         h = self._embed(params, tokens, positions)
         rope = self._rope_for(positions)
         for l, lp in enumerate(self._layers(params)):
-            h, k, v = self._block_fwd(h, lp, "flash", rope)
+            h, _, k, v = self._block_fwd(h, lp, "flash", rope, ep_groups=1)
             cache["k"][l, :, :, :T0] = k.transpose(1, 2)
             cache["v"][l, :, :, :T0] = v.transpose(1, 2)
         h = self._norm_h(params, "lnf", h)
@@ -895,14 +914,125 @@ class TransformerLM(nn.Module):
         return buf.to(torch.int32)
 
 
-class MoETransformerLM:
-    """The reference's mixture-of-experts LM (``MoETransformerLM`` in
-    ``elephas_tpu/models/transformer.py``); not ported yet."""
+class MoETransformerLM(TransformerLM):
+    """Mixture-of-experts LM: every block's FFN is a top-``k`` routed
+    expert layer (:class:`~elephas_tpu_torch.parallel.MoEFeedForward`), the
+    reference's ``MoETransformerLM`` on one device. Total parameters scale
+    with ``n_experts`` while per-token FLOPs stay constant; the Switch
+    load-balancing aux, weighted by ``aux_weight``, enters the training
+    objective.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "MoE needs the grouped-matmul kernel K6, not ported yet "
-            "(ROADMAP.md queue 1, 'MoE (K6)')")
+    ``activation``/``ffn_bias`` configure the experts, the other knobs the
+    attention and norm stack (together the Mixtral shape: swiglu experts
+    without biases, rmsnorm, rotary, GQA). ``param_dtype="bfloat16"``
+    stores the expert stacks in bf16 (the router and everything else stay
+    float32). ``moe_dispatch`` picks the single-device executor, all with
+    the same routing decisions: ``"gmm"`` (the grouped-matmul kernels),
+    ``"slots"`` (capacity slots, the default), ``"ragged"`` (sort + one
+    matmul per expert) or ``"onehot"`` (the GShard oracle). ``ep_groups``
+    splits each sequence into that many dispatch groups on the
+    teacher-forced ``attn="dense"`` path, as the reference's dense path
+    emulates its expert-sharded groups; ``attn="flash"`` routes the whole
+    ``B·T`` block as one group, and decode, chunks and prefill always use
+    one group. Expert parallelism is not ported yet."""
+
+    @property
+    def _supports_speculative(self):
+        # chunked verification routes a chunk as ONE dispatch group while a
+        # rollout routes per position: they agree iff capacity never binds,
+        # cap(n) = ceil(cf·k·n/E) >= n for every n, i.e. cf·k >= E
+        return self.moe.capacity_factor * self.moe.k >= self.moe.n_experts
+
+    def __init__(self, vocab: int, d_model: int, n_heads: int, n_layers: int,
+                 d_ff: int, max_len: int, n_experts: int, k: int = 2,
+                 capacity_factor: float = 1.25, aux_weight: float = 1e-2,
+                 ep_groups: int = 1, compute_dtype: str = "float32",
+                 routing: str = "token_choice", pos_encoding: str = "learned",
+                 tie_embeddings: bool = False,
+                 n_kv_heads: Optional[int] = None, activation: str = "relu",
+                 norm: str = "layernorm", norm_eps: float = 1e-5,
+                 attn_bias: bool = False, ffn_bias: bool = True,
+                 rope_theta: float = 10000.0,
+                 attn_window: Optional[int] = None,
+                 moe_dispatch: str = "slots", param_dtype: str = "float32",
+                 device: DeviceLike = "cuda"):
+        super().__init__(vocab, d_model, n_heads, n_layers, d_ff, max_len,
+                         compute_dtype=compute_dtype,
+                         pos_encoding=pos_encoding,
+                         tie_embeddings=tie_embeddings,
+                         n_kv_heads=n_kv_heads, activation=activation,
+                         norm=norm, norm_eps=norm_eps, attn_bias=attn_bias,
+                         ffn_bias=ffn_bias, rope_theta=rope_theta,
+                         attn_window=attn_window, device=device)
+        from ..parallel.expert import MoEFeedForward
+
+        if routing == "expert_choice":
+            # experts pick their top-C tokens across the whole block, so a
+            # token's routing would depend on FUTURE tokens
+            raise ValueError(
+                "routing='expert_choice' breaks causality in a decoder LM "
+                "(routing would depend on future tokens); use "
+                "'token_choice' here, or MoEFeedForward directly for "
+                "non-causal workloads")
+        self.moe = MoEFeedForward(d_model, d_ff, n_experts, k=k,
+                                  capacity_factor=capacity_factor,
+                                  routing=routing, activation=activation,
+                                  bias=ffn_bias, param_dtype=param_dtype)
+        if moe_dispatch not in ("slots", "gmm", "ragged", "onehot"):
+            raise ValueError(f"Unknown moe_dispatch: {moe_dispatch!r}")
+        self.n_experts = n_experts
+        self.aux_weight = aux_weight
+        self.ep_groups = int(ep_groups)
+        self.moe_dispatch = moe_dispatch
+
+    def param_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """The dense model's shapes with the FFN stacks replaced by the
+        per-layer expert stacks ``[L, ...]``, in the reference's order."""
+        shapes = super().param_shapes()
+        for k_ in ("w1", "b1", "w2", "b2", "w3"):
+            shapes.pop(k_, None)
+        for k_, shape in self.moe.param_shapes().items():
+            shapes[k_] = (self.n_layers,) + shape
+        return shapes
+
+    def init(self, seed: int = 0,
+             device: Optional[DeviceLike] = None) -> Dict[str, torch.Tensor]:
+        """:meth:`TransformerLM.init`'s draws, with the expert stacks then
+        stored in ``param_dtype`` (bitwise the reference's values: both
+        round the same float32 draws to bf16)."""
+        params = super().init(seed, device)
+        for k_ in self.moe.expert_keys():
+            params[k_] = params[k_].to(self.moe.param_dtype)
+        return params
+
+    def _block_keys(self):
+        base = [k for k in super()._block_keys()
+                if k not in ("w1", "b1", "w2", "b2", "w3")]
+        return tuple(base) + ("wg",) + self.moe.expert_keys()
+
+    def _ffn(self, lp, x, attn: str = "dense", ep_groups: Optional[int] = None):
+        """Routed experts on ``x`` ``[B, T, D]`` → ``(y [B, T, D] float32,
+        aux)``. Under ``attn != "dense"`` the whole ``B·T`` block is one
+        dispatch group. The dense path splits each sequence into ``G =
+        ep_groups`` (default ``self.ep_groups``) chunks and flattens each
+        chunk batch-major, the token groups an expert-sharded run would
+        dispatch, before the executor's contiguous per-group split."""
+        B, T, D = x.shape
+        moe_params = {k_: lp[k_] for k_ in ("wg",) + self.moe.expert_keys()}
+        execute = {"slots": self.moe.apply_slots, "gmm": self.moe.apply_gmm,
+                   "ragged": self.moe.apply_grouped,
+                   "onehot": self.moe.apply_reference}[self.moe_dispatch]
+        if attn != "dense":
+            y, aux = execute(moe_params, x.reshape(B * T, D))
+            return y.reshape(B, T, D), aux
+        G_ = self.ep_groups if ep_groups is None else ep_groups
+        if T % G_:
+            raise ValueError(f"T={T} not divisible by ep_groups={G_}")
+        tl = T // G_
+        xg = x.reshape(B, G_, tl, D).transpose(0, 1).reshape(G_ * B * tl, D)
+        y, aux = execute(moe_params, xg, ep=G_)
+        y = y.reshape(G_, B, tl, D).transpose(0, 1).reshape(B, T, D)
+        return y, aux
 
 
 class MultiTenantLM:
@@ -964,8 +1094,10 @@ def build_lm_train_step(model: TransformerLM, mesh, optimizer,
 
     Returns ``(step, opt_init)``: ``step(params, opt_state, tokens,
     positions, targets) -> (params, opt_state, loss)`` with the three int
-    arrays ``[B, T]`` (numpy or tensors) and ``loss`` the token-mean
-    cross-entropy as a 0-d tensor on the device (no host sync per step);
+    arrays ``[B, T]`` (numpy or tensors) and ``loss`` the objective (the
+    token-mean cross-entropy plus ``model.aux_weight`` times the summed aux
+    loss, 0 for a dense FFN) as a 0-d tensor on the device (no host sync per
+    step);
     ``opt_init(params) -> opt_state``. The step returns new params and
     state and leaves its arguments untouched. ``step.grad(params, tokens,
     positions, targets) -> (loss, grads)`` is the forward and backward
@@ -1000,15 +1132,18 @@ def build_lm_train_step(model: TransformerLM, mesh, optimizer,
             "not ported yet (ROADMAP.md queue 1, 'LM remainder')")
 
     def objective(params, tokens, positions, targets, ntok):
+        # the micro-batches' objectives SUM to the full batch's: the
+        # cross-entropy is normalised by the batch's token count, the aux
+        # term (a per-call mean) by accum_steps
         if vocab_block is None:
-            logits, _ = model.apply_with_aux(params, tokens, positions, attn,
-                                             remat)
+            logits, aux = model.apply_with_aux(params, tokens, positions, attn,
+                                               remat)
             ce = _summed_xent(logits, targets)
         else:
-            h, _ = model.apply_hidden(params, tokens, positions, attn, remat)
+            h, aux = model.apply_hidden(params, tokens, positions, attn, remat)
             ce = chunked_summed_xent(h, model.head_weight(params), targets,
                                      vocab_block)
-        return ce / ntok
+        return ce / ntok + (model.aux_weight / accum_steps) * aux
 
     def grad(params, tokens, positions, targets):
         dev = params["tok"].device
@@ -1040,7 +1175,9 @@ def build_lm_train_step(model: TransformerLM, mesh, optimizer,
             params, opt_state = optimizer.fused_apply(grads, opt_state, params)
         else:
             updates, opt_state = optimizer.update(grads, opt_state, params)
-            params = {k: (p + updates[k]).to(p.dtype) for k, p in params.items()}
+            del grads           # each gradient and update dies once applied
+            params = {k: (p + updates.pop(k)).to(p.dtype)
+                      for k, p in params.items()}
         return params, opt_state, loss
 
     step.grad = grad

@@ -1,9 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at edge shapes the serving and training runs do not reach (scalar-load
 head dims, odd group sizes, caches and sequences shorter than a tile,
-every mask mode, pages smaller and larger than a key tile), the wrappers'
+every mask mode, pages smaller and larger than a key tile, grouped
+products with empty experts, ragged K/N and wide tiles), the wrappers'
 refusals, and the serving engine (dense and paged), the train step and
-``generate`` on the card against the same code on the CPU.
+``generate`` on the card against the same code on the CPU, for the dense
+and the mixture-of-experts LM.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside the
 test, never at import). This file imports no JAX, so it runs on a machine
@@ -14,13 +16,16 @@ import numpy as np
 import pytest
 import torch
 
-from elephas_tpu_torch.models import (TransformerLM, adam_compact,
-                                      build_lm_train_step, make_lm_batches)
+from elephas_tpu_torch.models import (MoETransformerLM, TransformerLM,
+                                      adam_compact, build_lm_train_step,
+                                      make_lm_batches)
 from elephas_tpu_torch.ops.flash_attention import (
     attention_bwd_reference, attention_fwd_reference, flash_attention,
     flash_attention_dkv, flash_attention_dq, flash_attention_fwd)
 from elephas_tpu_torch.ops.flash_decode import (decode_attention_reference_lse,
                                                 flash_decode_lse)
+from elephas_tpu_torch.ops.grouped_matmul import (gmm, gmm_reference, gmm_t,
+                                                  tgmm, tgmm_reference)
 from elephas_tpu_torch.ops.layer_norm import (fused_layer_norm,
                                               fused_layer_norm_bwd,
                                               layer_norm_reference)
@@ -312,3 +317,87 @@ def test_paged_engine_on_card_matches_dense_and_cpu(cuda, kw):
         if paged:
             eng.kv.check()
     assert out[("cuda", True)] == out[("cuda", False)] == out[("cpu", True)]
+
+
+def _rel(got, want):
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("tiles,K,N,tm,dtype", [
+    ([0, 0, 2, 3, 3], 200, 100, 128, torch.float32),   # empty expert 1, ragged
+    ([1, 1, 1], 1, 1, 128, torch.float32),             # K = N = 1
+    ([0, 1, 1, 3], 300, 260, 256, torch.float32),      # two block rows per tile
+    ([0, 2, 2, 2], 136, 72, 128, torch.bfloat16),
+])
+def test_grouped_matmul_kernels_match_plain(cuda, tiles, K, N, tm, dtype):
+    """K6-gmm (and its transposed twin) and K6-tgmm against the plain
+    versions: max |diff| / max |plain| <= 2e-5 in float32 (8e-3 for a bf16
+    output, one rounding of a float32 sum); experts without a tile get an
+    exact zero weight gradient; the same bits on a second launch."""
+    rng = np.random.default_rng(13)
+    E = 4
+    gmap = torch.tensor(tiles, dtype=torch.int32, device="cuda")
+    M = len(tiles) * tm
+    lhs, g = _t(rng, M, K, dtype=dtype), _t(rng, M, N, dtype=dtype)
+    w, w_t = _t(rng, E, K, N, dtype=dtype), _t(rng, E, N, K, dtype=dtype)
+    tol = 2e-5 if dtype == torch.float32 else 8e-3
+    assert _rel(gmm(lhs, w, gmap), gmm_reference(lhs, w, gmap)) <= tol
+    assert _rel(gmm_t(lhs, w_t, gmap), gmm_reference(lhs, w_t, gmap, True)) <= tol
+    got = tgmm(lhs, g, gmap, E)
+    assert got.dtype == torch.float32
+    assert _rel(got, tgmm_reference(lhs, g, gmap, E)) <= 2e-5
+    for e in set(range(E)) - set(tiles):
+        assert bool((got[e] == 0).all())
+    assert torch.equal(got, tgmm(lhs, g, gmap, E))
+    assert tgmm(lhs, g, gmap, E, torch.bfloat16).dtype == torch.bfloat16
+
+
+def test_grouped_matmul_wrappers_refuse_bad_input(cuda):
+    rng = np.random.default_rng(14)
+    gmap = torch.tensor([0, 1], dtype=torch.int32, device="cuda")
+    w = _t(rng, 2, 8, 8)
+    with pytest.raises(ValueError, match="multiple"):
+        gmm(_t(rng, 128, 8), w, gmap)                        # tm 64
+    with pytest.raises(ValueError, match="bfloat16"):
+        gmm(_t(rng, 256, 8, dtype=torch.bfloat16), w, gmap)  # mixed dtypes
+    with pytest.raises(ValueError, match="contraction"):
+        gmm(_t(rng, 256, 9), w, gmap)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        gmm(_t(rng, 256, 8), w, gmap.cpu())
+
+
+def test_moe_engine_train_and_generate_on_card_match_cpu(cuda):
+    """A small Mixtral-shaped MoE LM (``moe_dispatch="gmm"``): the dense and
+    paged engines on the card against the CPU engine (greedy tokens, no
+    near tie at this size), ``generate`` against the card engine, and one
+    train step's loss (rtol 1e-4) and gradients (1e-3 of each one's scale)
+    on the card against the CPU."""
+    cfg = dict(vocab=97, d_model=64, n_heads=4, n_kv_heads=2, n_layers=2,
+               d_ff=96, max_len=64, n_experts=8, k=2, capacity_factor=4.0,
+               aux_weight=0.02, activation="swiglu", ffn_bias=False,
+               norm="rmsnorm", pos_encoding="rotary", moe_dispatch="gmm")
+    rng = np.random.default_rng(15)
+    prompts = [rng.integers(0, 97, size=n).astype(np.int32) for n in (3, 9, 5, 17)]
+    rows = rng.integers(0, 97, size=(2, 41))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = MoETransformerLM(**cfg, device=dev)
+        params = model.init(3)
+        toks = []
+        for paged in (False, True):
+            eng = ServingEngine(model, params, n_slots=4, device=dev,
+                                **(dict(paged=True, page_size=8) if paged else {}))
+            ids = [eng.submit(p, 12) for p in prompts]
+            fin = eng.drain()
+            toks.append([fin[i].tokens for i in ids])
+        gen = model.generate(params, np.stack([p[:3] for p in prompts]), 6).cpu()
+        step, _ = build_lm_train_step(model, None, adam_compact(1e-3), attn="flash")
+        loss, grads = step.grad(params, *make_lm_batches(rows))
+        out[dev] = (toks, gen, float(loss), {k: v.cpu() for k, v in grads.items()})
+    assert out["cuda"][0][0] == out["cuda"][0][1] == out["cpu"][0][0]
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    np.testing.assert_allclose(out["cuda"][2], out["cpu"][2], rtol=1e-4)
+    for k, g in out["cpu"][3].items():
+        scale = max(float(g.abs().max()), 1e-6)
+        assert float((out["cuda"][3][k] - g).abs().max()) <= 1e-3 * scale, k

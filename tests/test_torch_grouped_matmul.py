@@ -1,0 +1,177 @@
+"""The port's grouped matmul (``elephas_tpu_torch/ops/grouped_matmul.py``) on
+CPU tensors, where ``gmm``, ``gmm_t`` and ``tgmm`` run their plain versions:
+against the JAX package's Pallas kernels in interpret mode at the cases of
+``tests/ops/test_grouped_matmul.py`` and its ATOL of 5e-2 (XLA:CPU's matmuls
+take bf16 fast paths there), forward and gradients; against a float64 numpy
+oracle at ``max |diff| / max |ref| <= 1e-5`` (float32 sums over K <= 512);
+empty groups, ragged K and N, bfloat16 inputs, and the dispatch by device.
+The CUDA kernels are held to these plain versions on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from elephas_tpu.ops import grouped_matmul as JG
+from elephas_tpu_torch.ops import grouped_matmul as G
+
+ATOL = 5e-2
+ORACLE_TOL = 1e-5
+# (M, K, N, E, gmap): the reference tests' shapes, tm = M // len(gmap)
+CASES = [(768, 256, 128, 4, [0, 1, 1, 2, 3, 3]),
+         (512, 512, 128, 4, [0, 1, 2, 3])]
+
+
+def _case(M, K, N, E, gmap, seed=0):
+    rng = np.random.default_rng(seed)
+    lhs = rng.standard_normal((M, K)).astype(np.float32)
+    rhs = rng.standard_normal((E, K, N)).astype(np.float32)
+    return lhs, rhs, np.asarray(gmap, np.int32)
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+def _oracle_gmm(lhs, rhs, gmap, transpose=False):
+    tm = lhs.shape[0] // len(gmap)
+    out = []
+    for t, e in enumerate(gmap):
+        w = rhs[e].T if transpose else rhs[e]
+        out.append(lhs[t * tm:(t + 1) * tm].astype(np.float64) @ w.astype(np.float64))
+    return np.concatenate(out)
+
+
+def _oracle_tgmm(lhs, g, gmap, E):
+    tm = lhs.shape[0] // len(gmap)
+    out = np.zeros((E, lhs.shape[1], g.shape[1]))
+    for t, e in enumerate(gmap):
+        rows = slice(t * tm, (t + 1) * tm)
+        out[e] += lhs[rows].astype(np.float64).T @ g[rows].astype(np.float64)
+    return out
+
+
+def _close_to_oracle(got, want):
+    got = got.detach().to(torch.float64).numpy()
+    err = np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+    assert err <= ORACLE_TOL, err
+
+
+def test_gmm_and_gmm_t_match_jax_kernels():
+    lhs, rhs, gmap = _case(*CASES[0])
+    rhs_t = np.random.default_rng(1).standard_normal((4, 128, 256)).astype(np.float32)
+    jl, jr, jrt, jg = (jnp.asarray(a) for a in (lhs, rhs, rhs_t, gmap))
+    tl, tr, trt, tg = _t(lhs, rhs, rhs_t, gmap)
+    got = G.gmm(tl, tr, tg)
+    assert got.shape == (768, 128) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(JG.gmm(jl, jr, jg, True)),
+                               atol=ATOL)
+    np.testing.assert_allclose(G.gmm_t(tl, trt, tg).numpy(),
+                               np.asarray(JG.gmm_t(jl, jrt, jg, True)), atol=ATOL)
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("fn", ["gmm", "gmm_t"])
+def test_gradients_match_jax(case, fn):
+    """``sum(sin(f(lhs, rhs)))`` differentiated: the port's autograd
+    Functions (gmm_t/gmm + tgmm in the backward) against the reference's
+    custom VJP over its interpret-mode kernels."""
+    lhs, rhs, gmap = _case(*case)
+    if fn == "gmm_t":
+        rhs = np.ascontiguousarray(rhs.transpose(0, 2, 1))
+    jfn = getattr(JG, fn)
+    jgl, jgr = jax.jit(jax.grad(
+        lambda l, r: jnp.sum(jnp.sin(jfn(l, r, jnp.asarray(gmap), True))),
+        (0, 1)))(jnp.asarray(lhs), jnp.asarray(rhs))
+    tl, tr = (torch.from_numpy(a).requires_grad_() for a in (lhs, rhs))
+    torch.sin(getattr(G, fn)(tl, tr, torch.from_numpy(gmap))).sum().backward()
+    np.testing.assert_allclose(tl.grad.numpy(), np.asarray(jgl), atol=ATOL)
+    np.testing.assert_allclose(tr.grad.numpy(), np.asarray(jgr), atol=ATOL)
+
+
+def test_tgmm_matches_jax_and_zeroes_empty_groups():
+    """The reference's case: group 2 is empty but owns one all-sentinel
+    tile; its gradient must come out exactly zero."""
+    M, K, N, E = 768, 256, 128, 4
+    rng = np.random.default_rng(2)
+    lhs = np.zeros((M, K), np.float32)
+    g = np.zeros((M, N), np.float32)
+    fill = rng.standard_normal
+    lhs[:192], g[:192] = fill((192, K)), fill((192, N))
+    lhs[256:512], g[256:512] = fill((256, K)), fill((256, N))
+    lhs[640:768], g[640:768] = fill((128, K)), fill((128, N))
+    gmap = np.asarray([0, 0, 1, 1, 2, 3], np.int32)
+    got = G.tgmm(*_t(lhs, g, gmap), E)
+    assert got.shape == (E, K, N) and got.dtype == torch.float32
+    want = JG.tgmm(jnp.asarray(lhs), jnp.asarray(g), jnp.asarray(gmap), E,
+                   jnp.float32, True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    _close_to_oracle(got, _oracle_tgmm(lhs, g, gmap, E))
+    assert bool((got[2] == 0).all())
+    # a group with no tile at all (E larger than any gmap entry) is zero too
+    wide = G.tgmm(*_t(lhs, g, gmap), E + 2)
+    assert bool((wide[E:] == 0).all())
+    torch.testing.assert_close(wide[:E], got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("M,K,N,E,gmap", CASES + [(640, 200, 100, 3, [0, 0, 2, 2, 2])])
+def test_plain_versions_match_float64_oracle(M, K, N, E, gmap):
+    lhs, rhs, gmap = _case(M, K, N, E, gmap, seed=3)
+    rhs_t = np.ascontiguousarray(rhs.transpose(0, 2, 1))
+    g = np.random.default_rng(4).standard_normal((M, N)).astype(np.float32)
+    tl, tr, trt, tgm, tg = _t(lhs, rhs, rhs_t, gmap, g)
+    _close_to_oracle(G.gmm(tl, tr, tgm), _oracle_gmm(lhs, rhs, gmap))
+    _close_to_oracle(G.gmm_t(tl, trt, tgm), _oracle_gmm(lhs, rhs_t, gmap, True))
+    _close_to_oracle(G.tgmm(tl, tg, tgm, E), _oracle_tgmm(lhs, g, gmap, E))
+
+
+def test_ragged_k_and_n_match_jax_reference():
+    """K 200 and N 100 split into no 128-lane tile: the reference falls back
+    to its jnp oracle there, the port's kernels mask the edges."""
+    lhs, rhs, gmap = _case(384, 200, 100, 2, [0, 1, 1])
+    got = G.gmm(*_t(lhs, rhs, gmap))
+    want = JG.gmm_reference(jnp.asarray(lhs), jnp.asarray(rhs), jnp.asarray(gmap))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    g = np.random.default_rng(5).standard_normal((384, 100)).astype(np.float32)
+    got = G.tgmm(*_t(lhs, g, gmap), 2)
+    want = JG.tgmm_reference(jnp.asarray(lhs), jnp.asarray(g), jnp.asarray(gmap), 2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_bf16_inputs_accumulate_in_float32():
+    """bf16 operands: the product sums in float32 and rounds once to bf16,
+    as the reference's ``preferred_element_type`` path; ``tgmm`` returns
+    ``out_dtype``."""
+    lhs, rhs, gmap = _case(256, 256, 128, 2, [0, 1])
+    tl, tr = (torch.from_numpy(a).to(torch.bfloat16) for a in (lhs, rhs))
+    tgm = torch.from_numpy(gmap)
+    got = G.gmm(tl, tr, tgm)
+    assert got.dtype == torch.bfloat16
+    want = _oracle_gmm(tl.float().numpy(), tr.float().numpy(), gmap)
+    torch.testing.assert_close(got, torch.from_numpy(want).to(torch.bfloat16),
+                               rtol=0, atol=0)
+    jwant = JG.gmm_reference(jnp.asarray(lhs, jnp.bfloat16),
+                             jnp.asarray(rhs, jnp.bfloat16), jnp.asarray(gmap))
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(jwant).astype(np.float32), rtol=2e-2, atol=ATOL)
+    out = G.tgmm(tl, tl, tgm, 2, torch.bfloat16)
+    assert out.dtype == torch.bfloat16 and out.shape == (2, 256, 256)
+
+
+def test_cpu_tensors_take_the_plain_path_and_never_count():
+    """A CPU tensor runs the plain version and counts no launch; the kernel
+    launchers refuse anything not on a CUDA device (no quiet fallback)."""
+    lhs, rhs, gmap = _t(*_case(256, 128, 128, 2, [0, 1]))
+    before = (G.gmm.launches, G.gmm_t.launches, G.tgmm.launches)
+    G.gmm(lhs, rhs, gmap)
+    G.gmm_t(lhs, rhs.transpose(1, 2), gmap)
+    G.tgmm(lhs, lhs, gmap, 2)
+    assert (G.gmm.launches, G.gmm_t.launches, G.tgmm.launches) == before
+    with pytest.raises(ValueError, match="CUDA"):
+        G._launch_gmm(lhs, rhs, gmap, False)
+    with pytest.raises(ValueError, match="CUDA"):
+        G._launch_tgmm(lhs, lhs, gmap, 2, torch.float32)
+    with pytest.raises(ValueError, match="tiles"):
+        G.gmm(lhs[:201], rhs, gmap)

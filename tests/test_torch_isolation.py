@@ -18,7 +18,8 @@ import sys
 import elephas_tpu_torch, elephas_tpu_torch.ops, elephas_tpu_torch.models
 import elephas_tpu_torch.serving, elephas_tpu_torch.models.optimizers
 import elephas_tpu_torch.ops.flash_attention, elephas_tpu_torch.ops.paged_attention
-import elephas_tpu_torch.serving.memory
+import elephas_tpu_torch.serving.memory, elephas_tpu_torch.parallel
+import elephas_tpu_torch.parallel.expert, elephas_tpu_torch.ops.grouped_matmul
 bad = sorted(m for m in sys.modules
              if m in ("jax", "keras", "elephas_tpu")
              or m.startswith(("jax.", "keras.", "elephas_tpu.")))

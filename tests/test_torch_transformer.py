@@ -137,8 +137,9 @@ def test_bfloat16_compute_tracks_jax():
 
 
 def test_later_slices_raise_not_implemented():
-    """Sliding windows, sequence-parallel attention, MoE and LoRA are later
-    slices (``apply``/``prefill``/``generate`` are ported since)."""
+    """Sliding windows, sequence-parallel attention, expert parallelism and
+    LoRA are later slices (``apply``/``prefill``/``generate`` and the
+    single-device MoE LM are ported since)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TransformerLM(**BASE, attn_window=8, device="cpu")
     tm = TransformerLM(**BASE, device="cpu")
@@ -146,6 +147,8 @@ def test_later_slices_raise_not_implemented():
     for attn in ("ring", "ulysses"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tm.apply(tm.init(0), tokens, tokens, attn=attn)
-    for cls in (MoETransformerLM, MultiTenantLM):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cls(**BASE)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        MultiTenantLM(**BASE)
+    moe = MoETransformerLM(**BASE, n_experts=4, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        moe.moe.apply(moe.moe.init(0, device="cpu"), torch.zeros(4, 16))
