@@ -86,6 +86,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
     flash-attention kernel; a profiled step.
 18. ``train_moe_cross_check``: one layer, B 1, T 64: loss and gradients on
     the card against the CPU.
+19. ``kernel`` ``fused_xent``: K1-fwd and K1-bwd against their plain
+    versions at the MLP fit's shape [1024, 10], ragged [1000, 10], wide
+    [4096, 50257] and bf16 logits, each with a zero-label and a soft-label
+    row; timed beside the plain versions, ``F.cross_entropy`` with
+    probability targets (its autograd backward for K1-bwd) and the bound.
+20. ``fit_mlp``: the reference's MNIST MLP (the committed Keras JSON with a
+    logits head, ``elephas_tpu_torch/configs/mnist_mlp_logits.json``) on
+    65536 MNIST-shaped samples through ``SparkModel.fit``: 8 workers,
+    synchronous, batch 128, 4 epochs, ``validation_split=0.1``; exactly
+    E*S K1-bwd and E*(S + Sv) K1-fwd launches, falling loss, rising
+    accuracy; samples/s raw and marginal (4-epoch minus 1-epoch fits); a
+    profiled 1-epoch fit; ``evaluate`` and ``predict`` on 2048 held-out
+    samples.
+21. ``fit_matrix``: the five compiled-path schedules on the card (8192
+    samples, 2 epochs): falling losses, K1 launched once per step.
+22. ``fit_cross_check``: a short fit with dropout off, card against
+    ``device="cpu"`` from the same weights and order: histories and
+    weights within 1e-4.
 
 Then the kernel summary line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -847,6 +865,7 @@ def _counters():
                                                        flash_attention_dq,
                                                        flash_attention_fwd)
     from elephas_tpu_torch.ops.flash_decode import flash_decode_lse
+    from elephas_tpu_torch.ops.fused_xent import fused_xent_bwd, fused_xent_fwd
     from elephas_tpu_torch.ops.grouped_matmul import gmm, gmm_t, tgmm
     from elephas_tpu_torch.ops.layer_norm import (fused_layer_norm,
                                                   fused_layer_norm_bwd)
@@ -860,7 +879,8 @@ def _counters():
             "flash_attention_dkv": flash_attention_dkv,
             "paged_flash_decode_lse": paged_flash_decode_lse,
             "paged_flash_chunk": paged_flash_chunk,
-            "gmm": gmm, "gmm_t": gmm_t, "tgmm": tgmm}
+            "gmm": gmm, "gmm_t": gmm_t, "tgmm": tgmm,
+            "fused_xent_fwd": fused_xent_fwd, "fused_xent_bwd": fused_xent_bwd}
 
 
 def _zero_counters():
@@ -1745,6 +1765,295 @@ def train_moe_cross_check(card, params):
           "card": card})
 
 
+# -- phases 19 to 22: the MLP fit -------------------------------------------------
+
+# The reference's flagship example (examples/mnist_mlp_spark.py:37-45) with a
+# logits head and from_logits=True: the Keras JSON written once with Keras
+# and committed in the port (the card has no Keras), 65536 MNIST-shaped
+# samples (bench.py:1695), batch 128, 8 workers (the example's local[8]),
+# synchronous, 4 epochs, validation_split 0.1. Nothing is cut.
+MNIST_JSON = "elephas_tpu_torch/configs/mnist_mlp_logits.json"
+MLP_FIT = dict(samples=65536, held_out=2048, batch=128, workers=8, epochs=4,
+               validation_split=0.1)
+
+
+def mnist_like(n_train: int, n_test: int):
+    """The class-blob generator of ``examples/_datasets.py:26-37`` with its
+    seed: Gaussian blobs around ten prototypes in pixel space, clipped to
+    [0, 1], one-hot labels; (train, test)."""
+    rng = np.random.default_rng(0)
+    protos = rng.uniform(0, 1, size=(10, 784)).astype("float32")
+
+    def make(n):
+        labels = rng.integers(0, 10, size=n)
+        x = protos[labels] + 0.3 * rng.normal(size=(n, 784)).astype("float32")
+        return np.clip(x, 0, 1).astype("float32"), np.eye(10, dtype="float32")[labels]
+
+    return make(n_train), make(n_test)
+
+
+def _mlp_steps(n: int, workers: int, batch: int, split: float):
+    """``(S, Sv)``: training and validation batches per epoch of one worker
+    holding ``n / workers`` samples (the engine's geometry)."""
+    per = n // workers
+    n_val = int(per * split)
+    return -(-(per - n_val) // batch), -(-n_val // batch)
+
+
+def _xent_inputs(gen, B, C, dtype):
+    x = torch.from_numpy((gen.normal(size=(B, C)) * 3).astype(np.float32)).to("cuda", dtype)
+    y = torch.zeros((B, C), device="cuda")
+    y[torch.arange(B), torch.from_numpy(gen.integers(0, C, size=B)).cuda()] = 1.0
+    y[0] = 0.0                      # a zero-label row: the kernel gives 0
+    y[1, :3] += 0.5                 # a row summing to 2.5
+    g = torch.from_numpy(gen.normal(size=B).astype(np.float32)).cuda()
+    return x, y, g
+
+
+def check_fused_xent(card):
+    """K1-fwd and K1-bwd against their plain versions (loss atol = rtol =
+    1e-5: float32 row sums in another order; dx 1e-6 in float32, one bf16
+    ulp, 2**-8, in bf16), timed beside the plain versions and
+    ``F.cross_entropy(x, y, reduction="none")`` with probability targets
+    (its autograd backward for K1-bwd), a yardstick the port never calls."""
+    from elephas_tpu_torch.ops.fused_xent import (fused_xent_bwd, fused_xent_bwd_reference,
+                                                  fused_xent_fwd, fused_xent_fwd_reference)
+
+    F = torch.nn.functional
+    gen = np.random.default_rng(SEED + 30)
+    cases = [("main", 1024, 10, torch.float32), ("ragged", 1000, 10, torch.float32),
+             ("wide", 4096, 50257, torch.float32), ("main_bf16", 1024, 10, torch.bfloat16),
+             ("wide_bf16", 4096, 50257, torch.bfloat16)]
+    out, worst = {"fwd": [], "bwd": []}, {"fwd": 0.0, "bwd": 0.0}
+    rows = {}
+    for name, B, C, dtype in cases:
+        n_sets = 4 if B * C < 1e6 else 1     # one wide set is 4x the 50 MB L2
+        sets = [_xent_inputs(gen, B, C, dtype) for _ in range(n_sets)]
+        # the library call wants targets in the logits' dtype
+        lib_sets = [(xi, yi.to(dtype), gi) for xi, yi, gi in sets]
+        x, y, g = sets[0]
+        fwd, bwd = fused_xent_fwd(x, y), fused_xent_bwd(x, y, g)
+        torch.cuda.synchronize()
+        err_f, ok_f = _allclose_err(fwd, fused_xent_fwd_reference(x, y), 1e-5)
+        tol_b = 1e-6 if dtype == torch.float32 else 2.0 ** -8
+        err_b, ok_b = _allclose_err(bwd.float(), fused_xent_bwd_reference(x, y, g).float(),
+                                    tol_b)
+        require(bool(torch.isfinite(fwd).all() and torch.isfinite(bwd.float()).all()),
+                f"fused_xent {name}: not finite")
+        require(ok_f and float(fwd[0]) == 0.0,
+                f"fused_xent_fwd {name}: max abs err {err_f} beyond 1e-5 (row 0 {float(fwd[0])})")
+        require(ok_b, f"fused_xent_bwd {name}: max abs err {err_b} beyond {tol_b}")
+        worst["fwd"], worst["bwd"] = max(worst["fwd"], err_f), max(worst["bwd"], err_b)
+
+        n_iter = 200 if B * C < 1e6 else 20
+        xs = x.element_size()
+        f_ms = device_ms(lambda x, y, g: fused_xent_fwd(x, y), sets, n_iter)
+        f_plain = device_ms(lambda x, y, g: fused_xent_fwd_reference(x, y), sets, n_iter)
+        f_lib = device_ms(lambda x, y, g: F.cross_entropy(x, y, reduction="none"), lib_sets,
+                          n_iter)
+        b_ms = device_ms(fused_xent_bwd, sets, n_iter)
+        b_plain = device_ms(fused_xent_bwd_reference, sets, n_iter)
+        graphs = []
+        for xi, yi, gi in lib_sets:
+            xl = xi.detach().requires_grad_()
+            graphs.append((F.cross_entropy(xl, yi, reduction="none"), xl, gi))
+        b_lib = device_ms(lambda o, xl, gi: torch.autograd.grad(o, xl, gi, retain_graph=True),
+                          graphs, n_iter)
+        del graphs
+        fb, fby = bound_ms(B * C * (xs + 4) + 4 * B, 5 * B * C)
+        bb, bby = bound_ms(B * C * (2 * xs + 4) + 4 * B, 6 * B * C)
+        for kind, ms, plain, lib, bms, by, err in (
+                ("fwd", f_ms, f_plain, f_lib, fb, fby, err_f),
+                ("bwd", b_ms, b_plain, b_lib, bb, bby, err_b)):
+            out[kind].append({"case": name, "shape": [B, C], "dtype": str(dtype),
+                              "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                              "library_ms": lib, "bound_ms": bms, "bound_by": by})
+            if name == "main":
+                rows[kind] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                              "bound_ms": bms, "bound_by": by}
+        del sets, lib_sets, x, y, g, fwd, bwd
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel", "kernel": "fused_xent", "fwd": out["fwd"], "bwd": out["bwd"],
+          "card": card})
+    lines = {"fwd": ("fused_xent_fwd", "elephas_tpu/ops/pallas_ops.py:99",
+                     "F.cross_entropy(x, y, reduction='none'), probability targets"),
+             "bwd": ("fused_xent_bwd", "elephas_tpu/ops/pallas_ops.py:113",
+                     "autograd backward of that F.cross_entropy")}
+    return [{"name": lines[k][0], "route": "cuda",
+             "source": "elephas_tpu_torch/ops/csrc/fused_xent.cu", "replaces": lines[k][1],
+             "max_abs_err": worst[k], **rows[k], "library": lines[k][2],
+             "timed_shape": [1024, 10]} for k in ("fwd", "bwd")]
+
+
+def _mlp_model(device="cuda", dropout=True, **kw):
+    """``SparkModel`` over the committed JSON (dropout rates 0 unless
+    ``dropout``), initialised from the config with the adapter's seed 0."""
+    from elephas_tpu_torch import SparkModel
+
+    cfg = json.load(open(MNIST_JSON))
+    if not dropout:
+        for layer in cfg["config"]["layers"]:
+            if layer["class_name"] == "Dropout":
+                layer["config"]["rate"] = 0.0
+    return SparkModel(json.dumps(cfg), device=device, **kw)
+
+
+def fit_mlp(card):
+    """The MLP fit at its full configuration through ``SparkModel.fit``:
+    exactly E*S K1-bwd launches and E*(S + Sv) K1-fwd launches (S training
+    and Sv validation batches an epoch, every worker's batch in one
+    launch), falling loss and rising accuracy; samples/s raw and marginal
+    (4-epoch minus 1-epoch fits, bench.py:1767-1795); a profiled 1-epoch
+    fit; then ``evaluate`` and ``predict`` on 2048 held-out samples."""
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    c = MLP_FIT
+    t0 = time.perf_counter()
+    (x, y), (xt, yt) = mnist_like(c["samples"], c["held_out"])
+    # one partition per worker, as bench.py builds it: no repartition, so
+    # every fit reuses the blocks and the data staged on the card
+    rdd = to_simple_rdd(SparkContext(f"local[{c['workers']}]"), x, y,
+                        num_slices=c["workers"])
+    sm = _mlp_model(mode="synchronous", num_workers=c["workers"])
+    setup_s = time.perf_counter() - t0
+    fit = dict(batch_size=c["batch"], validation_split=c["validation_split"])
+    E = c["epochs"]
+    S, Sv = _mlp_steps(c["samples"], c["workers"], c["batch"], c["validation_split"])
+    _zero_counters()
+    t0 = time.perf_counter()
+    sm.fit(rdd, epochs=E, **fit)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = _read_counters()
+    hist = sm.training_histories[-1]
+    require(all(np.isfinite(v).all() for v in hist.values()), f"fit_mlp: non-finite {hist}")
+    require(hist["loss"][-1] < hist["loss"][0], f"fit_mlp: loss did not fall: {hist['loss']}")
+    require(hist["accuracy"][-1] > hist["accuracy"][0],
+            f"fit_mlp: accuracy did not rise: {hist['accuracy']}")
+    want = {"fused_xent_fwd": E * (S + Sv), "fused_xent_bwd": E * S}
+    for name, n in want.items():
+        require(counts[name] == n, f"fit_mlp: {name} launched {counts[name]} times, "
+                                   f"want {n} (E {E}, S {S}, Sv {Sv})")
+    others = {k: v for k, v in counts.items() if k not in want and v}
+    require(not others, f"fit_mlp: other kernels launched: {others}")
+
+    n_train = c["workers"] * (c["samples"] // c["workers"]
+                              - int(c["samples"] // c["workers"] * c["validation_split"]))
+
+    def best(epochs, reps=2):
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            sm.fit(rdd, epochs=epochs, **fit)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return min(times), times
+
+    t4, t4s = best(E)
+    t1, t1s = best(1)
+    marginal = n_train * (E - 1) / (t4 - t1) if t4 > t1 else None
+    prof = profiled(lambda: sm.fit(rdd, epochs=1, **fit), 1, top_n=12)
+    prof["steps_per_epoch"] = S
+    engine_s = sm.timings[-1]["run_seconds"]
+
+    loss, acc = sm.evaluate(xt, yt)
+    pred = sm.predict(xt)
+    require(pred.shape == (c["held_out"], 10) and bool(np.isfinite(pred).all()),
+            f"fit_mlp: predict gave {pred.shape}")
+    pred_acc = float((pred.argmax(1) == yt.argmax(1)).mean())
+    require(np.isfinite(loss) and abs(pred_acc - acc) < 1e-6,
+            f"fit_mlp: evaluate accuracy {acc} vs predict's {pred_acc}")
+    require(acc > 0.5, f"fit_mlp: held-out accuracy {acc} (chance is 0.1)")
+    emit({"phase": "fit_mlp", "config": MNIST_JSON, **c, "mode": "synchronous",
+          "steps_per_epoch": S, "val_steps_per_epoch": Sv, "setup_s": setup_s,
+          "first_fit_s": first_s, "history": hist, "launches": counts,
+          "launches_want": want, "train_samples_per_epoch": n_train,
+          "fit4_s": t4, "fit4_all_s": t4s, "fit1_s": t1, "fit1_all_s": t1s,
+          "samples_per_s": n_train * E / t4, "marginal_samples_per_s": marginal,
+          "ms_per_step": (t4 - t1) / ((E - 1) * S) * 1e3 if t4 > t1 else None,
+          "profiled_fit_1_epoch": prof, "profiled_engine_s": engine_s,
+          "held_out_eval": {"loss": loss, "accuracy": acc, "predict_accuracy": pred_acc},
+          "card": card})
+    return counts
+
+
+def fit_matrix(card):
+    """The five compiled-path schedules on the card at the MNIST MLP's
+    widths (8192 samples, 2 workers, 2 epochs): finite, falling losses, and
+    K1 launched in each (K1-bwd once per step; the gradient-synchronous
+    schedule too, with one launch for every worker's batch). Two workers,
+    because the asynchronous modes' default merge applies the SUM of the
+    workers' deltas (the parameter server's semantics, as in the
+    reference): eight workers' summed Adam epochs overshoot and the loss of
+    this data rises in the reference's engine and in the port alike."""
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    (x, y), _ = mnist_like(8192, 0)
+    W = 2
+    rdd = to_simple_rdd(SparkContext(f"local[{W}]"), x, y, num_slices=W)
+    S, Sv = _mlp_steps(8192, W, 128, 0.1)
+    res = []
+    for mode, freq in [("synchronous", "epoch"), ("synchronous", "batch"),
+                       ("asynchronous", "epoch"), ("asynchronous", "batch"),
+                       ("hogwild", "epoch")]:
+        sm = _mlp_model(mode=mode, frequency=freq, parameter_server_mode="jax",
+                        num_workers=W)
+        _zero_counters()
+        t0 = time.perf_counter()
+        sm.fit(rdd, epochs=2, batch_size=128, validation_split=0.1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counters()
+        hist = sm.training_histories[-1]
+        require(all(np.isfinite(v).all() for v in hist.values()),
+                f"fit_matrix {mode}/{freq}: non-finite {hist}")
+        require(hist["loss"][-1] < hist["loss"][0],
+                f"fit_matrix {mode}/{freq}: loss did not fall: {hist['loss']}")
+        require(counts["fused_xent_bwd"] == 2 * S and counts["fused_xent_fwd"] == 2 * (S + Sv),
+                f"fit_matrix {mode}/{freq}: K1 launches {counts['fused_xent_fwd']}/"
+                f"{counts['fused_xent_bwd']}, want {2 * (S + Sv)}/{2 * S}")
+        res.append({"mode": mode, "frequency": freq, "history": hist, "wall_s": wall,
+                    "k1_fwd": counts["fused_xent_fwd"], "k1_bwd": counts["fused_xent_bwd"]})
+    emit({"phase": "fit_matrix", "samples": 8192, "workers": W, "epochs": 2,
+          "batch": 128, "fits": res, "card": card})
+
+
+def fit_cross_check(card):
+    """One short fit (4096 samples, 4 workers, 2 epochs, dropout off) on
+    the card and on ``device="cpu"`` from the same weights (the config's
+    initializers, seed 0) and the same order (drawn on the host): the
+    synchronous schedules' histories within rtol 1e-4 and every weight
+    within 1e-4 of its array's largest entry (float32: cuBLAS and the CPU's
+    BLAS sum in other orders, compounded over 58 steps)."""
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    (x, y), _ = mnist_like(4096, 0)
+    checks = []
+    for freq in ("epoch", "batch"):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            sm = _mlp_model(device=dev, dropout=False, mode="synchronous", frequency=freq,
+                            num_workers=4)
+            sm.fit(to_simple_rdd(SparkContext("local[4]"), x, y, num_slices=4), epochs=2,
+                   batch_size=128, validation_split=0.1)
+            out[dev] = (sm.training_histories[-1], sm.master_network.get_weights())
+        hist_err = max(abs(a - b) / max(abs(b), 1e-6) for k in out["cpu"][0]
+                       for a, b in zip(out["cuda"][0][k], out["cpu"][0][k]))
+        w_err = max(float(np.abs(a - b).max()) / float(np.abs(b).max() or 1.0)
+                    for a, b in zip(out["cuda"][1], out["cpu"][1]))
+        require(hist_err <= 1e-4, f"fit_cross_check {freq}: histories differ by {hist_err} "
+                                  f"(relative): {out['cuda'][0]} vs {out['cpu'][0]}")
+        require(w_err <= 1e-4, f"fit_cross_check {freq}: weights differ by {w_err} of scale")
+        checks.append({"frequency": freq, "history_rel_err": hist_err,
+                       "weight_err_rel_to_scale": w_err, "tol": 1e-4,
+                       "history_gpu": out["cuda"][0], "history_cpu": out["cpu"][0]})
+    emit({"phase": "fit_cross_check", "samples": 4096, "workers": 4, "epochs": 2,
+          "checks": checks, "card": card})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script drives the "
@@ -1766,7 +2075,7 @@ def main() -> int:
           "count": torch.cuda.device_count()})
     t0 = time.perf_counter()
     built = _build.build(["layer_norm", "flash_decode", "flash_attention",
-                          "paged_attention", "grouped_matmul"])
+                          "paged_attention", "grouped_matmul", "fused_xent"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": built, "card": card})
     try:
@@ -1796,22 +2105,29 @@ def main() -> int:
         torch.cuda.empty_cache()
         _, moe_train_params, moe_train_counts = train_moe(card)
         train_moe_cross_check(card, moe_train_params)
+        del moe_train_params
+        torch.cuda.empty_cache()
+        xent_rows = check_fused_xent(card)
+        mlp_counts = fit_mlp(card)
+        fit_matrix(card)
+        fit_cross_check(card)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     # each row's `launches` is its own slice's main path: dense serving for
     # K3-fwd and K4, the five timed train steps for K2 and K3-bwd, paged
     # serving for K5, MoE serving for K6-gmm, the three timed MoE train
-    # steps for gmm_t and K6-tgmm
-    rows = [ln_fwd, ln_bwd, decode, *attn_rows, *paged_rows, *gmm_rows]
+    # steps for gmm_t and K6-tgmm, the MLP fit for K1
+    rows = [ln_fwd, ln_bwd, decode, *attn_rows, *paged_rows, *gmm_rows, *xent_rows]
     paths = {"serve": serve_counts, "train_5_steps": train_counts,
              "generate": gen_counts, "serve_paged": paged_counts,
              "serve_moe": moe_counts, "serve_moe_paged": moe_paged_counts,
-             "train_moe_3_steps": moe_train_counts}
+             "train_moe_3_steps": moe_train_counts, "fit_mlp": mlp_counts}
     main_paths = {"layer_norm_fwd": "serve", "flash_decode_lse": "serve",
                   "paged_flash_decode_lse": "serve_paged",
                   "paged_flash_chunk": "serve_paged", "gmm": "serve_moe",
-                  "gmm_t": "train_moe_3_steps", "tgmm": "train_moe_3_steps"}
+                  "gmm_t": "train_moe_3_steps", "tgmm": "train_moe_3_steps",
+                  "fused_xent_fwd": "fit_mlp", "fused_xent_bwd": "fit_mlp"}
     for row in rows:
         name = row["name"]
         main_path = main_paths.get(name, "train_5_steps")

@@ -13,7 +13,10 @@ kernels; and LM training and generation (``apply``,
 the flash-attention kernels (forward, dq, dkv) and the LayerNorm backward;
 and paged serving (``ServingEngine(paged=True)``: block allocator, radix
 prefix cache, preemption), with the paged-attention kernels (decode and
-chunk).
+chunk); the mixture-of-experts LM, with the grouped-matmul kernels; and
+the Keras MLP fit (:class:`SparkModel` over the compiled path's engine and
+a Keras-free adapter of the model's JSON), with the fused
+classification-loss kernels.
 
 Device policy: every entry point takes ``device=`` and defaults to
 ``"cuda"``. Without a CUDA device the entry points raise unless the caller
@@ -58,4 +61,6 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     return dev
 
 
-__all__ = ["resolve_device"]
+from .spark_model import SparkMLlibModel, SparkModel  # noqa: E402
+
+__all__ = ["SparkMLlibModel", "SparkModel", "resolve_device"]

@@ -18,7 +18,8 @@ bias corrections are computed there, so a step needs no host sync.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple
+import warnings
+from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
 
@@ -53,18 +54,32 @@ class FusedOptimizer(NamedTuple):
     fused_apply: Callable
 
 
+def _zero_count(params: Params, count_shape=()) -> torch.Tensor:
+    """The step count of a fresh state: int32 zeros of ``count_shape``,
+    ``()`` for one set of params, ``(L,)`` for a stack of ``L`` replicas
+    whose leading axis is the replica (each replica keeps its own count,
+    as ``jax.vmap(optimizer.init)`` gives the reference's)."""
+    first = next(iter(params.values()))
+    return torch.zeros(count_shape, dtype=torch.int32, device=first.device)
+
+
+def _lead(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` (shaped like a step count) viewed to broadcast over ``like``
+    from the leading axes."""
+    return t.reshape(t.shape + (1,) * (like.dim() - t.dim()))
+
+
 def _adam_fns(learning_rate: float, b1: float, b2: float, eps: float,
               moment_dtype: torch.dtype):
     """``(init, update, fused_apply)`` of Adam with moments stored in
     ``moment_dtype`` and every operation in float32."""
     step_size = -float(learning_rate)
 
-    def init(params: Params) -> AdamState:
-        first = next(iter(params.values()))
+    def init(params: Params, count_shape=()) -> AdamState:
         zeros = {k: torch.zeros(p.shape, dtype=moment_dtype, device=p.device)
                  for k, p in params.items()}
         return AdamState(
-            count=torch.zeros((), dtype=torch.int32, device=first.device),
+            count=_zero_count(params, count_shape),
             mu=zeros,
             nu={k: torch.zeros_like(z) for k, z in zeros.items()})
 
@@ -93,8 +108,8 @@ def _adam_fns(learning_rate: float, b1: float, b2: float, eps: float,
         # copies even for float32 moments: m32 and v32 are reused in place
         mu = m32.to(moment_dtype, copy=True)
         nu = v32.to(moment_dtype, copy=True)
-        den = v32.div_(bc2).sqrt_().add_(eps)
-        return m32.div_(bc1).div_(den).mul_(step_size), mu, nu
+        den = v32.div_(_lead(bc2, v32)).sqrt_().add_(eps)
+        return m32.div_(_lead(bc1, m32)).div_(den).mul_(step_size), mu, nu
 
     def update(grads: Params, state: AdamState, params=None):
         del params
@@ -156,3 +171,323 @@ def fused_adam(learning_rate: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
     """Plain Adam (float32 moments) with ``fused_apply``:
     :func:`adam_compact` at ``moment_dtype=torch.float32``."""
     return adam_compact(learning_rate, b1, b2, eps, moment_dtype=torch.float32)
+
+
+# -- the Keras-spec optimizers of the MLP fit (port of ``to_optax``) ---------
+#
+# Each follows the update rule of the optax transformation the reference
+# builds, operation for operation, over dicts of tensors; the step count
+# may be a stack ``[L]`` (one count a replica), as ``_lead`` broadcasts it.
+
+
+class TraceState(NamedTuple):
+    """``optax.TraceState``: the momentum accumulator."""
+
+    trace: Params
+
+
+class RmsState(NamedTuple):
+    """``optax.ScaleByRmsState`` (``mu`` empty) or, centred,
+    ``ScaleByRStdDevState``; ``trace`` is the momentum stage's."""
+
+    mu: Params
+    nu: Params
+    trace: Params
+
+
+class RssState(NamedTuple):
+    """``optax.ScaleByRssState``: the running sum of squared gradients."""
+
+    sum_of_squares: Params
+
+
+class AdaDeltaState(NamedTuple):
+    """``optax.ScaleByAdaDeltaState``."""
+
+    e_g: Params
+    e_x: Params
+
+
+class LionState(NamedTuple):
+    """``optax.ScaleByLionState``."""
+
+    count: torch.Tensor
+    mu: Params
+
+
+def _full_like(params: Params, value: float) -> Params:
+    return {k: torch.full_like(p, value) for k, p in params.items()}
+
+
+def _moment(g, t, decay: float, order: int):
+    """optax's ``update_moment``: ``(1 - decay) * g**order + decay * t``."""
+    return (1 - decay) * (g if order == 1 else g * g) + decay * t
+
+
+def _bias_correction(moment, decay: float, count):
+    """optax's ``bias_correction``: ``moment / (1 - decay**count)``, the
+    power in float32 and the division in the moment's dtype."""
+    c = count.to(torch.float32)
+    base = torch.full((), decay, dtype=torch.float32, device=c.device)
+    bc = 1 - torch.pow(base, c)
+    return moment / _lead(bc, moment).to(moment.dtype)
+
+
+def _trace_step(g, t, momentum: float, nesterov: bool):
+    """optax's ``trace``: ``(updates, new trace)``."""
+    new = g + momentum * t
+    return (g + momentum * new if nesterov else new), new
+
+
+def sgd(learning_rate: float, momentum=None, nesterov: bool = False
+        ) -> GradientTransformation:
+    """``optax.sgd``: an optional momentum trace, then ``-learning_rate``."""
+    lr = float(learning_rate)
+
+    def init(params: Params, count_shape=()):
+        return TraceState({k: torch.zeros_like(p) for k, p in params.items()}
+                          if momentum is not None else {})
+
+    def update(grads: Params, state: TraceState, params=None):
+        if momentum is None:
+            return {k: g * -lr for k, g in grads.items()}, state
+        out, trace = {}, {}
+        for k, g in grads.items():
+            u, trace[k] = _trace_step(g, state.trace[k], momentum, nesterov)
+            out[k] = u * -lr
+        return out, TraceState(trace)
+
+    return GradientTransformation(init, update)
+
+
+def _adam_family(learning_rate: float, b1: float, b2: float, eps: float,
+                 weight_decay: float = 0.0, nesterov: bool = False
+                 ) -> GradientTransformation:
+    """``optax.adam`` (``nesterov``: ``optax.nadam``), with ``weight_decay``
+    ``optax.adamw``: ``scale_by_adam``, ``add_decayed_weights``, then
+    ``-learning_rate``."""
+    lr = float(learning_rate)
+
+    def init(params: Params, count_shape=()):
+        return AdamState(_zero_count(params, count_shape),
+                         {k: torch.zeros_like(p) for k, p in params.items()},
+                         {k: torch.zeros_like(p) for k, p in params.items()})
+
+    def update(grads: Params, state: AdamState, params=None):
+        count = state.count + 1
+        out, mu, nu = {}, {}, {}
+        for k, g in grads.items():
+            mu[k] = _moment(g, state.mu[k], b1, 1)
+            nu[k] = _moment(g, state.nu[k], b2, 2)
+            if nesterov:
+                m_hat = (b1 * _bias_correction(mu[k], b1, count + 1)
+                         + (1 - b1) * _bias_correction(g, b1, count))
+            else:
+                m_hat = _bias_correction(mu[k], b1, count)
+            u = m_hat / (torch.sqrt(_bias_correction(nu[k], b2, count)) + eps)
+            if weight_decay:
+                u = u + weight_decay * params[k]
+            out[k] = u * -lr
+        return out, AdamState(count, mu, nu)
+
+    return GradientTransformation(init, update)
+
+
+def rmsprop(learning_rate: float, decay: float = 0.9, eps: float = 1e-8,
+            momentum=None, centered: bool = False) -> GradientTransformation:
+    """``optax.rmsprop`` (``eps`` inside the square root, no bias
+    correction): ``scale_by_rms`` or, centred, ``scale_by_stddev``, then
+    ``-learning_rate``, then the momentum trace."""
+    lr = float(learning_rate)
+
+    def init(params: Params, count_shape=()):
+        zeros = {k: torch.zeros_like(p) for k, p in params.items()}
+        return RmsState(dict(zeros) if centered else {}, _full_like(params, 0.0),
+                        dict(zeros) if momentum is not None else {})
+
+    def update(grads: Params, state: RmsState, params=None):
+        out, mu, nu, trace = {}, {}, {}, {}
+        for k, g in grads.items():
+            nu[k] = _moment(g, state.nu[k], decay, 2)
+            if centered:
+                mu[k] = _moment(g, state.mu[k], decay, 1)
+                u = torch.rsqrt(nu[k] - mu[k] * mu[k] + eps) * g
+            else:
+                u = torch.rsqrt(nu[k] + eps) * g
+            u = u * -lr
+            if momentum is not None:
+                u, trace[k] = _trace_step(u, state.trace[k], momentum, False)
+            out[k] = u
+        return out, RmsState(mu, nu, trace)
+
+    return GradientTransformation(init, update)
+
+
+def adagrad(learning_rate: float, initial_accumulator_value: float = 0.1,
+            eps: float = 1e-7) -> GradientTransformation:
+    """``optax.adagrad``: ``scale_by_rss``, then ``-learning_rate``."""
+    lr = float(learning_rate)
+
+    def init(params: Params, count_shape=()):
+        return RssState(_full_like(params, initial_accumulator_value))
+
+    def update(grads: Params, state: RssState, params=None):
+        out, acc = {}, {}
+        for k, g in grads.items():
+            acc[k] = g * g + state.sum_of_squares[k]
+            inv = torch.where(acc[k] > 0, torch.rsqrt(acc[k] + eps), 0.0)
+            out[k] = (inv * g) * -lr
+        return out, RssState(acc)
+
+    return GradientTransformation(init, update)
+
+
+def adadelta(learning_rate: float, rho: float = 0.9, eps: float = 1e-6
+             ) -> GradientTransformation:
+    """``optax.adadelta`` (no weight decay): ``scale_by_adadelta``, then
+    ``-learning_rate``."""
+    lr = float(learning_rate)
+
+    def init(params: Params, count_shape=()):
+        return AdaDeltaState({k: torch.zeros_like(p) for k, p in params.items()},
+                             {k: torch.zeros_like(p) for k, p in params.items()})
+
+    def update(grads: Params, state: AdaDeltaState, params=None):
+        out, e_g, e_x = {}, {}, {}
+        for k, g in grads.items():
+            e_g[k] = _moment(g, state.e_g[k], rho, 2)
+            u = torch.sqrt(state.e_x[k] + eps) / torch.sqrt(e_g[k] + eps) * g
+            e_x[k] = _moment(u, state.e_x[k], rho, 2)
+            out[k] = u * -lr
+        return out, AdaDeltaState(e_g, e_x)
+
+    return GradientTransformation(init, update)
+
+
+def adamax(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+           eps: float = 1e-8) -> GradientTransformation:
+    """``optax.adamax``: ``scale_by_adamax``, then ``-learning_rate``."""
+    lr = float(learning_rate)
+
+    def init(params: Params, count_shape=()):
+        return AdamState(_zero_count(params, count_shape),
+                         {k: torch.zeros_like(p) for k, p in params.items()},
+                         {k: torch.zeros_like(p) for k, p in params.items()})
+
+    def update(grads: Params, state: AdamState, params=None):
+        count = state.count + 1
+        out, mu, nu = {}, {}, {}
+        for k, g in grads.items():
+            mu[k] = _moment(g, state.mu[k], b1, 1)
+            nu[k] = torch.maximum(torch.abs(g) + eps, b2 * state.nu[k])
+            out[k] = (_bias_correction(mu[k], b1, count) / nu[k]) * -lr
+        return out, AdamState(count, mu, nu)
+
+    return GradientTransformation(init, update)
+
+
+def lion(learning_rate: float, b1: float = 0.9, b2: float = 0.99,
+         weight_decay: float = 1e-3) -> GradientTransformation:
+    """``optax.lion``: ``scale_by_lion``, ``add_decayed_weights``, then
+    ``-learning_rate``."""
+    lr = float(learning_rate)
+
+    def init(params: Params, count_shape=()):
+        return LionState(_zero_count(params, count_shape),
+                         {k: torch.zeros_like(p) for k, p in params.items()})
+
+    def update(grads: Params, state: LionState, params=None):
+        out, mu = {}, {}
+        for k, g in grads.items():
+            u = torch.sign((1.0 - b1) * g + b1 * state.mu[k])
+            mu[k] = _moment(g, state.mu[k], b2, 1)
+            out[k] = (u + weight_decay * params[k]) * -lr
+        return out, LionState(state.count + 1, mu)
+
+    return GradientTransformation(init, update)
+
+
+def _extract_lr(cfg: dict) -> float:
+    lr = cfg.get("learning_rate", cfg.get("lr", 0.001))
+    if isinstance(lr, dict):
+        # Serialized Keras LearningRateSchedule — use its initial rate.
+        inner = lr.get("config", {})
+        lr = inner.get("initial_learning_rate", 0.001)
+    return float(lr)
+
+
+def _normalize(optimizer_spec) -> Tuple[str, dict]:
+    """Spec (string / Keras optimizer / config dict) → (name, config)."""
+    if isinstance(optimizer_spec, str):
+        return optimizer_spec.lower(), {}
+    if isinstance(optimizer_spec, dict):
+        # Either a raw get_config() dict or keras.optimizers.serialize output.
+        if "class_name" in optimizer_spec:
+            return (
+                optimizer_spec["class_name"].lower(),
+                dict(optimizer_spec.get("config", {})),
+            )
+        return optimizer_spec.get("name", "sgd").lower(), dict(optimizer_spec)
+    if hasattr(optimizer_spec, "get_config"):
+        cfg = optimizer_spec.get_config()
+        name = cfg.get("name", type(optimizer_spec).__name__).lower()
+        return name, cfg
+    raise TypeError(f"Cannot interpret optimizer spec: {optimizer_spec!r}")
+
+
+_MOMENT_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+                  "float32": torch.float32}
+
+
+def to_torch_optimizer(optimizer_spec: Any):
+    """The optimizer matching a Keras optimizer spec, with the reference's
+    hyperparameter mapping and optax's update rules (port of ``to_optax``).
+
+    Returns a :class:`GradientTransformation` (``adam`` with a
+    ``moment_dtype`` in its config: :func:`adam_compact`, a
+    :class:`FusedOptimizer`) whose ``init(params, count_shape=())`` takes
+    the shape of the step count, ``(L,)`` for a stack of ``L`` replicas.
+    An optimizer without a mapping falls back to SGD with a warning, as
+    the reference does."""
+    name, cfg = _normalize(optimizer_spec)
+    lr = _extract_lr(cfg)
+
+    def f(key, default):
+        return float(cfg.get(key, default))
+
+    if name == "sgd":
+        momentum = float(cfg.get("momentum", 0.0) or 0.0)
+        return sgd(lr, momentum=momentum or None,
+                   nesterov=bool(cfg.get("nesterov", False)))
+    if name == "adam":
+        if cfg.get("moment_dtype"):
+            mdt = cfg["moment_dtype"]
+            return adam_compact(lr, b1=f("beta_1", 0.9), b2=f("beta_2", 0.999),
+                                eps=f("epsilon", 1e-7),
+                                moment_dtype=_MOMENT_DTYPES.get(str(mdt), mdt))
+        return adam(lr, b1=f("beta_1", 0.9), b2=f("beta_2", 0.999),
+                    eps=f("epsilon", 1e-7))
+    if name in ("adamw", "nadam"):
+        return _adam_family(
+            lr, b1=f("beta_1", 0.9), b2=f("beta_2", 0.999), eps=f("epsilon", 1e-7),
+            weight_decay=(float(cfg.get("weight_decay", 0.004) or 0.0)
+                          if name == "adamw" else 0.0),
+            nesterov=name == "nadam")
+    if name == "rmsprop":
+        return rmsprop(lr, decay=f("rho", 0.9), eps=f("epsilon", 1e-7),
+                       momentum=float(cfg.get("momentum", 0.0) or 0.0),
+                       centered=bool(cfg.get("centered", False)))
+    if name == "adagrad":
+        return adagrad(lr, initial_accumulator_value=f("initial_accumulator_value", 0.1),
+                       eps=f("epsilon", 1e-7))
+    if name == "adadelta":
+        return adadelta(lr, rho=f("rho", 0.95), eps=f("epsilon", 1e-7))
+    if name == "adamax":
+        return adamax(lr, b1=f("beta_1", 0.9), b2=f("beta_2", 0.999),
+                      eps=f("epsilon", 1e-7))
+    if name == "lion":
+        return lion(lr, b1=f("beta_1", 0.9), b2=f("beta_2", 0.99))
+
+    warnings.warn(
+        f"Optimizer '{name}' has no mapping; falling back to SGD(lr={lr}).")
+    return sgd(lr)

@@ -2,10 +2,11 @@
 at edge shapes the serving and training runs do not reach (scalar-load
 head dims, odd group sizes, caches and sequences shorter than a tile,
 every mask mode, pages smaller and larger than a key tile, grouped
-products with empty experts, ragged K/N and wide tiles), the wrappers'
+products with empty experts, ragged K/N and wide tiles, loss rows on both
+sides of K1's warp/block switch with zero and soft labels), the wrappers'
 refusals, and the serving engine (dense and paged), the train step and
 ``generate`` on the card against the same code on the CPU, for the dense
-and the mixture-of-experts LM.
+and the mixture-of-experts LM, and the MLP fit's five schedules.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside the
 test, never at import). This file imports no JAX, so it runs on a machine
@@ -24,6 +25,9 @@ from elephas_tpu_torch.ops.flash_attention import (
     flash_attention_dkv, flash_attention_dq, flash_attention_fwd)
 from elephas_tpu_torch.ops.flash_decode import (decode_attention_reference_lse,
                                                 flash_decode_lse)
+from elephas_tpu_torch.ops.fused_xent import (categorical_crossentropy_from_logits,
+                                              fused_xent_bwd, fused_xent_bwd_reference,
+                                              fused_xent_fwd, fused_xent_fwd_reference)
 from elephas_tpu_torch.ops.grouped_matmul import (gmm, gmm_reference, gmm_t,
                                                   tgmm, tgmm_reference)
 from elephas_tpu_torch.ops.layer_norm import (fused_layer_norm,
@@ -401,3 +405,105 @@ def test_moe_engine_train_and_generate_on_card_match_cpu(cuda):
     for k, g in out["cpu"][3].items():
         scale = max(float(g.abs().max()), 1e-6)
         assert float((out["cuda"][3][k] - g).abs().max()) <= 1e-3 * scale, k
+
+
+def _xent_case(rng, B, C, dtype=torch.float32):
+    x = torch.from_numpy((rng.normal(size=(B, C)) * 3).astype(np.float32)).to("cuda", dtype)
+    y = np.zeros((B, C), np.float32)
+    y[np.arange(B), rng.integers(0, C, size=B)] = 1.0
+    y[0] = 0.0                                   # a zero-label row
+    if B > 1:
+        y[1, : min(C, 3)] += 0.5                 # a row summing past 1
+    g = torch.from_numpy(rng.normal(size=B).astype(np.float32)).cuda()
+    return x, torch.from_numpy(y).cuda(), g
+
+
+@pytest.mark.parametrize("B,C", [(1, 1), (3, 10), (9, 31), (17, 1024), (5, 1025),
+                                 (2, 4099), (1024, 10)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_xent_kernels_match_plain(cuda, B, C, dtype):
+    """K1 at ragged widths on both sides of the warp-per-row / block-per-row
+    switch (C = 1024), bf16 logits, zero and soft label rows. Loss within
+    1e-5 relative to the row's scale (float32 sums in another order); dx
+    within 1e-6 in float32 and one bf16 ulp (2**-8 relative) in bf16."""
+    rng = np.random.default_rng(B * 7 + C)
+    x, y, g = _xent_case(rng, B, C, dtype)
+    got = fused_xent_fwd(x, y)
+    want = fused_xent_fwd_reference(x, y)
+    assert got.dtype == torch.float32 and got.shape == (B,)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert got[0].item() == 0.0
+    dx = fused_xent_bwd(x, y, g)
+    assert dx.dtype == dtype
+    tol = 1e-6 if dtype == torch.float32 else 2 ** -8
+    torch.testing.assert_close(dx.float(), fused_xent_bwd_reference(x, y, g).float(),
+                               atol=tol, rtol=tol)
+
+
+def test_fused_xent_autograd_on_card_matches_cpu(cuda):
+    rng = np.random.default_rng(5)
+    x, y, g = _xent_case(rng, 64, 130)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        xd = x.to(dev).clone().requires_grad_()
+        loss = categorical_crossentropy_from_logits(xd, y.to(dev))
+        (dx,) = torch.autograd.grad(loss, xd, g.to(dev))
+        out[dev] = (loss.detach().cpu(), dx.cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], atol=1e-6, rtol=1e-6)
+
+
+def test_fused_xent_wrappers_refuse_bad_input(cuda):
+    rng = np.random.default_rng(6)
+    x, y, g = _xent_case(rng, 4, 10)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_xent_fwd(x.cpu(), y.cpu())
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_xent_bwd(x.cpu(), y.cpu(), g.cpu())
+    with pytest.raises(ValueError, match="one device"):
+        fused_xent_fwd(x, y.cpu())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fused_xent_fwd(x.half(), y)
+    with pytest.raises(ValueError, match=r"\[B, C\]"):
+        fused_xent_fwd(x[None], y[None])
+    with pytest.raises(ValueError, match="cotangent"):
+        fused_xent_bwd(x, y, g[:3])
+    empty = fused_xent_fwd(x[:0], y[:0])
+    assert empty.shape == (0,)
+
+
+def test_mlp_fit_on_card_matches_cpu(cuda):
+    """The MNIST MLP's JSON (dropout off) fitted on the card and on the CPU
+    from the same weights and order, in the five schedules: histories and
+    weights within 1e-4 relative to their scale (float32; cuBLAS sums in
+    another order than the CPU's BLAS, compounded over the fit's steps)."""
+    import json
+    from pathlib import Path
+
+    from elephas_tpu_torch import SparkModel
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    path = Path(__file__).resolve().parents[1] / "elephas_tpu_torch" / "configs" / \
+        "mnist_mlp_logits.json"
+    cfg = json.loads(path.read_text())
+    for layer in cfg["config"]["layers"]:
+        if layer["class_name"] == "Dropout":
+            layer["config"]["rate"] = 0.0
+    rng = np.random.default_rng(7)
+    x = rng.random((600, 784)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, size=600)]
+    for mode, freq in [("synchronous", "epoch"), ("synchronous", "batch"),
+                       ("asynchronous", "epoch"), ("asynchronous", "batch"),
+                       ("hogwild", "epoch")]:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            sm = SparkModel(json.dumps(cfg), mode=mode, frequency=freq,
+                            parameter_server_mode="jax", num_workers=3, device=dev)
+            sm.fit(to_simple_rdd(SparkContext("local[3]"), x, y), epochs=2, batch_size=32,
+                   validation_split=0.1)
+            out[dev] = (sm.training_histories[-1], sm.master_network.get_weights())
+        for k, v in out["cpu"][0].items():
+            np.testing.assert_allclose(out["cuda"][0][k], v, rtol=1e-4, atol=1e-4)
+        for a, b in zip(out["cuda"][1], out["cpu"][1]):
+            assert np.abs(a - b).max() <= 1e-4 * max(np.abs(b).max(), 1e-3)

@@ -20,6 +20,10 @@ import elephas_tpu_torch.serving, elephas_tpu_torch.models.optimizers
 import elephas_tpu_torch.ops.flash_attention, elephas_tpu_torch.ops.paged_attention
 import elephas_tpu_torch.serving.memory, elephas_tpu_torch.parallel
 import elephas_tpu_torch.parallel.expert, elephas_tpu_torch.ops.grouped_matmul
+import elephas_tpu_torch.ops.fused_xent, elephas_tpu_torch.models.losses
+import elephas_tpu_torch.models.adapters, elephas_tpu_torch.parallel.mesh
+import elephas_tpu_torch.parallel.engine, elephas_tpu_torch.spark_model
+import elephas_tpu_torch.data, elephas_tpu_torch.mllib, elephas_tpu_torch.utils
 bad = sorted(m for m in sys.modules
              if m in ("jax", "keras", "elephas_tpu")
              or m.startswith(("jax.", "keras.", "elephas_tpu.")))
@@ -67,6 +71,19 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
     new, _, loss = step(params, opt_init(params), tok, pos, tg)
     assert loss.device.type == "cpu" and new["tok"].device.type == "cpu"
     assert model.generate(params, tok, 2).device.type == "cpu"
+
+
+def test_mlp_fit_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
+    from elephas_tpu_torch import SparkModel
+    from elephas_tpu_torch.models import KerasModelAdapter
+
+    config = (ROOT / "elephas_tpu_torch" / "configs" / "mnist_mlp_logits.json").read_text()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SparkModel(config, mode="synchronous")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        KerasModelAdapter(config)
+    sm = SparkModel(config, mode="synchronous", device="cpu")     # asked for: fine
+    assert sm.master_network.get_weights()[0].shape == (784, 128)
 
 
 def test_chip_smoke_refuses_without_cuda(no_cuda, tmp_path):
