@@ -16,9 +16,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    computes the same function (a yardstick the port never calls), and the
    least time the card could take (bytes over 3.35 TB/s or operations over
    67 TFLOP/s float32, whichever is larger; H100 SXM data-sheet peaks):
-   LayerNorm forward and backward, flash decode, and flash attention
-   forward, dq and dkv (eight cases: GPT-2 training shape, ragged T, GQA,
-   window, non-causal, lse cotangent, bf16 at Dh 64 and 256).
+   LayerNorm forward and backward, flash decode, flash attention forward,
+   dq and dkv (eight cases: GPT-2 training shape, ragged T, GQA, window,
+   non-causal, lse cotangent, bf16 at Dh 64 and 256), and their
+   rope-on-load variants (six cases: the Llama-3-8B training shape, ragged
+   T, GQA at Dh 64, window, bf16, per-row position offsets; timed beside
+   two compositions of two PyTorch operations each, since no single call
+   computes rope and attention).
 3. ``serve``: GPT-2-small at full width (random weights from a seed)
    behind ``ServingEngine(n_slots=8)``: 16 greedy requests, prompts of
    32-256 tokens, 64 new tokens each. The kernel launch counters are set to
@@ -35,8 +39,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``build_lm_train_step(model, None, adam_compact(1e-3), attn="flash")``
    on one fixed batch of 8 rows of 1024 tokens: 2 warm-up and 5 timed
    steps with finite, falling losses, and per timed step exactly L
-   launches of each flash-attention kernel and 2L+1 of each LayerNorm
-   kernel; then one step with ``vocab_block=8192`` against the dense head.
+   launches of each flash-attention kernel (none of the rope-on-load ones:
+   GPT-2's positions are learned) and 2L+1 of each LayerNorm kernel; then one step with ``vocab_block=8192`` against the dense head.
 7. ``train_cross_check``: the loss and every parameter's gradient of one
    step at B=1, T=128 on the card against ``device="cpu"`` (the plain
    path), from the same weights.
@@ -83,7 +87,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 17. ``train_moe``: 2 layers, float32, ``adam_compact(1e-3)``, ``attn="flash"``,
     B 4 x T 1024: 2 warm-up and 3 timed steps, falling finite losses, per
     step exactly 5L ``gmm``, 3L ``gmm_t``, 3L ``tgmm`` and L of each
-    flash-attention kernel; a profiled step.
+    rope-on-load flash-attention kernel (none of the plain ones); a
+    profiled step.
 18. ``train_moe_cross_check``: one layer, B 1, T 64: loss and gradients on
     the card against the CPU.
 19. ``kernel`` ``fused_xent``: K1-fwd and K1-bwd against their plain
@@ -104,6 +109,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
 22. ``fit_cross_check``: a short fit with dropout off, card against
     ``device="cpu"`` from the same weights and order: histories and
     weights within 1e-4.
+23. ``train_llama``: Meta-Llama-3-8B's widths at 4 of 32 layers (float32,
+    random weights drawn on the card), ``build_lm_train_step(model, None,
+    adam_compact(1e-3), attn="flash")`` on one fixed batch of 4 x 2048
+    tokens: 2 warm-up and 3 timed steps, falling finite losses, per step
+    exactly L launches of each rope-on-load flash-attention kernel and
+    none of the plain ones; a profiled step; then ``train_llama_bf16``: 2
+    steps from the same initial weights with ``compute_dtype="bfloat16"``,
+    the first loss within 1e-2 of the float32 run's, the second lower.
+24. ``train_llama_cross_check``: one layer, B 1, T 64: loss and gradients on
+    the card against the CPU.
 
 Then the kernel summary line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -465,6 +480,188 @@ def check_flash_attention(card):
     emit({"phase": "kernel", "kernel": "flash_attention", "checks": checks,
           "timing": [{k_: r[k_] for k_ in ("name", "ms", "plain_ms", "library_ms",
                                            "bound_ms", "bound_by")} for r in rows],
+          "card": card})
+    return rows
+
+
+# Llama-3-8B attention at its training shape, then the edges: ragged T, GQA
+# at Dh 64, a window, bf16, and tables at per-row position offsets
+ROPE_CASES = [
+    # name, B, H, Hkv, T, Dh, window, dtype, first position, tol
+    ("llama3_8b_train_f32", 4, 32, 8, 2048, 128, None, torch.float32, 0, 2e-5),
+    ("t1000_f32", 2, 32, 8, 1000, 128, None, torch.float32, 0, 2e-5),
+    ("gqa_h8_hkv2_dh64_f32", 2, 8, 2, 1024, 64, None, torch.float32, 0, 2e-5),
+    ("window128_f32", 2, 32, 8, 1024, 128, 128, torch.float32, 0, 2e-5),
+    ("bf16_dh128", 2, 32, 8, 1024, 128, None, torch.bfloat16, 0, 2e-2),
+    ("offset4096_f32", 2, 8, 2, 512, 128, None, torch.float32, 4096, 2e-5),
+]
+LLAMA_THETA = 500000.0
+
+
+def _rope_tables(B, T, Dh, first=0):
+    """The model's tables for rows at positions ``first + 37 b + t``."""
+    from elephas_tpu_torch.models.transformer import _rope_angles
+    from elephas_tpu_torch.ops.flash_attention import make_rope_tables
+
+    pos = (first + 37 * torch.arange(B, device="cuda")[:, None]
+           + torch.arange(T, device="cuda")[None, :])
+    return make_rope_tables(*_rope_angles(pos, Dh, LLAMA_THETA))
+
+
+def check_flash_attention_rope(card):
+    """The rope-on-load K2-fwd, K2-dq and K2-dkv against their plain
+    versions (rotate in float32, attend, derotate dq and dk) on the same
+    inputs, lse and delta, over ``ROPE_CASES``, and the autograd Function
+    against autograd through the plain forward. Then timed at the Llama-3-8B
+    training shape beside the plain versions and two compositions of two
+    PyTorch operations each (no single PyTorch call computes rope and
+    attention together): (a) ``_rope_rotate`` of q and k, then the plain
+    K2 kernels, the path the model took before; (b) ``_rope_rotate``, then
+    ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``;
+    forward, and each one's autograd backward (dq, dk and dv together)."""
+    from elephas_tpu_torch.models.transformer import _rope_rotate
+    from elephas_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_rope, flash_attention_rope_dkv,
+        flash_attention_rope_dq, flash_attention_rope_fwd,
+        rope_attention_bwd_reference, rope_attention_fwd_reference)
+
+    gen = np.random.default_rng(SEED + 30)
+    checks = []
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for name, B, H, Hkv, T, Dh, window, dtype, first, tol in ROPE_CASES:
+        q, k, v, do = _attn_inputs(gen, B, H, Hkv, T, Dh, dtype)
+        c2, s2 = _rope_tables(B, T, Dh, first)
+        o, lse = flash_attention_rope_fwd(q, k, v, c2, s2, True, window)
+        wo, wl = rope_attention_fwd_reference(q, k, v, c2, s2, True, window)
+        delta = (do.float() * wo.float()).sum(-1).transpose(1, 2).contiguous()
+        bwd = (q, k, v, do, wl, delta, c2, s2, True, window)
+        dq = flash_attention_rope_dq(*bwd)
+        dk, dv = flash_attention_rope_dkv(*bwd)
+        want = rope_attention_bwd_reference(*bwd)
+        torch.cuda.synchronize()
+        errs = {"o": _allclose_err(o, wo, tol), "lse": _allclose_err(lse, wl, tol),
+                "dq": _allclose_err(dq, want[0], tol),
+                "dk": _allclose_err(dk, want[1], tol),
+                "dv": _allclose_err(dv, want[2], tol)}
+        del o, lse, dq, dk, dv, want
+        if T <= 1024:
+            # the autograd Function end to end against autograd through
+            # the plain forward (which differentiates the rotation itself)
+            grads = {}
+            for route in ("kernel", "plain"):
+                args = [t.detach().requires_grad_() for t in (q, k, v)]
+                out = (flash_attention_rope(*args, c2, s2, True, window=window)
+                       if route == "kernel" else
+                       rope_attention_fwd_reference(*args, c2, s2, True, window)[0])
+                grads[route] = torch.autograd.grad((out.float() * do.float()).sum(), args)
+            for n_, a, w in zip(("autograd_dq", "autograd_dk", "autograd_dv"),
+                                grads["kernel"], grads["plain"]):
+                errs[n_] = _allclose_err(a, w, tol)
+        bad = [k_ for k_, (_, ok) in errs.items() if not ok]
+        require(not bad, f"flash_attention_rope {name}: {bad} beyond atol = rtol = "
+                         f"{tol}: { {k_: e for k_, (e, _) in errs.items()} }")
+        if dtype == torch.float32:
+            worst["fwd"] = max(worst["fwd"], errs["o"][0], errs["lse"][0])
+            worst["dq"] = max(worst["dq"], errs["dq"][0])
+            worst["dkv"] = max(worst["dkv"], errs["dk"][0], errs["dv"][0])
+        checks.append({"case": name, "B": B, "H": H, "Hkv": Hkv, "T": T, "Dh": Dh,
+                       "causal": True, "window": window, "dtype": str(dtype),
+                       "first_position": first, "theta": LLAMA_THETA,
+                       "atol": tol, "rtol": tol,
+                       "max_abs_err": {k_: e for k_, (e, _) in errs.items()}})
+        del q, k, v, do, wo, wl, delta, bwd, c2, s2
+    torch.cuda.empty_cache()
+
+    # timing at the Llama-3-8B training shape, float32, causal; two input
+    # sets (about 340 MB each) alternate so the reads miss the 50 MB L2
+    B, H, Hkv, T, Dh = 4, 32, 8, 2048, 128
+    sets = []
+    for _ in range(2):
+        q, k, v, do = _attn_inputs(gen, B, H, Hkv, T, Dh, torch.float32)
+        c2, s2 = _rope_tables(B, T, Dh)
+        o, lse = rope_attention_fwd_reference(q, k, v, c2, s2, True)
+        delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+        sets.append((q, k, v, do, lse, delta, c2, s2))
+        del o
+    n = 10
+    fwd_ms = device_ms(lambda q, k, v, do, lse, delta, c2, s2:
+                       flash_attention_rope_fwd(q, k, v, c2, s2, True), sets, n)
+    dq_ms = device_ms(lambda *a: flash_attention_rope_dq(*a, True), sets, n)
+    dkv_ms = device_ms(lambda *a: flash_attention_rope_dkv(*a, True), sets, n)
+    plain_fwd_ms = device_ms(lambda q, k, v, do, lse, delta, c2, s2:
+                             rope_attention_fwd_reference(q, k, v, c2, s2, True), sets, 4)
+    plain_bwd_ms = device_ms(lambda *a: rope_attention_bwd_reference(*a, True), sets, 4)
+
+    def rotated(s):
+        q, k, v, do, _, _, c2, s2 = s
+        cos, sin = c2[:, :, None, : Dh // 2], s2[:, :, None, Dh // 2:]
+        return q, k, v, do, cos, sin
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def old_path(q, k, v, cos, sin):     # (a): rotate, then the plain K2
+        return flash_attention(_rope_rotate(q, cos, sin), _rope_rotate(k, cos, sin), v,
+                               True)
+
+    def sdpa_path(q, k, v, cos, sin):    # (b): rotate, then SDPA
+        return sdpa(_rope_rotate(q, cos, sin).transpose(1, 2),
+                    _rope_rotate(k, cos, sin).transpose(1, 2), v.transpose(1, 2),
+                    is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    rot_sets = [rotated(s) for s in sets]
+    compositions = {}
+    for label, fn in (("rope_rotate_then_k2", old_path),
+                      ("rope_rotate_then_sdpa", sdpa_path)):
+        with torch.no_grad():
+            f_ms = device_ms(lambda q, k, v, do, cos, sin: fn(q, k, v, cos, sin),
+                             rot_sets, n)
+        graphs = []
+        for q, k, v, do, cos, sin in rot_sets:
+            args = [t.detach().requires_grad_() for t in (q, k, v)]
+            graphs.append((fn(*args, cos, sin), args, do))
+        b_ms = device_ms(lambda out, args, do: torch.autograd.grad(
+            out, args, do, retain_graph=True), graphs, n)
+        compositions[label] = {"fwd_ms": f_ms, "bwd_ms": b_ms}
+        del graphs
+    del sets, rot_sets
+
+    pairs = B * H * _visible_pairs(T, True, None)
+    qb = B * T * H * Dh * 4                           # q, o, dO, dq (f32)
+    kb = B * T * Hkv * Dh * 4                         # k, v, dk, dv
+    stat = B * H * T * 4                              # lse, delta
+    tab = 2 * B * T * Dh * 4                          # c2 and s2
+    rot_q, rot_k = 3 * B * T * H * Dh, 3 * B * T * Hkv * Dh   # 2 mul + 1 add an element
+    rows = []
+    for name, ms, plain_ms, comp, n_bytes, n_ops, err in (
+            ("flash_attention_rope_fwd", fwd_ms, plain_fwd_ms, "fwd_ms",
+             2 * qb + 2 * kb + stat + tab, 4 * Dh * pairs + rot_q + rot_k, worst["fwd"]),
+            ("flash_attention_rope_dq", dq_ms, plain_bwd_ms, "bwd_ms",
+             3 * qb + 2 * kb + 2 * stat + tab, 6 * Dh * pairs + 2 * rot_q + rot_k,
+             worst["dq"]),
+            ("flash_attention_rope_dkv", dkv_ms, plain_bwd_ms, "bwd_ms",
+             2 * qb + 4 * kb + 2 * stat + tab, 8 * Dh * pairs + rot_q + 2 * rot_k,
+             worst["dkv"])):
+        bms, by = bound_ms(n_bytes, n_ops)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "elephas_tpu_torch/ops/csrc/flash_attention.cu",
+                     "replaces": ("elephas_tpu/ops/pallas_flash.py:211" if name.endswith("fwd")
+                                  else "elephas_tpu/ops/pallas_flash.py:414"),
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "plain": ("rope_attention_fwd_reference" if name.endswith("fwd") else
+                               "rope_attention_bwd_reference (dq, dk and dv together)"),
+                     "bound_ms": bms, "bound_by": by, "library_ms": None,
+                     "library": "none: no single PyTorch call computes rope and attention",
+                     "two_op_compositions_ms": {
+                         k_: v_[comp] for k_, v_ in compositions.items()},
+                     "compositions_compute": ("forward" if comp == "fwd_ms" else
+                                              "autograd backward: dq, dk and dv together"),
+                     "timed_shape": {"B": B, "H": H, "Hkv": Hkv, "T": T, "Dh": Dh,
+                                     "causal": True, "dtype": "float32",
+                                     "theta": LLAMA_THETA}})
+    emit({"phase": "kernel", "kernel": "flash_attention_rope", "checks": checks,
+          "timing": [{k_: r[k_] for k_ in ("name", "ms", "plain_ms", "library_ms",
+                                           "two_op_compositions_ms", "bound_ms",
+                                           "bound_by")} for r in rows],
           "card": card})
     return rows
 
@@ -861,9 +1058,9 @@ def profile_decode(card, params, prompts):
 
 def _counters():
     """Every kernel wrapper of the port by its row name."""
-    from elephas_tpu_torch.ops.flash_attention import (flash_attention_dkv,
-                                                       flash_attention_dq,
-                                                       flash_attention_fwd)
+    from elephas_tpu_torch.ops.flash_attention import (
+        flash_attention_dkv, flash_attention_dq, flash_attention_fwd,
+        flash_attention_rope_dkv, flash_attention_rope_dq, flash_attention_rope_fwd)
     from elephas_tpu_torch.ops.flash_decode import flash_decode_lse
     from elephas_tpu_torch.ops.fused_xent import fused_xent_bwd, fused_xent_fwd
     from elephas_tpu_torch.ops.grouped_matmul import gmm, gmm_t, tgmm
@@ -877,6 +1074,9 @@ def _counters():
             "flash_attention_fwd": flash_attention_fwd,
             "flash_attention_dq": flash_attention_dq,
             "flash_attention_dkv": flash_attention_dkv,
+            "flash_attention_rope_fwd": flash_attention_rope_fwd,
+            "flash_attention_rope_dq": flash_attention_rope_dq,
+            "flash_attention_rope_dkv": flash_attention_rope_dkv,
             "paged_flash_decode_lse": paged_flash_decode_lse,
             "paged_flash_chunk": paged_flash_chunk,
             "gmm": gmm, "gmm_t": gmm_t, "tgmm": tgmm,
@@ -929,7 +1129,9 @@ def train(card, params):
     require(losses[-1] < losses[0], f"train: loss did not fall: {losses}")
     want = {"flash_attention_fwd": L, "flash_attention_dq": L,
             "flash_attention_dkv": L, "layer_norm_fwd": 2 * L + 1,
-            "layer_norm_bwd": 2 * L + 1, "flash_decode_lse": 0}
+            "layer_norm_bwd": 2 * L + 1, "flash_decode_lse": 0,
+            "flash_attention_rope_fwd": 0, "flash_attention_rope_dq": 0,
+            "flash_attention_rope_dkv": 0}
     for name, per_step in want.items():
         require(counts[name] == per_step * n_steps,
                 f"train: {name} launched {counts[name]} times in {n_steps} "
@@ -1313,8 +1515,9 @@ def draw_params(model, seed: int):
             for layer in (t if name in block else [t]):
                 layer.uniform_(-limit, limit, generator=gen)
         out[name] = t
-    for name in model.moe.expert_keys():
-        out[name] = out[name].to(model.moe.param_dtype)
+    moe = getattr(model, "moe", None)
+    for name in (moe.expert_keys() if moe is not None else ()):
+        out[name] = out[name].to(moe.param_dtype)
     return out
 
 
@@ -1681,7 +1884,8 @@ def train_moe(card):
     model, None, adam_compact(1e-3), attn="flash")`` on one fixed batch of
     4 x 1024 tokens: 2 warm-up and 3 timed steps with finite, falling
     losses; per timed step exactly 5L gmm, 3L gmm_t, 3L tgmm and L of each
-    flash-attention kernel."""
+    rope-on-load flash-attention kernel (Mixtral is rotary), none of the
+    plain ones."""
     from elephas_tpu_torch.models import (MoETransformerLM, adam_compact,
                                           build_lm_train_step, make_lm_batches)
 
@@ -1713,8 +1917,10 @@ def train_moe(card):
     losses = [float(x) for x in losses]
     require(all(np.isfinite(losses)), f"train_moe: non-finite loss in {losses}")
     require(losses[-1] < losses[0], f"train_moe: loss did not fall: {losses}")
-    want = {"gmm": 5 * L, "gmm_t": 3 * L, "tgmm": 3 * L, "flash_attention_fwd": L,
-            "flash_attention_dq": L, "flash_attention_dkv": L, "layer_norm_fwd": 0}
+    want = {"gmm": 5 * L, "gmm_t": 3 * L, "tgmm": 3 * L, "flash_attention_rope_fwd": L,
+            "flash_attention_rope_dq": L, "flash_attention_rope_dkv": L,
+            "flash_attention_fwd": 0, "flash_attention_dq": 0, "flash_attention_dkv": 0,
+            "layer_norm_fwd": 0}
     for name, per_step in want.items():
         require(counts[name] == per_step * n_steps,
                 f"train_moe: {name} launched {counts[name]} times in {n_steps} "
@@ -2054,6 +2260,148 @@ def fit_cross_check(card):
           "checks": checks, "card": card})
 
 
+# -- phases 23 and 24: rotary-LM training at Llama-3-8B width ---------------------
+
+# Meta-Llama-3-8B's published config.json widths (the repo's `llama` family,
+# models/hf_import.py: swiglu, rmsnorm, rotary, GQA); depth is the only cut
+# (32 layers of parameters, gradients and Adam moments in float32 pass 80 GB)
+LLAMA3_8B = dict(vocab=128256, d_model=4096, n_heads=32, n_kv_heads=8, d_ff=14336,
+                 max_len=8192, activation="swiglu", ffn_bias=False, norm="rmsnorm",
+                 norm_eps=1e-5, pos_encoding="rotary", rope_theta=LLAMA_THETA,
+                 attn_bias=False, tie_embeddings=False)
+LLAMA_TRAIN_LAYERS = 4
+ROPE_ROWS = ("flash_attention_rope_fwd", "flash_attention_rope_dq",
+             "flash_attention_rope_dkv")
+PLAIN_K2_ROWS = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")
+
+
+def _llama_steps(step, params, state, batch, n_steps):
+    """``n_steps`` steps; ``(params, state, losses, wall seconds, launch
+    counts)`` with the counts set to 0 just before and read just after."""
+    torch.cuda.synchronize()
+    _zero_counters()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        params, state, loss = step(params, state, *batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return params, state, [float(x) for x in losses], wall, _read_counters()
+
+
+def _want_rope_launches(what, counts, L, n_steps):
+    for name in ROPE_ROWS + PLAIN_K2_ROWS + ("layer_norm_fwd",):
+        per_step = L if name in ROPE_ROWS else 0
+        require(counts[name] == per_step * n_steps,
+                f"{what}: {name} launched {counts[name]} times in {n_steps} steps, "
+                f"want {per_step} per step")
+
+
+def train_llama(card):
+    """Llama-3-8B widths, 4 of 32 layers, float32, random weights drawn on
+    the card, trained by ``build_lm_train_step(model, None,
+    adam_compact(1e-3), attn="flash")`` on one fixed batch of 4 x 2048
+    tokens: 2 warm-up and 3 timed steps with finite, falling losses and per
+    step exactly L launches of each rope-on-load flash-attention kernel and
+    none of the plain ones; a profiled step; then ``train_llama_bf16``: 2
+    steps from the same initial weights with ``compute_dtype="bfloat16"``."""
+    from elephas_tpu_torch.models import (TransformerLM, adam_compact,
+                                          build_lm_train_step, make_lm_batches)
+
+    L = LLAMA_TRAIN_LAYERS
+    model = TransformerLM(**dict(LLAMA3_8B, n_layers=L), device="cuda")
+    params = draw_params(model, SEED + 31)
+    B, T = 4, 2048
+    rows = np.random.default_rng(SEED + 32).integers(0, LLAMA3_8B["vocab"],
+                                                     size=(B, T + 1))
+    batch = tuple(torch.from_numpy(a).cuda() for a in make_lm_batches(rows))
+    step, opt_init = build_lm_train_step(model, None, adam_compact(1e-3), attn="flash")
+    state = opt_init(params)
+    params, state, warm, _, _ = _llama_steps(step, params, state, batch, 2)
+    torch.cuda.reset_peak_memory_stats()
+    n_steps = 3
+    params, state, timed, wall, counts = _llama_steps(step, params, state, batch, n_steps)
+    peak = torch.cuda.max_memory_allocated()
+    losses = warm + timed
+    require(all(np.isfinite(losses)), f"train_llama: non-finite loss in {losses}")
+    require(losses[-1] < losses[0], f"train_llama: loss did not fall: {losses}")
+    _want_rope_launches("train_llama", counts, L, n_steps)
+    prof = profiled(lambda: step(params, state, *batch), 1, top_n=16)
+    del state
+    emit({"phase": "train_llama", "model": f"Llama-3-8B widths, {L} of 32 layers "
+          "(random weights, seed 31)", "dtype": "float32",
+          "optimizer": "adam_compact(1e-3)", "attn": "flash", "batch": B, "seq_len": T,
+          "warmup_steps": 2, "timed_steps": n_steps, "ms_per_step": wall * 1e3 / n_steps,
+          "tokens_per_s": n_steps * B * T / wall, "peak_mem_gb": peak / 1e9,
+          "losses": losses, "launches": counts,
+          "launches_per_step": {k: v / n_steps for k, v in counts.items()},
+          "profiled_step": prof, "card": card})
+
+    # bf16 compute from the same initial weights (float32 master weights,
+    # fresh moments): its first loss is the float32 run's first loss to
+    # bf16 rounding (1e-2 relative), and the next one is lower
+    model16 = TransformerLM(**dict(LLAMA3_8B, n_layers=L), compute_dtype="bfloat16",
+                            device="cuda")
+    step16, opt_init16 = build_lm_train_step(model16, None, adam_compact(1e-3),
+                                             attn="flash")
+    p16 = draw_params(model16, SEED + 31)
+    torch.cuda.reset_peak_memory_stats()
+    p16, _, losses16, wall16, counts16 = _llama_steps(step16, p16, opt_init16(p16),
+                                                      batch, 2)
+    peak16 = torch.cuda.max_memory_allocated()
+    del p16
+    rel16 = abs(losses16[0] - losses[0]) / abs(losses[0])
+    require(all(np.isfinite(losses16)), f"train_llama bf16: non-finite loss in {losses16}")
+    require(rel16 <= 1e-2, f"train_llama bf16: first loss {losses16[0]} vs float32 "
+                           f"{losses[0]} (relative {rel16} > 1e-2)")
+    require(losses16[-1] < losses16[0], f"train_llama bf16: loss did not fall: {losses16}")
+    _want_rope_launches("train_llama bf16", counts16, L, 2)
+    emit({"phase": "train_llama_bf16", "model": "the same, compute_dtype='bfloat16'",
+          "steps": 2, "losses": losses16, "float32_first_loss": losses[0],
+          "first_loss_rel_diff": rel16, "first_loss_rtol": 1e-2,
+          "ms_per_step": wall16 * 1e3 / 2, "peak_mem_gb": peak16 / 1e9,
+          "launches": {k: counts16[k] for k in ROPE_ROWS + PLAIN_K2_ROWS}, "card": card})
+    return params, counts
+
+
+def train_llama_cross_check(card, params):
+    """One layer at full width, B 1, T 64: the loss and every gradient on
+    the card against ``device="cpu"`` from the same weights, at
+    ``train_cross_check``'s tolerances (loss rtol 1e-4; each gradient within
+    1e-3 of its scale, floored at 1e-4 of the largest entry)."""
+    from elephas_tpu_torch.models import (TransformerLM, adam_compact,
+                                          build_lm_train_step, make_lm_batches)
+
+    rows = np.random.default_rng(SEED + 33).integers(0, LLAMA3_8B["vocab"],
+                                                     size=(1, 65))
+    batch = make_lm_batches(rows)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = TransformerLM(**dict(LLAMA3_8B, n_layers=1), device=dev)
+        p = _layer_slice(model, params, dev)
+        step, _ = build_lm_train_step(model, None, adam_compact(1e-3), attn="flash")
+        _zero_counters()
+        loss, grads = step.grad(p, *batch)
+        if dev == "cuda":
+            _want_rope_launches("train_llama_cross_check", _read_counters(), 1, 1)
+        out[dev] = (float(loss), {k: g.cpu() for k, g in grads.items()})
+        del p, grads
+    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+    loss_rel = abs(lg - lc) / abs(lc)
+    require(loss_rel <= 1e-4, f"train_llama_cross_check: loss {lg} vs cpu {lc}")
+    floor = 1e-4 * max(float(g.abs().max()) for g in gc.values())
+    grad_rel = {k: float((gg[k].double() - gc[k].double()).abs().max())
+                / max(float(gc[k].abs().max()), floor) for k in gc}
+    worst = max(grad_rel, key=grad_rel.get)
+    require(grad_rel[worst] <= 1e-3, f"train_llama_cross_check: gradient of {worst} "
+                                     f"off by {grad_rel[worst]} of its scale")
+    emit({"phase": "train_llama_cross_check", "layers": 1, "batch": 1, "seq_len": 64,
+          "loss_gpu": lg, "loss_cpu": lc, "loss_rel_diff": loss_rel, "loss_rtol": 1e-4,
+          "grad_err_rel_to_scale": grad_rel, "scale_floor": floor, "grad_tol": 1e-3,
+          "card": card})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script drives the "
@@ -2082,6 +2430,7 @@ def main() -> int:
         ln_fwd, ln_bwd = check_layer_norm(card), check_layer_norm_bwd(card)
         decode = check_flash_decode(card)
         attn_rows = check_flash_attention(card)
+        rope_rows = check_flash_attention_rope(card)
         params, prompts, gpu_tokens, serve_counts, serve_stats = serve(card)
         cross_check(card, params, prompts, gpu_tokens)
         profile_decode(card, params, prompts)
@@ -2111,23 +2460,31 @@ def main() -> int:
         mlp_counts = fit_mlp(card)
         fit_matrix(card)
         fit_cross_check(card)
+        torch.cuda.empty_cache()
+        llama_params, llama_counts = train_llama(card)
+        train_llama_cross_check(card, llama_params)
+        del llama_params
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     # each row's `launches` is its own slice's main path: dense serving for
     # K3-fwd and K4, the five timed train steps for K2 and K3-bwd, paged
     # serving for K5, MoE serving for K6-gmm, the three timed MoE train
-    # steps for gmm_t and K6-tgmm, the MLP fit for K1
-    rows = [ln_fwd, ln_bwd, decode, *attn_rows, *paged_rows, *gmm_rows, *xent_rows]
+    # steps for gmm_t and K6-tgmm, the MLP fit for K1, the three timed
+    # Llama-3-8B-width train steps for the rope-on-load K2
+    rows = [ln_fwd, ln_bwd, decode, *attn_rows, *paged_rows, *gmm_rows, *xent_rows,
+            *rope_rows]
     paths = {"serve": serve_counts, "train_5_steps": train_counts,
              "generate": gen_counts, "serve_paged": paged_counts,
              "serve_moe": moe_counts, "serve_moe_paged": moe_paged_counts,
-             "train_moe_3_steps": moe_train_counts, "fit_mlp": mlp_counts}
+             "train_moe_3_steps": moe_train_counts, "fit_mlp": mlp_counts,
+             "train_llama_3_steps": llama_counts}
     main_paths = {"layer_norm_fwd": "serve", "flash_decode_lse": "serve",
                   "paged_flash_decode_lse": "serve_paged",
                   "paged_flash_chunk": "serve_paged", "gmm": "serve_moe",
                   "gmm_t": "train_moe_3_steps", "tgmm": "train_moe_3_steps",
-                  "fused_xent_fwd": "fit_mlp", "fused_xent_bwd": "fit_mlp"}
+                  "fused_xent_fwd": "fit_mlp", "fused_xent_bwd": "fit_mlp",
+                  **{r: "train_llama_3_steps" for r in ROPE_ROWS}}
     for row in rows:
         name = row["name"]
         main_path = main_paths.get(name, "train_5_steps")

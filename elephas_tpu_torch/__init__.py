@@ -35,6 +35,8 @@ from typing import Union
 
 import torch
 
+__version__ = "0.1.0"
+
 DeviceLike = Union[str, torch.device]
 
 
@@ -63,4 +65,4 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
 
 from .spark_model import SparkMLlibModel, SparkModel  # noqa: E402
 
-__all__ = ["SparkMLlibModel", "SparkModel", "resolve_device"]
+__all__ = ["SparkMLlibModel", "SparkModel", "__version__", "resolve_device"]

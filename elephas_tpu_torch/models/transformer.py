@@ -15,8 +15,9 @@ function of ``(params, opt_state, batch)``.
 - Training: :meth:`~TransformerLM.apply` / ``apply_with_aux`` /
   ``apply_hidden`` (the teacher-forced forward, attention ``"dense"`` in
   plain PyTorch or ``"flash"`` through the flash-attention kernels, forward
-  and backward), the losses (:func:`chunked_summed_xent` streams the head),
-  per-layer rematerialisation, and :func:`build_lm_train_step` /
+  and backward; a rotary model on ``"flash"`` rotates q and k inside the
+  rope-on-load kernels), the losses (:func:`chunked_summed_xent` streams
+  the head), per-layer rematerialisation, and :func:`build_lm_train_step` /
   :func:`build_lm_eval_step` on one device.
 - Generation: :meth:`~TransformerLM.prefill` (the full forward over the
   prompt, flash attention) and :meth:`~TransformerLM.generate` (one prefill,
@@ -52,13 +53,15 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .. import DeviceLike, resolve_device
-from ..ops.flash_attention import attention_reference, flash_attention
+from ..ops.flash_attention import (attention_reference, flash_attention,
+                                   flash_attention_rope, make_rope_tables)
 from ..ops.flash_decode import (aligned_cache_length, chunk_attention_reference,
                                 decode_attention)
 from ..ops.layer_norm import layer_norm
 from ..ops.paged_attention import paged_chunk_attention, paged_decode_attention
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+SEQ_AXIS = "seq"
 
 
 def glorot(rng: np.random.Generator, *shape: int, dtype=np.float32) -> np.ndarray:
@@ -765,14 +768,18 @@ class TransformerLM(nn.Module):
         return [dict(zip(keys, vals))
                 for vals in zip(*(params[k].unbind(0) for k in keys))]
 
-    def _attend(self, q, k, v, attn: str):
+    def _attend(self, q, k, v, attn: str, rope_tables=None):
         """Causal attention over a full sequence: ``"dense"`` is the plain
         oracle (autograd through PyTorch ops), ``"flash"`` the
         flash-attention kernels on the card (their plain versions on the
-        CPU). KV heads are never repeated on the flash path."""
+        CPU). KV heads are never repeated on the flash path. With
+        ``rope_tables`` q and k arrive unrotated and the rope-on-load
+        kernels rotate them (``"flash"`` only)."""
         if attn == "dense":
             return attention_reference(q, k, v, causal=True)
         if attn == "flash":
+            if rope_tables is not None:
+                return flash_attention_rope(q, k, v, *rope_tables, True)
             return flash_attention(q, k, v, causal=True)
         if attn in ("ring", "ulysses"):
             raise NotImplementedError(
@@ -781,14 +788,15 @@ class TransformerLM(nn.Module):
         raise ValueError(f"Unknown attn: {attn}")
 
     def _block_fwd(self, h, lp, attn: str, rope=None,
-                   ep_groups: Optional[int] = None):
+                   ep_groups: Optional[int] = None, rope_tables=None):
         """One transformer block on ``h`` ``[B, T, D]``, the block math
         shared by the teacher-forced forward and :meth:`prefill`. Layernorm
         runs in float32, everything else in the compute dtype; under rotary
-        positions q and k rotate by ``rope`` before attention (so the
-        returned, cacheable k is pre-rotated). ``attn`` and ``ep_groups``
-        reach :meth:`_ffn` too. Returns ``(h, aux, k, v)`` with ``k``/``v``
-        ``[B, T, Hkv, Dh]``."""
+        positions q and k rotate by ``rope`` before attention, or, given
+        ``rope_tables`` on the flash path, inside the attention kernels;
+        either way the returned, cacheable k is rotated. ``attn`` and
+        ``ep_groups`` reach :meth:`_ffn` too. Returns ``(h, aux, k, v)``
+        with ``k``/``v`` ``[B, T, Hkv, Dh]``."""
         B, T = h.shape[0], h.shape[1]
         H, Hkv = self.n_heads, self.n_kv_heads
         Dh = self.d_model // H
@@ -797,16 +805,21 @@ class TransformerLM(nn.Module):
         q = self._attn_proj(lp, "q", x).reshape(B, T, H, Dh)
         k = self._attn_proj(lp, "k", x).reshape(B, T, Hkv, Dh)
         v = self._attn_proj(lp, "v", x).reshape(B, T, Hkv, Dh)
-        if rope is not None:
-            q = _rope_rotate(q, *rope)
+        if rope_tables is not None:
+            a = self._attend(q, k, v, attn, rope_tables).to(cd)
             k = _rope_rotate(k, *rope)
-        a = self._attend(q, k, v, attn).to(cd)
+        else:
+            if rope is not None:
+                q = _rope_rotate(q, *rope)
+                k = _rope_rotate(k, *rope)
+            a = self._attend(q, k, v, attn).to(cd)
         h = h + self._attn_proj(lp, "o", a.reshape(B, T, self.d_model))
         x = self._norm_h(lp, "ln2", h).to(cd)
         out, aux = self._ffn(lp, x, attn, ep_groups)
         return h + out.to(cd), aux, k, v
 
     def apply_hidden(self, params, tokens, positions, attn: str = "dense",
+                     seq_axis: str = SEQ_AXIS, grad_reduce=None,
                      remat: str = "none"):
         """The forward up to and including the final norm: ``tokens`` and
         ``positions`` (absolute) int ``[B, T]`` → ``(h [B, T, D], aux)``,
@@ -814,13 +827,27 @@ class TransformerLM(nn.Module):
         FFN, the load-balancing loss for MoE). Lets a
         large-vocab loss stream the head (:func:`chunked_summed_xent`).
         ``remat`` is the per-layer rematerialisation policy
-        (``"none"|"dots"|"full"``)."""
+        (``"none"|"dots"|"full"``). ``seq_axis`` names the sequence axis
+        of a sharded run and is unused on one device; ``grad_reduce``
+        (per-layer gradient collectives) is not ported yet and must be
+        ``None``. A rotary model on ``attn="flash"`` builds its rope
+        tables once here and runs the rope-on-load kernels."""
+        if grad_reduce is not None:
+            raise NotImplementedError(
+                "grad_reduce tags per-layer gradient collectives across "
+                "devices, not ported yet (ROADMAP.md queue 1 item 6, "
+                "'Speculation and sharding')")
         dev = params["tok"].device
         tokens, positions = _as_index(tokens, dev), _as_index(positions, dev)
         h = self._embed(params, tokens, positions)
         rope = self._rope_for(positions)
-        block = _remat_wrap(lambda h, lp: self._block_fwd(h, lp, attn, rope)[:2],
-                            remat)
+        tables = None
+        if rope is not None and attn == "flash":
+            cos, sin = rope
+            tables = make_rope_tables(cos[..., 0, :], sin[..., 0, :])
+        block = _remat_wrap(
+            lambda h, lp: self._block_fwd(h, lp, attn, rope,
+                                          rope_tables=tables)[:2], remat)
         aux = torch.zeros((), dtype=torch.float32, device=dev)
         for lp in self._layers(params):
             h, a = block(h, lp)
@@ -829,19 +856,24 @@ class TransformerLM(nn.Module):
         return h, aux
 
     def apply_with_aux(self, params, tokens, positions, attn: str = "dense",
+                       seq_axis: str = SEQ_AXIS, grad_reduce=None,
                        remat: str = "none"):
-        """:meth:`apply` plus the summed auxiliary loss."""
-        h, aux = self.apply_hidden(params, tokens, positions, attn, remat)
+        """:meth:`apply` plus the summed auxiliary loss; ``seq_axis``,
+        ``grad_reduce`` and ``remat`` as in :meth:`apply_hidden`."""
+        h, aux = self.apply_hidden(params, tokens, positions, attn, seq_axis,
+                                   grad_reduce=grad_reduce, remat=remat)
         return self._logits(params, h), aux
 
-    def apply(self, params, tokens, positions, attn: str = "dense"):
+    def apply(self, params, tokens, positions, attn: str = "dense",
+              seq_axis: str = SEQ_AXIS):
         """Teacher-forced logits ``[B, T, V]`` (float32) for ``tokens`` at
         absolute ``positions``, both int ``[B, T]``."""
-        return self.apply_with_aux(params, tokens, positions, attn)[0]
+        return self.apply_with_aux(params, tokens, positions, attn, seq_axis)[0]
 
-    def loss(self, params, tokens, positions, targets, attn: str = "dense"):
+    def loss(self, params, tokens, positions, targets, attn: str = "dense",
+             seq_axis: str = SEQ_AXIS):
         """Summed next-token cross-entropy over the batch."""
-        logits = self.apply(params, tokens, positions, attn)
+        logits = self.apply(params, tokens, positions, attn, seq_axis)
         return _summed_xent(logits, _as_index(targets, logits.device))
 
     # -- generation ------------------------------------------------------------
@@ -1137,10 +1169,11 @@ def build_lm_train_step(model: TransformerLM, mesh, optimizer,
         # term (a per-call mean) by accum_steps
         if vocab_block is None:
             logits, aux = model.apply_with_aux(params, tokens, positions, attn,
-                                               remat)
+                                               remat=remat)
             ce = _summed_xent(logits, targets)
         else:
-            h, aux = model.apply_hidden(params, tokens, positions, attn, remat)
+            h, aux = model.apply_hidden(params, tokens, positions, attn,
+                                        remat=remat)
             ce = chunked_summed_xent(h, model.head_weight(params), targets,
                                      vocab_block)
         return ce / ntok + (model.aux_weight / accum_steps) * aux

@@ -37,6 +37,29 @@
 // scores, p = 0), so a ragged T needs no padding in device memory and a
 // padded query row adds nothing to dk or dv. Simple first: SIMT float32
 // products, no tensor cores, no TMA, no pipelining.
+//
+// Rope on load (the `ROPE` template flag; replaces the same three Pallas
+// kernels with their static `rope=True`, `_rot` at pallas_flash.py:111):
+// q and k arrive UNROTATED with the duplicated half-split tables c2 = [cos|cos]
+// and s2 = [-sin|sin], [B, T, Dh] float32. Each q and k tile is rotated in
+// shared memory right after its load, x*C2 + roll_half(x)*S2 in float32,
+// and rounded to the input type as the reference's `_rot` rounds it. The
+// rotation pairs dim d with dim d + Dh/2, which the register layout above
+// spreads over two threads, so it runs as its own pass over the tile after
+// a barrier: one thread per (row, d < Dh/2) pair reads both elements and
+// writes both. (A pass in shared memory is also what a tile landed by
+// cp.async or TMA needs.) The table values are read from global memory in
+// that pass (the 4 MB tables at the Llama-3-8B training shape stay in L2):
+// staging them beside the tiles would add up to 130 KB of shared memory.
+// dq and dk are the
+// gradients of the ROTATED q and k until the store, where the accumulator
+// goes through shared memory (the q or k tile, no longer read) and is
+// derotated with the sign of S2 flipped, the inverse rotation. Rows past
+// T are never rotated and read no table. The rotated q and k never exist
+// in device memory. Shared memory per block is the same with or without
+// rope (KiB, fwd / dq / dkv): 65.75 / 81.75 / 98.0 at Dh 64 and 113.75 /
+// 145.75 / 162.0 at Dh 128 (64 x 64 tiles), 100.875 / 132.875 / 137.0 at
+// Dh 256 (32 x 32 tiles).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,6 +84,9 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+
+template <typename E>
+__device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<E>(x)); }
 
 __device__ __forceinline__ bool visible(int qi, int kj, const Dims& D) {
   if (qi >= D.T || kj >= D.T) return false;
@@ -92,6 +118,61 @@ __device__ __forceinline__ void load_stat(const float* src, int b, int h, int t0
   }
 }
 
+// Rotate rows [t0, t0 + R) of a float32 tile in place by the tables c2/s2
+// [B, T, Dh]: x*C2 + roll_half(x)*S2 in float32, rounded to E (the
+// reference's `_rot`). Products and sums are rounded one by one, as the
+// plain version's separate tensor operations round them. One thread per
+// (row, d < Dh/2) pair; rows past T are left as loaded (zero).
+template <typename E, int R, int LD>
+__device__ __forceinline__ void rotate_tile(float* tile, const float* __restrict__ c2,
+                                            const float* __restrict__ s2, int b, int t0,
+                                            const Dims& D) {
+  const int half = D.Dh >> 1;
+  for (int idx = threadIdx.x; idx < R * half; idx += kThreads) {
+    const int r = idx / half, d = idx - r * half, t = t0 + r;
+    if (t >= D.T) continue;
+    const size_t row = (static_cast<size_t>(b) * D.T + t) * D.Dh;
+    const float x1 = tile[r * LD + d], x2 = tile[r * LD + d + half];
+    tile[r * LD + d] =
+        round_to<E>(__fadd_rn(__fmul_rn(x1, c2[row + d]), __fmul_rn(x2, s2[row + d])));
+    tile[r * LD + d + half] = round_to<E>(
+        __fadd_rn(__fmul_rn(x2, c2[row + d + half]), __fmul_rn(x1, s2[row + d + half])));
+  }
+}
+
+// q or k into a float32 tile, then (under rope) rotated in place: the
+// barrier between is the load's, the caller's next barrier ends the pass
+template <typename E, int R, int DH, int LD, bool ROPE>
+__device__ __forceinline__ void load_qk(const E* src, const float* __restrict__ c2,
+                                        const float* __restrict__ s2, int b, int t0, int head,
+                                        int heads, const Dims& D, float* dst) {
+  load_tile<E, R, DH, LD>(src, b, t0, head, heads, D, dst);
+  if (ROPE) {
+    __syncthreads();
+    rotate_tile<E, R, LD>(dst, c2, s2, b, t0, D);
+  }
+}
+
+// Derotate a float32 gradient tile (rows [t0, t0 + R) of head `head`) with
+// the inverse rotation, x*C2 - roll_half(x)*S2, and store it as E into a
+// [B, T, heads, Dh] tensor; rows past T are not stored.
+template <typename E, int R, int LD>
+__device__ __forceinline__ void derotate_store(const float* tile, const float* __restrict__ c2,
+                                               const float* __restrict__ s2, int b, int t0,
+                                               int head, int heads, const Dims& D, E* dst) {
+  const int half = D.Dh >> 1;
+  for (int idx = threadIdx.x; idx < R * half; idx += kThreads) {
+    const int r = idx / half, d = idx - r * half, t = t0 + r;
+    if (t >= D.T) continue;
+    const size_t row = (static_cast<size_t>(b) * D.T + t) * D.Dh;
+    const float x1 = tile[r * LD + d], x2 = tile[r * LD + d + half];
+    E* out = dst + ((static_cast<size_t>(b) * D.T + t) * heads + head) * D.Dh;
+    out[d] = from_f32<E>(__fadd_rn(__fmul_rn(x1, c2[row + d]), __fmul_rn(x2, -s2[row + d])));
+    out[d + half] = from_f32<E>(
+        __fadd_rn(__fmul_rn(x2, c2[row + d + half]), __fmul_rn(x1, -s2[row + d + half])));
+  }
+}
+
 template <int DH, int BQ, int BK>
 struct Tiles {
   static constexpr int LD = DH + 1;  // padded row of a [rows][DH] tile
@@ -107,9 +188,10 @@ struct Tiles {
 
 // ---- forward: one block per (Q tile, b * H + h) ------------------------------
 
-template <typename E, int DH, int BQ, int BK>
+template <typename E, int DH, int BQ, int BK, bool ROPE>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
+                 const float* __restrict__ c2, const float* __restrict__ s2,
                  E* __restrict__ o, float* __restrict__ lse, Dims D) {
   using Tl = Tiles<DH, BQ, BK>;
   constexpr int LD = Tl::LD, LDS = Tl::LDS, RQ = Tl::RQ, RK = Tl::RK, RD = Tl::RD;
@@ -128,7 +210,7 @@ flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __re
   const int b = blockIdx.y / D.H, h = blockIdx.y - b * D.H;
   const int hk = h / (D.H / D.Hkv);
 
-  load_tile<E, BQ, DH, LD>(q, b, q0, h, D.H, D, sQ);
+  load_qk<E, BQ, DH, LD, ROPE>(q, c2, s2, b, q0, h, D.H, D, sQ);  // rotated once
   for (int r = tid; r < BQ; r += kThreads) {
     sM[r] = -INFINITY;
     sL[r] = 0.f;
@@ -146,7 +228,7 @@ flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __re
   }
   for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
     __syncthreads();  // the previous tile's readers are done
-    load_tile<E, BK, DH, LD>(k, b, k0, hk, D.Hkv, D, sK);
+    load_qk<E, BK, DH, LD, ROPE>(k, c2, s2, b, k0, hk, D.Hkv, D, sK);
     load_tile<E, BK, DH, LD>(v, b, k0, hk, D.Hkv, D, sV);
     __syncthreads();
 
@@ -247,11 +329,12 @@ flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __re
 
 // ---- dq: one block per (Q tile, b * H + h) -----------------------------------
 
-template <typename E, int DH, int BQ, int BK>
+template <typename E, int DH, int BQ, int BK, bool ROPE>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
                 const E* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, E* __restrict__ dq, Dims D) {
+                const float* __restrict__ delta, const float* __restrict__ c2,
+                const float* __restrict__ s2, E* __restrict__ dq, Dims D) {
   using Tl = Tiles<DH, BQ, BK>;
   constexpr int LD = Tl::LD, LDS = Tl::LDS, RQ = Tl::RQ, RK = Tl::RK, RD = Tl::RD;
   extern __shared__ float smem[];
@@ -268,7 +351,7 @@ flash_dq_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __res
   const int b = blockIdx.y / D.H, h = blockIdx.y - b * D.H;
   const int hk = h / (D.H / D.Hkv);
 
-  load_tile<E, BQ, DH, LD>(q, b, q0, h, D.H, D, sQ);
+  load_qk<E, BQ, DH, LD, ROPE>(q, c2, s2, b, q0, h, D.H, D, sQ);
   load_tile<E, BQ, DH, LD>(dout, b, q0, h, D.H, D, sO);
   load_stat<BQ>(lse, b, h, q0, D, sLse);
   load_stat<BQ>(delta, b, h, q0, D, sDel);
@@ -285,7 +368,7 @@ flash_dq_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __res
   }
   for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
     __syncthreads();
-    load_tile<E, BK, DH, LD>(k, b, k0, hk, D.Hkv, D, sK);
+    load_qk<E, BK, DH, LD, ROPE>(k, c2, s2, b, k0, hk, D.Hkv, D, sK);
     load_tile<E, BK, DH, LD>(v, b, k0, hk, D.Hkv, D, sV);
     __syncthreads();
 
@@ -342,6 +425,16 @@ flash_dq_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __res
     }
   }
 
+  if (ROPE) {  // d(q_rot) through shared memory, derotated at the store
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < RQ; ++i)
+#pragma unroll
+      for (int j = 0; j < RD; ++j) sQ[(ty + 16 * i) * LD + tx + 16 * j] = acc[i][j];
+    __syncthreads();
+    derotate_store<E, BQ, LD>(sQ, c2, s2, b, q0, h, D.H, D, dq);
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
     const int t = q0 + ty + 16 * i;
@@ -357,11 +450,12 @@ flash_dq_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __res
 
 // ---- dkv: one block per (KV tile, b * Hkv + kv head) ---------------------------
 
-template <typename E, int DH, int BQ, int BK>
+template <typename E, int DH, int BQ, int BK, bool ROPE>
 __global__ void __launch_bounds__(kThreads)
 flash_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
                  const E* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, E* __restrict__ dk, E* __restrict__ dv,
+                 const float* __restrict__ delta, const float* __restrict__ c2,
+                 const float* __restrict__ s2, E* __restrict__ dk, E* __restrict__ dv,
                  Dims D) {
   using Tl = Tiles<DH, BQ, BK>;
   constexpr int LD = Tl::LD, LDS = Tl::LDS, RQ = Tl::RQ, RK = Tl::RK, RD = Tl::RD;
@@ -380,7 +474,7 @@ flash_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __re
   const int b = blockIdx.y / D.Hkv, hk = blockIdx.y - b * D.Hkv;
   const int G = D.H / D.Hkv;
 
-  load_tile<E, BK, DH, LD>(k, b, k0, hk, D.Hkv, D, sK);
+  load_qk<E, BK, DH, LD, ROPE>(k, c2, s2, b, k0, hk, D.Hkv, D, sK);  // rotated once
   load_tile<E, BK, DH, LD>(v, b, k0, hk, D.Hkv, D, sV);
   float acc_k[RK][RD], acc_v[RK][RD];
 #pragma unroll
@@ -397,7 +491,8 @@ flash_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __re
     const int h = hk * G + g;
     for (int q0 = q_lo; q0 < q_hi; q0 += BQ) {
       __syncthreads();
-      load_tile<E, BQ, DH, LD>(q, b, q0, h, D.H, D, sQ);
+      // under rope every head of the group reads the same table rows
+      load_qk<E, BQ, DH, LD, ROPE>(q, c2, s2, b, q0, h, D.H, D, sQ);
       load_tile<E, BQ, DH, LD>(dout, b, q0, h, D.H, D, sO);
       load_stat<BQ>(lse, b, h, q0, D, sLse);
       load_stat<BQ>(delta, b, h, q0, D, sDel);
@@ -479,10 +574,19 @@ flash_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __re
     for (int j = 0; j < RD; ++j) {
       const int d = tx + 16 * j;
       if (d < D.Dh) {
-        dk[row + d] = from_f32<E>(acc_k[i][j]);
+        if (!ROPE) dk[row + d] = from_f32<E>(acc_k[i][j]);
         dv[row + d] = from_f32<E>(acc_v[i][j]);
       }
     }
+  }
+  if (ROPE) {  // d(k_rot) through shared memory, derotated at the store
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < RK; ++i)
+#pragma unroll
+      for (int j = 0; j < RD; ++j) sK[(ty + 16 * i) * LD + tx + 16 * j] = acc_k[i][j];
+    __syncthreads();
+    derotate_store<E, BK, LD>(sK, c2, s2, b, k0, hk, D.Hkv, D, dk);
   }
 }
 
@@ -494,79 +598,116 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename E, int DH, int BQ, int BK>
-int fwd(const void* q, const void* k, const void* v, void* o, float* lse, const Dims& D,
-        cudaStream_t st) {
+template <typename E, int DH, int BQ, int BK, bool ROPE>
+int fwd(const void* q, const void* k, const void* v, const float* c2, const float* s2,
+        void* o, float* lse, const Dims& D, cudaStream_t st) {
   const size_t smem = Tiles<DH, BQ, BK>::fwd_smem;
-  auto kernel = flash_fwd_kernel<E, DH, BQ, BK>;
+  auto kernel = flash_fwd_kernel<E, DH, BQ, BK, ROPE>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((D.T + BQ - 1) / BQ, D.B * D.H);
   kernel<<<grid, kThreads, smem, st>>>(static_cast<const E*>(q), static_cast<const E*>(k),
-                                       static_cast<const E*>(v), static_cast<E*>(o), lse, D);
+                                       static_cast<const E*>(v), c2, s2, static_cast<E*>(o),
+                                       lse, D);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename E, int DH, int BQ, int BK>
+template <typename E, int DH, int BQ, int BK, bool ROPE>
 int dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-       const float* delta, void* dq_out, const Dims& D, cudaStream_t st) {
+       const float* delta, const float* c2, const float* s2, void* dq_out, const Dims& D,
+       cudaStream_t st) {
   const size_t smem = Tiles<DH, BQ, BK>::dq_smem;
-  auto kernel = flash_dq_kernel<E, DH, BQ, BK>;
+  auto kernel = flash_dq_kernel<E, DH, BQ, BK, ROPE>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((D.T + BQ - 1) / BQ, D.B * D.H);
   kernel<<<grid, kThreads, smem, st>>>(
       static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
-      static_cast<const E*>(dout), lse, delta, static_cast<E*>(dq_out), D);
+      static_cast<const E*>(dout), lse, delta, c2, s2, static_cast<E*>(dq_out), D);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename E, int DH, int BQ, int BK>
+template <typename E, int DH, int BQ, int BK, bool ROPE>
 int dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-        const float* delta, void* dk, void* dv, const Dims& D, cudaStream_t st) {
+        const float* delta, const float* c2, const float* s2, void* dk, void* dv,
+        const Dims& D, cudaStream_t st) {
   const size_t smem = Tiles<DH, BQ, BK>::dkv_smem;
-  auto kernel = flash_dkv_kernel<E, DH, BQ, BK>;
+  auto kernel = flash_dkv_kernel<E, DH, BQ, BK, ROPE>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((D.T + BK - 1) / BK, D.B * D.Hkv);
   kernel<<<grid, kThreads, smem, st>>>(
       static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
-      static_cast<const E*>(dout), lse, delta, static_cast<E*>(dk), static_cast<E*>(dv), D);
+      static_cast<const E*>(dout), lse, delta, c2, s2, static_cast<E*>(dk),
+      static_cast<E*>(dv), D);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Dh <= 64, <= 128, <= 256 pick the tile class; the wrapper refuses Dh > 256.
-template <typename E>
-int fwd_any(const void* q, const void* k, const void* v, void* o, float* lse, const Dims& D,
-            cudaStream_t st) {
-#define FWD_CALL(E_, DH, BQ, BK) fwd<E_, DH, BQ, BK>(q, k, v, o, lse, D, st)
-  if (D.Dh <= 64) return FWD_CALL(E, 64, 64, 64);
-  if (D.Dh <= 128) return FWD_CALL(E, 128, 64, 64);
-  return FWD_CALL(E, 256, 32, 32);
+template <typename E, bool ROPE>
+int fwd_any(const void* q, const void* k, const void* v, const float* c2, const float* s2,
+            void* o, float* lse, const Dims& D, cudaStream_t st) {
+#define FWD_CALL(DH, BQ, BK) fwd<E, DH, BQ, BK, ROPE>(q, k, v, c2, s2, o, lse, D, st)
+  if (D.Dh <= 64) return FWD_CALL(64, 64, 64);
+  if (D.Dh <= 128) return FWD_CALL(128, 64, 64);
+  return FWD_CALL(256, 32, 32);
 #undef FWD_CALL
 }
 
-template <typename E>
+template <typename E, bool ROPE>
 int dq_any(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-           const float* delta, void* dq_out, const Dims& D, cudaStream_t st) {
-#define DQ_CALL(E_, DH, BQ, BK) dq<E_, DH, BQ, BK>(q, k, v, dout, lse, delta, dq_out, D, st)
-  if (D.Dh <= 64) return DQ_CALL(E, 64, 64, 64);
-  if (D.Dh <= 128) return DQ_CALL(E, 128, 64, 64);
-  return DQ_CALL(E, 256, 32, 32);
+           const float* delta, const float* c2, const float* s2, void* dq_out, const Dims& D,
+           cudaStream_t st) {
+#define DQ_CALL(DH, BQ, BK) \
+  dq<E, DH, BQ, BK, ROPE>(q, k, v, dout, lse, delta, c2, s2, dq_out, D, st)
+  if (D.Dh <= 64) return DQ_CALL(64, 64, 64);
+  if (D.Dh <= 128) return DQ_CALL(128, 64, 64);
+  return DQ_CALL(256, 32, 32);
 #undef DQ_CALL
 }
 
-template <typename E>
+template <typename E, bool ROPE>
 int dkv_any(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-            const float* delta, void* dk, void* dv, const Dims& D, cudaStream_t st) {
-#define DKV_CALL(E_, DH, BQ, BK) dkv<E_, DH, BQ, BK>(q, k, v, dout, lse, delta, dk, dv, D, st)
-  if (D.Dh <= 64) return DKV_CALL(E, 64, 64, 64);
-  if (D.Dh <= 128) return DKV_CALL(E, 128, 64, 64);
-  return DKV_CALL(E, 256, 32, 32);
+            const float* delta, const float* c2, const float* s2, void* dk, void* dv,
+            const Dims& D, cudaStream_t st) {
+#define DKV_CALL(DH, BQ, BK) \
+  dkv<E, DH, BQ, BK, ROPE>(q, k, v, dout, lse, delta, c2, s2, dk, dv, D, st)
+  if (D.Dh <= 64) return DKV_CALL(64, 64, 64);
+  if (D.Dh <= 128) return DKV_CALL(128, 64, 64);
+  return DKV_CALL(256, 32, 32);
 #undef DKV_CALL
 }
 
 bool nothing_to_do(const Dims& D) { return D.B == 0 || D.T == 0 || D.H == 0; }
+
+template <bool ROPE>
+int fwd_entry(const void* q, const void* k, const void* v, const float* c2, const float* s2,
+              void* o, float* lse, const Dims& D, int bf16, void* stream) {
+  if (nothing_to_do(D)) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? fwd_any<__nv_bfloat16, ROPE>(q, k, v, c2, s2, o, lse, D, st)
+              : fwd_any<float, ROPE>(q, k, v, c2, s2, o, lse, D, st);
+}
+
+template <bool ROPE>
+int dq_entry(const void* q, const void* k, const void* v, const void* dout,
+             const float* lse, const float* delta, const float* c2, const float* s2,
+             void* dq_out, const Dims& D, int bf16, void* stream) {
+  if (nothing_to_do(D)) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? dq_any<__nv_bfloat16, ROPE>(q, k, v, dout, lse, delta, c2, s2, dq_out, D, st)
+              : dq_any<float, ROPE>(q, k, v, dout, lse, delta, c2, s2, dq_out, D, st);
+}
+
+template <bool ROPE>
+int dkv_entry(const void* q, const void* k, const void* v, const void* dout,
+              const float* lse, const float* delta, const float* c2, const float* s2,
+              void* dk, void* dv, const Dims& D, int bf16, void* stream) {
+  if (nothing_to_do(D)) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? dkv_any<__nv_bfloat16, ROPE>(q, k, v, dout, lse, delta, c2, s2, dk, dv, D, st)
+              : dkv_any<float, ROPE>(q, k, v, dout, lse, delta, c2, s2, dk, dv, D, st);
+}
 
 }  // namespace
 
@@ -574,11 +715,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    float* lse, int B, int T, int H, int Hkv, int Dh,
                                    int causal, int window, float scale, int bf16,
                                    void* stream) {
-  const Dims D{B, T, H, Hkv, Dh, causal, window, scale};
-  if (nothing_to_do(D)) return static_cast<int>(cudaGetLastError());
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? fwd_any<__nv_bfloat16>(q, k, v, o, lse, D, st)
-              : fwd_any<float>(q, k, v, o, lse, D, st);
+  return fwd_entry<false>(q, k, v, nullptr, nullptr, o, lse,
+                          Dims{B, T, H, Hkv, Dh, causal, window, scale}, bf16, stream);
 }
 
 extern "C" int flash_attention_dq(const void* q, const void* k, const void* v,
@@ -586,11 +724,8 @@ extern "C" int flash_attention_dq(const void* q, const void* k, const void* v,
                                   void* dq_out, int B, int T, int H, int Hkv, int Dh,
                                   int causal, int window, float scale, int bf16,
                                   void* stream) {
-  const Dims D{B, T, H, Hkv, Dh, causal, window, scale};
-  if (nothing_to_do(D)) return static_cast<int>(cudaGetLastError());
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? dq_any<__nv_bfloat16>(q, k, v, dout, lse, delta, dq_out, D, st)
-              : dq_any<float>(q, k, v, dout, lse, delta, dq_out, D, st);
+  return dq_entry<false>(q, k, v, dout, lse, delta, nullptr, nullptr, dq_out,
+                         Dims{B, T, H, Hkv, Dh, causal, window, scale}, bf16, stream);
 }
 
 extern "C" int flash_attention_dkv(const void* q, const void* k, const void* v,
@@ -598,11 +733,39 @@ extern "C" int flash_attention_dkv(const void* q, const void* k, const void* v,
                                    void* dk, void* dv, int B, int T, int H, int Hkv, int Dh,
                                    int causal, int window, float scale, int bf16,
                                    void* stream) {
-  const Dims D{B, T, H, Hkv, Dh, causal, window, scale};
-  if (nothing_to_do(D)) return static_cast<int>(cudaGetLastError());
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? dkv_any<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, D, st)
-              : dkv_any<float>(q, k, v, dout, lse, delta, dk, dv, D, st);
+  return dkv_entry<false>(q, k, v, dout, lse, delta, nullptr, nullptr, dk, dv,
+                          Dims{B, T, H, Hkv, Dh, causal, window, scale}, bf16, stream);
+}
+
+// The rope-on-load variants: the same operands with the tables c2 and s2
+// ([B, T, Dh] float32) after q, k, v (and dO, lse, delta); Dh must be even.
+extern "C" int flash_attention_rope_fwd(const void* q, const void* k, const void* v,
+                                        const float* c2, const float* s2, void* o,
+                                        float* lse, int B, int T, int H, int Hkv, int Dh,
+                                        int causal, int window, float scale, int bf16,
+                                        void* stream) {
+  return fwd_entry<true>(q, k, v, c2, s2, o, lse,
+                         Dims{B, T, H, Hkv, Dh, causal, window, scale}, bf16, stream);
+}
+
+extern "C" int flash_attention_rope_dq(const void* q, const void* k, const void* v,
+                                       const void* dout, const float* lse,
+                                       const float* delta, const float* c2,
+                                       const float* s2, void* dq_out, int B, int T, int H,
+                                       int Hkv, int Dh, int causal, int window, float scale,
+                                       int bf16, void* stream) {
+  return dq_entry<true>(q, k, v, dout, lse, delta, c2, s2, dq_out,
+                        Dims{B, T, H, Hkv, Dh, causal, window, scale}, bf16, stream);
+}
+
+extern "C" int flash_attention_rope_dkv(const void* q, const void* k, const void* v,
+                                        const void* dout, const float* lse,
+                                        const float* delta, const float* c2,
+                                        const float* s2, void* dk, void* dv, int B, int T,
+                                        int H, int Hkv, int Dh, int causal, int window,
+                                        float scale, int bf16, void* stream) {
+  return dkv_entry<true>(q, k, v, dout, lse, delta, c2, s2, dk, dv,
+                         Dims{B, T, H, Hkv, Dh, causal, window, scale}, bf16, stream);
 }
 
 extern "C" const char* error_string(int err) {

@@ -9,22 +9,34 @@ attention: query head ``h`` reads KV head ``h // (H / Hkv)``):
 - :func:`flash_attention_with_lse` → ``(o, lse [B, T, H] float32)``,
   differentiable in both outputs (the lse cotangent folds into the
   FlashAttention-2 ``Δ`` term as ``Δ − g_lse``);
+- :func:`flash_attention_rope` → ``[B, T, H, Dh]``: q and k arrive
+  UNROTATED with the duplicated half-split tables of
+  :func:`make_rope_tables`, and the kernels rotate each tile as they load
+  it (and derotate dq and dk as they store them), so the rotated q and k
+  never exist in device memory;
 - :func:`attention_reference` and :func:`repeat_kv_heads`, copies of the
   reference's oracle helpers.
 
-Both differentiable entries run one ``torch.autograd.Function`` whose
-forward saves only ``(q, k, v, o, lse)``. On CUDA tensors it launches the
-three hand-written kernels in ``csrc/flash_attention.cu``:
+The differentiable entries run ``torch.autograd.Function`` s whose forward
+saves only ``(q, k, v, o, lse)`` (and the tables). On CUDA tensors they
+launch the hand-written kernels in ``csrc/flash_attention.cu``:
 :func:`flash_attention_fwd` (K2-fwd), :func:`flash_attention_dq` (K2-dq)
-and :func:`flash_attention_dkv` (K2-dkv). On CPU tensors it runs their
-plain versions: :func:`attention_fwd_reference`, a masked softmax over all
-keys in float32, and :func:`attention_bwd_reference`, the FlashAttention-2
+and :func:`flash_attention_dkv` (K2-dkv), and their rope-on-load variants
+:func:`flash_attention_rope_fwd`, :func:`flash_attention_rope_dq` and
+:func:`flash_attention_rope_dkv`. On CPU tensors they run the plain
+versions: :func:`attention_fwd_reference`, a masked softmax over all keys
+in float32, and :func:`attention_bwd_reference`, the FlashAttention-2
 backward from the saved lse (``_flash_bwd``'s math without the block
-scan). The plain versions are also the kernels' oracles.
+scan); :func:`rope_attention_fwd_reference` and
+:func:`rope_attention_bwd_reference` put :func:`_rope_apply` around them.
+The plain versions are also the kernels' oracles.
 
 ``causal`` masks key ``j > i`` for query ``i``; ``window`` (causal only)
 keeps keys ``(i - window, i]``, the Mistral convention. Scores, softmax
 and every sum run in float32; bfloat16 inputs give bfloat16 outputs.
+``block_size``, ``block_q``, ``block_k`` and ``interpret`` only steer the
+reference's Pallas tiles; the port keeps them in their places and ignores
+them.
 """
 
 from __future__ import annotations
@@ -37,13 +49,15 @@ from . import _build
 
 _MAX_DH = 256
 
+_TAIL = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _SIGNATURES = {
-    "flash_attention_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-    "flash_attention_dq": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-    "flash_attention_dkv": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    "flash_attention_fwd": [ctypes.c_void_p] * 5 + _TAIL,
+    "flash_attention_dq": [ctypes.c_void_p] * 7 + _TAIL,
+    "flash_attention_dkv": [ctypes.c_void_p] * 8 + _TAIL,
+    # the rope variants: the same operands, then the tables c2 and s2
+    "flash_attention_rope_fwd": [ctypes.c_void_p] * 7 + _TAIL,
+    "flash_attention_rope_dq": [ctypes.c_void_p] * 9 + _TAIL,
+    "flash_attention_rope_dkv": [ctypes.c_void_p] * 10 + _TAIL,
 }
 
 
@@ -112,14 +126,9 @@ def attention_fwd_reference(q, k, v, causal: bool = False, window=None):
     return torch.einsum("bhqk,bkhd->bqhd", p, vr).to(q.dtype), lse
 
 
-def attention_bwd_reference(q, k, v, do, lse, delta, causal: bool = False,
-                            window=None):
-    """Plain K2-dq and K2-dkv: the FlashAttention-2 backward from the saved
-    ``lse`` ``[B, H, T]`` and ``delta`` ``[B, H, T]`` (``Σ_d dO·O`` minus
-    the lse cotangent): ``p = exp(s − lse)``, ``dv = pᵀ·dO``, ``ds =
-    p·(dO·vᵀ − Δ)·scale``, ``dq = ds·k``, ``dk = dsᵀ·q``, with dk and dv
-    summed over each GQA group. Returns ``(dq, dk, dv)`` in the inputs'
-    dtypes."""
+def _attention_bwd_f32(q, k, v, do, lse, delta, causal, window):
+    """:func:`attention_bwd_reference` before the final casts: ``(dq, dk,
+    dv)`` in float32."""
     B, T, H, Dh = q.shape
     Hkv = k.shape[2]
     s, kr = _scores(q, k, causal, window)
@@ -134,7 +143,64 @@ def attention_bwd_reference(q, k, v, do, lse, delta, causal: bool = False,
     if Hkv != H:
         dk = dk.reshape(B, T, Hkv, H // Hkv, Dh).sum(dim=3)
         dv = dv.reshape(B, T, Hkv, H // Hkv, Dh).sum(dim=3)
+    return dq, dk, dv
+
+
+def attention_bwd_reference(q, k, v, do, lse, delta, causal: bool = False,
+                            window=None):
+    """Plain K2-dq and K2-dkv: the FlashAttention-2 backward from the saved
+    ``lse`` ``[B, H, T]`` and ``delta`` ``[B, H, T]`` (``Σ_d dO·O`` minus
+    the lse cotangent): ``p = exp(s − lse)``, ``dv = pᵀ·dO``, ``ds =
+    p·(dO·vᵀ − Δ)·scale``, ``dq = ds·k``, ``dk = dsᵀ·q``, with dk and dv
+    summed over each GQA group. Returns ``(dq, dk, dv)`` in the inputs'
+    dtypes."""
+    dq, dk, dv = _attention_bwd_f32(q, k, v, do, lse, delta, causal, window)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# -- rotary tables and the plain rope-on-load versions --------------------------
+
+
+def make_rope_tables(cos, sin):
+    """``(cos, sin)`` ``[..., Dh/2]`` → the duplicated half-split tables
+    ``(C2, S2)`` ``[..., Dh]`` float32, ``C2 = [cos|cos]`` and ``S2 =
+    [−sin|sin]`` (see :func:`_rope_apply`). Build them once per forward,
+    not once per layer."""
+    c2 = torch.cat([cos, cos], -1).to(torch.float32)
+    s2 = torch.cat([-sin, sin], -1).to(torch.float32)
+    return c2, s2
+
+
+def _rope_apply(x, c2, s2, neg: bool = False):
+    """Half-split RoPE of ``x`` ``[B, T, heads, Dh]`` as ``x·C2 +
+    roll_half(x)·S2`` with the ``[B, T, Dh]`` tables, in float32, the
+    result in ``x``'s dtype (the reference's ``_rot``). ``neg=True`` is the
+    inverse rotation (the transform is orthogonal), which maps a gradient
+    with respect to the rotated tensor back to the unrotated one."""
+    xf = x.to(torch.float32)
+    c, s = c2[:, :, None, :], s2[:, :, None, :]
+    if neg:
+        s = -s
+    return (xf * c + torch.roll(xf, xf.shape[-1] // 2, dims=-1) * s).to(x.dtype)
+
+
+def rope_attention_fwd_reference(q, k, v, c2, s2, causal: bool = True,
+                                 window=None):
+    """Plain rope-on-load K2-fwd: q and k rotated (float32, rounded to
+    their dtype), then :func:`attention_fwd_reference`."""
+    return attention_fwd_reference(_rope_apply(q, c2, s2), _rope_apply(k, c2, s2),
+                                   v, causal, window)
+
+
+def rope_attention_bwd_reference(q, k, v, do, lse, delta, c2, s2,
+                                 causal: bool = True, window=None):
+    """Plain rope-on-load K2-dq and K2-dkv: the backward of the rotated q
+    and k, with dq and dk derotated in float32 before they are rounded to
+    the inputs' dtypes."""
+    dq, dk, dv = _attention_bwd_f32(_rope_apply(q, c2, s2), _rope_apply(k, c2, s2),
+                                    v, do, lse, delta, causal, window)
+    return (_rope_apply(dq, c2, s2, neg=True).to(q.dtype),
+            _rope_apply(dk, c2, s2, neg=True).to(k.dtype), dv.to(v.dtype))
 
 
 # -- the CUDA kernels ------------------------------------------------------------
@@ -176,39 +242,98 @@ def _check_stats(t, B, H, T, device, name):
     return t.contiguous()
 
 
+def _check_tables(c2, s2, B, T, Dh, device):
+    """The rope tables as the kernels read them: float32 ``[B, T, Dh]``,
+    contiguous (they are read in place, never copied), ``Dh`` even."""
+    if Dh % 2:
+        raise ValueError(f"rotary attention needs an even head dim, got {Dh}")
+    for name, t in (("c2", c2), ("s2", s2)):
+        if (t.dtype != torch.float32 or t.device != device
+                or tuple(t.shape) != (B, T, Dh)):
+            raise ValueError(f"rope table {name} must be float32 [{B}, {T}, {Dh}] "
+                             f"on {device}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"rope table {name} must be contiguous")
+    return c2.data_ptr(), s2.data_ptr()
+
+
 def _launch(fn: str, *args):
     lib = _build.load("flash_attention", _SIGNATURES)
     err = getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, fn)
 
 
-def flash_attention_fwd(q, k, v, causal: bool = False, window=None):
-    """K2-fwd, the CUDA kernel: ``(o, lse)`` as
-    :func:`attention_fwd_reference`. Raises on anything the kernel does not
-    take; counts each launch in ``flash_attention_fwd.launches``."""
-    B, T, H, Hkv, Dh, w = _check(q, k, v, causal, window, "flash_attention_fwd")
+def _fwd(name, q, k, v, tables, causal, window):
+    B, T, H, Hkv, Dh, w = _check(q, k, v, causal, window, name)
+    rope = () if tables is None else _check_tables(*tables, B, T, Dh, q.device)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        _launch("flash_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), *rope,
                 o.data_ptr(), lse.data_ptr(), B, T, H, Hkv, Dh, int(causal), w,
                 float(Dh ** -0.5), int(q.dtype == torch.bfloat16))
-    flash_attention_fwd.launches += 1
     return o, lse
+
+
+def flash_attention_fwd(q, k, v, causal: bool = False, window=None):
+    """K2-fwd, the CUDA kernel: ``(o, lse)`` as
+    :func:`attention_fwd_reference`. Raises on anything the kernel does not
+    take; counts each launch in ``flash_attention_fwd.launches``."""
+    out = _fwd("flash_attention_fwd", q, k, v, None, causal, window)
+    flash_attention_fwd.launches += 1
+    return out
 
 
 flash_attention_fwd.launches = 0
 
 
-def _bwd_inputs(q, k, v, do, lse, delta, causal, window, what):
+def flash_attention_rope_fwd(q, k, v, c2, s2, causal: bool = True,
+                             window=None):
+    """K2-fwd with rope on load, the CUDA kernel: ``(o, lse)`` as
+    :func:`rope_attention_fwd_reference`, from the unrotated q and k and
+    the ``[B, T, Dh]`` float32 tables. Counts each launch in
+    ``flash_attention_rope_fwd.launches``."""
+    out = _fwd("flash_attention_rope_fwd", q, k, v, (c2, s2), causal, window)
+    flash_attention_rope_fwd.launches += 1
+    return out
+
+
+flash_attention_rope_fwd.launches = 0
+
+
+def _bwd_inputs(q, k, v, do, lse, delta, tables, causal, window, what):
     B, T, H, Hkv, Dh, w = _check(q, k, v, causal, window, what)
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"dO must match q: {do.dtype} {tuple(do.shape)}")
     lse = _check_stats(lse, B, H, T, q.device, "lse")
     delta = _check_stats(delta, B, H, T, q.device, "delta")
-    return (q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous(),
-            lse, delta, (B, T, H, Hkv, Dh, int(causal), w), float(Dh ** -0.5))
+    rope = () if tables is None else _check_tables(*tables, B, T, Dh, q.device)
+    q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *rope)
+    return q, k, v, ptrs, (B, T, H, Hkv, Dh, int(causal), w), float(Dh ** -0.5)
+
+
+def _dq(name, q, k, v, do, lse, delta, tables, causal, window):
+    q, k, v, ptrs, dims, scale = _bwd_inputs(q, k, v, do, lse, delta, tables,
+                                             causal, window, name)
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        _launch(name, *ptrs, dq.data_ptr(), *dims, scale,
+                int(q.dtype == torch.bfloat16))
+    return dq
+
+
+def _dkv(name, q, k, v, do, lse, delta, tables, causal, window):
+    q, k, v, ptrs, dims, scale = _bwd_inputs(q, k, v, do, lse, delta, tables,
+                                             causal, window, name)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        _launch(name, *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, scale,
+                int(q.dtype == torch.bfloat16))
+    return dk, dv
 
 
 def flash_attention_dq(q, k, v, do, lse, delta, causal: bool = False,
@@ -216,13 +341,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, causal: bool = False,
     """K2-dq, the CUDA kernel: ``dq`` as :func:`attention_bwd_reference`,
     from the saved ``lse`` and ``delta`` (both ``[B, H, T]`` float32).
     Counts each launch in ``flash_attention_dq.launches``."""
-    q, k, v, do, lse, delta, dims, scale = _bwd_inputs(
-        q, k, v, do, lse, delta, causal, window, "flash_attention_dq")
-    dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        _launch("flash_attention_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                *dims, scale, int(q.dtype == torch.bfloat16))
+    dq = _dq("flash_attention_dq", q, k, v, do, lse, delta, None, causal, window)
     flash_attention_dq.launches += 1
     return dq
 
@@ -235,21 +354,53 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal: bool = False,
     """K2-dkv, the CUDA kernel: ``(dk, dv)`` as
     :func:`attention_bwd_reference`, summed over each GQA group inside the
     kernel. Counts each launch in ``flash_attention_dkv.launches``."""
-    q, k, v, do, lse, delta, dims, scale = _bwd_inputs(
-        q, k, v, do, lse, delta, causal, window, "flash_attention_dkv")
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        _launch("flash_attention_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), *dims, scale, int(q.dtype == torch.bfloat16))
+    out = _dkv("flash_attention_dkv", q, k, v, do, lse, delta, None, causal,
+               window)
     flash_attention_dkv.launches += 1
-    return dk, dv
+    return out
 
 
 flash_attention_dkv.launches = 0
 
 
+def flash_attention_rope_dq(q, k, v, do, lse, delta, c2, s2,
+                            causal: bool = True, window=None):
+    """K2-dq with rope on load, the CUDA kernel: ``dq`` (derotated) as
+    :func:`rope_attention_bwd_reference`. Counts each launch in
+    ``flash_attention_rope_dq.launches``."""
+    dq = _dq("flash_attention_rope_dq", q, k, v, do, lse, delta, (c2, s2),
+             causal, window)
+    flash_attention_rope_dq.launches += 1
+    return dq
+
+
+flash_attention_rope_dq.launches = 0
+
+
+def flash_attention_rope_dkv(q, k, v, do, lse, delta, c2, s2,
+                             causal: bool = True, window=None):
+    """K2-dkv with rope on load, the CUDA kernel: ``(dk, dv)``, dk
+    derotated, as :func:`rope_attention_bwd_reference`. Counts each launch
+    in ``flash_attention_rope_dkv.launches``."""
+    out = _dkv("flash_attention_rope_dkv", q, k, v, do, lse, delta, (c2, s2),
+               causal, window)
+    flash_attention_rope_dkv.launches += 1
+    return out
+
+
+flash_attention_rope_dkv.launches = 0
+
+
 # -- autograd --------------------------------------------------------------------
+
+
+def _delta(do, o, dlse):
+    """Δ = Σ_d dO·O ``[B, H, T]``, in torch as the reference computes it in
+    XLA; an lse cotangent adds p·g_lse to ds, which is Δ → Δ − g_lse."""
+    delta = (do.to(torch.float32) * o.to(torch.float32)).sum(-1).transpose(1, 2)
+    if dlse is not None:
+        delta = delta - dlse
+    return delta.contiguous()
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -270,14 +421,7 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         if do is None:
             do = torch.zeros_like(o)
-        # Δ = Σ_d dO·O, in torch as the reference computes it in XLA; an
-        # lse cotangent adds p·g_lse to ds, which is Δ → Δ − g_lse
-        delta = (do.to(torch.float32) * o.to(torch.float32)).sum(-1)
-        delta = delta.transpose(1, 2)
-        if dlse is not None:
-            delta = delta - dlse
-        delta = delta.contiguous()
-        args = (q, k, v, do, lse, delta, ctx.causal, ctx.window)
+        args = (q, k, v, do, lse, _delta(do, o, dlse), ctx.causal, ctx.window)
         if q.is_cuda:
             dq = flash_attention_dq(*args)
             dk, dv = flash_attention_dkv(*args)
@@ -286,21 +430,73 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def flash_attention_with_lse(q, k, v, causal: bool = False, window=None):
-    """Exact attention returning ``(o [B, T, H, Dh], lse [B, T, H]
-    float32)``, differentiable in both (the building block of a
-    cross-shard softmax merge)."""
+class _FlashAttentionRope(torch.autograd.Function):
+    """Attention of the rotated q and k from the unrotated ones: the
+    rope-on-load kernels for CUDA tensors, their plain versions for CPU
+    tensors. Saves the UNROTATED q and k, so the backward's inputs are
+    exactly the forward's. The tables are constants (positions are not
+    trained): their gradient is ``None``, as the reference's
+    ``stop_gradient`` and zero cotangent make it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, c2, s2, causal, window):
+        fwd = flash_attention_rope_fwd if q.is_cuda else rope_attention_fwd_reference
+        o, lse = fwd(q, k, v, c2, s2, causal, window)
+        ctx.save_for_backward(q, k, v, o, lse, c2, s2)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, c2, s2 = ctx.saved_tensors
+        args = (q, k, v, do, lse, _delta(do, o, None), c2, s2, ctx.causal,
+                ctx.window)
+        if q.is_cuda:
+            dq = flash_attention_rope_dq(*args)
+            dk, dv = flash_attention_rope_dkv(*args)
+        else:
+            dq, dk, dv = rope_attention_bwd_reference(*args)
+        return dq, dk, dv, None, None, None, None
+
+
+def _window(causal, window):
     if window is not None and not causal:
         raise ValueError("window requires causal attention")
-    o, lse = _FlashAttention.apply(q, k, v, bool(causal),
-                                   None if window is None else int(window))
+    return None if window is None else int(window)
+
+
+def flash_attention_with_lse(q, k, v, causal: bool = False, block_q: int = 512,
+                             block_k: int = 512, interpret: bool = False,
+                             window=None):
+    """Exact attention returning ``(o [B, T, H, Dh], lse [B, T, H]
+    float32)``, differentiable in both (the building block of a
+    cross-shard softmax merge). ``block_q``, ``block_k`` and ``interpret``
+    are the reference's Pallas knobs, accepted and ignored."""
+    o, lse = _FlashAttention.apply(q, k, v, bool(causal), _window(causal, window))
     return o, lse.transpose(1, 2)
 
 
-def flash_attention(q, k, v, causal: bool = False, window=None):
+def flash_attention(q, k, v, causal: bool = False, block_size: int = 128,
+                    window=None):
     """Exact attention over ``q`` ``[B, T, H, Dh]`` and ``k``/``v`` with a
     divisor KV head count → ``[B, T, H, Dh]`` in ``q``'s dtype; the
     flash-attention kernels on the card (KV heads never repeated), the
     plain versions on the CPU. Equals :func:`attention_reference` to
-    float32 accumulation, gradients included."""
-    return flash_attention_with_lse(q, k, v, causal, window)[0]
+    float32 accumulation, gradients included. ``block_size`` is the
+    reference's scan tile, accepted and ignored (the kernels use their
+    own tiles)."""
+    return flash_attention_with_lse(q, k, v, causal, window=window)[0]
+
+
+def flash_attention_rope(q, k, v, c2, s2, causal: bool = True,
+                         block_q: int = 512, block_k: int = 512,
+                         interpret: bool = False, window=None):
+    """Flash attention with the rotary embedding fused into the kernels:
+    ``q`` ``[B, T, H, Dh]`` and ``k``/``v`` ``[B, T, Hkv, Dh]`` arrive
+    UNROTATED, ``c2``/``s2`` are the ``[B, T, Dh]`` float32 tables of
+    :func:`make_rope_tables`. Equal to rotating q and k first and calling
+    :func:`flash_attention`, for the q, k and v gradients too; the tables
+    get no gradient. ``block_q``, ``block_k`` and ``interpret`` are the
+    reference's Pallas knobs, accepted and ignored."""
+    return _FlashAttentionRope.apply(q, k, v, c2, s2, bool(causal),
+                                     _window(causal, window))

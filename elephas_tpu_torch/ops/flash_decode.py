@@ -118,8 +118,10 @@ def _splits(B: int, Hkv: int, T: int, n_sm: int):
     return -(-T // chunk), chunk
 
 
-def flash_decode_lse(q, k, v, pos, window=None, ring: bool = False):
+def flash_decode_lse(q, k, v, pos, interpret: bool = False, window=None,
+                     ring: bool = False):
     """The CUDA kernel: ``(out, lse)`` as :func:`decode_attention_reference_lse`.
+    ``interpret`` is the reference's Pallas knob, accepted and ignored.
 
     ``q`` float (cast to float32), ``k``/``v`` float32 or bfloat16 and
     contiguous (a copy would recopy the whole cache every step), ``pos`` a
@@ -182,6 +184,13 @@ def flash_decode_lse(q, k, v, pos, window=None, ring: bool = False):
 
 
 flash_decode_lse.launches = 0
+
+
+def flash_decode(q, k, v, pos, interpret: bool = False, window=None,
+                 ring: bool = False):
+    """The CUDA kernel without the lse: :func:`flash_decode_lse`'s ``out``
+    (the reference's entry of the same name and signature)."""
+    return flash_decode_lse(q, k, v, pos, interpret, window, ring)[0]
 
 
 # -- dispatchers ----------------------------------------------------------------

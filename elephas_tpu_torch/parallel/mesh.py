@@ -21,10 +21,12 @@ MULTI_DEVICE_ITEM = "ROADMAP queue 1 item 6 (process groups over several GPUs)"
 
 
 class DeviceMesh:
-    """The devices data-parallel workers are spread over (one, so far)."""
+    """The devices data-parallel workers are spread over (one, so far),
+    along one named axis (``axis_names``, as a JAX ``Mesh`` has)."""
 
-    def __init__(self, devices: Sequence[torch.device]):
+    def __init__(self, devices: Sequence[torch.device], axis_name: str = DATA_AXIS):
         self.devices: List[torch.device] = list(devices)
+        self.axis_names = (axis_name,)
         if len(self.devices) != 1:
             raise NotImplementedError(
                 f"a mesh of {len(self.devices)} devices waits for {MULTI_DEVICE_ITEM}")
@@ -40,8 +42,11 @@ class DeviceMesh:
 
 def build_mesh(num_devices: Optional[int] = None,
                devices: Optional[Sequence[DeviceLike]] = None,
+               axis_name: str = DATA_AXIS, *,
                device: DeviceLike = "cuda") -> DeviceMesh:
-    """A 1-D data-parallel mesh: ``devices`` if given, else ``device``."""
+    """A 1-D data-parallel mesh with the reference's signature: ``devices``
+    if given, else the port's ``device`` (keyword-only); ``axis_name``
+    names its axis."""
     devs = [resolve_device(d) for d in devices] if devices is not None \
         else [resolve_device(device)]
     if num_devices is not None:
@@ -49,4 +54,4 @@ def build_mesh(num_devices: Optional[int] = None,
             raise NotImplementedError(
                 f"a mesh of {num_devices} devices waits for {MULTI_DEVICE_ITEM}")
         devs = devs[:num_devices]
-    return DeviceMesh(devs)
+    return DeviceMesh(devs, axis_name)

@@ -3,8 +3,9 @@ at edge shapes the serving and training runs do not reach (scalar-load
 head dims, odd group sizes, caches and sequences shorter than a tile,
 every mask mode, pages smaller and larger than a key tile, grouped
 products with empty experts, ragged K/N and wide tiles, loss rows on both
-sides of K1's warp/block switch with zero and soft labels), the wrappers'
-refusals, and the serving engine (dense and paged), the train step and
+sides of K1's warp/block switch with zero and soft labels, the rope-on-load
+flash-attention kernels at the Llama-3-8B training shape and its edges),
+the wrappers' refusals, and the serving engine (dense and paged), the train step and
 ``generate`` on the card against the same code on the CPU, for the dense
 and the mixture-of-experts LM, and the MLP fit's five schedules.
 
@@ -20,11 +21,16 @@ import torch
 from elephas_tpu_torch.models import (MoETransformerLM, TransformerLM,
                                       adam_compact, build_lm_train_step,
                                       make_lm_batches)
+from elephas_tpu_torch.models.transformer import _rope_angles
 from elephas_tpu_torch.ops.flash_attention import (
     attention_bwd_reference, attention_fwd_reference, flash_attention,
-    flash_attention_dkv, flash_attention_dq, flash_attention_fwd)
-from elephas_tpu_torch.ops.flash_decode import (decode_attention_reference_lse,
-                                                flash_decode_lse)
+    flash_attention_dkv, flash_attention_dq, flash_attention_fwd,
+    flash_attention_rope, flash_attention_rope_dkv, flash_attention_rope_dq,
+    flash_attention_rope_fwd, make_rope_tables, rope_attention_bwd_reference,
+    rope_attention_fwd_reference)
+from elephas_tpu_torch.ops.flash_decode import (decode_attention_reference,
+                                                decode_attention_reference_lse,
+                                                flash_decode, flash_decode_lse)
 from elephas_tpu_torch.ops.fused_xent import (categorical_crossentropy_from_logits,
                                               fused_xent_bwd, fused_xent_bwd_reference,
                                               fused_xent_fwd, fused_xent_fwd_reference)
@@ -209,6 +215,126 @@ def test_flash_attention_wrappers_refuse_bad_input(cuda):
         flash_attention_dq(q, q, q, q, stats[:, :1], stats, True)
     with pytest.raises(ValueError, match="scale/bias"):
         fused_layer_norm_bwd(_t(rng, 2, 8), _t(rng, 7), _t(rng, 2, 8))
+
+
+def _tables(B, T, Dh, first=0, theta=500000.0):
+    pos = (first + 37 * torch.arange(B, device="cuda")[:, None]
+           + torch.arange(T, device="cuda")[None, :])
+    return make_rope_tables(*_rope_angles(pos, Dh, theta))
+
+
+@pytest.mark.parametrize("B,T,H,Hkv,Dh,window,first", [
+    (4, 2048, 32, 8, 128, None, 0),     # the Llama-3-8B training shape
+    (2, 1000, 32, 8, 128, None, 0),     # ragged T
+    (2, 1024, 8, 2, 64, None, 0),       # GQA at Dh 64
+    (2, 1024, 32, 8, 128, 128, 0),      # a window
+    (2, 512, 8, 2, 128, None, 4096),    # per-row position offsets
+    (1, 1, 1, 1, 6, None, 3),           # one position, a tiny head dim
+    (2, 37, 4, 2, 64, 5, 0),            # shorter than a tile, window
+    (1, 130, 3, 1, 100, None, 7),       # ragged tiles, MQA, Dh class 128
+    (1, 70, 2, 2, 256, None, 0),        # the widest head dim
+])
+def test_rope_kernels_match_plain(cuda, B, T, H, Hkv, Dh, window, first):
+    """The rope-on-load K2-fwd, K2-dq and K2-dkv against their plain
+    versions on the same lse and delta; atol/rtol 2e-5."""
+    rng = np.random.default_rng(10)
+    q, do = _t(rng, B, T, H, Dh), _t(rng, B, T, H, Dh)
+    k, v = _t(rng, B, T, Hkv, Dh), _t(rng, B, T, Hkv, Dh)
+    c2, s2 = _tables(B, T, Dh, first)
+    o, lse = flash_attention_rope_fwd(q, k, v, c2, s2, True, window)
+    wo, wl = rope_attention_fwd_reference(q, k, v, c2, s2, True, window)
+    torch.testing.assert_close(o, wo, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(lse, wl, atol=2e-5, rtol=2e-5)
+    delta = (do * wo).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, wl, delta, c2, s2, True, window)
+    got = (flash_attention_rope_dq(*args), *flash_attention_rope_dkv(*args))
+    for a, w in zip(got, rope_attention_bwd_reference(*args)):
+        torch.testing.assert_close(a, w, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+def test_rope_autograd_matches_plain(cuda, dtype, tol):
+    """``flash_attention_rope`` through autograd (kernels, delta, derotated
+    gradients) against autograd through the plain forward, which
+    differentiates the rotation itself; bf16 at bf16's 2e-2."""
+    rng = np.random.default_rng(11)
+    B, T, H, Hkv, Dh = 2, 300, 8, 2, 128
+    q = _t(rng, B, T, H, Dh, dtype=dtype)
+    k, v = (_t(rng, B, T, Hkv, Dh, dtype=dtype) for _ in range(2))
+    g = _t(rng, B, T, H, Dh)
+    c2, s2 = _tables(B, T, Dh, 11)
+    grads = {}
+    for route in ("kernel", "plain"):
+        args = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = (flash_attention_rope(*args, c2, s2) if route == "kernel"
+               else rope_attention_fwd_reference(*args, c2, s2, True)[0])
+        assert out.dtype == dtype
+        grads[route] = (out, *torch.autograd.grad((out.float() * g).sum(), args))
+    for a, w in zip(grads["kernel"], grads["plain"]):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), w.float(), atol=tol, rtol=tol)
+
+
+def test_rope_wrappers_refuse_bad_tables(cuda):
+    rng = np.random.default_rng(12)
+    q = _t(rng, 2, 8, 2, 16)
+    c2, s2 = _tables(2, 8, 16)
+    stats = torch.zeros(2, 2, 8, device="cuda")
+    strided = c2.transpose(0, 1).contiguous().transpose(0, 1)   # [2, 8, 16]
+    assert not strided.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_rope_fwd(q, q, q, strided, s2)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_rope_dq(q, q, q, q, stats, stats, c2, strided)
+    with pytest.raises(ValueError, match=r"\[2, 8, 16\]"):
+        flash_attention_rope_fwd(q, q, q, c2[:1], s2[:1])
+    with pytest.raises(ValueError, match=r"\[2, 8, 16\]"):
+        flash_attention_rope_dkv(q, q, q, q, stats, stats, c2[:, :4], s2[:, :4])
+    with pytest.raises(ValueError, match="float32"):
+        flash_attention_rope_fwd(q, q, q, c2.double(), s2)
+    with pytest.raises(ValueError, match="even head dim"):
+        odd = _t(rng, 2, 8, 2, 15)
+        flash_attention_rope_fwd(odd, odd, odd, *_tables(2, 8, 14))
+    with pytest.raises(ValueError, match="float32"):
+        flash_attention_rope_fwd(q, q, q, c2.cpu(), s2)
+
+
+def test_flash_decode_positional_matches_plain(cuda):
+    """``flash_decode(q, k, v, pos, interpret, window)`` by position, as the
+    reference's entry is called: the window lands in its place."""
+    rng = np.random.default_rng(13)
+    q, k, v = _t(rng, 2, 2, 4, 64), _t(rng, 2, 2, 300, 64), _t(rng, 2, 2, 300, 64)
+    got = flash_decode(q, k, v, 250, False, 64)
+    torch.testing.assert_close(got, decode_attention_reference(q, k, v, 250, 64),
+                               atol=2e-5, rtol=2e-5)
+
+
+def test_rotary_train_step_on_card_matches_cpu(cuda):
+    """A rotary GQA model's flash train step: the card (the rope-on-load
+    kernels, L launches of each, none of the plain K2) against the CPU
+    (their plain versions) from the same weights; loss rtol 1e-4, every
+    gradient within 1e-3 of its scale."""
+    cfg = dict(vocab=97, d_model=128, n_heads=4, n_kv_heads=2, n_layers=2,
+               d_ff=192, max_len=128, activation="swiglu", norm="rmsnorm",
+               attn_bias=False, ffn_bias=False, pos_encoding="rotary",
+               rope_theta=500000.0)
+    batch = make_lm_batches(np.random.default_rng(14).integers(0, 97, size=(2, 101)))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = TransformerLM(**cfg, device=dev)
+        step, _ = build_lm_train_step(model, None, adam_compact(1e-3), attn="flash")
+        before = [f.launches for f in (flash_attention_rope_fwd, flash_attention_rope_dq,
+                                       flash_attention_rope_dkv, flash_attention_fwd)]
+        loss, grads = step.grad(model.init(4), *batch)
+        after = [f.launches for f in (flash_attention_rope_fwd, flash_attention_rope_dq,
+                                      flash_attention_rope_dkv, flash_attention_fwd)]
+        if dev == "cuda":
+            assert [a - b for a, b in zip(after, before)] == [2, 2, 2, 0]
+        out[dev] = (float(loss), {k_: g.cpu() for k_, g in grads.items()})
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    for k_, w in out["cpu"][1].items():
+        err = float((out["cuda"][1][k_] - w).abs().max())
+        assert err <= 1e-3 * max(float(w.abs().max()), 1e-6), k_
 
 
 def test_train_step_and_generate_on_card_match_cpu(cuda):

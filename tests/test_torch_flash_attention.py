@@ -59,7 +59,8 @@ def test_forward_and_grads_match_pallas_kernel_and_dense(b, t, h, hkv, dh,
     rng = np.random.default_rng(0)
     q, k, v, g = _inputs(rng, b, t, h, hkv, dh)
     (got,), got_grads = _port_vjp(
-        lambda q, k, v: flash_attention(q, k, v, causal, window), q, k, v, (g,))
+        lambda q, k, v: flash_attention(q, k, v, causal, window=window), q, k, v,
+        (g,))
 
     def kernel(q, k, v):
         return flash_attention_tpu(q, k, v, causal, BLOCK, BLOCK, True, window)
@@ -93,7 +94,7 @@ def test_with_lse_and_nonzero_lse_cotangent(hkv, window):
     q, k, v, g = _inputs(rng, b, t, h, hkv, dh)
     g_lse = rng.normal(size=(b, t, h)).astype(np.float32)
     (o, lse), grads = _port_vjp(
-        lambda q, k, v: flash_attention_with_lse(q, k, v, True, window),
+        lambda q, k, v: flash_attention_with_lse(q, k, v, True, window=window),
         q, k, v, (g, g_lse))
     assert lse.shape == (b, t, h) and lse.dtype == np.float32
 

@@ -10,9 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from elephas_tpu_torch.ops import flash_decode as fd
-
-# the module, not the function of the same name that elephas_tpu.ops exports
+# the modules, not the functions of the same name that both packages' ops
+# export
+fd = importlib.import_module("elephas_tpu_torch.ops.flash_decode")
 jax_fd = importlib.import_module("elephas_tpu.ops.flash_decode")
 
 
