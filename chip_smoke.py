@@ -15,14 +15,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
    CUDA events beside the plain version, one PyTorch library call that
    computes the same function (a yardstick the port never calls), and the
    least time the card could take (bytes over 3.35 TB/s or operations over
-   67 TFLOP/s float32, whichever is larger; H100 SXM data-sheet peaks):
+   67 TFLOP/s float32, whichever is larger; H100 SXM data-sheet peaks; for
+   the flash-attention kernels the operations at 3xTF32, three TF32
+   products of 494.7 TFLOP/s each, the 67 TFLOP/s figure beside it):
    LayerNorm forward and backward, flash decode, flash attention forward,
    dq and dkv (eight cases: GPT-2 training shape, ragged T, GQA, window,
    non-causal, lse cotangent, bf16 at Dh 64 and 256), and their
    rope-on-load variants (six cases: the Llama-3-8B training shape, ragged
    T, GQA at Dh 64, window, bf16, per-row position offsets; timed beside
    two compositions of two PyTorch operations each, since no single call
-   computes rope and attention).
+   computes rope and attention). Every attention case runs dq and dkv
+   twice (the same bits) and prints their errors and the plain version's
+   against a float64 oracle.
 3. ``serve``: GPT-2-small at full width (random weights from a seed)
    behind ``ServingEngine(n_slots=8)``: 16 greedy requests, prompts of
    32-256 tokens, 64 new tokens each. The kernel launch counters are set to
@@ -138,6 +142,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 494.7e12      # H100 SXM dense TF32 tensor cores
 SEED = 0
 
 GPT2_SMALL = dict(vocab=50257, d_model=768, n_heads=12, n_layers=12,
@@ -159,10 +164,19 @@ def require(cond: bool, what: str) -> None:
         raise Failed(what)
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k2_bound_ms(n_bytes: float, n_ops: float):
+    """The flash-attention kernels' bound: a float32-accurate product on
+    the tensor cores is three TF32 ones (3xTF32), so the operations run at
+    494.7 / 3 TFLOP/s; and beside it the float32 SIMT bound (67
+    TFLOP/s). ``(ms, "bytes"|"operations", simt_ms)``."""
+    ms, by = bound_ms(n_bytes, 3 * n_ops, TF32_OPS_PER_S)
+    return ms, by, bound_ms(n_bytes, n_ops)[0]
 
 
 def device_ms(fn, inputs, n_iter: int = 60) -> float:
@@ -368,6 +382,49 @@ def _visible_pairs(T, causal, window):
     return sum(min(i + 1, window) for i in range(T))
 
 
+def _bwd_f64(q, k, v, do, lse, delta, causal, window):
+    """The plain backward's math in float64 from the same inputs, lse and
+    delta: the oracle that the kernels and the plain float32 version are
+    both measured against. ``(dq, dk, dv)`` float64."""
+    from elephas_tpu_torch.ops.flash_attention import _visible, repeat_kv_heads
+
+    B, T, H, Dh = q.shape
+    Hkv = k.shape[2]
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    kr, vr = repeat_kv_heads(k, H), repeat_kv_heads(v, H)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kr) * Dh ** -0.5
+    keep = _visible(T, T, causal, window, q.device)
+    if keep is not None:
+        s = s.masked_fill_(~keep, float("-inf"))
+    p = torch.exp_(s.sub_(lse.double()[..., None]))
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    ds = torch.einsum("bqhd,bkhd->bhqk", do, vr).sub_(delta.double()[..., None])
+    ds = ds.mul_(p).mul_(Dh ** -0.5)
+    del p
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
+    if Hkv != H:
+        dk = dk.reshape(B, T, Hkv, H // Hkv, Dh).sum(dim=3)
+        dv = dv.reshape(B, T, Hkv, H // Hkv, Dh).sum(dim=3)
+    return dq, dk, dv
+
+
+def _rot_f64(x, c2, s2, neg=False):
+    """Half-split RoPE in float64 (``_rope_apply``'s formula)."""
+    c, s = c2.double()[:, :, None, :], s2.double()[:, :, None, :]
+    x = x.double()
+    return x * c + torch.roll(x, x.shape[-1] // 2, dims=-1) * (-s if neg else s)
+
+
+def _oracle_errors(got, plain, oracle):
+    """Max abs errors of the kernels' (dq, dk, dv) and the plain version's
+    against the float64 oracle."""
+    def errs(ts):
+        return {n: float((t.double() - o).abs().max()) for n, t, o in
+                zip(("dq", "dk", "dv"), ts, oracle)}
+    return {"kernel": errs(got), "plain": errs(plain)}
+
+
 def check_flash_attention(card):
     """K2-fwd, K2-dq and K2-dkv against their plain versions on the same
     inputs (the backward kernels and the plain backward get the same lse
@@ -390,8 +447,15 @@ def check_flash_attention(card):
         delta = ((do.float() * wo.float()).sum(-1).transpose(1, 2) - g_lse).contiguous()
         dq = flash_attention_dq(q, k, v, do, wl, delta, causal, window)
         dk, dv = flash_attention_dkv(q, k, v, do, wl, delta, causal, window)
+        again = (flash_attention_dq(q, k, v, do, wl, delta, causal, window),
+                 *flash_attention_dkv(q, k, v, do, wl, delta, causal, window))
         want = attention_bwd_reference(q, k, v, do, wl, delta, causal, window)
         torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)),
+                f"flash_attention {name}: two runs of dq/dkv differ")
+        oracle = _oracle_errors((dq, dk, dv), want,
+                                _bwd_f64(q, k, v, do, wl, delta, causal, window))
+        del again
         errs = {"o": _allclose_err(o, wo, tol), "lse": _allclose_err(lse, wl, tol),
                 "dq": _allclose_err(dq, want[0], tol),
                 "dk": _allclose_err(dk, want[1], tol),
@@ -423,7 +487,8 @@ def check_flash_attention(card):
         checks.append({"case": name, "B": B, "H": H, "Hkv": Hkv, "T": T, "Dh": Dh,
                        "causal": causal, "window": window, "dtype": str(dtype),
                        "lse_cotangent": with_lse, "atol": tol, "rtol": tol,
-                       "max_abs_err": {k_: e for k_, (e, _) in errs.items()}})
+                       "max_abs_err": {k_: e for k_, (e, _) in errs.items()},
+                       "oracle_f64_max_abs_err": oracle, "bitwise_repeat": True})
         del q, k, v, do, o, lse, wo, wl, delta, dq, dk, dv, want
 
     # timing at the GPT-2 training shape, float32, causal; two input sets
@@ -465,7 +530,7 @@ def check_flash_attention(card):
              5 * tensor + 2 * stat, 6 * Dh * pairs, worst["dq"]),
             ("flash_attention_dkv", dkv_ms, plain_bwd_ms, None, None,
              6 * tensor + 2 * stat, 8 * Dh * pairs, worst["dkv"])):
-        bms, by = bound_ms(n_bytes, n_ops)
+        bms, by, simt_ms = k2_bound_ms(n_bytes, n_ops)
         rows.append({"name": name, "route": "cuda",
                      "source": "elephas_tpu_torch/ops/csrc/flash_attention.cu",
                      "replaces": ("elephas_tpu/ops/pallas_flash.py:211" if name.endswith("fwd")
@@ -473,13 +538,14 @@ def check_flash_attention(card):
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "plain": ("attention_fwd_reference" if name.endswith("fwd") else
                                "attention_bwd_reference (dq, dk and dv together)"),
-                     "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
-                     "library": lib,
+                     "bound_ms": bms, "bound_by": by, "bound_simt_ms": simt_ms,
+                     "library_ms": lib_ms, "library": lib,
                      "timed_shape": {"B": B, "H": H, "Hkv": H, "T": T, "Dh": Dh,
                                      "causal": True, "dtype": "float32"}})
     emit({"phase": "kernel", "kernel": "flash_attention", "checks": checks,
           "timing": [{k_: r[k_] for k_ in ("name", "ms", "plain_ms", "library_ms",
-                                           "bound_ms", "bound_by")} for r in rows],
+                                           "bound_ms", "bound_by", "bound_simt_ms")}
+                     for r in rows],
           "card": card})
     return rows
 
@@ -537,8 +603,17 @@ def check_flash_attention_rope(card):
         bwd = (q, k, v, do, wl, delta, c2, s2, True, window)
         dq = flash_attention_rope_dq(*bwd)
         dk, dv = flash_attention_rope_dkv(*bwd)
+        again = (flash_attention_rope_dq(*bwd), *flash_attention_rope_dkv(*bwd))
         want = rope_attention_bwd_reference(*bwd)
         torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)),
+                f"flash_attention_rope {name}: two runs of dq/dkv differ")
+        del again
+        o64 = _bwd_f64(_rot_f64(q, c2, s2), _rot_f64(k, c2, s2), v, do, wl, delta, True,
+                       window)
+        oracle = _oracle_errors((dq, dk, dv), want, (
+            _rot_f64(o64[0], c2, s2, neg=True), _rot_f64(o64[1], c2, s2, neg=True), o64[2]))
+        del o64
         errs = {"o": _allclose_err(o, wo, tol), "lse": _allclose_err(lse, wl, tol),
                 "dq": _allclose_err(dq, want[0], tol),
                 "dk": _allclose_err(dk, want[1], tol),
@@ -568,7 +643,8 @@ def check_flash_attention_rope(card):
                        "causal": True, "window": window, "dtype": str(dtype),
                        "first_position": first, "theta": LLAMA_THETA,
                        "atol": tol, "rtol": tol,
-                       "max_abs_err": {k_: e for k_, (e, _) in errs.items()}})
+                       "max_abs_err": {k_: e for k_, (e, _) in errs.items()},
+                       "oracle_f64_max_abs_err": oracle, "bitwise_repeat": True})
         del q, k, v, do, wo, wl, delta, bwd, c2, s2
     torch.cuda.empty_cache()
 
@@ -641,7 +717,7 @@ def check_flash_attention_rope(card):
             ("flash_attention_rope_dkv", dkv_ms, plain_bwd_ms, "bwd_ms",
              2 * qb + 4 * kb + 2 * stat + tab, 8 * Dh * pairs + rot_q + 2 * rot_k,
              worst["dkv"])):
-        bms, by = bound_ms(n_bytes, n_ops)
+        bms, by, simt_ms = k2_bound_ms(n_bytes, n_ops)
         rows.append({"name": name, "route": "cuda",
                      "source": "elephas_tpu_torch/ops/csrc/flash_attention.cu",
                      "replaces": ("elephas_tpu/ops/pallas_flash.py:211" if name.endswith("fwd")
@@ -649,7 +725,8 @@ def check_flash_attention_rope(card):
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "plain": ("rope_attention_fwd_reference" if name.endswith("fwd") else
                                "rope_attention_bwd_reference (dq, dk and dv together)"),
-                     "bound_ms": bms, "bound_by": by, "library_ms": None,
+                     "bound_ms": bms, "bound_by": by, "bound_simt_ms": simt_ms,
+                     "library_ms": None,
                      "library": "none: no single PyTorch call computes rope and attention",
                      "two_op_compositions_ms": {
                          k_: v_[comp] for k_, v_ in compositions.items()},
@@ -661,7 +738,7 @@ def check_flash_attention_rope(card):
     emit({"phase": "kernel", "kernel": "flash_attention_rope", "checks": checks,
           "timing": [{k_: r[k_] for k_ in ("name", "ms", "plain_ms", "library_ms",
                                            "two_op_compositions_ms", "bound_ms",
-                                           "bound_by")} for r in rows],
+                                           "bound_by", "bound_simt_ms")} for r in rows],
           "card": card})
     return rows
 

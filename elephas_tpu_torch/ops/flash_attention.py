@@ -6,6 +6,8 @@ The public functions keep the JAX layout, ``q`` ``[B, T, H, Dh]`` and
 attention: query head ``h`` reads KV head ``h // (H / Hkv)``):
 
 - :func:`flash_attention` → ``[B, T, H, Dh]`` in ``q``'s dtype;
+- :func:`flash_attention_tpu` → ``[B, T, H, Dh]``, the reference's Pallas
+  entry under its own name and signature, on the same kernels;
 - :func:`flash_attention_with_lse` → ``(o, lse [B, T, H] float32)``,
   differentiable in both outputs (the lse cotangent folds into the
   FlashAttention-2 ``Δ`` term as ``Δ − g_lse``);
@@ -474,6 +476,15 @@ def flash_attention_with_lse(q, k, v, causal: bool = False, block_q: int = 512,
     are the reference's Pallas knobs, accepted and ignored."""
     o, lse = _FlashAttention.apply(q, k, v, bool(causal), _window(causal, window))
     return o, lse.transpose(1, 2)
+
+
+def flash_attention_tpu(q, k, v, causal: bool = False, block_q: int = 512,
+                        block_k: int = 512, interpret: bool = False, window=None):
+    """The reference's Pallas entry (``pallas_flash.flash_attention_tpu``):
+    exact attention ``[B, T, H, Dh]``, differentiable, on the same kernels
+    as :func:`flash_attention`. ``block_q``, ``block_k`` and ``interpret``
+    are the reference's Pallas knobs, accepted and ignored."""
+    return flash_attention_with_lse(q, k, v, causal, window=window)[0]
 
 
 def flash_attention(q, k, v, causal: bool = False, block_size: int = 128,

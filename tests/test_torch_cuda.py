@@ -3,8 +3,10 @@ at edge shapes the serving and training runs do not reach (scalar-load
 head dims, odd group sizes, caches and sequences shorter than a tile,
 every mask mode, pages smaller and larger than a key tile, grouped
 products with empty experts, ragged K/N and wide tiles, loss rows on both
-sides of K1's warp/block switch with zero and soft labels, the rope-on-load
-flash-attention kernels at the Llama-3-8B training shape and its edges),
+sides of K1's warp/block switch with zero and soft labels, the flash-attention
+backward in every tile class at its edges in float32 and bf16 and its
+bitwise determinism, the rope-on-load flash-attention kernels at the
+Llama-3-8B training shape and its edges),
 the wrappers' refusals, and the serving engine (dense and paged), the train step and
 ``generate`` on the card against the same code on the CPU, for the dense
 and the mixture-of-experts LM, and the MLP fit's five schedules.
@@ -158,25 +160,57 @@ def test_layer_norm_bwd_kernel_matches_plain(cuda, shape):
     (2, 37, 4, 2, 64),        # shorter than a tile, grouped-query
     (1, 130, 3, 1, 100),      # ragged tiles, MQA, Dh class 128
     (1, 70, 2, 2, 256),       # the widest head dim
+    (1, 1, 4, 1, 64),         # T = 1 in the Dh-64 class, G = 4
+    (2, 100, 8, 2, 64),       # T not a multiple of the 64-row tiles, G = 4
+    (1, 65, 8, 2, 128),       # one row past the Dh-128 class's tiles, G = 4
+    (1, 200, 4, 1, 128),      # several 32- and 64-row tiles, G = 4
+    (1, 33, 4, 1, 256),       # one row past the Dh-256 class's 32-row tile, G = 4
 ])
 @pytest.mark.parametrize("mode", ["causal", "window", "full"])
-def test_flash_attention_kernels_match_plain(cuda, B, T, H, Hkv, Dh, mode):
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+def test_flash_attention_kernels_match_plain(cuda, B, T, H, Hkv, Dh, mode, dtype, tol):
     """K2-fwd, K2-dq and K2-dkv against their plain versions on the same
-    lse and delta; atol/rtol 2e-5 as the reference pins its kernels."""
+    lse and delta, in every tile class and at its edges; atol/rtol 2e-5 in
+    float32 as the reference pins its kernels, 2e-2 in bf16 (the kernels
+    round p and ds to bf16 as the reference's do)."""
     rng = np.random.default_rng(6)
-    q, do = _t(rng, B, T, H, Dh), _t(rng, B, T, H, Dh)
-    k, v = _t(rng, B, T, Hkv, Dh), _t(rng, B, T, Hkv, Dh)
+    q, do = _t(rng, B, T, H, Dh, dtype=dtype), _t(rng, B, T, H, Dh, dtype=dtype)
+    k, v = _t(rng, B, T, Hkv, Dh, dtype=dtype), _t(rng, B, T, Hkv, Dh, dtype=dtype)
     causal, window = mode != "full", (max(1, T // 3) if mode == "window" else None)
     o, lse = flash_attention_fwd(q, k, v, causal, window)
     wo, wl = attention_fwd_reference(q, k, v, causal, window)
-    torch.testing.assert_close(o, wo, atol=2e-5, rtol=2e-5)
-    torch.testing.assert_close(lse, wl, atol=2e-5, rtol=2e-5)
-    delta = (do * wo).sum(-1).transpose(1, 2).contiguous() - 0.25
+    torch.testing.assert_close(o, wo, atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, wl, atol=tol, rtol=tol)
+    delta = (do.float() * wo.float()).sum(-1).transpose(1, 2).contiguous() - 0.25
     got = (flash_attention_dq(q, k, v, do, wl, delta, causal, window),
            *flash_attention_dkv(q, k, v, do, wl, delta, causal, window))
     want = attention_bwd_reference(q, k, v, do, wl, delta, causal, window)
     for a, w in zip(got, want):
-        torch.testing.assert_close(a, w, atol=2e-5, rtol=2e-5)
+        assert a.dtype == dtype
+        torch.testing.assert_close(a, w, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("Dh", [64, 128, 256])
+@pytest.mark.parametrize("rope", [False, True])
+def test_backward_kernels_give_the_same_bits_twice(cuda, Dh, rope):
+    """K2-dq and K2-dkv sum in a fixed order without atomics: two runs on
+    the same inputs give bitwise-equal dq, dk and dv."""
+    rng = np.random.default_rng(9)
+    B, T, H, Hkv = 2, 300, 8, 2
+    q, do = _t(rng, B, T, H, Dh), _t(rng, B, T, H, Dh)
+    k, v = _t(rng, B, T, Hkv, Dh), _t(rng, B, T, Hkv, Dh)
+    lse = attention_fwd_reference(q, k, v, True)[1]
+    delta = _t(rng, B, H, T)
+    if rope:
+        c2, s2 = _tables(B, T, Dh)
+        args = (q, k, v, do, lse, delta, c2, s2, True, None)
+        runs = [(flash_attention_rope_dq(*args), *flash_attention_rope_dkv(*args))
+                for _ in range(2)]
+    else:
+        args = (q, k, v, do, lse, delta, True, None)
+        runs = [(flash_attention_dq(*args), *flash_attention_dkv(*args)) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_flash_attention_bf16_autograd_matches_plain(cuda):
@@ -233,23 +267,28 @@ def _tables(B, T, Dh, first=0, theta=500000.0):
     (2, 37, 4, 2, 64, 5, 0),            # shorter than a tile, window
     (1, 130, 3, 1, 100, None, 7),       # ragged tiles, MQA, Dh class 128
     (1, 70, 2, 2, 256, None, 0),        # the widest head dim
+    (1, 1, 4, 1, 128, None, 0),         # T = 1 in the Dh-128 class, G = 4
+    (1, 65, 8, 2, 128, 17, 0),          # one row past a tile, G = 4, window
+    (1, 33, 4, 1, 256, None, 5),        # one row past the Dh-256 tile, G = 4
 ])
-def test_rope_kernels_match_plain(cuda, B, T, H, Hkv, Dh, window, first):
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+def test_rope_kernels_match_plain(cuda, B, T, H, Hkv, Dh, window, first, dtype, tol):
     """The rope-on-load K2-fwd, K2-dq and K2-dkv against their plain
-    versions on the same lse and delta; atol/rtol 2e-5."""
+    versions on the same lse and delta; atol/rtol 2e-5 in float32, 2e-2 in
+    bf16."""
     rng = np.random.default_rng(10)
-    q, do = _t(rng, B, T, H, Dh), _t(rng, B, T, H, Dh)
-    k, v = _t(rng, B, T, Hkv, Dh), _t(rng, B, T, Hkv, Dh)
+    q, do = _t(rng, B, T, H, Dh, dtype=dtype), _t(rng, B, T, H, Dh, dtype=dtype)
+    k, v = _t(rng, B, T, Hkv, Dh, dtype=dtype), _t(rng, B, T, Hkv, Dh, dtype=dtype)
     c2, s2 = _tables(B, T, Dh, first)
     o, lse = flash_attention_rope_fwd(q, k, v, c2, s2, True, window)
     wo, wl = rope_attention_fwd_reference(q, k, v, c2, s2, True, window)
-    torch.testing.assert_close(o, wo, atol=2e-5, rtol=2e-5)
-    torch.testing.assert_close(lse, wl, atol=2e-5, rtol=2e-5)
-    delta = (do * wo).sum(-1).transpose(1, 2).contiguous()
+    torch.testing.assert_close(o, wo, atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, wl, atol=tol, rtol=tol)
+    delta = (do.float() * wo.float()).sum(-1).transpose(1, 2).contiguous()
     args = (q, k, v, do, wl, delta, c2, s2, True, window)
     got = (flash_attention_rope_dq(*args), *flash_attention_rope_dkv(*args))
     for a, w in zip(got, rope_attention_bwd_reference(*args)):
-        torch.testing.assert_close(a, w, atol=2e-5, rtol=2e-5)
+        torch.testing.assert_close(a, w, atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])

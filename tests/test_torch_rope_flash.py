@@ -7,7 +7,8 @@ gradients, on the same numpy inputs, at the reference's own tolerances
 test_window_attention.py``: 1e-4 with a window). Then the model's routing
 (a rotary model on ``attn="flash"`` trains through the fused entry and
 ``prefill`` does not), and the reference-shaped positional calls of every
-signature this slice repaired, in both packages."""
+repaired signature and of ``flash_attention_tpu``, the reference's Pallas
+entry, in both packages."""
 
 import importlib
 import inspect
@@ -26,6 +27,8 @@ from elephas_tpu.ops.flash_attention import flash_attention as jax_flash_attenti
 from elephas_tpu.ops.pallas_flash import \
     flash_attention_rope as jax_flash_attention_rope
 from elephas_tpu.ops.pallas_flash import \
+    flash_attention_tpu as jax_flash_attention_tpu
+from elephas_tpu.ops.pallas_flash import \
     flash_attention_with_lse as jax_flash_attention_with_lse
 from elephas_tpu.ops.pallas_flash import make_rope_tables as jax_make_rope_tables
 from elephas_tpu.parallel.mesh import build_mesh as jax_build_mesh
@@ -36,6 +39,7 @@ from elephas_tpu_torch.models import transformer as pt
 from elephas_tpu_torch.ops import (attention_reference, flash_attention,
                                    flash_attention_rope, flash_attention_with_lse,
                                    flash_decode, make_rope_tables)
+from elephas_tpu_torch.ops.flash_attention import flash_attention_tpu
 from elephas_tpu_torch.parallel import build_mesh
 
 jax_fd = importlib.import_module("elephas_tpu.ops.flash_decode")
@@ -241,6 +245,7 @@ def _params(fn):
 @pytest.mark.parametrize("port,ref", [
     (flash_attention, jax_flash_attention),
     (flash_attention_with_lse, jax_flash_attention_with_lse),
+    (flash_attention_tpu, jax_flash_attention_tpu),
     (flash_attention_rope, jax_flash_attention_rope),
     (make_rope_tables, jax_make_rope_tables),
     (flash_decode, jax_fd.flash_decode),
@@ -280,6 +285,21 @@ def test_flash_attention_with_lse_positional_window():
                                             True, 16, 16, True, 10)
     np.testing.assert_allclose(o.numpy(), np.asarray(jo), **TOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **TOL)
+
+
+def test_flash_attention_tpu_positional_window_and_grads():
+    """The reference's public Pallas entry exists under its name:
+    ``(q, k, v, causal, block_q, block_k, interpret, window)`` by position
+    gives the reference's output and gradients."""
+    rng = np.random.default_rng(16)
+    q, k, v, g = _inputs(rng, 1, 37, 4, 2, 16)
+    got, got_grads = _port_vjp(
+        lambda q, k, v: flash_attention_tpu(q, k, v, True, 16, 16, True, 10), q, k, v, g)
+    want, vjp = jax.vjp(lambda q, k, v: jax_flash_attention_tpu(q, k, v, True, 16, 16, True, 10),
+                        *(jnp.asarray(a) for a in (q, k, v)))
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    for a, w in zip(got_grads, vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(a, np.asarray(w), **TOL)
 
 
 def test_flash_decode_positional_interpret():
