@@ -6,7 +6,12 @@ tree, tree, other, at the GPT-2 training shape (B 8, H 12, T 1024, Dh 64,
 causal, float32) and the Llama-3-8B rope shape (B 4, H 32, Hkv 8, T 2048,
 Dh 128, causal, float32, rope on load), beside the yardsticks that
 ``chip_smoke.py`` times: SDPA forward and autograd backward, and
-rotate-then-SDPA. Uses ``chip_smoke.py``'s inputs and ``device_ms``.
+rotate-then-SDPA. At the Llama shape each turn also times the plain K2-fwd
+on q and k rotated beforehand (``llama_fwd``) and ``_rope_rotate`` then the
+plain K2-fwd (``llama_rotate_then_fwd``); the yardsticks there are SDPA's
+forward with ``enable_gqa`` on the rotated q and k (``llama_sdpa_fwd``) and
+rotate-then-SDPA's forward (``llama_rotate_sdpa_fwd``). Uses
+``chip_smoke.py``'s inputs and ``device_ms``.
 
 Run from the repository root::
 
@@ -73,11 +78,14 @@ def main() -> int:
         q, k, v, do = cs._attn_inputs(gen, 8, 12, 12, 1024, 64, torch.float32)
         o, lse = fa.attention_fwd_reference(q, k, v, True)
         g_sets.append((q, k, v, do, lse, (do * o).sum(-1).transpose(1, 2).contiguous()))
+    r_sets = []
     for _ in range(2):
         q, k, v, do = cs._attn_inputs(gen, 4, 32, 8, 2048, 128, torch.float32)
         c2, s2 = cs._rope_tables(4, 2048, 128)
         o, lse = fa.rope_attention_fwd_reference(q, k, v, c2, s2, True)
         l_sets.append((q, k, v, do, lse, (do * o).sum(-1).transpose(1, 2).contiguous(), c2, s2))
+        cos, sin = c2[:, :, None, :64], s2[:, :, None, 64:]
+        r_sets.append((q, k, v, cos, sin, _rope_rotate(q, cos, sin), _rope_rotate(k, cos, sin)))
         del o
     for turn in ("other", "tree", "tree", "other"):
         build._loaded["flash_attention"] = libs[turn]
@@ -93,7 +101,13 @@ def main() -> int:
             "llama_rope_dq": cs.device_ms(lambda *a: fa.flash_attention_rope_dq(*a, True),
                                           l_sets, 6),
             "llama_rope_dkv": cs.device_ms(lambda *a: fa.flash_attention_rope_dkv(*a, True),
-                                           l_sets, 6)}), flush=True)
+                                           l_sets, 6),
+            "llama_fwd": cs.device_ms(lambda q, k, v, cos, sin, qr, kr:
+                                      fa.flash_attention_fwd(qr, kr, v, True), r_sets, 6),
+            "llama_rotate_then_fwd": cs.device_ms(
+                lambda q, k, v, cos, sin, qr, kr: fa.flash_attention_fwd(
+                    _rope_rotate(q, cos, sin), _rope_rotate(k, cos, sin), v, True),
+                r_sets, 6)}), flush=True)
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in s[:4]) for s in g_sets]
@@ -106,6 +120,15 @@ def main() -> int:
     out["gpt2_sdpa_bwd"] = cs.device_ms(lambda o, args, do: torch.autograd.grad(
         o, args, do, retain_graph=True), graphs, 20)
     del graphs, lib_sets
+    out["llama_sdpa_fwd"] = cs.device_ms(
+        lambda q, k, v, cos, sin, qr, kr: sdpa(
+            qr.transpose(1, 2), kr.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+            enable_gqa=True), r_sets, 6)
+    out["llama_rotate_sdpa_fwd"] = cs.device_ms(
+        lambda q, k, v, cos, sin, qr, kr: sdpa(
+            _rope_rotate(q, cos, sin).transpose(1, 2), _rope_rotate(k, cos, sin).transpose(1, 2),
+            v.transpose(1, 2), is_causal=True, enable_gqa=True), r_sets, 6)
+    del r_sets
     graphs = []
     for q, k, v, do, _, _, c2, s2 in l_sets:
         cos, sin = c2[:, :, None, :64], s2[:, :, None, 64:]

@@ -409,6 +409,22 @@ def _bwd_f64(q, k, v, do, lse, delta, causal, window):
     return dq, dk, dv
 
 
+def _fwd_f64(q, k, v, causal, window):
+    """The plain forward's math in float64: the oracle of the kernel's and
+    the plain float32 version's ``(o, lse)``."""
+    from elephas_tpu_torch.ops.flash_attention import _visible, repeat_kv_heads
+
+    T, H, Dh = q.shape[1], q.shape[2], q.shape[3]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), repeat_kv_heads(k, H).double())
+    s = s.mul_(Dh ** -0.5)
+    keep = _visible(T, T, causal, window, q.device)
+    if keep is not None:
+        s = s.masked_fill_(~keep, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp_(s.sub_(lse[..., None]))
+    return torch.einsum("bhqk,bkhd->bqhd", p, repeat_kv_heads(v, H).double()), lse
+
+
 def _rot_f64(x, c2, s2, neg=False):
     """Half-split RoPE in float64 (``_rope_apply``'s formula)."""
     c, s = c2.double()[:, :, None, :], s2.double()[:, :, None, :]
@@ -417,11 +433,11 @@ def _rot_f64(x, c2, s2, neg=False):
 
 
 def _oracle_errors(got, plain, oracle):
-    """Max abs errors of the kernels' (dq, dk, dv) and the plain version's
-    against the float64 oracle."""
+    """Max abs errors of the kernels' outputs (o, lse, dq, dk, dv) and the
+    plain version's against the float64 oracle."""
     def errs(ts):
         return {n: float((t.double() - o).abs().max()) for n, t, o in
-                zip(("dq", "dk", "dv"), ts, oracle)}
+                zip(("o", "lse", "dq", "dk", "dv"), ts, oracle)}
     return {"kernel": errs(got), "plain": errs(plain)}
 
 
@@ -443,6 +459,7 @@ def check_flash_attention(card):
         g_lse = (torch.from_numpy(gen.normal(size=(B, H, T)).astype(np.float32)).cuda()
                  if with_lse else torch.zeros(B, H, T, device="cuda"))
         o, lse = flash_attention_fwd(q, k, v, causal, window)
+        o_again, lse_again = flash_attention_fwd(q, k, v, causal, window)
         wo, wl = attention_fwd_reference(q, k, v, causal, window)
         delta = ((do.float() * wo.float()).sum(-1).transpose(1, 2) - g_lse).contiguous()
         dq = flash_attention_dq(q, k, v, do, wl, delta, causal, window)
@@ -451,11 +468,14 @@ def check_flash_attention(card):
                  *flash_attention_dkv(q, k, v, do, wl, delta, causal, window))
         want = attention_bwd_reference(q, k, v, do, wl, delta, causal, window)
         torch.cuda.synchronize()
+        require(torch.equal(o, o_again) and torch.equal(lse, lse_again),
+                f"flash_attention {name}: two runs of the forward differ")
         require(all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)),
                 f"flash_attention {name}: two runs of dq/dkv differ")
-        oracle = _oracle_errors((dq, dk, dv), want,
-                                _bwd_f64(q, k, v, do, wl, delta, causal, window))
-        del again
+        oracle = _oracle_errors((o, lse, dq, dk, dv), (wo, wl, *want),
+                                (*_fwd_f64(q, k, v, causal, window),
+                                 *_bwd_f64(q, k, v, do, wl, delta, causal, window)))
+        del again, o_again, lse_again
         errs = {"o": _allclose_err(o, wo, tol), "lse": _allclose_err(lse, wl, tol),
                 "dq": _allclose_err(dq, want[0], tol),
                 "dk": _allclose_err(dk, want[1], tol),
@@ -598,6 +618,7 @@ def check_flash_attention_rope(card):
         q, k, v, do = _attn_inputs(gen, B, H, Hkv, T, Dh, dtype)
         c2, s2 = _rope_tables(B, T, Dh, first)
         o, lse = flash_attention_rope_fwd(q, k, v, c2, s2, True, window)
+        o_again, lse_again = flash_attention_rope_fwd(q, k, v, c2, s2, True, window)
         wo, wl = rope_attention_fwd_reference(q, k, v, c2, s2, True, window)
         delta = (do.float() * wo.float()).sum(-1).transpose(1, 2).contiguous()
         bwd = (q, k, v, do, wl, delta, c2, s2, True, window)
@@ -606,14 +627,18 @@ def check_flash_attention_rope(card):
         again = (flash_attention_rope_dq(*bwd), *flash_attention_rope_dkv(*bwd))
         want = rope_attention_bwd_reference(*bwd)
         torch.cuda.synchronize()
+        require(torch.equal(o, o_again) and torch.equal(lse, lse_again),
+                f"flash_attention_rope {name}: two runs of the forward differ")
         require(all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)),
                 f"flash_attention_rope {name}: two runs of dq/dkv differ")
-        del again
-        o64 = _bwd_f64(_rot_f64(q, c2, s2), _rot_f64(k, c2, s2), v, do, wl, delta, True,
-                       window)
-        oracle = _oracle_errors((dq, dk, dv), want, (
-            _rot_f64(o64[0], c2, s2, neg=True), _rot_f64(o64[1], c2, s2, neg=True), o64[2]))
-        del o64
+        del again, o_again, lse_again
+        qr64, kr64 = _rot_f64(q, c2, s2), _rot_f64(k, c2, s2)
+        f64 = _fwd_f64(qr64, kr64, v, True, window)
+        o64 = _bwd_f64(qr64, kr64, v, do, wl, delta, True, window)
+        oracle = _oracle_errors((o, lse, dq, dk, dv), (wo, wl, *want), (
+            *f64, _rot_f64(o64[0], c2, s2, neg=True), _rot_f64(o64[1], c2, s2, neg=True),
+            o64[2]))
+        del o64, f64, qr64, kr64
         errs = {"o": _allclose_err(o, wo, tol), "lse": _allclose_err(lse, wl, tol),
                 "dq": _allclose_err(dq, want[0], tol),
                 "dk": _allclose_err(dk, want[1], tol),

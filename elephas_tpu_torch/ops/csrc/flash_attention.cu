@@ -32,24 +32,35 @@
 // bits. Keys past T and padded query rows are masked by index (-inf
 // scores, p = 0), so a ragged T needs no padding in device memory.
 //
-// The forward is SIMT: 256 threads as a 16 x 16 grid over float32 tiles,
-// 64 x 64 up to Dh 128 and 32 x 32 at Dh 256, scalar float32 products.
-//
-// The backward (dq and dkv) runs on the tensor cores through `mma.sync`:
+// All three run on the tensor cores through `mma.sync`:
 // float32 inputs as 3xTF32 (each operand split in registers into a TF32
 // big part, cvt.rna, and the TF32 rounding of the rest; small*big +
 // big*small + big*big, float32 accumulation: float32 accuracy, as the
 // reference's Precision.HIGHEST), bf16 inputs as bf16 m16n8k16 with p and
 // ds rounded to bf16 before the second products, as the Pallas kernels
-// round them. A block's own tile (Q and dO in dq, K and V in dkv) stays in
-// shared memory; the streamed tiles (K, V in dq; Q, dO, lse, delta in dkv)
-// land in a two-stage ring by cp.async, 16 bytes a thread: right after the
-// step's one barrier the next tile's copy starts into the stage every
-// warp has just finished, and it is in flight while the current tile is
-// computed. Rows past T are zero-filled by the copy's source size. Tiles
+// round them. A block's own tile (Q in the forward, Q and dO in dq, K and
+// V in dkv) stays in shared memory; the streamed tiles (K, V in the
+// forward and dq; Q, dO, lse, delta in dkv) land in a ring by cp.async,
+// 16 bytes a thread: right after the step's one barrier the copy of a
+// later tile starts into the stage every warp has just finished, and it is
+// in flight while the current tile is computed. dq and dkv use two stages
+// (the next tile lands while this one is computed); the forward three, so
+// that under rope the next K tile, landed, is rotated in place by each
+// warp before it computes this tile, with no barrier of its own. Rows past
+// T are zero-filled by the copy's source size. Tiles
 // keep their storage type in shared memory, rows of 16-byte chunks
 // XOR-swizzled by row, so every fragment load is free of bank conflicts.
-// Warps: RG row groups of 16 own-tile rows times SP = 2 splits of the
+// Forward warps: RG warps, each owning 16 query rows across the whole KV
+// tile, so the online softmax never crosses warps. Each warp computes its
+// 16 x BK piece of s = q.k^T, keeps the running max m and sum l of rows g
+// and g + 8 (g = lane / 4) in registers, takes each tile's row max and
+// row sum over its quad of lanes by shuffles, rescales its 16 x Dh o by
+// alpha = exp(m_old - m_new) and adds p.v. l sums p in float32; bf16 rounds
+// p to bf16 only as the A operand of p.v, as the reference's
+// `p.astype(v.dtype)`. A warp skips a tile none of its rows sees (half the
+// warps of the causal diagonal's last tiles). The epilogue writes o / l
+// and lse = m + log l from registers.
+// Backward warps: RG row groups of 16 own-tile rows times SP = 2 splits of the
 // streamed tile's rows. Each warp computes its 16 x (streamed rows / 2)
 // piece of s = q.k^T and dp = dO.v^T (in dkv their transposes), forms p
 // and ds in registers and feeds them straight back as the A operand of dq
@@ -61,6 +72,14 @@
 // tile of T 2048 at G 4 drifts past the float32 pin). Per class (threads;
 // own rows, streamed rows; shared memory a block, float32 / bf16; blocks
 // an SM in float32):
+//   forward:   Dh <= 64:  256; 128, 32; 80 / 40 KiB; two blocks an SM
+//              (128 registers a thread);
+//              Dh <= 128: 256; 128, 32; 160 / 80 KiB; one block an SM;
+//              Dh <= 256: 128; 64, 16; 160 / 80 KiB; one block an SM.
+//              o alone is Dh / 2 accumulator floats a thread; 32 streamed
+//              rows keep s and its split operands to 48 more.
+//              (Chosen by A/B timing on an H100 against 64-row KV tiles,
+//              64-row Q tiles and three or four blocks an SM.)
 //   Dh <= 64:  dq and dkv 256; 64, 64; 96 / 48 KiB (dkv 97 / 49); two
 //              blocks an SM (the launch bounds cap a thread at 128
 //              registers);
@@ -88,9 +107,12 @@
 // until the store, where the summed tile in shared memory is derotated
 // with the sign of S2 flipped, the inverse rotation. Rows past T are never
 // rotated and read no table. The rotated q and k never exist in device
-// memory. The forward's shared memory per block is the same with or
-// without rope: 65.75 KiB at Dh 64, 113.75 KiB at Dh 128, 100.875 KiB at
-// Dh 256.
+// memory. Every kernel's shared memory per block is the same with or
+// without rope. The forward rotates its resident Q tile once, before its
+// sweep, and each K tile one step before it is used, four pairs a thread
+// at a time from 16-byte table reads where Dh is a multiple of 8 and the
+// rows are 16-byte aligned (`rotate_sw4`; pair by pair, that pass took
+// over 40% of the forward's time at the Llama-3-8B shape on an H100).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,12 +121,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // the forward's block
-
 struct Dims {
   int B, T, H, Hkv, Dh, causal, window;
   float scale;
-  int vec16;  // the backward's rows may be copied 16 bytes at a time
+  int vec16;  // the copied rows may be copied 16 bytes at a time
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -118,217 +138,13 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-template <typename E>
-__device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<E>(x)); }
-
 __device__ __forceinline__ bool visible(int qi, int kj, const Dims& D) {
   if (qi >= D.T || kj >= D.T) return false;
   if (!D.causal) return true;
   return kj <= qi && (D.window <= 0 || kj > qi - D.window);
 }
 
-// rows [t0, t0 + R) of head `head` of a [B, T, heads, Dh] tensor into a
-// float32 tile [R][LD], zero past T and past Dh
-template <typename E, int R, int DH, int LD>
-__device__ __forceinline__ void load_tile(const E* src, int b, int t0, int head, int heads,
-                                          const Dims& D, float* dst) {
-  for (int idx = threadIdx.x; idx < R * DH; idx += kThreads) {
-    const int r = idx / DH, d = idx - r * DH, t = t0 + r;
-    float val = 0.f;
-    if (t < D.T && d < D.Dh)
-      val = to_f32(src[((static_cast<size_t>(b) * D.T + t) * heads + head) * D.Dh + d]);
-    dst[r * LD + d] = val;
-  }
-}
-
-
-// Rotate rows [t0, t0 + R) of a float32 tile in place by the tables c2/s2
-// [B, T, Dh]: x*C2 + roll_half(x)*S2 in float32, rounded to E (the
-// reference's `_rot`). Products and sums are rounded one by one, as the
-// plain version's separate tensor operations round them. One thread per
-// (row, d < Dh/2) pair; rows past T are left as loaded (zero).
-template <typename E, int R, int LD>
-__device__ __forceinline__ void rotate_tile(float* tile, const float* __restrict__ c2,
-                                            const float* __restrict__ s2, int b, int t0,
-                                            const Dims& D) {
-  const int half = D.Dh >> 1;
-  for (int idx = threadIdx.x; idx < R * half; idx += kThreads) {
-    const int r = idx / half, d = idx - r * half, t = t0 + r;
-    if (t >= D.T) continue;
-    const size_t row = (static_cast<size_t>(b) * D.T + t) * D.Dh;
-    const float x1 = tile[r * LD + d], x2 = tile[r * LD + d + half];
-    tile[r * LD + d] =
-        round_to<E>(__fadd_rn(__fmul_rn(x1, c2[row + d]), __fmul_rn(x2, s2[row + d])));
-    tile[r * LD + d + half] = round_to<E>(
-        __fadd_rn(__fmul_rn(x2, c2[row + d + half]), __fmul_rn(x1, s2[row + d + half])));
-  }
-}
-
-// q or k into a float32 tile, then (under rope) rotated in place: the
-// barrier between is the load's, the caller's next barrier ends the pass
-template <typename E, int R, int DH, int LD, bool ROPE>
-__device__ __forceinline__ void load_qk(const E* src, const float* __restrict__ c2,
-                                        const float* __restrict__ s2, int b, int t0, int head,
-                                        int heads, const Dims& D, float* dst) {
-  load_tile<E, R, DH, LD>(src, b, t0, head, heads, D, dst);
-  if (ROPE) {
-    __syncthreads();
-    rotate_tile<E, R, LD>(dst, c2, s2, b, t0, D);
-  }
-}
-
-template <int DH, int BQ, int BK>
-struct Tiles {
-  static constexpr int LD = DH + 1;  // padded row of a [rows][DH] tile
-  static constexpr int LDS = BK + 1; // padded row of a [BQ][BK] tile
-  static constexpr int RQ = BQ / 16, RK = BK / 16, RD = DH / 16;
-  static constexpr size_t fwd_smem =
-      sizeof(float) * (BQ * LD + 2 * BK * LD + BQ * LDS + 3 * BQ);
-};
-
-// ---- forward: one block per (Q tile, b * H + h) ------------------------------
-
-template <typename E, int DH, int BQ, int BK, bool ROPE>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
-                 const float* __restrict__ c2, const float* __restrict__ s2,
-                 E* __restrict__ o, float* __restrict__ lse, Dims D) {
-  using Tl = Tiles<DH, BQ, BK>;
-  constexpr int LD = Tl::LD, LDS = Tl::LDS, RQ = Tl::RQ, RK = Tl::RK, RD = Tl::RD;
-  constexpr int TPR = kThreads / BQ;  // threads per score row in the softmax
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + BQ * LD;
-  float* sV = sK + BK * LD;
-  float* sS = sV + BK * LD;
-  float* sM = sS + BQ * LDS;
-  float* sL = sM + BQ;
-  float* sA = sL + BQ;
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * BQ;
-  const int b = blockIdx.y / D.H, h = blockIdx.y - b * D.H;
-  const int hk = h / (D.H / D.Hkv);
-
-  load_qk<E, BQ, DH, LD, ROPE>(q, c2, s2, b, q0, h, D.H, D, sQ);  // rotated once
-  for (int r = tid; r < BQ; r += kThreads) {
-    sM[r] = -INFINITY;
-    sL[r] = 0.f;
-  }
-  float acc[RQ][RD];
-#pragma unroll
-  for (int i = 0; i < RQ; ++i)
-#pragma unroll
-    for (int j = 0; j < RD; ++j) acc[i][j] = 0.f;
-
-  int k_lo = 0, k_hi = D.T;
-  if (D.causal) {
-    k_hi = min(D.T, q0 + BQ);
-    if (D.window > 0) k_lo = max(0, q0 - D.window + 1) / BK * BK;
-  }
-  for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    load_qk<E, BK, DH, LD, ROPE>(k, c2, s2, b, k0, hk, D.Hkv, D, sK);
-    load_tile<E, BK, DH, LD>(v, b, k0, hk, D.Hkv, D, sV);
-    __syncthreads();
-
-    float s[RQ][RK];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-      for (int j = 0; j < RK; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DH; ++d) {
-      float a[RQ], c[RK];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) a[i] = sQ[(ty + 16 * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < RK; ++j) c[j] = sK[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int j = 0; j < RK; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-      for (int j = 0; j < RK; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        sS[r * LDS + c] = visible(q0 + r, k0 + c, D) ? s[i][j] * D.scale : -INFINITY;
-      }
-    __syncthreads();
-
-    // online softmax: TPR consecutive lanes per row
-    {
-      const int r = tid / TPR, lane = tid - r * TPR;
-      float mx = -INFINITY;
-      for (int c = lane; c < BK; c += TPR) mx = fmaxf(mx, sS[r * LDS + c]);
-#pragma unroll
-      for (int off = TPR / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int c = lane; c < BK; c += TPR) {
-        const float sv = sS[r * LDS + c];
-        const float p = m_new == -INFINITY ? 0.f : expf(sv - m_new);
-        sS[r * LDS + c] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = TPR / 2; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float alpha = m_new == -INFINITY ? 1.f : expf(m_old - m_new);
-        sL[r] = alpha * sL[r] + sum;
-        sM[r] = m_new;
-        sA[r] = alpha;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const float al = sA[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < RD; ++j) acc[i][j] *= al;
-    }
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[RQ], c[RD];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) p[i] = sS[(ty + 16 * i) * LDS + kk];
-#pragma unroll
-      for (int j = 0; j < RD; ++j) c[j] = sV[kk * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int j = 0; j < RD; ++j) acc[i][j] = fmaf(p[i], c[j], acc[i][j]);
-    }
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int r = ty + 16 * i, t = q0 + r;
-    if (t >= D.T) continue;
-    const float l = sL[r];
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-    E* orow = o + ((static_cast<size_t>(b) * D.T + t) * D.H + h) * D.Dh;
-#pragma unroll
-    for (int j = 0; j < RD; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D.Dh) orow[d] = from_f32<E>(acc[i][j] * inv);
-    }
-  }
-  for (int r = tid; r < BQ; r += kThreads) {
-    const int t = q0 + r;
-    if (t < D.T) lse[(static_cast<size_t>(b) * D.H + h) * D.T + t] = sM[r] + logf(sL[r]);
-  }
-}
-
-
-// ---- tensor-core tile helpers (the backward's; the forward's redesign reuses them) ----
+// ---- tensor-core tile helpers (the forward's, dq's and dkv's) --------------------
 
 // A tile in shared memory: R rows of DH elements of E in their storage type
 // (a row is 128, 256 or 512 bytes), cut into 16-byte chunks; chunk c of row
@@ -425,6 +241,85 @@ __device__ __forceinline__ void rotate_sw(E* tile, const float* __restrict__ c2,
   }
 }
 
+// two float32 values rounded to bf16 and packed, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// four consecutive elements of a swizzled tile (a 4-aligned column start
+// keeps them inside one 16-byte chunk) as float32, and back
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ void st4(float* p, float4 x) { *reinterpret_cast<float4*>(p) = x; }
+__device__ __forceinline__ void st4(__nv_bfloat16* p, float4 x) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+}
+
+__device__ __forceinline__ float rot1(float x, float c, float y, float s) {
+  return __fadd_rn(__fmul_rn(x, c), __fmul_rn(y, s));
+}
+
+// rotate_sw four pairs at a time, for Dh a multiple of 8 and rows copied
+// 16 bytes at a time (D.vec16; the caller checks both): each thread takes
+// pairs (d .. d + 3, d + Dh/2 .. d + Dh/2 + 3) of a row as 16-byte table
+// reads and 16- or 8-byte tile accesses, and starts the table reads of
+// two such groups before it rotates either. The forward rotates every K tile
+// it streams, and pair by pair the pass's instructions and L2 round trips
+// held its warps. The arithmetic, and so the rotated tile, is rotate_sw's.
+template <typename E, int R, int DH, int NT>
+__device__ __forceinline__ void rotate_sw4(E* tile, const float* __restrict__ c2,
+                                           const float* __restrict__ s2, int b, int t0,
+                                           const Dims& D) {
+  constexpr int G4 = DH / 8, N = (R * G4 + NT - 1) / NT;  // groups a row, a thread
+  constexpr int BATCH = 2;  // groups whose table reads are in flight together
+  const int half = D.Dh >> 1;
+#pragma unroll 1
+  for (int j0 = 0; j0 < N; j0 += BATCH) {  // not unrolled: one batch's registers live
+    float4 cs[BATCH][4];
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      const int idx = threadIdx.x + (j0 + j) * NT, r = idx / G4, d = 4 * (idx % G4);
+      const bool on = j0 + j < N && idx < R * G4 && d < half && t0 + r < D.T;
+      const size_t at = on ? (static_cast<size_t>(b) * D.T + t0 + r) * D.Dh + d : 0;
+      cs[j][0] = *reinterpret_cast<const float4*>(c2 + at);
+      cs[j][1] = *reinterpret_cast<const float4*>(s2 + at);
+      cs[j][2] = *reinterpret_cast<const float4*>(c2 + at + half);
+      cs[j][3] = *reinterpret_cast<const float4*>(s2 + at + half);
+    }
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      const int idx = threadIdx.x + (j0 + j) * NT, r = idx / G4, d = 4 * (idx % G4);
+      if (j0 + j >= N || idx >= R * G4 || d >= half || t0 + r >= D.T) continue;
+      E* p1 = tile + sw<E, DH>(r, d);
+      E* p2 = tile + sw<E, DH>(r, d + half);
+      const float4 x = ld4(p1), y = ld4(p2);
+      const float4 c = cs[j][0], sn = cs[j][1], c_ = cs[j][2], s_ = cs[j][3];
+      st4(p1, make_float4(rot1(x.x, c.x, y.x, sn.x), rot1(x.y, c.y, y.y, sn.y),
+                          rot1(x.z, c.z, y.z, sn.z), rot1(x.w, c.w, y.w, sn.w)));
+      st4(p2, make_float4(rot1(y.x, c_.x, x.x, s_.x), rot1(y.y, c_.y, x.y, s_.y),
+                          rot1(y.z, c_.z, x.z, s_.z), rot1(y.w, c_.w, x.w, s_.w)));
+    }
+  }
+}
+
+// the forward's rotation of a landed tile: four pairs at a time where the
+// rows and the tables allow it, else rotate_sw
+template <typename E, int R, int DH, int NT>
+__device__ __forceinline__ void rotate_landed(E* tile, const float* __restrict__ c2,
+                                              const float* __restrict__ s2, int b, int t0,
+                                              const Dims& D) {
+  if (D.vec16 && D.Dh % 8 == 0)
+    rotate_sw4<E, R, DH, NT>(tile, c2, s2, b, t0, D);
+  else
+    rotate_sw<E, R, DH, NT>(tile, c2, s2, b, t0, D);
+}
+
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
@@ -465,12 +360,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 
 __device__ __forceinline__ uint32_t word(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two float32 values rounded to bf16 and packed, lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
@@ -707,6 +596,174 @@ __device__ __forceinline__ bool all_visible(int q0, int nq, int k0, int nk, cons
   return k0 + nk - 1 <= q0 && (D.window <= 0 || k0 > q0 + nq - 1 - D.window);
 }
 
+// No (query, key) pair of the tile is visible: a warp of the forward skips
+// it (up to half the warps of the causal diagonal's tiles).
+__device__ __forceinline__ bool none_visible(int q0, int nq, int k0, int nk, const Dims& D) {
+  if (q0 >= D.T) return true;
+  if (!D.causal) return false;
+  return k0 > q0 + nq - 1 || (D.window > 0 && k0 + nk - 1 <= q0 - D.window);
+}
+
+// KV tiles [k_lo, k_hi) a Q tile [q0, q0 + BQ) sees under the causal bound
+// and the window (the reference's `_kv_clamp`)
+template <int BQ, int BK>
+__device__ __forceinline__ void kv_range(int q0, const Dims& D, int& k_lo, int& k_hi) {
+  k_lo = 0;
+  k_hi = D.T;
+  if (D.causal) {
+    k_hi = min(D.T, q0 + BQ);
+    if (D.window > 0) k_lo = max(0, q0 - D.window + 1) / BK * BK;
+  }
+}
+
+// ---- forward: one block per (b * H + h, Q tile) --------------------------------
+
+// The forward's tile classes: RG warps of 16 query rows each, BK streamed
+// KV rows a step, MIN_BLOCKS blocks an SM for the register budget.
+template <int RG_, int BK_, int MIN_BLOCKS_>
+struct FwdTiles {
+  static constexpr int RG = RG_, BK = BK_, MIN_BLOCKS = MIN_BLOCKS_;
+  static constexpr int NT = 32 * RG, BQ = 16 * RG;  // threads, query rows
+};
+template <int DH>
+struct FwdClass;
+template <>
+struct FwdClass<64> : FwdTiles<8, 32, 2> {};
+template <>
+struct FwdClass<128> : FwdTiles<8, 32, 1> {};
+template <>
+struct FwdClass<256> : FwdTiles<4, 16, 1> {};
+
+constexpr int kFwdStages = 3;  // the forward's ring: computed, rotated, in flight
+
+// the resident Q tile + the ring of K and V tiles
+template <typename E, int DH>
+constexpr size_t fwd_smem() {
+  using Tl = FwdClass<DH>;
+  return (Tl::BQ + 2 * kFwdStages * Tl::BK) * DH * sizeof(E);
+}
+
+template <typename E, int DH, bool ROPE>
+__global__ void __launch_bounds__(FwdClass<DH>::NT, FwdClass<DH>::MIN_BLOCKS)
+flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
+                 const float* __restrict__ c2, const float* __restrict__ s2,
+                 E* __restrict__ o, float* __restrict__ lse, Dims D) {
+  using Tl = FwdClass<DH>;
+  constexpr int NT = Tl::NT, BQ = Tl::BQ, BK = Tl::BK;
+  extern __shared__ __align__(16) unsigned char shm[];
+  E* sQ = reinterpret_cast<E*>(shm);
+  E* sKV = sQ + BQ * DH;  // stage s: K at sKV + 2 s BK DH, V after it
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.x / D.H, h = blockIdx.x - b * D.H;
+  const int hk = h / (D.H / D.Hkv);
+  // under causal the last Q tile sees the most KV tiles: schedule it first
+  const int qt = D.causal ? static_cast<int>(gridDim.y - 1 - blockIdx.y) : blockIdx.y;
+  const int q0 = qt * BQ;
+  int k_lo, k_hi;
+  kv_range<BQ, BK>(q0, D, k_lo, k_hi);
+  const int n_k = (k_hi - k_lo + BK - 1) / BK;
+
+  // K and V tile i of the sweep into its stage of the ring
+  auto stage = [&](int i) { return sKV + (i % kFwdStages) * 2 * BK * DH; };
+  auto load = [&](int i) {
+    copy_tile<E, BK, DH, NT>(stage(i), k, b, k_lo + i * BK, hk, D.Hkv, D);
+    copy_tile<E, BK, DH, NT>(stage(i) + BK * DH, v, b, k_lo + i * BK, hk, D.Hkv, D);
+  };
+  copy_tile<E, BQ, DH, NT>(sQ, q, b, q0, h, D.H, D);
+  load(0);
+  cp_commit();
+  if (n_k > 1) load(1);
+  cp_commit();
+  if (ROPE) {  // Q rotated once, and K tile 0, before the sweep
+    cp_wait<1>();
+    __syncthreads();
+    rotate_landed<E, BQ, DH, NT>(sQ, c2, s2, b, q0, D);
+    rotate_landed<E, BK, DH, NT>(stage(0), c2, s2, b, k_lo, D);
+  }
+
+  const int r0 = 16 * warp;  // the warp's rows of the tile; the thread's: r0 + g, r0 + g + 8
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[DH / 8][4] = {};
+
+  for (int it = 0; it < n_k; ++it) {
+    const int k0 = k_lo + it * BK;
+    E* sK = stage(it);
+    E* sV = sK + BK * DH;
+    cp_wait<0>();
+    __syncthreads();  // tile it + 1 has landed and tile it is rotated; every warp is
+    if (it + 2 < n_k) load(it + 2);  // done with tile it - 1, whose stage takes it + 2
+    cp_commit();
+    if (ROPE && it + 1 < n_k)  // rotated while other warps compute tile it
+      rotate_landed<E, BK, DH, NT>(stage(it + 1), c2, s2, b, k0 + BK, D);
+
+    if (none_visible(q0 + r0, 16, k0, BK, D)) continue;  // p = 0, alpha = 1
+
+    // s = q.k^T of the warp's 16 rows over the whole KV tile, then the
+    // online softmax of rows g and g + 8 (the quad of lanes 4g .. 4g + 3
+    // holds a row)
+    float s[BK / 8][4] = {};
+    mma_abT<DH, BK>(s, sQ, r0, sK, 0, lane);
+    const bool all = all_visible(q0 + r0, 16, k0, BK, D);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int qi = q0 + r0 + g + 8 * i, kj = k0 + 8 * j + 2 * t4 + (e & 1);
+        const float x = all || visible(qi, kj, D) ? s[j][e] * D.scale : -INFINITY;
+        s[j][e] = x;
+        mx[i] = fmaxf(mx[i], x);
+      }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const float p = mx[i] == -INFINITY ? 0.f : expf(s[j][e] - mx[i]);
+        s[j][e] = p;
+        sum[i] += p;  // l sums p unrounded; bf16 rounds it only for p.v
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      alpha[i] = mx[i] == -INFINITY ? 1.f : expf(m[i] - mx[i]);
+      l[i] = alpha[i] * l[i] + sum[i];
+      m[i] = mx[i];
+    }
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+    mma_pB<DH, BK>(acc, s, sV, 0, lane);
+  }
+
+  // o = acc / l as E and lse = m + log l; rows past T are not stored
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = q0 + r0 + g + 8 * i;
+    if (t >= D.T) continue;
+    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    E* orow = o + ((static_cast<size_t>(b) * D.T + t) * D.H + h) * D.Dh;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int d = 8 * n + 2 * t4 + c;
+        if (d < D.Dh) orow[d] = from_f32<E>(acc[n][2 * i + c] * inv);
+      }
+    if (t4 == 0) lse[(static_cast<size_t>(b) * D.H + h) * D.T + t] = m[i] + logf(l[i]);
+  }
+}
+
 // ---- dq: one block per (b * H + h, Q tile) -------------------------------------
 
 template <typename E, int DH, bool ROPE>
@@ -730,11 +787,8 @@ flash_dq_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __res
   // under causal the last Q tile sees the most KV tiles: schedule it first
   const int qt = D.causal ? static_cast<int>(gridDim.y - 1 - blockIdx.y) : blockIdx.y;
   const int q0 = qt * BQ;
-  int k_lo = 0, k_hi = D.T;
-  if (D.causal) {
-    k_hi = min(D.T, q0 + BQ);
-    if (D.window > 0) k_lo = max(0, q0 - D.window + 1) / BK * BK;
-  }
+  int k_lo, k_hi;
+  kv_range<BQ, BK>(q0, D, k_lo, k_hi);
   const int n_k = (k_hi - k_lo + BK - 1) / BK;
 
   copy_tile<E, BQ, DH, NT>(sQ, q, b, q0, h, D.H, D);
@@ -908,29 +962,30 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename E, int DH, int BQ, int BK, bool ROPE>
-int fwd(const void* q, const void* k, const void* v, const float* c2, const float* s2,
-        void* o, float* lse, const Dims& D, cudaStream_t st) {
-  const size_t smem = Tiles<DH, BQ, BK>::fwd_smem;
-  auto kernel = flash_fwd_kernel<E, DH, BQ, BK, ROPE>;
-  cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((D.T + BQ - 1) / BQ, D.B * D.H);
-  kernel<<<grid, kThreads, smem, st>>>(static_cast<const E*>(q), static_cast<const E*>(k),
-                                       static_cast<const E*>(v), c2, s2, static_cast<E*>(o),
-                                       lse, D);
-  return static_cast<int>(cudaGetLastError());
-}
-
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-// the backward's operands may be copied 16 bytes at a time: every row of
-// q, k, v and dO starts on a 16-byte boundary
-template <typename E>
-Dims bwd_dims(Dims D, const void* q, const void* k, const void* v, const void* dout) {
-  D.vec16 = (D.Dh * sizeof(E)) % 16 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
-            aligned16(dout);
+// the copied operands (q, k, v, and dO in the backward) may be copied 16
+// bytes at a time: every row of each (and of the forward's rope tables)
+// starts on a 16-byte boundary
+template <typename E, typename... P>
+Dims copy_dims(Dims D, const P*... ptrs) {
+  D.vec16 = (D.Dh * sizeof(E)) % 16 == 0 && (aligned16(ptrs) && ...);
   return D;
+}
+
+template <typename E, int DH, bool ROPE>
+int fwd(const void* q, const void* k, const void* v, const float* c2, const float* s2,
+        void* o, float* lse, const Dims& D, cudaStream_t st) {
+  using Tl = FwdClass<DH>;
+  const size_t smem = fwd_smem<E, DH>();
+  auto kernel = flash_fwd_kernel<E, DH, ROPE>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(D.B * D.H, (D.T + Tl::BQ - 1) / Tl::BQ);
+  kernel<<<grid, Tl::NT, smem, st>>>(static_cast<const E*>(q), static_cast<const E*>(k),
+                                     static_cast<const E*>(v), c2, s2, static_cast<E*>(o),
+                                     lse, copy_dims<E>(D, q, k, v, c2, s2));
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename E, int DH, bool ROPE>
@@ -946,7 +1001,7 @@ int dq(const void* q, const void* k, const void* v, const void* dout, const floa
   kernel<<<grid, Tl::NT, smem, st>>>(
       static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
       static_cast<const E*>(dout), lse, delta, c2, s2, static_cast<E*>(dq_out),
-      bwd_dims<E>(D, q, k, v, dout));
+      copy_dims<E>(D, q, k, v, dout));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -963,7 +1018,7 @@ int dkv_launch(const void* q, const void* k, const void* v, const void* dout,
   kernel<<<grid, Tl::NT, smem, st>>>(
       static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
       static_cast<const E*>(dout), lse, delta, c2, s2, static_cast<E*>(dk),
-      static_cast<E*>(dv), bwd_dims<E>(D, q, k, v, dout));
+      static_cast<E*>(dv), copy_dims<E>(D, q, k, v, dout));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -987,10 +1042,10 @@ int dkv(const void* q, const void* k, const void* v, const void* dout, const flo
 template <typename E, bool ROPE>
 int fwd_any(const void* q, const void* k, const void* v, const float* c2, const float* s2,
             void* o, float* lse, const Dims& D, cudaStream_t st) {
-#define FWD_CALL(DH, BQ, BK) fwd<E, DH, BQ, BK, ROPE>(q, k, v, c2, s2, o, lse, D, st)
-  if (D.Dh <= 64) return FWD_CALL(64, 64, 64);
-  if (D.Dh <= 128) return FWD_CALL(128, 64, 64);
-  return FWD_CALL(256, 32, 32);
+#define FWD_CALL(DH) fwd<E, DH, ROPE>(q, k, v, c2, s2, o, lse, D, st)
+  if (D.Dh <= 64) return FWD_CALL(64);
+  if (D.Dh <= 128) return FWD_CALL(128);
+  return FWD_CALL(256);
 #undef FWD_CALL
 }
 

@@ -4,7 +4,7 @@ head dims, odd group sizes, caches and sequences shorter than a tile,
 every mask mode, pages smaller and larger than a key tile, grouped
 products with empty experts, ragged K/N and wide tiles, loss rows on both
 sides of K1's warp/block switch with zero and soft labels, the flash-attention
-backward in every tile class at its edges in float32 and bf16 and its
+kernels in every tile class at its edges in float32 and bf16 and their
 bitwise determinism, the rope-on-load flash-attention kernels at the
 Llama-3-8B training shape and its edges),
 the wrappers' refusals, and the serving engine (dense and paged), the train step and
@@ -209,6 +209,26 @@ def test_backward_kernels_give_the_same_bits_twice(cuda, Dh, rope):
     else:
         args = (q, k, v, do, lse, delta, True, None)
         runs = [(flash_attention_dq(*args), *flash_attention_dkv(*args)) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("Dh", [64, 128, 256])
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_kernel_gives_the_same_bits_twice(cuda, Dh, rope, dtype):
+    """K2-fwd keeps each row's softmax statistics in one warp and sums in a
+    fixed order: two runs on the same inputs give bitwise-equal o and
+    lse."""
+    rng = np.random.default_rng(12)
+    B, T, H, Hkv = 2, 300, 8, 2
+    q = _t(rng, B, T, H, Dh, dtype=dtype)
+    k, v = _t(rng, B, T, Hkv, Dh, dtype=dtype), _t(rng, B, T, Hkv, Dh, dtype=dtype)
+    if rope:
+        c2, s2 = _tables(B, T, Dh)
+        runs = [flash_attention_rope_fwd(q, k, v, c2, s2, True) for _ in range(2)]
+    else:
+        runs = [flash_attention_fwd(q, k, v, True) for _ in range(2)]
     for a, b in zip(*runs):
         assert torch.equal(a, b)
 

@@ -14,15 +14,25 @@ kernels) against the plain float32 version. A single TF32 product
 run bf16 products with ``p`` and ``ds`` rounded to bf16 before the second
 products, as the reference's Pallas kernels round them: that stays within
 the bf16 pin (2e-2) of the plain version, which keeps them in float32.
+
+The tensor-core K2-fwd is emulated the same way (``emulated_fwd``): the
+online softmax over BK-row KV tiles, ``s = q.k^T`` and each tile's ``p.v``
+as 3xTF32 products, o rescaled by ``alpha = exp(m_old - m_new)`` before the
+tile's ``p.v`` is added once; o and lse are held to the same float32 pin,
+with and without rope on load. bf16 rounds ``p`` to bf16 only for ``p.v``
+(the reference's ``p.astype(v.dtype)``) while ``l`` sums it unrounded.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from elephas_tpu_torch.ops.flash_attention import (attention_bwd_reference,
+from elephas_tpu_torch.ops.flash_attention import (_rope_apply, _visible,
+                                                   attention_bwd_reference,
                                                    attention_fwd_reference,
-                                                   repeat_kv_heads)
+                                                   make_rope_tables,
+                                                   repeat_kv_heads,
+                                                   rope_attention_fwd_reference)
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 
@@ -79,6 +89,38 @@ def emulated_bwd(q, k, v, do, lse, delta, causal, window, passes):
     return dq, dk, dv
 
 
+def emulated_fwd(q, k, v, causal, window, passes, bk=64, round_p=False):
+    """The tensor-core K2-fwd's arithmetic on ``bk``-row KV tiles: ``(o
+    [B, T, H, Dh], lse [B, H, T])`` in float32. ``passes`` 3 or 1 emulates
+    3xTF32 or one TF32 product; ``None`` takes the products exact in
+    float32 (bf16 inputs). ``round_p`` rounds p to bf16 for ``p.v`` only."""
+    B, T, H, Dh = q.shape
+
+    def mul(eq, a, b):
+        return torch.einsum(eq, a, b) if passes is None else product(eq, a, b, passes)
+
+    qf = q.float()
+    kr, vr = repeat_kv_heads(k, H).float(), repeat_kv_heads(v, H).float()
+    keep = _visible(T, T, causal, window, q.device)
+    m = torch.full((B, H, T), float("-inf"))
+    l = torch.zeros(B, H, T)
+    o = torch.zeros(B, H, T, Dh)
+    for k0 in range(0, T, bk):
+        s = mul("bqhd,bkhd->bhqk", qf, kr[:, k0:k0 + bk]) * Dh ** -0.5
+        if keep is not None:
+            s = s.masked_fill(~keep[:, k0:k0 + bk], float("-inf"))
+        mx = torch.maximum(m, s.amax(-1))
+        seen = mx > float("-inf")
+        p = torch.where(seen[..., None], torch.exp(s - mx[..., None]), 0.0)
+        alpha = torch.where(seen, torch.exp(m - mx), 1.0)
+        l = alpha * l + p.sum(-1)
+        if round_p:
+            p = p.to(torch.bfloat16).float()
+        o = o * alpha[..., None] + mul("bhqk,bkhd->bhqd", p, vr[:, k0:k0 + bk])
+        m = mx
+    return (o / l[..., None]).transpose(1, 2), m + torch.log(l)
+
+
 def _inputs(seed, B, T, H, Hkv, Dh, causal, window):
     rng = np.random.default_rng(seed)
     q, do = (torch.from_numpy(rng.normal(size=(B, T, H, Dh)).astype(np.float32))
@@ -103,13 +145,16 @@ def test_tf32_rounds_to_nearest_ties_away_and_keeps_ten_bits():
     assert ((big + small - y).abs() <= 2.0 ** -21 * y.abs()).all()
 
 
-@pytest.mark.parametrize("B,T,H,Hkv,Dh,causal,window", [
+SHAPES = [
     (1, 37, 8, 2, 64, True, None),        # GQA, T shorter than a tile
     (1, 100, 8, 2, 128, True, None),      # the Dh-128 class, ragged T
     (2, 70, 8, 2, 64, True, 16),          # a window
     (1, 45, 8, 2, 128, True, 9),          # a window at Dh 128
     (1, 33, 8, 2, 64, False, None),       # non-causal
-])
+]
+
+
+@pytest.mark.parametrize("B,T,H,Hkv,Dh,causal,window", SHAPES)
 def test_3xtf32_backward_holds_the_float32_pin(B, T, H, Hkv, Dh, causal, window):
     """Every product of the backward as 3xTF32 stays within atol = rtol =
     2e-5 of the plain float32 version; one TF32 product does not."""
@@ -145,3 +190,56 @@ def test_bf16_p_and_ds_rounded_stay_within_the_bf16_pin():
         torch.testing.assert_close(a.to(torch.bfloat16).float(), w.float(), atol=2e-2,
                                    rtol=2e-2, msg=name)
     assert any(not torch.equal(a.to(torch.bfloat16), w) for a, w in zip(got, want))
+
+
+def _fwd_bk(Dh):
+    """The forward's KV tile rows for a head dim (``FwdClass`` in the
+    source: 64 up to Dh 64, 32 above)."""
+    return 64 if Dh <= 64 else 32
+
+
+@pytest.mark.parametrize("B,T,H,Hkv,Dh,causal,window", SHAPES)
+def test_3xtf32_forward_holds_the_float32_pin(B, T, H, Hkv, Dh, causal, window):
+    """The forward's online softmax with s and p.v as 3xTF32 keeps o and
+    lse within atol = rtol = 2e-5 of the plain float32 version; one TF32
+    product does not."""
+    q, k, v = _inputs(5, B, T, H, Hkv, Dh, causal, window)[:3]
+    want = attention_fwd_reference(q, k, v, causal, window)
+    got = emulated_fwd(q, k, v, causal, window, passes=3, bk=_fwd_bk(Dh))
+    for name, a, w in zip(("o", "lse"), got, want):
+        torch.testing.assert_close(a, w, **TOL, msg=name)
+    single = emulated_fwd(q, k, v, causal, window, passes=1, bk=_fwd_bk(Dh))
+    assert not all(torch.allclose(a, w, **TOL) for a, w in zip(single, want))
+
+
+def test_3xtf32_rope_forward_holds_the_float32_pin():
+    """Rope on load: q and k rotated as ``rope_attention_fwd_reference``
+    rotates them (its tables, Llama-3's theta), then the emulated forward:
+    the same pin, and one TF32 product misses it."""
+    B, T, H, Hkv, Dh = 2, 90, 8, 2, 128
+    q, k, v = _inputs(6, B, T, H, Hkv, Dh, True, None)[:3]
+    pos = 11 + 37 * np.arange(B)[:, None] + np.arange(T)[None, :]
+    ang = pos[..., None] * 500000.0 ** (-np.arange(0, Dh, 2) / Dh)
+    c2, s2 = make_rope_tables(torch.from_numpy(np.cos(ang)).float(),
+                              torch.from_numpy(np.sin(ang)).float())
+    want = rope_attention_fwd_reference(q, k, v, c2, s2, True)
+    qr, kr = _rope_apply(q, c2, s2), _rope_apply(k, c2, s2)
+    got = emulated_fwd(qr, kr, v, True, None, passes=3, bk=_fwd_bk(Dh))
+    for name, a, w in zip(("o", "lse"), got, want):
+        torch.testing.assert_close(a, w, **TOL, msg=name)
+    single = emulated_fwd(qr, kr, v, True, None, passes=1, bk=_fwd_bk(Dh))
+    assert not all(torch.allclose(a, w, **TOL) for a, w in zip(single, want))
+
+
+def test_bf16_forward_p_rounded_stays_within_the_bf16_pin():
+    """bf16 inputs: p rounded to bf16 before p.v and l summed unrounded
+    keeps o and lse within 2e-2 of the plain version, which keeps p in
+    float32; the rounding does change o."""
+    B, T, H, Hkv, Dh = 1, 150, 8, 2, 64
+    q, k, v = (t.to(torch.bfloat16) for t in _inputs(9, B, T, H, Hkv, Dh, True, None)[:3])
+    want = attention_fwd_reference(q, k, v, True)
+    o, lse = emulated_fwd(q, k, v, True, None, passes=None, bk=_fwd_bk(Dh), round_p=True)
+    o = o.to(torch.bfloat16)
+    torch.testing.assert_close(o.float(), want[0].float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, want[1], atol=2e-2, rtol=2e-2)
+    assert not torch.equal(o, want[0])
