@@ -18,7 +18,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    67 TFLOP/s float32, whichever is larger; H100 SXM data-sheet peaks; for
    the flash-attention kernels the operations at 3xTF32, three TF32
    products of 494.7 TFLOP/s each, the 67 TFLOP/s figure beside it):
-   LayerNorm forward and backward, flash decode, flash attention forward,
+   LayerNorm forward and backward (the backward on both of its routes:
+   one warp a row up to D 1024, one block a row past it; each case run
+   twice for the same bits), flash decode, flash attention forward,
    dq and dkv (eight cases: GPT-2 training shape, ragged T, GQA, window,
    non-causal, lse cotangent, bf16 at Dh 64 and 256), and their
    rope-on-load variants (six cases: the Llama-3-8B training shape, ragged
@@ -78,7 +80,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
     rows in 1152), the training layout (9216 rows, the w1 and w2 shapes), a
     hungry expert, ragged K/N and bf16 inputs; timed beside the plain
     version, a per-expert ``torch.matmul`` (``tgmm``: per-tile ``bmm``)
-    yardstick, ``torch._grouped_mm`` in bf16 where it exists, and the bound.
+    yardstick, ``torch._grouped_mm`` in bf16 where it exists, and the bound
+    (``gmm`` and ``gmm_t`` on the tensor cores: float32 operations at
+    3xTF32, the 67 TFLOP/s SIMT figure beside it; ``tgmm`` at 67 TFLOP/s).
+    The kernel line has ``gmm`` twice: at the decode layout and, as
+    ``gmm_train``, at the training layout.
 15. ``serve_moe``: Mixtral-8x7B's widths at 4 of 32 layers (float32, random
     weights drawn on the card, cache 2048), ``moe_dispatch="gmm"``, behind
     ``ServingEngine(n_slots=8)``: 16 greedy requests, prompts of 32-256
@@ -275,10 +281,14 @@ def _allclose_err(got, want, tol):
 
 
 def check_layer_norm_bwd(card):
-    """K3-bwd against the autograd backward of the plain version, at the
-    train phase's B*T rows, a ragged width, and a row at 1e4 (against the
-    plain version in float64: a float32 row mean rounds visibly there)."""
-    from elephas_tpu_torch.ops.layer_norm import (fused_layer_norm_bwd,
+    """K3-bwd against the autograd backward of the plain version on both of
+    its routes: one warp a row with the row in registers (D up to 1024:
+    the train phase's B*T rows at 768, the limit 1024, a width of no
+    multiple of 4, a row count that leaves a block's 4 warps uneven) and
+    one block a row (1025, 2048); rows at 1e4 on both routes (against the
+    plain version in float64: a float32 row mean rounds visibly there);
+    each case run twice for the same bits."""
+    from elephas_tpu_torch.ops.layer_norm import (_ROW_MAX_D, fused_layer_norm_bwd,
                                                   layer_norm_reference)
 
     dev = torch.device("cuda")
@@ -298,10 +308,15 @@ def check_layer_norm_bwd(card):
         g = gen.normal(size=(n, d)).astype(np.float32)
         return tuple(torch.from_numpy(a).to(dev) for a in (x, s, b, g))
 
-    for shape, offset in (((8192, 768), 0.0), ((8, 1000), 0.0), ((8, 768), 1e4)):
+    for shape, offset in (((8192, 768), 0.0), ((8, 1000), 0.0), ((8, 1001), 0.0),
+                          ((1100, 768), 0.0), ((64, 1024), 0.0), ((64, 1025), 0.0),
+                          ((64, 2048), 0.0), ((8, 768), 1e4), ((8, 2048), 1e4)):
         x, s, b, g = inputs(*shape, offset)
         got = fused_layer_norm_bwd(x, s, g)
+        again = fused_layer_norm_bwd(x, s, g)
         torch.cuda.synchronize()
+        require(all(torch.equal(a, w) for a, w in zip(got, again)),
+                f"layer_norm_bwd {shape}: two runs differ")
         if offset:
             want = plain_grads(x.double(), s.double(), b.double(), g.double())
         else:
@@ -315,7 +330,9 @@ def check_layer_norm_bwd(card):
                 f"beyond atol = rtol = {tol}")
         worst = max(worst, err)
         checks.append({"shape": list(shape), "row_offset": offset,
-                       "max_abs_err": err, "atol": tol, "rtol": tol})
+                       "route": "rows" if shape[1] <= _ROW_MAX_D else "wide",
+                       "max_abs_err": err, "atol": tol, "rtol": tol,
+                       "same_bits_twice": True})
 
     # timing at the train phase's shape [B*T, D] = [8192, 768]; 4 input
     # sets of 50 MB each keep the reads out of the 50 MB L2
@@ -1653,7 +1670,9 @@ def _moe_layout(n_tokens, gen, tm=128, hungry=None):
 def _gmm_bound(m_pad, K, N, gmap, itemsize, out_itemsize, ops_rate):
     """Least time of one grouped product: lhs, each tiled expert's weight
     panel and the output once each over 3.35 TB/s, or 2 M K N operations
-    over ``ops_rate``; ``(ms, "bytes"|"operations")``."""
+    over ``ops_rate`` (float32 on the tensor cores: 3xTF32, three TF32
+    products, ``ops_rate`` = 494.7 / 3 TFLOP/s); ``(ms,
+    "bytes"|"operations")``."""
     experts = len(set(gmap.tolist()))
     n_bytes = (m_pad * K + experts * K * N) * itemsize + m_pad * N * out_itemsize
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -1762,6 +1781,9 @@ def check_grouped_matmul(card):
         del got, want
         isz = lhs.element_size()
         rate = BF16_OPS_PER_S if dtype == bf16 else F32_OPS_PER_S
+        # gmm and gmm_t run on the tensor cores (3xTF32 for float32); tgmm
+        # is still a float32 SIMT kernel
+        mma_rate = BF16_OPS_PER_S if dtype == bf16 else TF32_OPS_PER_S / 3
         n_it = 10 if m_pad * K * N < 1e11 else 4
         for fn_name, fn, plain, lib, M_, K_, N_, out_isz in (
                 ("gmm", lambda: G.gmm(lhs, w, gmap),
@@ -1783,11 +1805,13 @@ def check_grouped_matmul(card):
                 t_b = n_bytes / HBM_BYTES_PER_S * 1e3
                 t_o = 2.0 * m_pad * K * N / rate * 1e3
                 bms, by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+                simt_ms = bms
             else:
-                bms, by = _gmm_bound(M_, K_, N_, gmap, isz, out_isz, rate)
+                bms, by = _gmm_bound(M_, K_, N_, gmap, isz, out_isz, mma_rate)
+                simt_ms = _gmm_bound(M_, K_, N_, gmap, isz, out_isz, rate)[0]
             t = {"case": name, "kernel": fn_name, "ms": ms, "plain_ms": plain_ms,
                  "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
-                 "tflops": 2.0 * m_pad * K * N / ms / 1e9}
+                 "simt_bound_ms": simt_ms, "tflops": 2.0 * m_pad * K * N / ms / 1e9}
             if fn_name == "gmm" and name in ("decode_w1", "train_w1"):
                 t["grouped_mm_bf16_ms"], t["grouped_mm_note"] = grouped_mm_yardstick(
                     lhs, w, gmap)
@@ -1836,19 +1860,23 @@ def check_grouped_matmul(card):
     worst_abs = {n: max(c["max_abs_err"][n] for c in f32_checks)
                  for n in ("gmm", "gmm_t", "tgmm")}
     rows = []
-    for name, main_case, repl in (
-            ("gmm", "decode_w1", "elephas_tpu/ops/grouped_matmul.py:237"),
-            ("gmm_t", "train_w1", "elephas_tpu/ops/grouped_matmul.py:237"),
-            ("tgmm", "train_w1", "elephas_tpu/ops/grouped_matmul.py:321")):
-        t = next(t for t in timings if t["case"] == main_case and t["kernel"] == name)
-        rows.append({"name": name, "route": "cuda",
+    # gmm twice: at its serving decode layout (its main path's launches are
+    # serve_moe's) and at the training layout (train_moe's)
+    for name, kernel, main_case, repl in (
+            ("gmm", "gmm", "decode_w1", "elephas_tpu/ops/grouped_matmul.py:237"),
+            ("gmm_train", "gmm", "train_w1", "elephas_tpu/ops/grouped_matmul.py:237"),
+            ("gmm_t", "gmm_t", "train_w1", "elephas_tpu/ops/grouped_matmul.py:237"),
+            ("tgmm", "tgmm", "train_w1", "elephas_tpu/ops/grouped_matmul.py:321")):
+        t = next(t for t in timings if t["case"] == main_case and t["kernel"] == kernel)
+        rows.append({"name": name, "counter": kernel, "route": "cuda",
                      "source": "elephas_tpu_torch/ops/csrc/grouped_matmul.cu",
-                     "replaces": repl, "max_abs_err": worst_abs[name],
-                     "max_rel_err": worst[name],
+                     "replaces": repl, "max_abs_err": worst_abs[kernel],
+                     "max_rel_err": worst[kernel],
                      "error_measure": "worst of the float32 cases; max_rel_err is "
                                       "max |diff| / max |plain|, held to its tolerance",
                      "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                     "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                     "bound_by": t["bound_by"], "simt_bound_ms": t["simt_bound_ms"],
+                     "library_ms": t["library_ms"],
                      "library": ("per-tile torch.bmm + per-expert sum" if name == "tgmm"
                                  else "per-expert torch.matmul over contiguous rows"),
                      "timed_shape": {k_: c[k_] for c in checks if c["case"] == main_case
@@ -2584,15 +2612,17 @@ def main() -> int:
     main_paths = {"layer_norm_fwd": "serve", "flash_decode_lse": "serve",
                   "paged_flash_decode_lse": "serve_paged",
                   "paged_flash_chunk": "serve_paged", "gmm": "serve_moe",
+                  "gmm_train": "train_moe_3_steps",
                   "gmm_t": "train_moe_3_steps", "tgmm": "train_moe_3_steps",
                   "fused_xent_fwd": "fit_mlp", "fused_xent_bwd": "fit_mlp",
                   **{r: "train_llama_3_steps" for r in ROPE_ROWS}}
     for row in rows:
         name = row["name"]
+        counter = row.get("counter", name)
         main_path = main_paths.get(name, "train_5_steps")
         row["main_path"] = main_path
-        row["launches"] = paths[main_path][name]
-        row["launches_by_path"] = {k: v.get(name, 0) for k, v in paths.items()}
+        row["launches"] = paths[main_path][counter]
+        row["launches_by_path"] = {k: v.get(counter, 0) for k, v in paths.items()}
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -305,6 +305,15 @@ def _read_model(model) -> Tuple[dict, Optional[List[np.ndarray]]]:
                     f"Keras JSON, a config dict, or an object with to_json()")
 
 
+def refuse_remat(remat: bool) -> None:
+    """``remat=True`` (the reference's ``jax.checkpoint`` around the step)
+    is not ported yet: raise, naming its ROADMAP item."""
+    if remat:
+        raise NotImplementedError(
+            "remat=True (activation recomputation for deep Keras models) waits "
+            "for ROADMAP queue 1 item 13 (Keras models beyond the MLP)")
+
+
 class KerasModelAdapter:
     """Functional view over a Keras-3 Sequential model's JSON and weights."""
 
@@ -456,12 +465,15 @@ class KerasModelAdapter:
 
         return per_and_acc
 
-    def build_train_step(self, optimizer) -> Callable:
+    def build_train_step(self, optimizer, remat: bool = False) -> Callable:
         """``(tv, opt_state, x, y, sw, gen) → (tv, opt_state, stats)`` over
         ``L`` replicas: ``tv`` ``[L, ...]``, ``x`` ``[L, B, ...]``, ``sw``
         ``[L, B]``. ``stats`` is ``(loss_weighted_sum, acc_weighted_sum,
         weight_sum)``, each ``[L]``. A replica whose batch is all padding
-        keeps its parameters and optimizer state."""
+        keeps its parameters and optimizer state. ``remat`` is the
+        reference's ``jax.checkpoint`` switch, accepted in its place; as in
+        ``CompiledTrainer``, ``True`` is not ported yet and raises."""
+        refuse_remat(remat)
         per_and_acc = self._loss_parts()
 
         def train_step(tv, opt_state, x, y, sw, gen):
@@ -486,11 +498,13 @@ class KerasModelAdapter:
 
         return train_step
 
-    def build_grad_step(self) -> Callable:
+    def build_grad_step(self, remat: bool = False) -> Callable:
         """``(tv, x, y, sw, gen) → (grads, stats)``: gradients of the
         sample-weighted loss SUM over every replica's batch on the SHARED
         parameters ``tv`` (no replica axis), without an update. The
-        caller divides by the global weight sum and steps once."""
+        caller divides by the global weight sum and steps once. ``remat``
+        as in :meth:`build_train_step`."""
+        refuse_remat(remat)
         per_and_acc = self._loss_parts()
 
         def grad_step(tv, x, y, sw, gen):

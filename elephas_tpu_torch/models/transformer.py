@@ -877,11 +877,18 @@ class TransformerLM(nn.Module):
         return _summed_xent(logits, _as_index(targets, logits.device))
 
     # -- generation ------------------------------------------------------------
-    def prefill(self, params, tokens, cache):
+    def prefill(self, params, tokens, cache, ffn_tag: str = "dense"):
         """Batched prompt ingestion: the full forward over ``tokens`` ``[B,
         T0]`` (flash attention: the kernel on the card), writing every
         position's K/V into ``cache`` at offset 0 in place. Returns
-        ``(logits [B, T0, V], cache)``."""
+        ``(logits [B, T0, V], cache)``. ``ffn_tag`` is the reference's FFN
+        route: ``"dense"`` is the single-device path; any other tag
+        dispatches the MoE FFN over a sharded mesh axis, not ported yet."""
+        if ffn_tag != "dense":
+            raise NotImplementedError(
+                f"prefill(ffn_tag={ffn_tag!r}) dispatches the MoE FFN over a "
+                "sharded mesh axis, not ported yet (ROADMAP.md queue 1 item "
+                "6, 'Speculation and sharding')")
         dev = params["tok"].device
         tokens = _as_index(tokens, dev)
         B, T0 = tokens.shape

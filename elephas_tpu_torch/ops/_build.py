@@ -3,9 +3,11 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface (pointers, ints and the
 stream as ``void*``; the return value is ``cudaGetLastError()``). It is
 compiled on its own by ``nvcc`` for ``sm_90a`` into
-``csrc/build/<name>-<hash>.so``, where the hash covers the source and the
-flags, so an edited source rebuilds and an unchanged one loads the library
-already built. No PyTorch headers are included, so a build takes seconds.
+``csrc/build/<name>-<hash>.so``, where the hash covers the source, every
+header it includes from ``csrc/`` (``#include "..."``, followed through
+headers) and the flags, so an edited source or header rebuilds the
+libraries that include it and an unchanged one loads the library already
+built. No PyTorch headers are included, so a build takes seconds.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -37,9 +40,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(src: Path) -> List[Path]:
+    """``src`` and every header it includes with quotes, followed through
+    the headers, each once, in the order first met."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / m.decode() for m in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(src):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
     return src, BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

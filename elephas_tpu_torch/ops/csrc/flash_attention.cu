@@ -119,6 +119,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_helpers.cuh"
+
 namespace {
 
 struct Dims {
@@ -164,25 +166,6 @@ __device__ __forceinline__ int sw(int r, int c) {
   constexpr int PC = 16 / sizeof(E);
   static_assert(DH * sizeof(E) % 128 == 0, "a tile row spans whole 128-byte lines");
   return r * DH + (((c / PC) ^ chunk_xor<E>(r)) * PC) + (c % PC);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // rows [t0, t0 + R) of head `head` of a [B, T, heads, Dh] tensor into a
@@ -239,12 +222,6 @@ __device__ __forceinline__ void rotate_sw(E* tile, const float* __restrict__ c2,
     e2 = from_f32<E>(
         __fadd_rn(__fmul_rn(x2, c2[row + d + half]), __fmul_rn(x1, s2[row + d + half])));
   }
-}
-
-// two float32 values rounded to bf16 and packed, lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // four consecutive elements of a swizzled tile (a 4-aligned column start
@@ -320,53 +297,8 @@ __device__ __forceinline__ void rotate_landed(E* tile, const float* __restrict__
     rotate_sw<E, R, DH, NT>(tile, c2, s2, b, t0, D);
 }
 
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = big + small to float32 accuracy, both TF32
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  big = tf32_rna(x);
-  small = tf32_rna(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// 3xTF32: small*big + big*small + big*big (small*small is below float32's
-// rounding), in that order into the float32 accumulator
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ab)[4],
-                                           const uint32_t (&as)[4], const uint32_t (&bb)[2],
-                                           const uint32_t (&bs)[2]) {
-  mma_tf32(c, as, bb);
-  mma_tf32(c, ab, bs);
-  mma_tf32(c, ab, bb);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __device__ __forceinline__ uint32_t word(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a) : "memory");
 }
 
 // c[16 x NW] += A[ra .. ra+16) . B[rb .. rb+NW)^T over all DH columns, A and

@@ -18,28 +18,61 @@
 // Bound on an H100: operations, at the shapes the MoE layers give it. A
 // gmm over M rows does 2 M K N operations on M K + E' K N + M N elements
 // (E' experts with a tile); at the serving layout (M 1152, K 4096, N
-// 14336, 8 experts) that is 135 GFLOP on 1.9 GB, 70 operations per byte,
-// far above the ~20 at which the 67 TFLOP/s float32 rate binds: ~2.0 ms
-// against ~0.56 ms of bytes. Training (M 9216) is 8x the operations on
-// about the same bytes.
+// 14336, 8 experts) that is 135 GFLOP on 1.9 GB, 70 operations per byte.
+// gmm and gmm_t run on the tensor cores: float32 as 3xTF32 (three TF32
+// products, 494.7 / 3 TFLOP/s): 0.820 ms of operations against ~0.56 ms
+// of bytes; bf16 at 989 TFLOP/s. Training (M 9216) is 8x the operations
+// on about the same bytes. tgmm is still a float32 SIMT GEMM (67 TFLOP/s).
 //
-// Design: a float32 SIMT GEMM, simple first (no wgmma, no TMA, no tensor
-// cores). One block of 256 threads owns a 128 x 128 output tile; each
-// thread keeps an 8 x 8 register tile and the block steps through the
-// contraction in 8-deep slices through double-buffered shared memory, the
-// next slice's global loads in flight while the current one is multiplied.
-// One device function does all three products, parameterised by strides:
-// which operand dimension is contiguous in memory picks the thread-to-
-// element map of the loads, so every load is coalesced along the
-// contiguous dimension (gmm_t reads the weights transposed in place, as
-// the TPU kernel's BlockSpec does).
+// gmm / gmm_t design: `mma.sync` on the tensor cores, one block of 256 threads
+// (8 warps as 2 x 4, each a 64 x 32 piece) per 128 x 128 output tile, looping
+// over the whole contraction through a 3-stage cp.async ring of 16-byte copies
+// (a stage: the lhs tile [128][BK] and the weight tile, 32 KiB; BK is 128
+// bytes of contraction, 32 float32 or 64 bf16). float32: m16n8k8 3xTF32, each
+// operand split into TF32 big and small parts as its fragment is loaded, as K2
+// does, with cvt.rna's rounding done as an integer add and mask (the same
+// bits, fewer instructions). bf16: m16n8k16. The lhs tile and gmm_t's weight
+// tile [n][k] are k-contiguous: float32 fragments come as 16-byte loads of
+// four k (the reduced index taken in the order (4t, 4t + 1) then (4t + 2, 4t +
+// 3), K2's mma_abT), bf16 as ldmatrix. gmm's weight tile [k][n] is
+// n-contiguous: float32 fragments are 4-byte loads of the matching k rows,
+// bf16 ldmatrix.trans (K2's mma_pB). Rows are cut into 16-byte chunks, XOR-
+// swizzled by row so every fragment load is free of bank conflicts:
+// k-contiguous tiles (r & 6) ^ ((r & 1) << 2) in float32, r & 7 in bf16; gmm's
+// weight tile ((r >> 2) & 3) << 1 in float32, r & 7 in bf16. The tensor cores
+// round each accumulation toward zero, and the contraction reaches 14336 (w2,
+// and gmm_t at training): each stage's product is summed in fresh accumulators
+// and added to the float32 sums once (one accumulator over K 14336 drifts past
+// the float32 pin). Rows that are not 16-byte aligned (K or N not a multiple
+// of 4 in float32, of 8 in bf16) are copied element by element into the same
+// ring; ragged edges are zero-filled by the copy's source size. The 16-byte
+// and the element-by-element copies are separate instantiations, which keeps
+// the copy's branch out of the loop. Every one of the M rows is computed,
+// padding rows included. No split-K and no atomics: two launches give the same
+// bits.
 //
-// gmm: the block reads its expert from gmap itself (a GPU has no scalar
+// Classes (tile; warps; stages; shared memory a block; registers a thread,
+// from ptxas, no spills; blocks an SM): float32 128 x 128 x 32; 8 as 2 x 4; 3;
+// 96 KiB; 219-245; one. bf16 128 x 128 x 64; the same warps; 3; 96 KiB;
+// 187-218; one. Chosen by A/B on an H100 against 4 stages, 16 warps as 4 x 4
+// (spills at 128 registers), 8 as 4 x 2, a 128 x 64 tile and two blocks an SM
+// (bf16 faster, float32 not, both spilling at 128 registers), a 128 x 256 tile
+// (spills), the TF32 planes split once a stage (slower: a second pass and
+// twice the shared memory), and fresh accumulators every 16 k.
+//
+// The block reads its expert from gmap itself (a GPU has no scalar
 // prefetch). The grid puts row tiles innermost, so consecutive blocks use
 // one expert's weight panel while it is in the 50 MB L2: the counterpart
 // of the TPU skipping the weight DMA when consecutive tiles hit one
 // expert. The TPU kernel's K-chunking into separate calls was a VMEM
 // workaround; here one launch loops over all of K.
+//
+// tgmm design: a float32 SIMT GEMM. One block of 256 threads owns a
+// 128 x 128 output tile; each thread keeps an 8 x 8 register tile and the
+// block steps through the contraction in 8-deep slices through
+// double-buffered shared memory, the next slice's global loads in flight
+// while the current one is multiplied; loads are coalesced along the
+// contiguous dimension.
 //
 // tgmm: the TPU kernel accumulates across a group's tiles in VMEM because
 // its grid runs in order, and finds a group's first and last tile from the
@@ -52,6 +85,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "mma_helpers.cuh"
 
 namespace {
 
@@ -166,34 +201,6 @@ __device__ __forceinline__ int tile_col(int c) {
   return (c < 4 ? 0 : 64) + (threadIdx.x % 16) * 4 + (c & 3);
 }
 
-template <typename T, bool TRANSPOSE>
-__global__ void __launch_bounds__(kThreads, 2)
-    gmm_kernel(const T* __restrict__ lhs, const T* __restrict__ rhs,
-               const int* __restrict__ gmap, T* __restrict__ out, int K, int N,
-               int E, int tm) {
-  __shared__ __align__(16) Smem sm;
-  const int row0 = blockIdx.x * kBM;  // row tiles innermost
-  const int col0 = blockIdx.y * kBN;
-  int e = gmap[row0 / tm];
-  e = e < 0 ? 0 : (e >= E ? E - 1 : e);  // never read outside rhs
-  const T* w = rhs + static_cast<int64_t>(e) * K * N;
-  float acc[8][8] = {};
-  // A(i, p) = lhs[row0 + i, p]; B(p, j) = w[p, col0 + j] (or w[col0 + j, p])
-  tile_product<T, true, !TRANSPOSE>(
-      lhs + static_cast<int64_t>(row0) * K, K, 1, kBM,
-      TRANSPOSE ? w + static_cast<int64_t>(col0) * K : w + col0,
-      TRANSPOSE ? 1 : N, TRANSPOSE ? K : 1, N - col0, 0, K, sm, acc);
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    T* orow = out + static_cast<int64_t>(row0 + tile_row(r)) * N;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int j = col0 + tile_col(c);
-      if (j < N) store(orow + j, acc[r][c]);
-    }
-  }
-}
-
 // First index in gmap[0, n) whose value is > e (upper) or >= e (lower).
 __device__ __forceinline__ int bound(const int* gmap, int n, int e, bool upper) {
   int lo = 0, hi = n;
@@ -238,20 +245,330 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// ---- gmm / gmm_t on the tensor cores ----------------------------------------------
+
+// The output tile is kBM x kBN (128 x 128), as tgmm's.
+constexpr int kGWarpsM = 2;  // warps over the tile's rows
+constexpr int kGWarpsN = 4;  // warps over its columns
+constexpr int kGThreads = 32 * kGWarpsM * kGWarpsN;
+constexpr int kGM = kBM / kGWarpsM / 16;  // m16 tiles a warp
+constexpr int kGN = kBN / kGWarpsN / 8;   // n8 tiles a warp
+constexpr int kGStages = 3;
+
+// contraction a stage: 128 bytes a row
+template <typename T>
+struct Gk {
+  static constexpr int BK = 128 / sizeof(T);
+  static constexpr int PC = 16 / sizeof(T);  // elements a 16-byte chunk
+};
+
+// chunk XOR of row r of a k-contiguous tile (128-byte rows: the lhs tile,
+// gmm_t's weight tile) and of gmm's n-contiguous weight tile
+template <typename T>
+__device__ __forceinline__ int kx(int r) { return r & 7; }
+template <>
+__device__ __forceinline__ int kx<float>(int r) { return (r & 6) ^ ((r & 1) << 2); }
+template <typename T>
+__device__ __forceinline__ int nx(int r) { return r & 7; }
+template <>
+__device__ __forceinline__ int nx<float>(int r) { return ((r >> 2) & 3) << 1; }
+
+// element (r, c) of a k-contiguous tile [.][BK], and of gmm's tile [BK][kBN]
+template <typename T>
+__device__ __forceinline__ int koff(int r, int c) {
+  constexpr int BK = Gk<T>::BK, PC = Gk<T>::PC;
+  return r * BK + (((c / PC) ^ kx<T>(r)) * PC) + (c % PC);
+}
+template <typename T>
+__device__ __forceinline__ int noff(int r, int c) {
+  constexpr int PC = Gk<T>::PC;
+  return r * kBN + (((c / PC) ^ nx<T>(r)) * PC) + (c % PC);
+}
+
+// ROWS x (CPR chunks) of the matrix src[r * ld + c] into a swizzled tile,
+// 0 at r >= rows or c >= cols: cp.async 16 bytes a chunk when VEC, else
+// element by element (cp.async 4 bytes in float32; a plain copy in bf16)
+template <typename T, int ROWS, int CPR, bool KTILE, bool VEC>
+__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int64_t ld,
+                                          int rows, int cols) {
+  constexpr int PC = Gk<T>::PC;
+  for (int idx = threadIdx.x; idx < ROWS * CPR; idx += kGThreads) {
+    const int r = idx / CPR, ch = idx % CPR, c = ch * PC;
+    T* d = dst + (KTILE ? koff<T>(r, c) : noff<T>(r, c));
+    const T* s = src + r * ld + c;
+    const bool row = r < rows;
+    if constexpr (VEC) {
+      const bool in = row && c < cols;
+      cp_async16(d, in ? s : src, in ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < PC; ++e) {
+        const bool in = row && c + e < cols;
+        if constexpr (sizeof(T) == 4) {
+          cp_async4(d + e, in ? s + e : src, in ? 4 : 0);
+        } else {
+          d[e] = in ? s[e] : __float2bfloat16(0.f);
+        }
+      }
+    }
+  }
+}
+
+// split_tf32 with cvt.rna's rounding (to nearest, ties away from zero)
+// done as an integer add and mask: the same bits for every finite x, in
+// two integer instructions where cvt.rna.tf32.f32 compiles to about four
+// (a split is two roundings and a subtraction, and a thread splits 96
+// values a stage for its 192 `mma`). A non-finite x gives a NaN small part,
+// as cvt.rna's split does, so the product is not finite either way.
+__device__ __forceinline__ uint32_t tf32_round(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split_tf32_int(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_round(x);
+  small = tf32_round(x - __uint_as_float(big));
+}
+
+// d = a * b, the first `mma` of a fresh accumulator (no zeroing of d)
+__device__ __forceinline__ void mma_tf32_first(float (&d)[4], const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
+}
+
+// One stage's product added to the warp's piece of the float32 sums (rows
+// r0 .., columns c0 ..), acc[m][n] the m16n8 tile (16 m, 8 n). float32: A
+// and gmm_t's B as 16-byte loads of k 4t .. 4t + 3, which are fragment k
+// t, t + 4 of the first k8 step and t, t + 4 of the second; gmm's B as
+// 4-byte loads of the same k rows. Each operand is split as it is loaded
+// (the planes split once a stage were slower). The stage's twelve `mma` a
+// tile go to fresh accumulators, added to acc once.
+template <bool TRANS>
+__device__ __forceinline__ void stage_product(const float* As, const float* Bs,
+                                              float (&acc)[kGM][kGN][4], int r0, int c0,
+                                              int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  float d[kGM][kGN][4];
+#pragma unroll
+  for (int k0 = 0; k0 < Gk<float>::BK; k0 += 16) {
+    uint32_t bb[kGN][2][2], bs[kGN][2][2];
+#pragma unroll
+    for (int n = 0; n < kGN; ++n) {
+      const int col = c0 + 8 * n + g;
+      float v[4];
+      if (TRANS) {
+        const float4 x = *reinterpret_cast<const float4*>(Bs + koff<float>(col, k0 + 4 * t));
+        v[0] = x.x;
+        v[1] = x.y;
+        v[2] = x.z;
+        v[3] = x.w;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v[i] = Bs[noff<float>(k0 + 4 * t + i, col)];
+      }
+      split_tf32_int(v[0], bb[n][0][0], bs[n][0][0]);
+      split_tf32_int(v[1], bb[n][0][1], bs[n][0][1]);
+      split_tf32_int(v[2], bb[n][1][0], bs[n][1][0]);
+      split_tf32_int(v[3], bb[n][1][1], bs[n][1][1]);
+    }
+#pragma unroll
+    for (int m = 0; m < kGM; ++m) {
+      const int row = r0 + 16 * m + g;
+      const float4 lo = *reinterpret_cast<const float4*>(As + koff<float>(row, k0 + 4 * t));
+      const float4 hi = *reinterpret_cast<const float4*>(As + koff<float>(row + 8, k0 + 4 * t));
+      uint32_t ab[2][4], as[2][4];
+      split_tf32_int(lo.x, ab[0][0], as[0][0]);
+      split_tf32_int(hi.x, ab[0][1], as[0][1]);
+      split_tf32_int(lo.y, ab[0][2], as[0][2]);
+      split_tf32_int(hi.y, ab[0][3], as[0][3]);
+      split_tf32_int(lo.z, ab[1][0], as[1][0]);
+      split_tf32_int(hi.z, ab[1][1], as[1][1]);
+      split_tf32_int(lo.w, ab[1][2], as[1][2]);
+      split_tf32_int(hi.w, ab[1][3], as[1][3]);
+#pragma unroll
+      for (int n = 0; n < kGN; ++n) {
+        if (k0 == 0) {  // mma_3xtf32's order, from 0
+          mma_tf32_first(d[m][n], as[0], bb[n][0]);
+          mma_tf32(d[m][n], ab[0], bs[n][0]);
+          mma_tf32(d[m][n], ab[0], bb[n][0]);
+        } else {
+          mma_3xtf32(d[m][n], ab[0], as[0], bb[n][0], bs[n][0]);
+        }
+        mma_3xtf32(d[m][n], ab[1], as[1], bb[n][1], bs[n][1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kGM; ++m)
+#pragma unroll
+    for (int n = 0; n < kGN; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][n][i] += d[m][n][i];
+}
+
+// bf16: m16n8k16, A by ldmatrix; B by ldmatrix (gmm_t, [n][k]) or
+// ldmatrix.trans (gmm, [k][n]); the stage's four `mma` a tile go to fresh
+// accumulators, added to acc once
+template <bool TRANS>
+__device__ __forceinline__ void stage_product(const __nv_bfloat16* As,
+                                              const __nv_bfloat16* Bs,
+                                              float (&acc)[kGM][kGN][4], int r0, int c0,
+                                              int lane) {
+  using T = __nv_bfloat16;
+  const int mi = lane >> 3, ri = lane & 7;
+  float d[kGM][kGN][4];
+#pragma unroll
+  for (int m = 0; m < kGM; ++m)
+#pragma unroll
+    for (int n = 0; n < kGN; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) d[m][n][i] = 0.f;
+#pragma unroll
+  for (int k0 = 0; k0 < Gk<T>::BK; k0 += 16) {
+    uint32_t b[kGN][2];
+#pragma unroll
+    for (int np = 0; np < kGN / 2; ++np) {
+      const int n0 = c0 + 16 * np;
+      uint32_t r[4];
+      if (TRANS) {  // matrices (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), ...
+        ldsm_x4(r, Bs + koff<T>(n0 + ri + ((mi >> 1) << 3), k0 + ((mi & 1) << 3)));
+      } else {      // matrices (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), ...
+        ldsm_x4_trans(r, Bs + noff<T>(k0 + (lane & 15), n0 + ((lane >> 4) << 3)));
+      }
+      b[2 * np][0] = r[0];
+      b[2 * np][1] = r[1];
+      b[2 * np + 1][0] = r[2];
+      b[2 * np + 1][1] = r[3];
+    }
+#pragma unroll
+    for (int m = 0; m < kGM; ++m) {
+      uint32_t a[4];  // matrices (rows 0-7, k 0-7), (rows 8-15, k 0-7), (0-7, k 8-15), ...
+      ldsm_x4(a, As + koff<T>(r0 + 16 * m + ri + ((mi & 1) << 3), k0 + ((mi >> 1) << 3)));
+#pragma unroll
+      for (int n = 0; n < kGN; ++n) mma_bf16(d[m][n], a, b[n]);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kGM; ++m)
+#pragma unroll
+    for (int n = 0; n < kGN; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][n][i] += d[m][n][i];
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b, bool pair) {
+  if (pair) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  } else {
+    p[0] = a;
+    p[1] = b;
+  }
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b, bool pair) {
+  if (pair) {
+    *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+  } else {
+    p[0] = __float2bfloat16(a);
+    p[1] = __float2bfloat16(b);
+  }
+}
+
+// out[r] = lhs[r] @ W (gmm: W = rhs[e] [K, N]; gmm_t: W = rhs[e]^T, rhs[e]
+// [N, K]) for the 128 x 128 tile (blockIdx.x row tile, innermost;
+// blockIdx.y column tile), e = gmap[row tile / tm] clamped into [0, E).
+template <typename T, bool TRANS, bool VEC>
+__global__ void __launch_bounds__(kGThreads, 1)
+    gmm_mma_kernel(const T* __restrict__ lhs, const T* __restrict__ rhs,
+                   const int* __restrict__ gmap, T* __restrict__ out, int K, int N, int E,
+                   int tm) {
+  constexpr int BK = Gk<T>::BK, PC = Gk<T>::PC;
+  constexpr int A_ELEMS = kBM * BK, B_ELEMS = kBN * BK;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = (warp / kGWarpsN) * (16 * kGM), c0 = (warp % kGWarpsN) * (8 * kGN);
+  const int row0 = blockIdx.x * kBM, col0 = blockIdx.y * kBN;
+  int e = gmap[row0 / tm];
+  e = e < 0 ? 0 : (e >= E ? E - 1 : e);  // never read outside rhs
+  const T* a_src = lhs + static_cast<int64_t>(row0) * K;
+  const T* w = rhs + static_cast<int64_t>(e) * K * N;
+
+  auto load_stage = [&](int slot, int kt) {
+    T* As = smem + slot * (A_ELEMS + B_ELEMS);
+    T* Bs = As + A_ELEMS;
+    const int k0 = kt * BK;
+    load_tile<T, kBM, BK / PC, true, VEC>(As, a_src + k0, K, kBM, K - k0);
+    if (TRANS) {  // rows n of rhs[e] [N, K]
+      load_tile<T, kBN, BK / PC, true, VEC>(Bs, w + static_cast<int64_t>(col0) * K + k0, K,
+                                             N - col0, K - k0);
+    } else {      // rows k of rhs[e] [K, N]
+      load_tile<T, BK, kBN / PC, false, VEC>(Bs, w + static_cast<int64_t>(k0) * N + col0, N,
+                                              K - k0, N - col0);
+    }
+  };
+
+  float acc[kGM][kGN][4];
+#pragma unroll
+  for (int m = 0; m < kGM; ++m)
+#pragma unroll
+    for (int n = 0; n < kGN; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
+
+  const int nk = (K + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < kGStages - 1; ++s) {
+    if (s < nk) load_stage(s, s);
+    cp_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_wait<kGStages - 2>();
+    __syncthreads();  // stage kt landed for every thread; stage kt - 1 is free
+    const int nxt = kt + kGStages - 1;
+    if (nxt < nk) load_stage(nxt % kGStages, nxt);
+    cp_commit();
+    const T* As = smem + (kt % kGStages) * (A_ELEMS + B_ELEMS);
+    stage_product<TRANS>(As, As + A_ELEMS, acc, r0, c0, lane);
+  }
+  cp_wait<0>();
+
+  const int g = lane >> 2, t = lane & 3;
+  const bool pair = (N & 1) == 0;
+#pragma unroll
+  for (int m = 0; m < kGM; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      T* orow = out + static_cast<int64_t>(row0 + r0 + 16 * m + g + 8 * h) * N;
+#pragma unroll
+      for (int n = 0; n < kGN; ++n) {
+        const int j = col0 + c0 + 8 * n + 2 * t;
+        if (j + 1 < N) {
+          store2(orow + j, acc[m][n][2 * h], acc[m][n][2 * h + 1], pair);
+        } else if (j < N) {
+          store(orow + j, acc[m][n][2 * h]);
+        }
+      }
+    }
+  }
+}
+
 template <typename T>
 int launch_gmm(const void* lhs, const void* rhs, const int* gmap, void* out, int M,
-               int K, int N, int E, int tm, int transpose, cudaStream_t st) {
+               int K, int N, int E, int tm, int transpose, int vec, cudaStream_t st) {
   const dim3 grid(M / kBM, (N + kBN - 1) / kBN);
-  if (transpose) {
-    gmm_kernel<T, true><<<grid, kThreads, 0, st>>>(
-        static_cast<const T*>(lhs), static_cast<const T*>(rhs), gmap,
-        static_cast<T*>(out), K, N, E, tm);
-  } else {
-    gmm_kernel<T, false><<<grid, kThreads, 0, st>>>(
-        static_cast<const T*>(lhs), static_cast<const T*>(rhs), gmap,
-        static_cast<T*>(out), K, N, E, tm);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const int smem = kGStages * (kBM + kBN) * Gk<T>::BK * static_cast<int>(sizeof(T));
+  auto run = [&](auto kernel) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, kGThreads, smem, st>>>(static_cast<const T*>(lhs),
+                                          static_cast<const T*>(rhs), gmap,
+                                          static_cast<T*>(out), K, N, E, tm);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (vec) return transpose ? run(gmm_mma_kernel<T, true, true>) : run(gmm_mma_kernel<T, false, true>);
+  return transpose ? run(gmm_mma_kernel<T, true, false>) : run(gmm_mma_kernel<T, false, false>);
 }
 
 template <typename T, typename TO>
@@ -268,14 +585,17 @@ int launch_tgmm(const void* lhs, const void* g, const int* gmap, void* out, int 
 
 // gmm / gmm_t: lhs [M, K], rhs [E, K, N] (transpose = 0) or [E, N, K]
 // (transpose = 1), gmap [M / tm] int32 -> out [M, N], all of one dtype
-// (bf16 = 1: bfloat16, else float32). M and tm are multiples of 128.
+// (bf16 = 1: bfloat16, else float32). M and tm are multiples of 128. vec:
+// every row of lhs and rhs starts 16-byte aligned (the base pointers are,
+// and K and N are multiples of 16 bytes' worth of elements).
 extern "C" int gmm(const void* lhs, const void* rhs, const int* gmap, void* out, int M,
-                   int K, int N, int E, int tm, int transpose, int bf16, void* stream) {
+                   int K, int N, int E, int tm, int transpose, int bf16, int vec,
+                   void* stream) {
   if (M == 0 || N == 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_gmm<__nv_bfloat16>(lhs, rhs, gmap, out, M, K, N, E, tm,
-                                          transpose, st)
-              : launch_gmm<float>(lhs, rhs, gmap, out, M, K, N, E, tm, transpose, st);
+                                          transpose, vec, st)
+              : launch_gmm<float>(lhs, rhs, gmap, out, M, K, N, E, tm, transpose, vec, st);
 }
 
 // tgmm: lhs [M, K] and g [M, N] of one dtype (in_bf16), gmap [nm] int32,

@@ -18,8 +18,10 @@ expert map.
 Each dispatches by the tensors' device: on the CPU the plain versions
 (:func:`gmm_reference`, :func:`tgmm_reference`, also the kernels' oracle),
 on a CUDA device the hand-written kernels in ``csrc/grouped_matmul.cu``
-(K6-gmm, K6-tgmm), or a raise. The output is in ``lhs``'s dtype (``tgmm``:
-``out_dtype``), every sum float32, inputs float32 or bfloat16. The plain
+(K6-gmm on the tensor cores: 3xTF32 ``mma.sync`` for float32, bf16
+``mma.sync`` for bf16; K6-tgmm), or a raise. The output is in ``lhs``'s
+dtype (``tgmm``: ``out_dtype``), every sum float32, inputs float32 or
+bfloat16. The plain
 versions loop over the runs of equal experts in ``gmap`` rather than
 gathering ``rhs[gmap]`` (a ``[M/tm, K, N]`` copy of the weights), so they
 stay usable as the oracle at full model width.
@@ -45,7 +47,7 @@ _MAX_GRID_YZ = 65535
 _INT_MAX = 2 ** 31 - 1
 
 _SIGNATURES = {
-    "gmm": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    "gmm": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     "tgmm": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
 }
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -142,11 +144,16 @@ def _launch_gmm(lhs, rhs, gmap, transpose: bool):
         raise ValueError(f"{name}: {N} output columns exceed the grid")
     lhs, rhs = lhs.contiguous(), rhs.contiguous()
     out = torch.empty((M, N), dtype=lhs.dtype, device=lhs.device)
+    # every row of lhs and rhs starts on a 16-byte boundary: the copies into
+    # the kernel's ring take 16 bytes at a time, else element by element
+    per16 = 16 // lhs.element_size()
+    vec = int(K % per16 == 0 and N % per16 == 0
+              and lhs.data_ptr() % 16 == 0 and rhs.data_ptr() % 16 == 0)
     lib = _build.load("grouped_matmul", _SIGNATURES)
     with torch.cuda.device(lhs.device):
         err = lib.gmm(lhs.data_ptr(), rhs.data_ptr(), gmap32.data_ptr(),
                       out.data_ptr(), M, K, N, E, tm, int(transpose),
-                      int(lhs.dtype == torch.bfloat16),
+                      int(lhs.dtype == torch.bfloat16), vec,
                       torch.cuda.current_stream(lhs.device).cuda_stream)
     _build.check(lib, err, name)
     (gmm_t if transpose else gmm).launches += 1
@@ -222,29 +229,31 @@ class _GmmT(torch.autograd.Function):
         return dlhs, drhs, None
 
 
-def gmm(lhs, rhs, gmap):
+def gmm(lhs, rhs, gmap, interpret: bool = False):
     """Grouped matmul ``out[r] = lhs[r] @ rhs[gmap[r // tm]]``: ``lhs`` ``[M,
     K]``, ``rhs`` ``[E, K, N]``, ``gmap`` ``[M // tm]`` integer,
     non-decreasing → ``[M, N]`` in ``lhs``'s dtype (float32 sums).
     Differentiable in ``lhs`` and ``rhs``. ``gmm.launches`` counts the
-    K6-gmm kernel's launches."""
+    K6-gmm kernel's launches. ``interpret`` steers only the reference's
+    Pallas kernel; it is accepted in its place and ignored."""
     return _Gmm.apply(lhs, rhs, gmap)
 
 
-def gmm_t(lhs, rhs, gmap):
+def gmm_t(lhs, rhs, gmap, interpret: bool = False):
     """:func:`gmm` with transposed group weights, ``out[r] = lhs[r] @
     rhs[gmap[r // tm]]ᵀ`` for ``rhs`` ``[E, N, K]`` (the weights stay in
     their forward layout and are read transposed). ``gmm_t.launches``
-    counts its kernel's launches."""
+    counts its kernel's launches. ``interpret`` as in :func:`gmm`."""
     return _GmmT.apply(lhs, rhs, gmap)
 
 
-def tgmm(lhs, g, gmap, n_groups: int, out_dtype=torch.float32):
+def tgmm(lhs, g, gmap, n_groups: int, out_dtype=torch.float32,
+         interpret: bool = False):
     """Per-group weight gradient ``out[e] = Σ_{t: gmap[t]=e} lhs_tᵀ @ g_t``
     over ``tm``-row tiles: ``lhs`` ``[M, K]``, ``g`` ``[M, N]`` → ``[n_groups,
     K, N]`` in ``out_dtype``, float32 sums, zero for a group with no tile.
     ``gmap`` must be non-decreasing. ``tgmm.launches`` counts K6-tgmm's
-    launches."""
+    launches. ``interpret`` as in :func:`gmm`."""
     if lhs.is_cuda:
         return _launch_tgmm(lhs, g, gmap, n_groups, out_dtype)
     return tgmm_reference(lhs, g, gmap, n_groups).to(out_dtype)

@@ -5,8 +5,9 @@ runs a ``torch.autograd.Function`` over the hand-written kernels in
 ``csrc/layer_norm.cu`` (:func:`fused_layer_norm`, K3-fwd: one block per
 row, one read of the row, centred variance; :func:`fused_layer_norm_bwd`,
 K3-bwd: ``dx`` plus per-block partials of ``dscale``/``dbias`` summed in a
-second, deterministic pass). Like the reference's VJP it saves only ``x``
-and ``scale`` and recomputes ``x̂`` in the backward. On a CPU tensor it
+second, deterministic pass; one warp a row with the row in registers up
+to ``D`` 1024, one block a row above). Like the reference's VJP it saves
+only ``x`` and ``scale`` and recomputes ``x̂`` in the backward. On a CPU tensor it
 runs :func:`layer_norm_reference`, the plain PyTorch version that autograd
 differentiates and that is also the kernels' oracle. The output is float32
 either way, as the reference's dispatcher guarantees.
@@ -21,18 +22,22 @@ import torch
 from . import _build
 
 # the forward keeps the row in shared memory (227 KB a block on Hopper);
-# the backward keeps the x and g rows and two partial rows
+# the backward's wide route keeps the x and g rows and two partial rows
 _MAX_D = 227 * 1024 // 4
 _MAX_D_BWD = 227 * 1024 // 16
-# the backward's pass 1 runs at most this many blocks, each over a
-# contiguous run of rows; the count depends on N alone, so the order of
-# the dscale/dbias sums does too
-_BWD_BLOCKS = 512
+# the backward's rows route (one warp a row, the row in registers) takes
+# rows up to this width (kRowMaxD in the .cu); wider rows take the wide
+# route (one block a row)
+_ROW_MAX_D = 1024
+# the backward's pass 1 runs at most this many blocks (two of 4 warps an
+# SM on an H100's 132), each over a contiguous run of rows; the count
+# depends on N alone, so the order of the dscale/dbias sums does too
+_BWD_BLOCKS = 264
 
 _SIGNATURES = {
     "layer_norm_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
                                                ctypes.c_float, ctypes.c_void_p],
-    "layer_norm_bwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+    "layer_norm_bwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_void_p],
 }
 
@@ -58,11 +63,12 @@ def _check(x, scale, others, max_d: int, what: str):
     return D
 
 
-def fused_layer_norm(x, scale, bias, eps: float = 1e-5):
+def fused_layer_norm(x, scale, bias, eps: float = 1e-5, interpret: bool = False):
     """K3-fwd, the CUDA kernel: ``x`` ``[..., D]`` on a CUDA device,
     ``scale`` and ``bias`` ``[D]`` on the same device. Returns float32 in
     ``x``'s shape. Raises on anything the kernel does not take; counts each
-    launch in ``fused_layer_norm.launches``."""
+    launch in ``fused_layer_norm.launches``. ``interpret`` steers only the
+    reference's Pallas kernel; it is accepted in its place and ignored."""
     D = _check(x, scale, (bias,), _MAX_D, "fused_layer_norm")
     x2 = x.reshape(-1, D).to(torch.float32).contiguous()
     s = scale.to(torch.float32).contiguous()
@@ -82,6 +88,15 @@ def fused_layer_norm(x, scale, bias, eps: float = 1e-5):
 fused_layer_norm.launches = 0
 
 
+def _bwd_grid(N: int):
+    """K3-bwd's pass-1 grid for ``N`` rows: ``(n_blocks, rows)``, at most
+    ``_BWD_BLOCKS`` blocks of ``rows`` contiguous rows, none empty. It
+    depends on ``N`` alone, not on ``D``, the route or the card, so the
+    order of every dscale/dbias sum, and with it their bits, does too."""
+    rows = -(-N // _BWD_BLOCKS) if N else 1
+    return -(-N // rows), rows
+
+
 def fused_layer_norm_bwd(x, scale, g, eps: float = 1e-5):
     """K3-bwd, the CUDA kernel: the gradients of :func:`fused_layer_norm`
     for the output cotangent ``g`` (``x``'s shape), as float32 ``(dx,
@@ -96,8 +111,9 @@ def fused_layer_norm_bwd(x, scale, g, eps: float = 1e-5):
     g2 = g.reshape(-1, D).to(torch.float32).contiguous()
     s = scale.to(torch.float32).contiguous()
     N = x2.shape[0]
-    rows = -(-N // _BWD_BLOCKS) if N else 1
-    n_blocks = -(-N // rows)
+    n_blocks, rows = _bwd_grid(N)
+    route = 0 if D <= _ROW_MAX_D else 1
+    vec = int(D % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (x2, g2, s)))
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x2)
     ds_part = torch.empty((n_blocks, D), **f32)
@@ -109,7 +125,7 @@ def fused_layer_norm_bwd(x, scale, g, eps: float = 1e-5):
         err = lib.layer_norm_bwd(
             x2.data_ptr(), s.data_ptr(), g2.data_ptr(), dx.data_ptr(),
             ds_part.data_ptr(), db_part.data_ptr(), dscale.data_ptr(),
-            dbias.data_ptr(), N, D, n_blocks, rows, float(eps),
+            dbias.data_ptr(), N, D, n_blocks, rows, route, vec, float(eps),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "layer_norm_bwd")
     fused_layer_norm_bwd.launches += 1

@@ -137,9 +137,12 @@ def _rows(pos, S: int, dev, name: str):
     return pos.to(torch.int32).reshape(-1).expand(S).contiguous()
 
 
-def paged_flash_decode_lse(q, kp, vp, table, pos, page: int, window=None):
+def paged_flash_decode_lse(q, kp, vp, table, pos, page: int, window=None,
+                           interpret: bool = False):
     """The K5-decode kernel: ``(out, lse)`` as
     :func:`paged_decode_reference_lse`, read straight out of the pool.
+    ``interpret`` is the reference's Pallas knob, accepted in its place and
+    ignored.
 
     ``q`` ``[S, Hkv, G, Dh]`` float (cast to float32), pools float32 or
     bfloat16 and contiguous, ``table`` int32 ``[S, M]``, ``pos`` a Python
@@ -188,15 +191,17 @@ def paged_flash_decode_lse(q, kp, vp, table, pos, page: int, window=None):
 paged_flash_decode_lse.launches = 0
 
 
-def paged_flash_decode(q, kp, vp, table, pos, page: int, window=None):
+def paged_flash_decode(q, kp, vp, table, pos, page: int, window=None,
+                       interpret: bool = False):
     return paged_flash_decode_lse(q, kp, vp, table, pos, page, window)[0]
 
 
-def paged_flash_chunk(q, kp, vp, table, pos0, page: int, window=None):
+def paged_flash_chunk(q, kp, vp, table, pos0, page: int, window=None,
+                      interpret: bool = False):
     """The K5-chunk kernel: as :func:`paged_chunk_reference`, read straight
     out of the pool. ``q`` ``[S, Hkv, G, C, Dh]`` float (cast to float32),
-    ``pos0`` a Python int, 0-d or ``[S]`` integer tensor; the rest as
-    :func:`paged_flash_decode_lse`. Counts each launch in
+    ``pos0`` a Python int, 0-d or ``[S]`` integer tensor; the rest, and
+    ``interpret``, as :func:`paged_flash_decode_lse`. Counts each launch in
     ``paged_flash_chunk.launches``."""
     P, Hkv, Dh, M = _check_pool("paged_flash_chunk", q, kp, vp, table,
                                 page, window)

@@ -46,7 +46,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..models.adapters import KerasModelAdapter
+from ..models.adapters import KerasModelAdapter, refuse_remat
 from ..models.optimizers import _lead
 from .mesh import DeviceMesh, build_mesh
 
@@ -125,10 +125,7 @@ class CompiledTrainer:
         if self.mesh.device != adapter.device:
             raise ValueError(f"the adapter's weights are on {adapter.device}, the "
                              f"mesh on {self.mesh.device}")
-        if remat:
-            raise NotImplementedError(
-                "remat=True (activation recomputation for deep Keras models) waits "
-                "for ROADMAP queue 1 item 13 (Keras models beyond the MLP)")
+        refuse_remat(remat)
         self.mode = mode
         self.frequency = frequency
         self.remat = remat

@@ -540,13 +540,14 @@ class MoEFeedForward:
             n, self.k, self.d_model).to(f32)
         return (rows * combine[..., None].to(f32)).sum(dim=1), c1, gsum
 
-    def apply_gmm(self, params, x, ep: int = 1, tm: int = 128):
+    def apply_gmm(self, params, x, ep: int = 1, tm: int = 128, interpret=None):
         """:meth:`apply_reference`'s contract (same routing, per-``ep``-group
         capacity quotas and aux loss) with each projection one grouped
         matmul over a tile-aligned buffer of ``k·N`` rows plus at most
         ``E·tm`` rows of padding: ``(y [N, D] float32, aux)``. The K6
         kernels on CUDA tensors (``tm`` a multiple of 128), the plain
-        versions on CPU tensors. ``token_choice`` only."""
+        versions on CPU tensors. ``token_choice`` only. ``interpret`` is
+        the reference's Pallas knob, accepted in its place and ignored."""
         cap, blocks_in = self._groups(x, ep, "apply_gmm")
         ys, c1s, gsums = [], [], []
         for blk in blocks_in:

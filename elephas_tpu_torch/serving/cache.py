@@ -26,7 +26,7 @@ lifecycle against it:
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -68,10 +68,14 @@ def decode_block(step, params, cache, tokens, pos, temps, seeds, live,
 class SlotKVCache:
     """Free-list + per-slot write-head bookkeeping over one batched KV
     buffer on the model's device, ``aligned_cache_length(max_len)`` slots
-    long (via ``init_cache``)."""
+    long (via ``init_cache``). ``capacity`` overrides the cache time axis
+    (an already-aligned total); ``cache`` hands in a buffer made elsewhere,
+    as the reference's sharded engine does."""
 
     def __init__(self, model, params, n_slots: int,
-                 max_len: Optional[int] = None):
+                 max_len: Optional[int] = None,
+                 capacity: Optional[int] = None,
+                 cache: Optional[Dict[str, Any]] = None):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         self.model = model
@@ -81,8 +85,15 @@ class SlotKVCache:
         if self.max_len > model.max_len:
             raise ValueError(
                 f"max_len {self.max_len} exceeds the model's {model.max_len}")
-        self.cache = model.init_cache(self.n_slots, length=self.max_len)
+        if cache is not None:
+            self.cache = cache
+        else:
+            self.cache = model.init_cache(self.n_slots,
+                                          length=capacity or self.max_len)
         self.capacity = int(self.cache["k"].shape[3])
+        if self.max_len > self.capacity:
+            raise ValueError(f"max_len {self.max_len} exceeds cache capacity "
+                             f"{self.capacity}")
         self._free: List[int] = list(range(self.n_slots - 1, -1, -1))
         # write head per slot: the absolute position the NEXT write lands
         # at (prompt length after insert; +1 per decode step)

@@ -138,10 +138,14 @@ def test_engine_on_card_matches_cpu_engine(cuda):
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (3, 5), (130, 4097), (2, 3, 256),
-                                   (1100, 64)])
+                                   (1100, 64), (8, 1024), (37, 1025), (8, 1001),
+                                   (1100, 768), (8193, 768), (1037, 1024)])
 def test_layer_norm_bwd_kernel_matches_plain(cuda, shape):
-    """K3-bwd against autograd through the plain version; (1100, 64) gives
-    the pass-1 blocks more than one row each. atol/rtol 1e-4."""
+    """K3-bwd against autograd through the plain version, atol/rtol 1e-4, on
+    both routes: one warp a row up to D 1024 (the register limit; float4
+    rows where D % 4 == 0, scalar ones at D 1001 and 5), one block a row
+    past it (1025, 4097). (1100, 64) and (1100, 768) give each pass-1 block
+    5 rows for its 4 warps; (8193, 768) 32 rows a block and one short."""
     rng = np.random.default_rng(5)
     x = _t(rng, *shape) * 3 + 1
     s, b, g = _t(rng, shape[-1]), _t(rng, shape[-1]), _t(rng, *shape)
@@ -153,6 +157,22 @@ def test_layer_norm_bwd_kernel_matches_plain(cuda, shape):
     # deterministic: the same bits on a second run
     for a, w in zip(fused_layer_norm_bwd(x, s, g), got):
         assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("d", [768, 1024, 2048])
+def test_layer_norm_bwd_row_at_1e4_against_float64(cuda, d):
+    """A row riding at 1e4 on both routes: the row mean is summed in double
+    and x - mean formed in double, so K3-bwd stays within 1e-4 of the plain
+    version run in float64 (a float32 row mean rounds visibly there)."""
+    rng = np.random.default_rng(6)
+    x = _t(rng, 64, d) * 3 + 1
+    x[0] += 1e4
+    s, b, g = _t(rng, d), _t(rng, d), _t(rng, 64, d)
+    got = fused_layer_norm_bwd(x, s, g)
+    args = [t.double().requires_grad_() for t in (x, s, b)]
+    want = torch.autograd.grad(layer_norm_reference(*args), args, g.double())
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a.double(), w, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("B,T,H,Hkv,Dh", [
@@ -518,12 +538,18 @@ def _rel(got, want):
     ([1, 1, 1], 1, 1, 128, torch.float32),             # K = N = 1
     ([0, 1, 1, 3], 300, 260, 256, torch.float32),      # two block rows per tile
     ([0, 2, 2, 2], 136, 72, 128, torch.bfloat16),
+    ([0, 1, 2, 3], 14336, 256, 128, torch.float32),    # w2's contraction
+    ([0, 1, 3, 3], 1001, 131, 256, torch.float32),     # K, N no multiple of 4
+    ([0, 2, 2, 3], 201, 99, 128, torch.bfloat16),      # rows not 16-byte aligned
+    ([1, 2, 3, 3], 14336, 136, 128, torch.bfloat16),
 ])
 def test_grouped_matmul_kernels_match_plain(cuda, tiles, K, N, tm, dtype):
     """K6-gmm (and its transposed twin) and K6-tgmm against the plain
     versions: max |diff| / max |plain| <= 2e-5 in float32 (8e-3 for a bf16
-    output, one rounding of a float32 sum); experts without a tile get an
-    exact zero weight gradient; the same bits on a second launch."""
+    output, one rounding of a float32 sum), at contraction 14336 too (the
+    tensor cores' 3xTF32 products, each 32 of the contraction summed fresh);
+    experts without a tile get an exact zero weight gradient; the same bits
+    on a second launch of each kernel."""
     rng = np.random.default_rng(13)
     E = 4
     gmap = torch.tensor(tiles, dtype=torch.int32, device="cuda")
@@ -531,8 +557,11 @@ def test_grouped_matmul_kernels_match_plain(cuda, tiles, K, N, tm, dtype):
     lhs, g = _t(rng, M, K, dtype=dtype), _t(rng, M, N, dtype=dtype)
     w, w_t = _t(rng, E, K, N, dtype=dtype), _t(rng, E, N, K, dtype=dtype)
     tol = 2e-5 if dtype == torch.float32 else 8e-3
-    assert _rel(gmm(lhs, w, gmap), gmm_reference(lhs, w, gmap)) <= tol
-    assert _rel(gmm_t(lhs, w_t, gmap), gmm_reference(lhs, w_t, gmap, True)) <= tol
+    out, out_t = gmm(lhs, w, gmap), gmm_t(lhs, w_t, gmap)
+    assert _rel(out, gmm_reference(lhs, w, gmap)) <= tol
+    assert _rel(out_t, gmm_reference(lhs, w_t, gmap, True)) <= tol
+    assert torch.equal(out, gmm(lhs, w, gmap))
+    assert torch.equal(out_t, gmm_t(lhs, w_t, gmap))
     got = tgmm(lhs, g, gmap, E)
     assert got.dtype == torch.float32
     assert _rel(got, tgmm_reference(lhs, g, gmap, E)) <= 2e-5
@@ -540,6 +569,29 @@ def test_grouped_matmul_kernels_match_plain(cuda, tiles, K, N, tm, dtype):
         assert bool((got[e] == 0).all())
     assert torch.equal(got, tgmm(lhs, g, gmap, E))
     assert tgmm(lhs, g, gmap, E, torch.bfloat16).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_all_sentinel_tile_and_clamped_expert(cuda, dtype):
+    """An expert whose only tile holds sentinel rows (zeros, as the MoE
+    layout pads it) gets exactly zero output rows from gmm and gmm_t, and
+    its weight gradient from tgmm is zero; a gmap entry past the last
+    expert reads the last one (clamped), as the plain version's
+    ``rhs[e]`` would fail to."""
+    rng = np.random.default_rng(15)
+    E, K, N = 4, 4096, 384
+    gmap = torch.tensor([0, 1, 2, 2], dtype=torch.int32, device="cuda")
+    lhs = _t(rng, 512, K, dtype=dtype)
+    lhs[128:256] = 0                                      # expert 1: sentinels only
+    w, w_t = _t(rng, E, K, N, dtype=dtype), _t(rng, E, N, K, dtype=dtype)
+    out, out_t = gmm(lhs, w, gmap), gmm_t(lhs, w_t, gmap)
+    assert bool((out[128:256] == 0).all()) and bool((out_t[128:256] == 0).all())
+    assert bool((tgmm(lhs, _t(rng, 512, N, dtype=dtype), gmap, E)[1] == 0).all())
+    tol = 2e-5 if dtype == torch.float32 else 8e-3
+    assert _rel(out, gmm_reference(lhs, w, gmap)) <= tol
+    past = torch.tensor([0, 1, 2, 9], dtype=torch.int32, device="cuda")
+    clamped = torch.tensor([0, 1, 2, 3], dtype=torch.int32, device="cuda")
+    assert torch.equal(gmm(lhs, w, past), gmm(lhs, w, clamped))
 
 
 def test_grouped_matmul_wrappers_refuse_bad_input(cuda):

@@ -6,7 +6,21 @@ take bf16 fast paths there), forward and gradients; against a float64 numpy
 oracle at ``max |diff| / max |ref| <= 1e-5`` (float32 sums over K <= 512);
 empty groups, ragged K and N, bfloat16 inputs, and the dispatch by device.
 The CUDA kernels are held to these plain versions on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+
+The signatures are the reference's, ``interpret`` last (compared through
+``jax.custom_vjp``'s ``.fun``), and a reference-shaped positional call gives
+the reference's result. The tensor-core K6-gmm's float32 arithmetic is
+emulated here: 3xTF32 products (``tf32``/``_split`` of
+``tests/test_torch_flash_tf32x3.py``), each 8-deep ``mma`` step added to
+its accumulator with the rounding toward zero the tensor cores apply, and
+each 32-deep stage of the contraction summed in a fresh accumulator and
+added to the float32 sum once. At contraction 4096 and 14336 that holds
+the float32 pin (2e-5, max |diff| / max |plain|) against the plain
+version; a single TF32 product, or one accumulator over the whole
+contraction, misses it."""
+
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +30,7 @@ import torch
 
 from elephas_tpu.ops import grouped_matmul as JG
 from elephas_tpu_torch.ops import grouped_matmul as G
+from tests.test_torch_flash_tf32x3 import _split
 
 ATOL = 5e-2
 ORACLE_TOL = 1e-5
@@ -175,3 +190,132 @@ def test_cpu_tensors_take_the_plain_path_and_never_count():
         G._launch_tgmm(lhs, lhs, gmap, 2, torch.float32)
     with pytest.raises(ValueError, match="tiles"):
         G.gmm(lhs[:201], rhs, gmap)
+
+
+# -- the reference's signatures: interpret last ---------------------------------------
+
+
+def _params(fn):
+    fn = getattr(fn, "fun", fn)   # jax.custom_vjp keeps the function in .fun
+    return [(p.name, p.default) for p in inspect.signature(fn).parameters.values()]
+
+
+@pytest.mark.parametrize("name", ["gmm", "gmm_t", "tgmm"])
+def test_signature_matches_reference(name):
+    """Names, order and defaults of every parameter, ``interpret`` last, as
+    the reference's (its ``gmm`` and ``gmm_t`` are ``jax.custom_vjp``
+    objects: compared through ``.fun``). ``out_dtype``'s default is each
+    framework's float32."""
+    port, ref = _params(getattr(G, name)), _params(getattr(JG, name))
+    assert [p for p, _ in port] == [p for p, _ in ref]
+    assert [d for p, d in port if p != "out_dtype"] == [d for p, d in ref if p != "out_dtype"]
+
+
+@pytest.mark.parametrize("fn", ["gmm", "gmm_t"])
+def test_positional_interpret_matches_jax_kernel(fn):
+    """``gmm(lhs, rhs, gmap, interpret)`` by position, as the reference
+    calls it: the reference's Pallas kernel in interpret mode and the
+    port's product agree (forward and gradients); ``interpret=False`` by
+    keyword is taken too."""
+    lhs, rhs, gmap = _case(*CASES[0], seed=7)
+    if fn == "gmm_t":
+        rhs = np.ascontiguousarray(rhs.transpose(0, 2, 1))
+    jl, jr, jg = (jnp.asarray(a) for a in (lhs, rhs, gmap))
+    want = np.asarray(getattr(JG, fn)(jl, jr, jg, True))
+    tl, tr = (torch.from_numpy(a).requires_grad_() for a in (lhs, rhs))
+    tg = torch.from_numpy(gmap)
+    got = getattr(G, fn)(tl, tr, tg, True)
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=ATOL)
+    np.testing.assert_allclose(getattr(G, fn)(tl, tr, tg, interpret=False).detach().numpy(),
+                               got.detach().numpy(), rtol=0, atol=0)
+    jgl, jgr = jax.grad(lambda l, r: jnp.sum(jnp.sin(getattr(JG, fn)(l, r, jg, True))),
+                        (0, 1))(jl, jr)
+    torch.sin(got).sum().backward()
+    np.testing.assert_allclose(tl.grad.numpy(), np.asarray(jgl), atol=ATOL)
+    np.testing.assert_allclose(tr.grad.numpy(), np.asarray(jgr), atol=ATOL)
+
+
+def test_tgmm_positional_interpret_matches_jax_kernel():
+    """The reference's own positional call, ``tgmm(lhs, g, gmap, n_groups,
+    dtype, interpret)`` (``parallel/expert.py:210``), in both packages."""
+    lhs, _, gmap = _case(*CASES[1], seed=8)
+    g = np.random.default_rng(9).standard_normal((lhs.shape[0], 128)).astype(np.float32)
+    want = JG.tgmm(jnp.asarray(lhs), jnp.asarray(g), jnp.asarray(gmap), 4,
+                   jnp.float32, True)
+    got = G.tgmm(*_t(lhs, g, gmap), 4, torch.float32, True)
+    assert got.dtype == torch.float32 and got.shape == (4, 512, 128)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+# -- the tensor-core K6-gmm's arithmetic, emulated ------------------------------------
+
+PIN = 2e-5
+STRETCH = 32    # the contraction summed in one fresh accumulator: a float32 stage
+
+
+def _toward_zero(x64):
+    """float64 to float32, rounded toward zero (the accumulation of an
+    ``mma``)."""
+    y = x64.to(torch.float32)
+    return torch.where(y.double().abs() > x64.abs(), torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def emulated_gmm(a, b, passes, stretch):
+    """``a @ b`` (float32 ``[M, K] @ [K, N]``) as the kernel computes it:
+    ``passes=3`` is 3xTF32 (small*big, big*small, big*big, in that order),
+    ``passes=1`` one TF32 product; each 8-deep step's exact product added
+    to the accumulator toward zero; each ``stretch`` of the contraction in a
+    fresh accumulator, added to the float32 sum once."""
+    ab, as_ = _split(a)
+    bb, bs = _split(b)
+    pairs = [(as_, bb), (ab, bs), (ab, bb)] if passes == 3 else [(ab, bb)]
+    pairs = [(x.double(), y.double()) for x, y in pairs]
+    K = a.shape[1]
+    out = torch.zeros(a.shape[0], b.shape[1])
+    for c0 in range(0, K, stretch):
+        d = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float64)
+        for k0 in range(c0, min(c0 + stretch, K), 8):
+            for x, y in pairs:
+                d = _toward_zero(d + x[:, k0:k0 + 8] @ y[k0:k0 + 8]).double()
+        out = out + d.float()
+    return out
+
+
+def _emulation_case(K, seed):
+    """One 128-row tile of the w2-shaped product: lhs N(0, 1), weights
+    glorot-uniform as the MoE layer draws them, 32 output columns."""
+    rng = np.random.default_rng(seed)
+    lhs = rng.standard_normal((128, K)).astype(np.float32)
+    limit = (6.0 / (K + 32)) ** 0.5
+    w = ((rng.random((1, K, 32)) * 2 - 1) * limit).astype(np.float32)
+    return torch.from_numpy(lhs), torch.from_numpy(w)
+
+
+def _rel(got, want):
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+@pytest.mark.parametrize("K", [4096, 14336])
+def test_3xtf32_stretches_hold_the_float32_pin(K):
+    """The kernel's float32 arithmetic (3xTF32, fresh accumulators every 32
+    of the contraction) within 2e-5 of the plain version; one TF32 product
+    misses the pin, and so does one accumulator over the whole contraction
+    (the rounding toward zero adds up)."""
+    lhs, w = _emulation_case(K, seed=K)
+    gmap = torch.zeros(1, dtype=torch.int32)
+    plain = G.gmm(lhs, w, gmap)
+    assert _rel(emulated_gmm(lhs, w[0], 3, STRETCH), plain) <= PIN
+    assert _rel(emulated_gmm(lhs, w[0], 1, STRETCH), plain) > PIN
+    assert _rel(emulated_gmm(lhs, w[0], 3, K), plain) > PIN
+
+
+def test_3xtf32_emulation_reads_gmm_t_weights_transposed():
+    """gmm_t's weights ``[E, N, K]`` read transposed give the same emulated
+    product as gmm's ``[E, K, N]``: the kernel's two B layouts hold the same
+    numbers, and the pin holds through ``gmm_t``'s plain version."""
+    lhs, w = _emulation_case(4096, seed=3)
+    gmap = torch.zeros(1, dtype=torch.int32)
+    w_t = w.transpose(1, 2).contiguous()
+    emulated = emulated_gmm(lhs, w_t[0].T, 3, STRETCH)
+    assert torch.equal(emulated, emulated_gmm(lhs, w[0], 3, STRETCH))
+    assert _rel(emulated, G.gmm_t(lhs, w_t, gmap)) <= PIN

@@ -1,7 +1,11 @@
 """The port's LayerNorm (CPU path = its plain version, differentiated by
 autograd) against the JAX package's fused Pallas kernel (interpret mode,
 its custom VJP under ``jax.grad`` for the gradients) and its jnp
-reference, on the same numpy inputs."""
+reference, on the same numpy inputs; ``fused_layer_norm``'s signature
+against the reference's (``interpret`` last); K3-bwd's pass-1 grid, which
+depends on the row count alone."""
+
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -13,6 +17,7 @@ from elephas_tpu.ops import fused_layer_norm as jax_fused_layer_norm
 from elephas_tpu.ops import layer_norm_reference as jax_layer_norm_reference
 from elephas_tpu_torch.ops import (fused_layer_norm, fused_layer_norm_bwd,
                                    layer_norm)
+from elephas_tpu_torch.ops.layer_norm import _BWD_BLOCKS, _bwd_grid
 
 SHAPES = [
     (8, 128),     # exact TPU tiles
@@ -115,3 +120,36 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         fused_layer_norm(x, torch.ones(8), torch.zeros(8))
     with pytest.raises(ValueError, match="CUDA"):
         fused_layer_norm_bwd(x, torch.ones(8), x)
+
+
+def test_fused_layer_norm_signature_and_positional_interpret():
+    """``fused_layer_norm(x, scale, bias, eps, interpret)``: the reference's
+    names, order and defaults (its entry is a ``jax.custom_vjp``: compared
+    through ``.fun``). A reference-shaped positional call reaches the
+    port's kernel entry, which refuses a CPU tensor (the CPU path is
+    ``layer_norm``), and ``layer_norm`` equals the reference's kernel run
+    that way in interpret mode."""
+    def params(fn):
+        fn = getattr(fn, "fun", fn)
+        return [(p.name, p.default) for p in inspect.signature(fn).parameters.values()]
+
+    assert params(fused_layer_norm) == params(jax_fused_layer_norm)
+    rng = np.random.default_rng(8)
+    x, s, b = _inputs(rng, 6, 96)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_layer_norm(*(torch.from_numpy(a) for a in (x, s, b)), 1e-5, True)
+    want = jax_fused_layer_norm(jnp.asarray(x), jnp.asarray(s), jnp.asarray(b), 1e-5, True)
+    np.testing.assert_allclose(_port(x, s, b), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("N", [1, 7, 263, 264, 265, 1100, 8192, 8193, 100000])
+def test_bwd_grid_depends_on_rows_alone(N):
+    """K3-bwd's pass 1 runs ``n_blocks`` blocks of ``rows`` contiguous rows:
+    at most ``_BWD_BLOCKS``, none empty, every row covered, from ``N``
+    alone (not the width, the route or the card), so the order of every
+    dscale/dbias sum, and so its bits, is fixed by the row count."""
+    assert list(inspect.signature(_bwd_grid).parameters) == ["N"]
+    n_blocks, rows = _bwd_grid(N)
+    assert 1 <= n_blocks <= _BWD_BLOCKS
+    assert (n_blocks - 1) * rows < N <= n_blocks * rows
+    assert _bwd_grid(N) == (n_blocks, rows)

@@ -11,9 +11,14 @@ paged methods on the CPU path.
 - ``decode_chunk_paged`` then ``decode_step_paged`` equal the dense
   ``decode_chunk`` / ``decode_step`` bitwise; an unmapped write lands in the
   trash page; ``decode_step_paged``'s logits match the JAX package's.
+- The kernel entries' signatures are the reference's, ``interpret`` last:
+  a reference-shaped positional call reaches the port's kernel wrapper
+  (which refuses a CPU tensor) and, through the dispatcher, the reference's
+  Pallas kernel's result in interpret mode.
 """
 
 import importlib
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,8 +31,8 @@ from elephas_tpu_torch.ops.flash_decode import (chunk_attention_reference,
                                                 decode_attention_reference_lse)
 from elephas_tpu_torch.ops.paged_attention import (
     paged_chunk_attention, paged_chunk_reference, paged_decode_attention_lse,
-    paged_decode_reference_lse, paged_flash_chunk, paged_flash_decode_lse,
-    paged_view_rows)
+    paged_decode_reference_lse, paged_flash_chunk, paged_flash_decode,
+    paged_flash_decode_lse, paged_view_rows)
 
 jax_pa = importlib.import_module("elephas_tpu.ops.paged_attention")
 
@@ -119,6 +124,61 @@ def test_kernel_wrappers_raise_on_cpu_tensors():
     assert paged_decode_attention_lse(q, kp, vp, table, 3, 8)[0].shape == q.shape
     assert paged_chunk_attention(q[:, :, :, None], kp, vp, table, 3,
                                  8).shape == q[:, :, :, None].shape
+
+
+# -- the kernel entries' signatures: reference-shaped positional calls -------------
+
+
+def _params(fn):
+    return [(p.name, p.default) for p in inspect.signature(fn).parameters.values()]
+
+
+@pytest.mark.parametrize("name", ["paged_flash_decode_lse", "paged_flash_decode",
+                                  "paged_flash_chunk"])
+def test_kernel_signature_matches_reference(name):
+    """Names, order and defaults, ``interpret`` last, as the reference's."""
+    port = importlib.import_module("elephas_tpu_torch.ops.paged_attention")
+    assert _params(getattr(port, name)) == _params(getattr(jax_pa, name))
+
+
+@pytest.mark.parametrize("window", [None, 11])
+def test_decode_positional_interpret_matches_pallas_kernel(window):
+    """``paged_flash_decode_lse(q, kp, vp, table, pos, page, window,
+    interpret)`` by position: the port's kernel entry takes the call and
+    refuses the CPU tensors (no ``TypeError``); the dispatcher's result
+    equals the reference's Pallas kernel run in interpret mode, at the
+    reference tests' tolerance (rtol 2e-5, atol 2e-6)."""
+    q, kp, vp, table = _setup(8, seed=21)
+    pos = np.asarray([7, 12, 31], np.int32)
+    jo, jl = jax_pa.paged_flash_decode_lse(
+        *(jnp.asarray(a) for a in (q, kp, vp, table, pos)), 8, window, True)
+    jo2 = jax_pa.paged_flash_decode(
+        *(jnp.asarray(a) for a in (q, kp, vp, table, pos)), 8, window, True)
+    tq, tkp, tvp, ttable, tpos = _t(q, kp, vp, table, pos)
+    for fn in (paged_flash_decode_lse, paged_flash_decode):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(tq, tkp, tvp, ttable, tpos, 8, window, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_flash_decode_lse(tq, tkp, tvp, ttable, tpos, 8, window, interpret=False)
+    o, lse = paged_decode_attention_lse(tq, tkp, tvp, ttable, tpos, 8, window)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), rtol=2e-5, atol=2e-6)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jl), rtol=2e-5, atol=2e-6)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo2), rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("window", [None, 9])
+def test_chunk_positional_interpret_matches_pallas_kernel(window):
+    """``paged_flash_chunk(q, kp, vp, table, pos0, page, window, interpret)``
+    by position, as the decode entry above."""
+    q, kp, vp, table = _setup(8, seed=22, C=4)
+    pos0 = np.asarray([6, 13, 22], np.int32)
+    want = jax_pa.paged_flash_chunk(
+        *(jnp.asarray(a) for a in (q, kp, vp, table, pos0)), 8, window, True)
+    tq, tkp, tvp, ttable, tpos = _t(q, kp, vp, table, pos0)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_flash_chunk(tq, tkp, tvp, ttable, tpos, 8, window, True)
+    got = paged_chunk_attention(tq, tkp, tvp, ttable, tpos, 8, window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-6)
 
 
 # -- the model's paged methods ---------------------------------------------------
