@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time K3-bwd (the LayerNorm backward) and K6-gmm (``gmm`` and ``gmm_t``)
-built from two sources of ``layer_norm.cu`` and ``grouped_matmul.cu`` in
+"""Time K3-bwd (the LayerNorm backward), K6-gmm (``gmm`` and ``gmm_t``) and
+K6-tgmm built from two sources of ``layer_norm.cu`` and ``grouped_matmul.cu`` in
 turns on one NVIDIA GPU: this tree's and another one (for example a parent
 commit's), in the order other, tree, tree, other, beside the yardsticks
 that ``chip_smoke.py`` times.
@@ -18,6 +18,14 @@ that ``chip_smoke.py`` times.
   issued back to back from registers (8 warps an SM, 8 independent
   accumulators a warp, no memory traffic), the rate K6-gmm's products can
   reach at most (a float32 product is three TF32 ones).
+- K6-tgmm at the same widths: ``train_w1`` (the ``[9216, 4096]`` tokens
+  against a ``[9216, 14336]`` cotangent: dw1's product) and ``train_w2``
+  (the ``[9216, 14336]`` activations against a ``[9216, 4096]`` cotangent:
+  dw2's) in float32, and ``decode_w1_bf16`` and ``train_w1_bf16`` (the same
+  rows in bf16, a float32 output), each run twice for the same bits, beside
+  the per-tile ``torch.bmm`` + per-expert sum and, in bf16,
+  ``torch._grouped_mm`` over the contraction (``mat_a = lhs.T``, ``offs``
+  the experts' row ends).
 
 Each source is called through its own C interface (the argument lists
 changed when the kernels were redesigned), read from its text. Every turn
@@ -52,6 +60,7 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # layer_norm_bwd gained (route, vec), gmm gained (vec)
 LN_BWD = {False: [P] * 8 + [I] * 4 + [F, P], True: [P] * 8 + [I] * 6 + [F, P]}
 GMM = {False: [P] * 4 + [I] * 7 + [P], True: [P] * 4 + [I] * 8 + [P]}
+TGMM = [P] * 4 + [I] * 7 + [P]   # unchanged by the redesign
 
 
 def build(src: Path, out: Path, fn: str, argtypes) -> ctypes.CDLL:
@@ -83,6 +92,8 @@ class Kernels:
             self.ln, self.gm = ex.map(lambda a: build(*a), [
                 (ln, out_dir / f"ab_ln_{tag}.so", "layer_norm_bwd", LN_BWD[self.ln_new]),
                 (gm, out_dir / f"ab_gmm_{tag}.so", "gmm", GMM[self.gmm_new])])
+        self.gm.tgmm.argtypes = TGMM
+        self.gm.tgmm.restype = ctypes.c_int
 
     def ln_bwd(self, x, s, g, eps=1e-5):
         from elephas_tpu_torch.ops.layer_norm import _ROW_MAX_D, _bwd_grid
@@ -121,6 +132,18 @@ class Kernels:
                           *ints, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"gmm: CUDA error {err}")
+        return out
+
+    def tgmm(self, lhs, g, gmap, E):
+        """``[E, K, N]`` float32 from lhs ``[M, K]`` and g ``[M, N]``."""
+        K, N = lhs.shape[1], g.shape[1]
+        out = torch.empty((E, K, N), dtype=torch.float32, device=lhs.device)
+        err = self.gm.tgmm(lhs.data_ptr(), g.data_ptr(), gmap.data_ptr(), out.data_ptr(), K, N,
+                           gmap.numel(), lhs.shape[0] // gmap.numel(), E,
+                           int(lhs.dtype == torch.bfloat16), 0,
+                           torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"tgmm: CUDA error {err}")
         return out
 
 
@@ -197,7 +220,10 @@ def ln_inputs(gen, n, d):
 
 def gmm_inputs():
     """The ``kernel`` phase's decode and training layouts (a real routing
-    through a random Mixtral router) and a glorot-uniform w1."""
+    through a random Mixtral router), a glorot-uniform w1, and the
+    cotangents of tgmm's cases: ``[1152, 14336]`` at the decode layout,
+    ``[9216, 14336]`` (h, also w2's activations) and ``[9216, 4096]`` (dout)
+    at the training layout."""
     from elephas_tpu_torch.parallel.expert import _gather_rows
 
     cfg = cs.MIXTRAL_8X7B
@@ -210,7 +236,9 @@ def gmm_inputs():
     x, tok, gmap_t = cs._moe_layout(4096, gen)
     xs = _gather_rows(x, tok)
     h = torch.randn(xs.shape[0], Fd, device="cuda", generator=gen)
-    return w1, (lhs_d, gmap_d), (xs, h, gmap_t)
+    g_d = torch.randn(lhs_d.shape[0], Fd, device="cuda", generator=gen)
+    dout = torch.randn(xs.shape[0], D, device="cuda", generator=gen)
+    return w1, (lhs_d, g_d, gmap_d), (xs, h, dout, gmap_t)
 
 
 def loop_ms(lhs, w, gmap, transpose, n_iter):
@@ -252,10 +280,16 @@ def main() -> int:
         args = [x.clone().requires_grad_(), s.clone().requires_grad_(),
                 torch.zeros_like(s).requires_grad_()]
         ln_want[d] = torch.autograd.grad(layer_norm_reference(*args), args, g)
-    w1, (lhs_d, gmap_d), (xs, h, gmap_t) = gmm_inputs()
-    w1b, lhs_db = w1.to(torch.bfloat16), lhs_d.to(torch.bfloat16)
+    w1, (lhs_d, g_d, gmap_d), (xs, h, dout, gmap_t) = gmm_inputs()
+    bf = torch.bfloat16
+    w1b, lhs_db = w1.to(bf), lhs_d.to(bf)
     want = {"decode_w1_gmm": G.gmm_reference(lhs_d, w1, gmap_d),
             "decode_w1_gmm_bf16": G.gmm_reference(lhs_db, w1b, gmap_d)}
+    E = w1.shape[0]
+    tg_cases = {"train_w1": (xs, h, gmap_t), "train_w2": (h, dout, gmap_t),
+                "decode_w1_bf16": (lhs_db, g_d.to(bf), gmap_d),
+                "train_w1_bf16": (xs.to(bf), h.to(bf), gmap_t)}
+    tg_want = {n: G.tgmm_reference(*c, E) for n, c in tg_cases.items()}
     torch.cuda.synchronize()
 
     for turn in ("other", "tree", "tree", "other"):
@@ -279,6 +313,13 @@ def main() -> int:
         row["train_w1_gmm_t_err"] = rel(got, G.gmm_reference(h, w1, gmap_t, True))
         del got
         row["train_w1_gmm_t_ms"] = cs.device_ms(lambda: k.gmm(h, w1, gmap_t, True), [()], 4)
+        for name, (a, b, gmap) in tg_cases.items():
+            got = k.tgmm(a, b, gmap, E)
+            row[f"{name}_tgmm_err"] = rel(got, tg_want[name])
+            row[f"{name}_tgmm_same_bits"] = torch.equal(got, k.tgmm(a, b, gmap, E))
+            del got
+            row[f"{name}_tgmm_ms"] = cs.device_ms(lambda: k.tgmm(a, b, gmap, E), [()],
+                                                  10 if name.startswith("decode") else 4)
         print(json.dumps(row), flush=True)
 
     out = {}
@@ -294,6 +335,12 @@ def main() -> int:
     out["decode_w1_loop_ms"] = loop_ms(lhs_d, w1, gmap_d, False, 10)
     out["train_w1_gmm_loop_ms"] = loop_ms(xs, w1, gmap_t, False, 4)
     out["train_w1_gmm_t_loop_ms"] = loop_ms(h, w1, gmap_t, True, 4)
+    del tg_want
+    for name, (a, b, gmap) in tg_cases.items():
+        out[f"{name}_tgmm_bmm_ms"] = cs.device_ms(cs._tgmm_bmm(a, b, gmap), [()], 4)
+        if name.endswith("bf16"):
+            out[f"{name}_tgmm_grouped_mm_ms"], out[f"{name}_tgmm_grouped_mm_note"] = (
+                cs._tgmm_grouped_mm(a, b, gmap, E))
     out.update(mma_peak_tflops(_build.BUILD_DIR))
     print(json.dumps(out), flush=True)
     return 0

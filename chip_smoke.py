@@ -18,7 +18,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    67 TFLOP/s float32, whichever is larger; H100 SXM data-sheet peaks; for
    the flash-attention kernels the operations at 3xTF32, three TF32
    products of 494.7 TFLOP/s each, the 67 TFLOP/s figure beside it):
-   LayerNorm forward and backward (the backward on both of its routes:
+   LayerNorm forward (timed at the decode shape [8, 768] and the GPT-2
+   training shape [8192, 768]) and backward (the backward on both of its routes:
    one warp a row up to D 1024, one block a row past it; each case run
    twice for the same bits), flash decode, flash attention forward,
    dq and dkv (eight cases: GPT-2 training shape, ragged T, GQA, window,
@@ -80,11 +81,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
     rows in 1152), the training layout (9216 rows, the w1 and w2 shapes), a
     hungry expert, ragged K/N and bf16 inputs; timed beside the plain
     version, a per-expert ``torch.matmul`` (``tgmm``: per-tile ``bmm``)
-    yardstick, ``torch._grouped_mm`` in bf16 where it exists, and the bound
-    (``gmm`` and ``gmm_t`` on the tensor cores: float32 operations at
-    3xTF32, the 67 TFLOP/s SIMT figure beside it; ``tgmm`` at 67 TFLOP/s).
-    The kernel line has ``gmm`` twice: at the decode layout and, as
-    ``gmm_train``, at the training layout.
+    yardstick, ``torch._grouped_mm`` in bf16 where it exists (for ``tgmm``
+    over the contraction: ``mat_a = lhs.T``, ``offs`` the experts' row
+    ends, beside ``tgmm`` on the same bf16 rows), and the bound (all three
+    on the tensor cores: float32 operations at 3xTF32, the 67 TFLOP/s SIMT
+    figure beside it); ``tgmm`` twice for the same bits, an expert without
+    rows exactly zero. The kernel line has ``gmm`` twice: at the decode
+    layout and, as ``gmm_train``, at the training layout.
 15. ``serve_moe``: Mixtral-8x7B's widths at 4 of 32 layers (float32, random
     weights drawn on the card, cache 2048), ``moe_dispatch="gmm"``, behind
     ``ServingEngine(n_slots=8)``: 16 greedy requests, prompts of 32-256
@@ -251,23 +254,34 @@ def check_layer_norm(card):
         checks.append({"shape": list(shape), "row_offset": offset,
                        "max_abs_err": err, "atol": 1e-5})
 
-    # timing at the decode shape [8, 768] (2L+1 launches a decode step)
-    n, d = 8, 768
-    sets = [tuple(t.to(dev) for t in (torch.randn(n, d), 1 + 0.1 * torch.randn(d),
-                                      torch.randn(d))) for _ in range(4)]
-    ms = device_ms(fused_layer_norm, sets)
-    plain_ms = device_ms(lambda x, s, b: layer_norm_reference(x, s, b).float(), sets)
-    lib_ms = device_ms(lambda x, s, b: torch.nn.functional.layer_norm(x, (d,), s, b, 1e-5), sets)
-    bms, by = bound_ms((2 * n * d + 2 * d) * 4, 8 * n * d)
+    def timed(n, d):
+        """Kernel, plain, ``F.layer_norm`` and bound at ``[n, d]``, cycling
+        through four input sets (at the training shape 100 MB of rows, out
+        of the 50 MB L2)."""
+        sets = [tuple(t.to(dev) for t in (torch.randn(n, d), 1 + 0.1 * torch.randn(d),
+                                          torch.randn(d))) for _ in range(4)]
+        ms = device_ms(fused_layer_norm, sets)
+        plain_ms = device_ms(lambda x, s, b: layer_norm_reference(x, s, b).float(), sets)
+        lib_ms = device_ms(lambda x, s, b: torch.nn.functional.layer_norm(x, (d,), s, b, 1e-5),
+                           sets)
+        return (ms, plain_ms, lib_ms, *bound_ms((2 * n * d + 2 * d) * 4, 8 * n * d))
+
+    # at the decode shape [8, 768] (2L+1 launches a decode step) and the GPT-2
+    # training shape [8192, 768] (B 8 x T 1024 rows, 2L+1 launches a step)
+    ms, plain_ms, lib_ms, bms, by = timed(8, 768)
+    train = dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
+                     timed(8192, 768)))
     row = {"name": "layer_norm_fwd", "route": "cuda",
            "source": "elephas_tpu_torch/ops/csrc/layer_norm.cu",
            "replaces": "elephas_tpu/ops/layer_norm.py:115",
            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
-           "timed_shape": [n, d]}
+           "timed_shape": [8, 768], "train_shape": [8192, 768],
+           **{f"train_{k}": v for k, v in train.items()}}
     emit({"phase": "kernel", "kernel": "layer_norm_fwd", "checks": checks,
           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-          "bound_ms": bms, "bound_by": by, "card": card})
+          "bound_ms": bms, "bound_by": by, "train_shape": [8192, 768], "train": train,
+          "card": card})
     return row
 
 
@@ -1680,11 +1694,63 @@ def _gmm_bound(m_pad, K, N, gmap, itemsize, out_itemsize, ops_rate):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _tgmm_bound(m_pad, K, N, gmap, itemsize, ops_rate):
+    """Least time of one ``tgmm``: lhs ``[M, K]`` and g ``[M, N]`` read once
+    and the float32 ``[E', K, N]`` output written once (E' experts with a
+    tile) over 3.35 TB/s, or 2 M K N operations over ``ops_rate``; ``(ms,
+    "bytes"|"operations")``."""
+    experts = len(set(gmap.tolist()))
+    n_bytes = (m_pad * K + m_pad * N) * itemsize + experts * K * N * 4
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * m_pad * K * N / ops_rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def _runs(gmap, tm):
     """``(expert, first row, end row)`` of each expert's contiguous rows."""
     from elephas_tpu_torch.ops.grouped_matmul import _runs as runs
 
     return [(e, a * tm, b * tm) for e, a, b in runs(gmap)]
+
+
+def _tgmm_bmm(lhs, g, gmap):
+    """The ``tgmm`` yardstick: one ``torch.bmm`` over the row tiles and a sum
+    over each expert's tiles, as a function of no arguments."""
+    nm, tm = gmap.numel(), lhs.shape[0] // gmap.numel()
+    runs = [(e, a // tm, b // tm) for e, a, b in _runs(gmap, tm)]
+    lb = lhs.reshape(nm, tm, -1).transpose(1, 2)
+    gb = g.reshape(nm, tm, -1)
+
+    def run():
+        per_tile = torch.bmm(lb, gb)
+        return torch.stack([per_tile[a:b].sum(0) for _, a, b in runs])
+    return run
+
+
+def _tgmm_grouped_mm(a16, g16, gmap, E):
+    """``torch._grouped_mm`` over the contraction in bf16 (``mat_a =
+    lhs.T``, ``offs`` each expert's row end): the same grouped weight
+    gradient ``[E, K, N]`` as ``tgmm``, rounded to a bf16 output. ``(ms,
+    note)``: ms ``None`` and the error in the note where the call is missing
+    or refuses the layout."""
+    from elephas_tpu_torch.ops.grouped_matmul import tgmm_reference
+
+    if not hasattr(torch, "_grouped_mm"):
+        return None, "none: torch._grouped_mm absent"
+    tm = a16.shape[0] // gmap.numel()
+    ends = (torch.searchsorted(gmap, torch.arange(E, dtype=gmap.dtype, device=gmap.device),
+                               right=True) * tm).to(torch.int32)
+    try:
+        out = torch._grouped_mm(a16.T, g16, offs=ends)
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError) as exc:   # a yardstick only: recorded, not fatal
+        return None, f"none: torch._grouped_mm refused mat_a = lhs.T with offs: {exc}"
+    want = tgmm_reference(a16, g16, gmap, E)
+    rel = float((out.double() - want.double()).abs().max() / want.double().abs().max())
+    del out, want
+    ms = device_ms(lambda: torch._grouped_mm(a16.T, g16, offs=ends), [()], n_iter=4)
+    return ms, (f"torch._grouped_mm (bf16, mat_a = lhs.T, offs over the rows, bf16 output; "
+                f"max|diff|/max|plain| {rel:.2e})")
 
 
 def check_grouped_matmul(card):
@@ -1720,17 +1786,6 @@ def check_grouped_matmul(card):
                 torch.matmul(lhs[a:b], w[e].T if transpose else w[e], out=out[a:b])
         return run
 
-    def lib_tgmm(lhs, g, gmap):
-        nm, tm = gmap.numel(), lhs.shape[0] // gmap.numel()
-        runs = [(e, a // tm, b // tm) for e, a, b in _runs(gmap, tm)]
-        lb = lhs.reshape(nm, tm, -1).transpose(1, 2)
-        gb = g.reshape(nm, tm, -1)
-
-        def run():
-            per_tile = torch.bmm(lb, gb)
-            return torch.stack([per_tile[a:b].sum(0) for _, a, b in runs])
-        return run
-
     def grouped_mm_yardstick(lhs, w, gmap):
         """``torch._grouped_mm`` in bf16 over the same rows, where the
         card's torch has it (B column-major per group, as it wants)."""
@@ -1764,6 +1819,7 @@ def check_grouped_matmul(card):
         got = G.tgmm(lhs, g, gmap, E)
         want = G.tgmm_reference(lhs, g, gmap, E)
         abs_errs["tgmm"], errs["tgmm"] = errors(got, want)
+        same_bits = torch.equal(got, G.tgmm(lhs, g, gmap, E))
         empty = [e for e in range(E) if e not in set(gmap.tolist())]
         if dtype == bf16:
             got16 = G.tgmm(lhs, g, gmap, E, bf16)
@@ -1775,14 +1831,16 @@ def check_grouped_matmul(card):
                                 f"{e} > {tol_k}")
         require(all(bool((got[e] == 0).all()) for e in empty),
                 f"grouped_matmul {name}: an expert without rows got a nonzero gradient")
+        require(same_bits, f"grouped_matmul {name}: two tgmm launches differ")
         row.update({"max_rel_err": errs, "max_abs_err": abs_errs, "tol": tol,
-                    "tgmm_tol": GMM_TOL[f32], "experts_without_rows": empty})
+                    "tgmm_tol": GMM_TOL[f32], "experts_without_rows": empty,
+                    "tgmm_same_bits": same_bits})
         checks.append(row)
         del got, want
         isz = lhs.element_size()
         rate = BF16_OPS_PER_S if dtype == bf16 else F32_OPS_PER_S
-        # gmm and gmm_t run on the tensor cores (3xTF32 for float32); tgmm
-        # is still a float32 SIMT kernel
+        # all three run on the tensor cores (3xTF32 for float32): bound at
+        # that rate, the SIMT rate's beside it
         mma_rate = BF16_OPS_PER_S if dtype == bf16 else TF32_OPS_PER_S / 3
         n_it = 10 if m_pad * K * N < 1e11 else 4
         for fn_name, fn, plain, lib, M_, K_, N_, out_isz in (
@@ -1793,19 +1851,14 @@ def check_grouped_matmul(card):
                  lambda: G.gmm_reference(g, w, gmap, True), lib_gmm(g, w, gmap, True),
                  m_pad, N, K, isz),
                 ("tgmm", lambda: G.tgmm(lhs, g, gmap, E),
-                 lambda: G.tgmm_reference(lhs, g, gmap, E), lib_tgmm(lhs, g, gmap),
+                 lambda: G.tgmm_reference(lhs, g, gmap, E), _tgmm_bmm(lhs, g, gmap),
                  K, m_pad, N, 4)):
             ms = device_ms(fn, [()], n_iter=n_it)
             plain_ms = device_ms(plain, [()], n_iter=n_it)
             lib_ms = device_ms(lib, [()], n_iter=n_it)
             if fn_name == "tgmm":
-                # lhs and g read once, the [E', K, N] float32 output written once
-                experts = len(set(gmap.tolist()))
-                n_bytes = (m_pad * K + m_pad * N) * isz + experts * K * N * 4
-                t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-                t_o = 2.0 * m_pad * K * N / rate * 1e3
-                bms, by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-                simt_ms = bms
+                bms, by = _tgmm_bound(m_pad, K, N, gmap, isz, mma_rate)
+                simt_ms = _tgmm_bound(m_pad, K, N, gmap, isz, rate)[0]
             else:
                 bms, by = _gmm_bound(M_, K_, N_, gmap, isz, out_isz, mma_rate)
                 simt_ms = _gmm_bound(M_, K_, N_, gmap, isz, out_isz, rate)[0]
@@ -1815,6 +1868,15 @@ def check_grouped_matmul(card):
             if fn_name == "gmm" and name in ("decode_w1", "train_w1"):
                 t["grouped_mm_bf16_ms"], t["grouped_mm_note"] = grouped_mm_yardstick(
                     lhs, w, gmap)
+            if fn_name == "tgmm" and name in ("decode_w1_bf16", "train_w1"):
+                # tgmm on the same rows in bf16, beside torch._grouped_mm
+                a16, g16 = lhs.to(bf16), g.to(bf16)
+                if dtype != bf16:
+                    t["bf16_ms"] = device_ms(lambda: G.tgmm(a16, g16, gmap, E), [()], n_it)
+                    t["bf16_bound_ms"] = _tgmm_bound(m_pad, K, N, gmap, 2, BF16_OPS_PER_S)[0]
+                t["grouped_mm_bf16_ms"], t["grouped_mm_note"] = _tgmm_grouped_mm(
+                    a16, g16, gmap, E)
+                del a16, g16
             timings.append(t)
 
     # the serving decode layout: 8 rows routed, k 2, E 8, tm 128 -> 1152 rows
@@ -1880,7 +1942,9 @@ def check_grouped_matmul(card):
                      "library": ("per-tile torch.bmm + per-expert sum" if name == "tgmm"
                                  else "per-expert torch.matmul over contiguous rows"),
                      "timed_shape": {k_: c[k_] for c in checks if c["case"] == main_case
-                                     for k_ in ("M_pad", "K", "N", "tm", "dtype")}})
+                                     for k_ in ("M_pad", "K", "N", "tm", "dtype")},
+                     **{k_: t[k_] for k_ in ("bf16_ms", "bf16_bound_ms", "grouped_mm_bf16_ms",
+                                             "grouped_mm_note") if k_ in t}})
     emit({"phase": "kernel", "kernel": "grouped_matmul", "checks": checks,
           "timing": timings, "decode_layout": decode_live, "card": card})
     return rows

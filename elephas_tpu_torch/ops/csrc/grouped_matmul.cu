@@ -10,19 +10,21 @@
 //           lhs [M, K], g [M, N] -> out [E, K, N]; an expert with no tile is 0
 //
 // M = len(gmap) * tm; gmap is int32 and non-decreasing (each expert's row
-// tiles are contiguous). Inputs are float32 or bfloat16 (widened on load),
-// every sum is float32, the output is cast once. K and N may be anything:
-// the ragged edges are masked by index. tm must be a multiple of the
-// 128-row block tile, so a block never straddles two experts.
+// tiles are contiguous). Inputs are float32 or bfloat16, every sum is
+// float32, the output is cast once. K and N may be anything: the ragged
+// edges are zero-filled on load and masked on store. tm must be a multiple
+// of the 128-row block tile, so a block never straddles two experts.
 //
 // Bound on an H100: operations, at the shapes the MoE layers give it. A
 // gmm over M rows does 2 M K N operations on M K + E' K N + M N elements
 // (E' experts with a tile); at the serving layout (M 1152, K 4096, N
 // 14336, 8 experts) that is 135 GFLOP on 1.9 GB, 70 operations per byte.
-// gmm and gmm_t run on the tensor cores: float32 as 3xTF32 (three TF32
+// All three run on the tensor cores: float32 as 3xTF32 (three TF32
 // products, 494.7 / 3 TFLOP/s): 0.820 ms of operations against ~0.56 ms
 // of bytes; bf16 at 989 TFLOP/s. Training (M 9216) is 8x the operations
-// on about the same bytes. tgmm is still a float32 SIMT GEMM (67 TFLOP/s).
+// on about the same bytes. tgmm does the same 2 M K N operations on M K +
+// M N + E' K N elements: 1.08 TFLOP at the training w1 layout (M 9216, K
+// 4096, N 14336), 6.56 ms at 3xTF32.
 //
 // gmm / gmm_t design: `mma.sync` on the tensor cores, one block of 256 threads
 // (8 warps as 2 x 4, each a 64 x 32 piece) per 128 x 128 output tile, looping
@@ -67,19 +69,38 @@
 // expert. The TPU kernel's K-chunking into separate calls was a VMEM
 // workaround; here one launch loops over all of K.
 //
-// tgmm design: a float32 SIMT GEMM. One block of 256 threads owns a
-// 128 x 128 output tile; each thread keeps an 8 x 8 register tile and the
-// block steps through the contraction in 8-deep slices through
-// double-buffered shared memory, the next slice's global loads in flight
-// while the current one is multiplied; loads are coalesced along the
-// contiguous dimension.
+// tgmm design: gmm's block, warps, ring and products over another
+// contraction. The TPU kernel accumulates across a group's tiles in VMEM
+// because its grid runs in order, and finds a group's first and last tile
+// from the grid position. Blocks on a GPU run in no order, so each (K tile,
+// N tile, expert) gets one block that finds its expert's contiguous tile
+// range [t0, t1) by binary search in gmap and loops over the rows [t0 tm,
+// t1 tm) in BK-deep stages (tm is a multiple of 128: every stage is full).
+// The grid puts K tiles innermost and the expert outermost, so the blocks in
+// flight share one expert's rows of lhs and g in the L2. Both operands are
+// contraction-outer in memory, A(i, p) = lhs[p, row0 + i] and B(p, j) =
+// g[p, col0 + j], so both tiles are [BK][128] on gmm's weight-tile swizzle:
+// B's fragments come as gmm's do, and A takes the transposed path,
+// ldmatrix.trans in bf16; in float32 the m16 tile's rows are permuted (mma
+// row q = lane / 4 is tile row 2q, row q + 8 is 2q + 1), so each fragment
+// pair is one 8-byte load, free of bank conflicts on the same swizzle, and
+// the sums are stored through the same permutation. Each stage (32 rows in
+// float32, 64 in bf16) is summed in fresh accumulators and added to the
+// float32 sums once: the contraction reaches every row of a hot expert, and
+// one accumulator over 9216 rows drifts past the float32 pin (the CPU
+// emulation in tests/test_torch_grouped_matmul.py). K and N edges are
+// zero-filled by the copy's source size and masked on store. Blocks of an
+// expert with no tile write zeros. No split-K and no atomics: two launches
+// give the same bits.
 //
-// tgmm: the TPU kernel accumulates across a group's tiles in VMEM because
-// its grid runs in order, and finds a group's first and last tile from the
-// grid position. Blocks on a GPU run in no order, so each (expert, K-tile,
-// N-tile) gets one block that finds its expert's contiguous tile range by
-// binary search in gmap, loops over those rows in float32 and writes once.
-// No atomics: the result has the same bits every run.
+// tgmm classes: gmm's tiles, warps, stages and shared memory; registers a
+// thread from ptxas, no spills: 239 in float32, 194-222 for bf16 inputs
+// (222 with the 16-byte copies). Chosen by A/B on an H100 at the training
+// layouts: the permuted rows' 8-byte loads against eight 4-byte loads of
+// rows q and q + 8 (5% faster), and the expert's tiles taken in groups of 8
+// K tiles, N tiles outer (1% faster in float32, 2-8% slower in bf16: not
+// kept). gmm keeps its own store loop: sharing one with tgmm took gmm's
+// float32 kernel from 245 registers to 255 and a spill, 5% slower.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,116 +111,17 @@
 
 namespace {
 
-constexpr int kBM = 128;       // block tile rows
-constexpr int kBN = 128;       // block tile columns
-constexpr int kBK = 8;         // contraction slice
-constexpr int kThreads = 256;  // 16 x 16 threads, 8 x 8 outputs each
-constexpr int kPad = 4;        // keeps rows 16-byte aligned, spreads banks
-constexpr int kLoads = kBM * kBK / kThreads;  // elements per thread per operand
+constexpr int kBM = 128;     // block tile rows
+constexpr int kBN = 128;     // block tile columns
+constexpr int kGWarpsM = 2;  // warps over the tile's rows
+constexpr int kGWarpsN = 4;  // warps over its columns
+constexpr int kGThreads = 32 * kGWarpsM * kGWarpsN;
+constexpr int kGM = kBM / kGWarpsM / 16;  // m16 tiles a warp
+constexpr int kGN = kBN / kGWarpsN / 8;   // n8 tiles a warp
+constexpr int kGStages = 3;
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-struct Smem {
-  float a[2][kBK][kBM + kPad];  // A slice, contraction-major
-  float b[2][kBK][kBN + kPad];
-};
-
-// One 128 x 128 tile of C = A B, accumulated into acc over p in [p0, p1).
-// a points at A(tile row 0, p = 0) and A(i, p) = a[i * a_si + p * a_sp];
-// b points at B(p = 0, tile column 0) and B(p, j) = b[p * b_sp + j * b_sj].
-// A_P_CONTIG means a_sp == 1 (else a_si == 1); B_J_CONTIG means b_sj == 1
-// (else b_sp == 1). Rows past i_rem and columns past j_rem read as 0.
-template <typename T, bool A_P_CONTIG, bool B_J_CONTIG>
-__device__ __forceinline__ void tile_product(const T* __restrict__ a, int64_t a_si,
-                                             int64_t a_sp, int i_rem,
-                                             const T* __restrict__ b, int64_t b_sp,
-                                             int64_t b_sj, int j_rem, int p0, int p1,
-                                             Smem& sm, float (&acc)[8][8]) {
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  float ra[kLoads], rb[kLoads];
-
-  auto load = [&](int pk) {
-#pragma unroll
-    for (int q = 0; q < kLoads; ++q) {
-      const int idx = tid + q * kThreads;
-      int i, p;
-      if (A_P_CONTIG) {
-        p = idx % kBK;
-        i = idx / kBK;
-      } else {
-        i = idx % kBM;
-        p = idx / kBM;
-      }
-      const int pp = pk + p;
-      ra[q] = (i < i_rem && pp < p1) ? widen(a[i * a_si + pp * a_sp]) : 0.f;
-      int j;
-      if (B_J_CONTIG) {
-        j = idx % kBN;
-        p = idx / kBN;
-      } else {
-        p = idx % kBK;
-        j = idx / kBK;
-      }
-      const int pq = pk + p;
-      rb[q] = (j < j_rem && pq < p1) ? widen(b[pq * b_sp + j * b_sj]) : 0.f;
-    }
-  };
-  auto stash = [&](int buf) {
-#pragma unroll
-    for (int q = 0; q < kLoads; ++q) {
-      const int idx = tid + q * kThreads;
-      if (A_P_CONTIG) {
-        sm.a[buf][idx % kBK][idx / kBK] = ra[q];
-      } else {
-        sm.a[buf][idx / kBM][idx % kBM] = ra[q];
-      }
-      if (B_J_CONTIG) {
-        sm.b[buf][idx / kBN][idx % kBN] = rb[q];
-      } else {
-        sm.b[buf][idx % kBK][idx / kBK] = rb[q];
-      }
-    }
-  };
-
-  const int n_slices = p1 > p0 ? (p1 - p0 + kBK - 1) / kBK : 0;
-  if (n_slices == 0) return;
-  load(p0);
-  stash(0);
-  __syncthreads();
-  for (int s = 0; s < n_slices; ++s) {
-    const int cur = s & 1;
-    const bool more = s + 1 < n_slices;
-    if (more) load(p0 + (s + 1) * kBK);  // next slice in flight
-#pragma unroll
-    for (int p = 0; p < kBK; ++p) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&sm.a[cur][p][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&sm.a[cur][p][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&sm.b[cur][p][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&sm.b[cur][p][64 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-      }
-    }
-    if (more) stash(cur ^ 1);
-    __syncthreads();
-  }
-}
-
-// The thread's r-th row / c-th column inside the 128 x 128 tile.
-__device__ __forceinline__ int tile_row(int r) {
-  return (r < 4 ? 0 : 64) + (threadIdx.x / 16) * 4 + (r & 3);
-}
-__device__ __forceinline__ int tile_col(int c) {
-  return (c < 4 ? 0 : 64) + (threadIdx.x % 16) * 4 + (c & 3);
-}
 
 // First index in gmap[0, n) whose value is > e (upper) or >= e (lower).
 __device__ __forceinline__ int bound(const int* gmap, int n, int e, bool upper) {
@@ -216,45 +138,6 @@ __device__ __forceinline__ int bound(const int* gmap, int n, int e, bool upper) 
   return lo;
 }
 
-template <typename T, typename TO>
-__global__ void __launch_bounds__(kThreads, 2)
-    tgmm_kernel(const T* __restrict__ lhs, const T* __restrict__ g,
-                const int* __restrict__ gmap, TO* __restrict__ out, int K, int N,
-                int nm, int tm) {
-  __shared__ __align__(16) Smem sm;
-  const int row0 = blockIdx.x * kBM;  // over K
-  const int col0 = blockIdx.y * kBN;  // over N
-  const int e = blockIdx.z;
-  const int t0 = bound(gmap, nm, e, false);
-  const int t1 = bound(gmap, nm, e, true);
-  float acc[8][8] = {};
-  // A(i, p) = lhs[p, row0 + i]; B(p, j) = g[p, col0 + j]; p over the
-  // expert's rows [t0 tm, t1 tm)
-  tile_product<T, false, true>(lhs + row0, 1, K, K - row0, g + col0, N, 1, N - col0,
-                               t0 * tm, t1 * tm, sm, acc);
-  TO* oe = out + static_cast<int64_t>(e) * K * N;
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int i = row0 + tile_row(r);
-    if (i >= K) continue;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int j = col0 + tile_col(c);
-      if (j < N) store(oe + static_cast<int64_t>(i) * N + j, acc[r][c]);
-    }
-  }
-}
-
-// ---- gmm / gmm_t on the tensor cores ----------------------------------------------
-
-// The output tile is kBM x kBN (128 x 128), as tgmm's.
-constexpr int kGWarpsM = 2;  // warps over the tile's rows
-constexpr int kGWarpsN = 4;  // warps over its columns
-constexpr int kGThreads = 32 * kGWarpsM * kGWarpsN;
-constexpr int kGM = kBM / kGWarpsM / 16;  // m16 tiles a warp
-constexpr int kGN = kBN / kGWarpsN / 8;   // n8 tiles a warp
-constexpr int kGStages = 3;
-
 // contraction a stage: 128 bytes a row
 template <typename T>
 struct Gk {
@@ -263,7 +146,8 @@ struct Gk {
 };
 
 // chunk XOR of row r of a k-contiguous tile (128-byte rows: the lhs tile,
-// gmm_t's weight tile) and of gmm's n-contiguous weight tile
+// gmm_t's weight tile) and of an n-contiguous tile (gmm's weight tile,
+// both of tgmm's tiles)
 template <typename T>
 __device__ __forceinline__ int kx(int r) { return r & 7; }
 template <>
@@ -273,7 +157,7 @@ __device__ __forceinline__ int nx(int r) { return r & 7; }
 template <>
 __device__ __forceinline__ int nx<float>(int r) { return ((r >> 2) & 3) << 1; }
 
-// element (r, c) of a k-contiguous tile [.][BK], and of gmm's tile [BK][kBN]
+// element (r, c) of a k-contiguous tile [.][BK], and of a tile [BK][128]
 template <typename T>
 __device__ __forceinline__ int koff(int r, int c) {
   constexpr int BK = Gk<T>::BK, PC = Gk<T>::PC;
@@ -338,13 +222,16 @@ __device__ __forceinline__ void mma_tf32_first(float (&d)[4], const uint32_t (&a
 }
 
 // One stage's product added to the warp's piece of the float32 sums (rows
-// r0 .., columns c0 ..), acc[m][n] the m16n8 tile (16 m, 8 n). float32: A
-// and gmm_t's B as 16-byte loads of k 4t .. 4t + 3, which are fragment k
-// t, t + 4 of the first k8 step and t, t + 4 of the second; gmm's B as
-// 4-byte loads of the same k rows. Each operand is split as it is loaded
-// (the planes split once a stage were slower). The stage's twelve `mma` a
-// tile go to fresh accumulators, added to acc once.
-template <bool TRANS>
+// r0 .., columns c0 ..), acc[m][n] the m16n8 tile (16 m, 8 n). A is the
+// k-contiguous lhs tile [m][k], or tgmm's [k][m] (AT); B is gmm's [k][n],
+// or gmm_t's [n][k] (BT). float32: k-contiguous operands as 16-byte loads
+// of k 4t .. 4t + 3, which are fragment k t, t + 4 of the first k8 step
+// and t, t + 4 of the second; [k][.] operands as 4-byte loads of the same
+// k rows, or tgmm's A as 8-byte loads of the permuted row pair. Each
+// operand is split as it is loaded (the planes split once a stage were
+// slower). The stage's twelve `mma` a tile go to fresh accumulators, added
+// to acc once.
+template <bool AT, bool BT>
 __device__ __forceinline__ void stage_product(const float* As, const float* Bs,
                                               float (&acc)[kGM][kGN][4], int r0, int c0,
                                               int lane) {
@@ -357,7 +244,7 @@ __device__ __forceinline__ void stage_product(const float* As, const float* Bs,
     for (int n = 0; n < kGN; ++n) {
       const int col = c0 + 8 * n + g;
       float v[4];
-      if (TRANS) {
+      if (BT) {
         const float4 x = *reinterpret_cast<const float4*>(Bs + koff<float>(col, k0 + 4 * t));
         v[0] = x.x;
         v[1] = x.y;
@@ -374,18 +261,34 @@ __device__ __forceinline__ void stage_product(const float* As, const float* Bs,
     }
 #pragma unroll
     for (int m = 0; m < kGM; ++m) {
-      const int row = r0 + 16 * m + g;
-      const float4 lo = *reinterpret_cast<const float4*>(As + koff<float>(row, k0 + 4 * t));
-      const float4 hi = *reinterpret_cast<const float4*>(As + koff<float>(row + 8, k0 + 4 * t));
       uint32_t ab[2][4], as[2][4];
-      split_tf32_int(lo.x, ab[0][0], as[0][0]);
-      split_tf32_int(hi.x, ab[0][1], as[0][1]);
-      split_tf32_int(lo.y, ab[0][2], as[0][2]);
-      split_tf32_int(hi.y, ab[0][3], as[0][3]);
-      split_tf32_int(lo.z, ab[1][0], as[1][0]);
-      split_tf32_int(hi.z, ab[1][1], as[1][1]);
-      split_tf32_int(lo.w, ab[1][2], as[1][2]);
-      split_tf32_int(hi.w, ab[1][3], as[1][3]);
+      if (AT) {  // tile rows 2g, 2g + 1 (mma rows g, g + 8), k 4t .. 4t + 3
+        float2 x[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          x[i] = *reinterpret_cast<const float2*>(
+              As + noff<float>(k0 + 4 * t + i, r0 + 16 * m + 2 * g));
+        split_tf32_int(x[0].x, ab[0][0], as[0][0]);
+        split_tf32_int(x[0].y, ab[0][1], as[0][1]);
+        split_tf32_int(x[1].x, ab[0][2], as[0][2]);
+        split_tf32_int(x[1].y, ab[0][3], as[0][3]);
+        split_tf32_int(x[2].x, ab[1][0], as[1][0]);
+        split_tf32_int(x[2].y, ab[1][1], as[1][1]);
+        split_tf32_int(x[3].x, ab[1][2], as[1][2]);
+        split_tf32_int(x[3].y, ab[1][3], as[1][3]);
+      } else {
+        const int row = r0 + 16 * m + g;
+        const float4 lo = *reinterpret_cast<const float4*>(As + koff<float>(row, k0 + 4 * t));
+        const float4 hi = *reinterpret_cast<const float4*>(As + koff<float>(row + 8, k0 + 4 * t));
+        split_tf32_int(lo.x, ab[0][0], as[0][0]);
+        split_tf32_int(hi.x, ab[0][1], as[0][1]);
+        split_tf32_int(lo.y, ab[0][2], as[0][2]);
+        split_tf32_int(hi.y, ab[0][3], as[0][3]);
+        split_tf32_int(lo.z, ab[1][0], as[1][0]);
+        split_tf32_int(hi.z, ab[1][1], as[1][1]);
+        split_tf32_int(lo.w, ab[1][2], as[1][2]);
+        split_tf32_int(hi.w, ab[1][3], as[1][3]);
+      }
 #pragma unroll
       for (int n = 0; n < kGN; ++n) {
         if (k0 == 0) {  // mma_3xtf32's order, from 0
@@ -407,10 +310,10 @@ __device__ __forceinline__ void stage_product(const float* As, const float* Bs,
       for (int i = 0; i < 4; ++i) acc[m][n][i] += d[m][n][i];
 }
 
-// bf16: m16n8k16, A by ldmatrix; B by ldmatrix (gmm_t, [n][k]) or
-// ldmatrix.trans (gmm, [k][n]); the stage's four `mma` a tile go to fresh
-// accumulators, added to acc once
-template <bool TRANS>
+// bf16: m16n8k16, A by ldmatrix ([m][k]) or ldmatrix.trans (tgmm's [k][m]);
+// B by ldmatrix (gmm_t, [n][k]) or ldmatrix.trans (gmm and tgmm, [k][n]);
+// the stage's four `mma` a tile go to fresh accumulators, added to acc once
+template <bool AT, bool BT>
 __device__ __forceinline__ void stage_product(const __nv_bfloat16* As,
                                               const __nv_bfloat16* Bs,
                                               float (&acc)[kGM][kGN][4], int r0, int c0,
@@ -431,9 +334,9 @@ __device__ __forceinline__ void stage_product(const __nv_bfloat16* As,
     for (int np = 0; np < kGN / 2; ++np) {
       const int n0 = c0 + 16 * np;
       uint32_t r[4];
-      if (TRANS) {  // matrices (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), ...
+      if (BT) {  // matrices (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), ...
         ldsm_x4(r, Bs + koff<T>(n0 + ri + ((mi >> 1) << 3), k0 + ((mi & 1) << 3)));
-      } else {      // matrices (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), ...
+      } else {   // matrices (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), ...
         ldsm_x4_trans(r, Bs + noff<T>(k0 + (lane & 15), n0 + ((lane >> 4) << 3)));
       }
       b[2 * np][0] = r[0];
@@ -444,7 +347,11 @@ __device__ __forceinline__ void stage_product(const __nv_bfloat16* As,
 #pragma unroll
     for (int m = 0; m < kGM; ++m) {
       uint32_t a[4];  // matrices (rows 0-7, k 0-7), (rows 8-15, k 0-7), (0-7, k 8-15), ...
-      ldsm_x4(a, As + koff<T>(r0 + 16 * m + ri + ((mi & 1) << 3), k0 + ((mi >> 1) << 3)));
+      if (AT) {
+        ldsm_x4_trans(a, As + noff<T>(k0 + ((mi >> 1) << 3) + ri, r0 + 16 * m + ((mi & 1) << 3)));
+      } else {
+        ldsm_x4(a, As + koff<T>(r0 + 16 * m + ri + ((mi & 1) << 3), k0 + ((mi >> 1) << 3)));
+      }
 #pragma unroll
       for (int n = 0; n < kGN; ++n) mma_bf16(d[m][n], a, b[n]);
     }
@@ -455,6 +362,37 @@ __device__ __forceinline__ void stage_product(const __nv_bfloat16* As,
     for (int n = 0; n < kGN; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[m][n][i] += d[m][n][i];
+}
+
+// The block's 128 x 128 sums over ns stages of the contraction through the
+// kGStages-deep cp.async ring; load(tile, s) issues stage s's copies into
+// the ring slot at tile (A's 128 x BK elements, then B's).
+template <typename T, bool AT, bool BT, typename Load>
+__device__ __forceinline__ void ring_product(T* smem, int ns, const Load& load,
+                                             float (&acc)[kGM][kGN][4], int r0, int c0,
+                                             int lane) {
+  constexpr int A_ELEMS = kBM * Gk<T>::BK, STAGE = (kBM + kBN) * Gk<T>::BK;
+#pragma unroll
+  for (int m = 0; m < kGM; ++m)
+#pragma unroll
+    for (int n = 0; n < kGN; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
+#pragma unroll
+  for (int s = 0; s < kGStages - 1; ++s) {
+    if (s < ns) load(smem + s * STAGE, s);
+    cp_commit();
+  }
+  for (int s = 0; s < ns; ++s) {
+    cp_wait<kGStages - 2>();
+    __syncthreads();  // stage s landed for every thread; stage s - 1 is free
+    const int nxt = s + kGStages - 1;
+    if (nxt < ns) load(smem + (nxt % kGStages) * STAGE, nxt);
+    cp_commit();
+    const T* As = smem + (s % kGStages) * STAGE;
+    stage_product<AT, BT>(As, As + A_ELEMS, acc, r0, c0, lane);
+  }
+  cp_wait<0>();
 }
 
 __device__ __forceinline__ void store2(float* p, float a, float b, bool pair) {
@@ -483,7 +421,6 @@ __global__ void __launch_bounds__(kGThreads, 1)
                    const int* __restrict__ gmap, T* __restrict__ out, int K, int N, int E,
                    int tm) {
   constexpr int BK = Gk<T>::BK, PC = Gk<T>::PC;
-  constexpr int A_ELEMS = kBM * BK, B_ELEMS = kBN * BK;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -494,9 +431,8 @@ __global__ void __launch_bounds__(kGThreads, 1)
   const T* a_src = lhs + static_cast<int64_t>(row0) * K;
   const T* w = rhs + static_cast<int64_t>(e) * K * N;
 
-  auto load_stage = [&](int slot, int kt) {
-    T* As = smem + slot * (A_ELEMS + B_ELEMS);
-    T* Bs = As + A_ELEMS;
+  auto load = [&](T* As, int kt) {
+    T* Bs = As + kBM * BK;
     const int k0 = kt * BK;
     load_tile<T, kBM, BK / PC, true, VEC>(As, a_src + k0, K, kBM, K - k0);
     if (TRANS) {  // rows n of rhs[e] [N, K]
@@ -507,31 +443,8 @@ __global__ void __launch_bounds__(kGThreads, 1)
                                               K - k0, N - col0);
     }
   };
-
   float acc[kGM][kGN][4];
-#pragma unroll
-  for (int m = 0; m < kGM; ++m)
-#pragma unroll
-    for (int n = 0; n < kGN; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
-
-  const int nk = (K + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < kGStages - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_wait<kGStages - 2>();
-    __syncthreads();  // stage kt landed for every thread; stage kt - 1 is free
-    const int nxt = kt + kGStages - 1;
-    if (nxt < nk) load_stage(nxt % kGStages, nxt);
-    cp_commit();
-    const T* As = smem + (kt % kGStages) * (A_ELEMS + B_ELEMS);
-    stage_product<TRANS>(As, As + A_ELEMS, acc, r0, c0, lane);
-  }
-  cp_wait<0>();
+  ring_product<T, false, TRANS>(smem, (K + BK - 1) / BK, load, acc, r0, c0, lane);
 
   const int g = lane >> 2, t = lane & 3;
   const bool pair = (N & 1) == 0;
@@ -553,19 +466,77 @@ __global__ void __launch_bounds__(kGThreads, 1)
   }
 }
 
+// out[e] for one 128 x 128 tile of [K, N] (blockIdx.x: rows row0 .. of K,
+// innermost; blockIdx.y: columns col0 .. of N; blockIdx.z: e), the sum over
+// the expert's rows p of lhs[p, row0 + i] g[p, col0 + j].
+template <typename T, typename TO, bool VEC>
+__global__ void __launch_bounds__(kGThreads, 1)
+    tgmm_mma_kernel(const T* __restrict__ lhs, const T* __restrict__ g,
+                    const int* __restrict__ gmap, TO* __restrict__ out, int K, int N, int nm,
+                    int tm) {
+  constexpr int BK = Gk<T>::BK, PC = Gk<T>::PC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = (warp / kGWarpsN) * (16 * kGM), c0 = (warp % kGWarpsN) * (8 * kGN);
+  const int row0 = blockIdx.x * kBM, col0 = blockIdx.y * kBN;
+  const int e = blockIdx.z;
+  const int t0 = bound(gmap, nm, e, false), t1 = bound(gmap, nm, e, true);
+  const T* a_src = lhs + static_cast<int64_t>(t0) * tm * K + row0;
+  const T* b_src = g + static_cast<int64_t>(t0) * tm * N + col0;
+
+  auto load = [&](T* As, int s) {  // rows p of lhs [., K] and of g [., N]
+    const int64_t p = static_cast<int64_t>(s) * BK;
+    load_tile<T, BK, kBM / PC, false, VEC>(As, a_src + p * K, K, BK, K - row0);
+    load_tile<T, BK, kBN / PC, false, VEC>(As + kBM * BK, b_src + p * N, N, BK, N - col0);
+  };
+  float acc[kGM][kGN][4];
+  ring_product<T, true, false>(smem, (t1 - t0) * (tm / BK), load, acc, r0, c0, lane);
+
+  // sums 0, 1 of acc[m][n] are mma row q = lane / 4, sums 2, 3 row q + 8:
+  // tile rows 2q and 2q + 1 in float32 (A's rows permuted), q and q + 8 in bf16
+  const int q = lane >> 2, t = lane & 3;
+  const bool pair = (N & 1) == 0;
+  TO* oe = out + static_cast<int64_t>(e) * K * N;
+#pragma unroll
+  for (int m = 0; m < kGM; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = row0 + r0 + 16 * m + (sizeof(T) == 4 ? 2 * q + h : q + 8 * h);
+      if (i >= K) continue;
+      TO* orow = oe + static_cast<int64_t>(i) * N;
+#pragma unroll
+      for (int n = 0; n < kGN; ++n) {
+        const int j = col0 + c0 + 8 * n + 2 * t;
+        if (j + 1 < N) {
+          store2(orow + j, acc[m][n][2 * h], acc[m][n][2 * h + 1], pair);
+        } else if (j < N) {
+          store(orow + j, acc[m][n][2 * h]);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, typename TO, typename Kernel>
+int launch(Kernel kernel, dim3 grid, cudaStream_t st, const void* a, const void* b,
+           const int* gmap, TO* out, int K, int N, int x, int tm) {
+  const int smem = kGStages * (kBM + kBN) * Gk<T>::BK * static_cast<int>(sizeof(T));
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kGThreads, smem, st>>>(static_cast<const T*>(a), static_cast<const T*>(b),
+                                        gmap, out, K, N, x, tm);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_gmm(const void* lhs, const void* rhs, const int* gmap, void* out, int M,
                int K, int N, int E, int tm, int transpose, int vec, cudaStream_t st) {
   const dim3 grid(M / kBM, (N + kBN - 1) / kBN);
-  const int smem = kGStages * (kBM + kBN) * Gk<T>::BK * static_cast<int>(sizeof(T));
+  T* o = static_cast<T*>(out);
   auto run = [&](auto kernel) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<grid, kGThreads, smem, st>>>(static_cast<const T*>(lhs),
-                                          static_cast<const T*>(rhs), gmap,
-                                          static_cast<T*>(out), K, N, E, tm);
-    return static_cast<int>(cudaGetLastError());
+    return launch<T>(kernel, grid, st, lhs, rhs, gmap, o, K, N, E, tm);
   };
   if (vec) return transpose ? run(gmm_mma_kernel<T, true, true>) : run(gmm_mma_kernel<T, false, true>);
   return transpose ? run(gmm_mma_kernel<T, true, false>) : run(gmm_mma_kernel<T, false, false>);
@@ -574,11 +545,14 @@ int launch_gmm(const void* lhs, const void* rhs, const int* gmap, void* out, int
 template <typename T, typename TO>
 int launch_tgmm(const void* lhs, const void* g, const int* gmap, void* out, int K,
                 int N, int nm, int tm, int E, cudaStream_t st) {
+  constexpr int PC = Gk<T>::PC;
   const dim3 grid((K + kBM - 1) / kBM, (N + kBN - 1) / kBN, E);
-  tgmm_kernel<T, TO><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(lhs), static_cast<const T*>(g), gmap,
-      static_cast<TO*>(out), K, N, nm, tm);
-  return static_cast<int>(cudaGetLastError());
+  // every row of lhs and g starts on a 16-byte boundary: 16-byte copies
+  const bool vec = K % PC == 0 && N % PC == 0 && reinterpret_cast<uintptr_t>(lhs) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  TO* o = static_cast<TO*>(out);
+  return vec ? launch<T>(tgmm_mma_kernel<T, TO, true>, grid, st, lhs, g, gmap, o, K, N, nm, tm)
+             : launch<T>(tgmm_mma_kernel<T, TO, false>, grid, st, lhs, g, gmap, o, K, N, nm, tm);
 }
 
 }  // namespace
@@ -599,7 +573,8 @@ extern "C" int gmm(const void* lhs, const void* rhs, const int* gmap, void* out,
 }
 
 // tgmm: lhs [M, K] and g [M, N] of one dtype (in_bf16), gmap [nm] int32,
-// M = nm * tm -> out [E, K, N] float32 (out_bf16 = 0) or bfloat16.
+// M = nm * tm, tm a multiple of 128 -> out [E, K, N] float32 (out_bf16 =
+// 0) or bfloat16.
 extern "C" int tgmm(const void* lhs, const void* g, const int* gmap, void* out, int K,
                     int N, int nm, int tm, int E, int in_bf16, int out_bf16,
                     void* stream) {

@@ -18,8 +18,8 @@ expert map.
 Each dispatches by the tensors' device: on the CPU the plain versions
 (:func:`gmm_reference`, :func:`tgmm_reference`, also the kernels' oracle),
 on a CUDA device the hand-written kernels in ``csrc/grouped_matmul.cu``
-(K6-gmm on the tensor cores: 3xTF32 ``mma.sync`` for float32, bf16
-``mma.sync`` for bf16; K6-tgmm), or a raise. The output is in ``lhs``'s
+(K6-gmm and K6-tgmm on the tensor cores: 3xTF32 ``mma.sync`` for float32,
+bf16 ``mma.sync`` for bf16), or a raise. The output is in ``lhs``'s
 dtype (``tgmm``: ``out_dtype``), every sum float32, inputs float32 or
 bfloat16. The plain
 versions loop over the runs of equal experts in ``gmap`` rather than

@@ -542,12 +542,16 @@ def _rel(got, want):
     ([0, 1, 3, 3], 1001, 131, 256, torch.float32),     # K, N no multiple of 4
     ([0, 2, 2, 3], 201, 99, 128, torch.bfloat16),      # rows not 16-byte aligned
     ([1, 2, 3, 3], 14336, 136, 128, torch.bfloat16),
+    ([0] * 72, 256, 384, 128, torch.float32),          # tgmm over 9216 rows
+    ([0] * 72, 256, 384, 128, torch.bfloat16),
 ])
 def test_grouped_matmul_kernels_match_plain(cuda, tiles, K, N, tm, dtype):
     """K6-gmm (and its transposed twin) and K6-tgmm against the plain
     versions: max |diff| / max |plain| <= 2e-5 in float32 (8e-3 for a bf16
-    output, one rounding of a float32 sum), at contraction 14336 too (the
-    tensor cores' 3xTF32 products, each 32 of the contraction summed fresh);
+    output, one rounding of a float32 sum; tgmm's float32 output holds 2e-5
+    from bf16 inputs too), at contraction 14336 and at 9216 rows on one
+    expert (the tensor cores' 3xTF32 products, each stage of the
+    contraction summed fresh);
     experts without a tile get an exact zero weight gradient; the same bits
     on a second launch of each kernel."""
     rng = np.random.default_rng(13)

@@ -18,7 +18,12 @@ each 32-deep stage of the contraction summed in a fresh accumulator and
 added to the float32 sum once. At contraction 4096 and 14336 that holds
 the float32 pin (2e-5, max |diff| / max |plain|) against the plain
 version; a single TF32 product, or one accumulator over the whole
-contraction, misses it."""
+contraction, misses it. The tensor-core K6-tgmm's arithmetic too: the same
+3xTF32 steps over an expert's rows, both operands read transposed, a fresh
+accumulator for each 32-row stage, at 1152 rows (one expert's share of the
+MoE training step) and 9216 (every row on one expert); and for bf16 inputs
+with a float32 output, exact products, each 16-deep step added toward zero,
+a fresh accumulator for each 64-row stage, held to the same float32 pin."""
 
 import inspect
 
@@ -260,24 +265,42 @@ def _toward_zero(x64):
     return torch.where(y.double().abs() > x64.abs(), torch.nextafter(y, torch.zeros_like(y)), y)
 
 
-def emulated_gmm(a, b, passes, stretch):
+def emulated_gmm(a, b, passes, stretch, step=8):
     """``a @ b`` (float32 ``[M, K] @ [K, N]``) as the kernel computes it:
     ``passes=3`` is 3xTF32 (small*big, big*small, big*big, in that order),
-    ``passes=1`` one TF32 product; each 8-deep step's exact product added
-    to the accumulator toward zero; each ``stretch`` of the contraction in a
-    fresh accumulator, added to the float32 sum once."""
-    ab, as_ = _split(a)
-    bb, bs = _split(b)
-    pairs = [(as_, bb), (ab, bs), (ab, bb)] if passes == 3 else [(ab, bb)]
+    ``passes=1`` one TF32 product, ``passes=0`` the operands as they are
+    (bf16 values: exact products); each ``step``-deep ``mma`` step's exact
+    product (8 for TF32, 16 for bf16) added to the accumulator toward zero;
+    each ``stretch`` of the contraction in a fresh accumulator, added to the
+    float32 sum once."""
+    if passes:
+        ab, as_ = _split(a)
+        bb, bs = _split(b)
+        pairs = [(as_, bb), (ab, bs), (ab, bb)] if passes == 3 else [(ab, bb)]
+    else:
+        pairs = [(a, b)]
     pairs = [(x.double(), y.double()) for x, y in pairs]
     K = a.shape[1]
     out = torch.zeros(a.shape[0], b.shape[1])
     for c0 in range(0, K, stretch):
         d = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float64)
-        for k0 in range(c0, min(c0 + stretch, K), 8):
+        for k0 in range(c0, min(c0 + stretch, K), step):
             for x, y in pairs:
-                d = _toward_zero(d + x[:, k0:k0 + 8] @ y[k0:k0 + 8]).double()
+                d = _toward_zero(d + x[:, k0:k0 + step] @ y[k0:k0 + step]).double()
         out = out + d.float()
+    return out
+
+
+def emulated_tgmm(lhs, g, gmap, n_groups, passes, stretch, step=8):
+    """``tgmm(lhs, g, gmap, n_groups)`` as K6-tgmm computes it: for each
+    expert, ``emulated_gmm`` of its rows with both operands read transposed
+    (``A(i, p) = lhs[p, i]``, ``B(p, j) = g[p, j]``), the contraction over
+    the rows; zero for an expert with no tile."""
+    tm = lhs.shape[0] // gmap.numel()
+    out = torch.zeros(n_groups, lhs.shape[1], g.shape[1])
+    for e, t0, t1 in G._runs(gmap):
+        rows = slice(t0 * tm, t1 * tm)
+        out[e] = emulated_gmm(lhs[rows].T, g[rows], passes, stretch, step)
     return out
 
 
@@ -319,3 +342,48 @@ def test_3xtf32_emulation_reads_gmm_t_weights_transposed():
     emulated = emulated_gmm(lhs, w_t[0].T, 3, STRETCH)
     assert torch.equal(emulated, emulated_gmm(lhs, w[0], 3, STRETCH))
     assert _rel(emulated, G.gmm_t(lhs, w_t, gmap)) <= PIN
+
+
+def _tgmm_case(rows, seed):
+    """``rows`` rows on expert 0 and one 128-row tile on expert 1 of 3
+    (expert 2 has none): lhs ``[., 128]`` and g ``[., 32]`` N(0, 1), as the
+    MoE training step's gathered tokens and cotangents."""
+    rng = np.random.default_rng(seed)
+    M = rows + 128
+    lhs = torch.from_numpy(rng.standard_normal((M, 128)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((M, 32)).astype(np.float32))
+    gmap = torch.tensor([0] * (rows // 128) + [1], dtype=torch.int32)
+    return lhs, g, gmap
+
+
+@pytest.mark.parametrize("rows", [1152, 9216])
+def test_tgmm_3xtf32_stages_hold_the_float32_pin(rows):
+    """K6-tgmm's float32 arithmetic (3xTF32 over the expert's rows, a fresh
+    accumulator for each 32-row stage) within 2e-5 of the plain version at
+    1152 rows (one expert's share of the MoE training step) and 9216 (every
+    row on one expert). One TF32 product misses the pin at both. One
+    accumulator over the whole contraction misses it at 9216 rows; at 1152
+    it stays inside, but its error is over 10x the staged one."""
+    lhs, g, gmap = _tgmm_case(rows, seed=rows)
+    plain = G.tgmm(lhs, g, gmap, 3)
+    staged = emulated_tgmm(lhs, g, gmap, 3, 3, STRETCH)
+    assert bool((staged[2] == 0).all())
+    err = _rel(staged, plain)
+    assert err <= PIN
+    assert _rel(emulated_tgmm(lhs, g, gmap, 3, 1, STRETCH), plain) > PIN
+    whole = _rel(emulated_tgmm(lhs, g, gmap, 3, 3, rows), plain)
+    assert whole > (PIN if rows == 9216 else 10 * err)
+
+
+@pytest.mark.parametrize("rows", [1152, 9216])
+def test_tgmm_bf16_stages_hold_the_float32_pin(rows):
+    """bf16 inputs with a float32 output, held on the card to the float32
+    pin: exact products, each 16-deep ``mma`` step added toward zero, a
+    fresh accumulator for each 64-row stage, within 2e-5 of the plain
+    version (the bf16 values widened, one float32 product)."""
+    lhs, g, gmap = _tgmm_case(rows, seed=rows + 1)
+    lb, gb = lhs.to(torch.bfloat16), g.to(torch.bfloat16)
+    plain = G.tgmm(lb, gb, gmap, 3)
+    assert plain.dtype == torch.float32
+    staged = emulated_tgmm(lb.float(), gb.float(), gmap, 3, 0, 64, step=16)
+    assert _rel(staged, plain) <= PIN
