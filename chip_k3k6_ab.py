@@ -1,14 +1,25 @@
 #!/usr/bin/env python3
-"""Time K3-bwd (the LayerNorm backward), K6-gmm (``gmm`` and ``gmm_t``) and
-K6-tgmm built from two sources of ``layer_norm.cu`` and ``grouped_matmul.cu`` in
-turns on one NVIDIA GPU: this tree's and another one (for example a parent
-commit's), in the order other, tree, tree, other, beside the yardsticks
-that ``chip_smoke.py`` times.
+"""Time K3-fwd and K3-bwd (the LayerNorm forward and backward), K5-decode
+(paged decode attention), K6-gmm (``gmm`` and ``gmm_t``) and K6-tgmm built
+from two sources of ``layer_norm.cu``, ``paged_attention.cu`` and
+``grouped_matmul.cu`` in turns on one NVIDIA GPU: this tree's and another
+one (for example a parent commit's), in the order other, tree, tree,
+other, beside the yardsticks that ``chip_smoke.py`` times.
 
+- K3-fwd at GPT-2's training shape ``[8192, 768]`` and its decode shape
+  ``[8, 768]`` (four input sets), beside ``F.layer_norm``.
 - K3-bwd at GPT-2's training shape ``[8192, 768]`` (float32; four input sets
   of 50 MB each keep the reads out of the 50 MB L2), beside the autograd
   backward of ``F.layer_norm``; and at ``[8192, 1024]`` and ``[8192,
   1025]``, the two sides of the register route's width limit.
+- K5-decode at GPT-2's paged serving shape (8 slots, 12 KV heads, Dh 64,
+  pages of 16, 64 pages a slot, a float32 pool) at three position sets:
+  ``chip_smoke.py``'s (15-1023), the serve mix's (32-320) and a full cache
+  (all at 1023); eight pools of 50 MB each, beside SDPA over the equivalent
+  dense cache with an explicit mask. The split count and the argument
+  that follows it are each source's own: a split length of whole 64-row
+  tiles from the cache length before the redesign, the alignment unit of
+  the pieces cut by ``pos`` after it.
 - K6-gmm at the Mixtral-8x7B widths of ``chip_smoke.py``'s ``kernel``
   phase: ``decode_w1`` (``gmm``, 8 routed tokens in 1152 rows, K 4096, N
   14336) and ``train_w1`` (9216 rows: ``gmm`` of the tokens by w1 and
@@ -30,7 +41,8 @@ that ``chip_smoke.py`` times.
 Each source is called through its own C interface (the argument lists
 changed when the kernels were redesigned), read from its text. Every turn
 also checks the kernels against the plain versions (``max |diff| / max
-|plain|``), so a faster source that is wrong shows.
+|plain|``; K5-decode's ``max |diff|`` of out and lse) and runs each twice
+for the same bits, so a faster source that is wrong shows.
 
 Run from the repository root::
 
@@ -57,8 +69,13 @@ import chip_smoke as cs
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # each C entry point's argument types, before and after the redesign:
-# layer_norm_bwd gained (route, vec), gmm gained (vec)
+# layer_norm_fwd and layer_norm_bwd gained (route, vec), gmm gained (vec);
+# paged_decode_lse kept its types (its chunk length became an alignment)
+LN_FWD = {False: [P] * 4 + [I] * 2 + [F, P], True: [P] * 4 + [I] * 4 + [F, P]}
 LN_BWD = {False: [P] * 8 + [I] * 4 + [F, P], True: [P] * 8 + [I] * 6 + [F, P]}
+PAGED_DECODE = [P] * 10 + [I] * 10 + [F, I, P]
+GPT2_POS = [31, 15, 16, 511, 512, 700, 1000, 1023]
+SERVE_POS = [32, 64, 100, 150, 200, 256, 288, 320]
 GMM = {False: [P] * 4 + [I] * 7 + [P], True: [P] * 4 + [I] * 8 + [P]}
 TGMM = [P] * 4 + [I] * 7 + [P]   # unchanged by the redesign
 
@@ -76,24 +93,82 @@ def build(src: Path, out: Path, fn: str, argtypes) -> ctypes.CDLL:
     return lib
 
 
-def new_abi(src: Path, marker: str) -> bool:
-    return marker in src.read_text()
+def new_abi(src: Path, fn: str, marker: str) -> bool:
+    """Whether the C entry ``fn`` of ``src`` names ``marker`` among its
+    parameters."""
+    text = src.read_text()
+    at = text.index(f'extern "C" int {fn}(')
+    return marker in text[at:text.index(")", at)]
+
+
+def old_decode_splits(S: int, Hkv: int, T: int, n_sm: int):
+    """``(n_split, chunk)`` of K5-decode before the split-by-``pos``
+    redesign: about four blocks an SM, each split a whole number of 64-row
+    tiles of the cache length T."""
+    n_tiles = -(-T // 64)
+    want = max(1, -(-4 * n_sm // max(S * Hkv, 1)))
+    chunk = -(-n_tiles // min(n_tiles, want)) * 64
+    return -(-T // chunk), chunk
 
 
 class Kernels:
-    """One source's K3-bwd and K6-gmm, called through its C interface."""
+    """One source's K3, K5-decode and K6, called through its C interface."""
 
     def __init__(self, csrc: Path, tag: str, out_dir: Path):
         ln, gm = csrc / "layer_norm.cu", csrc / "grouped_matmul.cu"
-        self.ln_new = new_abi(ln, "int route, int vec")
-        self.gmm_new = new_abi(gm, "int bf16, int vec")
-        self.sources = {"layer_norm": str(ln), "grouped_matmul": str(gm)}
-        with ThreadPoolExecutor(2) as ex:
-            self.ln, self.gm = ex.map(lambda a: build(*a), [
+        pa = csrc / "paged_attention.cu"
+        self.ln_new = new_abi(ln, "layer_norm_bwd", "int route, int vec")
+        self.ln_fwd_new = new_abi(ln, "layer_norm_fwd", "int route, int vec")
+        self.gmm_new = new_abi(gm, "gmm", "int bf16, int vec")
+        self.pa_new = new_abi(pa, "paged_decode_lse", "int align")
+        self.sources = {"layer_norm": str(ln), "grouped_matmul": str(gm),
+                        "paged_attention": str(pa)}
+        with ThreadPoolExecutor(3) as ex:
+            self.ln, self.gm, self.pa = ex.map(lambda a: build(*a), [
                 (ln, out_dir / f"ab_ln_{tag}.so", "layer_norm_bwd", LN_BWD[self.ln_new]),
-                (gm, out_dir / f"ab_gmm_{tag}.so", "gmm", GMM[self.gmm_new])])
+                (gm, out_dir / f"ab_gmm_{tag}.so", "gmm", GMM[self.gmm_new]),
+                (pa, out_dir / f"ab_pa_{tag}.so", "paged_decode_lse", PAGED_DECODE)])
         self.gm.tgmm.argtypes = TGMM
         self.gm.tgmm.restype = ctypes.c_int
+        self.ln.layer_norm_fwd.argtypes = LN_FWD[self.ln_fwd_new]
+        self.ln.layer_norm_fwd.restype = ctypes.c_int
+
+    def ln_fwd(self, x, s, b, eps=1e-5):
+        N, D = x.shape
+        out = torch.empty_like(x)
+        ints = [N, D] + ([0 if D <= 1024 else 1, int(D % 4 == 0)] if self.ln_fwd_new else [])
+        err = self.ln.layer_norm_fwd(x.data_ptr(), s.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                     *ints, eps, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"layer_norm_fwd: CUDA error {err}")
+        return out
+
+    def paged_decode(self, q, kp, vp, table, pos, page=16):
+        """K5-decode's ``(out, lse)``, no window, with this source's split
+        rule."""
+        from elephas_tpu_torch.ops.paged_attention import _ALIGN, _splits
+
+        S, Hkv, G, Dh = q.shape
+        M = table.shape[1]
+        n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+        if self.pa_new:
+            n_split, arg = _splits(S, Hkv, M * page, n_sm), min(_ALIGN, page)
+        else:
+            n_split, arg = old_decode_splits(S, Hkv, M * page, n_sm)
+        f32 = dict(dtype=torch.float32, device=q.device)
+        o_part = torch.empty((S, Hkv, n_split, G, Dh), **f32)
+        ml = torch.empty((2, S, Hkv, n_split, G), **f32)
+        out = torch.empty((S, Hkv, G, Dh), **f32)
+        lse = torch.empty((S, Hkv, G), **f32)
+        err = self.pa.paged_decode_lse(
+            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), table.data_ptr(), pos.data_ptr(),
+            o_part.data_ptr(), ml[0].data_ptr(), ml[1].data_ptr(), out.data_ptr(),
+            lse.data_ptr(), S, Hkv, G, Dh, kp.shape[0], page, M, -1, n_split, arg,
+            Dh ** -0.5, int(kp.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"paged_decode_lse: CUDA error {err}")
+        return out, lse
 
     def ln_bwd(self, x, s, g, eps=1e-5):
         from elephas_tpu_torch.ops.layer_norm import _ROW_MAX_D, _bwd_grid
@@ -262,6 +337,7 @@ def main() -> int:
     from elephas_tpu_torch.ops import _build
     from elephas_tpu_torch.ops import grouped_matmul as G
     from elephas_tpu_torch.ops.layer_norm import layer_norm_reference
+    from elephas_tpu_torch.ops.paged_attention import paged_decode_reference_lse
 
     resolve_device("cuda")
     print(cs.card_line()[0], flush=True)
@@ -272,6 +348,15 @@ def main() -> int:
                                      dirs.items())))
 
     gen = np.random.default_rng(0)
+    fwd_sets = {n: [ln_inputs(gen, n, 768)[:2]
+                    + (torch.from_numpy(gen.normal(size=(768,)).astype(np.float32)).cuda(),)
+                    for _ in range(4)] for n in (8192, 8)}
+    fwd_want = {n: layer_norm_reference(*sets[0]) for n, sets in fwd_sets.items()}
+    pa_sets = {name: [cs._paged_inputs(gen, 8, 12, 1, 64, 16, 64, torch.float32, pos)
+                      for _ in range(8)]
+               for name, pos in (("gpt2_pos", GPT2_POS), ("serve_pos", SERVE_POS),
+                                 ("full_cache", [1023] * 8))}
+    pa_want = {name: paged_decode_reference_lse(*sets[0], 16) for name, sets in pa_sets.items()}
     ln_sets = {d: [ln_inputs(gen, 8192, d) for _ in range(4 if d == 768 else 2)]
                for d in (768, 1024, 1025)}
     ln_want = {}
@@ -295,6 +380,18 @@ def main() -> int:
     for turn in ("other", "tree", "tree", "other"):
         k = kern[turn]
         row = {"kernels": turn, "sources": k.sources}
+        for n, sets in fwd_sets.items():
+            got = k.ln_fwd(*sets[0])
+            row[f"ln_fwd_{n}x768_err"] = rel(got, fwd_want[n])
+            row[f"ln_fwd_{n}x768_same_bits"] = torch.equal(got, k.ln_fwd(*sets[0]))
+            row[f"ln_fwd_{n}x768_ms"] = cs.device_ms(k.ln_fwd, sets, 60)
+        for name, sets in pa_sets.items():
+            got = k.paged_decode(*sets[0])
+            row[f"paged_decode_{name}_err"] = max(
+                float((a - w).abs().max()) for a, w in zip(got, pa_want[name]))
+            row[f"paged_decode_{name}_same_bits"] = all(
+                torch.equal(a, b) for a, b in zip(got, k.paged_decode(*sets[0])))
+            row[f"paged_decode_{name}_ms"] = cs.device_ms(k.paged_decode, sets, 60)
         for d, sets in ln_sets.items():
             got = k.ln_bwd(*sets[0])
             row[f"ln_bwd_{d}_err"] = max(rel(a, w) for a, w in zip(got, ln_want[d]))
@@ -323,6 +420,20 @@ def main() -> int:
         print(json.dumps(row), flush=True)
 
     out = {}
+    for n, sets in fwd_sets.items():
+        out[f"F.layer_norm_fwd_{n}x768_ms"] = cs.device_ms(
+            lambda x, s, b: torch.nn.functional.layer_norm(x, (768,), s, b, 1e-5), sets, 60)
+    slots = torch.arange(1024, device="cuda")
+    for name, sets in pa_sets.items():
+        lib_sets = []
+        for q, kp, vp, t, p in sets:
+            kd, vd = cs._dense_view(kp, vp, t, 16)
+            lib_sets.append((q, kd, vd, (slots[None, :] <= p[:, None].long())[:, None, None, :]))
+        out[f"sdpa_paged_decode_{name}_ms"] = cs.device_ms(
+            lambda q, k_, v, m: torch.nn.functional.scaled_dot_product_attention(
+                q, k_, v, attn_mask=m), lib_sets, 60)
+        del lib_sets
+    del pa_sets, pa_want
     for d, sets in ln_sets.items():
         graphs = []
         for x, s, g in sets:

@@ -18,10 +18,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    67 TFLOP/s float32, whichever is larger; H100 SXM data-sheet peaks; for
    the flash-attention kernels the operations at 3xTF32, three TF32
    products of 494.7 TFLOP/s each, the 67 TFLOP/s figure beside it):
-   LayerNorm forward (timed at the decode shape [8, 768] and the GPT-2
-   training shape [8192, 768]) and backward (the backward on both of its routes:
-   one warp a row up to D 1024, one block a row past it; each case run
-   twice for the same bits), flash decode, flash attention forward,
+   LayerNorm forward and backward, each on both of its routes (one warp a
+   row up to D 1024, one block a row past it; each case run twice for the
+   same bits; the forward timed at the decode shape [8, 768] and the
+   GPT-2 training shape [8192, 768], its route named), flash decode, flash attention forward,
    dq and dkv (eight cases: GPT-2 training shape, ragged T, GQA, window,
    non-causal, lse cotangent, bf16 at Dh 64 and 256), and their
    rope-on-load variants (six cases: the Llama-3-8B training shape, ragged
@@ -59,8 +59,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
    chunk) against their plain versions over a page pool read through a
    block table (GPT-2 serving shape, GQA, a window, pages 8 and 64, a bf16
    pool, chunks of 256 rows at an empty and at an adopted prefix, chunks of
-   4 at per-row positions), timed beside the plain version, SDPA over the
-   equivalent dense cache with an explicit mask, and the bound.
+   4 at per-row positions); the decode timed at three position sets (the
+   checks' positions 15-1023, the serve mix's 32-320 and a full cache,
+   each run twice for the same bits), the chunk at a 256-row insert, each
+   beside the plain version, SDPA over the equivalent dense cache with an
+   explicit mask, and the bound.
 10. ``serve_paged``: the ``serve`` mix through ``ServingEngine(paged=True,
     page_size=16)``: L paged-decode launches per decode step, L paged-chunk
     launches per prefill insert, no dense flash-decode launch, 2L+1
@@ -224,14 +227,21 @@ def card_line():
 
 
 def check_layer_norm(card):
-    from elephas_tpu_torch.ops.layer_norm import (fused_layer_norm,
+    from elephas_tpu_torch.ops.layer_norm import (_ROW_MAX_D, fused_layer_norm,
                                                   layer_norm_reference)
+
+    def route(d):
+        """The kernel route a [n, d] call takes (aligned rows: float4 where
+        d % 4 == 0)."""
+        return (("rows (one warp a row" if d <= _ROW_MAX_D else "wide (one block a row")
+                + (", float4)" if d % 4 == 0 else ", scalar)"))
 
     dev = torch.device("cuda")
     gen = np.random.default_rng(SEED)
     checks, worst = [], 0.0
     for shape, offset in (((8, 768), 0.0), ((128, 768), 0.0),
-                          ((8, 1000), 0.0), ((8, 768), 1e4)):
+                          ((8, 1000), 0.0), ((8, 1001), 0.0), ((8, 1025), 0.0),
+                          ((8, 768), 1e4)):
         n, d = shape
         x = gen.normal(size=shape).astype(np.float32)
         x[0] += offset
@@ -251,8 +261,10 @@ def check_layer_norm(card):
         require(err <= 1e-5, f"layer_norm {shape} offset {offset}: "
                              f"max abs err {err} > 1e-5")
         worst = max(worst, err)
-        checks.append({"shape": list(shape), "row_offset": offset,
-                       "max_abs_err": err, "atol": 1e-5})
+        require(torch.equal(fused_layer_norm(x, s, b), got),
+                f"layer_norm {shape}: two launches differ")
+        checks.append({"shape": list(shape), "route": route(d), "row_offset": offset,
+                       "max_abs_err": err, "atol": 1e-5, "same_bits": True})
 
     def timed(n, d):
         """Kernel, plain, ``F.layer_norm`` and bound at ``[n, d]``, cycling
@@ -276,11 +288,13 @@ def check_layer_norm(card):
            "replaces": "elephas_tpu/ops/layer_norm.py:115",
            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
-           "timed_shape": [8, 768], "train_shape": [8192, 768],
+           "timed_shape": [8, 768], "timed_route": route(768),
+           "train_shape": [8192, 768], "train_route": route(768),
            **{f"train_{k}": v for k, v in train.items()}}
     emit({"phase": "kernel", "kernel": "layer_norm_fwd", "checks": checks,
           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-          "bound_ms": bms, "bound_by": by, "train_shape": [8192, 768], "train": train,
+          "bound_ms": bms, "bound_by": by, "timed_route": route(768),
+          "train_shape": [8192, 768], "train": train, "train_route": route(768),
           "card": card})
     return row
 
@@ -970,33 +984,57 @@ def check_paged_attention(card):
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
-    # decode at the serving shape: 8 pools of 50 MB so the reads miss the L2
+    # decode at the serving shape, at three position sets: chip_smoke's
+    # gpt2_pos, the serve mix's positions (prompts of 32-256 tokens plus up
+    # to 64 new) and a full cache; 8 pools of 50 MB so the reads miss the L2
     S, hkv, g, dh, page, M = 8, 12, 1, 64, 16, 64
     T = M * page
-    sets = [_paged_inputs(gen, S, hkv, g, dh, page, M, f32, gpt2_pos) for _ in range(8)]
-    ms = device_ms(lambda q, kp, vp, t, p: paged_flash_decode_lse(q, kp, vp, t, p, page), sets)
-    plain_ms = device_ms(lambda q, kp, vp, t, p: paged_decode_reference_lse(q, kp, vp, t, p, page), sets)
     slots = torch.arange(T, device="cuda")
-    lib_sets = []
-    for q, kp, vp, t, p in sets:
-        kd, vd = _dense_view(kp, vp, t, page)
-        lib_sets.append((q, kd, vd, (slots[None, :] <= p[:, None].long())[:, None, None, :]))
-    lib_ms = device_ms(lambda q, k, v, m: sdpa(q, k, v, attn_mask=m), lib_sets)
-    del sets, lib_sets
-    vis = sum(_visible(gpt2_pos, T))
-    live_pages = sum(p // page + 1 for p in gpt2_pos)
-    n_bytes = (vis * hkv * dh * 2 * 4 + (2 * S * hkv * g * dh + S * hkv * g + S) * 4
-               + live_pages * 4)
-    bms, by = bound_ms(n_bytes, vis * hkv * g * dh * 4)
+
+    def time_decode(pos):
+        sets = [_paged_inputs(gen, S, hkv, g, dh, page, M, f32, pos) for _ in range(8)]
+        q, kp, vp, t, p = sets[0]
+        o, lse = paged_flash_decode_lse(q, kp, vp, t, p, page)
+        wo, wl = paged_decode_reference_lse(q, kp, vp, t, p, page)
+        errs = [_allclose_err(o, wo, 2e-5), _allclose_err(lse, wl, 2e-5)]
+        require(all(ok for _, ok in errs), f"paged decode at {pos}: beyond 2e-5")
+        require(all(torch.equal(a, b) for a, b in
+                    zip(paged_flash_decode_lse(q, kp, vp, t, p, page), (o, lse))),
+                f"paged decode at {pos}: two launches differ")
+        ms = device_ms(lambda q, kp, vp, t, p: paged_flash_decode_lse(q, kp, vp, t, p, page),
+                       sets)
+        plain_ms = device_ms(lambda q, kp, vp, t, p: paged_decode_reference_lse(
+            q, kp, vp, t, p, page), sets)
+        lib_sets = []
+        for q, kp, vp, t, p in sets:
+            kd, vd = _dense_view(kp, vp, t, page)
+            lib_sets.append((q, kd, vd, (slots[None, :] <= p[:, None].long())[:, None, None, :]))
+        lib_ms = device_ms(lambda q, k, v, m: sdpa(q, k, v, attn_mask=m), lib_sets)
+        del sets, lib_sets
+        vis = sum(_visible(pos, T))
+        live_pages = sum(p // page + 1 for p in pos)
+        n_bytes = (vis * hkv * dh * 2 * 4 + (2 * S * hkv * g * dh + S * hkv * g + S) * 4
+                   + live_pages * 4)
+        bms, by = bound_ms(n_bytes, vis * hkv * g * dh * 4)
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
+                "bound_by": by, "pos": pos,
+                "max_abs_err": max(e for e, _ in errs)}
+
+    serve_pos = [32, 64, 100, 150, 200, 256, 288, 320]
+    timed = {"gpt2_pos": time_decode(gpt2_pos), "serve_pos": time_decode(serve_pos),
+             "full_cache": time_decode([T - 1] * S)}
+    at = timed["gpt2_pos"]
     rows.append({"name": "paged_flash_decode_lse", "route": "cuda",
                  "source": "elephas_tpu_torch/ops/csrc/paged_attention.cu",
                  "replaces": "elephas_tpu/ops/paged_attention.py:178",
-                 "max_abs_err": worst["decode"], "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+                 "max_abs_err": worst["decode"], "ms": at["ms"],
+                 "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
+                 "bound_by": at["bound_by"], "library_ms": at["library_ms"],
                  "library": "F.scaled_dot_product_attention over the equivalent dense "
                             "cache with an explicit mask (no PyTorch call reads a block table)",
                  "timed_shape": {"S": S, "Hkv": hkv, "G": g, "Dh": dh, "page": page, "M": M,
-                                 "pos": gpt2_pos, "kv_dtype": "float32"}})
+                                 "pos": gpt2_pos, "kv_dtype": "float32"},
+                 "by_positions": timed})
     # chunk at the prefill insert shape: one slot, a 256-token bucket at 0
     C = 256
     sets = [_paged_inputs(gen, 1, hkv, g, dh, page, M, f32, [0], C) for _ in range(8)]
@@ -1025,7 +1063,7 @@ def check_paged_attention(card):
     emit({"phase": "kernel", "kernel": "paged_attention", "checks": checks,
           "timing": [{k_: r[k_] for k_ in ("name", "ms", "plain_ms", "library_ms",
                                            "bound_ms", "bound_by")} for r in rows],
-          "card": card})
+          "decode_by_positions": timed, "card": card})
     return rows
 
 

@@ -13,19 +13,39 @@
 // per element is far below the ~20 float32 operations per byte at which
 // the card's 67 TFLOP/s, not its 3.35 TB/s, would be the limit. At the
 // decode shape [8, 768] the whole call moves 55 KB, so the launch
-// dominates. The backward reads x and g and writes dx, 3*N*D*4 bytes, with
-// about 12 operations per element: at the training shape [8192, 768] that
-// is 75.5 MB, 22.5 us.
+// dominates; at the training shape [8192, 768], 50.3 MB, 15.0 us. The
+// backward reads x and g and writes dx, 3*N*D*4 bytes, with about 12
+// operations per element: at the training shape that is 75.5 MB, 22.5 us.
 //
-// Forward design: one block per row, so no block waits on another and the
-// grid needs no second pass. The row is read from device memory exactly
-// once, into shared memory (D floats, no padding: threads stride the row
-// by index and mask nothing). The mean is reduced first; then the CENTRED
-// sum of squares over (x - mean), read back from shared memory, as the TPU
-// kernel's `_stats` insists (E[x^2] - mean^2 cancels in float32 when
-// |mean| >> std); then the affine output is written. The mean's sum runs
+// Forward design: each row is read from device memory exactly once and its
+// statistics are the TPU kernel's `_stats`: the mean first, then the
+// CENTRED sum of squares over (x - mean) (E[x^2] - mean^2 cancels in
+// float32 when |mean| >> std), then the affine output. The mean's sum runs
 // in double and x - mean is formed in double before it is rounded, so a
-// row riding at 1e4 keeps float32 accuracy in the centred values.
+// row riding at 1e4 keeps float32 accuracy in the centred values; the
+// variance is summed in float32 and rstd = rsqrtf(var + eps). Two routes,
+// chosen by D:
+//  - rows (D <= kRowMaxD): one warp owns a whole row, in registers, with
+//    the backward's rows-route helpers (`load_row`, `row_col`, `warp_sum`):
+//    float4 at columns 4 (l + 32 j) when D % 4 == 0 and the rows are
+//    16-byte aligned, else scalars at columns l + 32 j. The two sums are
+//    butterfly shuffles inside the warp: no block barrier and no shared
+//    memory for the row (the block-per-row kernel below takes four
+//    barriers a row and holds at most 8 rows an SM in flight). The warp
+//    issues its next row's loads before this row's sums, as the backward
+//    does. scale and bias sit in registers for the lane's columns, loaded
+//    once a block; the output is written as float4 where the loads were.
+//    4 warps a block; a block's warps take rows blockIdx * 4 + w, then
+//    every gridDim * 4-th row. The grid gives each warp one row (the
+//    decode shape [8, 768]: two blocks, no row waits behind another) until
+//    that takes more than kFwdOneRowBlocks blocks, then two rows (the
+//    training shape [8192, 768]: 1024 blocks, the second row's loads in
+//    flight during the first's sums). A row's bits depend on its warp
+//    alone, not on the grid or the card, and its statistics are computed
+//    by the same code, in the same order, as the backward's recompute.
+//  - wide (D > kRowMaxD): one block of 256 threads a row; the row is staged
+//    in shared memory (D floats, threads stride it by index), the mean and
+//    the centred variance are block sums.
 //
 // Backward design: the TPU kernel sums dscale and dbias into one resident
 // block across its SEQUENTIAL grid; a GPU grid runs in no order. So pass 1
@@ -76,6 +96,7 @@ __device__ __forceinline__ T block_sum(T v, T* red) {
   return total;
 }
 
+// Forward, wide route: one block a row.
 __global__ void __launch_bounds__(kThreads)
 layer_norm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ scale,
                       const float* __restrict__ bias, float* __restrict__ out,
@@ -171,6 +192,8 @@ constexpr int kRowWarps = 4;
 constexpr int kRowThreads = 32 * kRowWarps;
 constexpr int kRowMaxD = 1024;          // 8 float4 (or 32 scalars) a lane
 constexpr int kRowPrefetchMaxNV = 6;    // two rows in flight up to D 768
+constexpr int kFwdOneRowBlocks = 1024;  // the forward's grid: one row a warp up to this
+                                        // many blocks, two rows a warp past it
 
 // the butterfly leaves the same total, summed in the same order, in every lane
 template <typename T>
@@ -207,6 +230,72 @@ __device__ __forceinline__ void load_row(float (&v)[NV][4], const float* __restr
         const int c = row_col<false>(lane, j, e);
         v[j][e] = c < d ? __ldg(p + c) : 0.f;
       }
+    }
+  }
+}
+
+// Forward, rows route: one warp a row, the row in registers.
+template <int NV, bool VEC>
+__global__ void __launch_bounds__(kRowThreads)
+layer_norm_fwd_rows_kernel(const float* __restrict__ x, const float* __restrict__ scale,
+                           const float* __restrict__ bias, float* __restrict__ out, int n,
+                           int d, float eps) {
+  constexpr bool kPrefetch = NV <= kRowPrefetchMaxNV;
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * kRowWarps;
+  float s[NV][4], b[NV][4], xa[NV][4];
+  load_row<NV, VEC>(s, scale, d, lane);
+  load_row<NV, VEC>(b, bias, d, lane);
+
+  int r = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  if (r < n) load_row<NV, VEC>(xa, x + static_cast<size_t>(r) * d, d, lane);
+  for (; r < n; r += stride) {
+    const int rn = r + stride;
+    float xb[NV][4];
+    if (kPrefetch && rn < n)  // the next row's loads fly during this row's sums
+      load_row<NV, VEC>(xb, x + static_cast<size_t>(rn) * d, d, lane);
+    double sd = 0.0;
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sd += static_cast<double>(xa[j][e]);
+    const double mean = warp_sum(sd) / d;
+    float ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float c = row_col<VEC>(lane, j, e) < d
+                            ? static_cast<float>(static_cast<double>(xa[j][e]) - mean)
+                            : 0.f;
+        xa[j][e] = c;
+        ss += c * c;
+      }
+    const float rstd = rsqrtf(warp_sum(ss) / d + eps);
+    float* o = out + static_cast<size_t>(r) * d;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      float y[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) y[e] = xa[j][e] * rstd * s[j][e] + b[j][e];
+      if (VEC) {
+        const int c = row_col<true>(lane, j, 0);
+        if (c < d) *reinterpret_cast<float4*>(o + c) = make_float4(y[0], y[1], y[2], y[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = row_col<false>(lane, j, e);
+          if (c < d) o[c] = y[e];
+        }
+      }
+    }
+    if (kPrefetch) {
+#pragma unroll
+      for (int j = 0; j < NV; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xa[j][e] = xb[j][e];
+    } else if (rn < n) {
+      load_row<NV, VEC>(xa, x + static_cast<size_t>(rn) * d, d, lane);
     }
   }
 }
@@ -369,6 +458,19 @@ layer_norm_bwd_reduce_kernel(const float* __restrict__ ds_part,
 }
 
 template <int NV>
+int launch_fwd_rows(const float* x, const float* scale, const float* bias, float* out, int n,
+                    int d, int blocks, int vec, float eps, cudaStream_t st) {
+  if (vec) {
+    layer_norm_fwd_rows_kernel<NV, true><<<blocks, kRowThreads, 0, st>>>(x, scale, bias, out,
+                                                                         n, d, eps);
+  } else {
+    layer_norm_fwd_rows_kernel<NV, false><<<blocks, kRowThreads, 0, st>>>(x, scale, bias, out,
+                                                                          n, d, eps);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NV>
 int launch_rows(const float* x, const float* scale, const float* g, float* dx,
                 float* ds_part, float* db_part, int n, int d, int n_blocks, int rows,
                 int vec, float eps, cudaStream_t st) {
@@ -385,16 +487,34 @@ int launch_rows(const float* x, const float* scale, const float* g, float* dx,
 
 }  // namespace
 
+// route 0: rows (d <= 1024, vec: d % 4 == 0 and x, scale, bias and out
+// 16-byte aligned); route 1: wide.
 extern "C" int layer_norm_fwd(const float* x, const float* scale, const float* bias,
-                              float* out, int n, int d, float eps, void* stream) {
+                              float* out, int n, int d, int route, int vec, float eps,
+                              void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == 0) {
+    if (d > kRowMaxD || (vec && d % 4)) return static_cast<int>(cudaErrorInvalidValue);
+    if (n == 0) return static_cast<int>(cudaGetLastError());
+    const int rows = n > kRowWarps * kFwdOneRowBlocks ? 2 * kRowWarps : kRowWarps;
+    const int blocks = (n + rows - 1) / rows;
+    switch ((d + 127) / 128) {  // float4 (or 4 scalars) a lane
+      case 1: return launch_fwd_rows<1>(x, scale, bias, out, n, d, blocks, vec, eps, st);
+      case 2: return launch_fwd_rows<2>(x, scale, bias, out, n, d, blocks, vec, eps, st);
+      case 3: return launch_fwd_rows<3>(x, scale, bias, out, n, d, blocks, vec, eps, st);
+      case 4: return launch_fwd_rows<4>(x, scale, bias, out, n, d, blocks, vec, eps, st);
+      case 5: return launch_fwd_rows<5>(x, scale, bias, out, n, d, blocks, vec, eps, st);
+      case 6: return launch_fwd_rows<6>(x, scale, bias, out, n, d, blocks, vec, eps, st);
+      case 7: return launch_fwd_rows<7>(x, scale, bias, out, n, d, blocks, vec, eps, st);
+      default: return launch_fwd_rows<8>(x, scale, bias, out, n, d, blocks, vec, eps, st);
+    }
+  }
   const size_t smem = static_cast<size_t>(d) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       layer_norm_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n > 0)
-    layer_norm_fwd_kernel<<<n, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        x, scale, bias, out, d, eps);
+  if (n > 0) layer_norm_fwd_kernel<<<n, kThreads, smem, st>>>(x, scale, bias, out, d, eps);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -159,9 +159,10 @@ _PlainXent = _xent_function(fused_xent_fwd_reference, fused_xent_bwd_reference,
                             "_PlainXent")
 
 
-def fused_xent_from_logits(logits, labels):
+def fused_xent_from_logits(logits, labels, interpret=False):
     """Fused per-sample categorical cross-entropy from logits: K1-fwd, with
-    K1-bwd as its gradient. CUDA tensors only."""
+    K1-bwd as its gradient. CUDA tensors only. ``interpret`` steers only the
+    reference's Pallas kernel; it is accepted in its place and ignored."""
     return _FusedXent.apply(logits, labels)
 
 

@@ -2,8 +2,9 @@
 
 :func:`layer_norm` is the dispatcher the model calls: on a CUDA tensor it
 runs a ``torch.autograd.Function`` over the hand-written kernels in
-``csrc/layer_norm.cu`` (:func:`fused_layer_norm`, K3-fwd: one block per
-row, one read of the row, centred variance; :func:`fused_layer_norm_bwd`,
+``csrc/layer_norm.cu`` (:func:`fused_layer_norm`, K3-fwd: one read of the
+row, centred variance; one warp a row with the row in registers up to
+``D`` 1024, one block a row above; :func:`fused_layer_norm_bwd`,
 K3-bwd: ``dx`` plus per-block partials of ``dscale``/``dbias`` summed in a
 second, deterministic pass; one warp a row with the row in registers up
 to ``D`` 1024, one block a row above). Like the reference's VJP it saves
@@ -21,13 +22,13 @@ import torch
 
 from . import _build
 
-# the forward keeps the row in shared memory (227 KB a block on Hopper);
-# the backward's wide route keeps the x and g rows and two partial rows
+# the forward's wide route keeps the row in shared memory (227 KB a block
+# on Hopper); the backward's keeps the x and g rows and two partial rows
 _MAX_D = 227 * 1024 // 4
 _MAX_D_BWD = 227 * 1024 // 16
-# the backward's rows route (one warp a row, the row in registers) takes
-# rows up to this width (kRowMaxD in the .cu); wider rows take the wide
-# route (one block a row)
+# both rows routes (one warp a row, the row in registers) take rows up to
+# this width (kRowMaxD in the .cu); wider rows take the wide route (one
+# block a row)
 _ROW_MAX_D = 1024
 # the backward's pass 1 runs at most this many blocks (two of 4 warps an
 # SM on an H100's 132), each over a contiguous run of rows; the count
@@ -35,8 +36,8 @@ _ROW_MAX_D = 1024
 _BWD_BLOCKS = 264
 
 _SIGNATURES = {
-    "layer_norm_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                               ctypes.c_float, ctypes.c_void_p],
+    "layer_norm_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+    + [ctypes.c_float, ctypes.c_void_p],
     "layer_norm_bwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_void_p],
 }
@@ -63,6 +64,15 @@ def _check(x, scale, others, max_d: int, what: str):
     return D
 
 
+def _route(D: int, *tensors):
+    """``(route, vec)`` of a kernel call: route 0 (one warp a row) up to
+    ``_ROW_MAX_D`` columns, else 1 (one block a row); ``vec`` when rows of
+    ``D`` floats are read and written as float4, i.e. ``D % 4 == 0`` and
+    every tensor starts 16-byte aligned."""
+    return (0 if D <= _ROW_MAX_D else 1,
+            int(D % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)))
+
+
 def fused_layer_norm(x, scale, bias, eps: float = 1e-5, interpret: bool = False):
     """K3-fwd, the CUDA kernel: ``x`` ``[..., D]`` on a CUDA device,
     ``scale`` and ``bias`` ``[D]`` on the same device. Returns float32 in
@@ -74,11 +84,12 @@ def fused_layer_norm(x, scale, bias, eps: float = 1e-5, interpret: bool = False)
     s = scale.to(torch.float32).contiguous()
     b = bias.to(torch.float32).contiguous()
     out = torch.empty_like(x2)
+    route, vec = _route(D, x2, s, b, out)
     lib = _build.load("layer_norm", _SIGNATURES)
     with torch.cuda.device(x.device):
         err = lib.layer_norm_fwd(
             x2.data_ptr(), s.data_ptr(), b.data_ptr(), out.data_ptr(),
-            x2.shape[0], D, float(eps),
+            x2.shape[0], D, route, vec, float(eps),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "layer_norm_fwd")
     fused_layer_norm.launches += 1
@@ -112,10 +123,9 @@ def fused_layer_norm_bwd(x, scale, g, eps: float = 1e-5):
     s = scale.to(torch.float32).contiguous()
     N = x2.shape[0]
     n_blocks, rows = _bwd_grid(N)
-    route = 0 if D <= _ROW_MAX_D else 1
-    vec = int(D % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (x2, g2, s)))
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x2)
+    route, vec = _route(D, x2, g2, s, dx)
     ds_part = torch.empty((n_blocks, D), **f32)
     db_part = torch.empty((n_blocks, D), **f32)
     dscale = torch.empty((D,), **f32)

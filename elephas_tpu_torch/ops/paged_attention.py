@@ -33,9 +33,18 @@ from . import _build
 from .flash_decode import (chunk_attention_reference,
                            decode_attention_reference_lse)
 
-_TILE = 64            # key rows per shared-memory tile (kTile in the .cu)
 _MAX_DH = 256
 _SMEM_LIMIT = 227 * 1024
+# K5-decode: a split's piece is a whole number of units of this many rows
+# (or of one page, where a page is smaller)
+_ALIGN = 16
+# K5-decode's tile classes (DecodeTile in the .cu): head dims up to 64, 128
+# and 256 walk tiles of 32, 32 and 16 key rows; a block takes up to 8
+# query rows of a group; the cp.async ring holds 2 tiles
+_DECODE_CLASSES = ((64, 32), (128, 32), (256, 16))
+_DECODE_MAX_G = 8
+_DECODE_STAGES = 2
+_DECODE_WARPS = 4
 
 _SIGNATURES = {
     "paged_decode_lse": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
@@ -91,14 +100,48 @@ def paged_chunk_reference(q, kp, vp, table, pos0, page: int, window=None):
 # -- the CUDA kernels -----------------------------------------------------------
 
 
-def _splits(S: int, Hkv: int, T: int, n_sm: int):
-    """``(n_split, chunk)``: split the slot's T = M·page positions so the grid
-    has about four blocks per SM, each chunk a whole number of tiles (the
-    rule of the dense kernel, ``flash_decode._splits``)."""
-    n_tiles = -(-T // _TILE)
+def _splits(S: int, Hkv: int, T: int, n_sm: int) -> int:
+    """K5-decode's split count for ``S`` slots, ``Hkv`` KV heads and a table
+    of ``T`` = M·page positions: about four blocks an SM, capped only so
+    that no piece of a full cache is shorter than one ``_ALIGN``-row unit.
+    It depends on the grid alone; each block cuts its own piece of its
+    slot's visible range on the device (:func:`decode_pieces`), so a short
+    slot spreads over every split."""
     want = max(1, -(-4 * n_sm // max(S * Hkv, 1)))
-    chunk = -(-n_tiles // min(n_tiles, want)) * _TILE
-    return -(-T // chunk), chunk
+    return min(want, max(1, T // _ALIGN))
+
+
+def decode_pieces(pos: int, T: int, n_split: int, page: int, window=None):
+    """The pieces ``[(a, b), ...]`` (one per split, in split order) that
+    K5-decode's blocks cut from the visible range ``[lo, p]`` of a slot at
+    ``pos``: ``p = min(pos, T - 1)``, ``lo = max(p - window + 1, 0)``. The
+    range is ``U = ceil((p - lo + 1) / A)`` units of ``A = min(_ALIGN,
+    page)`` rows counted from ``lo``; split ``i`` takes units ``[i U / n,
+    (i + 1) U / n)`` (floor division), cut at ``p``. The device code
+    (``paged_decode_split_kernel``) computes the same from the ``A`` the
+    wrapper passes."""
+    A = min(_ALIGN, page)
+    p = min(int(pos), T - 1)
+    lo = 0 if window is None else max(0, p - int(window) + 1)
+    units = (p - lo + A) // A
+    return [(lo + i * units // n_split * A,
+             min(p + 1, lo + (i + 1) * units // n_split * A))
+            for i in range(n_split)]
+
+
+def _decode_smem(G: int, Dh: int, itemsize: int) -> int:
+    """Bytes of shared memory a K5-decode block takes (``DecodeSmem`` in the
+    .cu): the ring of K and V tiles (or, after the loop, the warps' merge
+    rows, whichever is larger), q in float32 and the ring of table cells."""
+    dhc, bt = next(c for c in _DECODE_CLASSES if Dh <= c[0])
+    maxg = next(g for g in (1, 2, 4, _DECODE_MAX_G) if min(G, _DECODE_MAX_G) <= g)
+    lpk = 32 * _DECODE_WARPS // bt
+    c16 = -(-Dh * itemsize // 16)
+    ld16 = c16 if lpk >= 8 else c16 + (lpk - c16 % 8) % 8
+    ring = _DECODE_STAGES * 2 * bt * ld16 * 16
+    merge = 4 * _DECODE_WARPS * maxg * (dhc + 2)
+    q = 4 * maxg * c16 * (16 // itemsize)
+    return max(ring, merge) + q + 4 * _DECODE_STAGES * (bt + 1)
 
 
 def _check_pool(name, q, kp, vp, table, page: int, window):
@@ -157,7 +200,7 @@ def paged_flash_decode_lse(q, kp, vp, table, pos, page: int, window=None,
     S, _, G, _ = q.shape
     if table.shape[0] != S:
         raise ValueError(f"table has {table.shape[0]} rows for {S} slots")
-    smem = 4 * (2 * G * Dh + 2 * _TILE * Dh + G * _TILE + 3 * G) + 8 * _TILE
+    smem = _decode_smem(G, Dh, kp.element_size())
     if smem > _SMEM_LIMIT:
         raise ValueError(f"group {G} x head dim {Dh} needs {smem} bytes of "
                          f"shared memory, more than {_SMEM_LIMIT}")
@@ -165,8 +208,8 @@ def paged_flash_decode_lse(q, kp, vp, table, pos, page: int, window=None,
     pos_t = _rows(pos, S, dev, "pos")
     q32 = q.to(torch.float32).contiguous()
     T = M * int(page)
-    n_split, chunk = _splits(
-        S, Hkv, T, torch.cuda.get_device_properties(dev).multi_processor_count)
+    n_split = _splits(S, Hkv, T,
+                      torch.cuda.get_device_properties(dev).multi_processor_count)
     f32 = dict(dtype=torch.float32, device=dev)
     o_part = torch.empty((S, Hkv, n_split, G, Dh), **f32)
     m_part = torch.empty((S, Hkv, n_split, G), **f32)
@@ -180,7 +223,8 @@ def paged_flash_decode_lse(q, kp, vp, table, pos, page: int, window=None,
             pos_t.data_ptr(), o_part.data_ptr(), m_part.data_ptr(),
             l_part.data_ptr(), out.data_ptr(), lse.data_ptr(),
             S, Hkv, G, Dh, P, int(page), M,
-            -1 if window is None else int(window), n_split, chunk,
+            -1 if window is None else int(window), n_split,
+            min(_ALIGN, int(page)),
             float(Dh ** -0.5), int(kp.dtype == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "paged_flash_decode_lse")

@@ -35,7 +35,8 @@ from elephas_tpu_torch.ops.flash_decode import (decode_attention_reference,
                                                 flash_decode, flash_decode_lse)
 from elephas_tpu_torch.ops.fused_xent import (categorical_crossentropy_from_logits,
                                               fused_xent_bwd, fused_xent_bwd_reference,
-                                              fused_xent_fwd, fused_xent_fwd_reference)
+                                              fused_xent_from_logits, fused_xent_fwd,
+                                              fused_xent_fwd_reference)
 from elephas_tpu_torch.ops.grouped_matmul import (gmm, gmm_reference, gmm_t,
                                                   tgmm, tgmm_reference)
 from elephas_tpu_torch.ops.layer_norm import (fused_layer_norm,
@@ -73,6 +74,51 @@ def test_layer_norm_kernel_matches_plain(cuda, shape):
     assert got.shape == x.shape and got.dtype == torch.float32
     torch.testing.assert_close(got, layer_norm_reference(x, s, b),
                                atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("d", [1, 3, 127, 128, 129, 768, 1000, 1024, 1025, 4097])
+@pytest.mark.parametrize("n", [1, 8, 8192])
+def test_layer_norm_fwd_routes_match_plain(cuda, n, d):
+    """K3-fwd on both routes (one warp a row up to D 1024, one block a row
+    past it; float4 rows where D % 4 == 0, scalar ones at 1, 3, 127, 129,
+    1025), against the plain version at atol = rtol = 1e-5, and the same
+    bits from a second launch (a row's result depends on its warp alone)."""
+    rng = np.random.default_rng(n * 10000 + d)
+    x = _t(rng, n, d) * 3 + 1
+    s, b = _t(rng, d), _t(rng, d)
+    got = fused_layer_norm(x, s, b)
+    torch.testing.assert_close(got, layer_norm_reference(x, s, b), atol=1e-5, rtol=1e-5)
+    assert torch.equal(fused_layer_norm(x, s, b), got)
+
+
+@pytest.mark.parametrize("d", [768, 1000])
+def test_layer_norm_fwd_misaligned_rows_take_scalar_loads(cuda, d):
+    """Rows that start 4 bytes past a 16-byte boundary (a contiguous view at
+    an odd offset) take the scalar path although D % 4 == 0: the plain
+    version's result at 1e-5, and the aligned copy's (float4 loads, the
+    same sums over other lane columns) at 1e-6."""
+    rng = np.random.default_rng(d)
+    flat = _t(rng, 64 * d + 1) * 3 + 1
+    x = flat[1:].view(64, d)
+    assert x.data_ptr() % 16 != 0
+    s, b = _t(rng, d), _t(rng, d)
+    got = fused_layer_norm(x, s, b)
+    torch.testing.assert_close(got, layer_norm_reference(x, s, b), atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(got, fused_layer_norm(x.clone(), s, b), atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("d", [768, 1000, 1024, 1025])
+def test_layer_norm_fwd_row_at_1e4_against_float64(cuda, d):
+    """A row riding at 1e4 on both routes: the mean summed in double and x
+    - mean formed in double keep K3-fwd within 1e-5 of the plain version
+    run in float64."""
+    rng = np.random.default_rng(7)
+    x = _t(rng, 64, d) * 3 + 1
+    x[0] += 1e4
+    s, b = _t(rng, d), _t(rng, d)
+    got = fused_layer_norm(x, s, b)
+    want = layer_norm_reference(x.double(), s.double(), b.double())
+    torch.testing.assert_close(got.double(), want, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("B,hkv,g,dh,T", [
@@ -487,6 +533,50 @@ def test_paged_kernels_match_plain(cuda, S, hkv, g, dh, page, M, window):
                                atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("page,M", [(4, 24), (16, 8)])
+@pytest.mark.parametrize("g,dh", [(1, 64), (4, 6)])
+@pytest.mark.parametrize("window", [None, 7])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+def test_paged_decode_every_position_matches_plain(cuda, page, M, g, dh, window, dtype, tol):
+    """K5-decode at every position 0 .. T-1 of a small table (8 slots a
+    launch), so every split of the pos-driven rule is empty, short, partial
+    or full somewhere: against the plain version at atol = rtol = 2e-5
+    (2e-2 with a bf16 pool), and the same bits from a second launch."""
+    rng = np.random.default_rng(page * 100 + g)
+    T, S = M * page, 8
+    for first in range(0, T, S):
+        pos = np.minimum(np.arange(first, first + S), T - 1).astype(np.int32)
+        q, kp, vp, table = _paged(rng, S, 2, g, dh, page, M, pos, dtype=dtype)
+        pos_t = torch.from_numpy(pos).cuda()
+        got = paged_flash_decode_lse(q, kp, vp, table, pos_t, page, window)
+        want = paged_decode_reference_lse(q, kp, vp, table, pos_t, page, window)
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, atol=tol, rtol=tol)
+        for a, w in zip(paged_flash_decode_lse(q, kp, vp, table, pos_t, page, window), got):
+            assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("S,hkv,g,dh,page,M,pos", [
+    (8, 12, 1, 64, 16, 64, [31, 15, 16, 511, 512, 700, 1000, 1023]),   # GPT-2 paged
+    (8, 8, 4, 128, 16, 128, [0, 31, 256, 700, 1023, 1500, 2000, 2047]),  # Mixtral widths
+    (4, 2, 12, 256, 8, 40, [0, 100, 250, 319]),   # two groups of query rows a head
+    (6, 3, 2, 32, 1, 300, [0, 1, 2, 150, 298, 299]),   # one position a page
+])
+def test_paged_decode_shapes_match_plain(cuda, S, hkv, g, dh, page, M, pos):
+    """K5-decode at the decode shapes the port runs, a group wider than a
+    block's 8 query rows and one-row pages: atol = rtol = 2e-5 against the
+    plain version, the same bits twice."""
+    rng = np.random.default_rng(S * hkv + g)
+    q, kp, vp, table = _paged(rng, S, hkv, g, dh, page, M, pos)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    got = paged_flash_decode_lse(q, kp, vp, table, pos_t, page)
+    want = paged_decode_reference_lse(q, kp, vp, table, pos_t, page)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=2e-5, rtol=2e-5)
+    for a, w in zip(paged_flash_decode_lse(q, kp, vp, table, pos_t, page), got):
+        assert torch.equal(a, w)
+
+
 def test_paged_wrappers_refuse_bad_input(cuda):
     rng = np.random.default_rng(11)
     q, kp, vp, table = _paged(rng, 2, 1, 1, 8, 4, 3, [5, 5])
@@ -679,6 +769,23 @@ def test_fused_xent_kernels_match_plain(cuda, B, C, dtype):
     tol = 1e-6 if dtype == torch.float32 else 2 ** -8
     torch.testing.assert_close(dx.float(), fused_xent_bwd_reference(x, y, g).float(),
                                atol=tol, rtol=tol)
+
+
+def test_fused_xent_positional_interpret_runs_on_card(cuda):
+    """``fused_xent_from_logits(x, y, True)``, the reference's positional
+    call: ``interpret`` is accepted and ignored; K1-fwd and K1-bwd run and
+    equal their plain versions (atol = rtol = 1e-5)."""
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy((rng.normal(size=(64, 130)) * 3).astype(np.float32)).cuda()
+    y = torch.eye(130, device="cuda")[torch.from_numpy(rng.integers(0, 130, size=64)).cuda()]
+    g = torch.from_numpy(rng.normal(size=(64,)).astype(np.float32)).cuda()
+    before = (fused_xent_fwd.launches, fused_xent_bwd.launches)
+    xt = x.clone().requires_grad_()
+    out = fused_xent_from_logits(xt, y, True)
+    (dx,) = torch.autograd.grad(out, xt, g)
+    assert (fused_xent_fwd.launches, fused_xent_bwd.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(out, fused_xent_fwd_reference(x, y), atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(dx, fused_xent_bwd_reference(x, y, g), atol=1e-5, rtol=1e-5)
 
 
 def test_fused_xent_autograd_on_card_matches_cpu(cuda):

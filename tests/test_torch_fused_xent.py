@@ -132,3 +132,24 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         X.fused_xent_from_logits(x, y)
     assert (X.fused_xent_fwd.launches, X.fused_xent_bwd.launches) == before
+
+
+@pytest.mark.parametrize("B,C", [(13, 10), (8, 130)])
+def test_positional_interpret_matches_pallas_kernel(B, C):
+    """``fused_xent_from_logits(x, y, True)`` by position in both packages:
+    the reference runs its Pallas kernel in interpret mode; the port's entry
+    takes the call (no ``TypeError``) and, as a kernel entry, refuses CPU
+    tensors, so on the CPU its dispatcher (the same kernels' plain
+    versions) gives the loss and the gradient, equal to the reference's at
+    its tolerance. On the card the entry itself runs
+    (``tests/test_torch_cuda.py``)."""
+    x, y, g = _case(B, C, seed=B + C)
+    want, want_dx = _jax_vjp(x, y, g)   # JP.fused_xent_from_logits(a, y, True)
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    with pytest.raises(ValueError, match="CUDA"):
+        X.fused_xent_from_logits(xt, yt, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        X.fused_xent_from_logits(xt, yt, interpret=False)
+    out, dx = _port_vjp(x, y, g)
+    np.testing.assert_allclose(out.numpy(), want, atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(dx.numpy(), want_dx, atol=TOL, rtol=TOL)

@@ -3,7 +3,10 @@ autograd) against the JAX package's fused Pallas kernel (interpret mode,
 its custom VJP under ``jax.grad`` for the gradients) and its jnp
 reference, on the same numpy inputs; ``fused_layer_norm``'s signature
 against the reference's (``interpret`` last); K3-bwd's pass-1 grid, which
-depends on the row count alone."""
+depends on the row count alone; and K3-fwd's rows-route arithmetic (one
+warp a row: the lane-column map, the row mean summed in double by each lane
+and then by a butterfly, the centred variance in float32) emulated in numpy
+against a float64 oracle at the card tests' 1e-5 pin."""
 
 import inspect
 
@@ -153,3 +156,62 @@ def test_bwd_grid_depends_on_rows_alone(N):
     assert 1 <= n_blocks <= _BWD_BLOCKS
     assert (n_blocks - 1) * rows < N <= n_blocks * rows
     assert _bwd_grid(N) == (n_blocks, rows)
+
+
+def _butterfly(v):
+    """The warp's xor-shuffle sum over lanes (the last axis, 32): every lane
+    ends with the same total, summed in the same order."""
+    lanes = np.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        v = v + v[..., lanes ^ off]
+    return v
+
+
+def _emulated_rows_fwd(x, s, b, vec, eps=1e-5):
+    """K3-fwd's rows route (``layer_norm_fwd_rows_kernel``) in numpy: lane l
+    holds columns 4 (l + 32 j) + e when ``vec``, else (4 j + e) 32 + l; it
+    sums its x in double in (j, e) order, the butterfly gives the mean;
+    x - mean is formed in double and rounded; the centred squares are
+    summed in float32 (each step one fused multiply-add) and butterflied;
+    rstd = 1 / sqrt(var + eps) in float32; y = c rstd scale + bias."""
+    n, d = x.shape
+    nv = -(-d // 128)
+    lane, j, e = np.meshgrid(np.arange(32), np.arange(nv), np.arange(4), indexing="ij")
+    cols = (4 * (lane + 32 * j) + e if vec else (4 * j + e) * 32 + lane).reshape(32, -1)
+    live = cols < d
+    at = np.minimum(cols, d - 1)
+    xs = np.where(live, x[:, at], np.float32(0))              # [n, 32, 4 nv]
+    sd = np.zeros((n, 32))
+    for k in range(xs.shape[2]):
+        sd = sd + xs[:, :, k].astype(np.float64)
+    sd = _butterfly(sd)
+    assert (sd == sd[:, :1]).all()
+    mean = sd[:, :1, None] / d
+    c = np.where(live, (xs.astype(np.float64) - mean).astype(np.float32), np.float32(0))
+    ss = np.zeros((n, 32), np.float32)
+    for k in range(c.shape[2]):
+        ck = c[:, :, k].astype(np.float64)
+        ss = (ck * ck + ss.astype(np.float64)).astype(np.float32)
+    ss = _butterfly(ss)
+    var = ss[:, :1, None] / np.float32(d)
+    rstd = (1.0 / np.sqrt((var + np.float32(eps)).astype(np.float64))).astype(np.float32)
+    ys = c * rstd * s[at] + b[at]
+    out = np.zeros((n, d), np.float32)
+    out[:, cols[live]] = ys[:, live]
+    return out
+
+
+@pytest.mark.parametrize("d", [768, 1000, 1024])
+@pytest.mark.parametrize("vec", [True, False])
+def test_rows_route_emulation_holds_the_pin(d, vec):
+    """The emulated rows route against LayerNorm in float64 at atol = rtol =
+    1e-5, the card tests' pin, on rows of N(1, 3) and on a row at 1e4 (where
+    a float32 row mean would round visibly), for both lane-column maps."""
+    rng = np.random.default_rng(d)
+    x, s, b = _inputs(rng, 16, d)
+    x[0] += 1e4
+    got = _emulated_rows_fwd(x, s, b, vec)
+    x64 = x.astype(np.float64)
+    mu = x64.mean(-1, keepdims=True)
+    want = (x64 - mu) / np.sqrt(((x64 - mu) ** 2).mean(-1, keepdims=True) + 1e-5) * s + b
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)

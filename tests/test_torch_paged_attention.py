@@ -15,6 +15,12 @@ paged methods on the CPU path.
   a reference-shaped positional call reaches the port's kernel wrapper
   (which refuses a CPU tensor) and, through the dispatcher, the reference's
   Pallas kernel's result in interpret mode.
+- K5-decode's split rule (``decode_pieces``, which the CUDA kernel's blocks
+  compute from ``pos`` and ``window``): the pieces cover each slot's
+  visible range once, in split order, equal to within one alignment unit;
+  and a plain-PyTorch emulation of the kernel's arithmetic over them (an
+  online softmax per split over its tiles, then the log-sum-exp combine)
+  equals the plain version at atol = rtol = 2e-5 for every position.
 """
 
 import importlib
@@ -30,9 +36,9 @@ from elephas_tpu_torch.models import TransformerLM, from_jax_params
 from elephas_tpu_torch.ops.flash_decode import (chunk_attention_reference,
                                                 decode_attention_reference_lse)
 from elephas_tpu_torch.ops.paged_attention import (
-    paged_chunk_attention, paged_chunk_reference, paged_decode_attention_lse,
-    paged_decode_reference_lse, paged_flash_chunk, paged_flash_decode,
-    paged_flash_decode_lse, paged_view_rows)
+    _splits, decode_pieces, paged_chunk_attention, paged_chunk_reference,
+    paged_decode_attention_lse, paged_decode_reference_lse, paged_flash_chunk,
+    paged_flash_decode, paged_flash_decode_lse, paged_view_rows)
 
 jax_pa = importlib.import_module("elephas_tpu.ops.paged_attention")
 
@@ -280,3 +286,98 @@ def test_decode_step_paged_matches_jax():
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-5,
                                    rtol=1e-5)
         pos = pos + 1
+
+
+# -- K5-decode's split rule, and its arithmetic emulated on the CPU ---------------
+
+
+@pytest.mark.parametrize("page", [1, 4, 16, 64])
+@pytest.mark.parametrize("window", [None, 1, 7, 40])
+def test_decode_pieces_cover_the_visible_range_once(page, window):
+    """For every position of a 256-row table and 1 to 9 splits: the pieces
+    are contiguous in split order from ``lo`` to ``p`` (each row once),
+    each non-empty one starts on a unit boundary counted from ``lo``, and
+    their lengths differ by at most one unit of ``min(16, page)`` rows."""
+    T, A = 256, min(16, page)
+    for n_split in range(1, 10):
+        for pos in range(T + 3):
+            pieces = decode_pieces(pos, T, n_split, page, window)
+            p = min(pos, T - 1)
+            lo = 0 if window is None else max(0, p - window + 1)
+            assert len(pieces) == n_split
+            assert pieces[0][0] == lo and pieces[-1][1] == p + 1
+            rows = [r for a, b in pieces for r in range(a, b)]
+            assert rows == list(range(lo, p + 1))
+            lengths = [b - a for a, b in pieces]
+            assert max(lengths) - min(lengths) <= A
+            assert all((a - lo) % A == 0 for a, b in pieces if b > a)
+
+
+def test_splits_follow_the_grid_not_the_cache_length():
+    """``n_split`` is about four blocks an SM for S * Hkv (KV head, slot)
+    pairs, capped only so that a full cache's pieces are at least 16 rows."""
+    assert _splits(8, 12, 1024, 132) == 6
+    assert _splits(8, 12, 64, 132) == 4
+    assert _splits(1, 1, 100000, 132) == 528
+    assert _splits(64, 32, 1024, 132) == 1
+
+
+def _emulated_decode(q, kp, vp, table, pos, page, window, n_split, bt):
+    """K5-decode's arithmetic in plain PyTorch: each split's piece (from
+    ``decode_pieces``) walked in tiles of ``bt`` rows with an online softmax
+    (running max m, denominator l, unnormalised accumulator), then the
+    combine: M = max over non-empty splits, L = sum l_i exp(m_i - M),
+    out = sum exp(m_i - M) acc_i / L, lse = M + log L."""
+    k, v = paged_view_rows(kp, table, page), paged_view_rows(vp, table, page)
+    S_, Hkv_, G_, Dh_ = q.shape
+    T = k.shape[2]
+    scale = Dh_ ** -0.5
+    out = torch.empty(S_, Hkv_, G_, Dh_)
+    lse = torch.empty(S_, Hkv_, G_)
+    for s in range(S_):
+        parts = []
+        for a, b in decode_pieces(int(pos[s]), T, n_split, page, window):
+            m = torch.full((Hkv_, G_), -torch.inf)
+            l_ = torch.zeros(Hkv_, G_)
+            acc = torch.zeros(Hkv_, G_, Dh_)
+            for t0 in range(a, b, bt):
+                kt, vt = k[s, :, t0:min(b, t0 + bt)], v[s, :, t0:min(b, t0 + bt)]
+                sc = torch.einsum("hgd,hjd->hgj", q[s], kt) * scale
+                m_new = torch.maximum(m, sc.amax(-1))
+                alpha = torch.exp(m - m_new)
+                pr = torch.exp(sc - m_new[..., None])
+                l_ = alpha * l_ + pr.sum(-1)
+                acc = alpha[..., None] * acc + torch.einsum("hgj,hjd->hgd", pr, vt)
+                m = m_new
+            parts.append((m, l_, acc))
+        M = torch.stack([m for m, l_, _ in parts]).amax(0)
+        w = [torch.where(l_ > 0, torch.exp(m - M), torch.zeros(())) for m, l_, _ in parts]
+        L = sum(wi * l_ for wi, (_, l_, _) in zip(w, parts))
+        out[s] = sum(wi[..., None] * acc for wi, (_, _, acc) in zip(w, parts)) / L[..., None]
+        lse[s] = M + torch.log(L)
+    return out, lse
+
+
+@pytest.mark.parametrize("page,M_", [(4, 16), (16, 4)])
+@pytest.mark.parametrize("window", [None, 7])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("n_split", [3, 6])
+def test_split_rule_emulation_matches_plain_at_every_position(page, M_, window, g, n_split):
+    """The emulated kernel (per-split online softmax over 32-row tiles, then
+    the combine) against ``paged_decode_reference_lse`` at atol = rtol =
+    2e-5, one slot at each position 0 .. T-1 of a 64-row table."""
+    T = page * M_
+    rng = np.random.default_rng(page * 10 + g)
+    P = T * M_ + 1
+    kp = torch.from_numpy(rng.standard_normal((P, 2, page, 32)).astype(np.float32))
+    vp = torch.from_numpy(rng.standard_normal((P, 2, page, 32)).astype(np.float32))
+    kp[0] = vp[0] = 1e4
+    table = torch.from_numpy((1 + rng.permutation(T * M_)).reshape(T, M_).astype(np.int32))
+    q = torch.from_numpy(rng.standard_normal((T, 2, g, 32)).astype(np.float32))
+    pos = torch.arange(T, dtype=torch.int32)
+    for s in range(T):
+        table[s, s // page + 1:] = 0   # unmapped past the slot's position
+    got = _emulated_decode(q, kp, vp, table, pos, page, window, n_split, 32)
+    want = paged_decode_reference_lse(q, kp, vp, table, pos, page, window)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=2e-5, rtol=2e-5)

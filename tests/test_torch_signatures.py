@@ -1,16 +1,26 @@
-"""The signature diff of the port against the reference, for the public
-entries outside ``ops`` whose trailing parameters the port had dropped
-(fault 3 of ROADMAP §3): names, order and defaults of every parameter
-equal the reference's. Each restored parameter is then called by
-position the reference's way: Pallas knobs (``interpret``) are accepted
-and ignored; the others take effect or raise where they ask for what is
-not ported yet.
+"""The signature diff of the port against the reference: names, order and
+defaults of every parameter equal the reference's.
 
-The kernel entries of ``ops`` (``gmm``, ``gmm_t``, ``tgmm``, the three
-paged ones, ``fused_layer_norm``) have their signature and positional
-tests beside their modules' other tests."""
+- The public entries outside ``ops`` whose trailing parameters the port
+  had dropped (fault 3 of ROADMAP §3), each restored parameter then called
+  by position the reference's way: Pallas knobs (``interpret``) are
+  accepted and ignored; the others take effect or raise where they ask for
+  what is not ported yet.
+- ``ops`` (fault 4): every name of ``elephas_tpu.ops.__all__``, and every
+  public function of each reference module that a kernel source's
+  ``Replaces:`` header names, against the port module that builds that
+  source; the reference's ``ops/pallas_ops.py`` and ``ops/pallas_flash.py``
+  names import from the port's modules of the same path. The absences are
+  the ones ROADMAP queues (``ring_attention``, ``ulysses_attention``: item
+  6) or logs as departures (``is_tpu_backend``, ``tileable``).
 
+The kernel entries of ``ops`` have their positional tests beside their
+modules' other tests."""
+
+import importlib
 import inspect
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +28,8 @@ import numpy as np
 import pytest
 import torch
 
+import elephas_tpu.ops as JO
+import elephas_tpu_torch.ops as TO
 from elephas_tpu.models import adapters as ja
 from elephas_tpu.models import transformer as jt
 from elephas_tpu.parallel import expert as JE
@@ -28,8 +40,20 @@ from elephas_tpu_torch.parallel import expert as TE
 from elephas_tpu_torch.serving import cache as tc
 
 
+def _default(d):
+    """A default as compared across the packages: a dtype by its name
+    (``jnp.float32`` and ``torch.float32`` are both ``"float32"``)."""
+    if isinstance(d, torch.dtype):
+        return str(d).removeprefix("torch.")
+    if isinstance(d, type) and hasattr(d, "dtype"):   # a jnp scalar type
+        return d.__name__
+    return d
+
+
 def _params(fn):
-    return [(p.name, p.default) for p in inspect.signature(fn).parameters.values()]
+    fn = getattr(fn, "fun", fn)   # a jax.custom_vjp: its wrapped function
+    return [(p.name, _default(p.default))
+            for p in inspect.signature(fn).parameters.values()]
 
 
 REPAIRED = [
@@ -124,3 +148,77 @@ def test_adapter_steps_take_remat_in_place():
         adapter.build_train_step(opt, True)
     with pytest.raises(NotImplementedError, match="item 13"):
         adapter.build_grad_step(True)
+
+
+# -- ops: fault 4 ------------------------------------------------------------------
+
+# queued (ROADMAP §1 item 6) or logged departures (ROADMAP §3)
+ABSENT_FROM_OPS = {"ring_attention", "ulysses_attention"}
+DEPARTED = {("pallas_ops", "is_tpu_backend"), ("grouped_matmul", "tileable")}
+CSRC = Path(TO.__file__).parent / "csrc"
+
+
+@pytest.mark.parametrize("name", JO.__all__)
+def test_ops_exports_match_reference(name):
+    """Each name of ``elephas_tpu.ops.__all__`` is exported by the port's
+    ``ops`` with the reference's signature, or is one ROADMAP queues."""
+    if name in ABSENT_FROM_OPS:
+        assert not hasattr(TO, name)
+        return
+    assert name in TO.__all__
+    assert _params(getattr(TO, name)) == _params(getattr(JO, name))
+
+
+def _replaced_modules(cu: Path):
+    """The reference modules the source's ``Replaces:`` header names."""
+    header = cu.read_text().split("\n\n")[0]
+    at = header.index("Replaces:")
+    block = header[at:].split("\n//\n")[0]
+    return sorted(set(re.findall(r"elephas_tpu/ops/(\w+)\.py", block)))
+
+
+@pytest.mark.parametrize("cu", sorted(p.name for p in CSRC.glob("*.cu")))
+def test_kernel_module_matches_the_reference_it_replaces(cu):
+    """The port module that builds ``csrc/<cu>`` (``ops/<stem>.py``) has every
+    public function of each reference module the source replaces, with the
+    reference's signature, but for the logged departures."""
+    stem = cu.removesuffix(".cu")
+    port = importlib.import_module(f"elephas_tpu_torch.ops.{stem}")
+    assert f'_build.load("{stem}"' in Path(port.__file__).read_text()
+    refs = _replaced_modules(CSRC / cu)
+    assert refs
+    for r in refs:
+        ref = importlib.import_module(f"elephas_tpu.ops.{r}")
+        for name, fn in sorted(vars(ref).items()):
+            inner = getattr(fn, "fun", fn)
+            if (name.startswith("_") or not callable(fn)
+                    or getattr(inner, "__module__", None) != ref.__name__):
+                continue
+            if (r, name) in DEPARTED:
+                assert not hasattr(port, name)
+                continue
+            assert _params(getattr(port, name)) == _params(fn), (r, name)
+
+
+PATH_NAMES = [(mod, name) for mod in ("pallas_ops", "pallas_flash")
+              for name, fn in sorted(vars(importlib.import_module(
+                  f"elephas_tpu.ops.{mod}")).items())
+              if (mod, name) not in DEPARTED and (
+                  name in ("_BQ", "_BK") or not name.startswith("_") and callable(fn)
+                  and getattr(getattr(fn, "fun", fn), "__module__", None)
+                  == f"elephas_tpu.ops.{mod}")]
+
+
+@pytest.mark.parametrize("mod,name", PATH_NAMES, ids=lambda x: x)
+def test_reference_module_paths_import_from_the_port(mod, name):
+    """``from elephas_tpu_torch.ops.<mod> import <name>`` works for every
+    name the reference's ``ops/pallas_ops.py`` and ``ops/pallas_flash.py``
+    define (``is_tpu_backend`` aside: the port picks by the tensor's
+    device), with the reference's signature; ``_BQ == _BK == 512``."""
+    ref = importlib.import_module(f"elephas_tpu.ops.{mod}")
+    port = importlib.import_module(f"elephas_tpu_torch.ops.{mod}")
+    if name in ("_BQ", "_BK"):
+        assert getattr(port, name) == getattr(ref, name) == 512
+        return
+    assert name in port.__all__
+    assert _params(getattr(port, name)) == _params(getattr(ref, name))
