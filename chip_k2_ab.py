@@ -15,8 +15,10 @@ rotate-then-SDPA's forward (``llama_rotate_sdpa_fwd``). Uses
 
 Run from the repository root::
 
-    git archive <commit> elephas_tpu_torch/ops/csrc/flash_attention.cu | tar -x -C <dir>
+    git archive <commit> elephas_tpu_torch/ops/csrc | tar -x -C <dir>
     python3 chip_k2_ab.py <dir>/elephas_tpu_torch/ops/csrc/flash_attention.cu
+
+(the whole ``csrc`` directory: the source includes its headers from there).
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line per
 turn and one for the yardsticks. Exits non-zero without CUDA.

@@ -21,7 +21,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    LayerNorm forward and backward, each on both of its routes (one warp a
    row up to D 1024, one block a row past it; each case run twice for the
    same bits; the forward timed at the decode shape [8, 768] and the
-   GPT-2 training shape [8192, 768], its route named), flash decode, flash attention forward,
+   GPT-2 training shape [8192, 768], its route named), flash decode (K4:
+   plain, GQA, window, ring, a window at positions past T, bf16; timed at
+   the three position sets of phase 9's decode, each run twice for the
+   same bits), flash attention forward,
    dq and dkv (eight cases: GPT-2 training shape, ragged T, GQA, window,
    non-causal, lse cotangent, bf16 at Dh 64 and 256), and their
    rope-on-load variants (six cases: the Llama-3-8B training shape, ragged
@@ -59,11 +62,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    chunk) against their plain versions over a page pool read through a
    block table (GPT-2 serving shape, GQA, a window, pages 8 and 64, a bf16
    pool, chunks of 256 rows at an empty and at an adopted prefix, chunks of
-   4 at per-row positions); the decode timed at three position sets (the
-   checks' positions 15-1023, the serve mix's 32-320 and a full cache,
-   each run twice for the same bits), the chunk at a 256-row insert, each
-   beside the plain version, SDPA over the equivalent dense cache with an
-   explicit mask, and the bound.
+   4 at per-row positions, the Mixtral insert; each chunk run twice for
+   the same bits); the decode timed at three position sets (the checks'
+   positions 15-1023, the serve mix's 32-320 and a full cache, each run
+   twice for the same bits), the chunk at GPT-2's and Mixtral's 256-row
+   inserts, each beside the plain version, SDPA over the equivalent dense
+   cache with an explicit mask, and the bound (the chunk's operations at
+   3xTF32 on the tensor cores, as flash attention's).
 10. ``serve_paged``: the ``serve`` mix through ``ServingEngine(paged=True,
     page_size=16)``: L paged-decode launches per decode step, L paged-chunk
     launches per prefill insert, no dense flash-decode launch, 2L+1
@@ -813,6 +818,13 @@ def check_flash_attention_rope(card):
     return rows
 
 
+# the decode position sets K4 and K5-decode are timed at: 15-1023 with
+# page-edge values (15, 16, 511, 512), and the serve mix's (prompts of
+# 32-256 tokens plus up to 64 new)
+PAGED_GPT2_POS = [31, 15, 16, 511, 512, 700, 1000, 1023]
+SERVE_POS = [32, 64, 100, 150, 200, 256, 288, 320]
+
+
 def _decode_inputs(gen, B, hkv, g, dh, T, dtype, pos):
     dev = torch.device("cuda")
     q = torch.from_numpy(gen.normal(size=(B, hkv, g, dh)).astype(np.float32)).to(dev)
@@ -846,7 +858,9 @@ def check_flash_decode(card):
         ("gqa_f32", dict(B=4, hkv=8, g=4, dh=128, T=T), torch.float32, [0, 511, 700, 1023], None, False, 1e-5),
         ("window_f32", dict(B=8, hkv=12, g=1, dh=64, T=T), torch.float32, gpt2_pos, 128, False, 1e-5),
         ("ring_f32", dict(B=6, hkv=4, g=2, dh=64, T=256), torch.float32, [0, 100, 255, 256, 700, 1023], 200, True, 1e-5),
+        ("window_past_T_f32", dict(B=8, hkv=4, g=2, dh=64, T=256), torch.float32, [256, 260, 280, 300, 320, 340, 350, 354], 100, False, 1e-5),
         ("gpt2_bf16", dict(B=8, hkv=12, g=1, dh=64, T=T), torch.bfloat16, gpt2_pos, None, False, 2e-2),
+        ("gqa_bf16", dict(B=4, hkv=8, g=4, dh=128, T=T), torch.bfloat16, [0, 511, 700, 1023], None, False, 2e-2),
     ]
     checks, worst = [], 0.0
     for name, shp, dtype, pos, window, ring, tol in cases:
@@ -862,31 +876,46 @@ def check_flash_decode(card):
                        "pos": pos, "window": window, "ring": ring,
                        "max_abs_err": err, "atol": tol})
 
-    # timing at the GPT-2-small decode shape, float32 cache, per-row pos of
-    # the gpt2 case; 8 copies of the cache (400 MB) so reads miss the L2
+    # timing at the GPT-2-small decode shape, float32 cache, at the three
+    # position sets K5-decode is timed at (check_paged_attention); 8 copies
+    # of the cache (400 MB) so reads miss the L2
     B, hkv, g, dh = 8, 12, 1, 64
-    sets = [_decode_inputs(gen, B, hkv, g, dh, T, torch.float32, gpt2_pos)
-            for _ in range(8)]
-    ms = device_ms(lambda q, k, v, p: flash_decode_lse(q, k, v, p), sets)
-    plain_ms = device_ms(lambda q, k, v, p: decode_attention_reference_lse(q, k, v, p), sets)
     slots = torch.arange(T, device="cuda")
-    masks = [(slots[None, :] <= s[3][:, None].long())[:, None, None, :] for s in sets]
-    lib_sets = [s[:3] + (m,) for s, m in zip(sets, masks)]
-    lib_ms = device_ms(lambda q, k, v, m: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, attn_mask=m), lib_sets)
-    vis = sum(_visible(gpt2_pos, T))
-    n_bytes = vis * hkv * dh * 2 * 4 + (2 * B * hkv * g * dh + B * hkv * g + B) * 4
-    bms, by = bound_ms(n_bytes, vis * hkv * g * dh * 4)
+
+    def time_decode(pos):
+        sets = [_decode_inputs(gen, B, hkv, g, dh, T, torch.float32, pos) for _ in range(8)]
+        o, lse = flash_decode_lse(*sets[0])
+        require(all(torch.equal(a, b) for a, b in zip(flash_decode_lse(*sets[0]), (o, lse))),
+                f"flash_decode at {pos}: two launches differ")
+        ms = device_ms(lambda q, k, v, p: flash_decode_lse(q, k, v, p), sets)
+        plain_ms = device_ms(lambda q, k, v, p: decode_attention_reference_lse(q, k, v, p),
+                             sets)
+        lib_sets = [s[:3] + ((slots[None, :] <= s[3][:, None].long())[:, None, None, :],)
+                    for s in sets]
+        lib_ms = device_ms(lambda q, k, v, m: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=m), lib_sets)
+        del sets, lib_sets
+        vis = sum(_visible(pos, T))
+        n_bytes = vis * hkv * dh * 2 * 4 + (2 * B * hkv * g * dh + B * hkv * g + B) * 4
+        bms, by = bound_ms(n_bytes, vis * hkv * g * dh * 4)
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
+                "bound_by": by, "pos": pos}
+
+    timed = {"gpt2_pos": time_decode(PAGED_GPT2_POS), "serve_pos": time_decode(SERVE_POS),
+             "full_cache": time_decode([T - 1] * B)}
+    at = timed["gpt2_pos"]
     row = {"name": "flash_decode_lse", "route": "cuda",
            "source": "elephas_tpu_torch/ops/csrc/flash_decode.cu",
            "replaces": "elephas_tpu/ops/flash_decode.py:217",
-           "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+           "max_abs_err": worst, "ms": at["ms"], "plain_ms": at["plain_ms"],
+           "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+           "library_ms": at["library_ms"],
+           "library": "F.scaled_dot_product_attention with an explicit mask",
            "timed_shape": {"B": B, "Hkv": hkv, "G": g, "Dh": dh, "T": T,
-                           "pos": gpt2_pos, "kv_dtype": "float32"}}
+                           "pos": PAGED_GPT2_POS, "kv_dtype": "float32"},
+           "by_positions": timed}
     emit({"phase": "kernel", "kernel": "flash_decode_lse", "checks": checks,
-          "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-          "bound_ms": bms, "bound_by": by, "card": card})
+          "by_positions": timed, "card": card})
     return row
 
 
@@ -922,16 +951,17 @@ def check_paged_attention(card):
     """K5-decode and K5-chunk against their plain versions (which gather
     the table's view and run the dense plain attention) on the same pool,
     table and positions; then timed at the serving decode shape and the
-    prefill insert shape. Tolerance: atol = rtol = 2e-5 in float32 and
-    2e-2 with a bf16 pool (the reference's pins for K2/K4)."""
+    prefill insert shape. Tolerance: atol = rtol = 2e-5 in float32 (the
+    reference's pin for K2/K4) and for K5-chunk with a bf16 pool too (the
+    plain version widens it to float32, and a bf16 value is exact in the
+    kernel's TF32 products), 2e-2 for K5-decode with a bf16 pool."""
     from elephas_tpu_torch.ops.paged_attention import (
         paged_chunk_reference, paged_decode_reference_lse, paged_flash_chunk,
         paged_flash_decode_lse)
 
     gen = np.random.default_rng(SEED + 8)
     f32, bf16 = torch.float32, torch.bfloat16
-    # positions 31-1023 with page-edge values (15, 16, 511, 512)
-    gpt2_pos = [31, 15, 16, 511, 512, 700, 1000, 1023]
+    gpt2_pos = PAGED_GPT2_POS
     dec_cases = [
         ("gpt2_f32", dict(S=8, hkv=12, g=1, dh=64, page=16, M=64), f32, gpt2_pos, None, 2e-5),
         ("gqa_dh128_f32", dict(S=4, hkv=2, g=4, dh=128, page=16, M=64), f32, [31, 512, 700, 1023], None, 2e-5),
@@ -964,7 +994,8 @@ def check_paged_attention(card):
         ("window100_c256_f32", dict(S=2, hkv=12, g=1, dh=64, page=16, M=64, C=256), f32, [0, 300], 100, 2e-5),
         ("page8_c256_f32", dict(S=2, hkv=12, g=1, dh=64, page=8, M=128, C=256), f32, [0, 128], None, 2e-5),
         ("page64_c256_f32", dict(S=2, hkv=12, g=1, dh=64, page=64, M=16, C=256), f32, [0, 128], None, 2e-5),
-        ("prefill256_bf16", dict(S=1, hkv=12, g=1, dh=64, page=16, M=64, C=256), bf16, [128], None, 2e-2),
+        ("prefill256_bf16", dict(S=1, hkv=12, g=1, dh=64, page=16, M=64, C=256), bf16, [128], None, 2e-5),
+        ("mixtral_insert_f32", dict(S=1, hkv=8, g=4, dh=128, page=16, M=128, C=256), f32, [0], None, 2e-5),
     ]
     for name, shp, dtype, pos0, window, tol in chunk_cases:
         q, kp, vp, table, pos_t = _paged_inputs(gen, shp["S"], shp["hkv"], shp["g"], shp["dh"],
@@ -975,6 +1006,8 @@ def check_paged_attention(card):
         err, ok = _allclose_err(got, want, tol)
         require(ok and bool(torch.isfinite(got).all()),
                 f"paged chunk {name}: max abs err {err} beyond atol = rtol = {tol}")
+        require(torch.equal(paged_flash_chunk(q, kp, vp, table, pos_t, shp["page"], window),
+                            got), f"paged chunk {name}: two launches differ")
         if dtype == f32:
             worst["chunk"] = max(worst["chunk"], err)
         checks.append({"kernel": "chunk", "case": name, "shape": shp, "dtype": str(dtype),
@@ -1020,8 +1053,7 @@ def check_paged_attention(card):
                 "bound_by": by, "pos": pos,
                 "max_abs_err": max(e for e, _ in errs)}
 
-    serve_pos = [32, 64, 100, 150, 200, 256, 288, 320]
-    timed = {"gpt2_pos": time_decode(gpt2_pos), "serve_pos": time_decode(serve_pos),
+    timed = {"gpt2_pos": time_decode(gpt2_pos), "serve_pos": time_decode(SERVE_POS),
              "full_cache": time_decode([T - 1] * S)}
     at = timed["gpt2_pos"]
     rows.append({"name": "paged_flash_decode_lse", "route": "cuda",
@@ -1035,35 +1067,48 @@ def check_paged_attention(card):
                  "timed_shape": {"S": S, "Hkv": hkv, "G": g, "Dh": dh, "page": page, "M": M,
                                  "pos": gpt2_pos, "kv_dtype": "float32"},
                  "by_positions": timed})
-    # chunk at the prefill insert shape: one slot, a 256-token bucket at 0
+    # chunk at the prefill insert shapes: one slot, a 256-token bucket at 0,
+    # GPT-2's (the row's figures) and Mixtral's (Hkv 8, G 4, Dh 128)
     C = 256
-    sets = [_paged_inputs(gen, 1, hkv, g, dh, page, M, f32, [0], C) for _ in range(8)]
-    cms = device_ms(lambda q, kp, vp, t, p: paged_flash_chunk(q, kp, vp, t, p, page), sets)
-    cplain_ms = device_ms(lambda q, kp, vp, t, p: paged_chunk_reference(q, kp, vp, t, p, page), sets)
-    rows_pos = torch.arange(C, device="cuda")
-    cmask = (slots[None, :] <= rows_pos[:, None])[None, None]
-    lib_sets = []
-    for q, kp, vp, t, p in sets:
-        kd, vd = _dense_view(kp, vp, t, page)
-        lib_sets.append((q[:, :, 0], kd, vd))
-    clib_ms = device_ms(lambda q, k, v: sdpa(q, k, v, attn_mask=cmask), lib_sets)
-    del sets, lib_sets
-    pairs = hkv * g * C * (C + 1) // 2
-    n_bytes = (C * hkv * dh * 2 * 4 + 2 * hkv * g * C * dh * 4 + (C // page) * 4 + 4)
-    cbms, cby = bound_ms(n_bytes, 4 * dh * pairs)
+
+    def time_chunk(hkv, g, dh, M):
+        T = M * page
+        sets = [_paged_inputs(gen, 1, hkv, g, dh, page, M, f32, [0], C) for _ in range(8)]
+        ms = device_ms(lambda q, kp, vp, t, p: paged_flash_chunk(q, kp, vp, t, p, page), sets)
+        plain_ms = device_ms(lambda q, kp, vp, t, p: paged_chunk_reference(q, kp, vp, t, p, page),
+                             sets)
+        rows_pos = torch.arange(C, device="cuda")
+        mask = (torch.arange(T, device="cuda")[None, :] <= rows_pos[:, None])[None, None]
+        lib_sets = []
+        for q, kp, vp, t, p in sets:   # query head h * G + g reads KV head h
+            kd, vd = (x.repeat_interleave(g, 1) for x in _dense_view(kp, vp, t, page))
+            lib_sets.append((q[0].reshape(1, hkv * g, C, dh), kd, vd))
+        lib_ms = device_ms(lambda q, k, v: sdpa(q, k, v, attn_mask=mask), lib_sets)
+        del sets, lib_sets
+        pairs = hkv * g * C * (C + 1) // 2
+        n_bytes = (C * hkv * dh * 2 * 4 + 2 * hkv * g * C * dh * 4 + (C // page) * 4 + 4)
+        bms, by, simt_ms = k2_bound_ms(n_bytes, 4 * dh * pairs)
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
+                "bound_by": by, "bound_simt_ms": simt_ms,
+                "shape": {"S": 1, "Hkv": hkv, "G": g, "C": C, "Dh": dh, "page": page, "M": M,
+                          "pos0": [0], "kv_dtype": "float32"}}
+
+    inserts = {"gpt2_insert": time_chunk(hkv, g, dh, M),
+               "mixtral_insert": time_chunk(8, 4, 128, 128)}
+    at = inserts["gpt2_insert"]
     rows.append({"name": "paged_flash_chunk", "route": "cuda",
                  "source": "elephas_tpu_torch/ops/csrc/paged_attention.cu",
                  "replaces": "elephas_tpu/ops/paged_attention.py:305",
-                 "max_abs_err": worst["chunk"], "ms": cms, "plain_ms": cplain_ms,
-                 "bound_ms": cbms, "bound_by": cby, "library_ms": clib_ms,
+                 "max_abs_err": worst["chunk"], "ms": at["ms"], "plain_ms": at["plain_ms"],
+                 "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+                 "library_ms": at["library_ms"],
                  "library": "F.scaled_dot_product_attention over the equivalent dense "
                             "cache with an explicit mask (no PyTorch call reads a block table)",
-                 "timed_shape": {"S": 1, "Hkv": hkv, "G": g, "C": C, "Dh": dh, "page": page,
-                                 "M": M, "pos0": [0], "kv_dtype": "float32"}})
+                 "timed_shape": at["shape"], "by_shape": inserts})
     emit({"phase": "kernel", "kernel": "paged_attention", "checks": checks,
           "timing": [{k_: r[k_] for k_ in ("name", "ms", "plain_ms", "library_ms",
                                            "bound_ms", "bound_by")} for r in rows],
-          "decode_by_positions": timed, "card": card})
+          "decode_by_positions": timed, "chunk_by_shape": inserts, "card": card})
     return rows
 
 

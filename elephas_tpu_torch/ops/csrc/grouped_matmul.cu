@@ -198,20 +198,6 @@ __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int
   }
 }
 
-// split_tf32 with cvt.rna's rounding (to nearest, ties away from zero)
-// done as an integer add and mask: the same bits for every finite x, in
-// two integer instructions where cvt.rna.tf32.f32 compiles to about four
-// (a split is two roundings and a subtraction, and a thread splits 96
-// values a stage for its 192 `mma`). A non-finite x gives a NaN small part,
-// as cvt.rna's split does, so the product is not finite either way.
-__device__ __forceinline__ uint32_t tf32_round(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-__device__ __forceinline__ void split_tf32_int(float x, uint32_t& big, uint32_t& small) {
-  big = tf32_round(x);
-  small = tf32_round(x - __uint_as_float(big));
-}
-
 // d = a * b, the first `mma` of a fresh accumulator (no zeroing of d)
 __device__ __forceinline__ void mma_tf32_first(float (&d)[4], const uint32_t (&a)[4],
                                                const uint32_t (&b)[2]) {

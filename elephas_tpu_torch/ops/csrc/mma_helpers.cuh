@@ -1,7 +1,8 @@
 // Tensor-core and cp.async helpers shared by the hand-written Hopper
-// kernels (sm_90a) of the port: flash_attention.cu (K2) and
-// grouped_matmul.cu (K6-gmm). Device functions only, in an anonymous
-// namespace, so each source that includes this header gets its own copy.
+// kernels (sm_90a) of the port: flash_attention.cu (K2), grouped_matmul.cu
+// (K6), flash_decode.cu (K4) and paged_attention.cu (K5). Device functions
+// only, in an anonymous namespace, so each source that includes this
+// header gets its own copy.
 //
 // float32 products at float32 accuracy run as 3xTF32 on the tensor cores:
 // each operand x is split into big = tf32(x) (cvt.rna) and small =
@@ -57,6 +58,30 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
 __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
   big = tf32_rna(x);
   small = tf32_rna(x - __uint_as_float(big));
+}
+
+// split_tf32 with cvt.rna's rounding (to nearest, ties away from zero)
+// done as an integer add and mask: the same bits for every finite x, in
+// two integer instructions where cvt.rna.tf32.f32 compiles to about four
+// (a split is two roundings and a subtraction; K6-gmm splits 96 values a
+// thread a stage for its 192 `mma`, K5-chunk about as many). A non-finite
+// x gives a NaN small part, as cvt.rna's split does, so the product is not
+// finite either way.
+__device__ __forceinline__ uint32_t tf32_round(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split_tf32_int(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_round(x);
+  small = tf32_round(x - __uint_as_float(big));
+}
+
+// the split with cvt.rna (INT false) or its integer form (INT true)
+template <bool INT>
+__device__ __forceinline__ void split_tf32_as(float x, uint32_t& big, uint32_t& small) {
+  if constexpr (INT)
+    split_tf32_int(x, big, small);
+  else
+    split_tf32(x, big, small);
 }
 
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],

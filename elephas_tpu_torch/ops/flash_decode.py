@@ -3,7 +3,9 @@
 
 :func:`decode_attention` / :func:`decode_attention_lse` are the dispatchers
 the model calls: on CUDA tensors they launch the split-K kernel in
-``csrc/flash_decode.cu`` (:func:`flash_decode_lse`); on CPU tensors they run
+``csrc/flash_decode.cu`` (:func:`flash_decode_lse`; its body, and the split
+rule below, are shared with the paged K5-decode through
+``csrc/decode_split.cuh``); on CPU tensors they run
 :func:`decode_attention_reference_lse`, the plain PyTorch version that is
 also the kernel's oracle. Shapes follow the reference: ``q`` ``[B, Hkv, G,
 Dh]``, ``k``/``v`` ``[B, Hkv, T, Dh]``, ``pos`` a scalar or per-row ``[B]``;
@@ -20,9 +22,18 @@ from . import _build
 
 _BLOCK_T = 256
 _SUBLANE = 8
-_TILE = 64        # cache slots per shared-memory tile (kTile in the .cu)
 _MAX_DH = 128
 _SMEM_LIMIT = 227 * 1024
+# The split-K decode kernels (csrc/decode_split.cuh: this K4 and the paged
+# K5-decode): a split's piece is a whole number of units of _ALIGN rows (or
+# of one page, where a page is smaller); head dims up to 64, 128 and 256
+# walk tiles of 32, 32 and 16 key rows (DecodeTile); a block takes up to 8
+# query rows of a group; the cp.async ring holds 2 tiles
+_ALIGN = 16
+_DECODE_CLASSES = ((64, 32), (128, 32), (256, 16))
+_DECODE_MAX_G = 8
+_DECODE_STAGES = 2
+_DECODE_WARPS = 4
 
 _SIGNATURES = {
     "flash_decode_lse": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
@@ -109,13 +120,65 @@ def chunk_attention_reference(q, k, v, pos_b, window=None):
 # -- the CUDA kernel ----------------------------------------------------------
 
 
-def _splits(B: int, Hkv: int, T: int, n_sm: int):
-    """``(n_split, chunk)``: split T so the grid has about four blocks per SM
-    at small batch, each chunk a whole number of tiles."""
-    n_tiles = -(-T // _TILE)
-    want = max(1, -(-4 * n_sm // max(B * Hkv, 1)))
-    chunk = -(-n_tiles // min(n_tiles, want)) * _TILE
-    return -(-T // chunk), chunk
+def _splits(S: int, Hkv: int, T: int, n_sm: int) -> int:
+    """The split count of the decode kernels for ``S`` slots, ``Hkv`` KV
+    heads and ``T`` cached positions (the dense cache length, or a table's
+    M·page): about four blocks an SM, capped only so that no piece of a
+    full cache is shorter than one ``_ALIGN``-row unit. It depends on the
+    grid alone; each block cuts its own piece of its slot's visible range
+    on the device (:func:`decode_pieces`), so a short slot spreads over
+    every split."""
+    want = max(1, -(-4 * n_sm // max(S * Hkv, 1)))
+    return min(want, max(1, T // _ALIGN))
+
+
+def decode_range(pos: int, T: int, window=None, ring: bool = False):
+    """The logical rows ``[lo, hi)`` a slot at ``pos`` sees in a cache of
+    ``T`` positions (empty when ``lo >= hi``). A ring cache: the ``n =
+    min(window, pos + 1, T)`` positions ending at ``pos``, position ``j`` in
+    slot ``j mod T``. Otherwise ``hi = min(pos, T - 1) + 1`` and, under a
+    window, ``lo = max(0, pos - window + 1)`` from the unclipped ``pos``, as
+    the plain versions' mask has it."""
+    pos = int(pos)
+    if ring:
+        n = min(int(window), pos + 1, T)
+        return pos - n + 1, pos + 1
+    lo = 0 if window is None else max(0, pos - int(window) + 1)
+    return lo, min(pos, T - 1) + 1
+
+
+def decode_pieces(pos: int, T: int, n_split: int, page: int, window=None,
+                  ring: bool = False):
+    """The pieces ``[(a, b), ...]`` (one per split, in split order) that the
+    decode kernels' blocks cut from the visible range ``[lo, hi)``
+    (:func:`decode_range`) of a slot at ``pos``. The range is ``U =
+    ceil((hi - lo) / A)`` units of ``A = min(_ALIGN, page)`` rows counted
+    from ``lo``; split ``i`` takes units ``[i U / n, (i + 1) U / n)`` (floor
+    division), cut at ``hi``. The device code (``decode_split_kernel``)
+    computes the same from the ``A`` the wrapper passes; a dense cache is
+    one page of ``T`` rows."""
+    A = min(_ALIGN, page)
+    lo, hi = decode_range(pos, T, window, ring)
+    units = max(0, -(-(hi - lo) // A))
+    return [(lo + i * units // n_split * A,
+             min(hi, lo + (i + 1) * units // n_split * A))
+            for i in range(n_split)]
+
+
+def _decode_smem(G: int, Dh: int, itemsize: int) -> int:
+    """Bytes of shared memory a decode block takes (``DecodeSmem`` in
+    ``decode_split.cuh``): the ring of K and V tiles (or, after the loop,
+    the warps' merge rows, whichever is larger), q in float32 and the ring
+    of page ids."""
+    dhc, bt = next(c for c in _DECODE_CLASSES if Dh <= c[0])
+    maxg = next(g for g in (1, 2, 4, _DECODE_MAX_G) if min(G, _DECODE_MAX_G) <= g)
+    lpk = 32 * _DECODE_WARPS // bt
+    c16 = -(-Dh * itemsize // 16)
+    ld16 = c16 if lpk >= 8 else c16 + (lpk - c16 % 8) % 8
+    ring = _DECODE_STAGES * 2 * bt * ld16 * 16
+    merge = 4 * _DECODE_WARPS * maxg * (dhc + 2)
+    q = 4 * maxg * c16 * (16 // itemsize)
+    return max(ring, merge) + q + 4 * _DECODE_STAGES * (bt + 1)
 
 
 def flash_decode_lse(q, k, v, pos, interpret: bool = False, window=None,
@@ -148,7 +211,7 @@ def flash_decode_lse(q, k, v, pos, interpret: bool = False, window=None,
         raise ValueError("ring cache attention requires a window")
     if window is not None and int(window) < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    smem = 4 * (2 * G * Dh + 2 * _TILE * Dh + G * _TILE + 3 * G)
+    smem = _decode_smem(G, Dh, k.element_size())
     if smem > _SMEM_LIMIT:
         raise ValueError(f"group {G} x head dim {Dh} needs {smem} bytes of "
                          f"shared memory, more than {_SMEM_LIMIT}")
@@ -160,7 +223,7 @@ def flash_decode_lse(q, k, v, pos, interpret: bool = False, window=None,
             raise ValueError("pos must be a scalar or [B] tensor on q's device")
         pos_t = pos.to(torch.int32).reshape(-1).expand(B).contiguous()
     q32 = q.to(torch.float32).contiguous()
-    n_split, chunk = _splits(
+    n_split = _splits(
         B, Hkv, T, torch.cuda.get_device_properties(dev).multi_processor_count)
     f32 = dict(dtype=torch.float32, device=dev)
     o_part = torch.empty((B, Hkv, n_split, G, Dh), **f32)
@@ -175,7 +238,7 @@ def flash_decode_lse(q, k, v, pos, interpret: bool = False, window=None,
             o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
             out.data_ptr(), lse.data_ptr(), B, Hkv, G, Dh, T,
             -1 if window is None else int(window), int(bool(ring)),
-            n_split, chunk, float(Dh ** -0.5),
+            n_split, min(_ALIGN, T), float(Dh ** -0.5),
             int(k.dtype == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "flash_decode_lse")

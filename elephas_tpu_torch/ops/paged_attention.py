@@ -30,21 +30,12 @@ import ctypes
 import torch
 
 from . import _build
-from .flash_decode import (chunk_attention_reference,
-                           decode_attention_reference_lse)
+# the split rule of K5-decode is the dense K4's (csrc/decode_split.cuh)
+from .flash_decode import (_ALIGN, _SMEM_LIMIT, _decode_smem, _splits,
+                           chunk_attention_reference, decode_attention_reference_lse,
+                           decode_pieces)
 
 _MAX_DH = 256
-_SMEM_LIMIT = 227 * 1024
-# K5-decode: a split's piece is a whole number of units of this many rows
-# (or of one page, where a page is smaller)
-_ALIGN = 16
-# K5-decode's tile classes (DecodeTile in the .cu): head dims up to 64, 128
-# and 256 walk tiles of 32, 32 and 16 key rows; a block takes up to 8
-# query rows of a group; the cp.async ring holds 2 tiles
-_DECODE_CLASSES = ((64, 32), (128, 32), (256, 16))
-_DECODE_MAX_G = 8
-_DECODE_STAGES = 2
-_DECODE_WARPS = 4
 
 _SIGNATURES = {
     "paged_decode_lse": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
@@ -98,50 +89,6 @@ def paged_chunk_reference(q, kp, vp, table, pos0, page: int, window=None):
 
 
 # -- the CUDA kernels -----------------------------------------------------------
-
-
-def _splits(S: int, Hkv: int, T: int, n_sm: int) -> int:
-    """K5-decode's split count for ``S`` slots, ``Hkv`` KV heads and a table
-    of ``T`` = M·page positions: about four blocks an SM, capped only so
-    that no piece of a full cache is shorter than one ``_ALIGN``-row unit.
-    It depends on the grid alone; each block cuts its own piece of its
-    slot's visible range on the device (:func:`decode_pieces`), so a short
-    slot spreads over every split."""
-    want = max(1, -(-4 * n_sm // max(S * Hkv, 1)))
-    return min(want, max(1, T // _ALIGN))
-
-
-def decode_pieces(pos: int, T: int, n_split: int, page: int, window=None):
-    """The pieces ``[(a, b), ...]`` (one per split, in split order) that
-    K5-decode's blocks cut from the visible range ``[lo, p]`` of a slot at
-    ``pos``: ``p = min(pos, T - 1)``, ``lo = max(p - window + 1, 0)``. The
-    range is ``U = ceil((p - lo + 1) / A)`` units of ``A = min(_ALIGN,
-    page)`` rows counted from ``lo``; split ``i`` takes units ``[i U / n,
-    (i + 1) U / n)`` (floor division), cut at ``p``. The device code
-    (``paged_decode_split_kernel``) computes the same from the ``A`` the
-    wrapper passes."""
-    A = min(_ALIGN, page)
-    p = min(int(pos), T - 1)
-    lo = 0 if window is None else max(0, p - int(window) + 1)
-    units = (p - lo + A) // A
-    return [(lo + i * units // n_split * A,
-             min(p + 1, lo + (i + 1) * units // n_split * A))
-            for i in range(n_split)]
-
-
-def _decode_smem(G: int, Dh: int, itemsize: int) -> int:
-    """Bytes of shared memory a K5-decode block takes (``DecodeSmem`` in the
-    .cu): the ring of K and V tiles (or, after the loop, the warps' merge
-    rows, whichever is larger), q in float32 and the ring of table cells."""
-    dhc, bt = next(c for c in _DECODE_CLASSES if Dh <= c[0])
-    maxg = next(g for g in (1, 2, 4, _DECODE_MAX_G) if min(G, _DECODE_MAX_G) <= g)
-    lpk = 32 * _DECODE_WARPS // bt
-    c16 = -(-Dh * itemsize // 16)
-    ld16 = c16 if lpk >= 8 else c16 + (lpk - c16 % 8) % 8
-    ring = _DECODE_STAGES * 2 * bt * ld16 * 16
-    merge = 4 * _DECODE_WARPS * maxg * (dhc + 2)
-    q = 4 * maxg * c16 * (16 // itemsize)
-    return max(ring, merge) + q + 4 * _DECODE_STAGES * (bt + 1)
 
 
 def _check_pool(name, q, kp, vp, table, page: int, window):

@@ -153,6 +153,54 @@ def test_flash_decode_kernel_bf16_cache_and_scalar_pos(cuda):
         torch.testing.assert_close(a, w, atol=2e-2, rtol=2e-2)
 
 
+@pytest.mark.parametrize("mode", ["plain", "window", "ring", "window_past_T"])
+@pytest.mark.parametrize("g,dh,dtype,tol", [(1, 64, torch.float32, 1e-5),
+                                            (4, 128, torch.float32, 1e-5),
+                                            (2, 64, torch.bfloat16, 2e-2)])
+def test_flash_decode_every_position_matches_plain(cuda, mode, g, dh, dtype, tol):
+    """K4 (pieces cut from ``pos`` on the device) at every position of a
+    256-slot cache, 8 rows a launch: plain, a window of 40, a ring of window
+    100 over positions 0 .. 2T-1, and a window of 40 at positions T .. T+38
+    (a sequence-sharded rank's pos past its T); G 1 / Dh 64, G 4 / Dh 128
+    and a bf16 cache. atol = rtol = 1e-5 in float32 (2e-2 bf16) against
+    the plain version, and the same bits from a second launch."""
+    T = 256
+    window = None if mode == "plain" else 100 if mode == "ring" else 40
+    ring = mode == "ring"
+    positions = {"ring": np.arange(2 * T), "window_past_T": np.arange(T, T + 39)}.get(
+        mode, np.arange(T))
+    rng = np.random.default_rng(g * 10 + dh)
+    for first in range(0, len(positions), 8):
+        pos = positions[first:first + 8].astype(np.int32)
+        B = len(pos)
+        q = _t(rng, B, 2, g, dh)
+        k, v = _t(rng, B, 2, T, dh, dtype=dtype), _t(rng, B, 2, T, dh, dtype=dtype)
+        pos_t = torch.from_numpy(pos).cuda()
+        got = flash_decode_lse(q, k, v, pos_t, window=window, ring=ring)
+        want = decode_attention_reference_lse(q, k, v, pos_t, window, ring)
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, atol=tol, rtol=tol)
+        for a, w in zip(flash_decode_lse(q, k, v, pos_t, window=window, ring=ring), got):
+            assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("B,hkv,g,dh,T,pos", [
+    (8, 12, 1, 64, 1024, [31, 15, 16, 511, 512, 700, 1000, 1023]),      # GPT-2 decode
+    (8, 8, 4, 128, 2048, [0, 31, 256, 700, 1023, 1500, 2000, 2047]),    # Mixtral widths
+])
+def test_flash_decode_main_path_shapes_match_plain(cuda, B, hkv, g, dh, T, pos):
+    """K4 at the decode shapes ``serve`` and ``serve_moe`` run: atol = rtol =
+    1e-5 against the plain version, the same bits twice."""
+    rng = np.random.default_rng(B * hkv + g)
+    q, k, v = _t(rng, B, hkv, g, dh), _t(rng, B, hkv, T, dh), _t(rng, B, hkv, T, dh)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    got = flash_decode_lse(q, k, v, pos_t)
+    for a, w in zip(got, decode_attention_reference_lse(q, k, v, pos_t)):
+        torch.testing.assert_close(a, w, atol=1e-5, rtol=1e-5)
+    for a, w in zip(flash_decode_lse(q, k, v, pos_t), got):
+        assert torch.equal(a, w)
+
+
 def test_kernel_wrappers_refuse_bad_input(cuda):
     rng = np.random.default_rng(3)
     q, k = _t(rng, 1, 1, 1, 8), _t(rng, 1, 1, 16, 8)
@@ -575,6 +623,51 @@ def test_paged_decode_shapes_match_plain(cuda, S, hkv, g, dh, page, M, pos):
         torch.testing.assert_close(a, w, atol=2e-5, rtol=2e-5)
     for a, w in zip(paged_flash_decode_lse(q, kp, vp, table, pos_t, page), got):
         assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("S,hkv,g,dh,page,M,C,pos0,window,dtype", [
+    (1, 12, 1, 64, 16, 64, 256, [0], None, torch.float32),       # GPT-2 insert
+    (1, 12, 1, 64, 16, 64, 256, [128], None, torch.float32),     # an adopted prefix
+    (8, 12, 1, 64, 16, 64, 4, [0, 15, 16, 29, 511, 700, 1000, 1020], None, torch.float32),
+    (4, 2, 4, 128, 16, 64, 4, [31, 512, 700, 1020], None, torch.float32),
+    (2, 12, 1, 64, 16, 64, 256, [0, 300], 100, torch.float32),
+    (2, 12, 1, 64, 8, 128, 256, [0, 128], None, torch.float32),
+    (2, 12, 1, 64, 64, 16, 256, [0, 128], None, torch.float32),
+    (1, 12, 1, 64, 16, 64, 256, [128], None, torch.bfloat16),
+    (1, 8, 4, 128, 16, 128, 256, [0], None, torch.float32),      # Mixtral insert
+    (2, 8, 4, 128, 16, 128, 256, [0, 700], 300, torch.bfloat16),
+    (2, 2, 3, 256, 8, 40, 37, [0, 250], None, torch.float32),    # Dh 256, odd group
+    (2, 3, 2, 42, 4, 30, 19, [2, 100], 9, torch.float32),        # Dh 42: element copies
+    (2, 3, 2, 36, 4, 30, 19, [2, 100], None, torch.bfloat16),    # 72-byte bf16 rows
+])
+def test_paged_chunk_shapes_match_plain(cuda, S, hkv, g, dh, page, M, C, pos0, window, dtype):
+    """K5-chunk on the tensor cores at ``chip_smoke.py``'s chunk cases, the
+    Mixtral insert shape (Hkv 8, G 4, Dh 128, C 256) and the tile classes'
+    edges: atol = rtol = 2e-5 against the plain version, which widens a bf16
+    pool to float32 (a bf16 value is exact in TF32: the kernel keeps the
+    float32 pin), and the same bits from a second launch."""
+    rng = np.random.default_rng(S * hkv * g + C)
+    q, kp, vp, table = _paged(rng, S, hkv, g, dh, page, M, np.asarray(pos0) + C - 1, C,
+                              dtype=dtype)
+    p0 = torch.tensor(pos0, dtype=torch.int32, device="cuda")
+    got = paged_flash_chunk(q, kp, vp, table, p0, page, window)
+    torch.testing.assert_close(got, paged_chunk_reference(q, kp, vp, table, p0, page, window),
+                               atol=2e-5, rtol=2e-5)
+    assert torch.equal(paged_flash_chunk(q, kp, vp, table, p0, page, window), got)
+
+
+def test_paged_decode_window_past_the_table_matches_plain(cuda):
+    """K5-decode with a window at positions past the table's M*page: the
+    visible rows start at pos - window + 1 from the unclipped pos, as the
+    plain version's mask has them."""
+    rng = np.random.default_rng(15)
+    page, M = 8, 8
+    pos = np.arange(M * page, M * page + 8, dtype=np.int32)
+    q, kp, vp, table = _paged(rng, 8, 2, 2, 64, page, M, np.minimum(pos, M * page - 1))
+    pos_t = torch.from_numpy(pos).cuda()
+    for a, w in zip(paged_flash_decode_lse(q, kp, vp, table, pos_t, page, 12),
+                    paged_decode_reference_lse(q, kp, vp, table, pos_t, page, 12)):
+        torch.testing.assert_close(a, w, atol=2e-5, rtol=2e-5)
 
 
 def test_paged_wrappers_refuse_bad_input(cuda):

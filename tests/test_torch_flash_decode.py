@@ -108,3 +108,121 @@ def test_ring_requires_window():
     q, k, v = (torch.from_numpy(a) for a in _qkv(rng, 1, 1, 1, 8, 8))
     with pytest.raises(ValueError, match="window"):
         fd.decode_attention_lse(q, k, v, 3, ring=True)
+
+
+# -- K4's split rule (shared with K5-decode), and its arithmetic emulated --------
+
+
+def _reference_slots(pos, T, window, ring):
+    """The slots the plain version's mask keeps for a row at ``pos``."""
+    slots = np.arange(T)
+    if ring:
+        return slots[np.mod(pos - slots, T) < min(pos + 1, window)]
+    keep = slots <= pos
+    if window is not None:
+        keep &= slots > pos - window
+    return slots[keep]
+
+
+@pytest.mark.parametrize("window,ring", [(None, False), (1, False), (7, False),
+                                         (40, False), (1, True), (7, True),
+                                         (40, True), (100, True)])
+def test_dense_pieces_cover_the_logical_range_once(window, ring):
+    """For every position of a 64-slot cache up to 3T and 1 to 9 splits:
+    the pieces are contiguous in split order over the logical range
+    ``decode_range`` gives (each position once), start on a 16-row unit
+    counted from ``lo``, differ by at most one unit, and map (``j mod T`` in
+    a ring) to exactly the slots the plain version's mask keeps."""
+    T = 64
+    for n_split in range(1, 10):
+        for pos in range(3 * T):
+            lo, hi = fd.decode_range(pos, T, window, ring)
+            pieces = fd.decode_pieces(pos, T, n_split, T, window, ring)
+            assert len(pieces) == n_split
+            assert pieces[0][0] == lo and pieces[-1][1] == hi
+            rows = [r for a, b in pieces for r in range(a, b)]
+            assert rows == list(range(lo, hi))
+            lengths = [b - a for a, b in pieces]
+            assert max(lengths) - min(lengths) <= 16
+            assert all((a - lo) % 16 == 0 for a, b in pieces if b > a)
+            slots = sorted(r % T for r in rows) if ring else rows
+            assert slots == _reference_slots(pos, T, window, ring).tolist()
+
+
+def _emulated_k4(q, k, v, pos, window, ring, n_split, bt=32, warps=4):
+    """K4's arithmetic in plain PyTorch: each split's piece (from
+    ``decode_pieces``, the cache one page of T rows) walked in ``bt``-row
+    tiles, each of ``warps`` warps owning a quarter of every tile's keys
+    with its own online softmax (running max m, denominator l,
+    unnormalised accumulator); the warps merged once in warp order, then
+    the combine over the splits: M = max over non-empty splits, L = sum
+    l_i exp(m_i - M), out = sum exp(m_i - M) acc_i / L, lse = M + log L."""
+    B, Hkv, G, Dh = q.shape
+    T = k.shape[2]
+    scale = Dh ** -0.5
+    kpw = bt // warps
+    out, lse = torch.empty(B, Hkv, G, Dh), torch.empty(B, Hkv, G)
+    for b in range(B):
+        parts = []
+        for a, e in fd.decode_pieces(int(pos[b]), T, n_split, T, window, ring):
+            if e <= a:   # an empty piece: its block exits with an empty partial
+                parts.append((torch.full((Hkv, G), -torch.inf), torch.zeros(Hkv, G),
+                              torch.zeros(Hkv, G, Dh)))
+                continue
+            ws = []
+            for w in range(warps):
+                m = torch.full((Hkv, G), -torch.inf)
+                l_ = torch.zeros(Hkv, G)
+                acc = torch.zeros(Hkv, G, Dh)
+                for t0 in range(a, e, bt):
+                    j0 = t0 + w * kpw
+                    j = torch.arange(j0, max(j0, min(e, j0 + kpw)))
+                    if len(j) == 0:
+                        continue
+                    slot = j % T if ring else j
+                    sc = torch.einsum("hgd,hjd->hgj", q[b], k[b][:, slot]) * scale
+                    m_new = torch.maximum(m, sc.amax(-1))
+                    alpha = torch.exp(m - m_new)
+                    pr = torch.exp(sc - m_new[..., None])
+                    l_ = alpha * l_ + pr.sum(-1)
+                    acc = alpha[..., None] * acc + torch.einsum("hgj,hjd->hgd", pr, v[b][:, slot])
+                    m = m_new
+                ws.append((m, l_, acc))
+            M = torch.stack([m for m, _, _ in ws]).amax(0)
+            wt = [torch.exp(m - M) for m, _, _ in ws]
+            parts.append((M, sum(x * l_ for x, (_, l_, _) in zip(wt, ws)),
+                          sum(x[..., None] * acc for x, (_, _, acc) in zip(wt, ws))))
+        M = torch.stack([m for m, l_, _ in parts]).amax(0)
+        w = [torch.where(l_ > 0, torch.exp(m - M), torch.zeros(())) for m, l_, _ in parts]
+        L = sum(wi * l_ for wi, (_, l_, _) in zip(w, parts))
+        out[b] = sum(wi[..., None] * acc for wi, (_, _, acc) in zip(w, parts)) / L[..., None]
+        lse[b] = M + torch.log(L)
+    return out, lse
+
+
+@pytest.mark.parametrize("mode", ["plain", "window", "ring", "window_past_T"])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("n_split", [3, 6])
+def test_k4_split_rule_emulation_matches_plain_at_every_position(mode, g, n_split):
+    """The emulated K4 (per-split pieces cut by ``pos``, 32-row tiles, a
+    per-warp online softmax, the warps' merge and the combine) against
+    ``decode_attention_reference_lse`` at atol = rtol = 2e-5, one row at
+    each position: 0 .. T-1 of a 64-slot cache (plain and a window of 7),
+    0 .. 2T-1 of a ring of window 40, and T .. T+5 under a window of 7 (a
+    sequence-sharded rank's pos past its T)."""
+    T, window, ring = 64, None, False
+    positions = np.arange(T)
+    if mode == "window":
+        window = 7
+    elif mode == "ring":
+        window, ring, positions = 40, True, np.arange(2 * T)
+    elif mode == "window_past_T":
+        window, positions = 7, np.arange(T, T + 6)
+    rng = np.random.default_rng(10 * g + n_split)
+    B = len(positions)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(rng, B, 2, g, 32, T))
+    pos = torch.from_numpy(positions.astype(np.int32))
+    got = _emulated_k4(q, k, v, pos, window, ring, n_split)
+    want = fd.decode_attention_reference_lse(q, k, v, pos, window, ring)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=2e-5, rtol=2e-5)

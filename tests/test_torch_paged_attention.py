@@ -21,6 +21,11 @@ paged methods on the CPU path.
   and a plain-PyTorch emulation of the kernel's arithmetic over them (an
   online softmax per split over its tiles, then the log-sum-exp combine)
   equals the plain version at atol = rtol = 2e-5 for every position.
+- K5-chunk's tensor-core arithmetic (16-row blocks position-major across
+  the group, 8 or 2 warps sharing each key stage, 3xTF32 products with a
+  fresh sum per tile, the warps' merge) emulated against the plain version
+  and the JAX kernel in interpret mode at the float32 pin, with one TF32
+  product missing it and a bf16 pool's two products holding it.
 """
 
 import importlib
@@ -39,6 +44,7 @@ from elephas_tpu_torch.ops.paged_attention import (
     _splits, decode_pieces, paged_chunk_attention, paged_chunk_reference,
     paged_decode_attention_lse, paged_decode_reference_lse, paged_flash_chunk,
     paged_flash_decode, paged_flash_decode_lse, paged_view_rows)
+from tests.test_torch_flash_tf32x3 import _split
 
 jax_pa = importlib.import_module("elephas_tpu.ops.paged_attention")
 
@@ -297,13 +303,16 @@ def test_decode_pieces_cover_the_visible_range_once(page, window):
     """For every position of a 256-row table and 1 to 9 splits: the pieces
     are contiguous in split order from ``lo`` to ``p`` (each row once),
     each non-empty one starts on a unit boundary counted from ``lo``, and
-    their lengths differ by at most one unit of ``min(16, page)`` rows."""
+    their lengths differ by at most one unit of ``min(16, page)`` rows.
+    ``p`` is ``pos`` clipped to the table and ``lo`` comes from the
+    unclipped ``pos``, as the plain version's mask has it (past the table
+    a window may leave nothing)."""
     T, A = 256, min(16, page)
     for n_split in range(1, 10):
         for pos in range(T + 3):
             pieces = decode_pieces(pos, T, n_split, page, window)
             p = min(pos, T - 1)
-            lo = 0 if window is None else max(0, p - window + 1)
+            lo = 0 if window is None else max(0, pos - window + 1)
             assert len(pieces) == n_split
             assert pieces[0][0] == lo and pieces[-1][1] == p + 1
             rows = [r for a, b in pieces for r in range(a, b)]
@@ -381,3 +390,132 @@ def test_split_rule_emulation_matches_plain_at_every_position(page, M_, window, 
     want = paged_decode_reference_lse(q, kp, vp, table, pos, page, window)
     for a, w in zip(got, want):
         torch.testing.assert_close(a, w, atol=2e-5, rtol=2e-5)
+
+
+# -- K5-chunk's tensor-core arithmetic emulated on the CPU -------------------------
+
+
+def _emulated_chunk(q, kp, vp, table, pos0, page, window, passes, warps=8, bk=8):
+    """K5-chunk's arithmetic in plain PyTorch: blocks of 16 query rows taken
+    position-major across the G heads (row ``i`` is ``(c, g) = (i // G, i %
+    G)``), their rows' key range cut into stages of ``warps * bk`` rows;
+    warp ``w`` takes the ``w``-th ``bk`` keys of every stage with its own
+    online softmax, s = q.k^T and each tile's p.v as TF32 products
+    (``passes`` 3: 3xTF32, 2: a B exact in TF32, as a widened bf16, 1: one
+    TF32 product), p.v in a fresh sum added once; the warps' (m, l, o)
+    merged in warp order, then o / l (0 for a row that sees no key)."""
+    k = paged_view_rows(kp, table, page).float()
+    v = paged_view_rows(vp, table, page).float()
+    S_, Hkv_, G_, C, Dh_ = q.shape
+    cap, R, bs = k.shape[2], G_ * C, warps * bk
+    scale = Dh_ ** -0.5
+
+    def mul(eq, a, b):
+        ab, as_ = _split(a)
+        bb, bs_ = _split(b)
+        out = torch.einsum(eq, ab, bb)
+        if passes >= 2:
+            out = torch.einsum(eq, as_, bb) + out
+        if passes == 3:
+            out = torch.einsum(eq, ab, bs_) + out
+        return out
+
+    def merge(parts):   # [(m, l, o)] -> (M, L, O), in order
+        M = torch.stack([m for m, _, _ in parts]).amax(0)
+        wt = [torch.where(m > -torch.inf, torch.exp(m - M), 0.0) for m, _, _ in parts]
+        return (M, sum(x * l_ for x, (_, l_, _) in zip(wt, parts)),
+                sum(x[..., None] * o for x, (_, _, o) in zip(wt, parts)))
+
+    out = torch.zeros(S_, Hkv_, G_, C, Dh_)
+    for s in range(S_):
+        p0 = int(pos0[s])
+        for r0 in range(0, R, 16):
+            i = torch.arange(r0, min(r0 + 16, R))
+            c, g = i // G_, i % G_
+            qp = p0 + c                                   # the rows' positions
+            k_hi = min(int(qp[-1]) + 1, cap)
+            k_lo = 0 if window is None else max(0, int(qp[0]) - window + 1)
+            n_st = max(0, -(-(k_hi - k_lo) // bs))
+            qr = q[s][:, g, c]                            # [Hkv, rows, Dh]
+            ws = []
+            for w in range(warps):
+                m = torch.full((Hkv_, len(i)), -torch.inf)
+                l_ = torch.zeros(Hkv_, len(i))
+                acc = torch.zeros(Hkv_, len(i), Dh_)
+                for st in range(n_st):
+                    j = torch.arange(k_lo + st * bs + w * bk, k_lo + st * bs + (w + 1) * bk)
+                    j = j[j < k_hi]
+                    if len(j) == 0:
+                        continue
+                    sc = mul("hnd,hjd->hnj", qr, k[s][:, j]) * scale
+                    vis = (j[None] <= qp[:, None]) & (j[None] < cap)
+                    if window is not None:
+                        vis &= j[None] > qp[:, None] - window
+                    sc = sc.masked_fill(~vis, -torch.inf)
+                    mx = torch.maximum(m, sc.amax(-1))
+                    seen = mx > -torch.inf
+                    pr = torch.where(seen[..., None], torch.exp(sc - mx[..., None]), 0.0)
+                    alpha = torch.where(seen, torch.exp(m - mx), 1.0)
+                    l_ = alpha * l_ + pr.sum(-1)
+                    acc = alpha[..., None] * acc + mul("hnj,hjd->hnd", pr, v[s][:, j])
+                    m = mx
+                ws.append((m, l_, acc))
+            _, L, O = merge(ws)
+            out[s][:, g, c] = torch.where(L[..., None] > 0, O * (1 / L[..., None]), 0.0)
+    return out
+
+
+def _chunk_case(page, g, C, seed, bf16=False):
+    """q, pools (trash page 0 at 1e4), a 192-row table scattered and left
+    unmapped past each slot's chunk, and per-slot ``pos0`` (an empty prefix,
+    a straddled page edge, the table's end: up to 192 keys)."""
+    rng = np.random.default_rng(seed)
+    S_, M_, hkv, dh = 3, 192 // page, 2, 32
+    P = S_ * M_ + 1
+    kp = rng.standard_normal((P, hkv, page, dh)).astype(np.float32)
+    vp = rng.standard_normal((P, hkv, page, dh)).astype(np.float32)
+    kp[0] = vp[0] = 1e4
+    if bf16:   # values a bf16 pool holds, kept in float32
+        kp, vp = (torch.from_numpy(a).bfloat16().float().numpy() for a in (kp, vp))
+    table = (1 + rng.permutation(S_ * M_)).reshape(S_, M_).astype(np.int32)
+    pos0 = np.array([0, page + 3, 192 - C], np.int32)
+    for s, p in enumerate(pos0 + C - 1):
+        table[s, p // page + 1:] = 0
+    q = rng.standard_normal((S_, hkv, g, C, dh)).astype(np.float32)
+    return q, kp, vp, table, pos0
+
+
+@pytest.mark.parametrize("page", [4, 16])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("window", [None, 9])
+@pytest.mark.parametrize("warps", [8, 2])
+def test_chunk_tf32x3_emulation_matches_plain_and_pallas(page, g, window, warps):
+    """The emulated K5-chunk in float32 (3xTF32, 16-row blocks across the
+    group, 8 or 2 warps of 8 keys a stage: the kernel's head-dim classes up
+    to 64 and 256) against ``paged_chunk_reference`` and the JAX
+    ``paged_flash_chunk`` in interpret mode, both at atol = rtol = 2e-5
+    (the float32 pin); one TF32 product misses the pin."""
+    q, kp, vp, table, pos0 = _chunk_case(page, g, 20, 30 + page + g)
+    args = _t(q, kp, vp, table, pos0)
+    got = _emulated_chunk(*args, page, window, passes=3, warps=warps)
+    torch.testing.assert_close(got, paged_chunk_reference(*args, page, window),
+                               atol=2e-5, rtol=2e-5)
+    want = jax_pa.paged_flash_chunk(*(jnp.asarray(a) for a in (q, kp, vp, table, pos0)),
+                                    page, window, True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=2e-5)
+    one = _emulated_chunk(*args, page, window, passes=1, warps=warps)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(one, paged_chunk_reference(*args, page, window),
+                                   atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("g", [1, 4])
+def test_chunk_bf16_pool_two_products_hold_the_float32_pin(g):
+    """A bf16 pool is exact in TF32, so K5-chunk runs its products as two
+    TF32 ones (q's and p's small parts against K's and V's only part): the
+    emulation holds the float32-widened plain version at atol = rtol =
+    2e-5."""
+    q, kp, vp, table, pos0 = _chunk_case(8, g, 24, 40 + g, bf16=True)
+    args = _t(q, kp, vp, table, pos0)
+    got = _emulated_chunk(*args, 8, None, passes=2)
+    torch.testing.assert_close(got, paged_chunk_reference(*args, 8), atol=2e-5, rtol=2e-5)
