@@ -1,12 +1,22 @@
 #!/usr/bin/env python3
-"""Time K3-fwd and K3-bwd (the LayerNorm forward and backward), K4 (dense
-decode attention), K5-decode and K5-chunk (paged decode and chunk
-attention), K6-gmm (``gmm`` and ``gmm_t``) and K6-tgmm built from two
-sources of ``layer_norm.cu``, ``flash_decode.cu``, ``paged_attention.cu``
-and ``grouped_matmul.cu`` (with the headers each includes) in turns on one
+"""Time K1-fwd and K1-bwd (the fused cross-entropy), K3-fwd and K3-bwd (the
+LayerNorm forward and backward), K4 (dense decode attention), K5-decode and
+K5-chunk (paged decode and chunk attention), K6-gmm (``gmm`` and
+``gmm_t``) and K6-tgmm built from two sources of ``fused_xent.cu``,
+``layer_norm.cu``, ``flash_decode.cu``, ``paged_attention.cu`` and
+``grouped_matmul.cu`` (with the headers each includes) in turns on one
 NVIDIA GPU: this tree's and another one (for example a parent commit's), in
 the order other, tree, tree, other, beside the yardsticks that
 ``chip_smoke.py`` times.
+
+- K1-fwd and K1-bwd over ``chip_smoke.py``'s cases (``xent_cases``: the
+  MLP fit's [1024, 10] and ragged [1000, 10], [4096, 50257] in float32 and
+  bf16, and each side of every route boundary of the tree's kernels),
+  beside ``F.cross_entropy`` with probability targets and its autograd
+  backward, and the launch floor: an empty kernel at the tree's fit-shape
+  grid and at the one-warp-a-row kernel's (128 blocks of 256), under the same
+  timing loop.
+  The new interface takes the tree's ``xent_plan``; the old one had none.
 
 - K3-fwd at GPT-2's training shape ``[8192, 768]`` and its decode shape
   ``[8, 768]`` (four input sets), beside ``F.layer_norm``.
@@ -62,12 +72,12 @@ shows.
 Run from the repository root::
 
     git archive <commit> elephas_tpu_torch/ops/csrc | tar -x -C <dir>
-    python3 chip_k3k6_ab.py <dir>/elephas_tpu_torch/ops/csrc [k3,k4,k5,k6]
+    python3 chip_k3k6_ab.py <dir>/elephas_tpu_torch/ops/csrc [k1,k3,k4,k5,k6]
 
-The optional second argument names the kernel groups to time (all four by
-default): ``k3`` the LayerNorm kernels, ``k4`` the dense decode, ``k5``
-K5-decode and K5-chunk, ``k6`` gmm, gmm_t and tgmm. Only their sources
-are built.
+The optional second argument names the kernel groups to time (all five by
+default): ``k1`` the cross-entropy kernels, ``k3`` the LayerNorm kernels,
+``k4`` the dense decode, ``k5`` K5-decode and K5-chunk, ``k6`` gmm, gmm_t
+and tgmm. Only their sources are built.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line with
 each source's kernels' registers and spill-store bytes (``ptxas -v``),
@@ -99,7 +109,10 @@ PAGED_DECODE = [P] * 10 + [I] * 10 + [F, I, P]
 PAGED_CHUNK = [P] * 6 + [I] * 9 + [F, I, P]   # unchanged by the redesign
 # flash_decode_lse kept its types: its chunk length became an alignment
 FLASH_DECODE = [P] * 9 + [I] * 9 + [F, I, P]
-GROUPS = ("k3", "k4", "k5", "k6")
+GROUPS = ("k1", "k3", "k4", "k5", "k6")
+# fused_xent_fwd / _bwd gained (route, vec, n, slice) in the K1 redesign
+XENT_FWD = {False: [P] * 3 + [I] * 3 + [P], True: [P] * 3 + [I] * 7 + [P]}
+XENT_BWD = {False: [P] * 4 + [I] * 3 + [P], True: [P] * 4 + [I] * 7 + [P]}
 GMM = {False: [P] * 4 + [I] * 7 + [P], True: [P] * 4 + [I] * 8 + [P]}
 TGMM = [P] * 4 + [I] * 7 + [P]   # unchanged by the redesign
 
@@ -141,7 +154,8 @@ def new_abi(src: Path, fn: str, marker: str) -> bool:
     """Whether the C entry ``fn`` of ``src`` names ``marker`` among its
     parameters."""
     text = src.read_text()
-    at = text.index(f'extern "C" int {fn}(')
+    head = f'extern "C" int {fn}('
+    at = text.index(head if head in text else f"\nint {fn}(")
     return marker in text[at:text.index(")", at)]
 
 
@@ -160,7 +174,8 @@ class Kernels:
     its C interface."""
 
     def __init__(self, csrc: Path, tag: str, out_dir: Path, groups):
-        ln, gm = csrc / "layer_norm.cu", csrc / "grouped_matmul.cu"
+        ln, gm, xf = csrc / "layer_norm.cu", csrc / "grouped_matmul.cu", csrc / "fused_xent.cu"
+        self.xf_new = new_abi(xf, "fused_xent_fwd", "int route")
         pa, fd = csrc / "paged_attention.cu", csrc / "flash_decode.cu"
         self.ln_new = new_abi(ln, "layer_norm_bwd", "int route, int vec")
         self.ln_fwd_new = new_abi(ln, "layer_norm_fwd", "int route, int vec")
@@ -168,6 +183,8 @@ class Kernels:
         self.pa_new = new_abi(pa, "paged_decode_lse", "int align")
         self.fd_new = new_abi(fd, "flash_decode_lse", "int align")
         jobs = {
+            "k1": ("xf", xf, {"fused_xent_fwd": XENT_FWD[self.xf_new],
+                              "fused_xent_bwd": XENT_BWD[self.xf_new]}),
             "k3": ("ln", ln, {"layer_norm_bwd": LN_BWD[self.ln_new],
                               "layer_norm_fwd": LN_FWD[self.ln_fwd_new]}),
             "k4": ("fd", fd, {"flash_decode_lse": FLASH_DECODE}),
@@ -183,6 +200,25 @@ class Kernels:
             for (name, src, _), (lib, usage) in zip(todo, libs):
                 setattr(self, name, lib)
                 self.ptxas[src.name] = usage
+
+    def xent(self, x, y, g=None):
+        """K1-fwd (``g`` None) or K1-bwd; the new interface with the tree's
+        plan."""
+        from elephas_tpu_torch.ops.fused_xent import _vec_max, xent_plan
+
+        B, C = x.shape
+        out = torch.empty((B,), device=x.device) if g is None else torch.empty_like(x)
+        plan = []
+        if self.xf_new:
+            plan = list(xent_plan(C, x.element_size(),
+                                  _vec_max(x, y, *([] if g is None else [out]))))
+        ptrs = [t.data_ptr() for t in ((x, y, out) if g is None else (x, y, g, out))]
+        fn = self.xf.fused_xent_fwd if g is None else self.xf.fused_xent_bwd
+        err = fn(*ptrs, B, C, int(x.dtype == torch.bfloat16), *plan,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"fused_xent: CUDA error {err}")
+        return out
 
     def ln_fwd(self, x, s, b, eps=1e-5):
         N, D = x.shape
@@ -350,7 +386,7 @@ def mma_peak_tflops(out_dir: Path):
     events over 20000 rounds."""
     src = out_dir / "ab_mma_peak.cu"
     src.write_text(MMA_PEAK_CU)
-    lib = build(src, out_dir / "ab_mma_peak.so", "mma_peak", [P, I, I, I, P])
+    lib, _ = build(src, out_dir / "ab_mma_peak.so", {"mma_peak": [P, I, I, I, P]})
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = torch.empty(sms * 256, device="cuda")
     rates = {}
@@ -424,6 +460,59 @@ def _decode_turn(row, name, fn, sets, want):
     row[f"{name}_err"] = max(float((a - w).abs().max()) for a, w in zip(got, want))
     row[f"{name}_same_bits"] = all(torch.equal(a, b) for a, b in zip(got, fn(*sets[0])))
     row[f"{name}_ms"] = cs.device_ms(fn, sets, 60)
+
+
+def _k1(gen):
+    """K1's inputs over ``chip_smoke.py``'s cases, and the launch floor."""
+    from elephas_tpu_torch.ops.fused_xent import (fused_xent_bwd_reference,
+                                                  fused_xent_fwd_reference, launch_shape,
+                                                  xent_plan)
+
+    sets, want = {}, {}
+    for name, B, C, dtype in cs.xent_cases():
+        sets[name] = [cs._xent_inputs(gen, B, C, dtype)]
+        sets[name] += [cs._xent_inputs(gen, B, C, dtype)
+                       for _ in range(cs.l2_sets(sum(t.nbytes for t in sets[name][0])) - 1)]
+        x, y, g = sets[name][0]
+        want[name] = (fused_xent_fwd_reference(x, y), fused_xent_bwd_reference(x, y, g))
+
+    def n_iter(x):
+        return 200 if x.numel() < 1e6 else 20
+
+    def turn(k, row):
+        for name, st in sets.items():
+            x, y, g = st[0]
+            tol_b = 1e-6 if x.dtype == torch.float32 else 2.0 ** -8
+            for kind, args, tol, w in (("fwd", (x, y), 1e-5, want[name][0]),
+                                       ("bwd", (x, y, g), tol_b, want[name][1])):
+                got = k.xent(*args)
+                row[f"xent_{kind}_{name}_err"], row[f"xent_{kind}_{name}_ok"] = \
+                    cs._allclose_err(got.float(), w.float(), tol)
+                row[f"xent_{kind}_{name}_same_bits"] = torch.equal(got, k.xent(*args))
+                fn = (lambda x, y, g: k.xent(x, y)) if kind == "fwd" else k.xent
+                row[f"xent_{kind}_{name}_ms"] = cs.device_ms(fn, st, n_iter(x))
+            del got
+
+    def yardsticks(out):
+        F = torch.nn.functional
+        for name, st in sets.items():
+            lib_sets = [(xi, yi.to(xi.dtype), gi) for xi, yi, gi in st]
+            out[f"F.cross_entropy_fwd_{name}_ms"] = cs.device_ms(
+                lambda x, y, g: F.cross_entropy(x, y, reduction="none"), lib_sets,
+                n_iter(st[0][0]))
+            graphs = []
+            for xi, yi, gi in lib_sets:
+                xl = xi.detach().requires_grad_()
+                graphs.append((F.cross_entropy(xl, yi, reduction="none"), xl, gi))
+            out[f"F.cross_entropy_bwd_{name}_ms"] = cs.device_ms(
+                lambda o, xl, gi: torch.autograd.grad(o, xl, gi, retain_graph=True), graphs,
+                n_iter(st[0][0]))
+            del graphs, lib_sets
+        grid = launch_shape(1024, 10, torch.float32, xent_plan(10, 4))[:2]
+        out["floor_grid"] = grid
+        out["floor_ms"] = cs.empty_kernel_ms(*grid)
+        out["floor_parent_grid_ms"] = cs.empty_kernel_ms(128, 256)
+    return turn, yardsticks
 
 
 def _k3(gen):
@@ -637,7 +726,7 @@ def main() -> int:
 
     print(json.dumps({"ptxas": {turn: k.ptxas for turn, k in kern.items()}}), flush=True)
     gen = np.random.default_rng(0)
-    prep = {"k3": _k3, "k4": _k4, "k5": _k5, "k6": _k6}
+    prep = {"k1": _k1, "k3": _k3, "k4": _k4, "k5": _k5, "k6": _k6}
     phases = [prep[g](gen) for g in GROUPS if g in groups]
     torch.cuda.synchronize()
 

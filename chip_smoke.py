@@ -114,9 +114,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
     the card against the CPU.
 19. ``kernel`` ``fused_xent``: K1-fwd and K1-bwd against their plain
     versions at the MLP fit's shape [1024, 10], ragged [1000, 10], wide
-    [4096, 50257] and bf16 logits, each with a zero-label and a soft-label
-    row; timed beside the plain versions, ``F.cross_entropy`` with
-    probability targets (its autograd backward for K1-bwd) and the bound.
+    [4096, 50257] and bf16 logits, and each side of every route boundary
+    (C 16 / 17, 1024 / 1025, the cluster's capacity and one past it), each
+    with a zero-label and a soft-label row, each run twice for the same
+    bits; timed beside the plain versions, ``F.cross_entropy`` with
+    probability targets (its autograd backward for K1-bwd), the bound and
+    its share, and the launch floor (an empty kernel at the fit shape's
+    grid).
 20. ``fit_mlp``: the reference's MNIST MLP (the committed Keras JSON with a
     logits head, ``elephas_tpu_torch/configs/mnist_mlp_logits.json``) on
     65536 MNIST-shaped samples through ``SparkModel.fit``: 8 workers,
@@ -2293,29 +2297,97 @@ def _xent_inputs(gen, B, C, dtype):
     return x, y, g
 
 
+EMPTY_KERNEL_CU = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+extern "C" const char* error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+"""
+
+
+def empty_kernel_ms(blocks: int, threads: int, n_iter: int = 200) -> float:
+    """The launch floor: an empty kernel of ``blocks`` x ``threads``, built
+    by the kernels' own builder (a library named by its source's hash) and
+    timed by :func:`device_ms`, the loop every kernel time here comes from."""
+    import ctypes
+
+    from elephas_tpu_torch.ops import _build
+
+    src = _build.BUILD_DIR / "empty_kernel.cu"
+    if not src.exists() or src.read_text() != EMPTY_KERNEL_CU:
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src.write_text(EMPTY_KERNEL_CU)
+    lib = _build.load("empty_kernel", {"empty_launch": [ctypes.c_int, ctypes.c_int,
+                                                        ctypes.c_void_p]}, src=src)
+
+    def run():
+        _build.check(lib, lib.empty_launch(blocks, threads,
+                                           torch.cuda.current_stream().cuda_stream),
+                     "empty_kernel")
+    return device_ms(run, [()], n_iter)
+
+
+def l2_sets(set_bytes: int, most: int = 64) -> int:
+    """Input sets of ``set_bytes`` each that together hold twice the card's
+    L2, so a timing loop cycling through them reads device memory; at most
+    ``most``, where sets of under 2 L2 / ``most`` bytes (the fit's rows)
+    are read from the L2, as the step that makes them leaves them."""
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    return max(1, min(most, -(-2 * l2 // set_bytes)))
+
+
+def xent_cases():
+    """K1's cases: the MLP fit's [1024, 10] (ragged [1000, 10]), the wide
+    [4096, 50257] (float32 and bf16 logits), one each side of every route
+    boundary (warp / cluster at C 1024, cluster / stream at the cluster's
+    capacity), and of the warp route's switch from dividing by the row's
+    sum to multiplying by its inverse (C 128 / 129)."""
+    from elephas_tpu_torch.ops.fused_xent import cluster_capacity
+
+    f32, bf = torch.float32, torch.bfloat16
+    cap = cluster_capacity(4)
+    return [("main", 1024, 10, f32), ("ragged", 1000, 10, f32), ("wide", 4096, 50257, f32),
+            ("main_bf16", 1024, 10, bf), ("wide_bf16", 4096, 50257, bf),
+            ("c128", 1024, 128, f32), ("c129", 1024, 129, f32), ("c1024", 4096, 1024, f32),
+            ("c1025", 4096, 1025, f32), ("cluster_cap", 64, cap, f32),
+            ("stream", 64, cap + 1, f32)]
+
+
 def check_fused_xent(card):
     """K1-fwd and K1-bwd against their plain versions (loss atol = rtol =
     1e-5: float32 row sums in another order; dx 1e-6 in float32, one bf16
-    ulp, 2**-8, in bf16), timed beside the plain versions and
+    ulp, 2**-8, in bf16) over :func:`xent_cases`, each run twice for the
+    same bits, its route named, timed beside the plain versions and
     ``F.cross_entropy(x, y, reduction="none")`` with probability targets
-    (its autograd backward for K1-bwd), a yardstick the port never calls."""
-    from elephas_tpu_torch.ops.fused_xent import (fused_xent_bwd, fused_xent_bwd_reference,
-                                                  fused_xent_fwd, fused_xent_fwd_reference)
+    (its autograd backward for K1-bwd), a yardstick the port never calls,
+    the bound and its share, and the launch floor: an empty kernel at the
+    fit shape's grid under the same timing loop."""
+    from elephas_tpu_torch.ops.fused_xent import (ROUTES, _vec_max, fused_xent_bwd,
+                                                  fused_xent_bwd_reference, fused_xent_fwd,
+                                                  fused_xent_fwd_reference, launch_shape,
+                                                  xent_plan)
 
     F = torch.nn.functional
     gen = np.random.default_rng(SEED + 30)
-    cases = [("main", 1024, 10, torch.float32), ("ragged", 1000, 10, torch.float32),
-             ("wide", 4096, 50257, torch.float32), ("main_bf16", 1024, 10, torch.bfloat16),
-             ("wide_bf16", 4096, 50257, torch.bfloat16)]
     out, worst = {"fwd": [], "bwd": []}, {"fwd": 0.0, "bwd": 0.0}
     rows = {}
-    for name, B, C, dtype in cases:
-        n_sets = 4 if B * C < 1e6 else 1     # one wide set is 4x the 50 MB L2
-        sets = [_xent_inputs(gen, B, C, dtype) for _ in range(n_sets)]
+    fit_grid = launch_shape(1024, 10, torch.float32, xent_plan(10, 4))[:2]
+    floor = empty_kernel_ms(*fit_grid)
+    for name, B, C, dtype in xent_cases():
+        sets = [_xent_inputs(gen, B, C, dtype)]
+        sets += [_xent_inputs(gen, B, C, dtype)
+                 for _ in range(l2_sets(sum(t.nbytes for t in sets[0])) - 1)]
         # the library call wants targets in the logits' dtype
         lib_sets = [(xi, yi.to(dtype), gi) for xi, yi, gi in sets]
         x, y, g = sets[0]
+        plan = xent_plan(C, x.element_size(), _vec_max(x, y))
         fwd, bwd = fused_xent_fwd(x, y), fused_xent_bwd(x, y, g)
+        same = torch.equal(fwd, fused_xent_fwd(x, y)) and torch.equal(bwd, fused_xent_bwd(x, y, g))
         torch.cuda.synchronize()
         err_f, ok_f = _allclose_err(fwd, fused_xent_fwd_reference(x, y), 1e-5)
         tol_b = 1e-6 if dtype == torch.float32 else 2.0 ** -8
@@ -2326,6 +2398,7 @@ def check_fused_xent(card):
         require(ok_f and float(fwd[0]) == 0.0,
                 f"fused_xent_fwd {name}: max abs err {err_f} beyond 1e-5 (row 0 {float(fwd[0])})")
         require(ok_b, f"fused_xent_bwd {name}: max abs err {err_b} beyond {tol_b}")
+        require(same, f"fused_xent {name}: a second run gave other bits")
         worst["fwd"], worst["bwd"] = max(worst["fwd"], err_f), max(worst["bwd"], err_b)
 
         n_iter = 200 if B * C < 1e6 else 20
@@ -2345,19 +2418,23 @@ def check_fused_xent(card):
         del graphs
         fb, fby = bound_ms(B * C * (xs + 4) + 4 * B, 5 * B * C)
         bb, bby = bound_ms(B * C * (2 * xs + 4) + 4 * B, 6 * B * C)
+        route = {"route": ROUTES[plan[0]], "vec": plan[1], "cluster": plan[2],
+                 "slice": plan[3], "launch": launch_shape(B, C, dtype, plan),
+                 "sets": len(sets)}
         for kind, ms, plain, lib, bms, by, err in (
                 ("fwd", f_ms, f_plain, f_lib, fb, fby, err_f),
                 ("bwd", b_ms, b_plain, b_lib, bb, bby, err_b)):
-            out[kind].append({"case": name, "shape": [B, C], "dtype": str(dtype),
-                              "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                              "library_ms": lib, "bound_ms": bms, "bound_by": by})
+            out[kind].append({"case": name, "shape": [B, C], "dtype": str(dtype), **route,
+                              "max_abs_err": err, "same_bits": same, "ms": ms,
+                              "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
+                              "bound_by": by, "bound_share": bms / ms})
             if name == "main":
                 rows[kind] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
-                              "bound_ms": bms, "bound_by": by}
+                              "bound_ms": bms, "bound_by": by, "floor_ms": floor}
         del sets, lib_sets, x, y, g, fwd, bwd
         torch.cuda.empty_cache()
-    emit({"phase": "kernel", "kernel": "fused_xent", "fwd": out["fwd"], "bwd": out["bwd"],
-          "card": card})
+    emit({"phase": "kernel", "kernel": "fused_xent", "floor_ms": floor,
+          "floor_grid": fit_grid, "fwd": out["fwd"], "bwd": out["bwd"], "card": card})
     lines = {"fwd": ("fused_xent_fwd", "elephas_tpu/ops/pallas_ops.py:99",
                      "F.cross_entropy(x, y, reduction='none'), probability targets"),
              "bwd": ("fused_xent_bwd", "elephas_tpu/ops/pallas_ops.py:113",

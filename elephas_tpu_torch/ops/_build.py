@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -56,18 +56,18 @@ def _sources(src: Path) -> List[Path]:
     return seen
 
 
-def _target(name: str) -> Tuple[Path, Path]:
-    src = CSRC / f"{name}.cu"
+def _target(name: str, src: Optional[Path] = None) -> Tuple[Path, Path]:
+    src = src or CSRC / f"{name}.cu"
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in _sources(src):
         digest.update(path.name.encode() + b"\0" + path.read_bytes())
     return src, BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def _start(name: str):
+def _start(name: str, src: Optional[Path] = None):
     """Start ``nvcc`` for one source into a temporary file; ``None`` when the
     library for this source hash is already built."""
-    src, out = _target(name)
+    src, out = _target(name, src)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -101,14 +101,17 @@ def build(names: Iterable[str]) -> List[str]:
     return built
 
 
-def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed.
+def load(name: str, signatures: Dict[str, list], src: Optional[Path] = None) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (or for the source ``src``,
+    which must export ``error_string`` too), built first if needed.
     ``signatures`` maps each C entry point to its ``argtypes``; every entry
     returns ``int`` (a ``cudaError_t``)."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_target(name)[1]))
+        job = _start(name, src)
+        if job is not None:
+            _finish(name, job)
+        lib = ctypes.CDLL(str(_target(name, src)[1]))
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int

@@ -2,8 +2,9 @@
 at edge shapes the serving and training runs do not reach (scalar-load
 head dims, odd group sizes, caches and sequences shorter than a tile,
 every mask mode, pages smaller and larger than a key tile, grouped
-products with empty experts, ragged K/N and wide tiles, loss rows on both
-sides of K1's warp/block switch with zero and soft labels, the flash-attention
+products with empty experts, ragged K/N and wide tiles, loss rows on each
+of K1's three routes and across their boundaries with zero and soft labels,
+misaligned rows, masked slices of -inf logits and plans the kernels refuse, the flash-attention
 kernels in every tile class at its edges in float32 and bf16 and their
 bitwise determinism, the rope-on-load flash-attention kernels at the
 Llama-3-8B training shape and its edges),
@@ -846,8 +847,8 @@ def _xent_case(rng, B, C, dtype=torch.float32):
                                  (2, 4099), (1024, 10)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_xent_kernels_match_plain(cuda, B, C, dtype):
-    """K1 at ragged widths on both sides of the warp-per-row / block-per-row
-    switch (C = 1024), bf16 logits, zero and soft label rows. Loss within
+    """K1 at ragged widths on every route (one warp a row up to C 1024, the
+    cluster past it), bf16 logits, zero and soft label rows. Loss within
     1e-5 relative to the row's scale (float32 sums in another order); dx
     within 1e-6 in float32 and one bf16 ulp (2**-8 relative) in bf16."""
     rng = np.random.default_rng(B * 7 + C)
@@ -911,6 +912,152 @@ def test_fused_xent_wrappers_refuse_bad_input(cuda):
         fused_xent_bwd(x, y, g[:3])
     empty = fused_xent_fwd(x[:0], y[:0])
     assert empty.shape == (0,)
+
+
+# the widest rows the cluster route holds (tests/test_torch_fused_xent.py)
+XENT_CLUSTER_CAP = {torch.float32: 8 * 28920, torch.bfloat16: 8 * 38560}
+
+
+@pytest.mark.parametrize("C", [1, 10, 16, 17, 32, 33, 128, 129, 999, 1000, 1024, 1025, 12800,
+                               12801, 50257, "cap", "cap+1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_xent_routes_at_their_boundaries(cuda, C, dtype):
+    """K1 on each route at and across its boundaries (the warp route's
+    division up to 128, warp / cluster at 1024, one CTA / two at 12800,
+    cluster / stream at the cluster's capacity),
+    ragged B (a part-filled last block), zero and soft label rows: the
+    plain version's pins (loss 1e-5, dx 1e-6 float32 / 2**-8 bf16), the
+    zero-label row exactly 0, and the same bits on a second run."""
+    from elephas_tpu_torch.ops.fused_xent import ROUTES, xent_plan
+
+    cap = XENT_CLUSTER_CAP[dtype]
+    C = {"cap": cap, "cap+1": cap + 1}.get(C, C)
+    want_route = "warp" if C <= 1024 else "cluster" if C <= cap else "stream"
+    assert ROUTES[xent_plan(C, torch.tensor([], dtype=dtype).element_size())[0]] == want_route
+    B = 37 if C <= 1024 else 3
+    rng = np.random.default_rng(C)
+    x, y, g = _xent_case(rng, B, C, dtype)
+    got, dx = fused_xent_fwd(x, y), fused_xent_bwd(x, y, g)
+    torch.testing.assert_close(got, fused_xent_fwd_reference(x, y), atol=1e-5, rtol=1e-5)
+    assert got[0].item() == 0.0
+    tol = 1e-6 if dtype == torch.float32 else 2 ** -8
+    torch.testing.assert_close(dx.float(), fused_xent_bwd_reference(x, y, g).float(),
+                               atol=tol, rtol=tol)
+    assert torch.equal(got, fused_xent_fwd(x, y))
+    assert torch.equal(dx, fused_xent_bwd(x, y, g))
+
+
+@pytest.mark.parametrize("C", [10, 16, 1000, 4096, 50257])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_xent_misaligned_rows_match_plain(cuda, C, dtype):
+    """Logits one element past an aligned address (and labels one past
+    theirs): the warp route falls back to scalar loads, the cluster's bulk
+    copies shift their unaligned ends."""
+    rng = np.random.default_rng(C + 3)
+    B = 5
+    x0, y0, g = _xent_case(rng, B, C, dtype)
+    xbuf = torch.empty(B * C + 1, dtype=dtype, device="cuda")
+    ybuf = torch.empty(B * C + 1, device="cuda")
+    x = xbuf[1:].view(B, C).copy_(x0)
+    y = ybuf[1:].view(B, C).copy_(y0)
+    torch.testing.assert_close(fused_xent_fwd(x, y), fused_xent_fwd_reference(x, y),
+                               atol=1e-5, rtol=1e-5)
+    tol = 1e-6 if dtype == torch.float32 else 2 ** -8
+    torch.testing.assert_close(fused_xent_bwd(x, y, g).float(),
+                               fused_xent_bwd_reference(x, y, g).float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,C", [(1024, 10), (64, 130), (3, 50257)])
+def test_fused_xent_autograd_routes_match_cpu(cuda, B, C):
+    """``fused_xent_from_logits`` under autograd on the card (the warp
+    route at the fit's shape and past 128 classes, the cluster route)
+    against the dispatcher's plain path on the CPU."""
+    rng = np.random.default_rng(B + C)
+    x, y, g = _xent_case(rng, B, C)
+    xd = x.clone().requires_grad_()
+    (dx,) = torch.autograd.grad(fused_xent_from_logits(xd, y), xd, g)
+    xc = x.cpu().requires_grad_()
+    loss = categorical_crossentropy_from_logits(xc, y.cpu())
+    (dxc,) = torch.autograd.grad(loss, xc, g.cpu())
+    torch.testing.assert_close(fused_xent_from_logits(x, y).cpu(), loss.detach(),
+                               atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(dx.cpu(), dxc, atol=1e-6, rtol=1e-6)
+
+
+def test_fused_xent_bad_plans_raise(cuda):
+    """A cluster launch whose slice needs more shared memory than a CTA has
+    raises (no zeros come back, no launch is counted), as do plans the C
+    side does not take; the kernels run on after."""
+    from elephas_tpu_torch.ops import fused_xent as X
+
+    rng = np.random.default_rng(8)
+    x, y, g = _xent_case(rng, 2, 120000)
+    out = torch.full((2,), 7.0, device="cuda")
+    before = (fused_xent_fwd.launches, fused_xent_bwd.launches)
+    cluster = X.ROUTES.index("cluster")
+    for entry, gg, o in (("fused_xent_fwd", None, out),
+                         ("fused_xent_bwd", g, torch.empty_like(x))):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            X._launch(entry, x, y, gg, o, plan=(cluster, 1, 2, 60000))   # 480 KB a CTA
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            X._launch(entry, x, y, gg, o, plan=(cluster, 1, 9, 13336))   # 9 CTAs
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            X._launch(entry, x, y, gg, o, plan=(cluster, 1, 8, 15002))   # slice not a unit
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            X._launch(entry, x, y, gg, o, plan=(X.ROUTES.index("warp"), 1, 1, 0))  # C > 1024
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            X._launch(entry, x, y, gg, o, plan=(len(X.ROUTES), 1, 1, 0))   # no such route
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.full((2,), 7.0, device="cuda"))
+    assert (fused_xent_fwd.launches, fused_xent_bwd.launches) == before
+    torch.testing.assert_close(fused_xent_fwd(x, y), fused_xent_fwd_reference(x, y),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("C", [50257, "cap+1"], ids=["cluster", "stream"])
+def test_fused_xent_masked_slice_matches_plain(cuda, C):
+    """A CTA's whole slice of -inf logits (a masked block of a vocabulary)
+    on the cluster and stream routes: dx finite and within 1e-6 of the
+    plain version, which takes the row's max; the loss within 1e-5, NaN
+    where the plain version's y * (lse - x) is 0 * inf too."""
+    from elephas_tpu_torch.ops.fused_xent import xent_plan
+
+    C = XENT_CLUSTER_CAP[torch.float32] + 1 if C == "cap+1" else C
+    _, _, n, sl = xent_plan(C, 4)
+    rng = np.random.default_rng(C + 5)
+    x, y, g = _xent_case(rng, 4, C)
+    x[2:, sl:min(C, 2 * sl)] = -torch.inf
+    y[2:] = 0.0
+    y[2:, 0] = 1.0
+    dx = fused_xent_bwd(x, y, g)
+    assert bool(torch.isfinite(dx).all())
+    torch.testing.assert_close(dx, fused_xent_bwd_reference(x, y, g), atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(fused_xent_fwd(x, y), fused_xent_fwd_reference(x, y),
+                               atol=1e-5, rtol=1e-5, equal_nan=True)
+
+
+@pytest.mark.parametrize("C", [10, 129, 1024, 1025, 50257, "cap", "cap+1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_xent_launch_shape_matches_plan(cuda, C, dtype):
+    """The launch the library reports for each plan: one warp a row, four
+    rows a block; a cluster's CTAs with the shared memory the plan's
+    ``_cluster_smem`` counts, within the budget; the stream's eight CTAs a
+    row with none. A slice one unit past the cluster's capacity is
+    refused, so the plan's budget is the library's."""
+    from elephas_tpu_torch.ops import fused_xent as X
+
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    cap = XENT_CLUSTER_CAP[dtype]
+    C = {"cap": cap, "cap+1": cap + 1}.get(C, C)
+    plan = X.xent_plan(C, itemsize)
+    route, _, n, sl = plan
+    want = {"warp": (10, 128, 0), "cluster": (37 * n, 256, X._cluster_smem(sl, itemsize)),
+            "stream": (37 * 8, 256, 0)}[X.ROUTES[route]]
+    assert X.launch_shape(37, C, dtype, plan) == want
+    assert want[2] <= X._SMEM_BUDGET
+    over = cap // 8 + 8
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        X.launch_shape(37, 8 * over, dtype, (X.ROUTES.index("cluster"), 1, 8, over))
 
 
 def test_mlp_fit_on_card_matches_cpu(cuda):
