@@ -113,9 +113,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
 18. ``train_moe_cross_check``: one layer, B 1, T 64: loss and gradients on
     the card against the CPU.
 19. ``kernel`` ``fused_xent``: K1-fwd and K1-bwd against their plain
-    versions at the MLP fit's shape [1024, 10], ragged [1000, 10], wide
-    [4096, 50257] and bf16 logits, and each side of every route boundary
-    (C 16 / 17, 1024 / 1025, the cluster's capacity and one past it), each
+    versions at the MLP fit's shape [1024, 10], ragged [1000, 10], the host
+    path's [128, 10], [51, 10] and [77, 10], wide [4096, 50257] and bf16
+    logits, and each side of every route boundary (C 128 / 129, 1024 /
+    1025, the cluster's capacity and one past it), each
     with a zero-label and a soft-label row, each run twice for the same
     bits; timed beside the plain versions, ``F.cross_entropy`` with
     probability targets (its autograd backward for K1-bwd), the bound and
@@ -134,7 +135,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
 22. ``fit_cross_check``: a short fit with dropout off, card against
     ``device="cpu"`` from the same weights and order: histories and
     weights within 1e-4.
-23. ``train_llama``: Meta-Llama-3-8B's widths at 4 of 32 layers (float32,
+23. ``fit_host``: the reference's defaults on the same JSON at full width,
+    ``SparkModel(json)`` with no mode arguments (asynchronous, an HTTP
+    parameter server, ``frequency="epoch"``, dropout on): 2 workers (one
+    thread each, both launching K1), 65536 samples, batch 128, 4 epochs,
+    ``validation_split=0.1``; exactly sum over workers of E (S_w + Sv_w)
+    K1-fwd and E S_w K1-bwd launches and no other kernel, falling losses,
+    held-out accuracy over 0.5, the server's pushes and pulls those of the
+    schedule; samples/s, the median pull and push round trip and the
+    push's pickling; the same fit at 1 and 2 workers, a worker's ms a step
+    (do the threads overlap?).
+24. ``fit_host_matrix``: six host cells (8192 samples, 2 workers, 2 epochs):
+    asynchronous http batch, asynchronous socket epoch, hogwild socket
+    batch, hogwild native epoch (``native/ps_server.cpp`` built here by
+    ``make``), synchronous ``comm="host"``, asynchronous http epoch with
+    int8 compression; exact K1 counts, falling losses; a K1 error injected
+    in a worker fails the fit after the task retries.
+25. ``fit_host_cross_check``: one worker, dropout off, http/epoch and
+    socket/batch on the card against ``device="cpu"`` from the same weights
+    and seeded orders: histories and weights within 1e-4.
+26. ``checkpoint``: a synchronous 4-epoch fit against a 2-epoch
+    checkpointed fit resumed by a new ``SparkModel`` to 4, dropout on,
+    within rtol 1e-5 / atol 1e-6; ``save`` → ``load_spark_model`` →
+    ``predict`` the same bits.
+27. ``train_llama``: Meta-Llama-3-8B's widths at 4 of 32 layers (float32,
     random weights drawn on the card), ``build_lm_train_step(model, None,
     adam_compact(1e-3), attn="flash")`` on one fixed batch of 4 x 2048
     tokens: 2 warm-up and 3 timed steps, falling finite losses, per step
@@ -142,7 +166,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
     none of the plain ones; a profiled step; then ``train_llama_bf16``: 2
     steps from the same initial weights with ``compute_dtype="bfloat16"``,
     the first loss within 1e-2 of the float32 run's, the second lower.
-24. ``train_llama_cross_check``: one layer, B 1, T 64: loss and gradients on
+28. ``train_llama_cross_check``: one layer, B 1, T 64: loss and gradients on
     the card against the CPU.
 
 Then the kernel summary line, and as the last line
@@ -2342,7 +2366,9 @@ def l2_sets(set_bytes: int, most: int = 64) -> int:
 
 
 def xent_cases():
-    """K1's cases: the MLP fit's [1024, 10] (ragged [1000, 10]), the wide
+    """K1's cases: the MLP fit's [1024, 10] (ragged [1000, 10]), the host
+    path's (``fit_host``: a worker's batch [128, 10], its last training
+    batch [51, 10] and last validation batch [77, 10]), the wide
     [4096, 50257] (float32 and bf16 logits), one each side of every route
     boundary (warp / cluster at C 1024, cluster / stream at the cluster's
     capacity), and of the warp route's switch from dividing by the row's
@@ -2351,7 +2377,12 @@ def xent_cases():
 
     f32, bf = torch.float32, torch.bfloat16
     cap = cluster_capacity(4)
-    return [("main", 1024, 10, f32), ("ragged", 1000, 10, f32), ("wide", 4096, 50257, f32),
+    per = HOST_FIT["samples"] // HOST_FIT["workers"]
+    n_train = int(np.floor(per * (1.0 - HOST_FIT["validation_split"])))
+    B = HOST_FIT["batch"]
+    return [("main", 1024, 10, f32), ("ragged", 1000, 10, f32),
+            ("host", B, 10, f32), ("host_tail", n_train % B, 10, f32),
+            ("host_val_tail", (per - n_train) % B, 10, f32), ("wide", 4096, 50257, f32),
             ("main_bf16", 1024, 10, bf), ("wide_bf16", 4096, 50257, bf),
             ("c128", 1024, 128, f32), ("c129", 1024, 129, f32), ("c1024", 4096, 1024, f32),
             ("c1025", 4096, 1025, f32), ("cluster_cap", 64, cap, f32),
@@ -2614,7 +2645,333 @@ def fit_cross_check(card):
           "checks": checks, "card": card})
 
 
-# -- phases 23 and 24: rotary-LM training at Llama-3-8B width ---------------------
+# -- phases 23 to 26: the host parameter-server path and checkpoints --------------
+
+HOST_FIT = dict(samples=65536, held_out=2048, batch=128, workers=2, epochs=4,
+                validation_split=0.1)
+
+
+class _TimedClient:
+    """A parameter client whose pulls and pushes are timed on the host's
+    clock (round trips in ms, appended to ``times``); everything else
+    passes through."""
+
+    def __init__(self, inner, times):
+        self._inner, self._times = inner, times
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def _timed(self, kind, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        self._times.setdefault(kind, []).append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def get_parameters(self):
+        return self._timed("pull", self._inner.get_parameters)
+
+    def _pickled(self, delta):
+        """The push's own serialisation, timed apart (``push_pickle``): the
+        client's ``pickle.dumps`` of the delta, done once more before the
+        push itself."""
+        import pickle
+
+        from elephas_tpu_torch.parameter.client import _to_wire
+
+        t = time.perf_counter()
+        pickle.dumps(_to_wire(delta), protocol=pickle.HIGHEST_PROTOCOL)
+        self._times.setdefault("push_pickle", []).append((time.perf_counter() - t) * 1e3)
+
+    def update_parameters(self, delta):
+        self._pickled(delta)
+        return self._timed("push", self._inner.update_parameters, delta)
+
+    def update_parameters_tagged(self, task_id, delta, attempt=None):
+        self._pickled(delta)
+        return self._timed("push", self._inner.update_parameters_tagged, task_id,
+                           delta, attempt=attempt)
+
+
+def _host_steps(n: int, workers: int, batch: int, split: float, frequency: str):
+    """``(S, Sv)`` a worker and epoch on the host path: ``model.fit``'s
+    batches (Keras's split ``floor(n (1 - split))``, the last partial batch
+    trained) and validation batches for ``"epoch"``; whole batches of the
+    reference's ``n - int(n split)`` rows and no validation for ``"batch"``."""
+    import math
+
+    per = n // workers
+    if frequency == "batch":
+        return (per - int(per * split)) // batch, 0
+    n_train = math.floor(per * (1.0 - split))
+    return -(-n_train // batch), -(-(per - n_train) // batch)
+
+
+def _host_fit(what, sm, x, y, workers, epochs, batch, split, frequency, times=None):
+    """One host-path fit with the launch counts set to 0 just before and read
+    just after: ``(wall seconds, counts, histories)``, after checking exact K1
+    counts, no other kernel, and finite, falling losses in every partition."""
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    if times is not None:
+        make = sm._make_client
+        sm._make_client = lambda: _TimedClient(make(), times)
+    rdd = to_simple_rdd(SparkContext(f"local[{workers}]"), x, y, num_slices=workers)
+    n_hist = len(sm.training_histories)
+    torch.cuda.synchronize()
+    _zero_counters()
+    t0 = time.perf_counter()
+    sm.fit(rdd, epochs=epochs, batch_size=batch, validation_split=split)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counters()
+    hists = sm.training_histories[n_hist:]
+    S, Sv = _host_steps(len(x), workers, batch, split, frequency)
+    want = {"fused_xent_fwd": workers * epochs * (S + Sv),
+            "fused_xent_bwd": workers * epochs * S}
+    for name, n in want.items():
+        require(counts[name] == n, f"{what}: {name} launched {counts[name]} times, want "
+                                   f"{n} (W {workers}, E {epochs}, S {S}, Sv {Sv})")
+    others = {k: v for k, v in counts.items() if k not in want and v}
+    require(not others, f"{what}: other kernels launched: {others}")
+    require(len(hists) == workers, f"{what}: {len(hists)} histories for {workers} workers")
+    for h in hists:
+        require(all(np.isfinite(v).all() for v in h.values()), f"{what}: non-finite {h}")
+        require(h["loss"][-1] < h["loss"][0], f"{what}: loss did not fall: {h['loss']}")
+    return wall, counts, hists, want
+
+
+def _host_scaling(x, y):
+    """Whether the worker threads overlap: the reference's defaults at W 1
+    and W 2, each worker holding ``fit_host``'s partition (32768 rows), 2
+    epochs, the counts checked as in ``fit_host``. A worker's ms a training
+    step is the fit's wall over E S: the same at W 1 and W 2 where the
+    threads run side by side, twice at W 2 where they take turns. With the
+    pull, push and push-pickle medians of each."""
+    c = HOST_FIT
+    per, E, B, split = c["samples"] // c["workers"], 2, c["batch"], c["validation_split"]
+    out = []
+    for w in (1, 2):
+        times = {}
+        sm = _mlp_model(num_workers=w, port=0)
+        wall, _, _, _ = _host_fit(f"fit_host W={w}", sm, x[:w * per], y[:w * per], w, E,
+                                  B, split, "epoch", times)
+        S, Sv = _host_steps(w * per, w, B, split, "epoch")
+        out.append({"workers": w, "samples": w * per, "epochs": E, "wall_s": wall,
+                    "steps_per_epoch": S, "val_steps_per_epoch": Sv,
+                    "worker_ms_per_step": wall * 1e3 / (E * S),
+                    "samples_per_s": w * int(np.floor(per * (1.0 - split))) * E / wall,
+                    **{f"{k}_ms_median": float(np.median(v)) for k, v in times.items()}})
+    return out
+
+
+def fit_host(card):
+    """The reference's defaults on the committed MLP JSON at full width:
+    ``SparkModel(json)`` with no mode arguments (asynchronous, ``"http"``,
+    ``frequency="epoch"``, dropout on), 2 workers (threads), 65536 samples,
+    batch 128, 4 epochs, ``validation_split=0.1``. Exactly sum over workers
+    of E (S_w + Sv_w) K1-fwd and E S_w K1-bwd launches, no other kernel;
+    falling losses; held-out accuracy over 0.5; the server's pushes and
+    pulls those of the schedule (one each a worker and epoch, and the
+    final pull of the fit); samples/s, the median and summed pull and push
+    round trips, the push's pickling apart, a profiled 1-epoch fit, and
+    :func:`_host_scaling`."""
+    c = HOST_FIT
+    (x, y), (xt, yt) = mnist_like(c["samples"], c["held_out"])
+    sm = _mlp_model(num_workers=c["workers"], port=0)
+    require((sm.mode, sm.parameter_server_mode, sm.comm, sm.frequency) ==
+            ("asynchronous", "http", "host", "epoch"), "fit_host: not the reference defaults")
+    times = {}
+    wall, counts, hists, want = _host_fit(
+        "fit_host", sm, x, y, c["workers"], c["epochs"], c["batch"],
+        c["validation_split"], "epoch", times)
+    ps = sm.membership_snapshot()["parameter_servers"]["primary"]
+    W, E = c["workers"], c["epochs"]
+    require(ps["version"] == W * E and ps["pulls"] == W * E + 1,
+            f"fit_host: server saw {ps['version']} pushes and {ps['pulls']} pulls, "
+            f"want {W * E} and {W * E + 1}")
+    require(len(times.get("push", [])) == W * E, f"fit_host: timed pushes {times}")
+    loss, acc = sm.evaluate(xt, yt)
+    require(np.isfinite(loss) and acc > 0.5, f"fit_host: held-out accuracy {acc}")
+    pull_ms, push_ms = list(times["pull"]), list(times["push"])
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    rdd = to_simple_rdd(SparkContext(f"local[{W}]"), x, y, num_slices=W)
+    prof = profiled(lambda: sm.fit(rdd, epochs=1, batch_size=c["batch"],
+                                   validation_split=c["validation_split"]), 1, top_n=10)
+    S, Sv = _host_steps(c["samples"], W, c["batch"], c["validation_split"], "epoch")
+    n_train = W * int(np.floor(c["samples"] // W * (1.0 - c["validation_split"])))
+    emit({"phase": "fit_host", "config": MNIST_JSON, **c, "mode": sm.mode,
+          "parameter_server_mode": sm.parameter_server_mode, "frequency": sm.frequency,
+          "steps_per_epoch": S, "val_steps_per_epoch": Sv, "wall_s": wall,
+          "histories": hists, "launches": counts, "launches_want": want,
+          "k1_launches_per_step": {"fused_xent_fwd": counts["fused_xent_fwd"] / (W * E * S),
+                                   "fused_xent_bwd": counts["fused_xent_bwd"] / (W * E * S)},
+          "server": ps, "train_samples_per_epoch": n_train,
+          "samples_per_s": n_train * E / wall,
+          "pull_ms_median": float(np.median(pull_ms)),
+          "push_ms_median": float(np.median(push_ms)),
+          "pull_ms_sum": float(np.sum(pull_ms)), "push_ms_sum": float(np.sum(push_ms)),
+          "push_pickle_ms_median": float(np.median(times["push_pickle"])),
+          "pulls_timed": len(pull_ms), "pushes_timed": len(push_ms),
+          "profiled_fit_1_epoch": prof, "thread_scaling": _host_scaling(x, y),
+          "held_out_eval": {"loss": loss, "accuracy": acc}, "card": card})
+    return counts
+
+
+def fit_host_matrix(card):
+    """Six host-path cells at the MLP's widths (8192 samples, 2 workers, 2
+    epochs, batch 128): asynchronous http batch, asynchronous socket epoch,
+    hogwild socket batch, hogwild native epoch (the unchanged
+    ``native/ps_server.cpp`` built here by ``make``; a failed build fails
+    the phase), synchronous ``comm="host"``, asynchronous http epoch with
+    int8 compression. Each: exact K1 counts from the worker threads, no
+    other kernel, finite and falling losses. Then a K1 error injected in a
+    worker fails the fit after the RDD's task retries."""
+    (x, y), _ = mnist_like(8192, 0)
+    W, E, B, split = 2, 2, 128, 0.1
+    res = []
+    for kw in [dict(mode="asynchronous", parameter_server_mode="http", frequency="batch"),
+               dict(mode="asynchronous", parameter_server_mode="socket", frequency="epoch"),
+               dict(mode="hogwild", parameter_server_mode="socket", frequency="batch"),
+               dict(mode="hogwild", parameter_server_mode="native", frequency="epoch"),
+               dict(mode="synchronous", comm="host", frequency="epoch"),
+               dict(mode="asynchronous", parameter_server_mode="http", frequency="epoch",
+                    compression="int8")]:
+        what = "fit_host_matrix " + "/".join(str(v) for v in kw.values())
+        sm = _mlp_model(num_workers=W, port=0, **kw)
+        wall, counts, hists, _ = _host_fit(what, sm, x, y, W, E, B, split, kw["frequency"])
+        res.append({**kw, "wall_s": wall, "histories": hists,
+                    "k1_fwd": counts["fused_xent_fwd"], "k1_bwd": counts["fused_xent_bwd"],
+                    "server": sm.membership_snapshot()["parameter_servers"]})
+    emit({"phase": "fit_host_matrix", "samples": 8192, "workers": W, "epochs": E,
+          "batch": B, "fits": res, "kernel_error": _host_kernel_error(x, y), "card": card})
+
+
+def _host_kernel_error(x, y):
+    """A K1 launch that fails in a worker (its C entry's error, injected):
+    every task attempt raises, the fit fails with ``TaskFailedError`` after
+    ``maxTaskFailures`` attempts, and the server is stopped."""
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.data.rdd import TaskFailedError
+    from elephas_tpu_torch.ops import fused_xent
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    attempts = []
+
+    def failing(entry, *args, **kw):
+        attempts.append(entry)
+        raise RuntimeError(f"{entry}: CUDA error 700 (an illegal memory access, injected)")
+
+    sm = _mlp_model(num_workers=1, port=0)
+    sc = SparkContext("local[1]")
+    launch, fused_xent._launch = fused_xent._launch, failing
+    try:
+        sm.fit(to_simple_rdd(sc, x[:1024], y[:1024], num_slices=1), epochs=1,
+               batch_size=128)
+        err = None
+    except TaskFailedError as e:
+        err = e
+    finally:
+        fused_xent._launch = launch
+    require(err is not None and len(attempts) == sc.maxTaskFailures and sm._server is None,
+            f"fit_host_matrix: an injected K1 error gave {err!r} after {len(attempts)} "
+            f"attempts (want TaskFailedError after {sc.maxTaskFailures}), server "
+            f"{sm._server}")
+    return {"error": repr(err)[:200], "attempts": len(attempts),
+            "max_task_failures": sc.maxTaskFailures}
+
+
+def fit_host_cross_check(card):
+    """One worker, ``shuffle=False``, dropout off, 4096 samples, 2 epochs:
+    the host path on the card and on ``device="cpu"`` from the same weights
+    and the same seeded ``np.random`` orders (the asynchronous epoch worker
+    shuffles as the reference's does): http/epoch and socket/batch.
+    Histories within rtol 1e-4 and weights within 1e-4 of their array's
+    scale, as ``fit_cross_check`` pins the compiled path."""
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    (x, y), _ = mnist_like(4096, 0)
+    checks = []
+    for ps_mode, freq in (("http", "epoch"), ("socket", "batch")):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            sm = _mlp_model(device=dev, dropout=False, parameter_server_mode=ps_mode,
+                            frequency=freq, num_workers=1, port=0)
+            np.random.seed(SEED)
+            sm.fit(to_simple_rdd(SparkContext("local[1]"), x, y, num_slices=1), epochs=2,
+                   batch_size=128, validation_split=0.1, shuffle=False)
+            out[dev] = (sm.training_histories[-1], sm.master_network.get_weights())
+        hist_err = max(abs(a - b) / max(abs(b), 1e-6) for k in out["cpu"][0]
+                       for a, b in zip(out["cuda"][0][k], out["cpu"][0][k]))
+        w_err = max(float(np.abs(a - b).max()) / float(np.abs(b).max() or 1.0)
+                    for a, b in zip(out["cuda"][1], out["cpu"][1]))
+        require(hist_err <= 1e-4, f"fit_host_cross_check {ps_mode}/{freq}: histories "
+                                  f"differ by {hist_err}: {out['cuda'][0]} vs {out['cpu'][0]}")
+        require(w_err <= 1e-4, f"fit_host_cross_check {ps_mode}/{freq}: weights differ by "
+                               f"{w_err} of scale")
+        checks.append({"parameter_server_mode": ps_mode, "frequency": freq,
+                       "history_rel_err": hist_err, "weight_err_rel_to_scale": w_err,
+                       "tol": 1e-4, "history_gpu": out["cuda"][0],
+                       "history_cpu": out["cpu"][0]})
+    emit({"phase": "fit_host_cross_check", "samples": 4096, "workers": 1, "epochs": 2,
+          "checks": checks, "card": card})
+
+
+def checkpoint_phase(card):
+    """A synchronous 4-epoch fit (compiled path, dropout on, 8192 samples, 4
+    workers) against a 2-epoch checkpointed fit resumed by a new
+    ``SparkModel`` to 4 epochs: weights and histories within the reference
+    test's rtol 1e-5 / atol 1e-6; then ``save`` → ``load_spark_model`` →
+    ``predict`` gives the same bits."""
+    import tempfile
+
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.spark_model import load_spark_model
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    (x, y), (xt, _) = mnist_like(8192, 512)
+    fit = dict(batch_size=128, validation_split=0.1)
+    rdd = to_simple_rdd(SparkContext("local[4]"), x, y, num_slices=4)
+    with tempfile.TemporaryDirectory() as d:
+        plain = _mlp_model(mode="synchronous", num_workers=4)
+        t0 = time.perf_counter()
+        plain.fit(rdd, epochs=4, **fit)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        first = _mlp_model(mode="synchronous", num_workers=4)
+        first.fit(rdd, epochs=2, checkpoint_dir=d, checkpoint_frequency=2, **fit)
+        second = _mlp_model(mode="synchronous", num_workers=4)
+        t0 = time.perf_counter()
+        second.fit(rdd, epochs=4, checkpoint_dir=d, checkpoint_frequency=2, resume=True,
+                   **fit)
+        torch.cuda.synchronize()
+        resumed_s = time.perf_counter() - t0
+        errs = [float(np.abs(a - b).max()) for a, b in
+                zip(second.master_network.get_weights(), plain.master_network.get_weights())]
+        for a, b in zip(second.master_network.get_weights(),
+                        plain.master_network.get_weights()):
+            require(np.allclose(a, b, rtol=1e-5, atol=1e-6),
+                    f"checkpoint: resumed weights off by {np.abs(a - b).max()}")
+        hist = first.training_histories[-1]["loss"] + second.training_histories[-1]["loss"]
+        require(np.allclose(hist, plain.training_histories[-1]["loss"], rtol=1e-5, atol=1e-6),
+                f"checkpoint: losses {hist} vs {plain.training_histories[-1]['loss']}")
+        path = f"{d}/model.npz"
+        second.save(path)
+        loaded = load_spark_model(path)
+        same = bool(np.array_equal(loaded.predict(xt), second.predict(xt)))
+        require(same, "checkpoint: load_spark_model predicts other bits than the saved model")
+    emit({"phase": "checkpoint", "samples": 8192, "workers": 4, "epochs": 4,
+          "resumed_at_epoch": 2, "weight_abs_err": errs, "rtol": 1e-5, "atol": 1e-6,
+          "losses_plain": plain.training_histories[-1]["loss"], "losses_chunked": hist,
+          "plain_fit_s": plain_s, "resumed_fit_s": resumed_s,
+          "save_load_predict_same_bits": same, "card": card})
+
+
+# -- phases 27 and 28: rotary-LM training at Llama-3-8B width ---------------------
 
 # Meta-Llama-3-8B's published config.json widths (the repo's `llama` family,
 # models/hf_import.py: swiglu, rmsnorm, rotary, GQA); depth is the only cut
@@ -2814,6 +3171,10 @@ def main() -> int:
         mlp_counts = fit_mlp(card)
         fit_matrix(card)
         fit_cross_check(card)
+        host_counts = fit_host(card)
+        fit_host_matrix(card)
+        fit_host_cross_check(card)
+        checkpoint_phase(card)
         torch.cuda.empty_cache()
         llama_params, llama_counts = train_llama(card)
         train_llama_cross_check(card, llama_params)
@@ -2824,14 +3185,16 @@ def main() -> int:
     # each row's `launches` is its own slice's main path: dense serving for
     # K3-fwd and K4, the five timed train steps for K2 and K3-bwd, paged
     # serving for K5, MoE serving for K6-gmm, the three timed MoE train
-    # steps for gmm_t and K6-tgmm, the MLP fit for K1, the three timed
-    # Llama-3-8B-width train steps for the rope-on-load K2
+    # steps for gmm_t and K6-tgmm, the MLP fit for K1 (its host path's
+    # launches, from the worker threads, under launches_by_path), the three
+    # timed Llama-3-8B-width train steps for the rope-on-load K2
     rows = [ln_fwd, ln_bwd, decode, *attn_rows, *paged_rows, *gmm_rows, *xent_rows,
             *rope_rows]
     paths = {"serve": serve_counts, "train_5_steps": train_counts,
              "generate": gen_counts, "serve_paged": paged_counts,
              "serve_moe": moe_counts, "serve_moe_paged": moe_paged_counts,
              "train_moe_3_steps": moe_train_counts, "fit_mlp": mlp_counts,
+             "fit_host": host_counts,
              "train_llama_3_steps": llama_counts}
     main_paths = {"layer_norm_fwd": "serve", "flash_decode_lse": "serve",
                   "paged_flash_decode_lse": "serve_paged",

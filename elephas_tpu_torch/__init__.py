@@ -16,7 +16,10 @@ prefix cache, preemption), with the paged-attention kernels (decode and
 chunk); the mixture-of-experts LM, with the grouped-matmul kernels; and
 the Keras MLP fit (:class:`SparkModel` over the compiled path's engine and
 a Keras-free adapter of the model's JSON), with the fused
-classification-loss kernels.
+classification-loss kernels; and the fit's host parameter-server path
+(``SparkModel``'s reference defaults: worker threads training replicas on
+the device against HTTP, socket or native servers, ``worker.py`` and
+``parameter/``), checkpoints and ``save`` / ``load_spark_model``.
 
 Device policy: every entry point takes ``device=`` and defaults to
 ``"cuda"``. Without a CUDA device the entry points raise unless the caller

@@ -407,6 +407,104 @@ def lion(learning_rate: float, b1: float = 0.9, b2: float = 0.99,
     return GradientTransformation(init, update)
 
 
+# -- Keras's own update rules, for the host path's workers --------------------
+#
+# The reference's host workers compile a Keras replica and train it with
+# Keras's optimizer, whose rules differ from optax's in the order of their
+# operations: Keras's Adam folds both bias corrections into the step size
+# and adds ``epsilon`` to ``sqrt(v)``; its SGD keeps a velocity that holds
+# the learning rate. These follow Keras operation for operation.
+
+
+class KerasAdamState(NamedTuple):
+    """Keras Adam's slots: the step count (``iterations``, 0-d or ``[L]``),
+    the momentums, the velocities and, with ``amsgrad``, the velocity hats
+    (empty otherwise)."""
+
+    count: torch.Tensor
+    mu: Params
+    nu: Params
+    nu_hat: Params
+
+
+def keras_sgd(learning_rate: float = 0.01, momentum: float = 0.0,
+              nesterov: bool = False) -> GradientTransformation:
+    """``keras.optimizers.SGD``'s update: ``-(g * lr)``, or with momentum
+    the velocity ``m = m * momentum - g * lr`` (Nesterov: ``m * momentum -
+    g * lr`` after that)."""
+    lr, mom = float(learning_rate), float(momentum)
+
+    def init(params: Params, count_shape=()):
+        return TraceState({k: torch.zeros_like(p) for k, p in params.items()}
+                          if mom else {})
+
+    def update(grads: Params, state: TraceState, params=None):
+        if not mom:
+            return {k: -(g * lr) for k, g in grads.items()}, state
+        out, trace = {}, {}
+        for k, g in grads.items():
+            m = state.trace[k] * mom - g * lr
+            trace[k] = m
+            out[k] = m * mom - g * lr if nesterov else m
+        return out, TraceState(trace)
+
+    return GradientTransformation(init, update)
+
+
+def keras_adam(learning_rate: float = 0.001, beta_1: float = 0.9,
+               beta_2: float = 0.999, epsilon: float = 1e-7,
+               amsgrad: bool = False) -> GradientTransformation:
+    """``keras.optimizers.Adam``'s update: ``alpha = lr * sqrt(1 - b2**t) /
+    (1 - b1**t)``, ``m += (g - m) * (1 - b1)``, ``v += (g * g - v) * (1 -
+    b2)``, then ``-(m * alpha) / (sqrt(v) + epsilon)``, every operation in
+    float32 and the powers of the float32 betas."""
+    lr = float(learning_rate)
+
+    def init(params: Params, count_shape=()):
+        def zeros():
+            return {k: torch.zeros_like(p) for k, p in params.items()}
+
+        return KerasAdamState(_zero_count(params, count_shape), zeros(), zeros(),
+                              zeros() if amsgrad else {})
+
+    def update(grads: Params, state: KerasAdamState, params=None):
+        count = state.count + 1
+        t = count.to(torch.float32)
+        one = torch.ones((), dtype=torch.float32, device=t.device)
+        alpha = lr * torch.sqrt(1 - torch.pow(one * beta_2, t)) / (
+            1 - torch.pow(one * beta_1, t))
+        out, mu, nu, nu_hat = {}, {}, {}, {}
+        for k, g in grads.items():
+            mu[k] = state.mu[k] + (g - state.mu[k]) * (1 - beta_1)
+            nu[k] = state.nu[k] + (g * g - state.nu[k]) * (1 - beta_2)
+            v = nu[k]
+            if amsgrad:
+                v = nu_hat[k] = torch.maximum(state.nu_hat[k], nu[k])
+            out[k] = -((mu[k] * _lead(alpha, g)) / (torch.sqrt(v) + epsilon))
+        return out, KerasAdamState(count, mu, nu, nu_hat)
+
+    return GradientTransformation(init, update)
+
+
+def to_keras_optimizer(optimizer_spec: Any):
+    """The optimizer of a Keras spec with Keras's own update rule, for the
+    host path's workers: :func:`keras_sgd` and :func:`keras_adam`; any other
+    optimizer takes :func:`to_torch_optimizer`'s (optax's) rule."""
+    name, cfg = _normalize(optimizer_spec)
+    # a bare name takes Keras's default rate: 0.01 for SGD, 0.001 for Adam
+    lr = _extract_lr(cfg) if "learning_rate" in cfg or "lr" in cfg else (
+        0.01 if name == "sgd" else 0.001)
+    if name == "sgd":
+        return keras_sgd(lr, momentum=float(cfg.get("momentum", 0.0) or 0.0),
+                         nesterov=bool(cfg.get("nesterov", False)))
+    if name == "adam" and not cfg.get("moment_dtype"):
+        return keras_adam(lr, beta_1=float(cfg.get("beta_1", 0.9)),
+                          beta_2=float(cfg.get("beta_2", 0.999)),
+                          epsilon=float(cfg.get("epsilon", 1e-7)),
+                          amsgrad=bool(cfg.get("amsgrad", False)))
+    return to_torch_optimizer(optimizer_spec)
+
+
 def _extract_lr(cfg: dict) -> float:
     lr = cfg.get("learning_rate", cfg.get("lr", 0.001))
     if isinstance(lr, dict):

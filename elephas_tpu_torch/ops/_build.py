@@ -8,6 +8,12 @@ header it includes from ``csrc/`` (``#include "..."``, followed through
 headers) and the flags, so an edited source or header rebuilds the
 libraries that include it and an unchanged one loads the library already
 built. No PyTorch headers are included, so a build takes seconds.
+
+Threads: the host parameter-server path launches kernels from one thread
+per worker, so :func:`load` builds and loads each library once under a
+lock, and every wrapper counts its launches through :func:`count_launch`,
+which takes a lock of its own (a bare ``fn.launches += 1`` can lose a
+count between threads).
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -28,6 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -107,18 +116,28 @@ def load(name: str, signatures: Dict[str, list], src: Optional[Path] = None) -> 
     ``signatures`` maps each C entry point to its ``argtypes``; every entry
     returns ``int`` (a ``cudaError_t``)."""
     lib = _loaded.get(name)
-    if lib is None:
-        job = _start(name, src)
-        if job is not None:
-            _finish(name, job)
-        lib = ctypes.CDLL(str(_target(name, src)[1]))
-        for fn, argtypes in signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.error_string.argtypes = [ctypes.c_int]
-        lib.error_string.restype = ctypes.c_char_p
-        _loaded[name] = lib
+    if lib is not None:
+        return lib
+    with _load_lock:    # threads that arrive together build and load it once
+        lib = _loaded.get(name)
+        if lib is None:
+            job = _start(name, src)
+            if job is not None:
+                _finish(name, job)
+            lib = ctypes.CDLL(str(_target(name, src)[1]))
+            for fn, argtypes in signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.error_string.argtypes = [ctypes.c_int]
+            lib.error_string.restype = ctypes.c_char_p
+            _loaded[name] = lib
     return lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, exactly, whichever thread launched."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

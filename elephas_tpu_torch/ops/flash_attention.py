@@ -284,7 +284,7 @@ def flash_attention_fwd(q, k, v, causal: bool = False, window=None):
     :func:`attention_fwd_reference`. Raises on anything the kernel does not
     take; counts each launch in ``flash_attention_fwd.launches``."""
     out = _fwd("flash_attention_fwd", q, k, v, None, causal, window)
-    flash_attention_fwd.launches += 1
+    _build.count_launch(flash_attention_fwd)
     return out
 
 
@@ -298,7 +298,7 @@ def flash_attention_rope_fwd(q, k, v, c2, s2, causal: bool = True,
     the ``[B, T, Dh]`` float32 tables. Counts each launch in
     ``flash_attention_rope_fwd.launches``."""
     out = _fwd("flash_attention_rope_fwd", q, k, v, (c2, s2), causal, window)
-    flash_attention_rope_fwd.launches += 1
+    _build.count_launch(flash_attention_rope_fwd)
     return out
 
 
@@ -344,7 +344,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, causal: bool = False,
     from the saved ``lse`` and ``delta`` (both ``[B, H, T]`` float32).
     Counts each launch in ``flash_attention_dq.launches``."""
     dq = _dq("flash_attention_dq", q, k, v, do, lse, delta, None, causal, window)
-    flash_attention_dq.launches += 1
+    _build.count_launch(flash_attention_dq)
     return dq
 
 
@@ -358,7 +358,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal: bool = False,
     kernel. Counts each launch in ``flash_attention_dkv.launches``."""
     out = _dkv("flash_attention_dkv", q, k, v, do, lse, delta, None, causal,
                window)
-    flash_attention_dkv.launches += 1
+    _build.count_launch(flash_attention_dkv)
     return out
 
 
@@ -372,7 +372,7 @@ def flash_attention_rope_dq(q, k, v, do, lse, delta, c2, s2,
     ``flash_attention_rope_dq.launches``."""
     dq = _dq("flash_attention_rope_dq", q, k, v, do, lse, delta, (c2, s2),
              causal, window)
-    flash_attention_rope_dq.launches += 1
+    _build.count_launch(flash_attention_rope_dq)
     return dq
 
 
@@ -386,7 +386,7 @@ def flash_attention_rope_dkv(q, k, v, do, lse, delta, c2, s2,
     in ``flash_attention_rope_dkv.launches``."""
     out = _dkv("flash_attention_rope_dkv", q, k, v, do, lse, delta, (c2, s2),
                causal, window)
-    flash_attention_rope_dkv.launches += 1
+    _build.count_launch(flash_attention_rope_dkv)
     return out
 
 

@@ -242,7 +242,7 @@ def flash_decode_lse(q, k, v, pos, interpret: bool = False, window=None,
             int(k.dtype == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "flash_decode_lse")
-    flash_decode_lse.launches += 1
+    _build.count_launch(flash_decode_lse)
     return out, lse
 
 

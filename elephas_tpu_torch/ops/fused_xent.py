@@ -207,7 +207,7 @@ def _launch(entry, x, y, g, out, plan=None):
                                   int(x.dtype == torch.bfloat16), *plan,
                                   torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, entry)
-    _WRAPPERS[entry].launches += 1
+    _build.count_launch(_WRAPPERS[entry])
 
 
 def fused_xent_fwd(logits, labels):

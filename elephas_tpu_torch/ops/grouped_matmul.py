@@ -156,7 +156,7 @@ def _launch_gmm(lhs, rhs, gmap, transpose: bool):
                       int(lhs.dtype == torch.bfloat16), vec,
                       torch.cuda.current_stream(lhs.device).cuda_stream)
     _build.check(lib, err, name)
-    (gmm_t if transpose else gmm).launches += 1
+    _build.count_launch(gmm_t if transpose else gmm)
     return out
 
 
@@ -180,7 +180,7 @@ def _launch_tgmm(lhs, g, gmap, n_groups: int, out_dtype):
                        int(out_dtype == torch.bfloat16),
                        torch.cuda.current_stream(lhs.device).cuda_stream)
     _build.check(lib, err, "tgmm")
-    tgmm.launches += 1
+    _build.count_launch(tgmm)
     return out
 
 

@@ -92,7 +92,7 @@ def fused_layer_norm(x, scale, bias, eps: float = 1e-5, interpret: bool = False)
             x2.shape[0], D, route, vec, float(eps),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "layer_norm_fwd")
-    fused_layer_norm.launches += 1
+    _build.count_launch(fused_layer_norm)
     return out.reshape(x.shape)
 
 
@@ -138,7 +138,7 @@ def fused_layer_norm_bwd(x, scale, g, eps: float = 1e-5):
             dbias.data_ptr(), N, D, n_blocks, rows, route, vec, float(eps),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "layer_norm_bwd")
-    fused_layer_norm_bwd.launches += 1
+    _build.count_launch(fused_layer_norm_bwd)
     return dx.reshape(x.shape), dscale, dbias
 
 

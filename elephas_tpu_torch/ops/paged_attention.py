@@ -175,7 +175,7 @@ def paged_flash_decode_lse(q, kp, vp, table, pos, page: int, window=None,
             float(Dh ** -0.5), int(kp.dtype == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "paged_flash_decode_lse")
-    paged_flash_decode_lse.launches += 1
+    _build.count_launch(paged_flash_decode_lse)
     return out, lse
 
 
@@ -215,7 +215,7 @@ def paged_flash_chunk(q, kp, vp, table, pos0, page: int, window=None,
             int(kp.dtype == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "paged_flash_chunk")
-    paged_flash_chunk.launches += 1
+    _build.count_launch(paged_flash_chunk)
     return out
 
 

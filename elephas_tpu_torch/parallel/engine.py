@@ -33,8 +33,18 @@ Randomness: each worker's epoch order comes from :func:`epoch_permutation`,
 drawn on the host from the seed, so the card and the CPU see the same
 order (the reference's ``jax.random`` order depends on its device count
 and cannot be reproduced by a torch generator; tests put it in by
-replacing that one function). Dropout masks come from one device
-generator seeded from the fit's seed, drawn over the whole replica stack.
+replacing that one function). Dropout masks come from a device generator
+reseeded each epoch from (seed, global epoch) (:func:`epoch_seed`), drawn
+over the whole replica stack; so a fit cut into chunks (``epoch_offset``)
+draws the uninterrupted fit's orders and masks.
+
+Merge-faithful chunking (synchronous + epoch only, as in the reference):
+``keep_worker_state=True`` returns the replica stacks un-merged
+(``FitResult.worker_state``: ``tv_stack`` and the ``base_tv`` they
+started from), with the installed weights the merge a preview would give;
+the next chunk continues them through ``worker_state=`` with
+``epoch_offset`` at the global epoch, and the one real merge is the last
+chunk's preview.
 """
 
 from __future__ import annotations
@@ -46,12 +56,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..models.adapters import KerasModelAdapter, refuse_remat
+from ..models.adapters import KerasModelAdapter, _tree_map, refuse_remat
 from ..models.optimizers import _lead
 from .mesh import DeviceMesh, build_mesh
-
-CHECKPOINT_ITEM = "ROADMAP queue 1 item 8 (checkpoints of the host path)"
-
 
 def _pad_block(arr: np.ndarray, target_rows: int) -> np.ndarray:
     """Zero-pad ``arr`` along axis 0 to ``target_rows``."""
@@ -69,6 +76,13 @@ def epoch_permutation(seed: int, n_workers: int, epoch: int, n_rows: int) -> np.
     worker count or the device."""
     return np.stack([np.random.default_rng((seed, w, epoch)).permutation(n_rows)
                      for w in range(n_workers)])
+
+
+def epoch_seed(seed: int, epoch: int) -> int:
+    """The dropout generator's seed for global epoch ``epoch`` of a fit
+    seeded ``seed``."""
+    return int(np.random.SeedSequence((int(seed), int(epoch)))
+               .generate_state(1, np.uint64)[0])
 
 
 def _as_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -92,12 +106,13 @@ class FitResult:
     the attribute is read."""
 
     def __init__(self, weights, history: Dict[str, List[float]],
-                 opt_state: Any = None, timings: Optional[Dict[str, float]] = None):
+                 opt_state: Any = None, timings: Optional[Dict[str, float]] = None,
+                 worker_state: Any = None):
         self._weights = weights  # list OR zero-arg thunk
         self.history = history
         self.opt_state = opt_state
         self.timings = timings or {}
-        self.worker_state = None    # carried only by checkpointed fits (not ported)
+        self.worker_state = worker_state
 
     @property
     def weights(self) -> List[np.ndarray]:
@@ -161,15 +176,22 @@ class CompiledTrainer:
         overrides the merge validity mask: an excluded worker still trains
         but contributes nothing to any merge. ``opt_state`` continues from
         a previous ``FitResult`` (``keep_opt_state=True`` returns it).
-        Worker-state carrying (``worker_state`` / ``keep_worker_state`` /
-        ``epoch_offset``) belongs to checkpointed fits and raises
-        :class:`NotImplementedError` until they are ported.
+        ``epoch_offset`` is the global index of this call's first epoch
+        (orders and dropout masks follow it); ``worker_state`` /
+        ``keep_worker_state`` carry the synchronous+epoch replica stacks
+        across chunks (module docstring).
 
         Returns merged weights in ``get_weights()`` order plus per-epoch
         history (``loss``[, ``accuracy``, ``val_loss``, ``val_accuracy``]).
         """
-        if worker_state is not None or keep_worker_state or epoch_offset:
-            raise NotImplementedError(f"worker-state carrying waits for {CHECKPOINT_ITEM}")
+        if keep_worker_state or worker_state is not None:
+            if not (self.mode == "synchronous" and self.frequency == "epoch"):
+                raise ValueError(
+                    "worker_state carrying applies to synchronous+epoch mode "
+                    f"only (got {self.mode}/{self.frequency}); the other "
+                    "schedules merge within each chunk and are already "
+                    "cadence-faithful under chunking"
+                )
         W = len(blocks)
         if W == 0:
             raise ValueError("No worker data blocks (all partitions skipped?)")
@@ -223,15 +245,22 @@ class CompiledTrainer:
             data["wvalid"] = _as_device(wvalid, self.device)
             self._staged = (stage_key, data)
 
-        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        gen = torch.Generator(device=self.device)
         tv0 = self.adapter.state_values()
+        if opt_state is not None:        # a resumed state arrives on the CPU
+            opt_state = _tree_map(lambda t: t.to(self.device), opt_state)
+        if worker_state is not None:
+            worker_state = _tree_map(lambda t: t.to(self.device), worker_state)
+        ws_out = None
         t_start = time.perf_counter()
+        epochs_at = range(int(epoch_offset), int(epoch_offset) + E)
         if self.mode == "synchronous" and self.frequency == "batch":
             tv, opt_state, stats = self._fit_gradsync(
-                tv0, opt_state, data, W, S, B, E, Sv, has_val, seed, gen)
+                tv0, opt_state, data, W, S, B, epochs_at, Sv, has_val, seed, gen)
         else:
-            tv, opt_state, stats = self._fit_local(
-                tv0, opt_state, data, W, S, B, E, Sv, has_val, seed, gen)
+            tv, opt_state, stats, ws_out = self._fit_local(
+                tv0, opt_state, data, W, S, B, epochs_at, Sv, has_val, seed, gen,
+                worker_state)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t_run = time.perf_counter() - t_start
@@ -260,6 +289,7 @@ class CompiledTrainer:
             opt_state=opt_state if keep_opt_state else None,
             timings={"run_seconds": t_run,
                      "samples_per_sec": sum(n_trains) * E / max(t_run, 1e-9)},
+            worker_state=ws_out if keep_worker_state else None,
         )
 
     # ------------------------------------------------------------------
@@ -301,22 +331,32 @@ class CompiledTrainer:
             out[k] = b - total
         return out
 
-    def _fit_local(self, tv0, opt_state, data, W, S, B, E, Sv, has_val, seed, gen):
+    def _fit_local(self, tv0, opt_state, data, W, S, B, epochs_at, Sv, has_val, seed,
+                   gen, worker_state=None):
         """The local-training schedules: synchronous+epoch, and the
-        asynchronous/hogwild merges at epoch or batch frequency."""
+        asynchronous/hogwild merges at epoch or batch frequency, over the
+        global epochs ``epochs_at``. ``(merged, opt_state, history,
+        worker_state)``; synchronous+epoch continues ``worker_state``'s
+        stacks when given, and its merge is then a preview against their
+        base."""
         train_step = self.adapter.build_train_step(self.optimizer)
         eval_step = self.adapter.build_eval_step()
         merge_every_epoch = self.mode != "synchronous" and self.frequency == "epoch"
         merge_every_batch = self.mode != "synchronous" and self.frequency == "batch"
         wvalid = data["wvalid"]
         denom = torch.clamp(wvalid.sum(), min=1.0)
-        base = dict(tv0)
-        tv_stack = _tile(base, W)
+        if worker_state is not None:
+            base = dict(worker_state["base_tv"])
+            tv_stack = dict(worker_state["tv_stack"])
+        else:
+            base = dict(tv0)
+            tv_stack = _tile(base, W)
         opt = opt_state if opt_state is not None else \
             self.optimizer.init(tv_stack, count_shape=(W,))
         history = []
         with torch.no_grad():
-            for e in range(E):
+            for e in epochs_at:
+                gen.manual_seed(epoch_seed(seed, e))
                 xb, yb, swb = self._epoch_batches(data, seed, W, e, S, B)
                 tot = [torch.zeros((), device=self.device) for _ in range(3)]
                 for s in range(S):
@@ -331,11 +371,14 @@ class CompiledTrainer:
                     tv_stack = _tile(base, W)
                 history.append(self._epoch_metrics(eval_step, tot, tv_stack, data, Sv, B,
                                                    has_val))
+            ws = None
             if not (merge_every_epoch or merge_every_batch):
+                ws = {"tv_stack": tv_stack, "base_tv": base}
                 base = self._merge(tv_stack, base, wvalid, denom)   # the one merge
-        return base, opt, history
+        return base, opt, history, ws
 
-    def _fit_gradsync(self, tv0, opt_state, data, W, S, B, E, Sv, has_val, seed, gen):
+    def _fit_gradsync(self, tv0, opt_state, data, W, S, B, epochs_at, Sv, has_val,
+                      seed, gen):
         """Gradient-synchronous DP-SGD (``mode='synchronous',
         frequency='batch'``): one shared set of parameters and one
         optimizer state; per batch the summed gradients of every worker's
@@ -345,7 +388,8 @@ class CompiledTrainer:
         tv = dict(tv0)
         opt = opt_state if opt_state is not None else self.optimizer.init(tv)
         history = []
-        for e in range(E):
+        for e in epochs_at:
+            gen.manual_seed(epoch_seed(seed, e))
             xb, yb, swb = self._epoch_batches(data, seed, W, e, S, B)
             tot = [torch.zeros((), device=self.device) for _ in range(3)]
             for s in range(S):

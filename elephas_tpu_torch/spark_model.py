@@ -1,51 +1,70 @@
-"""``SparkModel`` and ``SparkMLlibModel`` on the device path (port of
-``elephas_tpu/spark_model.py``).
+"""``SparkModel`` and ``SparkMLlibModel`` (port of ``elephas_tpu/spark_model.py``).
 
-The public surface is the reference's (constructor signature, ``fit(rdd,
-epochs, batch_size, verbose, validation_split)``, ``predict``,
-``evaluate``, ``master_network``), run by the port's engine
-(:class:`~elephas_tpu_torch.parallel.engine.CompiledTrainer`) over a
-Keras-free adapter: ``model`` is a Keras-3 model's JSON (a string or its
-dict), ``model_to_dict``'s ``{'model', 'weights'}``, the port's
+The public surface is the reference's: the constructor signature, ``fit(rdd,
+epochs, batch_size, verbose, validation_split)``, ``predict``, ``evaluate``,
+``master_network``, ``save`` / ``load_spark_model``. ``model`` is a Keras-3
+model's JSON (a string or its dict), ``model_to_dict``'s ``{'model',
+'weights'}``, the port's
 :class:`~elephas_tpu_torch.models.adapters.KerasModelAdapter`, or any
 object with ``to_json()`` and ``get_weights()`` (a Keras model, read
 duck-typed). ``master_network`` is the adapter; it holds the trained
 weights (``get_weights()``).
 
-Kept from the reference: ``parameter_server_mode='jax'`` / ``comm='jax'``
-select this path (the default for synchronous), ``rdd.repartition(
-num_workers)`` before training, partitions ``<= batch_size`` skipped,
-sync merge = delta averaging, async merge = full-delta application. Not
-ported yet, each raising :class:`NotImplementedError` with its ROADMAP
-item: the host parameter-server paths (``'http'``, ``'socket'``,
-``'native'``, ``comm='host'``) and delta compression (item 8);
-checkpoints, ``save`` and ``load_spark_model`` (items 8 and 12: they
-write a Keras file); fault plans, retry policies, membership, quorum, hot
-standby, elastic hosts and ``fit_stream`` (item 10); ``profile_dir``; and
-``evaluate`` with metrics other than accuracy, which the reference hands
-to Keras.
+Two paths, selected as the reference selects them:
+
+- **compiled path** (``comm='jax'``: ``parameter_server_mode='jax'``, and
+  the default for synchronous): the port's engine
+  (:class:`~elephas_tpu_torch.parallel.engine.CompiledTrainer`) runs every
+  worker's replica as one stack on the device; with ``checkpoint_dir`` it
+  fits in epoch chunks, checkpointing weights, optimizer state and (for
+  synchronous+epoch, which stays merge-faithful) the replica stacks.
+- **host path** (``comm='host'``: ``'http'``, ``'socket'`` or ``'native'``
+  with an asynchronous mode — the reference's defaults — or
+  ``mode='synchronous', comm='host'``): the reference's architecture.
+  Worker generators run through ``rdd.mapPartitions`` (threads), each
+  training a replica on the device with ``model.fit``'s contract
+  (:mod:`elephas_tpu_torch.worker`); synchronous deltas merge in the
+  calling process, asynchronous and hogwild workers pull from and push to a live
+  HTTP, socket or native parameter server (:mod:`elephas_tpu_torch.parameter`),
+  optionally through a delta codec (``compression``).
+
+Kept from the reference: ``rdd.repartition(num_workers)`` before training,
+partitions ``<= batch_size`` skipped, sync merge = delta averaging, async
+merge = full-delta application. Beyond it, the asynchronous host workers'
+per-epoch histories are appended to ``training_histories`` (one per
+partition, in partition order), as the synchronous ones are.
+
+``save(path)`` writes an npz at ``path`` holding the model's JSON
+(``model``) and its weights (``w0…``) instead of a Keras file, beside the
+reference's ``path + '.elephas.json'`` sidecar. Not ported yet, each raising
+:class:`NotImplementedError` with its ROADMAP item: fault plans, retry
+policies, membership, quorum, hot standby, elastic hosts and
+``fit_stream`` (item 10); ``profile_dir``; and ``evaluate`` with metrics
+other than accuracy, which the reference hands to Keras.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
 from . import DeviceLike
-from .data.rdd import RDD
+from .data.rdd import RDD, TaskContext
 from .mllib.adapter import from_matrix, from_vector, to_matrix, to_vector
 from .mllib.linalg import DenseMatrix, DenseVector
 from .models.adapters import KerasModelAdapter, _is_accuracy_name
-from .parallel.engine import CHECKPOINT_ITEM, CompiledTrainer
+from .parallel.engine import CompiledTrainer
 from .parallel.mesh import build_mesh
+from .parameter.client import BaseParameterClient
+from .parameter.server import HttpServer, SocketServer
 from .utils.rdd_utils import lp_to_simple_rdd
+from .worker import AsynchronousSparkWorker, SparkWorker
 
-HOST_PATH_ITEM = "ROADMAP queue 1 item 8 (the host parameter-server path)"
 RESILIENCE_ITEM = "ROADMAP queue 1 item 10 (resilience, streaming and fleet)"
 METRICS_ITEM = "ROADMAP queue 1 item 13 (Keras metrics beyond accuracy)"
-SAVE_ITEM = ("ROADMAP queue 1 items 8 and 12 (checkpoints; a Keras file needs "
-             "Keras or its format ported)")
 
 
 def _not_ported(what: str, item: str):
@@ -53,7 +72,12 @@ def _not_ported(what: str, item: str):
 
 
 class SparkModel:
-    """Distributed data-parallel trainer for a compiled Keras model."""
+    """Distributed data-parallel trainer for a compiled Keras model.
+
+    Beyond the reference's parameters, the keyword ``ps_bind_host`` (default
+    ``"127.0.0.1"``) is the address the host path's http and socket
+    parameter servers listen on; the native server's unchanged C++ binds
+    every interface."""
 
     def __init__(self, model, mode: str = "asynchronous", frequency: str = "epoch",
                  parameter_server_mode: str = "http",
@@ -86,12 +110,20 @@ class SparkModel:
                 comm = "jax"
             else:
                 comm = "jax" if parameter_server_mode == "jax" else "host"
-        if comm != "jax":
-            raise _not_ported(
-                f"comm={comm!r} (parameter_server_mode={parameter_server_mode!r}; "
-                f"pass parameter_server_mode='jax' for the device path)", HOST_PATH_ITEM)
+        # Delta compression for host PS pushes ('int8' | 'topk:F' | None):
+        # only the host async paths have PS traffic to compress; reject the
+        # knob anywhere it would be silently ignored.
         if compression:
-            raise _not_ported("compression of parameter-server pushes", HOST_PATH_ITEM)
+            if comm != "host" or mode == "synchronous":
+                raise ValueError(
+                    "compression applies to the host parameter-server "
+                    "paths (asynchronous/hogwild with http/socket/native); "
+                    f"mode={mode!r} with comm={comm!r} has no PS "
+                    "traffic to compress"
+                )
+            from .parameter.compression import make_codec
+
+            make_codec(compression)  # validate the spec eagerly
         for name, value in (("fault_plan", fault_plan), ("retry_policy", retry_policy),
                             ("membership", membership), ("quorum", quorum),
                             ("round_deadline_s", round_deadline_s),
@@ -115,11 +147,22 @@ class SparkModel:
         self.master_optimizer = master_optimizer
         self.master_loss = master_loss
         self.master_metrics = master_metrics
+        # the bound of every parameter-server wire operation, and the socket
+        # wire's mid-frame progress deadline (slow-loris guard)
+        self.ps_timeout = float(ps_timeout)
+        self.wire_stall_timeout_s = (
+            None if wire_stall_timeout_s is None else float(wire_stall_timeout_s))
         self._master_network = self._adapter(model)
         self.training_histories: List[Dict[str, Any]] = []
         self.timings: List[Dict[str, float]] = []
         self._trainer: Optional[CompiledTrainer] = None
         self._trainer_model = None
+        self.ps_bind_host = str(kwargs.pop("ps_bind_host", "127.0.0.1"))
+        self._server = None
+        self._server_port: Optional[int] = None
+        self._ps_stats: Dict[str, Any] = {}
+        self._fit_kwargs: Dict[str, Any] = {}
+        self._checkpoint = (None, 1, False)
 
     def _adapter(self, model) -> KerasModelAdapter:
         if isinstance(model, KerasModelAdapter):
@@ -163,11 +206,12 @@ class SparkModel:
             checkpoint_frequency: int = 1, resume: bool = False,
             profile_dir: Optional[str] = None, **kwargs) -> None:
         """Train on an RDD of ``(x, y)`` sample pairs: repartition to
-        ``num_workers`` and run the mode's schedule on the device. Extra
-        keyword arguments (Keras ``fit`` options of the host path) are
-        ignored, as on the reference's compiled path."""
-        if checkpoint_dir is not None or resume:
-            raise _not_ported("checkpoint_dir / resume", CHECKPOINT_ITEM)
+        ``num_workers`` and run the mode's schedule. ``checkpoint_dir``
+        checkpoints the compiled path every ``checkpoint_frequency`` epochs
+        with its optimizer state; ``resume=True`` continues from the latest
+        checkpoint. Extra keyword arguments (Keras ``fit`` options such as
+        ``shuffle=False``) ride along to the host path's workers; the
+        compiled path ignores them."""
         if profile_dir is not None:
             raise NotImplementedError(
                 "profile_dir: the reference writes a jax.profiler trace; wrap the "
@@ -176,6 +220,8 @@ class SparkModel:
         num_workers = self._resolve_num_workers()
         if rdd.getNumPartitions() != num_workers:
             rdd = rdd.repartition(num_workers)
+        self._checkpoint = (checkpoint_dir, checkpoint_frequency, resume)
+        self._fit_kwargs = dict(kwargs)
         self._fit(rdd, epochs, batch_size, verbose, validation_split)
 
     def _resolve_num_workers(self) -> int:
@@ -204,6 +250,15 @@ class SparkModel:
         self._block_cache = (key, blocks)
         return blocks
 
+    def _fit(self, rdd: RDD, epochs: int, batch_size: int, verbose: int,
+             validation_split: float) -> None:
+        if self.comm == "jax":
+            self._fit_jax(rdd, epochs, batch_size, verbose, validation_split)
+        elif self.mode == "synchronous":
+            self._fit_host_sync(rdd, epochs, batch_size, verbose, validation_split)
+        else:
+            self._fit_host_async(rdd, epochs, batch_size, verbose, validation_split)
+
     def _get_trainer(self) -> CompiledTrainer:
         if self._trainer is None or self._trainer_model is not self._master_network:
             self._trainer = CompiledTrainer(
@@ -212,17 +267,227 @@ class SparkModel:
             self._trainer_model = self._master_network
         return self._trainer
 
-    def _fit(self, rdd, epochs, batch_size, verbose, validation_split):
+    # -- compiled path: every replica as one stack on the device ---------
+    def _fit_jax(self, rdd, epochs, batch_size, verbose, validation_split):
         blocks = self._partition_blocks(rdd, batch_size)
         if not blocks:
             raise ValueError(
                 "All partitions were skipped (each needs > batch_size samples)"
             )
-        result = self._get_trainer().fit(
-            blocks, epochs=epochs, batch_size=batch_size,
-            validation_split=validation_split, verbose=verbose)
-        self.training_histories.append(result.history)
-        self.timings.append(result.timings)
+        trainer = self._get_trainer()
+        checkpoint_dir, checkpoint_frequency, resume = self._checkpoint
+        if checkpoint_dir is None:
+            result = trainer.fit(
+                blocks, epochs=epochs, batch_size=batch_size,
+                validation_split=validation_split, verbose=verbose)
+            self.training_histories.append(result.history)
+            self.timings.append(result.timings)
+            return
+
+        # Checkpointed path: epoch-chunked fits carrying optimizer state.
+        # Synchronous+epoch mode also carries the replica stacks across
+        # chunks (engine worker_state), so the chunked sequence merges ONCE,
+        # like the uninterrupted fit; each checkpoint's weights are the
+        # merged preview of the stacks at that boundary.
+        from .utils.checkpoint import (has_checkpoint, load_checkpoint, load_pytree,
+                                       params_by_name, params_by_position,
+                                       save_checkpoint, save_pytree)
+
+        sync_faithful = self.mode == "synchronous" and self.frequency == "epoch"
+        ws_path = os.path.join(checkpoint_dir, "worker_state")
+        start_epoch, opt_state, worker_state = 0, None, None
+        names = list(self._master_network.state_values())
+        if resume and has_checkpoint(checkpoint_dir):
+            weights, meta, opt_state = load_checkpoint(checkpoint_dir)
+            self._master_network.set_weights(weights)
+            opt_state = params_by_name(opt_state, names)
+            start_epoch = int(meta.get("epoch", 0))
+            if sync_faithful and start_epoch > 0:
+                # worker_state is written in a separate step from meta.json,
+                # so validate its epoch stamp: a crash between the two writes
+                # must not silently continue from mismatched replica stacks.
+                ws_epoch = -1
+                if os.path.isdir(ws_path):
+                    worker_state = params_by_name(load_pytree(ws_path), names)
+                    ws_epoch = int(worker_state.pop("epoch", -1))
+                if ws_epoch != start_epoch:
+                    import warnings
+
+                    warnings.warn(
+                        f"checkpoint {checkpoint_dir}: worker_state is "
+                        f"{'missing' if worker_state is None else f'stamped epoch {ws_epoch}'}"
+                        f" but meta says epoch {start_epoch}; resuming from "
+                        "the merged checkpoint weights with fresh worker "
+                        "stacks (merge-faithfulness to the uninterrupted "
+                        "fit is lost for this run)",
+                        RuntimeWarning,
+                    )
+                    worker_state = None
+        merged: Dict[str, List[float]] = {}
+        epoch = start_epoch
+        while epoch < epochs:
+            chunk = min(checkpoint_frequency, epochs - epoch)
+            if sync_faithful:
+                # seed stays 0 and the GLOBAL epoch index drives the orders
+                # and dropout masks, as in the uninterrupted fit
+                result = trainer.fit(
+                    blocks, epochs=chunk, batch_size=batch_size,
+                    validation_split=validation_split, verbose=verbose,
+                    seed=0, epoch_offset=epoch, opt_state=opt_state,
+                    keep_opt_state=True, worker_state=worker_state,
+                    keep_worker_state=True)
+                worker_state = result.worker_state
+            else:
+                result = trainer.fit(
+                    blocks, epochs=chunk, batch_size=batch_size,
+                    validation_split=validation_split, verbose=verbose,
+                    seed=epoch, opt_state=opt_state, keep_opt_state=True)
+            opt_state = result.opt_state
+            for k, v in result.history.items():
+                merged.setdefault(k, []).extend(v)
+            epoch += chunk
+            if sync_faithful:
+                # stacks first, meta last: meta.json is the commit point, and
+                # resume validates the stamp against meta's epoch
+                save_pytree(ws_path, params_by_position(
+                    {**worker_state, "epoch": np.int64(epoch)}, names))
+            save_checkpoint(checkpoint_dir, result.weights,
+                            {"epoch": epoch, "epochs": epochs, "mode": self.mode},
+                            params_by_position(opt_state, names))
+            self.timings.append(result.timings)
+        self.training_histories.append(merged)
+
+    # -- host path: reference-shaped synchronous -------------------------
+    def _train_config(self, epochs, batch_size, verbose, validation_split):
+        return {"epochs": epochs, "batch_size": batch_size, "verbose": verbose,
+                "validation_split": validation_split, **self._fit_kwargs}
+
+    def _worker_model_args(self):
+        """``(json, optimizer, loss, metrics)`` each worker builds its
+        replica from: the master network's optimizer and loss, overrides
+        included, and ``master_metrics`` (none by default, as the
+        reference's workers compile with)."""
+        net = self._master_network
+        return net.to_json(), net.optimizer_spec, net.loss_spec, self.master_metrics
+
+    def _fit_host_sync(self, rdd, epochs, batch_size, verbose, validation_split):
+        model = self._master_network
+        json_config, opt, loss, metrics = self._worker_model_args()
+        parameters = rdd.context.broadcast(model.get_weights())
+        worker = SparkWorker(
+            json_config, parameters,
+            self._train_config(epochs, batch_size, verbose, validation_split),
+            opt, loss, metrics, self.custom_objects, device=self.mesh.device)
+        results = rdd.mapPartitions(worker.train).collect()
+        deltas = [r[0] for r in results]
+        self.training_histories.extend(r[1] for r in results if r[1])
+        if not deltas:
+            raise ValueError(
+                "All partitions were skipped (each needs > batch_size samples)"
+            )
+        new_parameters = [np.array(w) for w in model.get_weights()]
+        merge = "mean" if self.merge == "auto" else self.merge
+        scale = 1.0 / len(deltas) if merge == "mean" else 1.0
+        for delta in deltas:
+            new_parameters = [
+                p - scale * np.asarray(d) for p, d in zip(new_parameters, delta)
+            ]
+        model.set_weights(new_parameters)
+
+    # -- host path: reference-shaped async/hogwild against a live PS -----
+    def start_server(self) -> None:
+        weights = self._master_network.get_weights()
+        if self.parameter_server_mode == "native":
+            from .parameter.native import NativeServer
+
+            cls = NativeServer
+        elif self.parameter_server_mode == "http":
+            cls = HttpServer
+        else:
+            cls = SocketServer
+        server_kwargs = {}
+        if cls is SocketServer and self.wire_stall_timeout_s is not None:
+            server_kwargs["stall_timeout_s"] = self.wire_stall_timeout_s
+        self._server = cls(weights, mode=self.mode, port=self.port, name="primary",
+                           host=self.ps_bind_host, **server_kwargs)
+        self._server.start()
+        # the port it bound (port=0 resolves to the OS's); self.port stays
+        # the one asked for, so the next fit binds afresh
+        self._server_port = self._server.port
+
+    def _make_client(self) -> BaseParameterClient:
+        if self.parameter_server_mode == "native":
+            from .parameter.compression import make_codec
+            from .parameter.native import NativeClient
+
+            weights = self._master_network.get_weights()
+            # fresh codec per client: top-k error-feedback residual is
+            # per-worker state
+            return NativeClient([w.shape for w in weights], [w.dtype for w in weights],
+                                self._server_port, codec=make_codec(self.compression))
+        client = BaseParameterClient.get_client(
+            self.parameter_server_mode, self._server_port, host="127.0.0.1",
+            timeout=self.ps_timeout, stall_timeout_s=self.wire_stall_timeout_s)
+        if self.compression:
+            from .parameter.compression import CompressingClient, make_codec
+
+            client = CompressingClient(client, make_codec(self.compression))
+        return client
+
+    def stop_server(self) -> None:
+        if self._server is not None:
+            server = self._server
+            self._ps_stats = {"primary": {
+                "version": int(getattr(server, "version", -1)),
+                "pulls": int(getattr(server, "pulls", -1)),
+                "rejected_stale": int(getattr(server, "rejected_stale", 0)),
+                "applied_tagged": {k: int(v) for k, v in
+                                   getattr(server, "applied_tagged", {}).items()},
+            }}
+            server.stop()
+            self._server = None
+
+    def _fit_host_async(self, rdd, epochs, batch_size, verbose, validation_split):
+        model = self._master_network
+        json_config, opt, loss, metrics = self._worker_model_args()
+        train_config = self._train_config(epochs, batch_size, verbose, validation_split)
+        histories: Dict[int, Dict[str, List[float]]] = {}
+        self.start_server()
+        try:
+            def run(iterator):
+                # each partition gets its OWN client (thread), as one client
+                # per executor in the reference
+                client = self._make_client()
+                try:
+                    worker = AsynchronousSparkWorker(
+                        json_config, client, train_config, self.frequency,
+                        opt, loss, metrics, self.custom_objects,
+                        device=self.mesh.device)
+                    yield from worker.train(iterator)
+                    if worker.history:
+                        histories[TaskContext.get().partitionId()] = worker.history
+                finally:
+                    # task retries re-enter run(): a raising attempt must not
+                    # leak its TCP connection until GC
+                    client.close()
+
+            rdd.mapPartitions(run).collect()
+            client = self._make_client()
+            try:
+                new_parameters = client.get_parameters()
+            finally:
+                client.close()
+            model.set_weights(new_parameters)
+        finally:
+            self.stop_server()
+        self.training_histories.extend(histories[p] for p in sorted(histories))
+
+    def membership_snapshot(self) -> Dict[str, Any]:
+        """The last fit's parameter-server counters (version, pulls,
+        fencing) under ``parameter_servers``; the registry's fields of the
+        reference wait for item 10 and stay empty."""
+        return {"membership": None, "counters": {}, "rounds": [], "events": [],
+                "parameter_servers": dict(self._ps_stats)}
 
     def fit_stream(self, *args, **kwargs):
         raise _not_ported("fit_stream", RESILIENCE_ITEM)
@@ -265,15 +530,52 @@ class SparkModel:
 
     # -- persistence -----------------------------------------------------
     def save(self, path: str) -> None:
-        raise _not_ported("SparkModel.save", SAVE_ITEM)
+        """Whole-model save: an npz at ``path`` holding the model's JSON
+        (``model``) and its weights (``w0…``), written atomically, plus the
+        reference's sidecar ``path + '.elephas.json'`` with the elephas
+        config. (The reference writes a Keras file at ``path``; the port
+        has no Keras.)"""
+        from .utils.checkpoint import atomic_write
+
+        net = self._master_network
+        with atomic_write(path) as f:
+            np.savez(f, model=np.array(net.to_json()),
+                     **{f"w{i}": w for i, w in enumerate(net.get_weights())})
+        with atomic_write(path + ".elephas.json") as f:
+            f.write(json.dumps(self.get_config()).encode("utf-8"))
 
     @property
     def training_histories_(self):
         return self.training_histories
 
 
-def load_spark_model(path: str, custom_objects: Optional[dict] = None) -> SparkModel:
-    raise _not_ported("load_spark_model", SAVE_ITEM)
+def load_spark_model(path: str, custom_objects: Optional[dict] = None,
+                     device: DeviceLike = "cuda") -> SparkModel:
+    """Inverse of :meth:`SparkModel.save`: the model and weights at ``path``
+    and the elephas config of its sidecar, on ``device``."""
+    with np.load(path) as data:
+        model = {"model": str(data["model"]),
+                 "weights": [data[f"w{i}"] for i in range(len(data.files) - 1)]}
+    config: Dict[str, Any] = {}
+    sidecar = path + ".elephas.json"
+    if os.path.exists(sidecar):
+        with open(sidecar) as f:
+            config = json.load(f)
+    return SparkModel(
+        model,
+        mode=config.get("mode", "asynchronous"),
+        frequency=config.get("frequency", "epoch"),
+        parameter_server_mode=config.get("parameter_server_mode", "http"),
+        num_workers=config.get("num_workers"),
+        custom_objects=custom_objects,
+        batch_size=config.get("batch_size", 32),
+        port=config.get("port", 4000),
+        merge=config.get("merge", "auto"),
+        comm=config.get("comm"),
+        remat=config.get("remat", False),
+        compression=config.get("compression"),
+        device=device,
+    )
 
 
 class SparkMLlibModel(SparkModel):

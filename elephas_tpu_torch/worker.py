@@ -1,0 +1,423 @@
+"""Host-path workers (port of ``elephas_tpu/worker.py``): the executor code
+of the reference elephas.
+
+``SparkWorker.train`` (synchronous mode) and ``AsynchronousSparkWorker.train``
+(asynchronous and hogwild modes) are generators consumed through
+``rdd.mapPartitions(worker.train)``. The RDD facade runs partitions on a
+thread pool, so asynchronous workers genuinely interleave against the live
+parameter server, and each thread launches the port's kernels on the
+card for its own batches.
+
+The reference's workers build a Keras replica from the model's JSON and
+call ``model.fit`` / ``train_on_batch``. The card has no Keras, so each
+worker builds a :class:`KerasReplica` instead: the port's
+:class:`~elephas_tpu_torch.models.adapters.KerasModelAdapter` over the same
+JSON, on the worker's device, trained with ``model.fit``'s contract:
+
+- ``validation_split`` holds out the last ``n - floor(n * (1 - split))``
+  rows before any shuffle, and the validation loss is evaluated after each
+  epoch;
+- each epoch shuffles (from the global ``np.random``, as Keras's array
+  adapter draws its permutation) unless ``shuffle=False``; a replica's
+  first shuffled fit draws one permutation more, first, which Keras 3
+  spends on the batch its first fit peeks at to build its metrics, so
+  a seeded ``np.random`` gives Keras's orders;
+- the last, partial batch is trained; the history's ``loss`` and metrics
+  are the sample-weighted means over the epoch, under Keras's keys;
+- the optimizer follows Keras's own update rule (Adam and SGD;
+  :func:`~elephas_tpu_torch.models.optimizers.to_keras_optimizer`), with
+  one state a replica: fresh for each partition, kept across that
+  partition's epochs and batches, as a compiled Keras model keeps it.
+
+Dropout masks come from a ``torch.Generator`` on the worker's device keyed
+by the task's (stage, partition, attempt).
+
+Reference behaviors reproduced deliberately:
+
+- partitions are materialized to dense arrays per worker;
+- partitions with ``<= batch_size`` samples are SKIPPED (the reference's
+  ``if x_train.shape[0] > batch_size:`` guard);
+- synchronous workers yield ``delta = weights_before - weights_after``;
+- asynchronous workers pull → train one epoch or batch → push the delta,
+  per ``frequency``; ``frequency="batch"`` draws each epoch's order from
+  the global ``np.random.permutation`` and drops the last partial batch.
+
+The deltas on the wire are numpy arrays, never torch tensors.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from . import DeviceLike
+from .data.rdd import TaskContext
+from .models.adapters import KerasModelAdapter
+from .models.optimizers import to_keras_optimizer
+from .parameter.client import BaseParameterClient
+from .utils.functional_utils import subtract_params_np
+
+
+def task_id_for(ctx) -> str:
+    """Parameter-server task id for a :class:`~elephas_tpu_torch.data.TaskContext`.
+
+    Stage-scoped, not just partition-scoped: against a long-lived external
+    server, an aborted prior job's uncommitted "partition-N" record would
+    otherwise mark a NEW job's attempt 0 as stale and silently disable
+    rollback for that task id.
+    """
+    return f"stage-{ctx.stageId()}-partition-{ctx.partitionId()}"
+
+
+def round_task_id(round_index: int) -> str:
+    """Parameter-server task id for one elastic host round: round-scoped,
+    so the server's attempt fence rejects any contribution launched under a
+    superseded membership epoch."""
+    return f"round-{int(round_index)}"
+
+
+def _materialize(data_iterator: Iterator) -> Optional[tuple]:
+    """Partition iterator of ``(x, y)`` pairs → dense ``(x, y)`` arrays."""
+    xs, ys = [], []
+    for pair in data_iterator:
+        x, y = pair
+        xs.append(np.asarray(x))
+        ys.append(np.asarray(y))
+    if not xs:
+        return None
+    return np.stack(xs), np.stack(ys)
+
+
+def _on_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host block on the device; floating data as float32, as the engine
+    stages it."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if t.is_floating_point():
+        t = t.to(torch.float32)
+    return t.to(device)
+
+
+def _task_generator(ctx, device: DeviceLike) -> torch.Generator:
+    """The dropout generator of one task attempt: a ``torch.Generator`` on
+    ``device`` seeded from (stage, partition, attempt), (0, 0, 0) outside
+    a task."""
+    key = (0, 0, 0) if ctx is None else (
+        ctx.stageId(), ctx.partitionId(), ctx.attemptNumber())
+    seed = int(np.random.SeedSequence(key).generate_state(1, np.uint64)[0])
+    return torch.Generator(device=torch.device(device)).manual_seed(seed)
+
+
+class History:
+    """What Keras's ``model.fit`` returns, as far as the workers read it:
+    ``history`` (metric name → one value per epoch) and ``epoch``."""
+
+    def __init__(self, history: Dict[str, List[float]], epochs: int):
+        self.history = history
+        self.epoch = list(range(epochs))
+
+
+class KerasReplica:
+    """One worker's model: the adapter over the model's JSON on ``device``,
+    trained with Keras ``model.fit`` / ``train_on_batch``'s contract and
+    Keras's optimizer rule (see the module docstring). The optimizer state
+    is created at the first step and kept for the replica's life."""
+
+    def __init__(self, json_config: str, weights, optimizer, loss, metrics,
+                 custom_objects: Optional[dict] = None, device: DeviceLike = "cuda",
+                 generator: Optional[torch.Generator] = None):
+        self.adapter = KerasModelAdapter(
+            json_config, loss=loss, optimizer=optimizer, metrics=list(metrics or []),
+            custom_objects=custom_objects, weights=weights, device=device)
+        self.device = self.adapter.device
+        self.optimizer = to_keras_optimizer(self.adapter.optimizer_spec)
+        self.generator = generator if generator is not None else \
+            _task_generator(None, self.device)
+        self._train_step = self.adapter.build_train_step(self.optimizer)
+        self._eval_step = self.adapter.build_eval_step()
+        self._opt_state = None
+        self._peeked = False
+
+    def get_weights(self) -> List[np.ndarray]:
+        return self.adapter.get_weights()
+
+    def set_weights(self, weights) -> None:
+        self.adapter.set_weights(weights)
+
+    def _stacked(self):
+        return {k: v[None] for k, v in self.adapter.state_values().items()}
+
+    def _step(self, x: torch.Tensor, y: torch.Tensor):
+        """One optimizer step on the batch ``x`` ``[B, ...]``: ``(loss_wsum,
+        acc_wsum, B)`` as device tensors ``[1]``."""
+        tv = self._stacked()
+        if self._opt_state is None:
+            self._opt_state = self.optimizer.init(tv, count_shape=(1,))
+        sw = torch.ones((1, x.shape[0]), device=self.device)
+        with torch.no_grad():
+            tv, self._opt_state, stats = self._train_step(
+                tv, self._opt_state, x[None], y[None], sw, self.generator)
+        self.adapter.install_state({k: v[0] for k, v in tv.items()})
+        return stats
+
+    def _evaluate(self, x: torch.Tensor, y: torch.Tensor, batch_size: int):
+        tv = self._stacked()
+        tot = torch.zeros(3, device=self.device)
+        for i in range(0, x.shape[0], batch_size):
+            xb, yb = x[i:i + batch_size], y[i:i + batch_size]
+            sw = torch.ones((1, xb.shape[0]), device=self.device)
+            tot += torch.cat(self._eval_step(tv, xb[None], yb[None], sw))
+        return tot
+
+    def _logs(self, tot: torch.Tensor, prefix: str = "") -> Dict[str, torch.Tensor]:
+        logs = {prefix + "loss": tot[0] / tot[2]}
+        if self.adapter.wants_accuracy:
+            logs[prefix + "accuracy"] = tot[1] / tot[2]
+        return logs
+
+    def fit(self, x, y, batch_size: Optional[int] = None, epochs: int = 1,
+            verbose="auto", validation_split: float = 0.0, shuffle=True,
+            **kwargs) -> History:
+        """Keras ``model.fit`` on numpy ``x``, ``y`` (see the module
+        docstring). Options that Keras takes and the port does not
+        interpret raise :class:`NotImplementedError` unless ``None``."""
+        unknown = sorted(k for k, v in kwargs.items() if v is not None)
+        if unknown:
+            raise NotImplementedError(
+                f"model.fit options {unknown} are not interpreted by the port's "
+                f"workers (epochs, batch_size, verbose, validation_split and "
+                f"shuffle are)")
+        if shuffle not in (True, False, "batch"):
+            raise ValueError(f"shuffle must be True, False or 'batch', got {shuffle!r}")
+        B = 32 if batch_size is None else int(batch_size)
+        x, y = np.asarray(x), np.asarray(y)
+        n = x.shape[0]
+        n_train = int(math.floor(n * (1.0 - validation_split))) if validation_split else n
+        xt, yt = _on_device(x[:n_train], self.device), _on_device(y[:n_train], self.device)
+        xv, yv = _on_device(x[n_train:], self.device), _on_device(y[n_train:], self.device)
+        rows: List[Dict[str, torch.Tensor]] = []
+        if shuffle is True and not self._peeked:
+            np.random.permutation(n_train)      # Keras's peek (module docstring)
+        self._peeked = True
+        for epoch in range(int(epochs)):
+            order = np.random.permutation(n_train) if shuffle is True else None
+            tot = torch.zeros(3, device=self.device)
+            for start in range(0, n_train, B):
+                stop = min(start + B, n_train)
+                if order is not None:
+                    idx = order[start:stop]
+                elif shuffle == "batch":
+                    idx = np.random.permutation(stop - start) + start
+                else:
+                    idx = None
+                if idx is None:
+                    xb, yb = xt[start:stop], yt[start:stop]
+                else:
+                    sel = torch.from_numpy(idx).to(self.device)
+                    xb, yb = xt[sel], yt[sel]
+                tot += torch.cat(self._step(xb, yb))
+            logs = self._logs(tot)
+            if n - n_train:
+                logs.update(self._logs(self._evaluate(xv, yv, B), "val_"))
+            rows.append(logs)
+            if verbose:
+                print(f"epoch {epoch + 1}/{epochs} - " + " - ".join(
+                    f"{k}: {float(v):.4f}" for k, v in logs.items()))
+        # one transfer for every metric of every epoch
+        keys = list(rows[0]) if rows else ["loss"]
+        values = (torch.stack([torch.stack([r[k] for k in keys]) for r in rows])
+                  .cpu().tolist() if rows else [])
+        return History({k: [v[i] for v in values] for i, k in enumerate(keys)},
+                       int(epochs))
+
+    def train_on_batch(self, x, y):
+        """Keras ``train_on_batch``: one step on the batch; the batch's loss,
+        or ``[loss, accuracy]`` with an accuracy metric compiled in."""
+        tot = torch.cat(self._step(_on_device(np.asarray(x), self.device),
+                                   _on_device(np.asarray(y), self.device)))
+        out = [float(v) for v in torch.stack(list(self._logs(tot).values())).cpu()]
+        return out if len(out) > 1 else out[0]
+
+
+class SparkWorker:
+    """Synchronous worker: local full fit, yields a weight delta."""
+
+    def __init__(self, json_config: str, parameters, train_config: Dict[str, Any],
+                 master_optimizer, master_loss, master_metrics,
+                 custom_objects: Optional[dict] = None, fault_plan=None,
+                 device: DeviceLike = "cuda"):
+        self.json_config = json_config
+        self.parameters = parameters  # Broadcast of initial weights
+        self.train_config = dict(train_config)
+        self.master_optimizer = master_optimizer
+        self.master_loss = master_loss
+        self.master_metrics = master_metrics
+        self.custom_objects = custom_objects
+        # duck-typed fault plan (resilience): lets chaos tests kill this
+        # worker mid-partition, after local training, before the delta is
+        # yielded, so the task retry must recompute everything
+        self.fault_plan = fault_plan
+        self.device = device
+        self.history = None
+
+    def train(self, data_iterator: Iterator):
+        data = _materialize(data_iterator)
+        if data is None:
+            return
+        x_train, y_train = data
+        batch_size = int(self.train_config.get("batch_size", 32))
+        if x_train.shape[0] <= batch_size:
+            # Reference quirk: partitions no larger than one batch are skipped.
+            return
+        ctx = TaskContext.get()
+        if self.fault_plan is not None:
+            self.fault_plan.straggler_stall(ctx)
+        weights_before = self.parameters.value
+        model = KerasReplica(
+            self.json_config, weights_before, self.master_optimizer,
+            self.master_loss, self.master_metrics, self.custom_objects,
+            device=self.device, generator=_task_generator(ctx, self.device),
+        )
+        keras_history = model.fit(x_train, y_train, **self.train_config)
+        # Yield the LOCAL history: one worker object serves all partition
+        # threads, so instance state would cross-attribute histories.
+        history = keras_history.history if keras_history is not None else None
+        self.history = history
+        deltas = subtract_params_np(weights_before, model.get_weights())
+        if self.fault_plan is not None:
+            self.fault_plan.maybe_crash_partition(ctx)
+        yield deltas, history
+
+
+class AsynchronousSparkWorker:
+    """Async/hogwild worker: pull → local train → push delta, per frequency.
+
+    ``history`` holds this partition's per-epoch metrics when it finishes:
+    the ``model.fit`` histories of its epochs (``frequency="epoch"``), or
+    the mean of its ``train_on_batch`` losses an epoch (``"batch"``)."""
+
+    def __init__(self, json_config: str, client: BaseParameterClient,
+                 train_config: Dict[str, Any], frequency: str,
+                 master_optimizer, master_loss, master_metrics,
+                 custom_objects: Optional[dict] = None, fault_plan=None,
+                 registry=None, device: DeviceLike = "cuda"):
+        self.json_config = json_config
+        self.client = client
+        self.train_config = dict(train_config)
+        self.frequency = frequency
+        self.master_optimizer = master_optimizer
+        self.master_loss = master_loss
+        self.master_metrics = master_metrics
+        self.custom_objects = custom_objects
+        # straggler-stall injection (fault_plan) and heartbeat-lease renewal
+        # (registry), both duck-typed
+        self.fault_plan = fault_plan
+        self.registry = registry
+        self.device = device
+        self.history: Optional[Dict[str, List[float]]] = None
+
+    def train(self, data_iterator: Iterator):
+        data = _materialize(data_iterator)
+        if data is None:
+            return
+        x_train, y_train = data
+        batch_size = int(self.train_config.get("batch_size", 32))
+        if x_train.shape[0] <= batch_size:
+            return
+        ctx = TaskContext.get()
+        if self.fault_plan is not None:
+            self.fault_plan.straggler_stall(ctx)
+
+        def beat():
+            if self.registry is not None and ctx is not None:
+                self.registry.heartbeat(f"partition-{ctx.partitionId()}")
+
+        model: Optional[KerasReplica] = None
+
+        def pull():
+            nonlocal model
+            weights = self.client.get_parameters()
+            if model is None:
+                model = KerasReplica(
+                    self.json_config, weights, self.master_optimizer,
+                    self.master_loss, self.master_metrics, self.custom_objects,
+                    device=self.device, generator=_task_generator(ctx, self.device))
+            else:
+                model.set_weights(weights)
+            return weights
+
+        epochs = int(self.train_config.get("epochs", 1))
+        validation_split = float(self.train_config.get("validation_split", 0.0))
+        verbose = self.train_config.get("verbose", 0)
+
+        # Exactly-once under task retry: register this (partition, attempt)
+        # with the server so a retry rolls back the failed attempt's pushes.
+        # Degrades to untagged pushes when the server predates the attempt
+        # API.
+        task_id = None
+        if ctx is not None:
+            candidate = task_id_for(ctx)
+            if self.client.register_attempt(candidate, ctx.attemptNumber()):
+                task_id = candidate
+            elif ctx.attemptNumber() > 0:
+                raise RuntimeError(
+                    "async task retry is not safe without the parameter "
+                    "server attempt API; aborting instead of double-applying"
+                    f" deltas (task {candidate}, attempt "
+                    f"{ctx.attemptNumber()})"
+                )
+
+        def push(delta):
+            if task_id is not None:
+                # attempt-tagged: the server fences pushes from superseded
+                # attempts (a zombie straggler whose backup already won)
+                self.client.update_parameters_tagged(
+                    task_id, delta, attempt=ctx.attemptNumber()
+                )
+            else:
+                self.client.update_parameters(delta)
+
+        history: Dict[str, List[float]] = {}
+        if self.frequency == "epoch":
+            for _epoch in range(epochs):
+                beat()
+                weights_before = pull()
+                h = model.fit(
+                    x_train, y_train, epochs=1, batch_size=batch_size,
+                    verbose=verbose, validation_split=validation_split,
+                )
+                for k, v in h.history.items():
+                    history.setdefault(k, []).extend(v)
+                delta = subtract_params_np(weights_before, model.get_weights())
+                push(delta)
+        elif self.frequency == "batch":
+            n = x_train.shape[0]
+            if validation_split:
+                n_val = int(n * validation_split)
+                n -= n_val
+            nbatch = n // batch_size
+            for _epoch in range(epochs):
+                indices = np.random.permutation(n)
+                losses = []
+                for b in range(nbatch):
+                    beat()
+                    idx = indices[b * batch_size:(b + 1) * batch_size]
+                    weights_before = pull()
+                    out = model.train_on_batch(x_train[idx], y_train[idx])
+                    losses.append(out[0] if isinstance(out, list) else out)
+                    delta = subtract_params_np(
+                        weights_before, model.get_weights()
+                    )
+                    push(delta)
+                if losses:
+                    history.setdefault("loss", []).append(float(np.mean(losses)))
+        else:
+            raise ValueError(f"Unknown frequency: {self.frequency}")
+        self.history = history
+        if task_id is not None:
+            # Clean finish: release the server-side accumulator.
+            self.client.commit_attempt(task_id)
+        return
+        yield  # make this a generator (mapPartitions contract), yielding nothing

@@ -1095,3 +1095,108 @@ def test_mlp_fit_on_card_matches_cpu(cuda):
             np.testing.assert_allclose(out["cuda"][0][k], v, rtol=1e-4, atol=1e-4)
         for a, b in zip(out["cuda"][1], out["cpu"][1]):
             assert np.abs(a - b).max() <= 1e-4 * max(np.abs(b).max(), 1e-3)
+
+
+RACE_CU = r"""
+#include <cuda_runtime.h>
+__global__ void race_kernel(float* x) { x[threadIdx.x] += 1.0f; }
+extern "C" int race_launch(void* x, void* stream) {
+  race_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<float*>(x));
+  return static_cast<int>(cudaGetLastError());
+}
+extern "C" const char* error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+"""
+
+
+def test_threads_racing_a_first_load_build_once(cuda, tmp_path, monkeypatch):
+    """Eight threads that reach a kernel's first ``_build.load`` together
+    start ``nvcc`` once, load one library, and count every launch."""
+    import ctypes
+    import threading
+
+    from elephas_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    src = tmp_path / "race_kernel.cu"
+    src.write_text(RACE_CU)
+    starts = []
+    real_start = _build._start
+
+    def counting_start(name, src=None):
+        starts.append(name)
+        return real_start(name, src)
+
+    monkeypatch.setattr(_build, "_start", counting_start)
+    name = f"race_kernel_{tmp_path.name}"
+    x = torch.zeros(32, device=cuda)
+
+    def wrapper():
+        lib = _build.load(name, {"race_launch": [ctypes.c_void_p, ctypes.c_void_p]},
+                          src=src)
+        _build.check(lib, lib.race_launch(x.data_ptr(),
+                                          torch.cuda.current_stream().cuda_stream),
+                     "race_launch")
+        _build.count_launch(wrapper)
+        return lib
+
+    wrapper.launches = 0
+    barrier = threading.Barrier(8)
+    libs = []
+
+    def run():
+        barrier.wait(timeout=60)
+        for _ in range(50):
+            libs.append(wrapper())
+
+    threads = [threading.Thread(target=run) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    torch.cuda.synchronize()
+    assert starts == [name]
+    assert len({id(lib) for lib in libs}) == 1 and len(libs) == 400
+    assert wrapper.launches == 400
+    assert float(x[0]) == 400.0
+    _build._loaded.pop(name, None)
+
+
+@pytest.mark.parametrize("frequency", ["epoch", "batch"])
+def test_host_fit_launches_k1_exactly_from_worker_threads(cuda, frequency):
+    """The MNIST MLP's JSON through the host path (asynchronous, http, two
+    worker threads): K1-fwd launched exactly sum over workers of E (S_w +
+    Sv_w) times (``"epoch"``: each epoch a ``model.fit`` with the last
+    partial batch and the validation rows) or E * steps (``"batch"``:
+    ``train_on_batch`` on whole batches), K1-bwd once per training batch,
+    no other kernel; the loss falls."""
+    import json
+    import math
+    from pathlib import Path
+
+    from elephas_tpu_torch import SparkModel
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.ops.fused_xent import fused_xent_bwd, fused_xent_fwd
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    path = Path(__file__).resolve().parents[1] / "elephas_tpu_torch" / "configs" / \
+        "mnist_mlp_logits.json"
+    rng = np.random.default_rng(3)
+    n, W, E, B, split = 1000, 2, 2, 64, 0.1
+    x = rng.random((n, 784)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, size=n)]
+    sm = SparkModel(path.read_text(), frequency=frequency, num_workers=W, port=0,
+                    device="cuda")
+    fused_xent_fwd.launches = fused_xent_bwd.launches = 0
+    sm.fit(to_simple_rdd(SparkContext(f"local[{W}]"), x, y), epochs=E, batch_size=B,
+           validation_split=split)
+    per = n // W
+    if frequency == "epoch":
+        n_train = math.floor(per * (1 - split))
+        s, sv = -(-n_train // B), -(-(per - n_train) // B)
+    else:
+        s, sv = (per - int(per * split)) // B, 0
+    assert fused_xent_bwd.launches == W * E * s
+    assert fused_xent_fwd.launches == W * E * (s + sv)
+    assert all(h["loss"][-1] < h["loss"][0] for h in sm.training_histories)

@@ -1,4 +1,5 @@
-"""The port stands alone: importing it loads neither JAX, Keras nor any
+"""The port stands alone: importing it (the host parameter-server path,
+checkpoints and sockets included) loads neither JAX, Keras nor any
 module of the JAX package, and without CUDA its entry points refuse to run
 unless the CPU is asked for (no quiet fallback), as does ``chip_smoke.py``."""
 
@@ -24,6 +25,10 @@ import elephas_tpu_torch.ops.fused_xent, elephas_tpu_torch.models.losses
 import elephas_tpu_torch.models.adapters, elephas_tpu_torch.parallel.mesh
 import elephas_tpu_torch.parallel.engine, elephas_tpu_torch.spark_model
 import elephas_tpu_torch.data, elephas_tpu_torch.mllib, elephas_tpu_torch.utils
+import elephas_tpu_torch.worker, elephas_tpu_torch.parameter
+import elephas_tpu_torch.parameter.native, elephas_tpu_torch.parameter.compression
+import elephas_tpu_torch.native_build, elephas_tpu_torch.utils.sockets
+import elephas_tpu_torch.utils.checkpoint, elephas_tpu_torch.utils.functional_utils
 bad = sorted(m for m in sys.modules
              if m in ("jax", "keras", "elephas_tpu")
              or m.startswith(("jax.", "keras.", "elephas_tpu.")))

@@ -222,3 +222,51 @@ def test_reference_module_paths_import_from_the_port(mod, name):
         return
     assert name in port.__all__
     assert _params(getattr(port, name)) == _params(getattr(ref, name))
+
+
+# -- the host parameter-server path, checkpoints and save/load -------------------
+
+# reference module → port module; every public function and class the
+# reference module defines, and each public method a class defines, is in
+# the port with the reference's parameters. The port's one addition is a
+# ``device="cuda"`` parameter (the workers' replicas and
+# ``load_spark_model`` build on a device), taken out before comparing.
+HOST_MODULES = ["utils.functional_utils", "utils.sockets", "utils.checkpoint",
+                "parameter.compression", "parameter.server", "parameter.client",
+                "parameter.native", "native_build", "worker"]
+HOST_NAMES = [(mod, name) for mod in HOST_MODULES
+              for name, obj in sorted(vars(importlib.import_module(
+                  f"elephas_tpu.{mod}")).items())
+              if not name.startswith("_") and callable(obj)
+              and getattr(obj, "__module__", None) == f"elephas_tpu.{mod}"]
+HOST_NAMES += [("worker", "_materialize"), ("spark_model", "SparkModel"),
+               ("spark_model", "load_spark_model"), ("parallel.engine", "FitResult")]
+
+
+def _params_sans_device(fn):
+    return [p for p in _params(fn) if p != ("device", "cuda")]
+
+
+@pytest.mark.parametrize("mod,name", HOST_NAMES, ids=lambda x: x)
+def test_host_path_names_match_reference(mod, name):
+    ref = getattr(importlib.import_module(f"elephas_tpu.{mod}"), name)
+    port = getattr(importlib.import_module(f"elephas_tpu_torch.{mod}"), name)
+    if not isinstance(ref, type):
+        assert _params_sans_device(port) == _params(ref)
+        return
+    methods = [m for m, f in vars(ref).items() if callable(f)
+               and (m == "__init__" or not m.startswith("_"))]
+    if name == "SparkModel":    # item 10's reference-only methods stay queued
+        methods = [m for m in methods if m not in ("fit_stream",)]
+    for m in methods:
+        assert hasattr(port, m), (name, m)
+        assert _params_sans_device(getattr(port, m)) == _params(getattr(ref, m)), (name, m)
+    if name == "FitResult":
+        assert "worker_state" in dict(_params(port.__init__))
+
+
+def test_compiled_trainer_fit_carries_worker_state():
+    from elephas_tpu.parallel.engine import CompiledTrainer as JTrainer
+    from elephas_tpu_torch.parallel.engine import CompiledTrainer as TTrainer
+
+    assert _params(TTrainer.fit) == _params(JTrainer.fit)

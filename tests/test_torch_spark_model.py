@@ -272,10 +272,6 @@ def test_partitions_not_above_the_batch_size_are_skipped():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mode="asynchronous"), "item 8"),                       # 'http' is the default
-    (dict(mode="hogwild", parameter_server_mode="socket"), "item 8"),
-    (dict(mode="asynchronous", parameter_server_mode="native"), "item 8"),
-    (dict(mode="synchronous", comm="host"), "item 8"),
     (dict(mode="synchronous", fault_plan=object()), "item 10"),
     (dict(mode="synchronous", membership=object()), "item 10"),
     (dict(mode="synchronous", elastic=object()), "item 10"),
@@ -287,23 +283,13 @@ def test_unported_constructor_options_raise(kw, match):
 
 
 def test_unported_calls_raise(tmp_path):
-    from elephas_tpu_torch.spark_model import load_spark_model
-
     x, y = _toy_data()
     rdd = to_simple_rdd(SparkContext("local[4]"), x, y)
     sm = SparkModel(_toy(), mode="synchronous", num_workers=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        sm.fit(rdd, epochs=1, batch_size=8, checkpoint_dir=str(tmp_path))
     with pytest.raises(NotImplementedError, match="profile"):
         sm.fit(rdd, epochs=1, batch_size=8, profile_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="items 8 and 12"):
-        sm.save(str(tmp_path / "m.keras"))
-    with pytest.raises(NotImplementedError, match="items 8 and 12"):
-        load_spark_model(str(tmp_path / "m.keras"))
     with pytest.raises(NotImplementedError, match="item 10"):
         sm.fit_stream([], None)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        sm._get_trainer().fit([(x, y)], epochs=1, batch_size=8, keep_worker_state=True)
     mae = SparkModel(_toy(metrics=("mae",)), mode="synchronous", device="cpu")
     with pytest.raises(NotImplementedError, match="mae"):
         mae.evaluate(x, y)
