@@ -168,6 +168,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
     the first loss within 1e-2 of the float32 run's, the second lower.
 28. ``train_llama_cross_check``: one layer, B 1, T 64: loss and gradients on
     the card against the CPU.
+29. ``fit_cnn``: ``examples/mnist_cnn_async.py``'s three fits of its CNN
+    (Reshape, Conv2D, MaxPooling2D; the committed JSON with a logits head,
+    ``elephas_tpu_torch/configs/mnist_cnn_logits.json``) at full width on
+    65536 samples, batch 64, epoch merges (``merge="mean"``), 2 epochs:
+    asynchronous and hogwild on the compiled path (8 workers), asynchronous
+    over HTTP on the host path (2 worker threads); exact K1 counts, falling
+    losses, held-out accuracy over 0.5, samples/s and ms a step.
+30. ``fit_bn``: the same CNN with a BatchNormalization after each Conv2D
+    (``mnist_cnn_bn.json``), 8 workers, synchronous at epoch and batch
+    frequency and asynchronous at epoch frequency: exact K1 counts, falling
+    losses, moving statistics moved and finite; the installed weights and
+    statistics are the mean merge of the replica stacks.
+31. ``fit_lstm``: ``examples/ml_pipeline_imdb_lstm.py``'s Embedding(2000,
+    32) -> LSTM(32) -> Dense(1, sigmoid) (``imdb_lstm.json``) on 8192
+    sequences of 80 ids, batch 32, 8 workers, synchronous, 2 epochs:
+    falling loss, no kernel of the port launched (a sigmoid head), ms a
+    step and the device's busy share of a profiled epoch.
+32. ``fit_layers_cross_check``: each of the three models fitted on the card
+    and on ``device="cpu"`` from the same weights and order: histories and
+    weights (moving statistics included) within 1e-4; the
+    BatchNormalization CNN's train and grad steps (loss sums, gradients,
+    moved statistics) within 1e-4 of scale.
 
 Then the kernel summary line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -3113,6 +3135,307 @@ def train_llama_cross_check(card, params):
           "card": card})
 
 
+# -- phases 29 to 32: the Keras layers of the repo's examples ----------------------
+
+# The committed Keras JSON of each model (written once with Keras; the card has
+# none): examples/mnist_cnn_async.py:24-40's CNN with a linear Dense(10) and
+# from_logits=True; the same CNN with a BatchNormalization after each Conv2D;
+# examples/ml_pipeline_imdb_lstm.py:30-41's Embedding(2000, 32) -> LSTM(32) ->
+# Dense(1, sigmoid) built at (None, 80). Widths are the examples'; epochs are
+# cut to 2 (the CNN example runs 3).
+CNN_JSON = "elephas_tpu_torch/configs/mnist_cnn_logits.json"
+CNN_BN_JSON = "elephas_tpu_torch/configs/mnist_cnn_bn.json"
+LSTM_JSON = "elephas_tpu_torch/configs/imdb_lstm.json"
+CNN_FIT = dict(samples=65536, held_out=2048, batch=64, workers=8, epochs=2,
+               host_workers=2)
+BN_FIT = dict(samples=16384, batch=64, workers=8, epochs=2, validation_split=0.1)
+LSTM_FIT = dict(samples=8192, batch=32, workers=8, epochs=2, vocab=2000, maxlen=80)
+
+
+def imdb_like(n: int, vocab: int, maxlen: int, seed: int = 0):
+    """Integer ids in [0, vocab) at length ``maxlen`` as float64 (the example
+    feeds ``x.astype("float64")``), labelled 1 where the mean of the last
+    four ids is under ``vocab / 2``."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, vocab, size=(n, maxlen))
+    y = (x[:, -4:].mean(1) < vocab / 2).astype(np.float32)[:, None]
+    return x.astype(np.float64), y
+
+
+def _json_model(path, device="cuda", **kw):
+    from elephas_tpu_torch import SparkModel
+
+    with open(path) as f:
+        return SparkModel(f.read(), device=device, **kw)
+
+
+def _compiled_fit(what, sm, rdd, epochs, batch, split, S, Sv, k1=True):
+    """One compiled-path fit with the launch counts set to 0 just before and
+    read just after: ``(wall s, counts, history)``, after checking finite,
+    falling losses and exactly E (S + Sv) K1-fwd and E S K1-bwd launches
+    (``k1``; a sigmoid head launches no kernel of the port: none at all)."""
+    torch.cuda.synchronize()
+    _zero_counters()
+    t0 = time.perf_counter()
+    sm.fit(rdd, epochs=epochs, batch_size=batch, validation_split=split)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counters()
+    hist = sm.training_histories[-1]
+    require(all(np.isfinite(v).all() for v in hist.values()), f"{what}: non-finite {hist}")
+    require(hist["loss"][-1] < hist["loss"][0], f"{what}: loss did not fall: {hist['loss']}")
+    want = ({"fused_xent_fwd": epochs * (S + Sv), "fused_xent_bwd": epochs * S}
+            if k1 else {})
+    for name, n in want.items():
+        require(counts[name] == n, f"{what}: {name} launched {counts[name]} times, want "
+                                   f"{n} (E {epochs}, S {S}, Sv {Sv})")
+    others = {k: v for k, v in counts.items() if k not in want and v}
+    require(not others, f"{what}: other kernels launched: {others}")
+    return wall, counts, hist
+
+
+def fit_cnn(card):
+    """``examples/mnist_cnn_async.py``'s three fits of its CNN (the committed
+    JSON, logits head) at full width on 65536 MNIST-shaped samples, batch 64,
+    ``frequency="epoch"``, ``merge="mean"``, no validation, 2 epochs:
+    asynchronous and hogwild on the compiled path (8 workers), then
+    asynchronous over HTTP on the host path (2 worker threads). Exact K1
+    counts (compiled: E S each way; host: sum over workers of E S_w),
+    falling losses, held-out accuracy over 0.5; samples/s and ms a step of
+    a second fit of the same geometry (the data staged); a profiled 1-epoch
+    fit of the asynchronous compiled run."""
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    c = CNN_FIT
+    (x, y), (xt, yt) = mnist_like(c["samples"], c["held_out"])
+    W, E, B = c["workers"], c["epochs"], c["batch"]
+    S, Sv = _mlp_steps(c["samples"], W, B, 0.0)
+    rdd = to_simple_rdd(SparkContext(f"local[{W}]"), x, y, num_slices=W)
+    n_train = W * (c["samples"] // W)
+    runs, main_counts = [], None
+    for mode in ("asynchronous", "hogwild"):
+        sm = _json_model(CNN_JSON, mode=mode, frequency="epoch", parameter_server_mode="jax",
+                         num_workers=W, merge="mean")
+        wall, counts, hist = _compiled_fit(f"fit_cnn {mode}", sm, rdd, E, B, 0.0, S, Sv)
+        main_counts = main_counts or counts
+        t0 = time.perf_counter()
+        sm.fit(rdd, epochs=E, batch_size=B, validation_split=0.0)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        loss, acc = sm.evaluate(xt, yt)
+        require(np.isfinite(loss) and acc > 0.5, f"fit_cnn {mode}: held-out accuracy {acc}")
+        runs.append({"mode": mode, "path": "compiled", "workers": W, "first_fit_s": wall,
+                     "fit_s": wall2, "samples_per_s": n_train * E / wall2,
+                     "ms_per_step": wall2 * 1e3 / (E * S), "history": hist,
+                     "launches": {k: v for k, v in counts.items() if v},
+                     "held_out_eval": {"loss": loss, "accuracy": acc}})
+        if mode == "asynchronous":
+            runs[-1]["profiled_fit_1_epoch"] = profiled(
+                lambda: sm.fit(rdd, epochs=1, batch_size=B, validation_split=0.0), 1,
+                top_n=10)
+    Wh = c["host_workers"]
+    sm = _json_model(CNN_JSON, mode="asynchronous", frequency="epoch",
+                     parameter_server_mode="http", num_workers=Wh, port=0, merge="mean")
+    wall, host_counts, hists, _ = _host_fit("fit_cnn host", sm, x, y, Wh, E, B, 0.0, "epoch")
+    loss, acc = sm.evaluate(xt, yt)
+    require(np.isfinite(loss) and acc > 0.5, f"fit_cnn host: held-out accuracy {acc}")
+    Sh, _ = _host_steps(c["samples"], Wh, B, 0.0, "epoch")
+    runs.append({"mode": "asynchronous", "path": "host http", "workers": Wh, "fit_s": wall,
+                 "samples_per_s": n_train * E / wall,
+                 "worker_ms_per_step": wall * 1e3 / (E * Sh), "histories": hists,
+                 "launches": {k: v for k, v in host_counts.items() if v},
+                 "held_out_eval": {"loss": loss, "accuracy": acc}})
+    emit({"phase": "fit_cnn", "config": CNN_JSON, **c, "steps_per_epoch": S,
+          "host_steps_per_epoch": Sh, "fits": runs, "card": card})
+    return main_counts, host_counts
+
+
+def fit_bn(card):
+    """The BatchNormalization CNN (``mnist_cnn_bn.json``), 8 workers, 16384
+    samples, batch 64, 2 epochs, ``validation_split=0.1`` (each replica
+    validates with its own statistics): synchronous at ``frequency="epoch"``
+    and at ``"batch"`` (gradient-synchronous: each worker normalises over
+    its own rows), then asynchronous epoch merges (``merge="mean"``). Exact
+    K1 counts, falling losses; the moving statistics moved, finite, the
+    variances positive. Then a synchronous epoch fit through
+    ``CompiledTrainer(keep_worker_state=True)``: the installed parameters
+    and statistics are the mean merge of the replica stacks, within 1e-6 of
+    scale."""
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.models import KerasModelAdapter
+    from elephas_tpu_torch.parallel import CompiledTrainer
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    c = BN_FIT
+    (x, y), _ = mnist_like(c["samples"], 0)
+    W, E, B, split = c["workers"], c["epochs"], c["batch"], c["validation_split"]
+    S, Sv = _mlp_steps(c["samples"], W, B, split)
+    rdd = to_simple_rdd(SparkContext(f"local[{W}]"), x, y, num_slices=W)
+    runs, main_counts = [], None
+    for mode, freq, merge in [("synchronous", "epoch", "auto"), ("synchronous", "batch", "auto"),
+                              ("asynchronous", "epoch", "mean")]:
+        sm = _json_model(CNN_BN_JSON, mode=mode, frequency=freq, parameter_server_mode="jax",
+                         num_workers=W, merge=merge)
+        before = {k: v.cpu() for k, v in sm.master_network.state_values()[1].items()}
+        wall, counts, hist = _compiled_fit(f"fit_bn {mode}/{freq}", sm, rdd, E, B, split,
+                                           S, Sv)
+        main_counts = main_counts or counts
+        after = {k: v.cpu() for k, v in sm.master_network.state_values()[1].items()}
+        require(len(after) == 4, f"fit_bn: {len(after)} statistics, want 4")
+        for k, v in after.items():
+            require(bool(torch.isfinite(v).all()) and not torch.equal(v, before[k]),
+                    f"fit_bn {mode}/{freq}: {k} did not move or is not finite")
+            require(not k.endswith("variance") or bool((v > 0).all()),
+                    f"fit_bn {mode}/{freq}: {k} not positive")
+        runs.append({"mode": mode, "frequency": freq, "merge": merge, "fit_s": wall,
+                     "ms_per_step": wall * 1e3 / (E * S), "history": hist,
+                     "launches": {k: v for k, v in counts.items() if v},
+                     "moving_stat_means": {k: float(v.mean()) for k, v in after.items()}})
+    with open(CNN_BN_JSON) as f:
+        trainer = CompiledTrainer(KerasModelAdapter(f.read(), device="cuda"),
+                                  mode="synchronous")
+    per = c["samples"] // W
+    blocks = [(x[i * per:(i + 1) * per], y[i * per:(i + 1) * per]) for i in range(W)]
+    res = trainer.fit(blocks, epochs=1, batch_size=B, validation_split=split,
+                      keep_worker_state=True)
+    ws = res.worker_state
+    tv, ntv = trainer.adapter.state_values()
+    merge_err = 0.0
+    for stack, base, got in ((ws["tv_stack"], ws["base_tv"], tv),
+                             (ws["ntv_stack"], ws["base_ntv"], ntv)):
+        for k, b in base.items():
+            want = b - (b[None] - stack[k]).mean(0)
+            err = float((got[k] - want).abs().max() / max(float(want.abs().max()), 1.0))
+            merge_err = max(merge_err, err)
+    require(merge_err <= 1e-6, f"fit_bn: installed weights {merge_err} from the merge")
+    emit({"phase": "fit_bn", "config": CNN_BN_JSON, **c, "steps_per_epoch": S,
+          "val_steps_per_epoch": Sv, "fits": runs,
+          "installed_vs_mean_merge_err_rel": merge_err, "card": card})
+    return main_counts
+
+
+def fit_lstm(card):
+    """``examples/ml_pipeline_imdb_lstm.py``'s model (the committed JSON) at
+    full width through ``SparkModel.fit``: ids below 2000 at length 80 from
+    the seed, 8192 samples, batch 32, 8 workers, synchronous, 2 epochs, no
+    validation (the example's). Falling loss; no kernel of the port
+    launched (a sigmoid head); ms a step of a second fit; the device's busy
+    share of one profiled epoch (80 recurrent steps of small launches a
+    batch, forward and backward: host-bound)."""
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    c = LSTM_FIT
+    x, y = imdb_like(c["samples"], c["vocab"], c["maxlen"])
+    W, E, B = c["workers"], c["epochs"], c["batch"]
+    S, Sv = _mlp_steps(c["samples"], W, B, 0.0)
+    rdd = to_simple_rdd(SparkContext(f"local[{W}]"), x, y, num_slices=W)
+    sm = _json_model(LSTM_JSON, mode="synchronous", num_workers=W)
+    wall, counts, hist = _compiled_fit("fit_lstm", sm, rdd, E, B, 0.0, S, Sv, k1=False)
+    t0 = time.perf_counter()
+    sm.fit(rdd, epochs=E, batch_size=B, validation_split=0.0)
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    prof = profiled(lambda: sm.fit(rdd, epochs=1, batch_size=B, validation_split=0.0), 1,
+                    top_n=10)
+    prof["steps_per_epoch"] = S
+    emit({"phase": "fit_lstm", "config": LSTM_JSON, **c, "steps_per_epoch": S,
+          "first_fit_s": wall, "history": hist, "fit_s": wall2,
+          "ms_per_step": wall2 * 1e3 / (E * S),
+          "samples_per_s": W * (c["samples"] // W) * E / wall2,
+          "profiled_fit_1_epoch": prof, "card": card})
+
+
+def _bn_steps(dev, x, y):
+    """One step of each schedule's step function on the BatchNormalization
+    CNN from its initial state (4 replicas of 64 rows, the last replica's
+    last 24 rows padding): the local schedules' train step and the
+    gradient-synchronous grad step. ``(compared, adam_updated)``: the loss
+    sums, moved statistics and gradients by name; the train step's
+    parameters after Adam."""
+    from elephas_tpu_torch.models import KerasModelAdapter
+
+    with open(CNN_BN_JSON) as f:
+        a = KerasModelAdapter(f.read(), device=dev)
+    L, B = 4, 64
+    xs = torch.from_numpy(x[:L * B].reshape(L, B, 784)).to(dev)
+    ys = torch.from_numpy(y[:L * B].reshape(L, B, 10)).to(dev)
+    sw = torch.ones(L, B, device=dev)
+    sw[3, 40:] = 0.0
+    tv, ntv = a.state_values()
+    stack = {k: v[None].expand((L,) + tuple(v.shape)).clone() for k, v in tv.items()}
+    nstack = {k: v[None].expand((L,) + tuple(v.shape)).clone() for k, v in ntv.items()}
+    opt = a.make_optimizer()
+    tv2, ntv2, _, st = a.build_train_step(opt)(stack, nstack, opt.init(stack, count_shape=(L,)),
+                                               xs, ys, sw, None)
+    grads, gntv, gst = a.build_grad_step()(tv, nstack, xs, ys, sw, None)
+    compared = {**{f"train_step {k}": v for k, v in ntv2.items()},
+                **{f"train_step stats[{i}]": v for i, v in enumerate(st)},
+                **{f"grad_step d{k}": v for k, v in grads.items()},
+                **{f"grad_step {k}": v for k, v in gntv.items()},
+                **{f"grad_step stats[{i}]": v for i, v in enumerate(gst)}}
+    return ({k: v.cpu() for k, v in compared.items()}, {k: v.cpu() for k, v in tv2.items()})
+
+
+def fit_layers_cross_check(card):
+    """Each of the three models fitted on the card and on ``device="cpu"``
+    from the same weights (the config's initializers, seed 0) and the same
+    order (drawn on the host), synchronous at epoch frequency, 4 workers, 2
+    epochs, ``validation_split=0.1`` (the models have no dropout):
+    histories within rtol 1e-4 and every weight (moving statistics
+    included) within 1e-4 of its array's largest entry, as
+    ``fit_cross_check``. The BatchNormalization CNN's gradient-synchronous
+    schedule is held step by step instead: one train step and one grad
+    step from the same state and batch on the card and the CPU, the loss
+    sums, gradients and moved statistics within 1e-4 of scale. (Its fit is
+    not: Adam's first step moves a parameter whose summed gradient is near
+    zero by the learning rate in the direction of that gradient's
+    rounding, so 1e-6 differences in the gradient become 3e-3 of a
+    convolution bias's scale after one step on an H100; the Adam-updated
+    parameters' error is printed.)"""
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    (x, y), _ = mnist_like(1024, 0)
+    xi, yi = imdb_like(512, LSTM_FIT["vocab"], LSTM_FIT["maxlen"], seed=1)
+    cases = [("mnist_cnn_logits", CNN_JSON, x, y, 64), ("mnist_cnn_bn", CNN_BN_JSON, x, y, 64),
+             ("imdb_lstm", LSTM_JSON, xi, yi, 32)]
+    checks = []
+    for name, path, xs, ys, B in cases:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            sm = _json_model(path, device=dev, mode="synchronous", num_workers=4)
+            sm.fit(to_simple_rdd(SparkContext("local[4]"), xs, ys, num_slices=4), epochs=2,
+                   batch_size=B, validation_split=0.1)
+            out[dev] = (sm.training_histories[-1], sm.master_network.get_weights())
+        hist_err = max(abs(a - b) / max(abs(b), 1e-6) for k in out["cpu"][0]
+                       for a, b in zip(out["cuda"][0][k], out["cpu"][0][k]))
+        w_err = max(float(np.abs(a - b).max()) / float(np.abs(b).max() or 1.0)
+                    for a, b in zip(out["cuda"][1], out["cpu"][1]))
+        require(hist_err <= 1e-4, f"fit_layers_cross_check {name}: histories differ by "
+                                  f"{hist_err} (relative): {out['cuda'][0]} vs {out['cpu'][0]}")
+        require(w_err <= 1e-4, f"fit_layers_cross_check {name}: weights differ by {w_err} "
+                               f"of scale")
+        checks.append({"model": name, "frequency": "epoch", "history_rel_err": hist_err,
+                       "weight_err_rel_to_scale": w_err, "tol": 1e-4,
+                       "history_gpu": out["cuda"][0], "history_cpu": out["cpu"][0]})
+    (gpu, gpu_adam), (cpu, cpu_adam) = _bn_steps("cuda", x, y), _bn_steps("cpu", x, y)
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-6)
+
+    step_err = {k: rel(gpu[k], cpu[k]) for k in cpu}
+    worst = max(step_err, key=step_err.get)
+    require(step_err[worst] <= 1e-4, f"fit_layers_cross_check mnist_cnn_bn steps: {worst} "
+                                     f"differs by {step_err[worst]} of scale")
+    emit({"phase": "fit_layers_cross_check", "workers": 4, "epochs": 2, "checks": checks,
+          "bn_steps": {"max_err_rel_to_scale": step_err[worst], "worst": worst, "tol": 1e-4,
+                       "compared": len(step_err),
+                       "adam_updated_err_rel_to_scale": {
+                           k: rel(gpu_adam[k], cpu_adam[k]) for k in cpu_adam}},
+          "card": card})
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script drives the "
@@ -3179,6 +3502,11 @@ def main() -> int:
         llama_params, llama_counts = train_llama(card)
         train_llama_cross_check(card, llama_params)
         del llama_params
+        torch.cuda.empty_cache()
+        cnn_counts, cnn_host_counts = fit_cnn(card)
+        bn_counts = fit_bn(card)
+        fit_lstm(card)
+        fit_layers_cross_check(card)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3187,14 +3515,18 @@ def main() -> int:
     # serving for K5, MoE serving for K6-gmm, the three timed MoE train
     # steps for gmm_t and K6-tgmm, the MLP fit for K1 (its host path's
     # launches, from the worker threads, under launches_by_path), the three
-    # timed Llama-3-8B-width train steps for the rope-on-load K2
+    # timed Llama-3-8B-width train steps for the rope-on-load K2; K1's
+    # launches in the CNN fits (the asynchronous compiled run, the host
+    # run's threads, the BatchNormalization CNN's synchronous run) are under
+    # launches_by_path
     rows = [ln_fwd, ln_bwd, decode, *attn_rows, *paged_rows, *gmm_rows, *xent_rows,
             *rope_rows]
     paths = {"serve": serve_counts, "train_5_steps": train_counts,
              "generate": gen_counts, "serve_paged": paged_counts,
              "serve_moe": moe_counts, "serve_moe_paged": moe_paged_counts,
              "train_moe_3_steps": moe_train_counts, "fit_mlp": mlp_counts,
-             "fit_host": host_counts,
+             "fit_host": host_counts, "fit_cnn": cnn_counts,
+             "fit_cnn_host": cnn_host_counts, "fit_bn": bn_counts,
              "train_llama_3_steps": llama_counts}
     main_paths = {"layer_norm_fwd": "serve", "flash_decode_lse": "serve",
                   "paged_flash_decode_lse": "serve_paged",

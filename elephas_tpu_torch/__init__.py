@@ -19,7 +19,10 @@ a Keras-free adapter of the model's JSON), with the fused
 classification-loss kernels; and the fit's host parameter-server path
 (``SparkModel``'s reference defaults: worker threads training replicas on
 the device against HTTP, socket or native servers, ``worker.py`` and
-``parameter/``), checkpoints and ``save`` / ``load_spark_model``.
+``parameter/``), checkpoints and ``save`` / ``load_spark_model``; and the
+Keras layers of the repo's examples (Reshape, Conv1D/Conv2D, MaxPooling2D,
+BatchNormalization with its moving statistics merged across workers,
+Embedding, LSTM) on every fit path.
 
 Device policy: every entry point takes ``device=`` and defaults to
 ``"cuda"``. Without a CUDA device the entry points raise unless the caller

@@ -38,10 +38,20 @@ reseeded each epoch from (seed, global epoch) (:func:`epoch_seed`), drawn
 over the whole replica stack; so a fit cut into chunks (``epoch_offset``)
 draws the uninterrupted fit's orders and masks.
 
+Non-trainable state (BatchNormalization's moving statistics, the
+adapter's ``ntv``) travels beside the parameters as the reference's does:
+each replica keeps its own stack (``ntv_stack``), merged with the
+parameters at every epoch or batch merge by the same rule (the valid
+workers' summed deltas, averaged for ``merge='mean'``); the
+gradient-synchronous schedule keeps each replica's statistics for the
+whole fit and averages them once at its end. Each replica's validation
+runs with its own statistics.
+
 Merge-faithful chunking (synchronous + epoch only, as in the reference):
 ``keep_worker_state=True`` returns the replica stacks un-merged
-(``FitResult.worker_state``: ``tv_stack`` and the ``base_tv`` they
-started from), with the installed weights the merge a preview would give;
+(``FitResult.worker_state``: ``tv_stack`` and ``ntv_stack`` and the
+``base_tv`` and ``base_ntv`` they started from), with the installed
+weights the merge a preview would give;
 the next chunk continues them through ``worker_state=`` with
 ``epoch_offset`` at the global epoch, and the one real merge is the last
 chunk's preview.
@@ -246,7 +256,7 @@ class CompiledTrainer:
             self._staged = (stage_key, data)
 
         gen = torch.Generator(device=self.device)
-        tv0 = self.adapter.state_values()
+        tv0, ntv0 = self.adapter.state_values()
         if opt_state is not None:        # a resumed state arrives on the CPU
             opt_state = _tree_map(lambda t: t.to(self.device), opt_state)
         if worker_state is not None:
@@ -255,18 +265,18 @@ class CompiledTrainer:
         t_start = time.perf_counter()
         epochs_at = range(int(epoch_offset), int(epoch_offset) + E)
         if self.mode == "synchronous" and self.frequency == "batch":
-            tv, opt_state, stats = self._fit_gradsync(
-                tv0, opt_state, data, W, S, B, epochs_at, Sv, has_val, seed, gen)
+            tv, ntv, opt_state, stats = self._fit_gradsync(
+                tv0, ntv0, opt_state, data, W, S, B, epochs_at, Sv, has_val, seed, gen)
         else:
-            tv, opt_state, stats, ws_out = self._fit_local(
-                tv0, opt_state, data, W, S, B, epochs_at, Sv, has_val, seed, gen,
+            tv, ntv, opt_state, stats, ws_out = self._fit_local(
+                tv0, ntv0, opt_state, data, W, S, B, epochs_at, Sv, has_val, seed, gen,
                 worker_state)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t_run = time.perf_counter() - t_start
 
-        self.adapter.install_state(tv)
-        flat_dev = self.adapter.state_to_weights(tv)
+        self.adapter.install_state(tv, ntv)
+        flat_dev = self.adapter.state_to_weights(tv, ntv)
         weights_thunk = lambda: [w.detach().cpu().numpy() for w in flat_dev]  # noqa: E731
 
         # one transfer for every metric of every epoch
@@ -301,10 +311,11 @@ class CompiledTrainer:
         return tuple(data[k][rows, perm].reshape((W, S, B) + tuple(data[k].shape[2:]))
                      for k in ("x", "y", "sw"))
 
-    def _epoch_metrics(self, eval_step, stats, tv_stack, data, Sv: int, B: int,
-                       has_val: bool):
+    def _epoch_metrics(self, eval_step, stats, tv_stack, ntv_stack, data, Sv: int,
+                       B: int, has_val: bool):
         """``[loss, accuracy, val_loss, val_accuracy]`` of one epoch as 0-d
-        device tensors (the validation pair 0 without validation data)."""
+        device tensors (the validation pair 0 without validation data); each
+        replica validates with its own parameters and statistics."""
         loss_ws, acc_ws, wsum = stats
         w = torch.clamp(wsum, min=1e-9)
         out = [loss_ws / w, acc_ws / w]
@@ -314,31 +325,33 @@ class CompiledTrainer:
         vl, va, vw = zero, zero, zero
         for s in range(Sv):
             sl = slice(s * B, (s + 1) * B)
-            l_, a_, w_ = eval_step(tv_stack, data["xv"][:, sl], data["yv"][:, sl],
-                                   data["sv"][:, sl])
+            l_, a_, w_ = eval_step(tv_stack, ntv_stack, data["xv"][:, sl],
+                                   data["yv"][:, sl], data["sv"][:, sl])
             vl, va, vw = vl + l_.sum(), va + a_.sum(), vw + w_.sum()
         vw = torch.clamp(vw, min=1e-9)
         return out + [vl / vw, va / vw]
 
-    def _merge(self, tv_stack, base, wvalid, denom):
-        """Apply the valid workers' summed (or averaged) deltas to ``base``."""
+    def _merge(self, stack, base, wvalid, denom, kind: Optional[str] = None):
+        """Apply the valid workers' summed (or, for ``kind`` ``"mean"``,
+        averaged) deltas to ``base``; ``kind`` defaults to the trainer's
+        ``merge``."""
         out = {}
         for k, b in base.items():
-            delta = b[None] - tv_stack[k]
+            delta = b[None] - stack[k]
             total = (delta * _lead(wvalid, delta)).sum(dim=0)
-            if self.merge == "mean":
+            if (kind or self.merge) == "mean":
                 total = total / denom
             out[k] = b - total
         return out
 
-    def _fit_local(self, tv0, opt_state, data, W, S, B, epochs_at, Sv, has_val, seed,
-                   gen, worker_state=None):
+    def _fit_local(self, tv0, ntv0, opt_state, data, W, S, B, epochs_at, Sv, has_val,
+                   seed, gen, worker_state=None):
         """The local-training schedules: synchronous+epoch, and the
         asynchronous/hogwild merges at epoch or batch frequency, over the
-        global epochs ``epochs_at``. ``(merged, opt_state, history,
-        worker_state)``; synchronous+epoch continues ``worker_state``'s
-        stacks when given, and its merge is then a preview against their
-        base."""
+        global epochs ``epochs_at``. ``(merged tv, merged ntv, opt_state,
+        history, worker_state)``; synchronous+epoch continues
+        ``worker_state``'s stacks when given, and its merge is then a
+        preview against their base."""
         train_step = self.adapter.build_train_step(self.optimizer)
         eval_step = self.adapter.build_eval_step()
         merge_every_epoch = self.mode != "synchronous" and self.frequency == "epoch"
@@ -348,9 +361,12 @@ class CompiledTrainer:
         if worker_state is not None:
             base = dict(worker_state["base_tv"])
             tv_stack = dict(worker_state["tv_stack"])
+            # a stack saved before the statistics travelled holds none
+            base_ntv = dict(worker_state.get("base_ntv", {}))
+            ntv_stack = dict(worker_state.get("ntv_stack", {}))
         else:
-            base = dict(tv0)
-            tv_stack = _tile(base, W)
+            base, base_ntv = dict(tv0), dict(ntv0)
+            tv_stack, ntv_stack = _tile(base, W), _tile(base_ntv, W)
         opt = opt_state if opt_state is not None else \
             self.optimizer.init(tv_stack, count_shape=(W,))
         history = []
@@ -360,32 +376,40 @@ class CompiledTrainer:
                 xb, yb, swb = self._epoch_batches(data, seed, W, e, S, B)
                 tot = [torch.zeros((), device=self.device) for _ in range(3)]
                 for s in range(S):
-                    tv_stack, opt, st = train_step(tv_stack, opt, xb[:, s], yb[:, s],
-                                                   swb[:, s], gen)
+                    tv_stack, ntv_stack, opt, st = train_step(
+                        tv_stack, ntv_stack, opt, xb[:, s], yb[:, s], swb[:, s], gen)
                     tot = [t + v.sum() for t, v in zip(tot, st)]
                     if merge_every_batch:
                         base = self._merge(tv_stack, base, wvalid, denom)
-                        tv_stack = _tile(base, W)
+                        base_ntv = self._merge(ntv_stack, base_ntv, wvalid, denom)
+                        tv_stack, ntv_stack = _tile(base, W), _tile(base_ntv, W)
                 if merge_every_epoch:
                     base = self._merge(tv_stack, base, wvalid, denom)
-                    tv_stack = _tile(base, W)
-                history.append(self._epoch_metrics(eval_step, tot, tv_stack, data, Sv, B,
-                                                   has_val))
+                    base_ntv = self._merge(ntv_stack, base_ntv, wvalid, denom)
+                    tv_stack, ntv_stack = _tile(base, W), _tile(base_ntv, W)
+                history.append(self._epoch_metrics(eval_step, tot, tv_stack, ntv_stack,
+                                                   data, Sv, B, has_val))
             ws = None
             if not (merge_every_epoch or merge_every_batch):
-                ws = {"tv_stack": tv_stack, "base_tv": base}
-                base = self._merge(tv_stack, base, wvalid, denom)   # the one merge
-        return base, opt, history, ws
+                ws = {"tv_stack": tv_stack, "ntv_stack": ntv_stack, "base_tv": base,
+                      "base_ntv": base_ntv}
+                # the one merge
+                base = self._merge(tv_stack, base, wvalid, denom)
+                base_ntv = self._merge(ntv_stack, base_ntv, wvalid, denom)
+        return base, base_ntv, opt, history, ws
 
-    def _fit_gradsync(self, tv0, opt_state, data, W, S, B, epochs_at, Sv, has_val,
-                      seed, gen):
+    def _fit_gradsync(self, tv0, ntv0, opt_state, data, W, S, B, epochs_at, Sv,
+                      has_val, seed, gen):
         """Gradient-synchronous DP-SGD (``mode='synchronous',
         frequency='batch'``): one shared set of parameters and one
         optimizer state; per batch the summed gradients of every worker's
-        weighted loss sum over the global weight sum, one step."""
+        weighted loss sum over the global weight sum, one step. Each
+        worker keeps its own statistics through the fit; they are averaged
+        over the valid workers once at its end."""
         grad_step = self.adapter.build_grad_step()
         eval_step = self.adapter.build_eval_step()
         tv = dict(tv0)
+        ntv_stack = _tile(ntv0, W)
         opt = opt_state if opt_state is not None else self.optimizer.init(tv)
         history = []
         for e in epochs_at:
@@ -393,7 +417,8 @@ class CompiledTrainer:
             xb, yb, swb = self._epoch_batches(data, seed, W, e, S, B)
             tot = [torch.zeros((), device=self.device) for _ in range(3)]
             for s in range(S):
-                grads, st = grad_step(tv, xb[:, s], yb[:, s], swb[:, s], gen)
+                grads, ntv_stack, st = grad_step(tv, ntv_stack, xb[:, s], yb[:, s],
+                                                 swb[:, s], gen)
                 with torch.no_grad():
                     wtot = torch.clamp(st[2].sum(), min=1e-9)
                     ghat = {k: g / wtot for k, g in grads.items()}
@@ -402,9 +427,13 @@ class CompiledTrainer:
                     tot = [t + v.sum() for t, v in zip(tot, st)]
             with torch.no_grad():
                 stacked = {k: v[None].expand((W,) + tuple(v.shape)) for k, v in tv.items()}
-                history.append(self._epoch_metrics(eval_step, tot, stacked, data, Sv, B,
-                                                   has_val))
-        return tv, opt, history
+                history.append(self._epoch_metrics(eval_step, tot, stacked, ntv_stack, data,
+                                                   Sv, B, has_val))
+        wvalid = data["wvalid"]
+        with torch.no_grad():
+            ntv = self._merge(ntv_stack, dict(ntv0), wvalid,
+                              torch.clamp(wvalid.sum(), min=1.0), "mean")
+        return tv, ntv, opt, history
 
     # ------------------------------------------------------------------
     def predict(self, x: np.ndarray, batch_size: int = 32) -> np.ndarray:
@@ -416,7 +445,7 @@ class CompiledTrainer:
         """Loss (and accuracy) on held-out data → ``{"loss": ...,
         ["accuracy": ...]}``, the weighted means over every row."""
         eval_step = self.adapter.build_eval_step()
-        tv = {k: v[None] for k, v in self.adapter.state_values().items()}
+        tv, ntv = ({k: v[None] for k, v in d.items()} for d in self.adapter.state_values())
         x, y = np.asarray(x), np.asarray(y)
         B = int(batch_size)
         tot = [torch.zeros((), device=self.device) for _ in range(3)]
@@ -424,7 +453,7 @@ class CompiledTrainer:
             xb = _as_device(x[i:i + B], self.device)[None]
             yb = _as_device(y[i:i + B], self.device)[None]
             sw = torch.ones((1, xb.shape[1]), device=self.device)
-            tot = [t + v.sum() for t, v in zip(tot, eval_step(tv, xb, yb, sw))]
+            tot = [t + v.sum() for t, v in zip(tot, eval_step(tv, ntv, xb, yb, sw))]
         w = torch.clamp(tot[2], min=1e-9)
         out = {"loss": float(tot[0] / w)}
         if self.adapter.wants_accuracy:

@@ -296,11 +296,13 @@ class SparkModel:
         sync_faithful = self.mode == "synchronous" and self.frequency == "epoch"
         ws_path = os.path.join(checkpoint_dir, "worker_state")
         start_epoch, opt_state, worker_state = 0, None, None
-        names = list(self._master_network.state_values())
+        # the trainable and the non-trainable names (BatchNormalization's
+        # moving statistics), each stack keyed by its own
+        names = [list(d) for d in self._master_network.state_values()]
         if resume and has_checkpoint(checkpoint_dir):
             weights, meta, opt_state = load_checkpoint(checkpoint_dir)
             self._master_network.set_weights(weights)
-            opt_state = params_by_name(opt_state, names)
+            opt_state = params_by_name(opt_state, *names)
             start_epoch = int(meta.get("epoch", 0))
             if sync_faithful and start_epoch > 0:
                 # worker_state is written in a separate step from meta.json,
@@ -308,7 +310,7 @@ class SparkModel:
                 # must not silently continue from mismatched replica stacks.
                 ws_epoch = -1
                 if os.path.isdir(ws_path):
-                    worker_state = params_by_name(load_pytree(ws_path), names)
+                    worker_state = params_by_name(load_pytree(ws_path), *names)
                     ws_epoch = int(worker_state.pop("epoch", -1))
                 if ws_epoch != start_epoch:
                     import warnings
@@ -350,10 +352,10 @@ class SparkModel:
                 # stacks first, meta last: meta.json is the commit point, and
                 # resume validates the stamp against meta's epoch
                 save_pytree(ws_path, params_by_position(
-                    {**worker_state, "epoch": np.int64(epoch)}, names))
+                    {**worker_state, "epoch": np.int64(epoch)}, *names))
             save_checkpoint(checkpoint_dir, result.weights,
                             {"epoch": epoch, "epochs": epochs, "mode": self.mode},
-                            params_by_position(opt_state, names))
+                            params_by_position(opt_state, *names))
             self.timings.append(result.timings)
         self.training_histories.append(merged)
 

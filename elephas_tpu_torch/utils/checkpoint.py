@@ -13,7 +13,9 @@ A parameter dict is written by position, in ``weights.npz``'s order
 (:func:`params_by_position`), and takes the loading model's names again
 (:func:`params_by_name`): Keras numbers its layers per process, so the
 model that resumes may name its parameters otherwise than the one that
-saved them.
+saved them. The trainable and the non-trainable dicts (the replica
+stacks of BatchNormalization's statistics) are two groups of names, each
+written with its group's number.
 The JAX package's checkpoints pickle a JAX treedef (``opt_treedef.pkl``)
 beside its ``opt_state.npz``; unpickling it needs JAX, so
 :func:`load_checkpoint` does not read it: it warns and returns no optimizer
@@ -84,45 +86,55 @@ def atomic_write(path: str):
 
 
 class Positional(list):
-    """A parameter dict's values in the model's parameter order."""
+    """A parameter dict's values in the model's parameter order; ``group``
+    is the index of the name list it was keyed by."""
+
+    def __init__(self, values=(), group: int = 0):
+        super().__init__(values)
+        self.group = group
 
 
-def params_by_position(tree: Any, names: List[str]) -> Any:
-    """``tree`` with each dict keyed by the model's parameter ``names`` as
-    a :class:`Positional` list of its values in ``names``' order (that of
+def params_by_position(tree: Any, *groups: List[str]) -> Any:
+    """``tree`` with each dict keyed by one of the model's name lists
+    ``groups`` (the trainable names, then the non-trainable ones) as a
+    :class:`Positional` list of its values in that list's order (that of
     ``weights.npz``)."""
     if isinstance(tree, dict):
-        if len(tree) == len(names) and set(tree) == set(names):
-            return Positional(params_by_position(tree[k], names) for k in names)
-        return {k: params_by_position(v, names) for k, v in tree.items()}
+        for g, names in enumerate(groups):
+            if len(tree) == len(names) and set(tree) == set(names):
+                return Positional((params_by_position(tree[k], *groups) for k in names), g)
+        return {k: params_by_position(v, *groups) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(params_by_position(v, names) for v in tree))
+        return type(tree)(*(params_by_position(v, *groups) for v in tree))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(params_by_position(v, names) for v in tree)
+        return type(tree)(params_by_position(v, *groups) for v in tree)
     return tree
 
 
-def params_by_name(tree: Any, names: List[str]) -> Any:
+def params_by_name(tree: Any, *groups: List[str]) -> Any:
     """The inverse of :func:`params_by_position`: each :class:`Positional`
-    list a dict keyed by ``names``, which must count as many entries."""
+    list a dict keyed by its group's names, which must count as many
+    entries."""
     if isinstance(tree, Positional):
+        names = groups[tree.group]
         if len(tree) != len(names):
             raise ValueError(f"checkpoint holds {len(tree)} parameters, the model "
                              f"{len(names)}")
-        return {k: params_by_name(v, names) for k, v in zip(names, tree)}
+        return {k: params_by_name(v, *groups) for k, v in zip(names, tree)}
     if isinstance(tree, dict):
-        return {k: params_by_name(v, names) for k, v in tree.items()}
+        return {k: params_by_name(v, *groups) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(params_by_name(v, names) for v in tree))
+        return type(tree)(*(params_by_name(v, *groups) for v in tree))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(params_by_name(v, names) for v in tree)
+        return type(tree)(params_by_name(v, *groups) for v in tree)
     return tree
 
 
 def _flatten(tree: Any, leaves: List[np.ndarray]) -> Any:
     """The JSON structure of ``tree``, appending its leaves to ``leaves``."""
     if isinstance(tree, Positional):
-        return {"params": [_flatten(v, leaves) for v in tree]}
+        node = {"params": [_flatten(v, leaves) for v in tree]}
+        return {**node, "group": tree.group} if tree.group else node
     if isinstance(tree, torch.Tensor):
         leaves.append(tree.detach().cpu().numpy())
         return {"leaf": len(leaves) - 1, "kind": "torch"}
@@ -155,7 +167,8 @@ def _unflatten(node: Any, leaves: List[np.ndarray]) -> Any:
         arr = leaves[node["leaf"]]
         return torch.from_numpy(arr) if node["kind"] == "torch" else arr
     if "params" in node:
-        return Positional(_unflatten(v, leaves) for v in node["params"])
+        return Positional((_unflatten(v, leaves) for v in node["params"]),
+                          node.get("group", 0))
     if "dict" in node:
         return {k: _unflatten(v, leaves) for k, v in zip(node["dict"], node["items"])}
     if "namedtuple" in node:

@@ -24,6 +24,10 @@ JSON, on the worker's device, trained with ``model.fit``'s contract:
   a seeded ``np.random`` gives Keras's orders;
 - the last, partial batch is trained; the history's ``loss`` and metrics
   are the sample-weighted means over the epoch, under Keras's keys;
+- each step moves BatchNormalization's statistics over that batch's rows
+  (the last batch short, unpadded), and ``get_weights()`` / ``set_weights``
+  carry them as Keras's do, so the deltas a worker yields or pushes
+  include them;
 - the optimizer follows Keras's own update rule (Adam and SGD;
   :func:`~elephas_tpu_torch.models.optimizers.to_keras_optimizer`), with
   one state a replica: fresh for each partition, kept across that
@@ -147,28 +151,31 @@ class KerasReplica:
         self.adapter.set_weights(weights)
 
     def _stacked(self):
-        return {k: v[None] for k, v in self.adapter.state_values().items()}
+        """``(tv, ntv)`` as one-replica stacks."""
+        return tuple({k: v[None] for k, v in d.items()} for d in self.adapter.state_values())
 
     def _step(self, x: torch.Tensor, y: torch.Tensor):
-        """One optimizer step on the batch ``x`` ``[B, ...]``: ``(loss_wsum,
-        acc_wsum, B)`` as device tensors ``[1]``."""
-        tv = self._stacked()
+        """One optimizer step on the batch ``x`` ``[B, ...]`` (a short last
+        batch as it is, unpadded, as Keras trains it), moving the
+        BatchNormalization statistics: ``(loss_wsum, acc_wsum, B)`` as device
+        tensors ``[1]``."""
+        tv, ntv = self._stacked()
         if self._opt_state is None:
             self._opt_state = self.optimizer.init(tv, count_shape=(1,))
         sw = torch.ones((1, x.shape[0]), device=self.device)
         with torch.no_grad():
-            tv, self._opt_state, stats = self._train_step(
-                tv, self._opt_state, x[None], y[None], sw, self.generator)
-        self.adapter.install_state({k: v[0] for k, v in tv.items()})
+            tv, ntv, self._opt_state, stats = self._train_step(
+                tv, ntv, self._opt_state, x[None], y[None], sw, self.generator)
+        self.adapter.install_state(*({k: v[0] for k, v in d.items()} for d in (tv, ntv)))
         return stats
 
     def _evaluate(self, x: torch.Tensor, y: torch.Tensor, batch_size: int):
-        tv = self._stacked()
+        tv, ntv = self._stacked()
         tot = torch.zeros(3, device=self.device)
         for i in range(0, x.shape[0], batch_size):
             xb, yb = x[i:i + batch_size], y[i:i + batch_size]
             sw = torch.ones((1, xb.shape[0]), device=self.device)
-            tot += torch.cat(self._eval_step(tv, xb[None], yb[None], sw))
+            tot += torch.cat(self._eval_step(tv, ntv, xb[None], yb[None], sw))
         return tot
 
     def _logs(self, tot: torch.Tensor, prefix: str = "") -> Dict[str, torch.Tensor]:

@@ -171,7 +171,7 @@ def test_state_parameter_dicts_are_written_by_position(tmp_path, toy_classificat
     ckpt = str(tmp_path / "ckpt")
     sm = SparkModel(make_classifier(), mode="synchronous", num_workers=4, device="cpu")
     _fit(sm, x, y, epochs=1, checkpoint_dir=ckpt, checkpoint_frequency=1)
-    names = list(sm.master_network.state_values())
+    names = list(sm.master_network.state_values()[0])
     for f in ("opt_state.json", os.path.join("worker_state", "structure.json")):
         text = open(os.path.join(ckpt, f)).read()
         assert '"params"' in text and not any(f'"{n}"' in text for n in names), f

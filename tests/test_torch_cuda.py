@@ -10,7 +10,10 @@ bitwise determinism, the rope-on-load flash-attention kernels at the
 Llama-3-8B training shape and its edges),
 the wrappers' refusals, and the serving engine (dense and paged), the train step and
 ``generate`` on the card against the same code on the CPU, for the dense
-and the mixture-of-experts LM, and the MLP fit's five schedules.
+and the mixture-of-experts LM, and the MLP fit's five schedules; the Keras
+layers of the repo's examples (Conv2D, MaxPooling2D, Conv1D,
+BatchNormalization, Reshape, Embedding, LSTM) and a BatchNormalization
+CNN's fit on the card against the CPU, and the Embedding's range check.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside the
 test, never at import). This file imports no JAX, so it runs on a machine
@@ -1200,3 +1203,151 @@ def test_host_fit_launches_k1_exactly_from_worker_threads(cuda, frequency):
     assert fused_xent_bwd.launches == W * E * s
     assert fused_xent_fwd.launches == W * E * (s + sv)
     assert all(h["loss"][-1] < h["loss"][0] for h in sm.training_histories)
+
+
+# -- the Keras layers of the repo's examples (the card has no Keras: the
+# models are Keras-3 JSON configs written out here) ---------------------------
+
+
+def _sequential(input_shape, *layers):
+    """A Keras-3 Sequential JSON config: ``layers`` are ``(class_name,
+    config)`` pairs, each config with its ``name``."""
+    return {"class_name": "Sequential", "config": {"layers": [
+        {"class_name": "InputLayer", "config": {"batch_shape": [None, *input_shape]}},
+        *({"class_name": c, "config": cfg} for c, cfg in layers)]}}
+
+
+LAYER_CASES = [
+    ("conv2d_same_stride2", (9, 7, 3), [("Conv2D", dict(
+        name="c", filters=8, kernel_size=[3, 3], strides=[2, 2], padding="same",
+        activation="relu"))]),
+    ("conv2d_dilated", (9, 7, 3), [("Conv2D", dict(
+        name="c", filters=4, kernel_size=[3, 2], dilation_rate=[2, 1]))]),
+    ("max_pool_same", (9, 7, 3), [("MaxPooling2D", dict(
+        name="p", pool_size=[3, 3], strides=[2, 2], padding="same"))]),
+    ("conv1d_causal", (11, 3), [("Conv1D", dict(
+        name="c", filters=5, kernel_size=[3], padding="causal", dilation_rate=[2]))]),
+    ("batch_norm", (5, 4, 6), [("BatchNormalization", dict(name="bn"))]),
+    ("reshape", (24,), [("Reshape", dict(name="r", target_shape=[-1, 4])),
+                        ("Dense", dict(name="d", units=3))]),
+    ("embedding", (9,), [("Embedding", dict(name="e", input_dim=13, output_dim=4))]),
+    ("lstm_sequences", (8, 3), [("LSTM", dict(name="l", units=6, return_sequences=True))]),
+    ("lstm_last", (8, 3), [("LSTM", dict(name="l", units=6))]),
+]
+
+
+@pytest.mark.parametrize("case", LAYER_CASES, ids=[c[0] for c in LAYER_CASES])
+def test_keras_layer_on_card_matches_cpu(cuda, case):
+    """Each layer over a stack of 3 replicas in training (batch moments and
+    moved statistics for BatchNormalization) and in inference, and the
+    gradients of a weighted sum of its output, on the card against the same
+    layer on the CPU from the same weights: within 1e-5 relative to each
+    tensor's scale (float32; cuDNN sums in other orders than the CPU)."""
+    from elephas_tpu_torch.models import KerasModelAdapter
+
+    name, shape, layers = case
+    cfg = _sequential(shape, *layers)
+    rng = np.random.default_rng(3)
+    x = (rng.integers(0, 13, size=(3, 7) + shape).astype(np.float32) if name == "embedding"
+         else rng.normal(1.0, 2.0, size=(3, 7) + shape).astype(np.float32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        adapter = KerasModelAdapter(cfg, seed=4, device=dev)
+        tv, ntv = ({k: v[None].expand((3,) + tuple(v.shape)).clone() for k, v in d.items()}
+                   for d in adapter.state_values())
+        leaves = {k: v.requires_grad_() for k, v in tv.items()}
+        xt = torch.from_numpy(x).to(dev)
+        y, ntv2 = adapter.stateless_call(leaves, ntv, xt, training=True)
+        w = torch.from_numpy(rng.normal(size=tuple(y.shape)).astype(np.float32)).to(dev) \
+            if dev == "cpu" else out["cpu"]["w"].to(dev)
+        grads = torch.autograd.grad((y * w).sum(), list(leaves.values())) if leaves else ()
+        with torch.no_grad():
+            infer = adapter.stateless_call(tv, ntv, xt, training=False)[0]
+        out[dev] = {"w": w, "y": y.detach(), "infer": infer, "grads": grads,
+                    "ntv": list(ntv2.values())}
+    for key in ("y", "infer"):
+        want = out["cpu"][key]
+        assert (out["cuda"][key].cpu() - want).abs().max() <= 1e-5 * max(want.abs().max(), 1.0)
+    for got, want in list(zip(out["cuda"]["grads"], out["cpu"]["grads"])) + list(
+            zip(out["cuda"]["ntv"], out["cpu"]["ntv"])):
+        assert (got.cpu() - want).abs().max() <= 1e-5 * max(want.abs().max(), 1.0)
+
+
+def test_embedding_refuses_ids_out_of_range_on_card(cuda):
+    """An id outside ``[0, input_dim)`` raises before the gather, where on
+    the card it would fault the device."""
+    from elephas_tpu_torch.models import KerasModelAdapter
+
+    adapter = KerasModelAdapter(_sequential((4,), ("Embedding", dict(
+        name="e", input_dim=10, output_dim=3))), device="cuda")
+    ok = np.array([[0, 9, 3, 2]], np.float32)
+    assert adapter.predict(ok).shape == (1, 4, 3)
+    for bad in (10.0, -1.0):
+        x = ok.copy()
+        x[0, 2] = bad
+        with pytest.raises(ValueError, match=r"\[0, 10\)"):
+            adapter.predict(x)
+    torch.cuda.synchronize()
+
+
+def _blobs(n, seed=8):
+    """MNIST-shaped class blobs: ten prototypes in [0, 1]^784 with noise,
+    clipped; one-hot labels."""
+    rng = np.random.default_rng(seed)
+    protos = rng.uniform(0, 1, size=(10, 784))
+    labels = rng.integers(0, 10, size=n)
+    x = np.clip(protos[labels] + 0.3 * rng.normal(size=(n, 784)), 0, 1)
+    return x.astype(np.float32), np.eye(10, dtype=np.float32)[labels]
+
+
+def test_batchnorm_cnn_steps_and_fit_on_card_match_cpu(cuda):
+    """The committed BatchNormalization CNN (``mnist_cnn_bn.json``) on the
+    card against the CPU from the same weights: one train step over 3
+    replicas and one gradient-synchronous grad step (loss sums, gradients,
+    moved statistics; a replica partly padding) within 1e-5 of scale, and a
+    synchronous epoch-frequency fit (3 workers, 2 epochs) whose loss and
+    accuracy histories are within 1e-4. The fit's weights are not compared:
+    Adam steps a parameter whose gradient is near zero (a dense kernel's
+    row fed by a feature the ReLU and BatchNormalization hold near
+    constant) by the learning rate in the direction of that gradient's
+    rounding, so the card's and the CPU's weights part while every step
+    computes the same gradients to 1e-6 (``chip_smoke.py``'s
+    ``fit_layers_cross_check`` prints both, one step apart, on an H100:
+    4e-4 of a dense kernel's scale, 3e-3 of a convolution bias's)."""
+    from pathlib import Path
+
+    from elephas_tpu_torch import SparkModel
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.models import KerasModelAdapter
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    text = (Path(__file__).resolve().parents[1] / "elephas_tpu_torch" / "configs" /
+            "mnist_cnn_bn.json").read_text()
+    x, y = _blobs(288)
+    L, B = 3, 32
+    sw = torch.ones(L, B)
+    sw[2, 20:] = 0.0
+    steps = {}
+    for dev in ("cuda", "cpu"):
+        a = KerasModelAdapter(text, device=dev)
+        tv, ntv = a.state_values()
+        stack = {k: v[None].expand((L,) + tuple(v.shape)).clone() for k, v in tv.items()}
+        nstack = {k: v[None].expand((L,) + tuple(v.shape)).clone() for k, v in ntv.items()}
+        xs = torch.from_numpy(x[:L * B].reshape(L, B, 784)).to(dev)
+        ys = torch.from_numpy(y[:L * B].reshape(L, B, 10)).to(dev)
+        opt = a.make_optimizer()
+        _, ntv2, _, st = a.build_train_step(opt)(
+            stack, nstack, opt.init(stack, count_shape=(L,)), xs, ys, sw.to(dev), None)
+        grads, gntv, gst = a.build_grad_step()(tv, nstack, xs, ys, sw.to(dev), None)
+        steps[dev] = [t.cpu() for t in (*ntv2.values(), *st, *grads.values(), *gntv.values(),
+                                        *gst)]
+    for got, want in zip(steps["cuda"], steps["cpu"]):
+        assert (got - want).abs().max() <= 1e-5 * max(want.abs().max(), 1e-6)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sm = SparkModel(text, mode="synchronous", num_workers=3, device=dev)
+        sm.fit(to_simple_rdd(SparkContext("local[3]"), x, y), epochs=2, batch_size=32,
+               validation_split=0.1)
+        out[dev] = sm.training_histories[-1]
+    for k, v in out["cpu"].items():
+        np.testing.assert_allclose(out["cuda"][k], v, rtol=1e-4, atol=1e-4)

@@ -150,6 +150,54 @@ def test_adapter_steps_take_remat_in_place():
         adapter.build_grad_step(True)
 
 
+STATE = ["state_values", "weights_to_state", "state_to_weights", "install_state"]
+
+
+@pytest.mark.parametrize("name", STATE)
+def test_adapter_state_signature_matches_reference(name):
+    """The adapter's two-part state takes the reference's names and
+    positions: ``state_values()``, ``weights_to_state(flat)``,
+    ``state_to_weights(tv, ntv)``, ``install_state(tv, ntv)``."""
+    assert _params(getattr(ta.KerasModelAdapter, name)) == \
+        _params(getattr(ja.KerasModelAdapter, name))
+
+
+def test_adapter_state_splits_as_the_reference():
+    """On a model with BatchNormalization and Dropout, ``weights_to_state``
+    gives the reference's trainable values in its order and its
+    non-trainable weight slots (the moving statistics; the reference's
+    seed-generator state has no weight slot and no port counterpart);
+    ``state_to_weights`` and ``install_state`` invert it."""
+    import keras
+
+    keras.utils.set_random_seed(0)
+    m = keras.Sequential([keras.layers.Input((6,)), keras.layers.Dense(5),
+                          keras.layers.BatchNormalization(), keras.layers.Dropout(0.1),
+                          keras.layers.Dense(3)])
+    m.compile("adam", "mse")
+    flat = [np.random.default_rng(i).normal(size=w.shape).astype(np.float32)
+            for i, w in enumerate(m.get_weights())]
+    ref = ja.KerasModelAdapter(m)
+    jtv, jntv = ref.weights_to_state(flat)
+    port = ta.KerasModelAdapter(m, device="cpu")
+    tv, ntv = port.weights_to_state(flat)
+    assert [k.split("/")[-1] for k in ntv] == ["moving_mean", "moving_variance"]
+    assert len(tv) == len(jtv)
+    for got, want in zip(tv.values(), jtv):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    slots = [v for v, slot in zip(jntv, ref._ntv_slots) if slot is not None]
+    for got, want in zip(ntv.values(), slots):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    back = port.state_to_weights(tv, ntv)
+    for got, want in zip(back, ref.state_to_weights(jtv, jntv)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    port.install_state(tv, ntv)
+    got_tv, got_ntv = port.state_values()
+    assert list(got_tv) == list(tv) and list(got_ntv) == list(ntv)
+    for got, want in zip(port.get_weights(), flat):
+        np.testing.assert_array_equal(got, want)
+
+
 # -- ops: fault 4 ------------------------------------------------------------------
 
 # queued (ROADMAP §1 item 6) or logged departures (ROADMAP §3)

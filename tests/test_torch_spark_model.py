@@ -168,6 +168,24 @@ def test_adapter_initialises_from_the_config():
     std = np.sqrt(2.0 / 30)
     assert abs(c[0].std() - std) < 0.05 * std and np.abs(c[0]).max() <= 2 * std / 0.8796 + 1e-6
     assert (c[1] == 0.5).all()
+    # a convolution's fans count its receptive field, as Keras's; LSTM's
+    # Orthogonal recurrent kernel and unit_forget_bias; BatchNormalization's
+    # four defaults; Embedding's uniform rows
+    m = keras.Sequential([keras.layers.Input((10, 10, 4)), keras.layers.Conv2D(8, 3),
+                          keras.layers.BatchNormalization(), keras.layers.Reshape((64, 8)),
+                          keras.layers.LSTM(6)])
+    conv, conv_b, gamma, beta, mean, var, kernel, rec, bias = KerasModelAdapter(
+        m.to_json(), seed=2, device="cpu").get_weights()
+    limit = np.sqrt(6.0 / (3 * 3 * 4 + 3 * 3 * 8))
+    assert conv.shape == (3, 3, 4, 8) and 0.9 * limit < np.abs(conv).max() <= limit
+    assert not conv_b.any() and (gamma == 1).all() and not beta.any()
+    assert not mean.any() and (var == 1).all()
+    assert rec.shape == (6, 24)
+    np.testing.assert_allclose(rec @ rec.T, np.eye(6), atol=1e-5)
+    np.testing.assert_array_equal(bias, np.r_[np.zeros(6), np.ones(6), np.zeros(12)])
+    e = keras.Sequential([keras.layers.Input((5,)), keras.layers.Embedding(300, 40)])
+    (emb,) = KerasModelAdapter(e.to_json(), device="cpu").get_weights()
+    assert 0.045 < np.abs(emb).max() <= 0.05 and abs(emb.mean()) < 0.002
 
 
 def test_dropout_keeps_one_minus_rate_and_scales():
@@ -296,15 +314,15 @@ def test_unported_calls_raise(tmp_path):
 
 
 @pytest.mark.parametrize("layers,match", [
-    (lambda: [keras.layers.Dense(4), keras.layers.BatchNormalization()], "BatchNormalization"),
-    (lambda: [keras.layers.Conv1D(2, 3)], "Conv1D"),
+    (lambda: [keras.layers.GRU(2)], "GRU"),
+    (lambda: [keras.layers.Embedding(10, 2, mask_zero=True)], "mask_zero"),
     (lambda: [keras.layers.Dense(4), keras.layers.Dropout(0.5, noise_shape=(None, 1))],
      "noise_shape"),
     (lambda: [keras.layers.Dense(4, activation="relu6"),
               keras.layers.Activation(keras.activations.celu)], "celu"),
 ])
 def test_unported_layers_raise_naming_their_item(layers, match):
-    m = keras.Sequential([keras.layers.Input((8, 3)) if "Conv" in match
+    m = keras.Sequential([keras.layers.Input((8, 3)) if match == "GRU"
                           else keras.layers.Input((8,))] + layers())
     with pytest.raises(NotImplementedError, match=match) as err:
         KerasModelAdapter(m, device="cpu")
