@@ -189,7 +189,37 @@ Phases, each printing one JSON line; any failure exits non-zero:
     and on ``device="cpu"`` from the same weights and order: histories and
     weights (moving statistics included) within 1e-4; the
     BatchNormalization CNN's train and grad steps (loss sums, gradients,
-    moved statistics) within 1e-4 of scale.
+    moved statistics) within 1e-4 of scale; then that CNN's
+    gradient-synchronous fit on the card and on the CPU from the same
+    weights and order, both predicting 1024 held-out rows: the largest
+    softmax-probability difference and the argmax agreement on rows whose
+    top-2 logit margin exceeds 1e-3.
+33. ``ml_mlp``: ``examples/ml_mlp.py`` through the port without Keras: a
+    DataFrame of 8192 MNIST-shaped rows, ``ElephasEstimator`` over the
+    committed logits-head JSON (8 workers, synchronous, batch 64, 3 epochs,
+    ``validation_split=0.1``), ``fit`` and ``transform`` of 1024 held-out
+    rows: exactly E (S + Sv) K1-fwd and E S K1-bwd launches, the training
+    loss fell, the ``prediction`` column is the argmax of the trained
+    network's predictions exactly; ms a step.
+34. ``ml_pipeline_lstm``: ``examples/ml_pipeline_imdb_lstm.py``'s
+    ``Pipeline(stages=[ElephasEstimator])`` over the LSTM JSON on 8192 id
+    sequences (batch 64, 2 epochs, 8 workers): no kernel launched, the
+    trained weights bit for bit those of ``SparkModel.fit`` on the same
+    rows, a falling loss; the test frame's accuracy and ms a step.
+35. ``ml_persist``: ``ml_mlp``'s estimator and transformer saved and
+    loaded back (``load_ml_estimator``, ``load_ml_transformer``): the same
+    params, the same predictions bit for bit on the card; both load on the
+    CPU too.
+36. ``hyperparam``: ``examples/hyperparam_optimization.py``'s search,
+    ``HyperParamModel(sc, num_workers=4).minimize`` (3 evaluations each, the
+    first Dense's units and the first Dropout's rate searched, each trial a
+    ``SparkModel`` fit of the MNIST MLP on 4096 rows), then
+    ``best_models(2)``: 12 trials within their spaces, each recording its
+    card, scored by held-out cross-entropy, not all equal; exact K1 counts
+    over every trial, counted from the 4 worker threads; the rebuilt best
+    model is the trial of least loss and predicts exactly as its network;
+    the ensemble's members are the second search's two least-loss trials
+    and its prediction is [n, 10].
 
 Then the kernel summary line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2390,7 +2420,9 @@ def l2_sets(set_bytes: int, most: int = 64) -> int:
 def xent_cases():
     """K1's cases: the MLP fit's [1024, 10] (ragged [1000, 10]), the host
     path's (``fit_host``: a worker's batch [128, 10], its last training
-    batch [51, 10] and last validation batch [77, 10]), the wide
+    batch [51, 10] and last validation batch [77, 10]), the estimator's
+    (``ml_mlp``, and ``fit_cnn``'s: every padded block of 8 workers'
+    batches of 64, [512, 10]), the wide
     [4096, 50257] (float32 and bf16 logits), one each side of every route
     boundary (warp / cluster at C 1024, cluster / stream at the cluster's
     capacity), and of the warp route's switch from dividing by the row's
@@ -2404,7 +2436,8 @@ def xent_cases():
     B = HOST_FIT["batch"]
     return [("main", 1024, 10, f32), ("ragged", 1000, 10, f32),
             ("host", B, 10, f32), ("host_tail", n_train % B, 10, f32),
-            ("host_val_tail", (per - n_train) % B, 10, f32), ("wide", 4096, 50257, f32),
+            ("host_val_tail", (per - n_train) % B, 10, f32),
+            ("ml_mlp", ML_MLP["workers"] * ML_MLP["batch"], 10, f32), ("wide", 4096, 50257, f32),
             ("main_bf16", 1024, 10, bf), ("wide_bf16", 4096, 50257, bf),
             ("c128", 1024, 128, f32), ("c129", 1024, 129, f32), ("c1024", 4096, 1024, f32),
             ("c1025", 4096, 1025, f32), ("cluster_cap", 64, cap, f32),
@@ -3388,8 +3421,11 @@ def fit_layers_cross_check(card):
     ``fit_cross_check``. The BatchNormalization CNN's gradient-synchronous
     schedule is held step by step instead: one train step and one grad
     step from the same state and batch on the card and the CPU, the loss
-    sums, gradients and moved statistics within 1e-4 of scale. (Its fit is
-    not: Adam's first step moves a parameter whose summed gradient is near
+    sums, gradients and moved statistics within 1e-4 of scale, and by its
+    held-out predictions after a fit from the same weights and order on
+    each device: the largest softmax-probability difference over 1024 rows
+    and the argmax agreement on the rows whose top-2 logit margin (the
+    CPU's) exceeds 1e-3 are printed. (Its fit is not held: Adam's first step moves a parameter whose summed gradient is near
     zero by the learning rate in the direction of that gradient's
     rounding, so 1e-6 differences in the gradient become 3e-3 of a
     convolution bias's scale after one step on an H100; the Adam-updated
@@ -3429,12 +3465,364 @@ def fit_layers_cross_check(card):
     worst = max(step_err, key=step_err.get)
     require(step_err[worst] <= 1e-4, f"fit_layers_cross_check mnist_cnn_bn steps: {worst} "
                                      f"differs by {step_err[worst]} of scale")
+    xh = mnist_like(1024, 1024)[1][0]
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        sm = _json_model(CNN_BN_JSON, device=dev, mode="synchronous", frequency="batch",
+                         num_workers=4)
+        sm.fit(to_simple_rdd(SparkContext("local[4]"), x, y, num_slices=4), epochs=2,
+               batch_size=64, validation_split=0.1)
+        logits[dev] = sm.predict(xh)
+    prob = {k: torch.softmax(torch.from_numpy(v).double(), -1).numpy()
+            for k, v in logits.items()}
+    top2 = np.sort(logits["cpu"], axis=1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 1e-3
+    agree = logits["cuda"].argmax(1) == logits["cpu"].argmax(1)
+    held_out = {"rows": len(xh), "max_prob_diff": float(np.abs(prob["cuda"] - prob["cpu"]).max()),
+                "max_logit_diff": float(np.abs(logits["cuda"] - logits["cpu"]).max()),
+                "rows_past_margin": int(clear.sum()),
+                "argmax_agreement_past_margin": float(agree[clear].mean()),
+                "argmax_agreement_all": float(agree.mean()), "margin": 1e-3}
     emit({"phase": "fit_layers_cross_check", "workers": 4, "epochs": 2, "checks": checks,
           "bn_steps": {"max_err_rel_to_scale": step_err[worst], "worst": worst, "tol": 1e-4,
                        "compared": len(step_err),
                        "adam_updated_err_rel_to_scale": {
                            k: rel(gpu_adam[k], cpu_adam[k]) for k in cpu_adam}},
+          "bn_grad_sync_held_out": held_out, "card": card})
+
+
+# -- phases 33 to 36: the API skins around SparkModel ------------------------------
+
+# examples/ml_mlp.py (8192 MNIST-shaped rows, 1024 held out, batch 64, 3 epochs,
+# validation 0.1, synchronous, "jax", 8 workers) over the committed logits-head
+# JSON; examples/ml_pipeline_imdb_lstm.py's pipeline (batch 64, 2 epochs, no
+# validation) on LSTM_FIT's 8192 sequences; examples/hyperparam_optimization.py's
+# search (4 workers, 3 evaluations each, 4096 rows, batch 128, 2 epochs). Widths
+# and schedules are the examples'; nothing is cut.
+ML_MLP = dict(samples=8192, held_out=1024, batch=64, workers=8, epochs=3,
+              validation_split=0.1)
+ML_LSTM = dict(held_out=1024, batch=64, workers=8, epochs=2)
+HYPER = dict(samples=4096, held_out=1024, batch=128, epochs=2, validation_split=0.1,
+             workers=4, max_evals=3, best=2)
+
+
+def _vector_frame(spark, x, labels):
+    """A DataFrame of ``Row(features=Vectors.dense(x_i as float64),
+    label=float(label_i))``, as the examples build theirs."""
+    from elephas_tpu_torch.data import Row
+    from elephas_tpu_torch.mllib import Vectors
+
+    return spark.createDataFrame([Row(features=Vectors.dense(a.astype("float64")),
+                                      label=float(b)) for a, b in zip(x, labels)])
+
+
+def _compiled_estimator(path, **params):
+    """``ElephasEstimator`` over a committed JSON with its compile config's
+    optimizer and loss, synchronous on the compiled path."""
+    from elephas_tpu_torch import ElephasEstimator
+
+    with open(path) as f:
+        text = f.read()
+    cc = json.loads(text)["compile_config"]
+    est = ElephasEstimator()
+    est.set_keras_model_config(text)
+    est.set_optimizer_config(cc["optimizer"])
+    est.set_loss(cc["loss"])
+    est.set_metrics(["accuracy"])
+    est.setParams(mode="synchronous", parameter_server_mode="jax", **params)
+    return est, text
+
+
+def _timed_fit(fit):
+    torch.cuda.synchronize()
+    _zero_counters()
+    t0 = time.perf_counter()
+    out = fit()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, _read_counters()
+
+
+def ml_mlp(card):
+    """``examples/ml_mlp.py`` through the port without Keras: a DataFrame of
+    8192 MNIST-shaped rows, ``ElephasEstimator`` over the committed
+    logits-head JSON, ``fit``, then ``transform`` of a 1024-row test frame.
+    Exactly E (S + Sv) K1-fwd and E S K1-bwd launches and no other kernel
+    in the fit; the trained weights' loss on the training rows below the
+    initial weights' (the estimator keeps no history); the ``prediction``
+    column equal to the argmax of the trained network's predictions,
+    exactly. ms a step of the first fit and of a second (set-up included:
+    each fit converts the frame and stages the blocks anew)."""
+    from elephas_tpu_torch import SparkModel
+    from elephas_tpu_torch.data import SparkSession
+    from elephas_tpu_torch.models import KerasModelAdapter
+
+    c = ML_MLP
+    W, E, B, split = c["workers"], c["epochs"], c["batch"], c["validation_split"]
+    (x, y), (xt, yt) = mnist_like(c["samples"], c["held_out"])
+    spark = SparkSession.builder.master(f"local[{W}]").appName("ml_mlp").getOrCreate()
+    t0 = time.perf_counter()
+    df, test_df = _vector_frame(spark, x, y.argmax(1)), _vector_frame(spark, xt, yt.argmax(1))
+    frame_s = time.perf_counter() - t0
+    est, text = _compiled_estimator(MNIST_JSON, categorical=True, nb_classes=10,
+                                    num_workers=W, epochs=E, batch_size=B,
+                                    validation_split=split)
+    S, Sv = _mlp_steps(c["samples"], W, B, split)
+    tr, wall, counts = _timed_fit(lambda: est.fit(df))
+    want = {"fused_xent_fwd": E * (S + Sv), "fused_xent_bwd": E * S}
+    for name, n in want.items():
+        require(counts[name] == n, f"ml_mlp: {name} launched {counts[name]} times, want "
+                                   f"{n} (E {E}, S {S}, Sv {Sv})")
+    others = {k: v for k, v in counts.items() if k not in want and v}
+    require(not others, f"ml_mlp: other kernels launched: {others}")
+    _, wall2, _ = _timed_fit(lambda: est.fit(df))
+    before = SparkModel(text, mode="synchronous").evaluate(x, y)
+    after = SparkModel({"model": text, "weights": tr.weights}, mode="synchronous")
+    after_eval = after.evaluate(x, y)
+    require(np.isfinite(after_eval[0]) and after_eval[0] < before[0],
+            f"ml_mlp: training loss {before[0]} -> {after_eval[0]} did not fall")
+    out = tr.transform(test_df)
+    rows = out.collect()
+    pred = np.array([r.prediction for r in rows])
+    net = KerasModelAdapter(text, weights=tr.weights, device="cuda")
+    want_pred = net.predict(xt).argmax(1).astype(np.float64)
+    require(out.columns == ["features", "label", "prediction"],
+            f"ml_mlp: columns {out.columns}")
+    require(np.array_equal(pred, want_pred), "ml_mlp: prediction column differs from the "
+            f"argmax of the network's predictions at {int((pred != want_pred).sum())} rows")
+    acc = float((pred == yt.argmax(1)).mean())
+    require(acc > 0.5, f"ml_mlp: held-out accuracy {acc} (chance is 0.1)")
+    emit({"phase": "ml_mlp", "config": MNIST_JSON, **c, "mode": "synchronous",
+          "steps_per_epoch": S, "val_steps_per_epoch": Sv, "frames_s": frame_s,
+          "fit_s": wall, "fit2_s": wall2, "ms_per_step": wall * 1e3 / (E * S),
+          "ms_per_step_fit2": wall2 * 1e3 / (E * S),
+          "train_eval_before": before, "train_eval_after": after_eval,
+          "held_out_accuracy": acc, "launches": counts, "launches_want": want,
           "card": card})
+    return counts, est, tr, xt
+
+
+def ml_pipeline_lstm(card):
+    """``examples/ml_pipeline_imdb_lstm.py``'s pipeline at full width:
+    ``Pipeline(stages=[ElephasEstimator])`` over the committed LSTM JSON on
+    LSTM_FIT's 8192 id sequences, not categorical, batch 64, 2 epochs, no
+    validation, synchronous, 8 workers. The trained weights equal, bit for
+    bit, those of ``SparkModel.fit`` of the same JSON on the same rows in
+    the same partitions on this card; no kernel of the port launched (a
+    sigmoid head); the training loss fell; the test frame's accuracy. ms a
+    step of the pipeline's fit (which also transforms the training frame,
+    as ``Pipeline.fit`` does), of the estimator's fit alone (a second fit)
+    and of the direct fit."""
+    from elephas_tpu_torch import SparkModel
+    from elephas_tpu_torch.data import SparkContext, SparkSession
+    from elephas_tpu_torch.ml import Pipeline
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    c = ML_LSTM
+    n = LSTM_FIT["samples"]
+    W, E, B = c["workers"], c["epochs"], c["batch"]
+    x, y = imdb_like(n + c["held_out"], LSTM_FIT["vocab"], LSTM_FIT["maxlen"])
+    (x, y), (xt, yt) = (x[:n], y[:n]), (x[n:], y[n:])
+    spark = SparkSession.builder.master(f"local[{W}]").appName("imdb_lstm").getOrCreate()
+    df, test_df = _vector_frame(spark, x, y[:, 0]), _vector_frame(spark, xt, yt[:, 0])
+    est, text = _compiled_estimator(LSTM_JSON, categorical=False, num_workers=W, epochs=E,
+                                    batch_size=B, validation_split=0.0)
+    S, _ = _mlp_steps(n, W, B, 0.0)
+    fitted, wall, counts = _timed_fit(lambda: Pipeline(stages=[est]).fit(df))
+    require(not any(counts.values()),
+            f"ml_pipeline_lstm: kernels launched: { {k: v for k, v in counts.items() if v} }")
+    tr = fitted.stages[0]
+    # the same JSON, rows and partitions, straight through SparkModel
+    sm = SparkModel(text, mode="synchronous", parameter_server_mode="jax", num_workers=W)
+    rdd = to_simple_rdd(SparkContext(f"local[{W}]"), x.astype(np.float32),
+                        y[:, 0].astype(np.float32), num_slices=W)
+    _, direct_wall, _ = _timed_fit(lambda: sm.fit(rdd, epochs=E, batch_size=B,
+                                                  validation_split=0.0))
+    direct = sm.master_network.get_weights()
+    same = len(direct) == len(tr.weights) and all(
+        a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(tr.weights, direct))
+    require(same, "ml_pipeline_lstm: the pipeline's weights differ from SparkModel.fit's: "
+            + str([float(np.abs(a - b).max()) for a, b in zip(tr.weights, direct)]))
+    hist = sm.training_histories[-1]
+    require(hist["loss"][-1] < hist["loss"][0],
+            f"ml_pipeline_lstm: loss did not fall: {hist['loss']}")
+    _, est_wall, _ = _timed_fit(lambda: est.fit(df))
+    t0 = time.perf_counter()
+    out = fitted.transform(test_df).collect()
+    transform_s = time.perf_counter() - t0
+    pred = np.array([r.prediction for r in out])
+    require(pred.shape == (c["held_out"],) and bool(np.isfinite(pred).all()),
+            f"ml_pipeline_lstm: predictions {pred.shape}")
+    acc = float(((pred > 0.5) == (yt[:, 0] > 0.5)).mean())
+    emit({"phase": "ml_pipeline_lstm", "config": LSTM_JSON, **c, "samples": n,
+          "steps_per_epoch": S, "pipeline_fit_s": wall,
+          "pipeline_ms_per_step": wall * 1e3 / (E * S), "estimator_fit_s": est_wall,
+          "ms_per_step": est_wall * 1e3 / (E * S), "direct_fit_s": direct_wall,
+          "direct_ms_per_step": direct_wall * 1e3 / (E * S),
+          "test_transform_s": transform_s,
+          "bitwise_equal_to_direct_fit": same, "history_direct": hist,
+          "test_accuracy": acc, "launches": {k: v for k, v in counts.items() if v},
+          "card": card})
+
+
+def ml_persist(card, est, tr, xt):
+    """``save`` of ``ml_mlp``'s estimator and transformer, then
+    ``load_ml_estimator`` / ``load_ml_transformer`` on the card: the same
+    params, the reloaded transformer's predictions equal the original's
+    exactly; both files load on ``device="cpu"`` too (its predictions
+    within 1e-5 of the card's)."""
+    import os
+    import tempfile
+
+    from elephas_tpu_torch import load_ml_estimator, load_ml_transformer
+
+    with tempfile.TemporaryDirectory() as d:
+        pe, pt = os.path.join(d, "estimator.npz"), os.path.join(d, "transformer.npz")
+        est.save(pe)
+        tr.save(pt)
+        sizes = {"estimator_bytes": os.path.getsize(pe), "transformer_bytes": os.path.getsize(pt)}
+        est2, tr2 = load_ml_estimator(pe), load_ml_transformer(pt)
+        est_cpu, tr_cpu = load_ml_estimator(pe, device="cpu"), load_ml_transformer(pt, device="cpu")
+    require(est2.param_values() == est.param_values() == est_cpu.param_values(),
+            "ml_persist: the estimator's params changed in the round trip")
+    want = tr.get_model().predict(xt)
+    got = tr2.get_model().predict(xt)
+    require(tr2.get_model().device.type == "cuda" and np.array_equal(got, want),
+            "ml_persist: the reloaded transformer predicts otherwise")
+    cpu_err = float(np.abs(tr_cpu.get_model().predict(xt) - want).max())
+    require(cpu_err <= 1e-5 * max(float(np.abs(want).max()), 1.0),
+            f"ml_persist: the CPU load predicts {cpu_err} away")
+    emit({"phase": "ml_persist", **sizes, "rows": len(xt), "same_bits_on_card": True,
+          "cpu_load_max_abs_err": cpu_err, "card": card})
+
+
+_HYPER_TRIALS = []      # every trial's (network, loss, accuracy), appended by hyper_model
+
+
+def hyper_data():
+    (x, y), (xt, yt) = mnist_like(HYPER["samples"], HYPER["held_out"])
+    return x, y, xt, yt
+
+
+def hyper_model(x_train, y_train, x_test, y_test):
+    """``examples/hyperparam_optimization.py``'s model function on the
+    port: the committed MNIST MLP JSON with the first Dense's units and the
+    first Dropout's rate searched, fitted by ``SparkModel`` (synchronous, 1
+    worker) on the card. The loss is the held-out mean cross-entropy of the
+    logits, in float64 on the host: the example's minus accuracy is 1.0 on
+    every trial on these separable blobs, which leaves the search nothing to
+    rank."""
+    from elephas_tpu_torch import SparkModel
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    with open(MNIST_JSON) as f:
+        cfg = json.load(f)
+    layers = cfg["config"]["layers"]
+    dense = [layer for layer in layers if layer["class_name"] == "Dense"]
+    units = {{choice([64, 128, 256])}}
+    dense[0]["config"]["units"] = units
+    dense[1]["build_config"]["input_shape"] = [None, units]
+    dropout = next(layer for layer in layers if layer["class_name"] == "Dropout")
+    dropout["config"]["rate"] = {{uniform(0.0, 0.5)}}
+    c = HYPER
+    sm = SparkModel(json.dumps(cfg), mode="synchronous", num_workers=1)
+    sm.fit(to_simple_rdd(SparkContext("local[1]"), x_train, y_train, num_slices=1),
+           epochs=c["epochs"], batch_size=c["batch"], validation_split=c["validation_split"])
+    z = sm.predict(x_test).astype(np.float64)
+    z -= z.max(1, keepdims=True)
+    loss = float((np.log(np.exp(z).sum(1)) - (z * y_test).sum(1)).mean())
+    acc = float((z.argmax(1) == y_test.argmax(1)).mean())
+    _HYPER_TRIALS.append((sm.master_network, loss, acc))
+    return {"loss": loss, "status": STATUS_OK, "model": sm.master_network}
+
+
+def hyperparam(card):
+    """``HyperParamModel(sc, num_workers=4).minimize(hyper_model, hyper_data,
+    max_evals=3)`` on the card, then ``best_models(2, ...)``: 12 trials a
+    search, each within its spaces and recording its card; K1 launched
+    exactly the sum over the trials of their fits' E (S + Sv) and E S,
+    counted from the 4 worker threads; the trials' losses (held-out
+    cross-entropy) not all equal; the rebuilt best model is the trial of
+    least loss and predicts exactly as its network; the ensemble's members
+    are the two least-loss trials of ``best_models``' own search and its
+    prediction is [n, 10]. Each trial's device, loss and accuracy, and the
+    wall times."""
+    from elephas_tpu_torch import HyperParamModel
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.hyperparam import STATUS_OK, VotingModel
+
+    class Recording(HyperParamModel):
+        """Keeps the last search's trials, which ``minimize`` reduces to
+        the best one."""
+
+        def compute_trials(self, *args, **kwargs):
+            self.trials = super().compute_trials(*args, **kwargs)
+            return self.trials
+
+    c = HYPER
+    W, n_evals = c["workers"], c["max_evals"]
+    hp = Recording(SparkContext(f"local[{W}]"), num_workers=W)
+    _HYPER_TRIALS.clear()
+    best, wall, counts = _timed_fit(lambda: hp.minimize(hyper_model, hyper_data,
+                                                        max_evals=n_evals))
+    trials = hp.trials
+    S, Sv = _mlp_steps(c["samples"], 1, c["batch"], c["validation_split"])
+    E, n_trials = c["epochs"], W * n_evals
+    require(len(trials) == n_trials == len(_HYPER_TRIALS),
+            f"hyperparam: {len(trials)} trials, {len(_HYPER_TRIALS)} fits, want {n_trials}")
+    for t in trials:
+        units, rate = t["params"]
+        require(units in (64, 128, 256) and 0.0 <= rate <= 0.5 and t["status"] == STATUS_OK,
+                f"hyperparam: a trial outside its spaces: {t['params']}")
+    want = {"fused_xent_fwd": n_trials * E * (S + Sv), "fused_xent_bwd": n_trials * E * S}
+    for name, n in want.items():
+        require(counts[name] == n, f"hyperparam: {name} launched {counts[name]} times, "
+                                   f"want {n} ({n_trials} trials, E {E}, S {S}, Sv {Sv})")
+    others = {k: v for k, v in counts.items() if k not in want and v}
+    require(not others, f"hyperparam: other kernels launched: {others}")
+    losses = sorted(t["loss"] for t in trials)
+    require(losses[0] < losses[-1], f"hyperparam: every trial's loss is {losses[0]}")
+    accuracy = {loss: acc for _, loss, acc in _HYPER_TRIALS}
+
+    def sources(model):
+        """The recorded trials whose trained weights are ``model``'s."""
+        w = model.get_weights()
+        return [(net, loss) for net, loss, _ in _HYPER_TRIALS
+                if len(net.get_weights()) == len(w)
+                and all(np.array_equal(a, b) for a, b in zip(net.get_weights(), w))]
+
+    xt = hyper_data()[2]
+    source = sources(best)
+    require(len(source) == 1 and best.device.type == "cuda",
+            f"hyperparam: the best model matches {len(source)} trials")
+    require(source[0][1] == losses[0],
+            f"hyperparam: the best model's trial has loss {source[0][1]}, the least is "
+            f"{losses[0]}")
+    require(np.array_equal(best.predict(xt), source[0][0].predict(xt)),
+            "hyperparam: the rebuilt best model predicts otherwise than its trial")
+    _HYPER_TRIALS.clear()
+    t0 = time.perf_counter()
+    ensemble = hp.best_models(c["best"], hyper_model, hyper_data, max_evals=n_evals)
+    torch.cuda.synchronize()
+    best_models_s = time.perf_counter() - t0
+    votes = ensemble.predict(xt)
+    require(isinstance(ensemble, VotingModel) and len(ensemble.models) == c["best"]
+            and votes.shape == (len(xt), 10) and bool(np.isfinite(votes).all()),
+            f"hyperparam: the ensemble's prediction is {votes.shape}")
+    member_losses = sorted(loss for m in ensemble.models for _, loss in sources(m))
+    least = sorted(t["loss"] for t in hp.trials)[:c["best"]]
+    require(member_losses == least,
+            f"hyperparam: the ensemble's trials have losses {member_losses}, the least are "
+            f"{least}")
+    emit({"phase": "hyperparam", **c, "steps_per_epoch": S, "val_steps_per_epoch": Sv,
+          "minimize_s": wall, "best_models_s": best_models_s,
+          "trials": [{"device": t["device"], "params": t["params"], "loss": t["loss"],
+                      "accuracy": accuracy[t["loss"]]} for t in trials],
+          "best_loss": losses[0], "ensemble_accuracy": float(
+              (votes.argmax(1) == hyper_data()[3].argmax(1)).mean()),
+          "launches": counts, "launches_want": want, "card": card})
+    return counts
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3507,6 +3895,10 @@ def main() -> int:
         bn_counts = fit_bn(card)
         fit_lstm(card)
         fit_layers_cross_check(card)
+        ml_counts, ml_est, ml_tr, ml_xt = ml_mlp(card)
+        ml_pipeline_lstm(card)
+        ml_persist(card, ml_est, ml_tr, ml_xt)
+        hyper_counts = hyperparam(card)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3517,8 +3909,9 @@ def main() -> int:
     # launches, from the worker threads, under launches_by_path), the three
     # timed Llama-3-8B-width train steps for the rope-on-load K2; K1's
     # launches in the CNN fits (the asynchronous compiled run, the host
-    # run's threads, the BatchNormalization CNN's synchronous run) are under
-    # launches_by_path
+    # run's threads, the BatchNormalization CNN's synchronous run) and in the
+    # API skins (the estimator's fit, the search's trials from its worker
+    # threads) are under launches_by_path
     rows = [ln_fwd, ln_bwd, decode, *attn_rows, *paged_rows, *gmm_rows, *xent_rows,
             *rope_rows]
     paths = {"serve": serve_counts, "train_5_steps": train_counts,
@@ -3527,7 +3920,8 @@ def main() -> int:
              "train_moe_3_steps": moe_train_counts, "fit_mlp": mlp_counts,
              "fit_host": host_counts, "fit_cnn": cnn_counts,
              "fit_cnn_host": cnn_host_counts, "fit_bn": bn_counts,
-             "train_llama_3_steps": llama_counts}
+             "train_llama_3_steps": llama_counts, "ml_mlp": ml_counts,
+             "hyperparam": hyper_counts}
     main_paths = {"layer_norm_fwd": "serve", "flash_decode_lse": "serve",
                   "paged_flash_decode_lse": "serve_paged",
                   "paged_flash_chunk": "serve_paged", "gmm": "serve_moe",

@@ -22,7 +22,11 @@ the device against HTTP, socket or native servers, ``worker.py`` and
 ``parameter/``), checkpoints and ``save`` / ``load_spark_model``; and the
 Keras layers of the repo's examples (Reshape, Conv1D/Conv2D, MaxPooling2D,
 BatchNormalization with its moving statistics merged across workers,
-Embedding, LSTM) on every fit path.
+Embedding, LSTM) on every fit path; and the API skins around
+``SparkModel``: the Spark-ML estimator and transformer over the local
+``DataFrame`` (``ml_model.py``, ``ml/``, ``data/dataframe.py``), the
+distributed hyperparameter search (``hyperparam.py``) and the DL4J
+aliases (``dl4j.py``).
 
 Device policy: every entry point takes ``device=`` and defaults to
 ``"cuda"``. Without a CUDA device the entry points raise unless the caller
@@ -69,6 +73,11 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     return dev
 
 
-from .spark_model import SparkMLlibModel, SparkModel  # noqa: E402
+from .hyperparam import HyperParamModel  # noqa: E402
+from .ml_model import (ElephasEstimator, ElephasTransformer,  # noqa: E402
+                       load_ml_estimator, load_ml_transformer)
+from .spark_model import SparkMLlibModel, SparkModel, load_spark_model  # noqa: E402
 
-__all__ = ["SparkMLlibModel", "SparkModel", "__version__", "resolve_device"]
+__all__ = ["SparkModel", "SparkMLlibModel", "load_spark_model", "ElephasEstimator",
+           "ElephasTransformer", "load_ml_estimator", "load_ml_transformer",
+           "HyperParamModel", "__version__", "resolve_device"]

@@ -490,10 +490,8 @@ def to_keras_optimizer(optimizer_spec: Any):
     """The optimizer of a Keras spec with Keras's own update rule, for the
     host path's workers: :func:`keras_sgd` and :func:`keras_adam`; any other
     optimizer takes :func:`to_torch_optimizer`'s (optax's) rule."""
-    name, cfg = _normalize(optimizer_spec)
-    # a bare name takes Keras's default rate: 0.01 for SGD, 0.001 for Adam
-    lr = _extract_lr(cfg) if "learning_rate" in cfg or "lr" in cfg else (
-        0.01 if name == "sgd" else 0.001)
+    name, cfg = _normalize(keras_compiled_spec(optimizer_spec))
+    lr = _extract_lr(cfg)
     if name == "sgd":
         return keras_sgd(lr, momentum=float(cfg.get("momentum", 0.0) or 0.0),
                          nesterov=bool(cfg.get("nesterov", False)))
@@ -503,6 +501,19 @@ def to_keras_optimizer(optimizer_spec: Any):
                           epsilon=float(cfg.get("epsilon", 1e-7)),
                           amsgrad=bool(cfg.get("amsgrad", False)))
     return to_torch_optimizer(optimizer_spec)
+
+
+def keras_compiled_spec(optimizer_spec: Any):
+    """The spec of the optimizer that Keras's ``model.compile(optimizer=
+    optimizer_spec)`` holds: a spec without a learning rate (a bare name)
+    takes Keras's default rate for its class, 0.01 for SGD and 0.001 for
+    the rest, rounded to float32 as Keras keeps it; a spec with one is
+    returned as it is."""
+    name, cfg = _normalize(optimizer_spec)
+    if "learning_rate" in cfg or "lr" in cfg:
+        return optimizer_spec
+    rate = torch.tensor(0.01 if name == "sgd" else 0.001, dtype=torch.float32)
+    return {"class_name": name, "config": {**cfg, "learning_rate": float(rate)}}
 
 
 def _extract_lr(cfg: dict) -> float:

@@ -154,3 +154,8 @@ class SlotKVCache:
     def advance(self, slot: int) -> None:
         """Record one decode-step write for ``slot``."""
         self.pos[slot] += 1
+
+    def remaining(self, slot: int) -> int:
+        """Positions ``slot`` can still write: ``max_len - pos[slot]`` (the
+        host's write head, no device read)."""
+        return self.max_len - int(self.pos[slot])

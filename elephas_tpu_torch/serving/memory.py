@@ -335,6 +335,11 @@ class PagedKVCache:
     def advance(self, slot: int) -> None:
         self.pos[slot] += 1
 
+    def remaining(self, slot: int) -> int:
+        """Positions ``slot`` can still write: ``max_len - pos[slot]`` (the
+        host's write head, no device read)."""
+        return self.max_len - int(self.pos[slot])
+
     # -- page bookkeeping ------------------------------------------------
     def _ensure_span(self, slot: int, lo: int, hi: int) -> None:
         """Allocate (idempotently) every page covering positions

@@ -13,7 +13,8 @@ the wrappers' refusals, and the serving engine (dense and paged), the train step
 and the mixture-of-experts LM, and the MLP fit's five schedules; the Keras
 layers of the repo's examples (Conv2D, MaxPooling2D, Conv1D,
 BatchNormalization, Reshape, Embedding, LSTM) and a BatchNormalization
-CNN's fit on the card against the CPU, and the Embedding's range check.
+CNN's fit on the card against the CPU, and the Embedding's range check;
+the Spark-ML estimator's K1 launches and the search's pinning to a card.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside the
 test, never at import). This file imports no JAX, so it runs on a machine
@@ -49,6 +50,7 @@ from elephas_tpu_torch.ops.layer_norm import (fused_layer_norm,
 from elephas_tpu_torch.ops.paged_attention import (
     paged_chunk_reference, paged_decode_reference_lse, paged_flash_chunk,
     paged_flash_decode_lse)
+from elephas_tpu_torch.hyperparam import uniform  # noqa: F401  (the search's marker)
 from elephas_tpu_torch.serving import ServingEngine
 
 pytestmark = pytest.mark.cuda
@@ -1351,3 +1353,94 @@ def test_batchnorm_cnn_steps_and_fit_on_card_match_cpu(cuda):
         out[dev] = sm.training_histories[-1]
     for k, v in out["cpu"].items():
         np.testing.assert_allclose(out["cuda"][k], v, rtol=1e-4, atol=1e-4)
+
+
+# -- the API skins: the Spark-ML estimator and the search on the card ----------------
+
+
+def test_estimator_over_the_logits_mlp_launches_k1_exactly(cuda):
+    """``ElephasEstimator`` over the committed MNIST MLP JSON (a logits
+    head) on a DataFrame, synchronous, ``"jax"``, 3 workers: exactly E (S +
+    Sv) K1-fwd and E S K1-bwd launches and no other kernel; the transformed
+    ``prediction`` column is the argmax of the trained weights' predictions
+    on the card, exactly."""
+    import json
+    from pathlib import Path
+
+    from elephas_tpu_torch import ElephasEstimator, ElephasTransformer
+    from elephas_tpu_torch.data import Row, SparkSession, SparkContext
+    from elephas_tpu_torch.mllib import Vectors
+    from elephas_tpu_torch.models import KerasModelAdapter
+
+    text = (Path(__file__).resolve().parents[1] / "elephas_tpu_torch" / "configs" /
+            "mnist_mlp_logits.json").read_text()
+    cc = json.loads(text)["compile_config"]
+    x, y = _blobs(960)
+    W, E, B, split = 3, 2, 32, 0.1
+    spark = SparkSession(SparkContext(f"local[{W}]"))
+    df = spark.createDataFrame([Row(features=Vectors.dense(a.astype("float64")),
+                                    label=float(b.argmax())) for a, b in zip(x, y)])
+    est = ElephasEstimator(keras_model_config=text, optimizer_config=cc["optimizer"],
+                           loss=cc["loss"], metrics=["accuracy"], categorical=True,
+                           nb_classes=10, num_workers=W, epochs=E, batch_size=B,
+                           validation_split=split, mode="synchronous",
+                           parameter_server_mode="jax")
+    fused_xent_fwd.launches = fused_xent_bwd.launches = 0
+    tr = est.fit(df)
+    per = 960 // W
+    n_val = int(per * split)
+    s, sv = -(-(per - n_val) // B), -(-n_val // B)
+    assert fused_xent_bwd.launches == E * s
+    assert fused_xent_fwd.launches == E * (s + sv)
+    assert isinstance(tr, ElephasTransformer) and tr.get_model().device.type == "cuda"
+    got = np.array([r.prediction for r in tr.transform(df).collect()])
+    want = KerasModelAdapter(text, weights=tr.weights, device="cuda").predict(x).argmax(1)
+    np.testing.assert_array_equal(got, want)
+    assert fused_xent_fwd.launches == E * (s + sv)      # predictions launch no K1
+
+
+class _PinProbe:
+    def __init__(self, current):
+        self.current = current
+
+    def to_json(self):
+        return "{}"
+
+    def get_weights(self):
+        return [np.zeros(1, np.float32)]
+
+
+def _probe_data():
+    return (None,) * 4
+
+
+def _probe_model(x_train, y_train, x_test, y_test):
+    return {"loss": {{uniform(0.0, 1.0)}}, "status": "ok",
+            "model": _PinProbe(torch.cuda.current_device())}
+
+
+def test_search_pins_each_worker_to_its_card(cuda, monkeypatch):
+    """``HyperParamModel`` on ``"cuda"``: each worker thread runs its trials
+    with ``partitionId % device_count`` as its current device, and each
+    trial records it (on one card: every worker ``cuda:0``)."""
+    import elephas_tpu_torch.hyperparam as hyperparam
+    from elephas_tpu_torch import HyperParamModel
+    from elephas_tpu_torch.data import SparkContext
+
+    seen = []
+    real = hyperparam.HyperasWorker._run_trials
+
+    def run_trials(self, data_iterator):
+        trials = real(self, data_iterator)
+        seen.append(torch.cuda.current_device())
+        return trials
+
+    monkeypatch.setattr(hyperparam.HyperasWorker, "_run_trials", run_trials)
+    W, evals, n = 4, 2, torch.cuda.device_count()
+    trials = HyperParamModel(SparkContext(f"local[{W}]"), W).compute_trials(
+        _probe_model, _probe_data, evals)
+    assert len(trials) == W * evals
+    for i, t in enumerate(trials):
+        pinned = (i // evals) % n
+        assert t["device"] == f"cuda:{pinned}"
+    assert sorted(seen) == sorted(p % n for p in range(W))

@@ -1,5 +1,6 @@
 """The port stands alone: importing it (the host parameter-server path,
-checkpoints and sockets included) loads neither JAX, Keras nor any
+checkpoints and sockets, the Spark-ML skin, the search and the
+package-level exports included) loads neither JAX, Keras nor any
 module of the JAX package, and without CUDA its entry points refuse to run
 unless the CPU is asked for (no quiet fallback), as does ``chip_smoke.py``."""
 
@@ -29,6 +30,19 @@ import elephas_tpu_torch.worker, elephas_tpu_torch.parameter
 import elephas_tpu_torch.parameter.native, elephas_tpu_torch.parameter.compression
 import elephas_tpu_torch.native_build, elephas_tpu_torch.utils.sockets
 import elephas_tpu_torch.utils.checkpoint, elephas_tpu_torch.utils.functional_utils
+import elephas_tpu_torch.ml_model, elephas_tpu_torch.hyperparam, elephas_tpu_torch.dl4j
+import elephas_tpu_torch.ml, elephas_tpu_torch.ml.params, elephas_tpu_torch.data.dataframe
+from elephas_tpu_torch import (load_spark_model, ElephasEstimator, ElephasTransformer,
+                               load_ml_estimator, load_ml_transformer, HyperParamModel)
+from elephas_tpu_torch.utils import save_checkpoint
+from elephas_tpu_torch.parallel import EXPERT_AXIS
+from elephas_tpu_torch.data import DataFrame, Row, SparkSession
+from elephas_tpu_torch.ml import Pipeline
+for obj in (load_spark_model, ElephasEstimator, ElephasTransformer, load_ml_estimator,
+            load_ml_transformer, HyperParamModel, save_checkpoint, DataFrame, Row,
+            SparkSession, Pipeline):
+    assert obj.__module__.split(".")[0] == "elephas_tpu_torch", obj
+assert EXPERT_AXIS == "expert"
 bad = sorted(m for m in sys.modules
              if m in ("jax", "keras", "elephas_tpu")
              or m.startswith(("jax.", "keras.", "elephas_tpu.")))
@@ -102,3 +116,22 @@ def test_chip_smoke_refuses_without_cuda(no_cuda, tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_skin_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda, tmp_path):
+    from elephas_tpu_torch import (ElephasEstimator, ElephasTransformer, HyperParamModel,
+                                   load_ml_estimator, load_ml_transformer)
+    from elephas_tpu_torch.data import SparkContext
+
+    sc = SparkContext("local[2]")
+    for make in (ElephasEstimator, ElephasTransformer, lambda: HyperParamModel(sc)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    ElephasEstimator(device="cpu", epochs=2).save(str(tmp_path / "e.npz"))
+    ElephasTransformer(device="cpu").save(str(tmp_path / "t.npz"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_ml_estimator(str(tmp_path / "e.npz"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_ml_transformer(str(tmp_path / "t.npz"))
+    assert load_ml_estimator(str(tmp_path / "e.npz"), device="cpu").get_epochs() == 2
+    HyperParamModel(sc, device="cpu")     # asked for: fine

@@ -13,6 +13,10 @@ defaults of every parameter equal the reference's.
   names import from the port's modules of the same path. The absences are
   the ones ROADMAP queues (``ring_attention``, ``ulysses_attention``: item
   6) or logs as departures (``is_tpu_backend``, ``tileable``).
+- The host path's modules (PR 14) and the API skins' (``ml_model``,
+  ``ml/*``, ``data/dataframe``, ``hyperparam``, ``dl4j``): every public
+  function and class, and each public method of a class, with the
+  reference's parameters but for the port's trailing ``device="cuda"``.
 
 The kernel entries of ``ops`` have their positional tests beside their
 modules' other tests."""
@@ -318,3 +322,40 @@ def test_compiled_trainer_fit_carries_worker_state():
     from elephas_tpu_torch.parallel.engine import CompiledTrainer as TTrainer
 
     assert _params(TTrainer.fit) == _params(JTrainer.fit)
+
+
+# -- the API skins: Spark ML, the DataFrame facade, the search, DL4J ----------------
+
+# reference module → port module, as the host path's above: every public
+# function and class, and each public method of a class, with the
+# reference's parameters; the one departure is the trailing
+# ``device="cuda"`` of the estimator, the transformer, their loaders, the
+# search and its worker (taken out before comparing).
+SKIN_MODULES = ["ml_model", "ml.params", "ml.adapter", "ml.pipeline", "data.dataframe",
+                "hyperparam", "dl4j"]
+SKIN_NAMES = [(mod, name) for mod in SKIN_MODULES
+              for name, obj in sorted(vars(importlib.import_module(
+                  f"elephas_tpu.{mod}")).items())
+              if not name.startswith("_") and callable(obj)
+              and getattr(obj, "__module__", None) == f"elephas_tpu.{mod}"]
+SKIN_NAMES += [("hyperparam", "_Choice"), ("hyperparam", "_Uniform"),
+               ("hyperparam", "_QUniform"), ("hyperparam", "_LogUniform")]
+DEVICE_TAKERS = {("ml_model", "ElephasEstimator"), ("ml_model", "ElephasTransformer"),
+                 ("ml_model", "load_ml_estimator"), ("ml_model", "load_ml_transformer"),
+                 ("hyperparam", "HyperParamModel"), ("hyperparam", "HyperasWorker")}
+
+
+@pytest.mark.parametrize("mod,name", SKIN_NAMES, ids=lambda x: x)
+def test_skin_names_match_reference(mod, name):
+    ref = getattr(importlib.import_module(f"elephas_tpu.{mod}"), name)
+    port = getattr(importlib.import_module(f"elephas_tpu_torch.{mod}"), name)
+    fns = ([(None, ref, port)] if not isinstance(ref, type) else
+           [(m, f, getattr(port, m, None)) for m, f in vars(ref).items()
+            if callable(f) and (m == "__init__" or not m.startswith("_"))])
+    for m, want, got in fns:
+        assert got is not None, (name, m)
+        if (mod, name) in DEVICE_TAKERS and m in (None, "__init__"):
+            assert ("device", "cuda") in _params(got), (name, m)
+            assert _params_sans_device(got) == _params(want), (name, m)
+        else:
+            assert _params(got) == _params(want), (name, m)
