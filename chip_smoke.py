@@ -84,6 +84,38 @@ Phases, each printing one JSON line; any failure exits non-zero:
     run's up to near ties, and every page comes back.
 13. ``paged_cross_check``: two requests, 8 new tokens, on a ``device="cpu"``
     paged engine against the card's paged tokens.
+13a. ``kernel`` ``spec_verify_shapes``: K5-chunk at the paged speculative
+    verify's shape (GPT-2's 8 slots, C 2 and 4 rows at unaligned per-slot
+    positions of the serve mix, some crossing a page edge) and K3-fwd at
+    the verify chunk's ``[8·C, 768]`` rows, against their plain versions,
+    twice for the same bits, timed beside the plain version, SDPA over the
+    dense view (``F.layer_norm`` for K3) and the bound.
+13b. ``serve_spec``: the ``serve`` mix through ``ServingEngine(speculate_k=4)``
+    with the n-gram drafter, a self-draft ``ModelDrafter`` and a drafter at
+    DistilGPT2's widths (6 layers of GPT-2-small's, random weights from
+    another seed): exact launch counts (K3-fwd 2L+1 per verify round,
+    sequential step and insert and 2L_d+1 per draft step and draft insert;
+    K4 L per sequential step and L_d per draft step; no K5), tokens equal
+    to ``serve``'s up to near ties; verify rounds, acceptance, tokens per
+    row per round, tok/s, ms a round and its host share beside ``serve``'s.
+13c. ``serve_spec_sampled``: eight of the mix's prompts at temperature 0.8,
+    the speculative stream against a ``speculate_k=1`` engine's up to each
+    request's first position whose noisy margin (scaled logits plus the
+    engine's Gumbel noise) is 1e-3 or less.
+13d. ``serve_spec_paged``: the mix on ``paged=True, page_size=16`` at
+    ``speculate_k=4``, the n-gram drafter and a self-draft: K5-chunk L per
+    insert and per verify round, K5-decode L per sequential step, K4 only
+    the drafter's; tokens equal to ``serve_paged``'s up to near ties;
+    ``kv.check()`` passes.
+13e. ``generate_spec``: ``generate_speculative`` at B 4, greedy,
+    ``spec_k=4``, on the ``generate`` phase's prompts, with the
+    DistilGPT2-width drafter and a self-draft, the device loop and the host
+    loop: tokens equal to ``generate``'s up to near ties; K2-fwd L + L_d
+    (the two prefills), K4 L_d (spec_k + 1) a round, K3-fwd 2L+1 per
+    target prefill and verify round and 2L_d+1 per draft prefill and step.
+13f. ``spec_cross_check``: two layers at GPT-2's widths, the speculative
+    engine (dense and paged) on the card against the same engine on
+    ``device="cpu"``.
 14. ``kernel`` ``grouped_matmul``: K6-gmm (``gmm``, ``gmm_t``) and K6-tgmm
     against their plain versions at the MoE serving decode layout (8 routed
     rows in 1152), the training layout (9216 rows, the w1 and w2 shapes), a
@@ -1651,7 +1683,7 @@ def serve_paged(card, params, prompts, dense_tokens, dense_stats):
                                  if t["engine"] == e_])) for e_ in ("dense", "paged")},
           "tokens_compared_with_dense": compared, "memory": snap["memory"],
           "card": card})
-    return tokens, counts
+    return tokens, counts, stats
 
 
 def profile_paged(card, params, prompts):
@@ -1769,6 +1801,380 @@ def paged_cross_check(card, params, prompts, gpu_tokens):
                       [gpu_tokens[i][:8] for i in order], cpu)
     emit({"phase": "paged_cross_check", "requests": [int(i) for i in order],
           "compared": compared, "cpu": cpu, "gpu": [gpu_tokens[i][:8] for i in order],
+          "card": card})
+
+
+# -- phases 13a to 13f: speculative decoding ------------------------------------
+
+# DistilGPT2's published widths (Hugging Face ``distilgpt2`` config.json: 6
+# layers, d 768, 12 heads, vocab 50257, n_positions 1024, gelu, tied
+# embeddings): GPT-2-small cut to 6 layers, the cheap drafter
+DISTILGPT2 = dict(GPT2_SMALL, n_layers=6)
+SPEC_K = 4
+# the paged verify's per-slot positions: the serve mix's range, unaligned
+SPEC_POS0 = [33, 62, 100, 143, 207, 254, 287, 318]
+
+
+def check_spec_kernels(card):
+    """K5-chunk and K3-fwd at the speculative verify's shapes: K5-chunk over
+    GPT-2's 8 slots with C = 2 and 4 rows at the unaligned positions
+    ``SPEC_POS0`` (some rows cross a page edge), K3-fwd over the chunk's
+    ``[8·C, 768]`` rows; each against its plain version (2e-5 for K5-chunk,
+    as the insert cases; 1e-5 for K3-fwd, as its other cases), twice for the
+    same bits, timed beside the plain version, the library call (SDPA over
+    the dense view with an explicit mask; ``F.layer_norm``) and the bound."""
+    from elephas_tpu_torch.ops.layer_norm import fused_layer_norm, layer_norm_reference
+    from elephas_tpu_torch.ops.paged_attention import paged_chunk_reference, paged_flash_chunk
+
+    gen = np.random.default_rng(SEED + 12)
+    S, hkv, g, dh, page, M = 8, 12, 1, 64, 16, 64
+    T = M * page
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    chunk, ln = {}, {}
+    for C in (2, 4):
+        sets = [_paged_inputs(gen, S, hkv, g, dh, page, M, torch.float32, SPEC_POS0, C)
+                for _ in range(8)]
+        q, kp, vp, t, p = sets[0]
+        got = paged_flash_chunk(q, kp, vp, t, p, page)
+        torch.cuda.synchronize()
+        err, ok = _allclose_err(got, paged_chunk_reference(q, kp, vp, t, p, page), 2e-5)
+        require(ok and bool(torch.isfinite(got).all()),
+                f"paged chunk at the verify shape C {C}: max abs err {err} beyond 2e-5")
+        require(torch.equal(paged_flash_chunk(q, kp, vp, t, p, page), got),
+                f"paged chunk at the verify shape C {C}: two launches differ")
+        ms = device_ms(lambda q, kp, vp, t, p: paged_flash_chunk(q, kp, vp, t, p, page), sets)
+        plain_ms = device_ms(lambda q, kp, vp, t, p: paged_chunk_reference(q, kp, vp, t, p, page),
+                             sets)
+        lib_sets = []
+        for q, kp, vp, t, p in sets:
+            kd, vd = _dense_view(kp, vp, t, page)
+            rows = p.long()[:, None] + torch.arange(C, device="cuda")
+            mask = torch.arange(T, device="cuda")[None, None, :] <= rows[:, :, None]
+            lib_sets.append((q.reshape(S, hkv * g, C, dh), kd, vd, mask[:, None]))
+        lib_ms = device_ms(lambda q, k, v, m: sdpa(q, k, v, attn_mask=m), lib_sets)
+        del sets, lib_sets
+        pairs = sum(x + c + 1 for x in SPEC_POS0 for c in range(C)) * hkv * g
+        keys = sum(x + C for x in SPEC_POS0)
+        pages = sum((x + C - 1) // page + 1 for x in SPEC_POS0)
+        n_bytes = keys * hkv * dh * 2 * 4 + 2 * S * hkv * g * C * dh * 4 + pages * 4 + S * 4
+        bms, by, simt_ms = k2_bound_ms(n_bytes, 4 * dh * pairs)
+        chunk[f"C{C}"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                          "bound_ms": bms, "bound_by": by, "bound_simt_ms": simt_ms,
+                          "max_abs_err": err, "atol": 2e-5, "same_bits": True,
+                          "rows_crossing_a_page": sum(x // page != (x + C - 1) // page
+                                                      for x in SPEC_POS0),
+                          "shape": {"S": S, "Hkv": hkv, "G": g, "C": C, "Dh": dh,
+                                    "page": page, "M": M, "pos0": SPEC_POS0}}
+        n, d = S * C, 768
+        sets = [tuple(torch.from_numpy(a).cuda() for a in (
+            gen.normal(size=(n, d)).astype(np.float32),
+            (1 + 0.1 * gen.normal(size=d)).astype(np.float32),
+            gen.normal(size=d).astype(np.float32))) for _ in range(4)]
+        x, s, b = sets[0]
+        got = fused_layer_norm(x, s, b)
+        torch.cuda.synchronize()
+        err = float((got - layer_norm_reference(x, s, b)).abs().max())
+        require(err <= 1e-5, f"layer_norm [{n}, {d}]: max abs err {err} > 1e-5")
+        require(torch.equal(fused_layer_norm(x, s, b), got), f"layer_norm [{n}, {d}]: two launches differ")
+        ln[f"C{C}"] = {"shape": [n, d], "max_abs_err": err, "atol": 1e-5, "same_bits": True,
+                       "ms": device_ms(fused_layer_norm, sets),
+                       "plain_ms": device_ms(lambda x, s, b: layer_norm_reference(x, s, b), sets),
+                       "library_ms": device_ms(lambda x, s, b: torch.nn.functional.layer_norm(
+                           x, (d,), s, b, 1e-5), sets),
+                       **dict(zip(("bound_ms", "bound_by"),
+                                  bound_ms((2 * n * d + 2 * d) * 4, 8 * n * d)))}
+    emit({"phase": "kernel", "kernel": "spec_verify_shapes", "paged_flash_chunk": chunk,
+          "layer_norm_fwd": ln, "card": card})
+    return {"paged_flash_chunk": chunk, "layer_norm_fwd": ln}
+
+
+def _noisy_gaps(model, params, prompt, tokens, seed, temperature):
+    """The margin of a sampled selection at each generated position: top-1
+    minus top-2 of ``logits / temperature`` plus the engine's ``(seed,
+    position)`` Gumbel noise, from one teacher-forced pass."""
+    from elephas_tpu_torch.models.transformer import _gumbel
+
+    seq = np.concatenate([prompt, np.asarray(tokens[:-1], np.int32)]).astype(np.int64)
+    dev = params["tok"].device
+    with torch.no_grad():
+        logits, _ = model.decode_chunk(params, torch.from_numpy(seq)[None].to(dev), 0,
+                                       model.init_cache(1, len(seq)))
+        logits = logits[0, len(prompt) - 1:].to(torch.float32)
+        n = logits.shape[0]
+        out_pos = torch.arange(len(prompt), len(prompt) + n, device=dev)
+        scores = logits / temperature + _gumbel(
+            torch.full((n,), seed, dtype=torch.int64, device=dev), out_pos, logits.shape[-1])
+        top = torch.topk(scores, 2, dim=-1).values.cpu()
+    return (top[:, 0] - top[:, 1]).tolist()
+
+
+def _spec_run(model, params, prompts, max_new, drafter=None, paged=False,
+              temperature=0.0, speculate_k=SPEC_K):
+    """One counted speculative engine run: counters set to 0 just before and
+    read just after; per verify round the metrics' ``block_s`` and
+    ``host_s`` and the drafting time, caught as the engine reports them."""
+    from elephas_tpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(model, params, n_slots=8, paged=paged, page_size=16,
+                        speculate_k=speculate_k, drafter=drafter, device="cuda")
+    rounds, drafting = [], []
+    observe, draft = eng.metrics.observe_spec_round, eng._draft_tokens
+
+    def observe_round(n_active, n_drafted, n_accepted, n_emitted, block_s=None, host_s=None):
+        rounds.append((block_s, host_s))
+        observe(n_active, n_drafted, n_accepted, n_emitted, block_s=block_s, host_s=host_s)
+
+    def timed_draft(W):
+        t0 = time.perf_counter()
+        out = draft(W)
+        drafting.append(time.perf_counter() - t0)
+        return out
+    eng.metrics.observe_spec_round, eng._draft_tokens = observe_round, timed_draft
+    _zero_counters()
+    t0 = time.perf_counter()
+    ids = [eng.submit(p, max_new, temperature=temperature, seed=i)
+           for i, p in enumerate(prompts)]
+    fin = eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counters()
+    require(len(fin) == len(ids), f"{len(fin)} of {len(ids)} requests finished")
+    for rid in ids:
+        require(fin[rid].finish_reason == "length" and len(fin[rid].tokens) == max_new,
+                f"{rid}: {fin[rid].finish_reason}, {len(fin[rid].tokens)} tokens")
+    snap = eng.snapshot()
+    fp = snap["fastpath"]
+    block = np.array([r[0] for r in rounds])
+    host = np.array([r[1] for r in rounds])
+    n_rounds = fp.get("spec_rounds", 0)      # the section is absent at speculate_k 1
+    stats = {**_serving_stats(snap, [fin[r] for r in ids], wall),
+             "spec_rounds": n_rounds,
+             "sequential_steps": snap["engine"]["decode_steps"] - n_rounds,
+             "acceptance_rate": fp.get("spec_accepted", 0) / max(fp.get("spec_drafted", 0), 1),
+             "emitted_per_row_per_round": fp.get("spec_emitted", 0) / max(fp.get("spec_rows", 0), 1),
+             "round_ms_p50": float(np.median(block + host)) * 1e3 if rounds else None,
+             "round_host_ms_p50": float(np.median(host)) * 1e3 if rounds else None,
+             "round_host_share": float(host.sum() / (block + host).sum()) if rounds else None,
+             "drafting_ms_p50": float(np.median(drafting)) * 1e3 if drafting else None,
+             "drafting_share": (float(np.sum(drafting) / (block + host).sum())
+                                if rounds else None)}
+    if paged:
+        eng.kv.check()
+    return eng, [fin[r].tokens for r in ids], counts, stats
+
+
+def _want_spec_launches(what, eng, counts, paged):
+    """Exact counts from the snapshot and the drafter's own steps: K3-fwd
+    2L+1 per verify round, sequential step and insert, 2L_d+1 per draft step
+    and draft insert; K4 L per sequential dense step and L_d per draft step;
+    K5-chunk L per paged insert and verify round, K5-decode L per sequential
+    paged step; nothing else."""
+    from elephas_tpu_torch.serving import ModelDrafter
+
+    snap = eng.snapshot()
+    L = eng.model.n_layers
+    rounds = snap["fastpath"]["spec_rounds"]
+    steps = snap["engine"]["decode_steps"] - rounds
+    inserts = snap["engine"]["prefills"]
+    d = eng.drafter if isinstance(eng.drafter, ModelDrafter) else None
+    Ld, d_steps, d_inserts = (d.model.n_layers, d.steps, d.prefills) if d else (0, 0, 0)
+    want = {"layer_norm_fwd": (2 * L + 1) * (rounds + steps + inserts)
+            + (2 * Ld + 1) * (d_steps + d_inserts),
+            "flash_decode_lse": (0 if paged else L * steps) + Ld * d_steps,
+            "paged_flash_decode_lse": L * steps if paged else 0,
+            "paged_flash_chunk": L * (inserts + rounds) if paged else 0}
+    require(rounds > 0, f"{what}: no verify round ran")
+    require(d is None or d_inserts == inserts, f"{what}: {d_inserts} draft inserts, "
+                                               f"{inserts} inserts")
+    for name, n in counts.items():
+        require(n == want.get(name, 0), f"{what}: {name} launched {n} times, want "
+                                        f"{want.get(name, 0)} ({rounds} verify rounds, "
+                                        f"{steps} steps, {inserts} inserts, {d_steps} draft "
+                                        f"steps, {d_inserts} draft inserts)")
+    return {"verify_rounds": rounds, "sequential_steps": steps, "inserts": inserts,
+            "draft_steps": d_steps, "draft_inserts": d_inserts}
+
+
+def _distil_drafter():
+    """A draft model at DistilGPT2's widths, random weights drawn on the card
+    from its own seed."""
+    from elephas_tpu_torch.models import TransformerLM
+
+    model = TransformerLM(**DISTILGPT2, device="cuda")
+    return model, draw_params(model, SEED + 11)
+
+
+def _sum_counts(runs):
+    return {k: sum(c[k] for c in runs) for k in runs[0]}
+
+
+def serve_spec(card, params, prompts, dense_tokens, dense_stats):
+    """The ``serve`` mix at ``speculate_k=4`` with the n-gram drafter, a
+    self-draft and a drafter at DistilGPT2's widths: exact launch counts,
+    tokens against ``serve``'s up to near ties, acceptance and time a round
+    beside ``serve``'s step."""
+    from elephas_tpu_torch.models import TransformerLM
+    from elephas_tpu_torch.serving import ModelDrafter
+
+    model = TransformerLM(**GPT2_SMALL, device="cuda")
+    distil, distil_params = _distil_drafter()
+    drafters = {"ngram": lambda: None, "self": lambda: ModelDrafter(model, params),
+                "distilgpt2": lambda: ModelDrafter(distil, distil_params)}
+    runs, all_counts = {}, []
+    for name, make in drafters.items():
+        _spec_run(model, params, [p[:32] for p in prompts[:2]], 8, make())   # warm-up
+        eng, tokens, counts, stats = _spec_run(model, params, prompts, 64, make())
+        launches = _want_spec_launches(f"serve_spec {name}", eng, counts, paged=False)
+        compared = _agree(f"serve_spec {name} vs serve", model, params, prompts, tokens,
+                          dense_tokens)
+        runs[name] = {**stats, **launches, "launches": counts, "tokens_compared": compared}
+        all_counts.append(counts)
+    require(runs["self"]["acceptance_rate"] > 0.9,
+            f"serve_spec: a self-draft accepted {runs['self']['acceptance_rate']}")
+    emit({"phase": "serve_spec", "speculate_k": SPEC_K, "drafter_widths": {
+              "distilgpt2": {k: DISTILGPT2[k] for k in ("n_layers", "d_model", "n_heads",
+                                                        "vocab", "max_len")}},
+          "runs": runs, "serve_same_call": dense_stats, "card": card})
+    return _sum_counts(all_counts)
+
+
+def serve_spec_sampled(card, params, prompts):
+    """Eight of the mix's prompts at temperature 0.8: the speculative stream
+    (n-gram drafter) against a ``speculate_k=1`` engine's in the same phase,
+    compared up to each request's first position whose noisy margin (the
+    scaled logits plus the engine's Gumbel noise) is 1e-3 or less."""
+    from elephas_tpu_torch.models import TransformerLM
+
+    model = TransformerLM(**GPT2_SMALL, device="cuda")
+    sel = prompts[:8]
+    _, want, _, plain = _spec_run(model, params, sel, 64, temperature=0.8, speculate_k=1)
+    _, got, _, stats = _spec_run(model, params, sel, 64, temperature=0.8)
+    compared = []
+    for i, (prompt, a, b) in enumerate(zip(sel, got, want)):
+        gaps = _noisy_gaps(model, params, prompt, b, i, 0.8)
+        n = 0
+        while n < len(b) and gaps[n] > 1e-3:
+            require(a[n] == b[n], f"serve_spec_sampled: request {i} position {n}: "
+                                  f"{a[n]} != {b[n]} (noisy gap {gaps[n]})")
+            n += 1
+        compared.append(n)
+    require(stats["spec_rounds"] > 0, "serve_spec_sampled: no verify round ran")
+    emit({"phase": "serve_spec_sampled", "temperature": 0.8, "requests": 8,
+          "speculative": stats, "sequential": plain, "tokens_compared": compared,
+          "card": card})
+
+
+def serve_spec_paged(card, params, prompts, paged_tokens, paged_stats):
+    """The ``serve`` mix on ``paged=True, page_size=16`` at ``speculate_k=4``
+    with the n-gram drafter and a self-draft: exact launch counts (the
+    verify is K5-chunk), tokens against ``serve_paged``'s, ``kv.check()``."""
+    from elephas_tpu_torch.models import TransformerLM
+    from elephas_tpu_torch.serving import ModelDrafter
+
+    model = TransformerLM(**GPT2_SMALL, device="cuda")
+    runs, all_counts = {}, []
+    for name, make in (("ngram", lambda: None), ("self", lambda: ModelDrafter(model, params))):
+        _spec_run(model, params, [p[:32] for p in prompts[:2]], 8, make(), paged=True)
+        eng, tokens, counts, stats = _spec_run(model, params, prompts, 64, make(), paged=True)
+        launches = _want_spec_launches(f"serve_spec_paged {name}", eng, counts, paged=True)
+        compared = _agree(f"serve_spec_paged {name} vs serve_paged", model, params, prompts,
+                          tokens, paged_tokens)
+        runs[name] = {**stats, **launches, "launches": counts, "tokens_compared": compared,
+                      "memory": eng.snapshot()["memory"]}
+        all_counts.append(counts)
+    emit({"phase": "serve_spec_paged", "speculate_k": SPEC_K, "page_size": 16, "runs": runs,
+          "serve_paged_same_call": paged_stats, "card": card})
+    return _sum_counts(all_counts)
+
+
+def generate_spec(card, params):
+    """``generate_speculative`` at B 4, greedy, ``spec_k=4``, the ``generate``
+    phase's prompts, with the DistilGPT2-width drafter and a self-draft, on
+    the device loop and the host loop: tokens against ``generate``'s up to
+    near ties; exact launch counts from ``with_stats``."""
+    from elephas_tpu_torch.models import TransformerLM
+    from elephas_tpu_torch.serving import ModelDrafter
+
+    model = TransformerLM(**GPT2_SMALL, device="cuda")
+    L = GPT2_SMALL["n_layers"]
+    rows, t0_len, n_new = 4, 128, 32
+    prompts = np.random.default_rng(SEED + 7).integers(0, GPT2_SMALL["vocab"],
+                                                       size=(rows, t0_len))
+    prompt = torch.from_numpy(prompts).cuda()
+    t0 = time.perf_counter()
+    want = model.generate(params, prompt, n_new)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    want = want[:, t0_len:].cpu().tolist()
+    distil, distil_params = _distil_drafter()
+    runs, all_counts = {}, []
+    for name, draft, dparams in (("distilgpt2", distil, distil_params),
+                                 ("self", model, params)):
+        Ld = draft.n_layers
+        for host_loop in (False, True):
+            model.generate_speculative(params, prompt[:, :16], 4, draft, dparams,
+                                       spec_k=SPEC_K, host_loop=host_loop)       # warm-up
+            torch.cuda.synchronize()
+            _zero_counters()
+            t0 = time.perf_counter()
+            out, st = model.generate_speculative(params, prompt, n_new, draft, dparams,
+                                                 spec_k=SPEC_K, host_loop=host_loop,
+                                                 with_stats=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _read_counters()
+            R = st["rounds"]
+            what = f"generate_spec {name} host_loop={host_loop}"
+            expect = {"flash_attention_fwd": L + Ld,
+                      "flash_decode_lse": Ld * (SPEC_K + 1) * R,
+                      "layer_norm_fwd": (2 * L + 1) * (1 + R)
+                      + (2 * Ld + 1) * (1 + R * (SPEC_K + 1))}
+            for k, n in counts.items():
+                require(n == expect.get(k, 0), f"{what}: {k} launched {n} times, want "
+                                               f"{expect.get(k, 0)} ({R} rounds)")
+            require(tuple(out.shape) == (rows, t0_len + n_new), f"{what}: {tuple(out.shape)}")
+            compared = _agree(what, model, params, [p.astype(np.int32) for p in prompts],
+                              out[:, t0_len:].cpu().tolist(), want)
+            runs[f"{name}_{'host' if host_loop else 'device'}"] = {
+                **st, "wall_s": wall, "tok_per_s": rows * n_new / wall, "launches": counts,
+                "tokens_compared": compared}
+            all_counts.append(counts)
+    emit({"phase": "generate_spec", "rows": rows, "prompt_len": t0_len, "n_new": n_new,
+          "spec_k": SPEC_K, "generate_wall_s": plain_wall,
+          "generate_tok_per_s": rows * n_new / plain_wall, "runs": runs, "card": card})
+    return _sum_counts(all_counts)
+
+
+def spec_cross_check(card, params, prompts):
+    """Two layers at GPT-2's widths: the speculative engine (n-gram drafter,
+    ``speculate_k=4``, 16 new tokens, the mix's two shortest prompts) on the
+    card against the same engine on ``device="cpu"`` (the plain versions),
+    dense and paged."""
+    from elephas_tpu_torch.models import TransformerLM
+    from elephas_tpu_torch.serving import ServingEngine
+
+    cfg = dict(GPT2_SMALL, n_layers=2)
+    order = np.argsort([len(p) for p in prompts])[:2]
+    sel = [prompts[i] for i in order]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = TransformerLM(**cfg, device=dev)
+        dev_params = _layer_slice(model, params, dev)
+        for paged in (False, True):
+            eng = ServingEngine(model, dev_params, n_slots=2, paged=paged, page_size=16,
+                                speculate_k=SPEC_K, device=dev)
+            ids = [eng.submit(p, 16) for p in sel]
+            fin = eng.drain()
+            if paged:
+                eng.kv.check()
+            require(eng.snapshot()["fastpath"]["spec_rounds"] > 0,
+                    f"spec_cross_check {dev}: no verify round ran")
+            out[(dev, paged)] = [fin[r].tokens for r in ids]
+    compared = {("paged" if paged else "dense"): _agree(
+        f"spec_cross_check {'paged' if paged else 'dense'}", model, dev_params, sel,
+        out[("cuda", paged)], out[("cpu", paged)]) for paged in (False, True)}
+    emit({"phase": "spec_cross_check", "layers": 2, "requests": [int(i) for i in order],
+          "compared": compared, "cpu": out[("cpu", False)], "gpu": out[("cuda", False)],
           "card": card})
 
 
@@ -3860,12 +4266,19 @@ def main() -> int:
         train_cross_check(card, params)
         gen_counts = generate_phase(card, params)
         paged_rows = check_paged_attention(card)
-        paged_tokens, paged_counts = serve_paged(card, params, prompts, gpu_tokens,
-                                                 serve_stats)
+        paged_tokens, paged_counts, paged_stats = serve_paged(card, params, prompts,
+                                                              gpu_tokens, serve_stats)
         profile_paged(card, params, prompts)
         prefix(card, params)
         preempt(card, params)
         paged_cross_check(card, params, prompts, paged_tokens)
+        spec_shapes = check_spec_kernels(card)
+        spec_counts = serve_spec(card, params, prompts, gpu_tokens, serve_stats)
+        serve_spec_sampled(card, params, prompts)
+        spec_paged_counts = serve_spec_paged(card, params, prompts, paged_tokens,
+                                             paged_stats)
+        gen_spec_counts = generate_spec(card, params)
+        spec_cross_check(card, params, prompts)
         gmm_rows = check_grouped_matmul(card)
         moe_model, moe_params, moe_prompts, moe_tokens, moe_counts, moe_stats = \
             serve_moe(card)
@@ -3911,7 +4324,10 @@ def main() -> int:
     # launches in the CNN fits (the asynchronous compiled run, the host
     # run's threads, the BatchNormalization CNN's synchronous run) and in the
     # API skins (the estimator's fit, the search's trials from its worker
-    # threads) are under launches_by_path
+    # threads) are under launches_by_path, as are the speculative paths'
+    # (serve_spec and serve_spec_paged: the sums of their drafters' runs;
+    # generate_spec: of its four runs); K5-chunk and K3-fwd carry their
+    # times at the verify's shapes under verify_shapes
     rows = [ln_fwd, ln_bwd, decode, *attn_rows, *paged_rows, *gmm_rows, *xent_rows,
             *rope_rows]
     paths = {"serve": serve_counts, "train_5_steps": train_counts,
@@ -3921,7 +4337,8 @@ def main() -> int:
              "fit_host": host_counts, "fit_cnn": cnn_counts,
              "fit_cnn_host": cnn_host_counts, "fit_bn": bn_counts,
              "train_llama_3_steps": llama_counts, "ml_mlp": ml_counts,
-             "hyperparam": hyper_counts}
+             "hyperparam": hyper_counts, "serve_spec": spec_counts,
+             "serve_spec_paged": spec_paged_counts, "generate_spec": gen_spec_counts}
     main_paths = {"layer_norm_fwd": "serve", "flash_decode_lse": "serve",
                   "paged_flash_decode_lse": "serve_paged",
                   "paged_flash_chunk": "serve_paged", "gmm": "serve_moe",
@@ -3936,6 +4353,8 @@ def main() -> int:
         row["main_path"] = main_path
         row["launches"] = paths[main_path][counter]
         row["launches_by_path"] = {k: v.get(counter, 0) for k, v in paths.items()}
+        if name in spec_shapes:
+            row["verify_shapes"] = spec_shapes[name]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,8 +20,11 @@ function of ``(params, opt_state, batch)``.
   the head), per-layer rematerialisation, and :func:`build_lm_train_step` /
   :func:`build_lm_eval_step` on one device.
 - Generation: :meth:`~TransformerLM.prefill` (the full forward over the
-  prompt, flash attention) and :meth:`~TransformerLM.generate` (one prefill,
-  then a loop of cached decode steps; greedy, temperature, top-k, top-p).
+  prompt, flash attention), :meth:`~TransformerLM.generate` (one prefill,
+  then a loop of cached decode steps; greedy, temperature, top-k, top-p)
+  and :meth:`~TransformerLM.generate_speculative` (a draft model proposes,
+  one chunk verifies; :func:`spec_round_accept` and, for the serving
+  engine, :func:`spec_verify_select` are its accept rules).
 
 Every LayerNorm goes through the fused kernels on the card, backward
 included. Architecture knobs ported: relu / gelu (tanh) / swiglu, layernorm
@@ -131,6 +134,106 @@ def select_slot_tokens(logits, out_pos, temps, seeds,
     scaled = logits.to(torch.float32) / temps.clamp_min(1e-6)[:, None]
     drawn = (scaled + _gumbel(seeds, out_pos, logits.shape[-1])).argmax(dim=-1)
     return torch.where(temps > 0, drawn, greedy)
+
+
+def spec_round_accept(pt, pd_draft, d_toks, u):
+    """One speculative round's acceptance math (the distribution-preserving
+    rejection rule) as a pure tensor function → ``(n, resid)``.
+
+    ``pt`` ``[B, k+1, V]`` target probabilities over the verify chunk,
+    ``pd_draft`` ``[B, k, V]`` the draft's proposal distributions,
+    ``d_toks`` ``[B, k]`` the proposals, ``u`` ``[B, k]`` the acceptance
+    uniforms. Proposal ``i`` is accepted while ``u_i < min(1,
+    p_t(d_i)/p_d(d_i))``; ``n`` ``[B]`` is the accepted-prefix length and
+    ``resid`` ``[B, V]`` the distribution the correction token is drawn
+    from: the clamped normalised residual ``(p_t − p_d)+`` at the first
+    rejection, or, with ``p_d`` padded by a zero row at index ``k``, the
+    target's own distribution after a fully accepted round."""
+    B, k = d_toks.shape
+    pd = torch.cat([pd_draft, pd_draft.new_zeros((B, 1, pt.shape[-1]))], dim=1)
+    idx = d_toks.to(torch.int64)[..., None]
+    pt_d = pt[:, :k].gather(-1, idx)[..., 0]
+    pd_d = pd[:, :k].gather(-1, idx)[..., 0]
+    ratio = pt_d / pd_d.clamp_min(1e-20)
+    accept = (u < ratio.clamp(max=1.0)).to(torch.int64)
+    n = accept.cumprod(dim=1).sum(dim=1)
+    at = n[:, None, None].expand(B, 1, pt.shape[-1])
+    ptn, pdn = pt.gather(1, at)[:, 0], pd.gather(1, at)[:, 0]
+    resid = (ptn - pdn).clamp_min(0.0)
+    z = resid.sum(dim=-1, keepdim=True)
+    return n, torch.where(z > 0, resid / z.clamp_min(1e-30), ptn)
+
+
+def spec_verify_select(logits, drafts, pos, temps, seeds,
+                       sampled: Optional[bool] = None):
+    """The serving engine's speculative accept/select over one verify
+    chunk: ``logits`` ``[S, C, V]`` (``C = K+1``: the carry and ``K``
+    drafts scored by one chunk forward), ``drafts`` ``[S, K]``, ``pos``
+    ``[S]`` each row's carry position, ``temps``/``seeds`` the per-slot
+    selection state → ``(sel [S, C] int64, n [S] int64)``.
+
+    ``sel[:, j]`` is :func:`select_slot_tokens` of ``logits[:, j]`` at
+    output position ``pos + 1 + j``, the token the sequential engine would
+    emit there, and a draft is accepted while it matches: ``n = Σ
+    cumprod(sel[:, :K] == drafts)``. The correction at the stop slot is
+    ``sel[:, n]``, so the emitted prefix ``sel[:, :n+1]`` is the sequential
+    stream, greedy and sampled alike: this is :func:`spec_round_accept`'s
+    rule for a deterministic proposal, coupled to the engine's ``(seed,
+    position)``-keyed draws. The reference takes PRNG keys; the port takes
+    the engine's seeds and its ``sampled`` flag, as
+    :func:`select_slot_tokens` does. The ``S·C`` rows are selected in one
+    call: the rule is row-wise, so this equals ``C`` calls bit for bit."""
+    S, C, V = logits.shape
+    K = drafts.shape[1]
+    out_pos = (pos.to(torch.int64)[:, None] + 1
+               + torch.arange(C, device=logits.device)[None, :])
+    sel = select_slot_tokens(
+        logits.reshape(S * C, V), out_pos.reshape(-1),
+        temps.repeat_interleave(C), seeds.repeat_interleave(C),
+        sampled).reshape(S, C)
+    match = (sel[:, :K] == drafts.to(sel.dtype)).to(torch.int64)
+    return sel, match.cumprod(dim=1).sum(dim=1)
+
+
+def _spec_probs(logits_row, temperature: float):
+    """Host-side softmax in float64 (the host loops' acceptance math)."""
+    x = np.asarray(logits_row, np.float64) / temperature
+    x -= x.max()
+    e = np.exp(x)
+    return e / e.sum()
+
+
+def _spec_accept_row(vl_row, d_toks_row, d_probs_row, spec_k: int,
+                     vocab: int, temperature: float, rng):
+    """One row's speculative acceptance → ``(emitted tokens, n accepted)``,
+    a copy of the reference's: ``vl_row`` ``[spec_k+1, V]`` target logits
+    (numpy); greedy accepts while the target argmax agrees, sampled mode
+    applies the rejection rule with the numpy ``rng`` (accept ``d`` w.p.
+    ``min(1, p_t(d)/p_d(d))``, resample a rejection from ``(p_t − p_d)+``,
+    the bonus from ``p_t``)."""
+    if temperature <= 0.0:
+        t_arg = vl_row.argmax(axis=-1)
+        n = 0
+        while n < spec_k and int(t_arg[n]) == int(d_toks_row[n]):
+            n += 1
+        return [int(x) for x in d_toks_row[:n]] + [int(t_arg[n])], n
+    n = 0
+    for i in range(spec_k):
+        pt = _spec_probs(vl_row[i], temperature)
+        pd = d_probs_row[i]
+        d = int(d_toks_row[i])
+        if rng.random() < min(1.0, pt[d] / max(pd[d], 1e-20)):
+            n += 1
+            continue
+        resid = np.maximum(pt - pd, 0.0)
+        z = resid.sum()
+        resid = resid / z if z > 0 else pt
+        return ([int(x) for x in d_toks_row[:n]]
+                + [int(rng.choice(vocab, p=resid))], n)
+    return ([int(x) for x in d_toks_row]
+            + [int(rng.choice(vocab,
+                              p=_spec_probs(vl_row[spec_k], temperature)))],
+            n)
 
 
 def _row_seeds(seed: int, rows):
@@ -484,10 +587,15 @@ class TransformerLM(nn.Module):
         return h @ self.head_weight(params)
 
     def _embed(self, params, tokens, positions):
-        """Token (+ learned-position) embedding in the compute dtype."""
+        """Token (+ learned-position) embedding in the compute dtype. A
+        position past ``max_len - 1`` reads the last learned row, as the
+        reference's gather clamps: speculative rounds near the horizon
+        score chunk rows there (a frozen row, a rejected tail) whose
+        outputs are never used, and an index past the table would raise
+        on the CPU and fault the card."""
         h = params["tok"][tokens]
         if self.pos_encoding == "learned":
-            h = h + params["pos"][positions]
+            h = h + params["pos"][positions.clamp(max=self.max_len - 1)]
         return h.to(self.compute_dtype)
 
     def _norm_h(self, lp, prefix: str, x):
@@ -542,11 +650,17 @@ class TransformerLM(nn.Module):
         return {k: params[k][l] for k in self._block_keys()}
 
     # -- autoregressive inference (KV cache) ---------------------------------
-    def init_cache(self, batch: int,
-                   length: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    def init_cache(self, batch: int, length: Optional[int] = None,
+                   chunk: int = 1) -> Dict[str, torch.Tensor]:
         """Zeroed KV cache ``{"k"/"v": [L, B, Hkv, T, Dh]}`` on the model's
         device, ``T`` = ``length`` (default ``max_len``) rounded up as the
-        reference rounds it, so both packages allocate the same shapes."""
+        reference rounds it, so both packages allocate the same shapes.
+        ``chunk`` is the largest block :meth:`decode_chunk` will write per
+        call (``spec_k + 1`` for speculative decoding); in the reference it
+        sizes only the rolling caches of windowed models, which are not
+        ported, so a linear cache keeps its shape."""
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
         T = aligned_cache_length(self.max_len if length is None else length)
         shape = (self.n_layers, batch, self.n_kv_heads, T,
                  self.d_model // self.n_heads)
@@ -951,6 +1065,313 @@ class TransformerLM(nn.Module):
                 tok = select(logits, t + 1)
                 buf[:, t + 1] = tok
         return buf.to(torch.int32)
+
+    # -- speculative decoding ----------------------------------------------------
+    def generate_speculative(self, params, prompt, n_new: int,
+                             draft: "TransformerLM", draft_params,
+                             spec_k: int = 4, temperature: float = 0.0,
+                             seed: int = 0, with_stats: bool = False,
+                             host_loop: bool = False):
+        """Speculative decoding (Leviathan/Chen et al.): a small ``draft``
+        model proposes ``spec_k`` tokens a round with cached
+        :meth:`decode_step` calls, and this model scores the carry and all
+        proposals in ONE :meth:`decode_chunk` and accepts a prefix.
+        ``prompt`` int ``[B, T0]`` → int32 ``[B, T0 + n_new]`` on the params'
+        device (and, with ``with_stats``, ``{rounds, proposed, accepted,
+        acceptance_rate, tokens_emitted}``; ``rounds`` counts the verify
+        passes, against ``n_new`` sequential steps for :meth:`generate`).
+
+        ``temperature=0`` accepts while this model's argmax agrees with the
+        draft, and every correction is that argmax, so the output equals
+        greedy :meth:`generate`, bit for bit where the chunk and the step
+        share attention numerics (the CPU). On the card :meth:`decode_step`
+        runs the flash-decode kernel and :meth:`decode_chunk` the plain
+        masked softmax, so there the two agree up to near ties (the
+        reference's own exactness caveat). ``temperature > 0`` applies the
+        rejection rule (accept ``d`` w.p. ``min(1, p_t(d)/p_d(d))``,
+        resample a rejection from ``(p_t − p_d)+``, the bonus from ``p_t``),
+        which keeps this model's sampling distribution.
+
+        Every round writes both caches from the first stale position on,
+        over ``spec_k + 1`` positions, so a rejected round's stale K/V is
+        rewritten before any query attends it. Each cache is sized to
+        ``T0 + n_new + spec_k + 1``; chunk rows past ``max_len`` (a frozen
+        row, a rejected tail near the horizon) read the last learned
+        position row and are never emitted.
+
+        ``host_loop=False`` (default) runs the rounds on device tensors:
+        the draft's ``spec_k`` steps, one verify, the masked emission into
+        a ``[B, total + spec_k + 1]`` buffer, the all-row draft ingest;
+        the host reads ONE flag a round (whether a row is still short of
+        ``total``) to stop. Sampled, it draws from a ``torch.Generator``
+        seeded by ``seed`` (the distribution contract, with other bits
+        than the reference's ``jax.random``). ``host_loop=True`` runs the
+        reference's host loops: the bit-exact greedy oracle, and for
+        sampling the float64 rejection math with ``numpy.random.
+        default_rng(seed)`` (``[seed, row]`` per row when ``B > 1``), the
+        generators the reference uses. ``B > 1`` rows carry their own
+        positions; a finished row freezes at ``total - 1``."""
+        if not self._supports_speculative:
+            raise NotImplementedError(
+                "speculative decoding needs chunk routing == per-position "
+                "routing: for the MoE family that holds only when expert "
+                "capacity never binds (capacity_factor * k >= n_experts; "
+                "raise capacity_factor, or use the dense family)")
+        if not draft._supports_speculative:
+            raise NotImplementedError(
+                "the draft model's routing must also be chunk-stable "
+                "(dense, or MoE with capacity_factor * k >= n_experts)")
+        dev = params["tok"].device
+        prompt = _as_index(prompt, dev)
+        B, T0 = prompt.shape
+        if draft.vocab != self.vocab:
+            raise ValueError(
+                f"draft vocab {draft.vocab} != target vocab {self.vocab}")
+        if spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+        total = T0 + int(n_new)
+        if total > self.max_len or total > draft.max_len:
+            raise ValueError(
+                f"prompt {T0} + n_new {n_new} exceeds max_len "
+                f"(target {self.max_len}, draft {draft.max_len})")
+        if n_new < 1:
+            return prompt.to(torch.int32)
+        args = (params, prompt, int(n_new), draft, draft_params, int(spec_k),
+                float(temperature), int(seed))
+        with torch.no_grad():
+            if not host_loop:
+                tokens, stats = self._generate_speculative_device(*args)
+            elif B == 1:
+                tokens, stats = self._generate_speculative_one(*args)
+            else:
+                tokens, stats = self._generate_speculative_batched(*args)
+        if not with_stats:
+            return tokens
+        rounds, proposed, accepted = stats
+        return tokens, {"rounds": rounds, "proposed": proposed,
+                        "accepted": accepted,
+                        "acceptance_rate": accepted / max(proposed, 1),
+                        "tokens_emitted": int(B * n_new)}
+
+    def _spec_prefills(self, params, prompt, draft, draft_params, horizon,
+                       chunk):
+        """Both prefills over ``prompt`` into caches of ``horizon`` →
+        ``(target logits [B, T0, V], target cache, draft cache)``."""
+        B = prompt.shape[0]
+        t_logits, t_cache = self.prefill(
+            params, prompt, self.init_cache(B, horizon, chunk=chunk))
+        _, d_cache = draft.prefill(
+            draft_params, prompt, draft.init_cache(B, horizon, chunk=chunk))
+        return t_logits, t_cache, d_cache
+
+    def _generate_speculative_one(self, params, prompt, n_new, draft,
+                                  draft_params, spec_k, temperature, seed):
+        """The reference's batch-1 host loop: proposals, acceptance and
+        emission on the host; the draft ingests its last proposal only
+        after a fully accepted round. → ``(tokens, (rounds, proposed,
+        accepted))``."""
+        dev = prompt.device
+        T0 = prompt.shape[1]
+        total = T0 + n_new
+        t_logits, t_cache, d_cache = self._spec_prefills(
+            params, prompt, draft, draft_params, total + spec_k + 1,
+            spec_k + 1)
+        rng = np.random.default_rng(seed)
+
+        def choose(row):
+            if temperature <= 0.0:
+                return int(np.argmax(row))
+            return int(rng.choice(self.vocab, p=_spec_probs(row, temperature)))
+
+        def draft_step(tok, p, cache):
+            dl, cache = draft.decode_step(
+                draft_params, torch.tensor([tok], device=dev), p, cache)
+            return dl[0].to(torch.float32).cpu().numpy(), cache
+
+        out = prompt[0].tolist()
+        carry = choose(t_logits[0, -1].to(torch.float32).cpu().numpy())
+        out.append(carry)
+        pos = T0        # absolute position of `carry`, in neither cache yet
+        rounds = proposed = accepted = 0
+        while len(out) < total:
+            rounds += 1
+            d_toks, d_probs = [], []
+            tok, p = carry, pos
+            for _ in range(spec_k):
+                dl, d_cache = draft_step(tok, p, d_cache)
+                if temperature > 0.0:
+                    row = _spec_probs(dl, temperature)
+                    tok = int(rng.choice(self.vocab, p=row))
+                    d_probs.append(row)
+                else:
+                    tok = int(np.argmax(dl))
+                d_toks.append(tok)
+                p += 1
+            chunk = torch.tensor([[carry] + d_toks], device=dev)
+            vl, t_cache = self.decode_chunk(params, chunk, pos, t_cache)
+            vl = vl[0].to(torch.float32).cpu().numpy()
+            emitted, n = _spec_accept_row(vl, d_toks, d_probs, spec_k,
+                                          self.vocab, temperature, rng)
+            if n == spec_k:
+                # the last proposal was never ingested by the draft: a hole
+                # at pos + spec_k would corrupt every later proposal
+                _, d_cache = draft_step(d_toks[-1], pos + spec_k, d_cache)
+            proposed += spec_k
+            accepted += n
+            out.extend(emitted)
+            pos += len(emitted)
+            carry = emitted[-1]
+        tokens = torch.tensor([out[:total]], dtype=torch.int32, device=dev)
+        return tokens, (rounds, proposed, accepted)
+
+    def _generate_speculative_batched(self, params, prompt, n_new, draft,
+                                      draft_params, spec_k, temperature,
+                                      seed):
+        """The reference's batched (``B > 1``) host loop: per-row positions
+        through both caches, per-row acceptance with the batch-1 rule and
+        ``default_rng([seed, row])``; a finished row freezes (position
+        clamped to ``total - 1``, later rounds rewrite its final span in
+        place), and the last proposal is ingested for EVERY row each
+        round (for a row that rejected, the write lands past its next
+        round's start and is rewritten before anything attends it). →
+        ``(tokens, (rounds, proposed, accepted))``."""
+        dev = prompt.device
+        B, T0 = prompt.shape
+        total = T0 + n_new
+        t_logits, t_cache, d_cache = self._spec_prefills(
+            params, prompt, draft, draft_params, total + spec_k + 1,
+            spec_k + 1)
+        rngs = [np.random.default_rng([seed, b]) for b in range(B)]
+        out = prompt.tolist()
+        carry = np.empty((B,), np.int64)
+        last = t_logits[:, -1].to(torch.float32).cpu().numpy()
+        for b in range(B):
+            carry[b] = (int(np.argmax(last[b])) if temperature <= 0.0
+                        else int(rngs[b].choice(
+                            self.vocab, p=_spec_probs(last[b], temperature))))
+            out[b].append(int(carry[b]))
+        pos = np.full((B,), T0, np.int64)
+        rounds = proposed = accepted = 0
+        while min(len(o) for o in out) < total:
+            rounds += 1
+            active = [len(o) < total for o in out]
+            d_toks = np.empty((B, spec_k), np.int64)
+            d_probs = [[None] * spec_k for _ in range(B)]
+            tok, p = carry.copy(), pos.copy()
+            for i in range(spec_k):
+                dl, d_cache = draft.decode_step(
+                    draft_params, torch.from_numpy(tok).to(dev),
+                    torch.from_numpy(p).to(dev), d_cache)
+                dlh = dl.to(torch.float32).cpu().numpy()
+                for b in range(B):
+                    if temperature > 0.0:
+                        row = _spec_probs(dlh[b], temperature)
+                        d_probs[b][i] = row
+                        tok[b] = int(rngs[b].choice(self.vocab, p=row))
+                    else:
+                        tok[b] = int(np.argmax(dlh[b]))
+                d_toks[:, i] = tok
+                p += 1
+            chunk = np.concatenate([carry[:, None], d_toks], 1)
+            vl, t_cache = self.decode_chunk(
+                params, torch.from_numpy(chunk).to(dev),
+                torch.from_numpy(pos).to(dev), t_cache)
+            vlh = vl.to(torch.float32).cpu().numpy()
+            for b in range(B):
+                emitted, n = _spec_accept_row(
+                    vlh[b], d_toks[b], d_probs[b], spec_k, self.vocab,
+                    temperature, rngs[b])
+                if active[b]:
+                    proposed += spec_k
+                    accepted += n
+                    out[b].extend(emitted)
+                    pos[b] = min(pos[b] + len(emitted), total - 1)
+                    carry[b] = emitted[-1]
+            _, d_cache = draft.decode_step(
+                draft_params, torch.from_numpy(d_toks[:, -1].copy()).to(dev),
+                torch.from_numpy(p).to(dev), d_cache)
+        tokens = torch.tensor([o[:total] for o in out], dtype=torch.int32,
+                              device=dev)
+        return tokens, (rounds, proposed, accepted)
+
+    def _generate_speculative_device(self, params, prompt, n_new, draft,
+                                     draft_params, spec_k, temperature,
+                                     seed):
+        """The round loop on device tensors (the reference's
+        ``_spec_rollout_device``): greedy acceptance as a cumprod over the
+        match mask, or the rejection rule in float32
+        (:func:`spec_round_accept`) with draws from a ``torch.Generator``
+        seeded by ``seed``; variable-length emission by masked writes into
+        a per-row buffer; rows freeze as in the batched host loop. The
+        host reads one flag a round. → ``(tokens, (rounds, proposed,
+        accepted))``."""
+        dev = prompt.device
+        B, T0 = prompt.shape
+        total = T0 + n_new
+        t_logits, t_cache, d_cache = self._spec_prefills(
+            params, prompt, draft, draft_params, total + spec_k + 1,
+            spec_k + 1)
+        sampled = temperature > 0.0
+        gen = None
+        if sampled:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+
+        def draw(probs):
+            return torch.multinomial(probs, 1, generator=gen)[:, 0]
+
+        def probs_of(logits):
+            return torch.softmax(logits.to(torch.float32) / temperature, dim=-1)
+
+        last = t_logits[:, -1]
+        carry = draw(probs_of(last)) if sampled else last.argmax(dim=-1)
+        buf = torch.zeros((B, total + spec_k + 1), dtype=torch.int64, device=dev)
+        buf[:, :T0] = prompt
+        buf[:, T0] = carry
+        pos = torch.full((B,), T0, dtype=torch.int64, device=dev)
+        rows = torch.arange(B, device=dev)
+        rounds = 0
+        proposed = torch.zeros((), dtype=torch.int64, device=dev)
+        accepted = torch.zeros((), dtype=torch.int64, device=dev)
+        while bool((pos + 1 < total).any()):        # the round's one host read
+            rounds += 1
+            active = pos + 1 < total
+            tok, p = carry, pos
+            d_toks, d_pd = [], []
+            for _ in range(spec_k):
+                dl, d_cache = draft.decode_step(draft_params, tok, p, d_cache)
+                if sampled:
+                    d_pd.append(probs_of(dl))
+                    tok = draw(d_pd[-1])
+                else:
+                    tok = dl.argmax(dim=-1)
+                d_toks.append(tok)
+                p = p + 1
+            d_toks = torch.stack(d_toks, dim=1)                       # [B, k]
+            chunk = torch.cat([carry[:, None], d_toks], dim=1)
+            vl, t_cache = self.decode_chunk(params, chunk, pos, t_cache)
+            if sampled:
+                u = torch.rand((B, spec_k), generator=gen, device=dev)
+                n, resid = spec_round_accept(probs_of(vl), torch.stack(d_pd, 1),
+                                             d_toks, u)
+                corr = draw(resid)
+            else:
+                t_arg = vl.argmax(dim=-1)
+                n = (t_arg[:, :spec_k] == d_toks).to(torch.int64).cumprod(1).sum(1)
+                corr = t_arg.gather(1, n[:, None])[:, 0]
+            for i in range(spec_k + 1):                 # masked emission
+                val = torch.where(n > i, d_toks[:, i], corr) if i < spec_k else corr
+                idx = (pos + 1 + i).clamp(max=total - 1)
+                do = active & (n >= i) & (pos + 1 + i < total)
+                buf[rows, idx] = torch.where(do, val, buf[rows, idx])
+            # ingest the last proposal into the draft cache for ALL rows
+            _, d_cache = draft.decode_step(draft_params, d_toks[:, -1], p, d_cache)
+            pos = torch.where(active, (pos + n + 1).clamp(max=total - 1), pos)
+            carry = torch.where(active, corr, carry)
+            proposed += spec_k * active.sum()
+            accepted += torch.where(active, n, 0).sum()
+        return (buf[:, :total].to(torch.int32),
+                (rounds, int(proposed), int(accepted)))
 
 
 class MoETransformerLM(TransformerLM):

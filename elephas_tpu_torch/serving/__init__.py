@@ -7,7 +7,8 @@
   admission queue and the per-iteration prefill-vs-decode decision.
 - :mod:`~elephas_tpu_torch.serving.engine` — ``ServingEngine``: ``submit()
   → request_id``, ``step()``, ``drain()``, one batched ``decode_step``
-  over all slots per iteration.
+  over all slots per iteration, or, with ``speculate_k``, a drafter
+  (``NgramDrafter``, ``ModelDrafter``) and one verify chunk.
 - :mod:`~elephas_tpu_torch.serving.metrics` — per-request TTFT / queue-wait
   / decode throughput and engine gauges as a JSON snapshot.
 
@@ -18,7 +19,7 @@
 """
 
 from .cache import SlotKVCache, bucket_length
-from .engine import FinishedRequest, ServingEngine
+from .engine import FinishedRequest, ModelDrafter, NgramDrafter, ServingEngine
 from .memory import (BlockAllocator, PagedKVCache, PagesExhausted,
                      RadixPrefixCache)
 from .metrics import RequestTiming, ServingMetrics
@@ -28,6 +29,8 @@ __all__ = [
     "AdmissionError",
     "BlockAllocator",
     "FinishedRequest",
+    "ModelDrafter",
+    "NgramDrafter",
     "PagedKVCache",
     "PagesExhausted",
     "RadixPrefixCache",

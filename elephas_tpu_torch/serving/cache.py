@@ -31,7 +31,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..models.transformer import select_slot_tokens
+from ..models.transformer import select_slot_tokens, spec_verify_select
 
 
 def bucket_length(n: int, minimum: int = 8) -> int:
@@ -63,6 +63,20 @@ def decode_block(step, params, cache, tokens, pos, temps, seeds, live,
         pos = torch.where(live, pos + 1, pos)
         emitted.append(emit)
     return torch.stack(emitted, dim=1), tokens, pos
+
+
+def spec_commit(logits, drafts, tokens, pos, temps, seeds, live,
+                sampled: bool):
+    """The accept half of a speculative verify, shared by the dense and the
+    paged engine: ``logits`` ``[S, W+1, V]`` of the chunk carry ++
+    ``drafts`` → ``(sel [S, W+1], n_accepted [S], tokens, pos)``, live rows
+    advanced past their accepted run and correction ``sel[:, n]`` on the
+    device (:func:`~elephas_tpu_torch.models.transformer.
+    spec_verify_select`)."""
+    sel, n = spec_verify_select(logits, drafts, pos, temps, seeds, sampled)
+    corr = sel.gather(1, n[:, None])[:, 0]
+    return (sel, n, torch.where(live, corr, tokens),
+            torch.where(live, pos + n + 1, pos).to(pos.dtype))
 
 
 class SlotKVCache:

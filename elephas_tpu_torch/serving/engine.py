@@ -43,9 +43,23 @@ prefix adopt its pages and skip their prefill, and admission gates on free
 pages. Under page pressure the engine evicts clean prefix pages, then
 preempts the newest request, which later resumes from prompt ++ generated
 with an unchanged token stream. The paged engine emits exactly the dense
-engine's tokens on the CPU. Meshes, speculative decoding, multi-tenant
-adapters and fault injection are later slices of the port and raise
-``NotImplementedError``.
+engine's tokens on the CPU.
+
+Speculative decoding (``speculate_k=``): a drafter proposes up to
+``speculate_k - 1`` tokens per live slot (:class:`NgramDrafter` on the
+host, or :class:`ModelDrafter`'s greedy rollouts on its own dense slot
+cache), then ONE verify forward scores the carry and the drafts as a chunk
+(``decode_chunk``, or ``decode_chunk_paged`` through the block table) and
+accepts each row's longest prefix that matches what the sequential engine
+would emit: the same ``(seed, position)``-keyed selection at every chunk
+offset (:func:`~elephas_tpu_torch.models.transformer.spec_verify_select`).
+Up to ``speculate_k`` tokens commit per round and the stream is the
+``speculate_k=1`` stream, greedy and sampled, bit for bit on the CPU; on
+the card the chunk and the step attend through other kernels, so there the
+two agree up to near ties. Speculation stands down to the sequential step
+on the conditions that stop fusion, and while a :class:`ModelDrafter`'s
+weights are stale. Meshes, multi-tenant adapters and fault injection are
+later slices of the port and raise ``NotImplementedError``.
 
 Time is injectable (``clock=``): latency tests pin exact TTFT/queue-wait
 numbers with a fake clock. The latency histograms read a separate
@@ -65,7 +79,7 @@ import torch
 
 from .. import DeviceLike, resolve_device
 from ..models.transformer import select_slot_tokens
-from .cache import SlotKVCache, bucket_length, decode_block
+from .cache import SlotKVCache, bucket_length, decode_block, spec_commit
 from .memory import PagedKVCache, PagesExhausted
 from .metrics import RequestTiming, ServingMetrics
 from .scheduler import AdmissionError, Scheduler, ServingRequest
@@ -75,6 +89,104 @@ def _wait(t: torch.Tensor) -> None:
     """Block until the work producing ``t`` has finished on its device."""
     if t.is_cuda:
         torch.cuda.current_stream(t.device).synchronize()
+
+
+def _verify(model, params, cache, drafts, tokens, pos, temps, seeds, live,
+            sampled: bool):
+    """The dense speculative verify over every slot (the reference's
+    ``_verify_kernel``): score the carry and ``W`` drafts as ONE
+    ``decode_chunk`` (each row's chunk at its own ``pos``), select what the
+    sequential engine would emit at all ``W + 1`` offsets, and advance live
+    rows past their accepted run and correction on the device → ``(sel [S,
+    W+1], n_accepted [S], tokens, pos)``. The chunk's K/V land at
+    ``pos..pos+W`` in place; the rejected tail is stale-dead (the next
+    round's chunk starts at ``pos + n + 1`` and rewrites it before anything
+    attends it)."""
+    chunk = torch.cat([tokens[:, None], drafts], dim=1)
+    logits, _ = model.decode_chunk(params, chunk, pos, cache)
+    return spec_commit(logits, drafts, tokens, pos, temps, seeds, live,
+                       sampled)
+
+
+def _draft_propose(model, params, cache, tokens, pos, live, n_steps: int):
+    """Greedy draft rollout on the draft model's own dense slot cache:
+    ``n_steps`` decode steps from the target's carry and position (the
+    draft's write head equals the target's committed head at round start),
+    argmax proposals ``[S, n_steps]``, then one more step that ingests the
+    last proposal at ``pos + n_steps`` (its logits unused). Without it a
+    fully accepted round would leave that position a hole in the draft
+    cache, corrupting every later proposal of the row; the reference's
+    engine leaves the hole (acceptance, never tokens, pays for it), its
+    ``generate_speculative`` ingests as here. Rows written past this
+    round's accepted prefix are rewritten by the next rollout before
+    anything attends them. Greedy keeps the proposer a delta distribution,
+    which the exact-match acceptance needs."""
+    drafts = []
+    for _ in range(n_steps):
+        logits, cache = model.decode_step(params, tokens, pos, cache)
+        nxt = logits.argmax(dim=-1)
+        tokens = torch.where(live, nxt, tokens)
+        pos = torch.where(live, pos + 1, pos)
+        drafts.append(nxt)
+    model.decode_step(params, tokens, pos, cache)
+    return torch.stack(drafts, dim=1)
+
+
+class NgramDrafter:
+    """Self-drafting prompt-lookup proposer (host-side, deterministic, no
+    parameters), a copy of the reference's: propose the ``k`` tokens that
+    FOLLOWED the most recent earlier occurrence of the context's trailing
+    n-gram (longest ``n`` first), else repeat the last token. Low
+    acceptance costs chunk width, never tokens: the verify rule is exact
+    under any deterministic proposer."""
+
+    def __init__(self, n_max: int = 3):
+        if n_max < 1:
+            raise ValueError(f"n_max must be >= 1, got {n_max}")
+        self.n_max = int(n_max)
+
+    def propose(self, context, k: int) -> np.ndarray:
+        ctx = np.asarray(context, np.int32).reshape(-1)
+        T = ctx.shape[0]
+        out = np.full(k, int(ctx[-1]) if T else 0, np.int32)
+        for n in range(min(self.n_max, T - 1), 0, -1):
+            pat = ctx[T - n:]
+            wins = np.lib.stride_tricks.sliding_window_view(ctx[:-1], n)
+            hits = np.nonzero((wins == pat[None, :]).all(axis=1))[0]
+            if hits.size:
+                s = int(hits[-1])
+                cont = ctx[s + n: s + n + k]
+                out[:cont.size] = cont
+                out[cont.size:] = int(cont[-1])
+                return out
+        return out
+
+
+class ModelDrafter:
+    """Draft-transformer proposer: greedy rollouts from a small model on its
+    OWN dense slot cache (engine-managed), prefilled at admission and
+    advanced in lockstep with the target's committed stream. Local engines
+    only, dense or paged. Every row drafts with the base weights: a
+    :class:`~elephas_tpu_torch.models.transformer.MultiTenantLM` draft model
+    (per-adapter drafting) is a later slice. ``steps`` and ``prefills``
+    count the batched draft decode steps (``W + 1`` for a round of ``W``
+    drafts) and the slot inserts the engine ran on it, each one launch of
+    every kernel on the draft model's path."""
+
+    def __init__(self, model, params):
+        if hasattr(model, "n_adapters"):    # a multi-tenant (LoRA) model
+            raise NotImplementedError(
+                "per-adapter drafting with a MultiTenantLM draft model is not "
+                "ported yet (ROADMAP.md queue 1 item 5, 'LoRA, multi-tenant "
+                "serving')")
+        if getattr(model, "_ring_cache", False):
+            raise NotImplementedError(
+                "draft model must use a linear (horizon) cache — windowed "
+                "models roll their buffers in prefill_slot")
+        self.model = model
+        self.params = params
+        self.steps = 0
+        self.prefills = 0
 
 
 @dataclass
@@ -117,10 +229,10 @@ class ServingEngine:
                  itl_estimate_s: Optional[float] = None,
                  device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
-        if mesh is not None or speculate_k > 1 or drafter is not None:
+        if mesh is not None:
             raise NotImplementedError(
-                "mesh serving and speculative decoding are not ported yet "
-                "(ROADMAP.md queue 1, 'Speculation and sharding')")
+                "mesh serving is not ported yet (ROADMAP.md queue 1 item 6, "
+                "second half, 'Speculation and sharding')")
         if fault_plan is not None:
             raise NotImplementedError(
                 "fault injection is not ported yet (ROADMAP.md queue 1, "
@@ -131,6 +243,11 @@ class ServingEngine:
             raise ValueError(f"fuse_k must be >= 1, got {fuse_k}")
         if speculate_k < 1:
             raise ValueError(f"speculate_k must be >= 1, got {speculate_k}")
+        if speculate_k > 1 and getattr(model, "n_experts", 0):
+            raise ValueError(
+                "speculate_k > 1 needs a dense-FFN target: the verify chunk "
+                "re-groups MoE expert dispatch, which breaks the bitwise pin "
+                "against sequential decode")
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(
                 f"prefill_chunk must be >= 1, got {prefill_chunk}")
@@ -159,7 +276,8 @@ class ServingEngine:
                               else bucket_length(int(prefill_chunk)))
         self.fuse_k = int(fuse_k)
         self.scheduler = Scheduler(max_queue=max_queue)
-        self.metrics = ServingMetrics(n_slots=n_slots, window=metrics_window)
+        self.metrics = ServingMetrics(n_slots=n_slots, window=metrics_window,
+                                      spec_k=int(speculate_k))
         self._paged = bool(paged)
         if self._paged:
             # the pool and block tables live in PagedKVCache, which speaks
@@ -169,9 +287,11 @@ class ServingEngine:
                 pages_per_partition=pages_per_partition,
                 prefix_cache=prefix_cache)
             self._decode_block = self.kv.fused_fn
+            self._verify_fn = self.kv.verify_fn
         else:
             self.kv = SlotKVCache(model, params, n_slots, max_len=max_len)
             self._decode_block = partial(decode_block, model.decode_step)
+            self._verify_fn = partial(_verify, model)
         # per-slot step state, DEVICE-resident: the decode step advances it;
         # the host writes single rows at admission/release
         S, dev = self.kv.n_slots, self.device
@@ -180,7 +300,21 @@ class ServingEngine:
         self._temps = torch.zeros(S, dtype=torch.float32, device=dev)  # <=0 greedy
         self._seeds = torch.zeros(S, dtype=torch.int64, device=dev)
         self._live = torch.zeros(S, dtype=torch.bool, device=dev)
+        # speculative decoding (speculate_k >= 2): the drafter and, for a
+        # model drafter, its own dense slot cache, advanced in lockstep with
+        # the target's committed stream
+        self.speculate_k = int(speculate_k)
+        self.drafter = None
+        self._draft_cache = None
+        if self.speculate_k > 1:
+            self.drafter = NgramDrafter() if drafter is None else drafter
+            if isinstance(self.drafter, ModelDrafter):
+                self._draft_cache = self.drafter.model.init_cache(
+                    S, self.kv.max_len)
         self.weights_version = 0
+        # a ModelDrafter whose params were not swapped with the target's
+        # stands down until fresh drafter params arrive
+        self._drafter_stale = False
         self._partial: Optional[ServingRequest] = None  # open chunk train
         self._last_action: Optional[str] = None
         self._slot_req: Dict[int, ServingRequest] = {}
@@ -274,7 +408,9 @@ class ServingEngine:
             self.kv.free_slots, len(self._slot_req),
             has_partial=self._partial is not None,
             last_action=self._last_action,
-            free_pages=free_pages, need_pages=need_pages)
+            free_pages=free_pages, need_pages=need_pages,
+            reserve_pages=(self._spec_reserve_pages()
+                           if free_pages is not None else 0))
         if action == "prefill":
             req = self.scheduler.pop()
             if req is not None:
@@ -302,8 +438,27 @@ class ServingEngine:
             return None, None
         return self.kv.admission_check(self._req_prompt(head))
 
+    def _spec_reserve_pages(self) -> int:
+        """Pages the live slots' speculative lookahead may still claim: a
+        verify round writes ``pos..pos+speculate_k-1`` per active slot, so
+        admission leaves those pages claimable (the pre-launch
+        evict/preempt recovery cannot help once the verify has run). Counts
+        not-yet-owned pages over the active slots from the host's write
+        heads and page maps: no device read."""
+        if self.speculate_k < 2 or not self._slot_req:
+            return 0
+        page, need = self.kv.page, 0
+        for slot in self._slot_req:
+            p = int(self.kv.pos[slot])
+            lo = p // page
+            hi = min((p + self.speculate_k - 1) // page, self.kv.M - 1)
+            owned = self.kv.owned[slot]
+            need += sum(1 for m in range(lo, hi + 1) if m not in owned)
+        return need
+
     # -- weight rollover ---------------------------------------------------
-    def swap_params(self, params, version: Optional[int] = None) -> int:
+    def swap_params(self, params, version: Optional[int] = None,
+                    drafter_params=None) -> int:
         """Hot-swap the serving weights WITHOUT draining slots (call between
         ``step()`` calls); returns the new :attr:`weights_version`. Every
         decode round runs under one params dict, so each emitted token is
@@ -311,10 +466,30 @@ class ServingEngine:
         slots, carries and K/V. ``version`` stamps the new weights (default:
         previous + 1); a rollback republishes an older stamp. On the paged
         engine the prefix cache is flushed (its pages hold K/V computed
-        under the old weights); live slots keep their own page references."""
+        under the old weights); live slots keep their own page references.
+
+        With a :class:`ModelDrafter`, ``drafter_params`` swaps the drafter
+        atomically with the target; without it the drafter STANDS DOWN (the
+        engine decodes sequentially, the same tokens) until a later swap
+        brings fresh drafter params. A host drafter has no weights and
+        keeps speculating. ``drafter_params`` without a ``ModelDrafter``
+        raises ``ValueError``."""
+        if drafter_params is not None and not isinstance(self.drafter,
+                                                         ModelDrafter):
+            raise ValueError(
+                "drafter_params passed but the engine has no ModelDrafter "
+                "to swap them into")
         self._check_params(params)
         self.params = params
         self.kv.set_params(params)
+        if isinstance(self.drafter, ModelDrafter):
+            if drafter_params is not None:
+                # the draft cache's old K/V only dents acceptance (the
+                # verify is exact); the next rollout rewrites its frontier
+                self.drafter.params = drafter_params
+                self._drafter_stale = False
+            else:
+                self._drafter_stale = True
         self.weights_version = (self.weights_version + 1 if version is None
                                 else int(version))
         self.metrics.observe_swap(self.weights_version)
@@ -502,9 +677,26 @@ class ServingEngine:
             # chunked prefill that spanned a swap holds mixed-version K/V
             # and is left out
             self.kv.register_prefix(req.slot, prompt)
+        if isinstance(self.drafter, ModelDrafter):
+            self._draft_prefill(req)
         self._slot_req[req.slot] = req
         self._set_row(req.slot, tok, T0, req.temperature, req.seed, True)
         self._emit(req, tok)
+
+    def _draft_prefill(self, req: ServingRequest) -> None:
+        """(Re)prefill the draft model's slot row with the request's whole
+        prompt (prompt ++ generated after a preemption), so the draft cache
+        agrees with the target's committed stream before its first
+        rollout: one bucket-padded insert, never chunked."""
+        prompt = self._req_prompt(req)
+        dm = self.drafter
+        T0 = int(prompt.shape[0])
+        Tb = min(bucket_length(T0), int(self._draft_cache["k"].shape[3]))
+        padded = np.zeros((1, Tb), np.int64)
+        padded[0, :T0] = prompt
+        dm.model.prefill_slot(dm.params, torch.from_numpy(padded).to(self.device),
+                              req.slot, self._draft_cache)
+        dm.prefills += 1
 
     # -- page pressure (paged engine only) --------------------------------
     def _insert_guarded(self, req: ServingRequest, chunk, pos0: int):
@@ -585,7 +777,89 @@ class ServingEngine:
         return max(1, min(K, min(r.max_new - len(r.generated)
                                  for r in active)))
 
+    def _spec_window(self) -> int:
+        """How many tokens the next decode action may DRAFT (0 = stand down
+        to sequential steps): 0 on the conditions that stop fusion (an
+        open chunk train, any live deadline, queued work behind an
+        EOS-able active request) and while a model drafter is stale; else
+        the smallest remaining budget minus one (a verify emits up to
+        ``drafts + 1``), capped at ``speculate_k - 1``. The clamp also keeps
+        every chunk write inside the cache (``pos + W <= capacity - 1``),
+        which ``decode_chunk``'s in-place row update requires."""
+        K = self.speculate_k
+        if (K < 2 or self._drafter_stale or self._partial is not None
+                or not self._slot_req):
+            return 0
+        if any(r.deadline_at is not None for r in self._requests.values()):
+            return 0
+        active = self._slot_req.values()
+        if self.scheduler.queue_depth and any(
+                r.eos_id is not None for r in active):
+            return 0
+        return min(K - 1, min(r.max_new - len(r.generated)
+                              for r in active) - 1)
+
+    def _draft_tokens(self, W: int) -> torch.Tensor:
+        """``[S, W]`` int64 proposals for this round's verify chunk (free
+        rows get zeros, their chunk rows are dead). A model drafter rolls
+        out on the device from the target's carry and positions; a host
+        drafter (``propose(context, k)``) sees each request's prompt ++
+        generated stream, whose last token is the carry."""
+        if isinstance(self.drafter, ModelDrafter):
+            d = self.drafter
+            d.steps += W + 1
+            return _draft_propose(d.model, d.params, self._draft_cache,
+                                  self._tok, self._pos, self._live, W)
+        out = np.zeros((self.kv.n_slots, W), np.int64)
+        for slot, req in self._slot_req.items():
+            ctx = np.concatenate([np.asarray(req.prompt, np.int32),
+                                  np.asarray(req.generated, np.int32)])
+            out[slot] = self.drafter.propose(ctx, W)
+        return torch.from_numpy(out).to(self.device)
+
+    def _do_decode_spec(self, W: int) -> None:
+        """One speculative round: draft ``W`` tokens per live slot, score
+        the carry and drafts in ONE verify, and commit each row's accepted
+        run and correction. The host reads ``sel`` and ``n_acc`` in one
+        copy. Metrics count device-committed tokens (``n_accepted +
+        n_active``); like the fused path, the host stops delivering a row's
+        run at its EOS or budget, and the leftover device writes are
+        stale-dead."""
+        if self._paged:
+            # every position the chunk writes (pos..pos+W) gets its page
+            # BEFORE the launch, so the commit cannot fail (may evict or
+            # preempt under pressure)
+            self._ensure_decode_guarded(W + 1)
+            if not self._slot_req:
+                return
+        n_active = len(self._slot_req)
+        sampled = any(r.temperature > 0 for r in self._slot_req.values())
+        t0 = self._perf()
+        drafts = self._draft_tokens(W)
+        sel, n_acc, self._tok, self._pos = self._verify_fn(
+            self.params, self.kv.cache, drafts, self._tok, self._pos,
+            self._temps, self._seeds, self._live, sampled)
+        got = torch.cat([sel, n_acc[:, None]], dim=1).cpu().numpy()
+        t1 = self._perf()
+        act = list(self._slot_req.items())
+        accepted = sum(int(got[slot, -1]) for slot, _ in act)
+        for slot, req in act:
+            for j in range(int(got[slot, -1]) + 1):
+                if req.request_id not in self._requests:
+                    break
+                # the verify chunk wrote this token's K/V at its position
+                self.kv.advance(slot)
+                self._emit(req, int(got[slot, j]))
+        self.metrics.observe_spec_round(
+            n_active, n_drafted=n_active * W, n_accepted=accepted,
+            n_emitted=accepted + n_active, block_s=t1 - t0,
+            host_s=self._perf() - t1)
+
     def _do_decode(self) -> None:
+        W = self._spec_window()
+        if W > 0:
+            self._do_decode_spec(W)
+            return
         K = self._fuse_window()
         if self._paged:
             # decode writes land in allocated pages only: grow each active

@@ -27,8 +27,8 @@ them. This module replaces that with a paged layout:
 Host bookkeeping (refcounts, tables, radix tree) is pure Python, copied
 from the reference. The device block table is resident: dirty slot rows
 are patched with one small upload, never a whole-table upload. Meshes
-(several partitions), multi-tenant adapters and speculative verify are
-later slices of the port.
+(several partitions) and multi-tenant adapters are later slices of the
+port.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from ..ops.flash_decode import aligned_cache_length
-from .cache import bucket_length, decode_block
+from .cache import bucket_length, decode_block, spec_commit
 
 
 class PagesExhausted(RuntimeError):
@@ -521,12 +521,24 @@ class PagedKVCache:
         return decode_block(self._step(self._device_table()), params, cache,
                             tokens, pos, temps, seeds, live, n_steps, sampled)
 
-    def verify_fn(self, *args, **kwargs):
-        """Speculative verify over the pool (the reference's
-        ``_paged_verify_kernel``): not ported yet."""
-        raise NotImplementedError(
-            "speculative verify on the paged engine is not ported yet "
-            "(ROADMAP.md queue 1, 'Speculation and sharding')")
+    def verify_fn(self, params, cache, drafts, tokens, pos, temps, seeds,
+                  live, sampled: bool):
+        """Engine-signature speculative verify straight over the pool (the
+        reference's ``_paged_verify_kernel``): score the carry and ``W``
+        drafts per slot as ONE ``decode_chunk_paged`` through the device
+        table (the paged chunk kernel on the card), then accept as the dense
+        engine does → ``(sel [S, W+1], n_accepted [S], tokens, pos)``. The
+        whole chunk's K/V, rejected tail included, lands in the slot's own
+        pages, which the engine allocates for ``pos..pos+W`` before the
+        launch. That is safe: pages a decode writes are never published to
+        the prefix cache, and the next round rewrites every position past
+        the accepted run before anything attends it. Free rows write into
+        the trash page."""
+        chunk = torch.cat([tokens[:, None], drafts], dim=1)
+        logits, _ = self.model.decode_chunk_paged(
+            params, chunk, pos, cache, self._device_table(), self.page)
+        return spec_commit(logits, drafts, tokens, pos, temps, seeds, live,
+                           sampled)
 
     # -- observability / integrity ---------------------------------------
     def memory_stats(self) -> Dict[str, Any]:

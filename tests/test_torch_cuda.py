@@ -717,6 +717,89 @@ def test_paged_engine_on_card_matches_dense_and_cpu(cuda, kw):
     assert out[("cuda", True)] == out[("cuda", False)] == out[("cpu", True)]
 
 
+@pytest.mark.parametrize("C", [2, 3, 4, 5])
+def test_paged_chunk_at_the_verify_shape_matches_plain(cuda, C):
+    """K5-chunk at the paged speculative verify's shape: GPT-2's 8 slots
+    (Hkv 12, G 1, Dh 64, pages of 16), C = speculate_k rows at unaligned
+    per-slot positions of the serve mix, several crossing a page edge:
+    atol = rtol = 2e-5 against the plain version, the same bits twice."""
+    rng = np.random.default_rng(40 + C)
+    pos0 = np.array([33, 62, 100, 143, 207, 254, 287, 318], np.int32)
+    assert any(p // 16 != (p + C - 1) // 16 for p in pos0)
+    q, kp, vp, table = _paged(rng, 8, 12, 1, 64, 16, 64, pos0 + C - 1, C)
+    p0 = torch.from_numpy(pos0).cuda()
+    got = paged_flash_chunk(q, kp, vp, table, p0, 16)
+    torch.testing.assert_close(got, paged_chunk_reference(q, kp, vp, table, p0, 16),
+                               atol=2e-5, rtol=2e-5)
+    assert torch.equal(paged_flash_chunk(q, kp, vp, table, p0, 16), got)
+
+
+def _near_tie_agree(model, params, prompts, got, want):
+    """``got`` equals ``want`` up to each request's first position whose
+    top-2 logit gap is 1e-3 or less (there either token is right); returns
+    how many positions were compared."""
+    compared = 0
+    for prompt, a, b in zip(prompts, got, want):
+        seq = np.concatenate([prompt, np.asarray(b[:-1], np.int32)]).astype(np.int64)
+        with torch.no_grad():
+            logits, _ = model.decode_chunk(params, torch.from_numpy(seq)[None].cuda(), 0,
+                                           model.init_cache(1, len(seq)))
+        top = torch.topk(logits[0, len(prompt) - 1:], 2, dim=-1).values.cpu()
+        for n, gap in enumerate((top[:, 0] - top[:, 1]).tolist()):
+            if gap <= 1e-3:
+                break
+            assert a[n] == b[n], n
+            compared += 1
+    return compared
+
+
+@pytest.mark.parametrize("drafter", ["ngram", "model"])
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_speculative_engine_on_card(cuda, paged, drafter):
+    """``speculate_k=4`` on the card: exact launch counts (K3-fwd 2L+1 per
+    verify round, sequential step and insert, 2L_d+1 per draft step and
+    draft insert; K4 L per sequential step on the dense engine and L_d per
+    draft step; K5-chunk L per insert and verify round and K5-decode L per
+    sequential step on the paged engine, which launches no K4 of its own),
+    and the tokens of the ``speculate_k=1`` engine up to near ties."""
+    from elephas_tpu_torch.serving import ModelDrafter
+
+    cfg = dict(vocab=97, d_model=64, n_heads=4, n_layers=2, d_ff=128, max_len=96,
+               activation="gelu", attn_bias=True, tie_embeddings=True)
+    model = TransformerLM(**cfg, device="cuda")
+    params = model.init(5)
+    rng = np.random.default_rng(13)
+    prompts = [np.tile(rng.integers(0, 97, size=n).astype(np.int32), 3) for n in (3, 9, 5, 7)]
+    kw = dict(n_slots=4, device="cuda", **(dict(paged=True, page_size=8) if paged else {}))
+    base = ServingEngine(model, params, **kw)
+    ids = [base.submit(p, 24) for p in prompts]
+    fin = base.drain()
+    want = [fin[i].tokens for i in ids]
+    dr = ModelDrafter(model, params) if drafter == "model" else None
+    eng = ServingEngine(model, params, speculate_k=4, drafter=dr, **kw)
+    counters = (fused_layer_norm, flash_decode_lse, paged_flash_decode_lse, paged_flash_chunk)
+    for c in counters:
+        c.launches = 0
+    ids = [eng.submit(p, 24) for p in prompts]
+    fin = eng.drain()
+    k3, k4, k5d, k5c = (c.launches for c in counters)
+    snap = eng.snapshot()
+    rounds = snap["fastpath"]["spec_rounds"]
+    steps = snap["engine"]["decode_steps"] - rounds
+    inserts = snap["engine"]["prefills"]
+    L = cfg["n_layers"]
+    d_steps, d_prefills = (dr.steps, dr.prefills) if dr else (0, 0)
+    assert rounds > 0 and (d_prefills == inserts if dr else True)
+    assert k3 == (2 * L + 1) * (rounds + steps + inserts) + (2 * L + 1) * (d_steps + d_prefills)
+    if paged:
+        eng.kv.check()
+        assert (k4, k5d, k5c) == (L * d_steps, L * steps, L * (inserts + rounds))
+    else:
+        assert (k4, k5d, k5c) == (L * steps + L * d_steps, 0, 0)
+    got = [fin[i].tokens for i in ids]
+    assert _near_tie_agree(model, params, prompts, got, want) > 0
+
+
 def _rel(got, want):
     return float((got.double() - want.double()).abs().max()
                  / want.double().abs().max().clamp_min(1e-30))

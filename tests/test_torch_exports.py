@@ -23,7 +23,6 @@ PACKAGES = ["", ".data", ".ml", ".mllib", ".models", ".ops", ".parallel",
 
 ITEM_4 = "ROADMAP queue 1 item 4 (LM remainder)"
 ITEM_5 = "ROADMAP queue 1 item 5 (LoRA, multi-tenant serving)"
-ITEM_6_SPEC = "ROADMAP queue 1 item 6, first half (speculative decoding)"
 ITEM_6_SHARD = "ROADMAP queue 1 item 6, second half (sharding on torch.distributed)"
 ITEM_10 = "ROADMAP queue 1 item 10 (resilience, streaming and fleet)"
 ITEM_12 = "ROADMAP queue 1 item 12 (quantization, Hugging Face import)"
@@ -60,14 +59,11 @@ ABSENT = {
                          "global_mesh", "hybrid_mesh", "JaxPodBackend"], ITEM_6_SHARD),
         **dict.fromkeys(["ElasticConfig", "ElasticHostPool", "EmulationBackend"], ITEM_10),
     },
-    ".serving": dict.fromkeys(["ModelDrafter", "NgramDrafter"], ITEM_6_SPEC),
 }
 
 # (class, public method of the reference's class) absent from the port's → why
 ABSENT_METHODS = {
     ".models": {
-        **{(cls, "generate_speculative"): ITEM_6_SPEC
-           for cls in ("TransformerLM", "MoETransformerLM")},
         **{(cls, m): ITEM_6_SHARD for cls in ("TransformerLM", "MoETransformerLM")
            for m in ("shard_params", "specs")},
     },
@@ -109,7 +105,7 @@ def test_package_exports_match_reference(pkg):
 def test_every_absence_names_a_queued_item_or_a_departure():
     reasons = {r for table in (ABSENT, ABSENT_METHODS) for d in table.values()
                for r in d.values()}
-    assert reasons == {ITEM_4, ITEM_5, ITEM_6_SPEC, ITEM_6_SHARD, ITEM_10, ITEM_12,
+    assert reasons == {ITEM_4, ITEM_5, ITEM_6_SHARD, ITEM_10, ITEM_12,
                        DEPARTURE_OPTAX}
 
 

@@ -38,9 +38,12 @@ from elephas_tpu_torch.utils import save_checkpoint
 from elephas_tpu_torch.parallel import EXPERT_AXIS
 from elephas_tpu_torch.data import DataFrame, Row, SparkSession
 from elephas_tpu_torch.ml import Pipeline
+from elephas_tpu_torch.serving import ModelDrafter, NgramDrafter
+from elephas_tpu_torch.models.transformer import spec_round_accept, spec_verify_select
 for obj in (load_spark_model, ElephasEstimator, ElephasTransformer, load_ml_estimator,
             load_ml_transformer, HyperParamModel, save_checkpoint, DataFrame, Row,
-            SparkSession, Pipeline):
+            SparkSession, Pipeline, ModelDrafter, NgramDrafter, spec_round_accept,
+            spec_verify_select):
     assert obj.__module__.split(".")[0] == "elephas_tpu_torch", obj
 assert EXPERT_AXIS == "expert"
 bad = sorted(m for m in sys.modules

@@ -403,11 +403,7 @@ def test_swap_params_attributes_tokens_to_versions():
 def test_later_slices_raise_not_implemented():
     model = _model()
     params = _params(model)
-    for kw in (dict(mesh=object()), dict(speculate_k=2),
-               dict(fault_plan=object()), dict(paged=True, mesh=object())):
+    for kw in (dict(mesh=object()), dict(fault_plan=object()),
+               dict(paged=True, mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _engine(model, params, **kw)
-    # paged serving is ported; its speculative verify is not
-    eng = _engine(model, params, paged=True, page_size=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.kv.verify_fn()

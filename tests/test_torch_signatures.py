@@ -359,3 +359,58 @@ def test_skin_names_match_reference(mod, name):
             assert _params_sans_device(got) == _params(want), (name, m)
         else:
             assert _params(got) == _params(want), (name, m)
+
+
+# -- speculative decoding -------------------------------------------------------
+
+# port → reference, the same parameters
+SPEC_SAME = [
+    ("TransformerLM.init_cache", "models.transformer", "TransformerLM.init_cache"),
+    ("TransformerLM.generate_speculative", "models.transformer",
+     "TransformerLM.generate_speculative"),
+    ("MoETransformerLM.generate_speculative", "models.transformer",
+     "MoETransformerLM.generate_speculative"),
+    ("spec_round_accept", "models.transformer", "spec_round_accept"),
+    ("ServingEngine.swap_params", "serving.engine", "ServingEngine.swap_params"),
+    ("NgramDrafter.__init__", "serving.engine", "NgramDrafter.__init__"),
+    ("NgramDrafter.propose", "serving.engine", "NgramDrafter.propose"),
+    ("ModelDrafter.__init__", "serving.engine", "ModelDrafter.__init__"),
+]
+
+
+def _resolve(mod, dotted):
+    obj = importlib.import_module(mod)
+    for part in dotted.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def _port_home(name):
+    if name.startswith(("TransformerLM", "MoETransformerLM", "spec_")):
+        return "elephas_tpu_torch.models.transformer"
+    return "elephas_tpu_torch.serving.engine"
+
+
+@pytest.mark.parametrize("port,mod,ref", SPEC_SAME, ids=lambda x: x)
+def test_speculative_signature_matches_reference(port, mod, ref):
+    assert _params(_resolve(_port_home(port), port)) == \
+        _params(_resolve(f"elephas_tpu.{mod}", ref))
+
+
+@pytest.mark.parametrize("port,ref", [
+    ("elephas_tpu_torch.models.transformer:spec_verify_select",
+     "elephas_tpu.models.transformer:spec_verify_select"),
+    ("elephas_tpu_torch.serving.memory:PagedKVCache.verify_fn",
+     "elephas_tpu.serving.memory:PagedKVCache.verify_fn"),
+], ids=["spec_verify_select", "verify_fn"])
+def test_speculative_departures_are_the_logged_ones(port, ref):
+    """``spec_verify_select`` and ``PagedKVCache.verify_fn`` take the
+    engine's per-slot seeds where the reference takes PRNG keys, and a
+    trailing ``sampled`` (whether any row samples, known on the host), as
+    ``select_slot_tokens`` does; nothing else differs (ROADMAP §3)."""
+    got = _params(_resolve(*port.split(":")))
+    want = [("seeds", d) if n == "keys" else (n, d)
+            for n, d in _params(_resolve(*ref.split(":")))]
+    sampled = dict(got)["sampled"]
+    assert sampled in (None, inspect.Parameter.empty)
+    assert got == want + [("sampled", sampled)]
