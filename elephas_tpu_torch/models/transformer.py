@@ -32,9 +32,13 @@ included. Architecture knobs ported: relu / gelu (tanh) / swiglu, layernorm
 embeddings, grouped-query attention, float32 or bfloat16 compute, and the
 mixture-of-experts variant :class:`MoETransformerLM` (routed expert FFNs
 on the grouped-matmul kernels, its load-balancing loss in the training
-objective). Sliding windows with rolling caches, LoRA, sequence and expert
-parallelism (``mesh``, ``attn="ring"``/``"ulysses"``) and ``overlap_grads``
-are later slices and raise ``NotImplementedError``.
+objective), and sliding-window attention (the Mistral convention, one
+window for every layer or one per layer): the kernels mask by the window,
+and a model whose every layer is windowed decodes over a rolling cache of
+O(window) slots, position ``p`` in slot ``p mod T``
+(:func:`write_prompt_cache`, :meth:`~TransformerLM.init_cache`). LoRA,
+sequence and expert parallelism (``mesh``, ``attn="ring"``/``"ulysses"``)
+and ``overlap_grads`` are later slices and raise ``NotImplementedError``.
 
 JAX's arrays are immutable and its serving kernels donate the KV cache so
 XLA updates it in place; here the cache is updated in place explicitly
@@ -65,6 +69,7 @@ from ..ops.paged_attention import paged_chunk_attention, paged_decode_attention
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 SEQ_AXIS = "seq"
+_UNIFORM_WINDOW = object()  # _attend's default: "the model-wide window"
 
 
 def glorot(rng: np.random.Generator, *shape: int, dtype=np.float32) -> np.ndarray:
@@ -384,6 +389,31 @@ def _remat_wrap(fn, remat: str):
 # -- cache helpers ---------------------------------------------------------------
 
 
+def write_prompt_cache(kc, vc, ks, vs, windowed: bool):
+    """Prompt K/V ``ks``/``vs`` ``[..., T0, Dh]`` (the reference's ``[L, B,
+    H, T0, Dh]``, or one layer's ``[B, H, T0, Dh]``) into the cache
+    ``kc``/``vc`` ``[..., Tc, Dh]`` at positions ``0..T0-1``: the single
+    home of the ring-write convention. A rolling cache (``windowed``) keeps
+    only the prompt's last ``Tc`` positions, position ``p`` in slot ``p mod
+    Tc``; a shorter prompt takes the contiguous write, where ``p mod Tc ==
+    p``. The write lands in place (the reference returns new buffers that
+    XLA writes in place); ``(kc, vc)`` are returned as the reference
+    returns them. A linear cache shorter than the prompt raises, where the
+    reference's ``dynamic_update_slice`` clamps silently."""
+    T0, Tc = ks.shape[-2], kc.shape[-2]
+    if windowed and T0 > Tc:
+        slots = torch.arange(T0 - Tc, T0, device=kc.device) % Tc
+        dim = kc.dim() - 2
+        kc.index_copy_(dim, slots, ks[..., T0 - Tc:, :].to(kc.dtype))
+        vc.index_copy_(dim, slots, vs[..., T0 - Tc:, :].to(vc.dtype))
+        return kc, vc
+    if T0 > Tc:
+        raise ValueError(f"prompt of {T0} tokens does not fit a cache of {Tc}")
+    kc[..., :T0, :] = ks
+    vc[..., :T0, :] = vs
+    return kc, vc
+
+
 def cache_gather_slot(cache, slot: int):
     """Batch row ``slot`` of a KV cache ``{"k"/"v": [L, B, Hkv, T, Dh]}`` as
     the same dict with ``B == 1``. The rows are VIEWS, so writes into them
@@ -414,11 +444,16 @@ def _cache_update_rows(cache, new, pos, per_row: bool):
     if not per_row and not torch.is_tensor(pos):
         cache[:, :, int(pos):int(pos) + S] = new
         return cache
-    # cache[b, h, pos_b + s, d] = new[b, h, s, d] as one scatter along T
-    rows = torch.as_tensor(pos, device=cache.device).to(torch.int64)
-    idx = rows.reshape(-1, 1, 1, 1)
-    if S > 1:
-        idx = idx + torch.arange(S, device=cache.device).reshape(1, 1, S, 1)
+    rows = torch.as_tensor(pos, device=cache.device).to(torch.int64).reshape(-1, 1)
+    return _scatter_rows(cache, new, rows + torch.arange(S, device=cache.device))
+
+
+def _scatter_rows(cache, new, slots):
+    """Write ``new`` ``[B, Hkv, S, Dh]`` into ``cache`` ``[B, Hkv, T, Dh]``
+    IN PLACE, row ``b``'s position ``s`` at time slot ``slots[b, s]``
+    (``[B, S]``, or ``[1, S]`` for every row; ``pos mod T`` on a rolling
+    cache), as one scatter along T."""
+    idx = slots.to(torch.int64)[:, None, :, None]
     return cache.scatter_(2, idx.expand(new.shape), new)
 
 
@@ -485,10 +520,35 @@ class TransformerLM(nn.Module):
             raise ValueError(f"Unknown norm: {norm}")
         if compute_dtype not in _DTYPES:
             raise ValueError(f"Unknown compute_dtype: {compute_dtype}")
-        if attn_window is not None:
-            raise NotImplementedError(
-                "sliding-window attention and rolling caches are not ported "
-                "yet (ROADMAP.md queue 1, 'LM remainder')")
+        # sliding-window attention (the Mistral convention: query t sees
+        # keys (t - window, t]); one window for every layer, or a
+        # length-n_layers sequence of int/None (Gemma-2's alternation,
+        # Qwen2's layer_types)
+        if attn_window is None or isinstance(attn_window, (int, np.integer)):
+            if attn_window is not None and int(attn_window) < 1:
+                raise ValueError(
+                    f"attn_window must be >= 1, got {attn_window}")
+            uniform = None if attn_window is None else int(attn_window)
+            self.attn_windows = (uniform,) * n_layers
+        else:
+            ws = tuple(None if w is None else int(w) for w in attn_window)
+            if len(ws) != n_layers:
+                raise ValueError(
+                    f"per-layer attn_window needs {n_layers} entries, "
+                    f"got {len(ws)}")
+            if any(w is not None and w < 1 for w in ws):
+                raise ValueError(f"attn_window entries must be >= 1: {ws}")
+            self.attn_windows = ws
+        self.mixed_window = len(set(self.attn_windows)) > 1
+        # the uniform view, None for a mixed model: a caller that cannot
+        # take per-layer windows guards on mixed_window
+        self.attn_window = None if self.mixed_window else self.attn_windows[0]
+        # the decode cache rolls only when EVERY layer is windowed (one
+        # full-attention layer needs the horizon anyway); a mixed
+        # all-windowed model shares one ring sized to its largest window
+        self._ring_cache = all(w is not None for w in self.attn_windows)
+        self._max_window = max((w for w in self.attn_windows
+                                if w is not None), default=None)
         self.device = resolve_device(device)
         self.vocab = vocab
         self.d_model = d_model
@@ -649,19 +709,41 @@ class TransformerLM(nn.Module):
     def _layer(self, params, l: int):
         return {k: params[k][l] for k in self._block_keys()}
 
+    def _window_period(self) -> int:
+        """Minimal period ``p`` (dividing L) over which the per-layer window
+        pattern tiles: 1 for a uniform model, 2 for an alternation, L for an
+        aperiodic pattern. The reference scans its layers in groups of
+        ``p``; the port loops over the layers, each with its own window,
+        and keeps this for the same answer."""
+        ws, L = self.attn_windows, self.n_layers
+        for p in range(1, L + 1):
+            if L % p == 0 and ws == ws[:p] * (L // p):
+                return p
+        return L
+
     # -- autoregressive inference (KV cache) ---------------------------------
     def init_cache(self, batch: int, length: Optional[int] = None,
                    chunk: int = 1) -> Dict[str, torch.Tensor]:
         """Zeroed KV cache ``{"k"/"v": [L, B, Hkv, T, Dh]}`` on the model's
         device, ``T`` = ``length`` (default ``max_len``) rounded up as the
         reference rounds it, so both packages allocate the same shapes.
-        ``chunk`` is the largest block :meth:`decode_chunk` will write per
-        call (``spec_k + 1`` for speculative decoding); in the reference it
-        sizes only the rolling caches of windowed models, which are not
-        ported, so a linear cache keeps its shape."""
+
+        A model whose every layer is windowed gets a ROLLING buffer: ``T``
+        is ``min(length, largest window) + chunk`` (rounded up), so memory
+        stays O(window) however long the rollout; position ``p`` writes
+        slot ``p mod T`` and the decode paths mask by slot age. ``chunk``
+        is the largest block :meth:`decode_chunk` will write per call
+        (``spec_k + 1`` for speculative decoding): the extra slots keep a
+        chunk's writes from clobbering positions its own earlier queries
+        still attend, and make the buffer strictly larger than the window,
+        which tells a clamped ring from a horizon-bounded one. A linear
+        cache keeps its shape whatever ``chunk``."""
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
-        T = aligned_cache_length(self.max_len if length is None else length)
+        T_req = self.max_len if length is None else length
+        if self._ring_cache:
+            T_req = min(T_req, self._max_window) + int(chunk)
+        T = aligned_cache_length(T_req)
         shape = (self.n_layers, batch, self.n_kv_heads, T,
                  self.d_model // self.n_heads)
         return {"k": torch.zeros(shape, dtype=self.compute_dtype, device=self.device),
@@ -670,15 +752,20 @@ class TransformerLM(nn.Module):
     def decode_step(self, params, token, pos, cache):
         """One cached decode step: ``token`` ``[B]`` at absolute position
         ``pos`` (int, or per-row ``[B]`` tensor) → ``(logits [B, V],
-        cache)``. Writes each layer's K/V at ``pos`` in place, then attends
-        over cache positions ``0..pos`` with the flash-decode kernel (its
-        plain version on the CPU)."""
+        cache)``. Writes each layer's K/V at ``pos`` (``pos mod T`` in a
+        rolling cache) in place, then attends over cache positions
+        ``0..pos``, cut to the layer's window, with the flash-decode kernel
+        (its plain version on the CPU)."""
         B = token.shape[0]
         H, Hkv = self.n_heads, self.n_kv_heads
         Dh = self.d_model // H
         cd = self.compute_dtype
+        ring = self._ring_cache
         pos_b, per_row = _positions(pos, B, token.device)
         pos32 = pos_b.to(torch.int32)   # the kernel's index type, cast once
+        widx = pos
+        if ring:
+            widx, per_row = torch.remainder(pos_b, cache["k"].shape[3]), True
         h = self._embed(params, token, pos_b)  # [B, D]
         if self.pos_encoding == "rotary":
             r_cos, r_sin = _rope_angles(pos_b, Dh, self.rope_theta)
@@ -694,12 +781,13 @@ class TransformerLM(nn.Module):
                 # the cache stores PRE-ROTATED keys (decode_chunk does too)
                 q = _rope_rotate(q, r_cos, r_sin)
                 k_new = _rope_rotate(k_new, r_cos[:, None], r_sin[:, None])
-            _cache_update_rows(kc, k_new, pos, per_row)
-            _cache_update_rows(vc, v_new, pos, per_row)
+            _cache_update_rows(kc, k_new, widx, per_row)
+            _cache_update_rows(vc, v_new, widx, per_row)
             # grouped attention straight against the Hkv-head cache: query
             # head h = kv_head * G + g
             qg = q.reshape(B, Hkv, H // Hkv, Dh)
-            a = decode_attention(qg, kc, vc, pos32).to(cd)
+            a = decode_attention(qg, kc, vc, pos32, window=self.attn_windows[l],
+                                 ring=ring).to(cd)
             h = h + self._attn_proj(lp, "o", a.reshape(B, self.d_model))
             x = self._norm_h(lp, "ln2", h).to(cd)
             out, _ = self._ffn(lp, x[:, None, :], "dense", ep_groups=1)
@@ -712,17 +800,34 @@ class TransformerLM(nn.Module):
         positions ``pos0..pos0+S-1`` (``pos0`` an int or per-row ``[B]``
         tensor) → ``(logits [B, S, V], cache)``. Writes the chunk's K/V in
         place first, then attends each query against cache positions
-        ``0..its own position`` — so a chunk starting at the first stale
-        position also repairs it. The attention is a plain masked softmax
-        over the whole cache, as in the reference."""
+        ``0..its own position``, cut to the layer's window — so a chunk
+        starting at the first stale position also repairs it. The
+        attention is a plain masked softmax over the whole cache, as in the
+        reference.
+
+        A rolling cache writes each row's positions at ``pos mod T`` and
+        masks by slot age, ``(pos - slot) mod T < min(window, pos + 1)``; it
+        must have been allocated with ``init_cache(..., chunk >= S)``: the
+        margin keeps a chunk's later writes out of the slots its earlier
+        queries attend. A window-clamped ring without it raises."""
         B, S = tokens.shape
         H, Hkv = self.n_heads, self.n_kv_heads
         Dh = self.d_model // H
         G = H // Hkv
         cd = self.compute_dtype
         dev = tokens.device
-        base, per_row = _positions(pos0, B, dev)
+        T = cache["k"].shape[3]
+        ring = self._ring_cache
+        if ring and S > 1:
+            for w in set(self.attn_windows):
+                if w < T < w + S - 1:
+                    raise ValueError(
+                        f"ring cache ({T} slots, window {w}) cannot take "
+                        f"{S}-token chunks; allocate with "
+                        f"init_cache(..., chunk={S}) or larger")
+        base, _ = _positions(pos0, B, dev)
         pos_b = base[:, None] + torch.arange(S, device=dev)[None, :]   # [B, S]
+        slots = torch.remainder(pos_b, T) if ring else pos_b
         h = self._embed(params, tokens, pos_b)  # [B, S, D]
         rope = self._rope_for(pos_b)
         for l in range(self.n_layers):
@@ -735,10 +840,11 @@ class TransformerLM(nn.Module):
             if rope is not None:
                 q = _rope_rotate(q, *rope)
                 k_new = _rope_rotate(k_new, *rope)
-            _cache_update_rows(kc, k_new.transpose(1, 2), pos0, per_row)
-            _cache_update_rows(vc, v_new.transpose(1, 2), pos0, per_row)
+            _scatter_rows(kc, k_new.transpose(1, 2), slots)
+            _scatter_rows(vc, v_new.transpose(1, 2), slots)
             qg = q.transpose(1, 2).reshape(B, Hkv, G, S, Dh)
-            a = chunk_attention_reference(qg, kc, vc, pos_b).to(cd)
+            a = chunk_attention_reference(qg, kc, vc, pos_b,
+                                          self.attn_windows[l], ring).to(cd)
             a = a.reshape(B, H, S, Dh).transpose(1, 2)
             h = h + self._attn_proj(lp, "o", a.reshape(B, S, self.d_model))
             x = self._norm_h(lp, "ln2", h).to(cd)
@@ -755,7 +861,14 @@ class TransformerLM(nn.Module):
         0`` continues a chunked prefill. ``tokens`` may be right-padded past
         the real prompt: pad positions write K/V that this request's own
         decode writes overwrite before any query attends them, and their
-        logits must not be sampled from."""
+        logits must not be sampled from. A rolling (all-windowed) cache is
+        refused, as in the reference: its chunk margin is per rollout, not
+        per slot."""
+        if self._ring_cache:
+            raise NotImplementedError(
+                "prefill_slot needs a linear (horizon) cache; all-windowed "
+                "models allocate rolling buffers — serve those with at "
+                "least one full-attention layer, or without slot batching")
         slot_cache = cache_gather_slot(cache, slot)
         logits, slot_cache = self.decode_chunk(params, tokens, pos0, slot_cache)
         return logits, cache_scatter_slot(cache, slot, slot_cache)
@@ -796,7 +909,13 @@ class TransformerLM(nn.Module):
         paged-attention kernel on the card; on the CPU the plain version,
         which keeps the logits bitwise equal to :meth:`decode_step` on the
         equivalent dense cache). Rows whose cell at the write position is
-        unmapped (parked or free slots) write into the trash page."""
+        unmapped (parked or free slots) write into the trash page. Each layer
+        attends within its own window; rolling (all-windowed) caches have no
+        paged layout and raise, as in the reference."""
+        if self._ring_cache:
+            raise ValueError(
+                "decode_step_paged: paged pools are linear-horizon; "
+                "rolling (all-windowed) caches have no paged layout")
         B = token.shape[0]
         H, Hkv = self.n_heads, self.n_kv_heads
         Dh = self.d_model // H
@@ -822,7 +941,8 @@ class TransformerLM(nn.Module):
             self._write_rows(kp, rows, k_new)
             self._write_rows(vp, rows, v_new)
             qg = q.reshape(B, Hkv, H // Hkv, Dh)
-            a = paged_decode_attention(qg, kp, vp, table, pos32, page).to(cd)
+            a = paged_decode_attention(qg, kp, vp, table, pos32, page,
+                                       self.attn_windows[l]).to(cd)
             h = h + self._attn_proj(lp, "o", a.reshape(B, self.d_model))
             x = self._norm_h(lp, "ln2", h).to(cd)
             out, _ = self._ffn(lp, x[:, None, :], "dense", ep_groups=1)
@@ -838,8 +958,14 @@ class TransformerLM(nn.Module):
         per-row ``[B]``) → ``(logits [B, S, V], pool)``. Each layer writes
         the chunk's own K/V rows into their pages in place (shared prefix
         pages are attended, never rewritten) and attends all queries through
-        the table. Positions past the table's capacity or without a mapped
-        page (bucket padding) write into the trash page."""
+        the table, each layer within its own window. Positions past the
+        table's capacity or without a mapped page (bucket padding) write into
+        the trash page. Rolling (all-windowed) caches raise, as in
+        :meth:`decode_step_paged`."""
+        if self._ring_cache:
+            raise ValueError(
+                "decode_chunk_paged: paged pools are linear-horizon; "
+                "rolling (all-windowed) caches have no paged layout")
         B, S = tokens.shape
         H, Hkv = self.n_heads, self.n_kv_heads
         Dh = self.d_model // H
@@ -865,7 +991,8 @@ class TransformerLM(nn.Module):
             self._write_rows(kp, rows, k_new)
             self._write_rows(vp, rows, v_new)
             qg = q.transpose(1, 2).reshape(B, Hkv, G, S, Dh)
-            a = paged_chunk_attention(qg, kp, vp, table, base32, page).to(cd)
+            a = paged_chunk_attention(qg, kp, vp, table, base32, page,
+                                      self.attn_windows[l]).to(cd)
             a = a.reshape(B, H, S, Dh).transpose(1, 2)
             h = h + self._attn_proj(lp, "o", a.reshape(B, S, self.d_model))
             x = self._norm_h(lp, "ln2", h).to(cd)
@@ -882,19 +1009,33 @@ class TransformerLM(nn.Module):
         return [dict(zip(keys, vals))
                 for vals in zip(*(params[k].unbind(0) for k in keys))]
 
-    def _attend(self, q, k, v, attn: str, rope_tables=None):
+    def _attend(self, q, k, v, attn: str, rope_tables=None,
+                window=_UNIFORM_WINDOW):
         """Causal attention over a full sequence: ``"dense"`` is the plain
         oracle (autograd through PyTorch ops), ``"flash"`` the
         flash-attention kernels on the card (their plain versions on the
         CPU). KV heads are never repeated on the flash path. With
         ``rope_tables`` q and k arrive unrotated and the rope-on-load
-        kernels rotate them (``"flash"`` only)."""
+        kernels rotate them (``"flash"`` only).
+
+        ``window`` is THIS layer's sliding window; left at its default it
+        is the model's uniform window, and a mixed-window model raises: a
+        caller not taught per-layer windows must fail, never attend
+        unwindowed."""
+        if window is _UNIFORM_WINDOW:
+            if self.mixed_window:
+                raise NotImplementedError(
+                    "this attention path has no per-layer window support; "
+                    "mixed attn_window models run the core single-device "
+                    "family (apply/prefill/decode/generate) only")
+            window = self.attn_window
         if attn == "dense":
-            return attention_reference(q, k, v, causal=True)
+            return attention_reference(q, k, v, causal=True, window=window)
         if attn == "flash":
             if rope_tables is not None:
-                return flash_attention_rope(q, k, v, *rope_tables, True)
-            return flash_attention(q, k, v, causal=True)
+                return flash_attention_rope(q, k, v, *rope_tables, True,
+                                            window=window)
+            return flash_attention(q, k, v, causal=True, window=window)
         if attn in ("ring", "ulysses"):
             raise NotImplementedError(
                 f"attn={attn!r} needs sequence parallelism, not ported yet "
@@ -902,13 +1043,15 @@ class TransformerLM(nn.Module):
         raise ValueError(f"Unknown attn: {attn}")
 
     def _block_fwd(self, h, lp, attn: str, rope=None,
-                   ep_groups: Optional[int] = None, rope_tables=None):
+                   ep_groups: Optional[int] = None, rope_tables=None,
+                   window=_UNIFORM_WINDOW):
         """One transformer block on ``h`` ``[B, T, D]``, the block math
         shared by the teacher-forced forward and :meth:`prefill`. Layernorm
         runs in float32, everything else in the compute dtype; under rotary
         positions q and k rotate by ``rope`` before attention, or, given
         ``rope_tables`` on the flash path, inside the attention kernels;
-        either way the returned, cacheable k is rotated. ``attn`` and
+        either way the returned, cacheable k is rotated. ``window`` is the
+        layer's sliding window (see :meth:`_attend`). ``attn`` and
         ``ep_groups`` reach :meth:`_ffn` too. Returns ``(h, aux, k, v)``
         with ``k``/``v`` ``[B, T, Hkv, Dh]``."""
         B, T = h.shape[0], h.shape[1]
@@ -920,13 +1063,13 @@ class TransformerLM(nn.Module):
         k = self._attn_proj(lp, "k", x).reshape(B, T, Hkv, Dh)
         v = self._attn_proj(lp, "v", x).reshape(B, T, Hkv, Dh)
         if rope_tables is not None:
-            a = self._attend(q, k, v, attn, rope_tables).to(cd)
+            a = self._attend(q, k, v, attn, rope_tables, window).to(cd)
             k = _rope_rotate(k, *rope)
         else:
             if rope is not None:
                 q = _rope_rotate(q, *rope)
                 k = _rope_rotate(k, *rope)
-            a = self._attend(q, k, v, attn).to(cd)
+            a = self._attend(q, k, v, attn, window=window).to(cd)
         h = h + self._attn_proj(lp, "o", a.reshape(B, T, self.d_model))
         x = self._norm_h(lp, "ln2", h).to(cd)
         out, aux = self._ffn(lp, x, attn, ep_groups)
@@ -945,7 +1088,8 @@ class TransformerLM(nn.Module):
         of a sharded run and is unused on one device; ``grad_reduce``
         (per-layer gradient collectives) is not ported yet and must be
         ``None``. A rotary model on ``attn="flash"`` builds its rope
-        tables once here and runs the rope-on-load kernels."""
+        tables once here and runs the rope-on-load kernels. Each layer
+        attends within its own window (``attn_windows``)."""
         if grad_reduce is not None:
             raise NotImplementedError(
                 "grad_reduce tags per-layer gradient collectives across "
@@ -960,11 +1104,12 @@ class TransformerLM(nn.Module):
             cos, sin = rope
             tables = make_rope_tables(cos[..., 0, :], sin[..., 0, :])
         block = _remat_wrap(
-            lambda h, lp: self._block_fwd(h, lp, attn, rope,
-                                          rope_tables=tables)[:2], remat)
+            lambda h, lp, w: self._block_fwd(h, lp, attn, rope,
+                                             rope_tables=tables,
+                                             window=w)[:2], remat)
         aux = torch.zeros((), dtype=torch.float32, device=dev)
-        for lp in self._layers(params):
-            h, a = block(h, lp)
+        for lp, w in zip(self._layers(params), self.attn_windows):
+            h, a = block(h, lp, w)
             aux = aux + a
         h = self._norm_h(params, "lnf", h)
         return h, aux
@@ -993,11 +1138,13 @@ class TransformerLM(nn.Module):
     # -- generation ------------------------------------------------------------
     def prefill(self, params, tokens, cache, ffn_tag: str = "dense"):
         """Batched prompt ingestion: the full forward over ``tokens`` ``[B,
-        T0]`` (flash attention: the kernel on the card), writing every
-        position's K/V into ``cache`` at offset 0 in place. Returns
-        ``(logits [B, T0, V], cache)``. ``ffn_tag`` is the reference's FFN
-        route: ``"dense"`` is the single-device path; any other tag
-        dispatches the MoE FFN over a sharded mesh axis, not ported yet."""
+        T0]`` (flash attention: the kernel on the card, each layer within
+        its window), writing every position's K/V into ``cache`` in place
+        through :func:`write_prompt_cache` (a rolling cache shorter than
+        the prompt keeps its last ``T`` positions). Returns ``(logits [B,
+        T0, V], cache)``. ``ffn_tag`` is the reference's FFN route:
+        ``"dense"`` is the single-device path; any other tag dispatches the
+        MoE FFN over a sharded mesh axis, not ported yet."""
         if ffn_tag != "dense":
             raise NotImplementedError(
                 f"prefill(ffn_tag={ffn_tag!r}) dispatches the MoE FFN over a "
@@ -1006,16 +1153,17 @@ class TransformerLM(nn.Module):
         dev = params["tok"].device
         tokens = _as_index(tokens, dev)
         B, T0 = tokens.shape
-        if T0 > cache["k"].shape[3]:
+        if T0 > cache["k"].shape[3] and not self._ring_cache:
             raise ValueError(f"prompt of {T0} tokens does not fit a cache of "
                              f"{cache['k'].shape[3]}")
         positions = torch.arange(T0, device=dev).expand(B, T0)
         h = self._embed(params, tokens, positions)
         rope = self._rope_for(positions)
         for l, lp in enumerate(self._layers(params)):
-            h, _, k, v = self._block_fwd(h, lp, "flash", rope, ep_groups=1)
-            cache["k"][l, :, :, :T0] = k.transpose(1, 2)
-            cache["v"][l, :, :, :T0] = v.transpose(1, 2)
+            h, _, k, v = self._block_fwd(h, lp, "flash", rope, ep_groups=1,
+                                         window=self.attn_windows[l])
+            write_prompt_cache(cache["k"][l], cache["v"][l], k.transpose(1, 2),
+                               v.transpose(1, 2), self._ring_cache)
         h = self._norm_h(params, "lnf", h)
         return self._logits(params, h), cache
 
@@ -1025,7 +1173,8 @@ class TransformerLM(nn.Module):
         """Autoregressive continuation: ``prompt`` int ``[B, T0]`` → int32
         ``[B, T0 + n_new]`` on the params' device. One batched
         :meth:`prefill` over the prompt, then a loop of cached
-        :meth:`decode_step` calls; the cache is sized to the horizon, not
+        :meth:`decode_step` calls; the cache is sized to the horizon (a
+        rolling cache to the window, for an all-windowed model), not
         ``max_len``.
 
         ``temperature=0`` (default) is greedy; ``> 0`` samples from
@@ -1545,6 +1694,94 @@ def _check_seq_len(model: TransformerLM, t: int) -> None:
         raise ValueError(f"sequence length {t} exceeds max_len {model.max_len}")
 
 
+def _lm_step_parts(model: TransformerLM, mesh, optimizer, attn: str,
+                   accum_steps: int, vocab_block: Optional[int], overlap_grads,
+                   fused_apply: bool, remat: str):
+    """The pieces :func:`build_lm_train_step` and
+    :func:`build_lm_train_phases` share, after their validation: ``(loss,
+    grad, apply)``, the forward objective, the forward and backward, and
+    the optimizer phase."""
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    if overlap_grads not in (False, True, "ring"):
+        raise ValueError(f"overlap_grads must be False, True, or 'ring', "
+                         f"got {overlap_grads!r}")
+    if remat not in ("none", "dots", "full"):
+        raise ValueError(f"Unknown remat policy: {remat!r} (none|dots|full)")
+    if fused_apply and not hasattr(optimizer, "fused_apply"):
+        raise ValueError(
+            "fused_apply=True needs an optimizer exposing fused_apply(grads, "
+            "opt_state, params); use adam_compact / fused_adam from "
+            "models/optimizers.py")
+    _validate_lm_step(model, mesh, attn)
+    if overlap_grads:
+        raise NotImplementedError(
+            "overlap_grads buckets the gradient all-reduce across devices, "
+            "not ported yet (ROADMAP.md queue 1 item 6, 'Speculation and "
+            "sharding')")
+
+    def objective(params, tokens, positions, targets, ntok):
+        # the micro-batches' objectives SUM to the full batch's: the
+        # cross-entropy is normalised by the batch's token count, the aux
+        # term (a per-call mean) by accum_steps
+        if vocab_block is None:
+            logits, aux = model.apply_with_aux(params, tokens, positions, attn,
+                                               remat=remat)
+            ce = _summed_xent(logits, targets)
+        else:
+            h, aux = model.apply_hidden(params, tokens, positions, attn,
+                                        remat=remat)
+            ce = chunked_summed_xent(h, model.head_weight(params), targets,
+                                     vocab_block)
+        return ce / ntok + (model.aux_weight / accum_steps) * aux
+
+    def micro_batches(params, tokens, positions, targets):
+        """The batch as index tensors on the params' device, cut into
+        ``accum_steps`` row slices → ``(batch, row slices, token count)``."""
+        dev = params["tok"].device
+        batch = tuple(_as_index(a, dev) for a in (tokens, positions, targets))
+        _check_seq_len(model, batch[0].shape[1])
+        B = batch[0].shape[0]
+        if B % accum_steps:
+            raise ValueError(f"local batch {B} not divisible by accum_steps "
+                             f"{accum_steps}")
+        micro = B // accum_steps
+        rows = [slice(i * micro, (i + 1) * micro) for i in range(accum_steps)]
+        return batch, rows, float(batch[0].numel())
+
+    def loss(params, tokens, positions, targets):
+        batch, rows, ntok = micro_batches(params, tokens, positions, targets)
+        total = None
+        with torch.no_grad():
+            for r in rows:
+                obj = objective(params, *(a[r] for a in batch), ntok)
+                total = obj if total is None else total + obj
+        return total
+
+    def grad(params, tokens, positions, targets):
+        batch, rows, ntok = micro_batches(params, tokens, positions, targets)
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        total, grads = None, None
+        for r in rows:
+            obj = objective(leaves, *(a[r] for a in batch), ntok)
+            g = torch.autograd.grad(obj, list(leaves.values()),
+                                    allow_unused=True, materialize_grads=True)
+            obj = obj.detach()
+            total = obj if total is None else total + obj
+            grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+        return total, dict(zip(leaves, grads))
+
+    def apply(params, opt_state, grads):
+        if fused_apply:
+            return optimizer.fused_apply(grads, opt_state, params)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        del grads       # the step's gradients die here, before the new params
+        return ({k: (p + updates.pop(k)).to(p.dtype) for k, p in params.items()},
+                opt_state)
+
+    return loss, grad, apply
+
+
 def build_lm_train_step(model: TransformerLM, mesh, optimizer,
                         attn: str = "ring", accum_steps: int = 1,
                         vocab_block: Optional[int] = None,
@@ -1573,76 +1810,50 @@ def build_lm_train_step(model: TransformerLM, mesh, optimizer,
     one optimizer step. ``fused_apply`` uses ``optimizer.fused_apply``
     (bit-identical to ``update`` + apply). ``remat`` is the per-layer
     rematerialisation policy (``"none"|"dots"|"full"``)."""
-    if accum_steps < 1:
-        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    if overlap_grads not in (False, True, "ring"):
-        raise ValueError(f"overlap_grads must be False, True, or 'ring', "
-                         f"got {overlap_grads!r}")
-    if remat not in ("none", "dots", "full"):
-        raise ValueError(f"Unknown remat policy: {remat!r} (none|dots|full)")
-    if fused_apply and not hasattr(optimizer, "fused_apply"):
-        raise ValueError(
-            "fused_apply=True needs an optimizer exposing fused_apply(grads, "
-            "opt_state, params); use adam_compact / fused_adam from "
-            "models/optimizers.py")
-    _validate_lm_step(model, mesh, attn)
-    if overlap_grads:
-        raise NotImplementedError(
-            "overlap_grads buckets the gradient all-reduce across devices, "
-            "not ported yet (ROADMAP.md queue 1, 'LM remainder')")
-
-    def objective(params, tokens, positions, targets, ntok):
-        # the micro-batches' objectives SUM to the full batch's: the
-        # cross-entropy is normalised by the batch's token count, the aux
-        # term (a per-call mean) by accum_steps
-        if vocab_block is None:
-            logits, aux = model.apply_with_aux(params, tokens, positions, attn,
-                                               remat=remat)
-            ce = _summed_xent(logits, targets)
-        else:
-            h, aux = model.apply_hidden(params, tokens, positions, attn,
-                                        remat=remat)
-            ce = chunked_summed_xent(h, model.head_weight(params), targets,
-                                     vocab_block)
-        return ce / ntok + (model.aux_weight / accum_steps) * aux
-
-    def grad(params, tokens, positions, targets):
-        dev = params["tok"].device
-        tokens, positions, targets = (_as_index(a, dev)
-                                      for a in (tokens, positions, targets))
-        _check_seq_len(model, tokens.shape[1])
-        B = tokens.shape[0]
-        if B % accum_steps:
-            raise ValueError(f"local batch {B} not divisible by accum_steps "
-                             f"{accum_steps}")
-        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        ntok = float(tokens.numel())
-        micro = B // accum_steps
-        loss, grads = None, None
-        for i in range(accum_steps):
-            rows = slice(i * micro, (i + 1) * micro)
-            obj = objective(leaves, tokens[rows], positions[rows],
-                            targets[rows], ntok)
-            g = torch.autograd.grad(obj, list(leaves.values()),
-                                    allow_unused=True, materialize_grads=True)
-            obj = obj.detach()
-            loss = obj if loss is None else loss + obj
-            grads = g if grads is None else [a + b for a, b in zip(grads, g)]
-        return loss, dict(zip(leaves, grads))
+    _, grad, apply = _lm_step_parts(model, mesh, optimizer, attn, accum_steps,
+                                    vocab_block, overlap_grads, fused_apply,
+                                    remat)
 
     def step(params, opt_state, tokens, positions, targets):
         loss, grads = grad(params, tokens, positions, targets)
-        if fused_apply:
-            params, opt_state = optimizer.fused_apply(grads, opt_state, params)
-        else:
-            updates, opt_state = optimizer.update(grads, opt_state, params)
-            del grads           # each gradient and update dies once applied
-            params = {k: (p + updates.pop(k)).to(p.dtype)
-                      for k, p in params.items()}
+        # the list hands the gradients over: with no name of the step's
+        # still bound to them, apply's own ``del`` frees them before the
+        # new params are built, so the two never share the peak
+        held = [grads]
+        del grads
+        params, opt_state = apply(params, opt_state, held.pop())
         return params, opt_state, loss
 
     step.grad = grad
     return step, optimizer.init
+
+
+def build_lm_train_phases(model: TransformerLM, mesh, optimizer,
+                          attn: str = "ring", accum_steps: int = 1,
+                          vocab_block: Optional[int] = None,
+                          overlap_grads=False, fused_apply: bool = False,
+                          remat: str = "none"):
+    """Per-phase probes of :func:`build_lm_train_step`'s stages, so a
+    measured gain can be attributed (forward, backward, optimizer). The
+    same validation and the same pieces as the step; returns the
+    reference's dict:
+
+    - ``"loss"(params, tokens, positions, targets) -> loss``: the forward
+      objective alone (no autograd graph);
+    - ``"grad"(params, tokens, positions, targets) -> (loss, grads)``: the
+      forward and backward, the step's ``step.grad``, so ``grad − loss``
+      times the backward;
+    - ``"reduce"(grads) -> grads``: the post-backward gradient reduction,
+      the identity on one device;
+    - ``"apply"(params, opt_state, grads) -> (params, opt_state)``: the
+      optimizer phase, fused or not. It leaves its arguments untouched
+      (nothing is donated), so a probe can run again on the same tensors,
+      and ``apply(params, opt_state, grad(...)[1])`` is the step."""
+    loss, grad, apply = _lm_step_parts(model, mesh, optimizer, attn,
+                                       accum_steps, vocab_block, overlap_grads,
+                                       fused_apply, remat)
+    return {"loss": loss, "grad": grad, "reduce": lambda grads: grads,
+            "apply": apply}
 
 
 def build_lm_eval_step(model: TransformerLM, mesh, attn: str = "ring"):

@@ -94,22 +94,30 @@ def decode_attention_reference(q, k, v, pos, window=None, ring: bool = False):
     return decode_attention_reference_lse(q, k, v, pos, window, ring)[0]
 
 
-def chunk_attention_reference(q, k, v, pos_b, window=None):
+def chunk_attention_reference(q, k, v, pos_b, window=None, ring: bool = False):
     """Multi-row cached attention, the block ``decode_chunk`` runs: ``q``
     ``[B, Hkv, G, S, Dh]`` (S queries per row at absolute positions ``pos_b``
     ``[B, S]``) against the cache ``k``/``v`` ``[B, Hkv, T, Dh]``; query
     ``(b, s)`` sees slots ``0..pos_b[b, s]``, cut to the last ``window`` of
-    them under a sliding window. A plain masked softmax over the whole cache
-    → ``[B, Hkv, G, S, Dh]`` float32. The paged chunk path calls this same
-    function on its gathered view, which keeps paged and dense bitwise equal
-    on the CPU."""
+    them under a sliding window. ``ring=True`` (requires ``window``): the
+    cache is a rolling buffer and slot ``t`` is visible iff its age ``(pos -
+    t) mod T`` is ``< min(window, pos + 1)``, as :func:`decode_attention`'s
+    ring. A plain masked softmax over the whole cache → ``[B, Hkv, G, S,
+    Dh]`` float32. The paged chunk path calls this same function on its
+    gathered view, which keeps paged and dense bitwise equal on the CPU."""
     dh = q.shape[-1]
     T = k.shape[2]
     slots = torch.arange(T, device=q.device)[None, None, :]
     pos3 = pos_b[:, :, None]
-    visible = slots <= pos3
-    if window is not None:
-        visible = visible & (slots > pos3 - int(window))
+    if ring:
+        if window is None:
+            raise ValueError("ring cache attention requires a window")
+        visible = (torch.remainder(pos3 - slots, T)
+                   < torch.clamp(pos3 + 1, max=int(window)))
+    else:
+        visible = slots <= pos3
+        if window is not None:
+            visible = visible & (slots > pos3 - int(window))
     scores = torch.einsum("bkgsd,bktd->bkgst", q.to(torch.float32),
                           k.to(torch.float32)) * (dh ** -0.5)
     probs = torch.softmax(

@@ -92,6 +92,11 @@ class SlotKVCache:
                  cache: Optional[Dict[str, Any]] = None):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
+        if model._ring_cache:
+            raise NotImplementedError(
+                "SlotKVCache needs a linear (horizon) cache; all-windowed "
+                "models allocate rolling buffers (see "
+                "TransformerLM.prefill_slot)")
         self.model = model
         self.params = params
         self.n_slots = int(n_slots)

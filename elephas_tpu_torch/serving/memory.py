@@ -266,6 +266,11 @@ class PagedKVCache:
                 "queue 1, 'Speculation and sharding')")
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
+        if model._ring_cache:
+            raise NotImplementedError(
+                "PagedKVCache needs a linear (horizon) cache; all-windowed "
+                "models allocate rolling buffers (see "
+                "TransformerLM.prefill_slot)")
         self.model = model
         self.params = params
         self.n_slots = int(n_slots)

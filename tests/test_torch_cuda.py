@@ -1527,3 +1527,121 @@ def test_search_pins_each_worker_to_its_card(cuda, monkeypatch):
         pinned = (i // evals) % n
         assert t["device"] == f"cuda:{pinned}"
     assert sorted(seen) == sorted(p % n for p in range(W))
+
+
+# -- sliding windows at Mistral-7B's head shapes; beam search -------------------
+
+MISTRAL_HEADS = dict(H=32, Hkv=8, Dh=128)
+
+
+@pytest.mark.parametrize("window", [64, 1000])
+def test_windowed_rope_kernels_match_plain_at_mistral_heads(cuda, window):
+    """K2-fwd, dq and dkv with rope on load and a sliding window at
+    Mistral-7B's heads (32 query, 8 KV, Dh 128), T 2048, within 2e-5 of
+    their plain versions."""
+    rng = np.random.default_rng(window)
+    H, Hkv, Dh, T = MISTRAL_HEADS["H"], MISTRAL_HEADS["Hkv"], MISTRAL_HEADS["Dh"], 2048
+    q, k, v, do = _t(rng, 1, T, H, Dh), _t(rng, 1, T, Hkv, Dh), _t(rng, 1, T, Hkv, Dh), \
+        _t(rng, 1, T, H, Dh)
+    c2, s2 = make_rope_tables(*_rope_angles(torch.arange(T, device="cuda")[None], Dh))
+    o, lse = flash_attention_rope_fwd(q, k, v, c2, s2, True, window)
+    wo, wl = rope_attention_fwd_reference(q, k, v, c2, s2, True, window)
+    torch.testing.assert_close(o, wo, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(lse, wl, atol=2e-5, rtol=2e-5)
+    delta = (do * wo).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, wl, delta, c2, s2, True, window)
+    want = rope_attention_bwd_reference(*args)
+    for got, w in zip((flash_attention_rope_dq(*args), *flash_attention_rope_dkv(*args)), want):
+        torch.testing.assert_close(got, w, atol=2e-5, rtol=2e-5)
+
+
+def test_ring_decode_matches_plain_at_mistral_heads(cuda):
+    """K4 on a rolling cache of aligned(4096 + 1) = 4352 slots at every
+    phase of the ring: before the wrap, at it, past it, and one row far
+    behind another."""
+    rng = np.random.default_rng(3)
+    T, Hkv, G, Dh = 4352, 8, 4, 128
+    for pos in ([4000, 4095], [4096, 4351], [4352, 4700], [5, 9000]):
+        q, k, v = _t(rng, 2, Hkv, G, Dh), _t(rng, 2, Hkv, T, Dh), _t(rng, 2, Hkv, T, Dh)
+        p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        got = flash_decode_lse(q, k, v, p, window=4096, ring=True)
+        want = decode_attention_reference_lse(q, k, v, p, 4096, True)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("C", [None, 300], ids=["decode", "chunk"])
+def test_windowed_paged_kernels_match_plain_at_mistral_heads(cuda, C):
+    """K5-decode and K5-chunk with a window of 4096 at positions past it,
+    Mistral-7B's KV heads, page 16."""
+    rng = np.random.default_rng(5)
+    S, Hkv, G, Dh, page, M = 2, 8, 4, 128, 16, 300
+    P = S * M + 1
+    kp, vp = _t(rng, P, Hkv, page, Dh), _t(rng, P, Hkv, page, Dh)
+    table = torch.from_numpy((1 + rng.permutation(S * M)).reshape(S, M).astype(np.int32)).cuda()
+    pos = torch.tensor([4200, 4500], dtype=torch.int32, device="cuda")
+    if C is None:
+        q = _t(rng, S, Hkv, G, Dh)
+        got = paged_flash_decode_lse(q, kp, vp, table, pos, page, 4096)
+        want = paged_decode_reference_lse(q, kp, vp, table, pos, page, 4096)
+    else:
+        q = _t(rng, S, Hkv, G, C, Dh)
+        got = (paged_flash_chunk(q, kp, vp, table, pos, page, 4096),)
+        want = (paged_chunk_reference(q, kp, vp, table, pos, page, 4096),)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
+
+
+WINDOWED_LM = dict(vocab=97, d_model=128, n_heads=4, n_kv_heads=2, n_layers=2, d_ff=256,
+                   max_len=256, pos_encoding="rotary", norm="rmsnorm", activation="swiglu",
+                   ffn_bias=False, attn_bias=False)
+
+
+def _greedy_agrees_with_dense_apply(model, params, out, t0):
+    """Each row's generated tokens equal the dense teacher-forced argmax up
+    to its first near tie (top-2 gap 1e-3)."""
+    seq = out[:, :-1].long()
+    pos = torch.arange(seq.shape[1], device="cuda").expand_as(seq)
+    with torch.no_grad():
+        logits = model.apply(params, seq, pos, attn="dense")[:, t0 - 1:]
+    top = torch.topk(logits, 2, dim=-1).values
+    gaps, want = (top[..., 0] - top[..., 1]).cpu(), logits.argmax(-1).cpu()
+    got = out[:, t0:].cpu()
+    compared = 0
+    for r in range(got.shape[0]):
+        n = 0
+        while n < got.shape[1] and float(gaps[r, n]) > 1e-3:
+            assert int(got[r, n]) == int(want[r, n]), (r, n)
+            n += 1
+        compared += n
+    return compared
+
+
+@pytest.mark.parametrize("windows", [16, (16, None)], ids=["ring", "mixed"])
+def test_windowed_generate_on_card_matches_dense_apply(cuda, windows):
+    """Greedy ``generate`` past the window (and, all-windowed, past the
+    ring's wrap: 48 decode steps over a ring of 24 slots) against the
+    card's own ``apply(attn="dense")`` at every generated position. The
+    seeds are chosen so that no top-2 gap of either model falls under 1e-2
+    on the CPU, so no near tie can end the comparison early."""
+    model = TransformerLM(**WINDOWED_LM, attn_window=windows, device="cuda")
+    params = model.init(9)
+    prompt = torch.from_numpy(np.random.default_rng(4).integers(0, 97, size=(2, 40))).cuda()
+    out = model.generate(params, prompt, 48)
+    assert _greedy_agrees_with_dense_apply(model, params, out, 40) == 2 * 48
+
+
+def test_beam1_equals_generate_on_card(cuda):
+    """``generate_beam(beam_size=1)`` is greedy ``generate`` bit for bit on
+    the card (its candidates ranked in float64), and a wider beam keeps
+    the prompt and finite scores."""
+    from elephas_tpu_torch.models import generate_beam
+
+    model = TransformerLM(**dict(WINDOWED_LM, attn_window=16), device="cuda")
+    params = model.init(4)
+    prompt = torch.from_numpy(np.random.default_rng(6).integers(0, 97, size=(3, 20))).cuda()
+    got, _ = generate_beam(model, params, prompt, 30, beam_size=1)
+    assert torch.equal(got, model.generate(params, prompt, 30))
+    wide, scores = generate_beam(model, params, prompt, 30, beam_size=4)
+    assert torch.equal(wide[:, :20], prompt.to(torch.int32))
+    assert bool(torch.isfinite(scores).all())

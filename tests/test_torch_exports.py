@@ -21,7 +21,6 @@ import pytest
 PACKAGES = ["", ".data", ".ml", ".mllib", ".models", ".ops", ".parallel",
             ".parameter", ".serving", ".utils"]
 
-ITEM_4 = "ROADMAP queue 1 item 4 (LM remainder)"
 ITEM_5 = "ROADMAP queue 1 item 5 (LoRA, multi-tenant serving)"
 ITEM_6_SHARD = "ROADMAP queue 1 item 6, second half (sharding on torch.distributed)"
 ITEM_10 = "ROADMAP queue 1 item 10 (resilience, streaming and fleet)"
@@ -45,7 +44,6 @@ ABSENT = {
                          "merge_lora"], ITEM_5),
         **dict.fromkeys(["QuantizedTensor", "dequantize_params", "quantize_lm_params",
                          "quantized_nbytes", "lm_from_hf", "load_hf_lm"], ITEM_12),
-        **dict.fromkeys(["generate_beam", "build_lm_train_phases"], ITEM_4),
         "to_optax": DEPARTURE_OPTAX,
     },
     ".ops": dict.fromkeys(["ring_attention", "ulysses_attention"], ITEM_6_SHARD),
@@ -105,8 +103,7 @@ def test_package_exports_match_reference(pkg):
 def test_every_absence_names_a_queued_item_or_a_departure():
     reasons = {r for table in (ABSENT, ABSENT_METHODS) for d in table.values()
                for r in d.values()}
-    assert reasons == {ITEM_4, ITEM_5, ITEM_6_SHARD, ITEM_10, ITEM_12,
-                       DEPARTURE_OPTAX}
+    assert reasons == {ITEM_5, ITEM_6_SHARD, ITEM_10, ITEM_12, DEPARTURE_OPTAX}
 
 
 CFG = dict(vocab=17, d_model=16, n_heads=4, n_layers=2, d_ff=32, max_len=64)

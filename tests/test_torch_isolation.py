@@ -40,10 +40,14 @@ from elephas_tpu_torch.data import DataFrame, Row, SparkSession
 from elephas_tpu_torch.ml import Pipeline
 from elephas_tpu_torch.serving import ModelDrafter, NgramDrafter
 from elephas_tpu_torch.models.transformer import spec_round_accept, spec_verify_select
+from elephas_tpu_torch.models.transformer import write_prompt_cache
+from elephas_tpu_torch.models import build_lm_train_phases, generate_beam
+import elephas_tpu_torch.models.beam
 for obj in (load_spark_model, ElephasEstimator, ElephasTransformer, load_ml_estimator,
             load_ml_transformer, HyperParamModel, save_checkpoint, DataFrame, Row,
             SparkSession, Pipeline, ModelDrafter, NgramDrafter, spec_round_accept,
-            spec_verify_select):
+            spec_verify_select, write_prompt_cache, build_lm_train_phases,
+            generate_beam):
     assert obj.__module__.split(".")[0] == "elephas_tpu_torch", obj
 assert EXPERT_AXIS == "expert"
 bad = sorted(m for m in sys.modules

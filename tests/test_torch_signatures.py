@@ -414,3 +414,36 @@ def test_speculative_departures_are_the_logged_ones(port, ref):
     sampled = dict(got)["sampled"]
     assert sampled in (None, inspect.Parameter.empty)
     assert got == want + [("sampled", sampled)]
+
+
+# -- the LM remainder: windows, write_prompt_cache, beam search, phases ----------
+
+LM_REMAINDER = [
+    ("elephas_tpu_torch.models.transformer:write_prompt_cache",
+     "elephas_tpu.models.transformer:write_prompt_cache"),
+    ("elephas_tpu_torch.models.transformer:build_lm_train_phases",
+     "elephas_tpu.models.transformer:build_lm_train_phases"),
+    ("elephas_tpu_torch.models.beam:generate_beam",
+     "elephas_tpu.models.beam:generate_beam"),
+    ("elephas_tpu_torch.models.transformer:TransformerLM._window_period",
+     "elephas_tpu.models.transformer:TransformerLM._window_period"),
+    ("elephas_tpu_torch.models.transformer:TransformerLM.decode_chunk",
+     "elephas_tpu.models.transformer:TransformerLM.decode_chunk"),
+    ("elephas_tpu_torch.models.transformer:TransformerLM.prefill_slot",
+     "elephas_tpu.models.transformer:TransformerLM.prefill_slot"),
+]
+
+
+@pytest.mark.parametrize("port,ref", LM_REMAINDER, ids=lambda x: x.split(":")[1])
+def test_lm_remainder_signature_matches_reference(port, ref):
+    assert _params(_resolve(*port.split(":"))) == _params(_resolve(*ref.split(":")))
+
+
+@pytest.mark.parametrize("cls", ["TransformerLM", "MoETransformerLM"])
+def test_lm_constructors_take_attn_window_in_place(cls):
+    """The constructors keep the reference's parameters, ``attn_window``
+    among them, plus the port's trailing ``device="cuda"``."""
+    got = _params(getattr(importlib.import_module(
+        "elephas_tpu_torch.models.transformer"), cls).__init__)
+    want = _params(getattr(jt, cls).__init__)
+    assert got == want + [("device", "cuda")]

@@ -136,12 +136,22 @@ def test_bfloat16_compute_tracks_jax():
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=5e-2, rtol=5e-2)
 
 
+def test_attn_window_constructs_uniform_and_per_layer():
+    """Sliding windows are ported: a uniform window and a per-layer list
+    construct, with the reference's views of them (the per-layer tuple,
+    the uniform scalar, the rolling-cache policy)."""
+    uni = TransformerLM(**BASE, attn_window=8, device="cpu")
+    assert uni.attn_windows == (8, 8) and uni.attn_window == 8
+    assert uni._ring_cache and not uni.mixed_window and uni._max_window == 8
+    mixed = TransformerLM(**BASE, attn_window=[4, None], device="cpu")
+    assert mixed.attn_windows == (4, None) and mixed.attn_window is None
+    assert mixed.mixed_window and not mixed._ring_cache
+
+
 def test_later_slices_raise_not_implemented():
-    """Sliding windows, sequence-parallel attention, expert parallelism and
-    LoRA are later slices (``apply``/``prefill``/``generate`` and the
-    single-device MoE LM are ported since)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransformerLM(**BASE, attn_window=8, device="cpu")
+    """Sequence-parallel attention, expert parallelism and LoRA are later
+    slices (``apply``/``prefill``/``generate``, the single-device MoE LM
+    and sliding windows are ported since)."""
     tm = TransformerLM(**BASE, device="cpu")
     tokens = np.zeros((1, 4), np.int64)
     for attn in ("ring", "ulysses"):
