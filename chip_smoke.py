@@ -200,6 +200,35 @@ Phases, each printing one JSON line; any failure exits non-zero:
     the first loss within 1e-2 of the float32 run's, the second lower.
 28. ``train_llama_cross_check``: one layer, B 1, T 64: loss and gradients on
     the card against the CPU.
+    Then LoRA and multi-tenant serving at the same widths, each phase
+    followed by a ``wall`` line:
+    ``serve_multi_tenant``: ``MultiTenantLM`` (4 of 32 layers, 8 adapters
+    of rank 16 on q, k, v and o; base weights drawn on the card, adapters
+    1-7 given random ``B``) behind ``ServingEngine(paged=True,
+    page_size=16, n_slots=8, max_len=512)``: the ``serve`` mix's 16 prompt
+    lengths over Llama-3's vocabulary, 32 greedy new tokens, request ``i``
+    on adapter ``i % 8``: exactly L K5-decode a decode step, L K5-chunk an
+    insert, no K4; adapter 0's requests equal the base model on the same
+    engine token for token; each tenant equals a dense engine on its
+    ``merged_params`` up to near ties; some tenant differs from the base;
+    ``kv.check()``; ms a step and tok/s beside the base model's, the two in
+    turns, and a profiled decode window of each.
+    ``multi_tenant_prefix``: one 192-token prefix, 8 suffixes of 16-64,
+    adapters 1 and 2 in turn: pages adopted within an adapter, none across,
+    the count equal to a ``device="cpu"`` engine's; cache on against off.
+    ``serve_multi_tenant_spec``: the first mix at ``speculate_k=4`` with
+    ``ModelDrafter(mt, params)`` (a per-adapter self-draft): acceptance
+    100%, exact K4 / K5-chunk / K5-decode counts, tokens equal to
+    ``serve_multi_tenant``'s up to near ties.
+    ``train_lora``: ``apply_lora(keys=("wq", "wv"), rank=16)`` on
+    ``train_llama``'s initial weights, ``build_lora_lm_train_step(...,
+    adam(1e-3), attn="flash")`` on its 4 x 2048 batch: its first loss,
+    2 warm-up and 3 timed steps falling, L of each rope K2 a step, every
+    frozen tensor bit-identical, every ``b`` moved, optimizer state at most
+    2 x trainable + 16; ``merge_lora`` and ``save_lora`` / ``load_lora``
+    against the adapted logits.
+    ``lora_cross_check``: one layer of the trained adapters, B 1, T 128:
+    loss and every factor gradient on the card against the CPU.
 28a. ``kernel`` ``window_shapes``: the windowed branches at Mistral-7B's
     heads (H 32, Hkv 8, Dh 128), window 4096: the rope-on-load K2-fwd, dq
     and dkv at B 1 x T 8192; K4 with ``ring=True`` over
@@ -1956,14 +1985,16 @@ def _noisy_gaps(model, params, prompt, tokens, seed, temperature):
 
 
 def _spec_run(model, params, prompts, max_new, drafter=None, paged=False,
-              temperature=0.0, speculate_k=SPEC_K):
+              temperature=0.0, speculate_k=SPEC_K, adapter_ids=None, max_len=None):
     """One counted speculative engine run: counters set to 0 just before and
     read just after; per verify round the metrics' ``block_s`` and
-    ``host_s`` and the drafting time, caught as the engine reports them."""
+    ``host_s`` and the drafting time, caught as the engine reports them.
+    ``adapter_ids`` gives each request's adapter (a multi-tenant model)."""
     from elephas_tpu_torch.serving import ServingEngine
 
     eng = ServingEngine(model, params, n_slots=8, paged=paged, page_size=16,
-                        speculate_k=speculate_k, drafter=drafter, device="cuda")
+                        speculate_k=speculate_k, drafter=drafter, max_len=max_len,
+                        device="cuda")
     rounds, drafting = [], []
     observe, draft = eng.metrics.observe_spec_round, eng._draft_tokens
 
@@ -1979,8 +2010,9 @@ def _spec_run(model, params, prompts, max_new, drafter=None, paged=False,
     eng.metrics.observe_spec_round, eng._draft_tokens = observe_round, timed_draft
     _zero_counters()
     t0 = time.perf_counter()
-    ids = [eng.submit(p, max_new, temperature=temperature, seed=i)
-           for i, p in enumerate(prompts)]
+    aids = [0] * len(prompts) if adapter_ids is None else adapter_ids
+    ids = [eng.submit(p, max_new, temperature=temperature, seed=i, adapter_id=a)
+           for i, (p, a) in enumerate(zip(prompts, aids))]
     fin = eng.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2013,9 +2045,9 @@ def _spec_run(model, params, prompts, max_new, drafter=None, paged=False,
 def _want_spec_launches(what, eng, counts, paged):
     """Exact counts from the snapshot and the drafter's own steps: K3-fwd
     2L+1 per verify round, sequential step and insert, 2L_d+1 per draft step
-    and draft insert; K4 L per sequential dense step and L_d per draft step;
-    K5-chunk L per paged insert and verify round, K5-decode L per sequential
-    paged step; nothing else."""
+    and draft insert (none for an rmsnorm model); K4 L per sequential dense
+    step and L_d per draft step; K5-chunk L per paged insert and verify
+    round, K5-decode L per sequential paged step; nothing else."""
     from elephas_tpu_torch.serving import ModelDrafter
 
     snap = eng.snapshot()
@@ -2025,8 +2057,9 @@ def _want_spec_launches(what, eng, counts, paged):
     inserts = snap["engine"]["prefills"]
     d = eng.drafter if isinstance(eng.drafter, ModelDrafter) else None
     Ld, d_steps, d_inserts = (d.model.n_layers, d.steps, d.prefills) if d else (0, 0, 0)
-    want = {"layer_norm_fwd": (2 * L + 1) * (rounds + steps + inserts)
-            + (2 * Ld + 1) * (d_steps + d_inserts),
+    ln, ln_d = (eng.model.norm == "layernorm"), (d is not None and d.model.norm == "layernorm")
+    want = {"layer_norm_fwd": ln * (2 * L + 1) * (rounds + steps + inserts)
+            + ln_d * (2 * Ld + 1) * (d_steps + d_inserts),
             "flash_decode_lse": (0 if paged else L * steps) + Ld * d_steps,
             "paged_flash_decode_lse": L * steps if paged else 0,
             "paged_flash_chunk": L * (inserts + rounds) if paged else 0}
@@ -3556,6 +3589,8 @@ def train_llama(card):
           "losses": losses, "launches": counts,
           "launches_per_step": {k: v / n_steps for k, v in counts.items()},
           "profiled_step": prof, "card": card})
+    summary = {"ms_per_step": wall * 1e3 / n_steps, "tokens_per_s": n_steps * B * T / wall,
+               "peak_mem_gb": peak / 1e9, "first_loss": losses[0]}
 
     # bf16 compute from the same initial weights (float32 master weights,
     # fresh moments): its first loss is the float32 run's first loss to
@@ -3581,7 +3616,7 @@ def train_llama(card):
           "first_loss_rel_diff": rel16, "first_loss_rtol": 1e-2,
           "ms_per_step": wall16 * 1e3 / 2, "peak_mem_gb": peak16 / 1e9,
           "launches": {k: counts16[k] for k in ROPE_ROWS + PLAIN_K2_ROWS}, "card": card})
-    return params, counts
+    return params, counts, summary
 
 
 def train_llama_cross_check(card, params):
@@ -3616,6 +3651,414 @@ def train_llama_cross_check(card, params):
     require(grad_rel[worst] <= 1e-3, f"train_llama_cross_check: gradient of {worst} "
                                      f"off by {grad_rel[worst]} of its scale")
     emit({"phase": "train_llama_cross_check", "layers": 1, "batch": 1, "seq_len": 64,
+          "loss_gpu": lg, "loss_cpu": lc, "loss_rel_diff": loss_rel, "loss_rtol": 1e-4,
+          "grad_err_rel_to_scale": grad_rel, "scale_floor": floor, "grad_tol": 1e-3,
+          "card": card})
+
+
+# -- phases 28h to 28l: LoRA and multi-tenant serving at Llama-3-8B width ---------
+
+MT_LAYERS = 4
+MT_ADAPTERS = 8
+MT_RANK = 16
+MT_TARGETS = ("q", "k", "v", "o")
+MT_MAX_LEN = 512               # the serve mix's 256 + 32 fits; 32 pages of 16 a slot
+MT_NEW = 32
+LORA_KEYS = ("wq", "wv")
+LORA_RANK = 16
+
+
+def _multi_tenant():
+    """A ``MultiTenantLM`` at Llama-3-8B's widths, 4 of 32 layers, 8 adapters
+    of rank 16 on q, k, v and o: the base weights drawn on the card, every
+    ``A`` ~ N(0, 1/r) from the same generator, every ``B`` 0, then adapters
+    1-7 given random ``B`` by ``randomize_adapter`` (the reference's draws)."""
+    from elephas_tpu_torch.models import MultiTenantLM
+
+    mt = MultiTenantLM(**dict(LLAMA3_8B, n_layers=MT_LAYERS), n_adapters=MT_ADAPTERS,
+                       lora_rank=MT_RANK, lora_targets=MT_TARGETS, device="cuda")
+    params = draw_params(mt, SEED + 51)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 52)
+    for t in MT_TARGETS:
+        a = params[f"lora_w{t}_a"]
+        a.normal_(0.0, 1.0, generator=gen).div_(MT_RANK ** 0.5)
+        params[f"lora_w{t}_b"].zero_()
+    for aid in range(1, MT_ADAPTERS):
+        params = mt.randomize_adapter(params, aid, seed=SEED + 53)
+    return mt, params
+
+
+def _llama_prompts():
+    """The ``serve`` mix's 16 prompt lengths (32-256, the same draws) over
+    Llama-3's vocabulary."""
+    gen = np.random.default_rng(SEED + 2)
+    return [gen.integers(0, LLAMA3_8B["vocab"], size=int(n)).astype(np.int32)
+            for n in gen.integers(32, 257, size=16)]
+
+
+def _tenant_run(model, params, prompts, adapter_ids, **kw):
+    """One counted paged run (8 slots, pages of 16, ``MT_MAX_LEN``), request
+    ``i`` on ``adapter_ids[i]``: ``(finished, wall, counts, engine)``."""
+    from elephas_tpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(model, params, n_slots=8, paged=True, page_size=16,
+                        max_len=MT_MAX_LEN, device="cuda", **kw)
+    torch.cuda.synchronize()
+    _zero_counters()
+    t0 = time.perf_counter()
+    ids = [eng.submit(p, MT_NEW, adapter_id=a) for p, a in zip(prompts, adapter_ids)]
+    fin = eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counters()
+    require(len(fin) == len(ids), f"{len(fin)} of {len(ids)} requests finished")
+    for rid in ids:
+        require(fin[rid].finish_reason == "length" and len(fin[rid].tokens) == MT_NEW,
+                f"{rid}: {fin[rid].finish_reason}, {len(fin[rid].tokens)} tokens")
+    eng.kv.check()
+    return [fin[r] for r in ids], wall, counts, eng
+
+
+def _tenant_profile(model, params, prompts, adapter_ids):
+    """Ten decode steps of a full 8-slot batch (request ``i`` on
+    ``adapter_ids[i]``) under ``torch.profiler``."""
+    from elephas_tpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(model, params, n_slots=8, paged=True, page_size=16,
+                        max_len=MT_MAX_LEN, device="cuda")
+    for p, a in zip(prompts[:8], adapter_ids[:8]):
+        eng.submit(p, MT_NEW, adapter_id=a)
+    while eng.scheduler.queue_depth:
+        eng.step()
+
+    def run():
+        require(eng.step() == "decode", "serve_multi_tenant: the profiled window left "
+                                        "the decode loop")
+
+    return profiled(run, 10, top_n=8)
+
+
+def _tenant_agree(what, mt, params, prompts, adapter_ids, got, want):
+    """``_agree`` request by request, the near ties read off each tenant's
+    merged weights (one tenant's merge on the card at a time)."""
+    base = mt.base_model()
+    compared = [0] * len(prompts)
+    for aid in sorted(set(adapter_ids)):
+        rows = [i for i, a in enumerate(adapter_ids) if a == aid]
+        merged = mt.merged_params(params, aid)
+        n = _agree(f"{what} adapter {aid}", base, merged, [prompts[i] for i in rows],
+                   [got[i] for i in rows], [want[i] for i in rows])
+        for i, c in zip(rows, n):
+            compared[i] = c
+        del merged
+    return compared
+
+
+def serve_multi_tenant(card):
+    """The ``serve`` mix at Llama-3-8B widths behind the paged engine, request
+    ``i`` on adapter ``i % 8``: exactly L K5-decode launches a decode step, L
+    K5-chunk an insert and no K4; adapter 0 equal to the base model on the
+    same engine token for token; each tenant equal to a dense engine on its
+    merged weights up to near ties; some tenant differs from the base;
+    ``kv.check()``; ms a step and tok/s beside the base model's on the same
+    engine, the two models in turns (the host's share of a step moves from
+    run to run)."""
+    from elephas_tpu_torch.serving import ServingEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    mt, params = _multi_tenant()
+    base = mt.base_model()
+    basep = {k: v for k, v in params.items() if not k.startswith("lora_")}
+    prompts = _llama_prompts()
+    aids = [i % MT_ADAPTERS for i in range(len(prompts))]
+    _tenant_run(mt, params, [p[:32] for p in prompts[:2]], [1, 2])          # warm-up
+    _tenant_run(base, basep, [p[:32] for p in prompts[:2]], [0, 0])
+    fin, wall, counts, eng = _tenant_run(mt, params, prompts, aids)
+    snap = eng.snapshot()
+    steps, inserts = snap["engine"]["decode_steps"], snap["engine"]["prefills"]
+    L = MT_LAYERS
+    want = {"paged_flash_decode_lse": L * steps, "paged_flash_chunk": L * inserts}
+    for name, n in counts.items():
+        require(n == want.get(name, 0), f"serve_multi_tenant: {name} launched {n} times, "
+                                        f"want {want.get(name, 0)} ({steps} decode steps, "
+                                        f"{inserts} inserts)")
+    tokens = [f.tokens for f in fin]
+    stats = _serving_stats(snap, fin, wall)
+    bfin, bwall, bcounts, beng = _tenant_run(base, basep, prompts, [0] * len(prompts))
+    base_tokens = [f.tokens for f in bfin]
+    base_stats = _serving_stats(beng.snapshot(), bfin, bwall)
+    for i, a in enumerate(aids):
+        if a == 0:
+            require(tokens[i] == base_tokens[i],
+                    f"serve_multi_tenant: request {i} on adapter 0 differs from the base "
+                    f"model: {tokens[i]} vs {base_tokens[i]}")
+    differ = [i for i, a in enumerate(aids) if a and tokens[i] != base_tokens[i]]
+    require(differ, "serve_multi_tenant: every tenant's stream equals the base's")
+    dense = []
+    for aid in range(MT_ADAPTERS):
+        rows = [i for i, a in enumerate(aids) if a == aid]
+        merged = mt.merged_params(params, aid)
+        e = ServingEngine(base, merged, n_slots=8, max_len=MT_MAX_LEN, device="cuda")
+        ids = [e.submit(prompts[i], MT_NEW) for i in rows]
+        got = e.drain()
+        dense += [(i, got[r].tokens) for i, r in zip(rows, ids)]
+        del merged, e
+    dense = [t for _, t in sorted(dense)]
+    compared = _tenant_agree("serve_multi_tenant vs merged dense", mt, params, prompts,
+                             aids, tokens, dense)
+    turns = []
+    for tenants in (True, False, False, True, True, False):
+        f, w, _, e = (_tenant_run(mt, params, prompts, aids) if tenants else
+                      _tenant_run(base, basep, prompts, [0] * len(prompts)))
+        st = _serving_stats(e.snapshot(), f, w)
+        turns.append({"model": "multi_tenant" if tenants else "base",
+                      **{k: st[k] for k in ("decode_ms_per_step_p50", "tok_per_s",
+                                            "ttft_p50_s")}})
+    mean = {m: {k: float(np.mean([t[k] for t in turns if t["model"] == m]))
+                for k in ("decode_ms_per_step_p50", "tok_per_s")}
+            for m in ("multi_tenant", "base")}
+    prof = {"multi_tenant": _tenant_profile(mt, params, prompts, aids),
+            "base": _tenant_profile(base, basep, prompts, [0] * len(prompts))}
+    emit({"phase": "serve_multi_tenant", "model": f"Llama-3-8B widths, {L} of 32 layers "
+          "(random weights, seed 51)", "adapters": MT_ADAPTERS, "lora_rank": MT_RANK,
+          "lora_targets": list(MT_TARGETS), "page_size": 16, "max_len": MT_MAX_LEN,
+          "requests": len(prompts), "new_tokens_each": MT_NEW,
+          "prompt_lens": [int(len(p)) for p in prompts], "adapter_ids": aids,
+          "decode_steps": steps, "inserts": inserts, "launches": counts,
+          "launches_per_decode_step": {"paged_flash_decode_lse":
+                                       counts["paged_flash_decode_lse"] / steps},
+          "launches_per_insert": {"paged_flash_chunk": counts["paged_flash_chunk"] / inserts},
+          **stats, "base_model_same_engine": base_stats, "in_turns": turns,
+          "in_turns_mean": mean,
+          "adapter_overhead_ms_per_step": (mean["multi_tenant"]["decode_ms_per_step_p50"]
+                                           / mean["base"]["decode_ms_per_step_p50"]),
+          "adapter_overhead_tok_per_s": (mean["multi_tenant"]["tok_per_s"]
+                                         / mean["base"]["tok_per_s"]),
+          "profiled_decode": prof,
+          "adapter0_equals_base_bitwise": True, "tenants_differing_from_base": differ,
+          "tokens_compared_with_merged_dense": compared, "memory": snap["memory"],
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card})
+    return mt, params, prompts, tokens, counts, stats
+
+
+def multi_tenant_prefix(card, mt, params):
+    """One 192-token prefix with distinct suffixes (16-64 tokens, 32 new
+    each), eight requests alternating adapters 1 and 2: a request adopts its
+    own adapter's prefix pages and never the other's; the adopted count
+    equals a ``device="cpu"`` engine's on the same mix; cache on against off,
+    tokens up to near ties on each tenant's merged weights."""
+    from elephas_tpu_torch.models import MultiTenantLM
+    from elephas_tpu_torch.serving import ServingEngine
+
+    gen = np.random.default_rng(SEED + 54)
+    V = LLAMA3_8B["vocab"]
+    shared = gen.integers(0, V, size=192).astype(np.int32)
+    prompts = [np.concatenate([shared, gen.integers(0, V, size=int(n)).astype(np.int32)])
+               for n in gen.integers(16, 65, size=8)]
+    aids = [1 + i % 2 for i in range(len(prompts))]
+    runs = {}
+    for cache_on in (True, False):
+        fin, wall, counts, eng = _tenant_run(mt, params, prompts, aids,
+                                             prefix_cache=cache_on)
+        runs[cache_on] = (fin, wall, counts, eng.snapshot(), eng)
+    kv = runs[True][4].kv
+    roots = {aid: {n.lid for n in _tree_nodes(kv.prefix._roots.get((0, aid), {}))}
+             for aid in (1, 2)}
+    require(roots[1] and roots[2] and not roots[1] & roots[2],
+            f"multi_tenant_prefix: prefix pages by adapter {roots}")
+    per_adapter = 192 // 16                       # the shared pages a later request adopts
+    want_hits = sum(per_adapter * (aids.count(a) - 1) for a in (1, 2))
+    on, off = runs[True][3]["memory"]["prefix"], runs[False][3]["memory"]["prefix"]
+    require(on["hits_pages"] == want_hits and off["hits_pages"] == 0,
+            f"multi_tenant_prefix: {on['hits_pages']} pages adopted (want {want_hits}), "
+            f"{off['hits_pages']} with the cache off")
+    # the page bookkeeping reads no weights: the CPU engine runs the same mix
+    # at Llama-3's vocabulary on a one-layer, 64-wide multi-tenant model
+    cpu_mt = MultiTenantLM(vocab=V, d_model=64, n_heads=4, n_layers=1, d_ff=128,
+                           max_len=MT_MAX_LEN, n_adapters=MT_ADAPTERS, device="cpu")
+    cpu = ServingEngine(cpu_mt, cpu_mt.init(SEED), n_slots=8, paged=True, page_size=16,
+                        max_len=MT_MAX_LEN, device="cpu")
+    for p, a in zip(prompts, aids):
+        cpu.submit(p, MT_NEW, adapter_id=a)
+    cpu.drain()
+    cpu_hits = cpu.kv.memory_stats()["prefix"]["hits_pages"]
+    require(on["hits_pages"] == cpu_hits,
+            f"multi_tenant_prefix: {on['hits_pages']} pages adopted on the card, "
+            f"{cpu_hits} on the CPU")
+    compared = _tenant_agree("multi_tenant_prefix on vs off", mt, params, prompts, aids,
+                             [f.tokens for f in runs[True][0]],
+                             [f.tokens for f in runs[False][0]])
+    emit({"phase": "multi_tenant_prefix", "shared_prefix": 192, "requests": len(prompts),
+          "adapter_ids": aids, "new_tokens_each": MT_NEW,
+          "suffix_lens": [int(len(p)) - 192 for p in prompts],
+          "hits_pages": on["hits_pages"], "want_hits_pages": want_hits,
+          "cpu_hits_pages": cpu_hits, "lookups_pages": on["lookups_pages"],
+          "prefix_pages_by_adapter": {str(a): len(v) for a, v in roots.items()},
+          "launches": runs[True][2],
+          "cache_on": _serving_stats(runs[True][3], runs[True][0], runs[True][1]),
+          "cache_off": _serving_stats(runs[False][3], runs[False][0], runs[False][1]),
+          "tokens_compared": compared, "card": card})
+    return runs[True][2]
+
+
+def _tree_nodes(children):
+    stack = list(children.values())
+    while stack:
+        node = stack.pop()
+        yield node
+        stack.extend(node.children.values())
+
+
+def serve_multi_tenant_spec(card, mt, params, prompts, mt_tokens, mt_stats):
+    """``serve_multi_tenant``'s mix at ``speculate_k=4`` with
+    ``ModelDrafter(mt, params)``: a self-draft that drafts each row under its
+    adapter. Greedy acceptance 100%; exact launches (the drafter's K4 L a
+    draft step, K5-chunk L an insert and a verify round, K5-decode L a
+    sequential step); streams equal ``serve_multi_tenant``'s up to near
+    ties; ``kv.check()``."""
+    from elephas_tpu_torch.serving import ModelDrafter
+
+    aids = [i % MT_ADAPTERS for i in range(len(prompts))]
+    _spec_run(mt, params, [p[:32] for p in prompts[:2]], 8, ModelDrafter(mt, params),
+              paged=True, adapter_ids=[1, 2], max_len=MT_MAX_LEN)          # warm-up
+    eng, tokens, counts, stats = _spec_run(mt, params, prompts, MT_NEW,
+                                           ModelDrafter(mt, params), paged=True,
+                                           adapter_ids=aids, max_len=MT_MAX_LEN)
+    launches = _want_spec_launches("serve_multi_tenant_spec", eng, counts, paged=True)
+    require(stats["acceptance_rate"] == 1.0,
+            f"serve_multi_tenant_spec: a per-adapter self-draft accepted "
+            f"{stats['acceptance_rate']}")
+    compared = _tenant_agree("serve_multi_tenant_spec vs serve_multi_tenant", mt, params,
+                             prompts, aids, tokens, mt_tokens)
+    emit({"phase": "serve_multi_tenant_spec", "speculate_k": SPEC_K, "drafter":
+          "ModelDrafter(mt, params): per-adapter self-draft", "page_size": 16,
+          **stats, **launches, "launches": counts, "tokens_compared": compared,
+          "serve_multi_tenant_same_call": mt_stats,
+          "round_vs_step": (stats["round_ms_p50"] / mt_stats["decode_ms_per_step_p50"]
+                            if stats["round_ms_p50"] else None),
+          "memory": eng.snapshot()["memory"], "card": card})
+    return counts
+
+
+def _lora_llama():
+    from elephas_tpu_torch.models import TransformerLM
+
+    model = TransformerLM(**dict(LLAMA3_8B, n_layers=LLAMA_TRAIN_LAYERS), device="cuda")
+    return model, draw_params(model, SEED + 31)
+
+
+def train_lora(card, llama):
+    """``apply_lora(params, keys=("wq", "wv"), rank=16)`` on ``train_llama``'s
+    model and initial weights, stepped by ``build_lora_lm_train_step(model,
+    None, adam(1e-3), attn="flash")`` on its batch of 4 x 2048: the first
+    loss equal to ``train_llama``'s (B starts at 0); 2 warm-up and 3 timed
+    steps, finite and falling; every frozen tensor bit-identical after the
+    steps and every ``b`` moved; optimizer state at most 2 x trainable + 16
+    elements; exactly L launches of each rope-on-load K2 kernel a step and
+    none of the plain ones. Then ``merge_lora``: the merged apply against
+    the adapted one; ``save_lora`` / ``load_lora``: the same logits bits."""
+    import os
+    import tempfile
+
+    from elephas_tpu_torch.models import (LoRATensor, adam, apply_lora,
+                                          build_lora_lm_train_step, load_lora,
+                                          lora_trainable_count, make_lm_batches,
+                                          merge_lora, save_lora)
+
+    L = LLAMA_TRAIN_LAYERS
+    model, base = _lora_llama()
+    frozen = {k: v.cpu() for k, v in base.items()}     # on the host: off the peak
+    params = apply_lora(base, keys=LORA_KEYS, rank=LORA_RANK)
+    B, T = 4, 2048
+    rows = np.random.default_rng(SEED + 32).integers(0, LLAMA3_8B["vocab"],
+                                                     size=(B, T + 1))
+    batch = tuple(torch.from_numpy(a).cuda() for a in make_lm_batches(rows))
+    step, opt_init = build_lora_lm_train_step(model, None, adam(1e-3), attn="flash")
+    state = opt_init(params)
+    trainable, total = lora_trainable_count(params)
+    state_elems = (state.inner_state.count.numel()
+                   + sum(t.numel() for t in state.inner_state.mu.values())
+                   + sum(t.numel() for t in state.inner_state.nu.values()))
+    require(state_elems <= 2 * trainable + 16,
+            f"train_lora: {state_elems} optimizer-state elements for {trainable} trainable")
+    params, state, warm, _, _ = _llama_steps(step, params, state, batch, 2)
+    torch.cuda.reset_peak_memory_stats()
+    n_steps = 3
+    params, state, timed, wall, counts = _llama_steps(step, params, state, batch, n_steps)
+    peak = torch.cuda.max_memory_allocated()
+    losses = warm + timed
+    require(all(np.isfinite(losses)), f"train_lora: non-finite loss in {losses}")
+    require(losses[-1] < losses[0], f"train_lora: loss did not fall: {losses}")
+    first_rel = abs(losses[0] - llama["first_loss"]) / abs(llama["first_loss"])
+    require(first_rel <= 1e-6, f"train_lora: first loss {losses[0]} vs train_llama's "
+                               f"{llama['first_loss']} (B = 0 starts at the base)")
+    _want_rope_launches("train_lora", counts, L, n_steps)
+    for k, v in params.items():
+        w = v.w if isinstance(v, LoRATensor) else v
+        require(torch.equal(w.cpu(), frozen[k]), f"train_lora: frozen {k} changed")
+        if isinstance(v, LoRATensor):
+            require(bool(v.b.abs().max() > 0), f"train_lora: {k}.b did not move")
+    del frozen
+    # the merged weights against the adapted ones on one row of the batch
+    tok, pos = batch[0][:1, :512], batch[1][:1, :512]
+    with torch.no_grad():
+        adapted = model.apply(params, tok, pos, attn="flash")
+        merged = model.apply(merge_lora(params), tok, pos, attn="flash")
+        merge_err = float((adapted - merged).abs().max())
+        require(merge_err <= 1e-5 * max(1.0, float(adapted.abs().max())),
+                f"train_lora: merged logits off by {merge_err}")
+        with tempfile.TemporaryDirectory() as d:
+            path = f"{d}/adapters.npz"
+            save_lora(path, params)
+            size = os.path.getsize(path)
+            reloaded = model.apply(load_lora(path, base), tok, pos, attn="flash")
+        require(torch.equal(reloaded, adapted), "train_lora: save/load changed the logits")
+    emit({"phase": "train_lora", "model": f"Llama-3-8B widths, {L} of 32 layers "
+          "(train_llama's initial weights, seed 31)", "dtype": "float32",
+          "lora_keys": list(LORA_KEYS), "lora_rank": LORA_RANK, "optimizer": "adam(1e-3)",
+          "attn": "flash", "batch": B, "seq_len": T, "trainable": trainable, "total": total,
+          "optimizer_state_elements": state_elems, "warmup_steps": 2, "timed_steps": n_steps,
+          "ms_per_step": wall * 1e3 / n_steps, "tokens_per_s": n_steps * B * T / wall,
+          "peak_mem_gb": peak / 1e9, "losses": losses, "train_llama": llama,
+          "first_loss_rel_diff_to_train_llama": first_rel,
+          "launches": counts, "launches_per_step": {k: v / n_steps for k, v in counts.items()},
+          "merge_max_abs_err": merge_err, "merge_tol": "1e-5 of the logits' scale",
+          "saved_adapters_bytes": size, "card": card})
+    return params, counts
+
+
+def lora_cross_check(card, params):
+    """One LoRA step's loss and every adapter factor's gradient at B 1, T
+    128, one layer of ``train_lora``'s trained weights (its factors, ``b``
+    nonzero), on the card against ``device="cpu"``: loss rtol 1e-4, each
+    gradient within 1e-3 of its scale, floored at 1e-4 of the largest."""
+    from elephas_tpu_torch.models import (TransformerLM, adam, build_lora_lm_train_step,
+                                          make_lm_batches)
+
+    rows = np.random.default_rng(SEED + 55).integers(0, LLAMA3_8B["vocab"], size=(1, 129))
+    batch = make_lm_batches(rows)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = TransformerLM(**dict(LLAMA3_8B, n_layers=1), device=dev)
+        p = _layer_slice(model, params, dev)
+        step, _ = build_lora_lm_train_step(model, None, adam(1e-3), attn="flash")
+        _zero_counters()
+        loss, grads = step.grad(p, *batch)
+        if dev == "cuda":
+            _want_rope_launches("lora_cross_check", _read_counters(), 1, 1)
+        out[dev] = (float(loss), {f"{k}.{f}": getattr(g, f).cpu() for k, g in grads.items()
+                                  if g is not None for f in ("a", "b")})
+        del p, grads
+    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+    loss_rel = abs(lg - lc) / abs(lc)
+    require(loss_rel <= 1e-4, f"lora_cross_check: loss {lg} vs cpu {lc}")
+    floor = 1e-4 * max(float(g.abs().max()) for g in gc.values())
+    grad_rel = {k: float((gg[k].double() - gc[k].double()).abs().max())
+                / max(float(gc[k].abs().max()), floor) for k in gc}
+    worst = max(grad_rel, key=grad_rel.get)
+    require(grad_rel[worst] <= 1e-3, f"lora_cross_check: gradient of {worst} off by "
+                                     f"{grad_rel[worst]} of its scale")
+    emit({"phase": "lora_cross_check", "layers": 1, "batch": 1, "seq_len": 128,
           "loss_gpu": lg, "loss_cpu": lc, "loss_rel_diff": loss_rel, "loss_rtol": 1e-4,
           "grad_err_rel_to_scale": grad_rel, "scale_floor": floor, "grad_tol": 1e-3,
           "card": card})
@@ -5264,9 +5707,21 @@ def main() -> int:
         fit_host_cross_check(card)
         checkpoint_phase(card)
         torch.cuda.empty_cache()
-        llama_params, llama_counts = train_llama(card)
+        llama_params, llama_counts, llama_summary = train_llama(card)
         train_llama_cross_check(card, llama_params)
         del llama_params
+        torch.cuda.empty_cache()
+        mt, mt_params, mt_prompts, mt_tokens, mt_counts, mt_stats = _walled(
+            "serve_multi_tenant", serve_multi_tenant, card)
+        mt_prefix_counts = _walled("multi_tenant_prefix", multi_tenant_prefix, card, mt,
+                                   mt_params)
+        mt_spec_counts = _walled("serve_multi_tenant_spec", serve_multi_tenant_spec, card,
+                                 mt, mt_params, mt_prompts, mt_tokens, mt_stats)
+        del mt, mt_params
+        torch.cuda.empty_cache()
+        lora_params, lora_counts = _walled("train_lora", train_lora, card, llama_summary)
+        _walled("lora_cross_check", lora_cross_check, card, lora_params)
+        del lora_params
         torch.cuda.empty_cache()
         window_rows = _walled("window_shapes", check_window_kernels, card)
         mistral_params, gen_window_counts = _walled("generate_window", generate_window, card)
@@ -5301,8 +5756,10 @@ def main() -> int:
     # API skins (the estimator's fit, the search's trials from its worker
     # threads) are under launches_by_path, as are the speculative paths'
     # (serve_spec and serve_spec_paged: the sums of their drafters' runs;
-    # generate_spec: of its four runs); K5-chunk and K3-fwd carry their
-    # times at the verify's shapes under verify_shapes
+    # generate_spec: of its four runs) and the LoRA paths' (the
+    # multi-tenant serving runs' K5, the per-adapter drafter's K4, the LoRA
+    # train step's rope K2); K5-chunk and K3-fwd carry their times at the
+    # verify's shapes under verify_shapes
     rows = [ln_fwd, ln_bwd, decode, *attn_rows, *paged_rows, *gmm_rows, *xent_rows,
             *rope_rows]
     paths = {"serve": serve_counts, "train_5_steps": train_counts,
@@ -5316,7 +5773,9 @@ def main() -> int:
              "serve_spec_paged": spec_paged_counts, "generate_spec": gen_spec_counts,
              "generate_window": gen_window_counts, "train_window_2_steps": train_window_counts,
              "serve_window": serve_window_counts,
-             "serve_window_paged": serve_window_paged_counts, "beam": beam_counts}
+             "serve_window_paged": serve_window_paged_counts, "beam": beam_counts,
+             "serve_multi_tenant": mt_counts, "multi_tenant_prefix": mt_prefix_counts,
+             "serve_multi_tenant_spec": mt_spec_counts, "train_lora_3_steps": lora_counts}
     main_paths = {"layer_norm_fwd": "serve", "flash_decode_lse": "serve",
                   "paged_flash_decode_lse": "serve_paged",
                   "paged_flash_chunk": "serve_paged", "gmm": "serve_moe",

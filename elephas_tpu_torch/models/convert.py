@@ -6,6 +6,12 @@ per-tensor copy: numpy arrays (what the JAX package's ``init`` returns, or
 array keeps its dtype. A bfloat16 array (``param_dtype="bfloat16"`` expert
 stacks) is a numpy dtype that ``ml_dtypes`` registers; it crosses as its
 16 raw bits, so the port needs no ``ml_dtypes`` of its own.
+
+A LoRA-adapted entry crosses as a node: the JAX package's ``LoRATensor``
+(anything with ``w``, ``a``, ``b`` and ``alpha``) becomes the port's
+:class:`~elephas_tpu_torch.models.lora.LoRATensor` of tensors, and the
+port's comes back as a ``LoRATensor`` of numpy arrays, whose parts the JAX
+package's node takes as they are.
 """
 
 from __future__ import annotations
@@ -37,17 +43,34 @@ def _to_array(t: torch.Tensor) -> np.ndarray:
     return t.view(torch.int16).numpy().view(bf16)
 
 
+def _is_lora(v) -> bool:
+    return all(hasattr(v, f) for f in ("w", "a", "b", "alpha"))
+
+
+def _lora_node(v, fn):
+    from .lora import LoRATensor
+
+    return LoRATensor(fn(v.w), fn(v.a), fn(v.b), float(v.alpha))
+
+
 def from_jax_params(np_params: Mapping[str, np.ndarray],
                     device: DeviceLike = "cuda",
                     dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
     """The JAX package's parameters, as numpy arrays, as torch tensors on
-    ``device``, each in its own dtype (or all cast to ``dtype``)."""
+    ``device``, each in its own dtype (or all cast to ``dtype``); a LoRA
+    node as the port's node of tensors."""
     dev = resolve_device(device)
-    return {k: _to_tensor(v).to(device=dev, dtype=dtype)
+
+    def conv(v):
+        return _to_tensor(v).to(device=dev, dtype=dtype)
+
+    return {k: _lora_node(v, conv) if _is_lora(v) else conv(v)
             for k, v in np_params.items()}
 
 
 def to_numpy(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The port's parameters as numpy arrays on the host, each in its own
-    dtype: the form the JAX package takes."""
-    return {k: _to_array(v) for k, v in params.items()}
+    dtype: the form the JAX package takes; a LoRA node as a node of
+    arrays."""
+    return {k: _lora_node(v, _to_array) if _is_lora(v) else _to_array(v)
+            for k, v in params.items()}

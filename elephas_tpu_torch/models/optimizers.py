@@ -173,6 +173,69 @@ def fused_adam(learning_rate: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
     return adam_compact(learning_rate, b1, b2, eps, moment_dtype=torch.float32)
 
 
+class MaskedState(NamedTuple):
+    """``optax.MaskedState``: the inner transformation's state over the
+    masked-in leaves only."""
+
+    inner_state: Any
+
+
+def _leaves(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """A params-shaped dict flattened to its leaves: a plain entry is one
+    leaf under its name; a node with ``tree_flatten`` and ``_fields`` (a
+    :class:`~elephas_tpu_torch.models.lora.LoRATensor`) gives one leaf a
+    field, under ``"<name>.<field>"``."""
+    out = {}
+    for k, v in tree.items():
+        if hasattr(v, "tree_flatten"):
+            out.update((f"{k}.{f}", c)
+                       for f, c in zip(v._fields, v.tree_flatten()[0]))
+        else:
+            out[k] = v
+    return out
+
+
+def _rebuild(template: Dict[str, Any], leaves: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`_leaves`, with ``template``'s structure."""
+    out = {}
+    for k, v in template.items():
+        if hasattr(v, "tree_flatten"):
+            aux = v.tree_flatten()[1]
+            out[k] = type(v).tree_unflatten(
+                aux, [leaves[f"{k}.{f}"] for f in v._fields])
+        else:
+            out[k] = leaves[k]
+    return out
+
+
+def masked(inner, mask) -> GradientTransformation:
+    """``optax.masked``: ``inner`` runs on the leaves whose ``mask`` entry
+    is True and keeps state for those alone; every other update passes
+    through unchanged (a frozen leaf given a zero gradient gets an update
+    of exactly 0, whatever ``inner``'s weight decay). ``mask`` is a tree
+    of booleans shaped like the params (:func:`~elephas_tpu_torch.models.
+    lora.lora_mask`'s). The trees are flat dicts whose entries may be
+    nodes with ``tree_flatten`` (the port's LoRA tensors), flattened field
+    by field."""
+    keep = _leaves(mask)
+
+    def picked(tree):
+        return {k: v for k, v in _leaves(tree).items() if keep[k]}
+
+    def init(params, count_shape=()):
+        return MaskedState(inner.init(picked(params), count_shape))
+
+    def update(updates, state: MaskedState, params=None):
+        new, inner_state = inner.update(
+            picked(updates), state.inner_state,
+            None if params is None else picked(params))
+        flat = _leaves(updates)
+        flat.update(new)
+        return _rebuild(updates, flat), MaskedState(inner_state)
+
+    return GradientTransformation(init, update)
+
+
 # -- the Keras-spec optimizers of the MLP fit (port of ``to_optax``) ---------
 #
 # Each follows the update rule of the optax transformation the reference

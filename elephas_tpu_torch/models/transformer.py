@@ -36,9 +36,14 @@ objective), and sliding-window attention (the Mistral convention, one
 window for every layer or one per layer): the kernels mask by the window,
 and a model whose every layer is windowed decodes over a rolling cache of
 O(window) slots, position ``p`` in slot ``p mod T``
-(:func:`write_prompt_cache`, :meth:`~TransformerLM.init_cache`). LoRA,
-sequence and expert parallelism (``mesh``, ``attn="ring"``/``"ulysses"``)
-and ``overlap_grads`` are later slices and raise ``NotImplementedError``.
+(:func:`write_prompt_cache`, :meth:`~TransformerLM.init_cache`). LoRA lives
+in ``lora.py``: a :class:`~elephas_tpu_torch.models.lora.LoRATensor` weight
+passes through every place this module reads a weight, and
+:class:`~elephas_tpu_torch.models.lora.MultiTenantLM` (re-exported here)
+adds per-row adapter deltas in :meth:`~TransformerLM._attn_proj`, entered
+through :func:`_adapter_ctx`. Sequence and expert parallelism (``mesh``,
+``attn="ring"``/``"ulysses"``) and ``overlap_grads`` are later slices and
+raise ``NotImplementedError``.
 
 JAX's arrays are immutable and its serving kernels donate the KV cache so
 XLA updates it in place; here the cache is updated in place explicitly
@@ -49,6 +54,7 @@ dicts and leaves its arguments untouched.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, Optional, Tuple
 
@@ -412,6 +418,17 @@ def write_prompt_cache(kc, vc, ks, vs, windowed: bool):
     kc[..., :T0, :] = ks
     vc[..., :T0, :] = vs
     return kc, vc
+
+
+def _adapter_ctx(model, rows):
+    """Enter ``model``'s per-row adapter context when it has one
+    (:class:`~elephas_tpu_torch.models.lora.MultiTenantLM`: ``rows`` selects
+    each batch row's adapter in every ``_attn_proj`` run inside the
+    context); a plain model gets a no-op, so one code path serves both."""
+    ctx = getattr(model, "adapter_context", None)
+    if ctx is None:
+        return contextlib.nullcontext()
+    return ctx(rows)
 
 
 def cache_gather_slot(cache, slot: int):
@@ -1644,16 +1661,6 @@ class MoETransformerLM(TransformerLM):
         return y, aux
 
 
-class MultiTenantLM:
-    """The reference's multi-tenant LoRA LM (``MultiTenantLM`` in
-    ``elephas_tpu/models/lora.py``); not ported yet."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "multi-tenant LoRA serving rides the paged engine, not ported yet "
-            "(ROADMAP.md queue 1, 'Paged serving (K5)')")
-
-
 # -- training ------------------------------------------------------------------
 
 
@@ -1870,3 +1877,12 @@ def build_lm_eval_step(model: TransformerLM, mesh, attn: str = "ring"):
                               attn=attn) / tokens.numel()
 
     return eval_fn
+
+
+def __getattr__(name):
+    # MultiTenantLM subclasses TransformerLM in lora.py, which imports this
+    # module; the re-export resolves on first use
+    if name == "MultiTenantLM":
+        from .lora import MultiTenantLM
+        return MultiTenantLM
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

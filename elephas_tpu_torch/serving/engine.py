@@ -43,7 +43,11 @@ prefix adopt its pages and skip their prefill, and admission gates on free
 pages. Under page pressure the engine evicts clean prefix pages, then
 preempts the newest request, which later resumes from prompt ++ generated
 with an unchanged token stream. The paged engine emits exactly the dense
-engine's tokens on the CPU.
+engine's tokens on the CPU. It is also the multi-tenant engine: over a
+:class:`~elephas_tpu_torch.models.lora.MultiTenantLM`, ``submit(...,
+adapter_id=)`` serves each request under its LoRA adapter, co-batched with
+every other tenant (adapter 0 is the base model; the dense engine serves
+adapter 0 only).
 
 Speculative decoding (``speculate_k=``): a drafter proposes up to
 ``speculate_k - 1`` tokens per live slot (:class:`NgramDrafter` on the
@@ -58,8 +62,9 @@ Up to ``speculate_k`` tokens commit per round and the stream is the
 the card the chunk and the step attend through other kernels, so there the
 two agree up to near ties. Speculation stands down to the sequential step
 on the conditions that stop fusion, and while a :class:`ModelDrafter`'s
-weights are stale. Meshes, multi-tenant adapters and fault injection are
-later slices of the port and raise ``NotImplementedError``.
+weights are stale. A :class:`ModelDrafter` over a ``MultiTenantLM`` drafts
+each row under the row's adapter. Meshes and fault injection are later
+slices of the port and raise ``NotImplementedError``.
 
 Time is injectable (``clock=``): latency tests pin exact TTFT/queue-wait
 numbers with a fake clock. The latency histograms read a separate
@@ -78,7 +83,7 @@ import numpy as np
 import torch
 
 from .. import DeviceLike, resolve_device
-from ..models.transformer import select_slot_tokens
+from ..models.transformer import _adapter_ctx, select_slot_tokens
 from .cache import SlotKVCache, bucket_length, decode_block, spec_commit
 from .memory import PagedKVCache, PagesExhausted
 from .metrics import RequestTiming, ServingMetrics
@@ -108,27 +113,30 @@ def _verify(model, params, cache, drafts, tokens, pos, temps, seeds, live,
                        sampled)
 
 
-def _draft_propose(model, params, cache, tokens, pos, live, n_steps: int):
+def _draft_propose(model, params, cache, tokens, pos, live, aids,
+                   n_steps: int):
     """Greedy draft rollout on the draft model's own dense slot cache:
     ``n_steps`` decode steps from the target's carry and position (the
     draft's write head equals the target's committed head at round start),
-    argmax proposals ``[S, n_steps]``, then one more step that ingests the
-    last proposal at ``pos + n_steps`` (its logits unused). Without it a
-    fully accepted round would leave that position a hole in the draft
-    cache, corrupting every later proposal of the row; the reference's
-    engine leaves the hole (acceptance, never tokens, pays for it), its
-    ``generate_speculative`` ingests as here. Rows written past this
-    round's accepted prefix are rewritten by the next rollout before
-    anything attends them. Greedy keeps the proposer a delta distribution,
-    which the exact-match acceptance needs."""
+    each row under its adapter ``aids`` (a multi-tenant draft model; a
+    plain one ignores them), argmax proposals ``[S, n_steps]``, then one
+    more step that ingests the last proposal at ``pos + n_steps`` (its
+    logits unused). Without it a fully accepted round would leave that
+    position a hole in the draft cache, corrupting every later proposal of
+    the row; the reference's engine leaves the hole (acceptance, never
+    tokens, pays for it), its ``generate_speculative`` ingests as here.
+    Rows written past this round's accepted prefix are rewritten by the
+    next rollout before anything attends them. Greedy keeps the proposer a
+    delta distribution, which the exact-match acceptance needs."""
     drafts = []
-    for _ in range(n_steps):
-        logits, cache = model.decode_step(params, tokens, pos, cache)
-        nxt = logits.argmax(dim=-1)
-        tokens = torch.where(live, nxt, tokens)
-        pos = torch.where(live, pos + 1, pos)
-        drafts.append(nxt)
-    model.decode_step(params, tokens, pos, cache)
+    with _adapter_ctx(model, aids):
+        for _ in range(n_steps):
+            logits, cache = model.decode_step(params, tokens, pos, cache)
+            nxt = logits.argmax(dim=-1)
+            tokens = torch.where(live, nxt, tokens)
+            pos = torch.where(live, pos + 1, pos)
+            drafts.append(nxt)
+        model.decode_step(params, tokens, pos, cache)
     return torch.stack(drafts, dim=1)
 
 
@@ -166,19 +174,17 @@ class ModelDrafter:
     """Draft-transformer proposer: greedy rollouts from a small model on its
     OWN dense slot cache (engine-managed), prefilled at admission and
     advanced in lockstep with the target's committed stream. Local engines
-    only, dense or paged. Every row drafts with the base weights: a
-    :class:`~elephas_tpu_torch.models.transformer.MultiTenantLM` draft model
-    (per-adapter drafting) is a later slice. ``steps`` and ``prefills``
-    count the batched draft decode steps (``W + 1`` for a round of ``W``
-    drafts) and the slot inserts the engine ran on it, each one launch of
-    every kernel on the draft model's path."""
+    only, dense or paged. Pass a
+    :class:`~elephas_tpu_torch.models.lora.MultiTenantLM` to draft per
+    adapter: each row's prefill and rollout run under the row's adapter (an
+    id past the drafter's ``n_adapters`` drafts with adapter 0). A plain
+    draft model drafts every tenant with its base weights; acceptance may
+    drop for adapted rows, the tokens never depend on the proposer.
+    ``steps`` and ``prefills`` count the batched draft decode steps (``W +
+    1`` for a round of ``W`` drafts) and the slot inserts the engine ran on
+    it, each one launch of every kernel on the draft model's path."""
 
     def __init__(self, model, params):
-        if hasattr(model, "n_adapters"):    # a multi-tenant (LoRA) model
-            raise NotImplementedError(
-                "per-adapter drafting with a MultiTenantLM draft model is not "
-                "ported yet (ROADMAP.md queue 1 item 5, 'LoRA, multi-tenant "
-                "serving')")
         if getattr(model, "_ring_cache", False):
             raise NotImplementedError(
                 "draft model must use a linear (horizon) cache — windowed "
@@ -311,6 +317,9 @@ class ServingEngine:
             if isinstance(self.drafter, ModelDrafter):
                 self._draft_cache = self.drafter.model.init_cache(
                     S, self.kv.max_len)
+                # each row's adapter on the draft model, written at the
+                # row's draft prefill
+                self._draft_aids = torch.zeros(S, dtype=torch.int64, device=dev)
         self.weights_version = 0
         # a ModelDrafter whose params were not swapped with the target's
         # stands down until fresh drafter params arrive
@@ -334,14 +343,18 @@ class ServingEngine:
                eos_id: Optional[int] = None, priority: int = 0,
                seed: int = 0, on_token: Optional[Callable] = None,
                request_id: Optional[str] = None,
-               deadline_s: Optional[float] = None) -> str:
+               deadline_s: Optional[float] = None,
+               adapter_id: int = 0) -> str:
         """Enqueue one generation request; returns its id. Raises
         :class:`AdmissionError` (with a machine-readable ``.reason``) on
         validation failure or queue backpressure — rejected work never
         holds a queue entry or a slot. ``deadline_s`` bounds the request's
         whole lifetime from submit: once exceeded it is reaped at the next
         ``step()`` with ``finish_reason="deadline"`` and whatever tokens it
-        produced."""
+        produced. ``adapter_id`` selects the request's LoRA variant on a
+        paged engine serving a
+        :class:`~elephas_tpu_torch.models.lora.MultiTenantLM` (0 = the base
+        model everywhere)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         T0 = prompt.shape[0]
         rid = request_id or f"req-{self._next_id}"
@@ -371,6 +384,16 @@ class ServingEngine:
                 raise AdmissionError(
                     "bad_request",
                     f"prompt token ids must be in [0, {self.model.vocab})")
+            n_adapters = int(getattr(self.model, "n_adapters", 1))
+            if adapter_id != 0 and not self._paged:
+                raise AdmissionError(
+                    "bad_request",
+                    f"adapter_id {adapter_id}: non-zero adapters need the "
+                    f"paged engine (paged=True)")
+            if not 0 <= adapter_id < n_adapters:
+                raise AdmissionError(
+                    "bad_request",
+                    f"adapter_id {adapter_id} not in [0, {n_adapters})")
             if self._paged and not self.kv.fits(T0 + int(max_new)):
                 raise AdmissionError(
                     "length_exceeds_cache",
@@ -382,6 +405,7 @@ class ServingEngine:
                 request_id=rid, prompt=prompt, max_new=int(max_new),
                 temperature=float(temperature), eos_id=eos_id,
                 priority=int(priority), seed=int(seed), on_token=on_token,
+                adapter_id=int(adapter_id),
                 deadline_at=(None if deadline_s is None
                              else submitted_at + float(deadline_s)),
                 timing=RequestTiming(request_id=rid, prompt_tokens=int(T0),
@@ -392,7 +416,7 @@ class ServingEngine:
             raise
         self._next_id += 1
         self._requests[rid] = req
-        self.metrics.observe_submit()
+        self.metrics.observe_submit(req.adapter_id)
         return rid
 
     # -- the loop --------------------------------------------------------
@@ -427,8 +451,8 @@ class ServingEngine:
         engine — what :meth:`Scheduler.decide` gates admission on —
         ``(None, None)`` whenever pages are not the binding constraint
         (dense engine, empty queue, no free slot, open chunk train). The
-        need counts only pages beyond the head's cached prefix, and the
-        check may evict clean prefix pages to make room."""
+        need counts only pages beyond the prefix cached for the head's
+        adapter, and the check may evict clean prefix pages to make room."""
         if (not self._paged or self._partial is not None
                 or not self.scheduler.queue_depth
                 or self.kv.free_slots == 0):
@@ -436,7 +460,9 @@ class ServingEngine:
         head = self.scheduler.peek()
         if head is None:
             return None, None
-        return self.kv.admission_check(self._req_prompt(head))
+        # one device: every slot is on data rank 0
+        return self.kv.admission_check(self._req_prompt(head),
+                                       head.adapter_id, 0)
 
     def _spec_reserve_pages(self) -> int:
         """Pages the live slots' speculative lookahead may still claim: a
@@ -538,7 +564,8 @@ class ServingEngine:
         req.timing.finished_at = self.clock()
         req.timing.generated_tokens = len(req.generated)
         req.timing.finish_reason = reason
-        self.metrics.observe_cancel(reason, tokens=len(req.generated))
+        self.metrics.observe_cancel(reason, adapter_id=req.adapter_id,
+                                    tokens=len(req.generated))
         self._file_finished(self._terminal_record(req, reason))
 
     def drain(self, max_steps: Optional[int] = None
@@ -618,10 +645,13 @@ class ServingEngine:
         req.slot = slot
         req.prefill_version = self.weights_version
         req.prefill_pos = 0
-        self.metrics.observe_prefill()
+        self.metrics.observe_prefill(req.adapter_id)
         prompt = self._req_prompt(req)
         T0 = int(prompt.shape[0])
         if self._paged:
+            # the adapter keys the prefix tree: set before adoption (and
+            # again on a preempted request's re-admission)
+            self.kv.set_adapter(slot, req.adapter_id)
             req.admit_seq = next(self._admit_seq)
             # prefix-cache hit: adopted pages skip their prefill outright
             req.prefill_pos = self.kv.adopt_prefix(slot, prompt)
@@ -687,15 +717,22 @@ class ServingEngine:
         """(Re)prefill the draft model's slot row with the request's whole
         prompt (prompt ++ generated after a preemption), so the draft cache
         agrees with the target's committed stream before its first
-        rollout: one bucket-padded insert, never chunked."""
+        rollout: one bucket-padded insert, never chunked, under the row's
+        adapter (0 when the draft model has fewer adapters)."""
         prompt = self._req_prompt(req)
         dm = self.drafter
         T0 = int(prompt.shape[0])
         Tb = min(bucket_length(T0), int(self._draft_cache["k"].shape[3]))
         padded = np.zeros((1, Tb), np.int64)
         padded[0, :T0] = prompt
-        dm.model.prefill_slot(dm.params, torch.from_numpy(padded).to(self.device),
-                              req.slot, self._draft_cache)
+        aid = (req.adapter_id
+               if req.adapter_id < int(getattr(dm.model, "n_adapters", 1))
+               else 0)
+        self._draft_aids[req.slot] = aid
+        with _adapter_ctx(dm.model, self._draft_aids[req.slot:req.slot + 1]):
+            dm.model.prefill_slot(dm.params,
+                                  torch.from_numpy(padded).to(self.device),
+                                  req.slot, self._draft_cache)
         dm.prefills += 1
 
     # -- page pressure (paged engine only) --------------------------------
@@ -809,7 +846,8 @@ class ServingEngine:
             d = self.drafter
             d.steps += W + 1
             return _draft_propose(d.model, d.params, self._draft_cache,
-                                  self._tok, self._pos, self._live, W)
+                                  self._tok, self._pos, self._live,
+                                  self._draft_aids, W)
         out = np.zeros((self.kv.n_slots, W), np.int64)
         for slot, req in self._slot_req.items():
             ctx = np.concatenate([np.asarray(req.prompt, np.int32),
@@ -901,7 +939,7 @@ class ServingEngine:
         req.timing.finished_at = self.clock()
         req.timing.generated_tokens = len(req.generated)
         req.timing.finish_reason = "eos" if done_eos else "length"
-        self.metrics.observe_finish(req.timing)
+        self.metrics.observe_finish(req.timing, adapter_id=req.adapter_id)
         self._file_finished(
             self._terminal_record(req, req.timing.finish_reason))
         slot = req.slot

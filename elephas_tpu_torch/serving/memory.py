@@ -22,13 +22,17 @@ them. This module replaces that with a paged layout:
   request with the same prefix *adopts* the cached pages (an incref: it
   skips their prefill) and shares them copy-on-write: divergence lands in
   a fresh tail page. Sharing is sound because a page's K/V content is a
-  pure function of the token prefix (per weights version).
+  pure function of the token prefix (per weights version and adapter).
+* **Adapters** — each slot carries an adapter id (:meth:`PagedKVCache.
+  set_adapter`); a :class:`~elephas_tpu_torch.models.lora.MultiTenantLM`
+  applies each row's LoRA delta inside every insert, decode and verify
+  launch, and the prefix tree keeps one root per adapter, since an
+  adapter changes the K/V a prompt writes.
 
 Host bookkeeping (refcounts, tables, radix tree) is pure Python, copied
-from the reference. The device block table is resident: dirty slot rows
-are patched with one small upload, never a whole-table upload. Meshes
-(several partitions) and multi-tenant adapters are later slices of the
-port.
+from the reference. The device block table and adapter ids are resident:
+dirty slot rows are patched with one small upload, never a whole-table
+upload. Meshes (several partitions) are a later slice of the port.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from typing import Any, Dict, FrozenSet, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.transformer import _adapter_ctx
 from ..ops.flash_decode import aligned_cache_length
 from .cache import bucket_length, decode_block, spec_commit
 
@@ -150,8 +155,8 @@ class RadixPrefixCache:
 
     One tree root per ``(data_rank, adapter_id)``, as in the reference: pages
     are resident on one rank's partitions, and adapters change the K/V
-    content. The local engine of this port has one rank and no adapters, so
-    it uses the root ``(0, 0)`` only.
+    content, so a page is never shared across adapters. The local engine of
+    this port has one rank: its roots are ``(0, adapter_id)``.
     """
 
     def __init__(self, page: int):
@@ -244,11 +249,14 @@ class PagedKVCache:
     """Drop-in replacement for :class:`SlotKVCache` backed by the paged pool:
     the same ``allocate/insert/advance/release/pos/cache`` surface
     the engine drives, plus page bookkeeping (``_ensure_span`` /
-    ``ensure_decode``), prefix adoption and registration, eviction,
-    admission accounting, and the engine-signature ``decode_fn`` /
-    ``fused_fn``. The device table is resident across steps: host
+    ``ensure_decode``), per-slot adapters (``set_adapter``), prefix
+    adoption and registration, eviction, admission accounting, and the
+    engine-signature ``decode_fn`` / ``fused_fn`` / ``verify_fn``. The
+    device table and adapter ids are resident across steps: host
     bookkeeping marks slot rows dirty, and the next launch patches just
-    those rows.
+    those rows. Every launch runs inside the model's adapter context
+    (:func:`~elephas_tpu_torch.models.transformer._adapter_ctx`, a no-op
+    for a plain model).
 
     ``pages_per_partition`` defaults to the dense-equivalent pool
     (``n_slots × pages_per_slot + trash``), where paged and dense emit the
@@ -302,11 +310,14 @@ class PagedKVCache:
 
         S, M = self.n_slots, self.M
         self.table = np.zeros((S, M), np.int32)
+        self.aids = np.zeros(S, np.int32)
         self.owned: List[Dict[int, Tuple[int, int]]] = [{} for _ in range(S)]
         self.pos = np.zeros(S, np.int32)
         self._free: List[int] = list(range(S - 1, -1, -1))
         self._table_dev: Optional[torch.Tensor] = None
+        self._aids_dev: Optional[torch.Tensor] = None
         self._table_rows_dirty: set = set()
+        self._aids_rows_dirty: set = set()
         self.preemptions = 0
         self._prefix_hits = 0
         self._prefix_lookups = 0
@@ -326,15 +337,18 @@ class PagedKVCache:
         return self._free.pop()
 
     def release(self, slot: int) -> None:
-        """Return the slot and drop its reference on every page it holds."""
+        """Return the slot, drop its reference on every page it holds and
+        reset its adapter to 0."""
         if slot in self._free or not 0 <= slot < self.n_slots:
             raise ValueError(f"bad release of slot {slot}")
         for part, lid in self.owned[slot].values():
             self.allocator.decref(part, lid)
         self.owned[slot] = {}
         self.table[slot, :] = 0
+        self.aids[slot] = 0
         self.pos[slot] = 0
         self._table_rows_dirty.add(slot)
+        self._aids_rows_dirty.add(slot)
         self._free.append(slot)
 
     def advance(self, slot: int) -> None:
@@ -346,6 +360,12 @@ class PagedKVCache:
         return self.max_len - int(self.pos[slot])
 
     # -- page bookkeeping ------------------------------------------------
+    def set_adapter(self, slot: int, adapter_id: int) -> None:
+        """Serve ``slot`` under adapter ``adapter_id`` from the next launch
+        on (the engine sets it at admission, before prefix adoption)."""
+        self.aids[slot] = int(adapter_id)
+        self._aids_rows_dirty.add(slot)
+
     def _ensure_span(self, slot: int, lo: int, hi: int) -> None:
         """Allocate (idempotently) every page covering positions
         ``[lo, hi)`` of ``slot``. Raises :class:`PagesExhausted` mid-way
@@ -379,7 +399,7 @@ class PagedKVCache:
         prompt = np.asarray(prompt).reshape(-1)
         cap = (len(prompt) - 1) // self.page
         self._prefix_lookups += cap
-        chain = self.prefix.match(0, 0, prompt, cap)
+        chain = self.prefix.match(0, int(self.aids[slot]), prompt, cap)
         self._prefix_hits += len(chain)
         for m, node in enumerate(chain):
             self.allocator.incref(node.partition, node.lid)
@@ -396,7 +416,8 @@ class PagedKVCache:
             return 0
         prompt = np.asarray(prompt).reshape(-1)
         pages = [self.owned[slot][m] for m in range(len(prompt) // self.page)]
-        return self.prefix.register(0, 0, prompt, pages, self.allocator)
+        return self.prefix.register(0, int(self.aids[slot]), prompt, pages,
+                                    self.allocator)
 
     def evict_pages(self, partition: int, n: int,
                     protect: FrozenSet = frozenset()) -> int:
@@ -436,15 +457,19 @@ class PagedKVCache:
         need = min(-(-int(total_len) // self.page), self.M)
         return need <= self.pages_per_partition - 1
 
-    def admission_check(self, prompt) -> Tuple[int, int]:
-        """``(free, need)`` page counts for admitting ``prompt``: the pages
-        a fresh insert plus the FIRST decode write would allocate beyond
-        the cached prefix. Where short, tries to evict clean prefix pages
-        first (never the matched chain)."""
+    def admission_check(self, prompt, adapter_id: int,
+                        rank: int) -> Tuple[int, int]:
+        """``(free, need)`` page counts for admitting ``prompt`` under
+        adapter ``adapter_id`` on data rank ``rank`` (0: one device): the
+        pages a fresh insert plus the FIRST decode write would allocate
+        beyond the prefix cached for that adapter. Where short, tries to
+        evict clean prefix pages first (never the matched chain)."""
+        if rank != 0:
+            raise ValueError(f"rank {rank}: the local pool has data rank 0 only")
         prompt = np.asarray(prompt).reshape(-1)
         T0 = len(prompt)
         cap = (T0 - 1) // self.page
-        chain = (self.prefix.match(0, 0, prompt, cap, touch=False)
+        chain = (self.prefix.match(0, int(adapter_id), prompt, cap, touch=False)
                  if self.prefix is not None else [])
         need = T0 // self.page + 1 - len(chain)
         free = self.allocator.free_count(0)
@@ -454,25 +479,35 @@ class PagedKVCache:
         return free, need
 
     # -- device ops (SlotKVCache surface) --------------------------------
-    def _device_table(self) -> torch.Tensor:
-        """The resident device block table: uploaded whole once, after which
-        the dirty slot rows (admission, release, page growth) are patched
-        with one upload of their rows. A steady decode step uploads
-        nothing."""
+    def _resident(self, dev_copy, host, dirty: set):
+        """A host array's resident device copy: uploaded whole once, after
+        which the ``dirty`` rows are patched with one upload of their rows.
+        Clears ``dirty``."""
         dev = self.model.device
-        if self._table_dev is None:
-            self._table_dev = torch.from_numpy(self.table.copy()).to(dev)
-        elif self._table_rows_dirty:
-            rows = np.asarray(sorted(self._table_rows_dirty), np.int64)
-            idx, vals = torch.from_numpy(rows), torch.from_numpy(self.table[rows])
+        if dev_copy is None:
+            dev_copy = torch.from_numpy(host.copy()).to(dev)
+        elif dirty:
+            rows = np.asarray(sorted(dirty), np.int64)
+            idx, vals = torch.from_numpy(rows), torch.from_numpy(host[rows])
             if dev.type == "cuda":
                 # pinned staging: the patch is queued on the stream with no
                 # host sync
                 idx = idx.pin_memory().to(dev, non_blocking=True)
                 vals = vals.pin_memory().to(dev, non_blocking=True)
-            self._table_dev.index_copy_(0, idx, vals)
-        self._table_rows_dirty.clear()
-        return self._table_dev
+            dev_copy.index_copy_(0, idx, vals)
+        dirty.clear()
+        return dev_copy
+
+    def _device_tables(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The resident device block table ``[S, M]`` int32 and adapter ids
+        ``[S]`` int32, each patched by its dirty rows (admission, release,
+        page growth, adapter change). A steady decode step uploads
+        nothing."""
+        self._table_dev = self._resident(self._table_dev, self.table,
+                                         self._table_rows_dirty)
+        self._aids_dev = self._resident(self._aids_dev, self.aids,
+                                        self._aids_rows_dirty)
+        return self._table_dev, self._aids_dev
 
     def insert(self, slot: int, prompt: np.ndarray,
                pos0: int = 0) -> torch.Tensor:
@@ -495,17 +530,21 @@ class PagedKVCache:
         padded = np.zeros((1, Tb), np.int64)
         padded[0, :T0] = prompt
         self._ensure_span(slot, pos0, pos0 + T0)
-        table = self._device_table()
+        table, aids = self._device_tables()
         tokens = torch.from_numpy(padded).to(self.model.device)
-        logits, _ = self.model.decode_chunk_paged(
-            self.params, tokens, pos0, self.cache, table[slot:slot + 1],
-            self.page)
+        with _adapter_ctx(self.model, aids[slot:slot + 1]):
+            logits, _ = self.model.decode_chunk_paged(
+                self.params, tokens, pos0, self.cache, table[slot:slot + 1],
+                self.page)
         self.pos[slot] = pos0 + T0
         return logits[0, T0 - 1]
 
-    def _step(self, table):
-        return lambda params, tokens, pos, cache: self.model.decode_step_paged(
-            params, tokens, pos, cache, table, self.page)
+    def _step(self, table, aids):
+        def step(params, tokens, pos, cache):
+            with _adapter_ctx(self.model, aids):
+                return self.model.decode_step_paged(params, tokens, pos, cache,
+                                                    table, self.page)
+        return step
 
     def decode_fn(self, params, cache, tokens, pos, temps, seeds, live,
                   sampled: bool):
@@ -523,7 +562,7 @@ class PagedKVCache:
         """Engine-signature fused multi-step decode: ``n_steps`` paged steps
         back to back, ``(emitted [S, n_steps], tokens, pos)``, the same
         tokens as ``n_steps`` single steps."""
-        return decode_block(self._step(self._device_table()), params, cache,
+        return decode_block(self._step(*self._device_tables()), params, cache,
                             tokens, pos, temps, seeds, live, n_steps, sampled)
 
     def verify_fn(self, params, cache, drafts, tokens, pos, temps, seeds,
@@ -540,8 +579,10 @@ class PagedKVCache:
         the accepted run before anything attends it. Free rows write into
         the trash page."""
         chunk = torch.cat([tokens[:, None], drafts], dim=1)
-        logits, _ = self.model.decode_chunk_paged(
-            params, chunk, pos, cache, self._device_table(), self.page)
+        table, aids = self._device_tables()
+        with _adapter_ctx(self.model, aids):
+            logits, _ = self.model.decode_chunk_paged(
+                params, chunk, pos, cache, table, self.page)
         return spec_commit(logits, drafts, tokens, pos, temps, seeds, live,
                            sampled)
 

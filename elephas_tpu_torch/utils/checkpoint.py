@@ -130,6 +130,14 @@ def params_by_name(tree: Any, *groups: List[str]) -> Any:
     return tree
 
 
+def _is_lora(tree: Any) -> bool:
+    """A LoRA node (:class:`~elephas_tpu_torch.models.lora.LoRATensor`),
+    saved as its ``w``, ``a``, ``b`` and ``alpha``."""
+    from ..models.lora import LoRATensor
+
+    return isinstance(tree, LoRATensor)
+
+
 def _flatten(tree: Any, leaves: List[np.ndarray]) -> Any:
     """The JSON structure of ``tree``, appending its leaves to ``leaves``."""
     if isinstance(tree, Positional):
@@ -138,6 +146,10 @@ def _flatten(tree: Any, leaves: List[np.ndarray]) -> Any:
     if isinstance(tree, torch.Tensor):
         leaves.append(tree.detach().cpu().numpy())
         return {"leaf": len(leaves) - 1, "kind": "torch"}
+    if _is_lora(tree):
+        children, alpha = tree.tree_flatten()
+        return {"lora": [_flatten(c, leaves) for c in children],
+                "alpha": float(alpha)}
     if isinstance(tree, dict):
         keys = list(tree)
         if not all(isinstance(k, str) for k in keys):
@@ -169,6 +181,11 @@ def _unflatten(node: Any, leaves: List[np.ndarray]) -> Any:
     if "params" in node:
         return Positional((_unflatten(v, leaves) for v in node["params"]),
                           node.get("group", 0))
+    if "lora" in node:
+        from ..models.lora import LoRATensor
+
+        return LoRATensor.tree_unflatten(
+            node["alpha"], [_unflatten(v, leaves) for v in node["lora"]])
     if "dict" in node:
         return {k: _unflatten(v, leaves) for k, v in zip(node["dict"], node["items"])}
     if "namedtuple" in node:
@@ -239,6 +256,10 @@ def place_like(template: Any, host_tree: Any) -> Any:
     leaf passes through."""
     if isinstance(template, torch.Tensor):
         return torch.as_tensor(host_tree).to(device=template.device, dtype=template.dtype)
+    if _is_lora(template):
+        return type(template).tree_unflatten(template.alpha, [
+            place_like(t, h) for t, h in zip(template.tree_flatten()[0],
+                                             host_tree.tree_flatten()[0])])
     if isinstance(template, dict):
         return {k: place_like(template[k], host_tree[k]) for k in template}
     if isinstance(template, tuple) and hasattr(template, "_fields"):

@@ -14,7 +14,9 @@ and the mixture-of-experts LM, and the MLP fit's five schedules; the Keras
 layers of the repo's examples (Conv2D, MaxPooling2D, Conv1D,
 BatchNormalization, Reshape, Embedding, LSTM) and a BatchNormalization
 CNN's fit on the card against the CPU, and the Embedding's range check;
-the Spark-ML estimator's K1 launches and the search's pinning to a card.
+the Spark-ML estimator's K1 launches and the search's pinning to a card;
+multi-tenant LoRA serving (plain and speculative) and the LoRA train step
+on the card against the merged oracles and the CPU.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside the
 test, never at import). This file imports no JAX, so it runs on a machine
@@ -25,9 +27,10 @@ import numpy as np
 import pytest
 import torch
 
-from elephas_tpu_torch.models import (MoETransformerLM, TransformerLM,
-                                      adam_compact, build_lm_train_step,
-                                      make_lm_batches)
+from elephas_tpu_torch.models import (MoETransformerLM, MultiTenantLM,
+                                      TransformerLM, adam, adam_compact,
+                                      apply_lora, build_lm_train_step,
+                                      build_lora_lm_train_step, make_lm_batches)
 from elephas_tpu_torch.models.transformer import _rope_angles
 from elephas_tpu_torch.ops.flash_attention import (
     attention_bwd_reference, attention_fwd_reference, flash_attention,
@@ -1645,3 +1648,99 @@ def test_beam1_equals_generate_on_card(cuda):
     wide, scores = generate_beam(model, params, prompt, 30, beam_size=4)
     assert torch.equal(wide[:, :20], prompt.to(torch.int32))
     assert bool(torch.isfinite(scores).all())
+
+
+# -- multi-tenant LoRA serving and LoRA training ----------------------------------
+
+MT_CFG = dict(vocab=97, d_model=64, n_heads=4, n_kv_heads=2, n_layers=2, d_ff=128,
+              max_len=96, activation="swiglu", norm="rmsnorm", attn_bias=False,
+              ffn_bias=False, pos_encoding="rotary", n_adapters=3, lora_rank=4,
+              lora_targets=("q", "k", "v", "o"))
+
+
+@pytest.mark.parametrize("spec", [1, 4], ids=["plain", "speculative"])
+def test_multi_tenant_engine_on_card(cuda, spec):
+    """Co-batched tenants on the paged engine on the card: exact K5 (and
+    the self-drafter's K4) launch counts; adapter 0 equals the base paged
+    engine on the card token for token; each tenant equals a dense engine
+    on its merged weights and the CPU's multi-tenant engine up to near
+    ties; kv.check()."""
+    from elephas_tpu_torch.serving import ModelDrafter
+
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, 97, size=n).astype(np.int32) for n in (13, 30, 21, 9, 17, 25)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        mt = MultiTenantLM(**MT_CFG, device=dev)
+        p = mt.randomize_adapter(mt.randomize_adapter(mt.init(2), 1, seed=3), 2, seed=4)
+        dr = ModelDrafter(mt, p) if spec > 1 else None
+        eng = ServingEngine(mt, p, n_slots=4, paged=True, page_size=8, device=dev,
+                            speculate_k=spec, drafter=dr)
+        for c in (flash_decode_lse, paged_flash_decode_lse, paged_flash_chunk):
+            c.launches = 0
+        ids = [eng.submit(q, 16, adapter_id=i % 3) for i, q in enumerate(prompts)]
+        fin = eng.drain()
+        eng.kv.check()
+        out[dev] = [fin[i].tokens for i in ids]
+    snap = eng.snapshot()
+    rounds = snap["fastpath"].get("spec_rounds", 0)
+    steps = snap["engine"]["decode_steps"] - rounds
+    inserts = snap["engine"]["prefills"]
+    L = MT_CFG["n_layers"]
+    d_steps = dr.steps if dr else 0
+    assert (flash_decode_lse.launches, paged_flash_decode_lse.launches,
+            paged_flash_chunk.launches) == (L * d_steps, L * steps, L * (inserts + rounds))
+    if dr:
+        assert snap["fastpath"]["spec_accepted"] == snap["fastpath"]["spec_drafted"] > 0
+    base = mt.base_model()
+    basep = {k: v for k, v in p.items() if not k.startswith("lora_")}
+    beng = ServingEngine(base, basep, n_slots=4, paged=True, page_size=8, device="cuda")
+    bids = [beng.submit(q, 16) for q in prompts[::3]]
+    bfin = beng.drain()
+    assert [bfin[i].tokens for i in bids] == out["cuda"][::3]         # adapter 0
+    compared = 0
+    for i, q in enumerate(prompts):
+        merged = mt.merged_params(p, i % 3)
+        ref = ServingEngine(base, merged, n_slots=1, device="cuda")
+        rid = ref.submit(q, 16)
+        want = ref.drain()[rid].tokens
+        compared += _near_tie_agree(base, merged, [q], [out["cuda"][i]], [want])
+        compared += _near_tie_agree(base, merged, [q], [out["cuda"][i]], [out["cpu"][i]])
+    assert compared > 0
+
+
+def test_lora_train_step_on_card_matches_cpu(cuda):
+    """A rotary GQA model's LoRA step on ``attn="flash"``: the card (the
+    rope-on-load kernels, L launches of each, none of the plain K2) against
+    the CPU from the same weights and factors; loss rtol 1e-4, every factor
+    gradient within 1e-3 of its scale; one step moves every ``b`` and
+    leaves every frozen tensor the same object."""
+    cfg = {k: v for k, v in MT_CFG.items() if not k.startswith(("n_adapters", "lora"))}
+    batch = make_lm_batches(np.random.default_rng(15).integers(0, 97, size=(2, 65)))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = TransformerLM(**cfg, device=dev)
+        lp = apply_lora(model.init(4), keys=("wq", "wk", "wv", "wo"), rank=4)
+        lp = {k: (type(v)(v.w, v.a, torch.full_like(v.b, 0.01), v.alpha)
+                  if hasattr(v, "materialize") else v) for k, v in lp.items()}
+        step, opt_init = build_lora_lm_train_step(model, None, adam(1e-3), attn="flash")
+        counters = (flash_attention_rope_fwd, flash_attention_rope_dq,
+                    flash_attention_rope_dkv, flash_attention_fwd)
+        before = [f.launches for f in counters]
+        loss, grads = step.grad(lp, *batch)
+        if dev == "cuda":
+            assert [f.launches - b for f, b in zip(counters, before)] == [2, 2, 2, 0]
+            new, _, _ = step(lp, opt_init(lp), *batch)
+            for k, v in lp.items():
+                if hasattr(v, "materialize"):
+                    assert new[k].w is v.w and not torch.equal(new[k].b, v.b)
+                else:
+                    assert new[k] is v
+        out[dev] = (float(loss), {f"{k}.{f}": getattr(g, f).cpu()
+                                  for k, g in grads.items() if g is not None
+                                  for f in ("a", "b")})
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    assert len(out["cpu"][1]) == 8
+    for k_, w in out["cpu"][1].items():
+        err = float((out["cuda"][1][k_] - w).abs().max())
+        assert err <= 1e-3 * max(float(w.abs().max()), 1e-6), k_

@@ -21,7 +21,6 @@ import pytest
 PACKAGES = ["", ".data", ".ml", ".mllib", ".models", ".ops", ".parallel",
             ".parameter", ".serving", ".utils"]
 
-ITEM_5 = "ROADMAP queue 1 item 5 (LoRA, multi-tenant serving)"
 ITEM_6_SHARD = "ROADMAP queue 1 item 6, second half (sharding on torch.distributed)"
 ITEM_10 = "ROADMAP queue 1 item 10 (resilience, streaming and fleet)"
 ITEM_12 = "ROADMAP queue 1 item 12 (quantization, Hugging Face import)"
@@ -39,9 +38,6 @@ ABSENT = {
                          "build_lm_tp_generate", "build_lm_tp_train_step",
                          "build_mesh_tp", "shard_tp_params", "tp_specs", "SEQ_AXIS",
                          "build_mesh_sp", "ring_psum", "shard_lm_batch"], ITEM_6_SHARD),
-        **dict.fromkeys(["LoRATensor", "apply_lora", "build_lora_lm_train_step",
-                         "load_lora", "save_lora", "lora_mask", "lora_trainable_count",
-                         "merge_lora"], ITEM_5),
         **dict.fromkeys(["QuantizedTensor", "dequantize_params", "quantize_lm_params",
                          "quantized_nbytes", "lm_from_hf", "load_hf_lm"], ITEM_12),
         "to_optax": DEPARTURE_OPTAX,
@@ -66,7 +62,6 @@ ABSENT_METHODS = {
            for m in ("shard_params", "specs")},
     },
     ".parallel": {("MoEFeedForward", "gather_params"): ITEM_6_SHARD},
-    ".serving": {("PagedKVCache", "set_adapter"): ITEM_5},
 }
 
 
@@ -103,7 +98,7 @@ def test_package_exports_match_reference(pkg):
 def test_every_absence_names_a_queued_item_or_a_departure():
     reasons = {r for table in (ABSENT, ABSENT_METHODS) for d in table.values()
                for r in d.values()}
-    assert reasons == {ITEM_5, ITEM_6_SHARD, ITEM_10, ITEM_12, DEPARTURE_OPTAX}
+    assert reasons == {ITEM_6_SHARD, ITEM_10, ITEM_12, DEPARTURE_OPTAX}
 
 
 CFG = dict(vocab=17, d_model=16, n_heads=4, n_layers=2, d_ff=32, max_len=64)

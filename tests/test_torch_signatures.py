@@ -447,3 +447,49 @@ def test_lm_constructors_take_attn_window_in_place(cls):
         "elephas_tpu_torch.models.transformer"), cls).__init__)
     want = _params(getattr(jt, cls).__init__)
     assert got == want + [("device", "cuda")]
+
+
+# -- LoRA and multi-tenant serving --------------------------------------------
+
+# every public function and class of the reference's ``models/lora.py``, and
+# each public method of a class, with the reference's parameters; the one
+# departure is ``MultiTenantLM.init``'s trailing ``device=None``, which
+# every ``init`` of the port's LM family takes
+LORA_NAMES = sorted(name for name, obj in vars(importlib.import_module(
+    "elephas_tpu.models.lora")).items()
+    if not name.startswith("_") and callable(obj)
+    and getattr(obj, "__module__", None) == "elephas_tpu.models.lora")
+
+
+@pytest.mark.parametrize("name", LORA_NAMES)
+def test_lora_names_match_reference(name):
+    ref = getattr(importlib.import_module("elephas_tpu.models.lora"), name)
+    port = getattr(importlib.import_module("elephas_tpu_torch.models.lora"), name)
+    if not isinstance(ref, type):
+        assert _params(port) == _params(ref)
+        return
+    for m, want in vars(ref).items():
+        if not callable(want) or (m != "__init__" and m.startswith("_")):
+            continue
+        got = getattr(port, m, None)
+        assert got is not None, (name, m)
+        got = getattr(got, "__func__", got)     # a classmethod
+        want = getattr(want, "__func__", want)
+        extra = [("device", None)] if (name, m) == ("MultiTenantLM", "init") else []
+        assert _params(got) == _params(want) + extra, (name, m)
+
+
+@pytest.mark.parametrize("port,ref", [
+    ("elephas_tpu_torch.serving.engine:ServingEngine.submit",
+     "elephas_tpu.serving.engine:ServingEngine.submit"),
+    ("elephas_tpu_torch.serving.memory:PagedKVCache.admission_check",
+     "elephas_tpu.serving.memory:PagedKVCache.admission_check"),
+    ("elephas_tpu_torch.serving.memory:PagedKVCache.set_adapter",
+     "elephas_tpu.serving.memory:PagedKVCache.set_adapter"),
+    ("elephas_tpu_torch.serving.memory:PagedKVCache.release",
+     "elephas_tpu.serving.memory:PagedKVCache.release"),
+    ("elephas_tpu_torch.models.transformer:_adapter_ctx",
+     "elephas_tpu.models.transformer:_adapter_ctx"),
+], ids=lambda x: x.split(":")[1])
+def test_multi_tenant_signature_matches_reference(port, ref):
+    assert _params(_resolve(*port.split(":"))) == _params(_resolve(*ref.split(":")))

@@ -11,8 +11,8 @@ import pytest
 import torch
 
 from elephas_tpu.models.transformer import TransformerLM as JaxLM
-from elephas_tpu_torch.models import (MoETransformerLM, MultiTenantLM,
-                                      TransformerLM, from_jax_params, to_numpy)
+from elephas_tpu_torch.models import (MoETransformerLM, TransformerLM,
+                                      from_jax_params, to_numpy)
 
 V = 17
 BASE = dict(vocab=V, d_model=16, n_heads=4, n_layers=2, d_ff=32, max_len=48)
@@ -149,16 +149,14 @@ def test_attn_window_constructs_uniform_and_per_layer():
 
 
 def test_later_slices_raise_not_implemented():
-    """Sequence-parallel attention, expert parallelism and LoRA are later
-    slices (``apply``/``prefill``/``generate``, the single-device MoE LM
-    and sliding windows are ported since)."""
+    """Sequence-parallel attention and expert parallelism are later slices
+    (``apply``/``prefill``/``generate``, the single-device MoE LM, sliding
+    windows and LoRA are ported since)."""
     tm = TransformerLM(**BASE, device="cpu")
     tokens = np.zeros((1, 4), np.int64)
     for attn in ("ring", "ulysses"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tm.apply(tm.init(0), tokens, tokens, attn=attn)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MultiTenantLM(**BASE)
     moe = MoETransformerLM(**BASE, n_experts=4, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         moe.moe.apply(moe.moe.init(0, device="cpu"), torch.zeros(4, 16))
