@@ -326,6 +326,52 @@ Phases, each printing one JSON line; any failure exits non-zero:
     the ensemble's members are the second search's two least-loss trials
     and its prediction is [n, 10].
 
+37. ``fleet``: GPT-2-small at full width and depth (``serve``'s weights)
+    behind ``FleetRouter`` with two dense partitions of 8 slots sharing the
+    params (each its own cache), on a ``SimClock`` (0.05 s a fleet step):
+    the reference chaos scenario's ``TrafficModel`` trace (seed 3, 4 rps,
+    12 s, 4 tenants, half sampled, burst 2) at GPT-2's vocabulary, prompts
+    of median 64 and at most 256 tokens, outputs of median 32 and at most
+    64; partition 0 killed at 2.0 s, a replacement joining at 2.5 s: every
+    request terminal, migrations, exactly L K4 a decode step and 2L+1
+    K3-fwd a step and an insert over every engine built (the killed one
+    included), the deadline-miss share; then the same replay on the card's
+    own time (``time.monotonic``): fleet tok/s, TTFT and ITL p50 / p99.
+38. ``fleet_paged``: the same on paged partitions (page 16), ``kv.check()``
+    after every fleet step, exactly L K5-decode a decode step and L
+    K5-chunk an insert.
+39. ``fleet_cross_check``: each request's stream in the chaos runs (dense
+    and paged, migrated or not) against the undisturbed run's up to its
+    first near tie (top-2 gap 1e-3 or less; for a sampled row the gap of
+    the scaled logits plus the engine's Gumbel noise): how many requests
+    and positions were compared.
+40. ``stream``: ``SparkModel.fit_stream`` over a socket parameter server,
+    ``train_fn`` the port's LM train step (``attn="flash"``, B 4 x T 512)
+    at GPT-2-small's width, 4 of its 12 layers, publishing every commit
+    through ``engine_sink`` into a live paged engine that keeps decoding
+    three long requests between commits: 5 micro-batches, one a poisoned
+    update the eval gate rolls back (publish history publish, publish,
+    rollback, publish, publish), the engine's weights version following
+    each publish, a probe after each swap equal to a fresh engine on the
+    published weights up to near ties, exactly L K2-fwd, dq, dkv and 2L+1
+    K3-bwd a train step from ``train_fn``; then ``stream_fleet``: the same
+    through ``router_sink`` into a two-partition fleet (2 commits).
+41. ``resilience_fit``: the MLP fit (8192 samples, batch 128, 2 epochs) on
+    the card: the host path over a socket server under a ``FaultPlan``
+    (dropped pushes, partition 1 crashed at its second push, partition 0 a
+    straggler) and a ``RetryPolicy``: the server's version is the pushes
+    less the dropped ones (each applied once), exact K1 counts from the
+    worker threads (the crashed attempt's epochs included); a hot standby
+    with the primary killed mid-fit: failover, no committed update lost;
+    the compiled path with a ``HeartbeatRegistry`` quorum of 3 of 4 and
+    worker 3 expired: its mask, exact K1 counts, weights other than the
+    all-worker fit's, and quorum lost when a second worker expires.
+42. ``soak``: ``run_soak`` over five seeded schedules on the card, one of
+    each stack (synchronous fit with a killed worker, asynchronous and
+    hogwild fits under the wire and logical storm, ``fit_stream``, the
+    paged fleet replay): every schedule completes or dies typed.
+    After each of 37-42 a ``wall`` line gives its seconds.
+
 Then the kernel summary line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without CUDA, or without the repository around it, it exits non-zero and
@@ -5637,6 +5683,582 @@ def hyperparam(card):
     return counts
 
 
+# -- resilience, streaming and the serving fleet (item 10's first part) -------------
+
+FLEET_TRACE = dict(seed=3, base_rps=4.0, duration_s=12.0, n_tenants=4, sampled_frac=0.5,
+                   burst_amp=2.0, vocab=GPT2_SMALL["vocab"], prompt_len_median=64.0,
+                   prompt_len_max=256, max_new_median=32.0, max_new_max=64)
+FLEET_CHAOS = [{"t": 2.0, "op": "kill", "pid": 0}, {"t": 2.5, "op": "join"}]
+FLEET_SLOTS = 8
+FLEET_STEP_DT = 0.05
+STREAM_LAYERS = 4              # the stream model's depth (GPT-2-small's width)
+
+
+class _WallClock:
+    """The card's own time for a trace replay: seconds since construction on
+    ``time.monotonic``; ``advance`` waits for nothing (the replay runs as
+    fast as the fleet steps, arrivals released as the wall passes them)."""
+
+    def __init__(self):
+        self.t0 = time.monotonic()
+
+    def __call__(self):
+        return time.monotonic() - self.t0
+
+    def advance(self, dt):
+        return self()
+
+
+def _fleet_trace():
+    from elephas_tpu_torch.fleet import TrafficModel
+
+    return TrafficModel(**FLEET_TRACE).generate()
+
+
+def _fleet_run(model, params, trace, *, paged, chaos, clock, check=False):
+    """One replay of ``trace`` through two partitions (``n_slots`` 8 each,
+    sharing ``params``; each its own cache) on ``clock``, with ``chaos``'s
+    kill and join; ``check`` runs ``kv.check()`` after every fleet step.
+    Returns the router, its snapshot and every engine the factory built
+    (the killed one included, for the launch counts)."""
+    from elephas_tpu_torch.fleet import FleetPolicy, FleetRouter, run_trace
+    from elephas_tpu_torch.serving import ServingEngine
+
+    made = []
+
+    def factory(pid):
+        eng = ServingEngine(model, params, n_slots=FLEET_SLOTS, paged=paged, page_size=16,
+                            clock=clock, perf_clock=clock, device="cuda")
+        made.append(eng)
+        return eng
+
+    router = FleetRouter(factory, 2, policy=FleetPolicy(), clock=clock, lease_s=0.5)
+    if not check:
+        snap = run_trace(router, trace, clock=clock, step_dt=FLEET_STEP_DT, chaos=chaos)
+        return router, snap, made
+    pending = sorted(trace.requests, key=lambda r: (r.arrival_s, r.request_id))
+    events = sorted(chaos or [], key=lambda e: e["t"])
+    i = e = steps = 0
+    while True:
+        now = clock()
+        while e < len(events) and events[e]["t"] <= now:
+            ev = events[e]
+            e += 1
+            (router.kill_partition(ev["pid"]) if ev["op"] == "kill"
+             else router.join_partition())
+        while i < len(pending) and pending[i].arrival_s <= now:
+            router.submit(pending[i])
+            i += 1
+        router.step()
+        for pid in router.partition_ids():
+            router._engines[pid].kv.check()
+        if i >= len(pending) and e >= len(events) and router.active == 0:
+            break
+        steps += 1
+        require(steps < 200000, "fleet replay did not drain")
+        clock.advance(FLEET_STEP_DT)
+    return router, router.snapshot(), made
+
+
+def _fleet_checks(what, trace, router, snap, made, paged):
+    """Every request terminal, migrations, and the exact launch counts of the
+    run's engines (read just after it): L K4 (or K5-decode) a decode step,
+    L K5-chunk an insert on the paged engine, 2L+1 K3-fwd a step and an
+    insert, nothing else."""
+    L = GPT2_SMALL["n_layers"]
+    counts = _read_counters()
+    f = snap["fleet"]
+    require(f["done"] == len(trace) and f["queued"] == 0 and f["running"] == 0,
+            f"{what}: not every request terminal: {f}")
+    require(router.migrations > 0, f"{what}: the kill migrated nothing")
+    steps = sum(e.snapshot()["engine"]["decode_steps"] for e in made)
+    inserts = sum(e.snapshot()["engine"]["prefills"] for e in made)
+    want = {"layer_norm_fwd": (2 * L + 1) * (steps + inserts)}
+    if paged:
+        want.update(paged_flash_decode_lse=L * steps, paged_flash_chunk=L * inserts)
+    else:
+        want.update(flash_decode_lse=L * steps)
+    for name, n in want.items():
+        require(counts[name] == n, f"{what}: {name} launched {counts[name]} times, want "
+                                   f"{n} ({steps} decode steps, {inserts} inserts)")
+    others = {k: v for k, v in counts.items() if k not in want and v}
+    require(not others, f"{what}: other kernels launched: {others}")
+    return counts, steps, inserts
+
+
+def _fleet_summary(snap, trace):
+    slo = snap["slo"]
+    return {"requests": len(trace), "fleet": snap["fleet"],
+            "deadline_with": slo["with_deadline"], "deadline_missed": slo["deadline_missed"],
+            "deadline_miss_share": (slo["deadline_missed"] / slo["deadline_done"]
+                                    if slo["deadline_done"] else None),
+            "latency_sim_s": snap["latency"]}
+
+
+def _fleet_wall(model, params, trace, paged):
+    """The chaos replay again on the card's own time: fleet tok/s, TTFT and
+    ITL p50 / p99 (seconds on ``time.monotonic``)."""
+    clock = _WallClock()
+    router, snap, _ = _fleet_run(model, params, trace, paged=paged, chaos=FLEET_CHAOS,
+                                 clock=clock)
+    torch.cuda.synchronize()
+    wall = clock()
+    res = router.results()
+    n_tok = sum(len(s.tokens) for s in res.values())
+    lat = snap["latency"]
+    return {"wall_s": wall, "tokens": n_tok, "tok_per_s": n_tok / wall,
+            "ttft_p50_s": lat["ttft_p50"], "ttft_p99_s": lat["ttft_p99"],
+            "itl_p50_s": lat["itl_p50"], "itl_p99_s": lat["itl_p99"],
+            "migrations": router.migrations, "done": snap["fleet"]["done"],
+            "deadline_missed": snap["slo"]["deadline_missed"],
+            "deadline_done": snap["slo"]["deadline_done"]}
+
+
+def fleet(card, params):
+    """GPT-2-small at full width and depth behind a two-partition
+    ``FleetRouter`` on a ``SimClock``: the reference chaos scenario's trace
+    at GPT-2's vocabulary and lengths, partition 0 killed mid-burst and a
+    replacement joining; counted on the simulated clock, then timed on the
+    card's own."""
+    from elephas_tpu_torch.fleet import SimClock
+    from elephas_tpu_torch.models import TransformerLM
+
+    model = TransformerLM(**GPT2_SMALL, device="cuda")
+    trace = _fleet_trace()
+    base_router, base_snap, _ = _fleet_run(model, params, trace, paged=False, chaos=None,
+                                           clock=SimClock())
+    torch.cuda.synchronize()
+    _zero_counters()
+    router, snap, made = _fleet_run(model, params, trace, paged=False, chaos=FLEET_CHAOS,
+                                    clock=SimClock())
+    torch.cuda.synchronize()
+    counts, steps, inserts = _fleet_checks("fleet", trace, router, snap, made, False)
+    timed = _fleet_wall(model, params, trace, paged=False)
+    emit({"phase": "fleet", "model": "gpt2-small (random weights, seed 0)",
+          "partitions": 2, "n_slots": FLEET_SLOTS, "trace": FLEET_TRACE,
+          "chaos": FLEET_CHAOS, "step_dt_s": FLEET_STEP_DT, "engines_built": len(made),
+          "decode_steps": steps, "inserts": inserts, "launches": counts,
+          "migrations": router.migrations, **_fleet_summary(snap, trace),
+          "undisturbed": _fleet_summary(base_snap, trace), "on_card_time": timed,
+          "card": card})
+    return model, trace, base_router, router, counts
+
+
+def fleet_paged(card, model, params, trace):
+    """The same trace on paged partitions (page 16), ``kv.check()`` after
+    every fleet step, exact K5-decode and K5-chunk counts."""
+    from elephas_tpu_torch.fleet import SimClock
+
+    base_router, base_snap, _ = _fleet_run(model, params, trace, paged=True, chaos=None,
+                                           clock=SimClock())
+    torch.cuda.synchronize()
+    _zero_counters()
+    router, snap, made = _fleet_run(model, params, trace, paged=True, chaos=FLEET_CHAOS,
+                                    clock=SimClock(), check=True)
+    torch.cuda.synchronize()
+    counts, steps, inserts = _fleet_checks("fleet_paged", trace, router, snap, made, True)
+    timed = _fleet_wall(model, params, trace, paged=True)
+    emit({"phase": "fleet_paged", "page_size": 16, "engines_built": len(made),
+          "decode_steps": steps, "inserts": inserts, "launches": counts,
+          "migrations": router.migrations, **_fleet_summary(snap, trace),
+          "undisturbed": _fleet_summary(base_snap, trace), "on_card_time": timed,
+          "kv_checked_every_step": True, "card": card})
+    return base_router, router, counts
+
+
+def fleet_cross_check(card, model, params, trace, runs):
+    """Migrated and surviving streams against the undisturbed run's, dense
+    and paged: equal up to each request's first near tie (top-2 gap 1e-3
+    or less; for a sampled row, the gap of the scaled logits plus the
+    engine's Gumbel noise)."""
+    reqs = {r.request_id: r for r in trace}
+    out = {}
+    for name, (base, chaos) in runs.items():
+        want, got = base.results(), chaos.results()
+        rows, migrated = [], 0
+        for rid, st in want.items():
+            req = reqs[rid]
+            prompt = np.asarray(req.prompt, np.int32)
+            gaps = (_top2_gaps(model, params, prompt, st.tokens) if req.temperature == 0
+                    else _noisy_gaps(model, params, prompt, st.tokens, req.seed,
+                                     req.temperature))
+            a, b = got[rid].tokens, st.tokens
+            require(len(a) == len(b), f"{name}: {rid} emitted {len(a)} tokens, want {len(b)}")
+            n = 0
+            while n < len(b) and gaps[n] > 1e-3:
+                require(a[n] == b[n], f"{name}: {rid} position {n}: {a[n]} != {b[n]} "
+                                      f"(gap {gaps[n]})")
+                n += 1
+            migrated += got[rid].migrations > 0
+            rows.append({"request": rid, "migrated": got[rid].migrations > 0,
+                         "sampled": req.temperature > 0, "compared": n, "of": len(b)})
+        require(migrated > 0, f"{name}: no migrated stream to compare")
+        out[name] = {"requests_compared": len(rows), "migrated": migrated,
+                     "positions_compared": sum(r["compared"] for r in rows),
+                     "positions": sum(r["of"] for r in rows),
+                     "migrated_rows": [r for r in rows if r["migrated"]]}
+    emit({"phase": "fleet_cross_check", **out, "card": card})
+
+
+def _stream_model():
+    from elephas_tpu_torch.models import TransformerLM
+
+    cfg = dict(GPT2_SMALL, n_layers=STREAM_LAYERS)
+    model = TransformerLM(**cfg, device="cuda")
+    return model, model.init(SEED + 51)
+
+
+class _ParamsHolder:
+    """The LM's params as ``SparkModel``'s master network: the PS wire order
+    is the sorted keys (``streaming.bridge``)."""
+
+    def __init__(self, params):
+        self.params = dict(params)
+
+    def get_weights(self):
+        from elephas_tpu_torch.streaming import params_to_list
+
+        return params_to_list(self.params)
+
+    def set_weights(self, weights):
+        from elephas_tpu_torch.streaming import list_to_params
+
+        self.params = list_to_params(weights, self.params)
+
+
+def _stream_train_fn(model, template, counts, poison=0.5):
+    """``train_fn(weights, batch)`` over the port's LM train step
+    (``attn="flash"``, ``adam_compact(1e-3)``): the wire list bridged onto
+    the card, one step, back to the wire. A ``"poison"`` batch adds seeded
+    Gaussian noise of scale ``poison`` to every weight (no step) and
+    ``"cure"`` takes the same noise off again. The launches each call made
+    are added to ``counts``."""
+    from elephas_tpu_torch.models import adam_compact, build_lm_train_step
+    from elephas_tpu_torch.streaming import list_to_params, params_to_list
+
+    step, opt_init = build_lm_train_step(model, None, adam_compact(1e-3), attn="flash")
+    state = {}
+
+    def train_fn(weights, batch):
+        before = _read_counters()
+        if isinstance(batch, str):
+            sign = 1.0 if batch == "poison" else -1.0
+            rng = np.random.default_rng(SEED + 53)
+            new = [w + np.float32(sign * poison) * rng.standard_normal(w.shape, np.float32)
+                   for w in weights]
+            return new, 0.0
+        params = list_to_params(weights, template)
+        if "opt" not in state:
+            state["opt"] = opt_init(params)
+        new, state["opt"], loss = step(params, state["opt"], *batch)
+        out = params_to_list(new), float(loss)
+        after = _read_counters()
+        for k in after:
+            counts[k] = counts.get(k, 0) + after[k] - before[k]
+        counts["steps"] = counts.get("steps", 0) + 1
+        return out
+
+    return train_fn
+
+
+def _stream_eval_fn(model, template, batch):
+    from elephas_tpu_torch.models import build_lm_eval_step
+    from elephas_tpu_torch.streaming import list_to_params
+
+    ev = build_lm_eval_step(model, None, attn="flash")
+    return lambda weights, _b: float(ev(list_to_params(weights, template), *batch))
+
+
+def _lm_batch(gen, B, T, V):
+    from elephas_tpu_torch.models import make_lm_batches
+
+    return tuple(torch.from_numpy(a).cuda() for a in
+                 make_lm_batches(gen.integers(0, V, size=(B, T + 1)).astype(np.int32)))
+
+
+def _probe(eng, model, weights, template, prompt, max_new, n_steps_cap=2000):
+    """Serve ``prompt`` on the live engine (other requests keep decoding
+    beside it) and on a fresh engine of the published weights: the live
+    tokens equal the fresh ones up to the first near tie."""
+    from elephas_tpu_torch.serving import ServingEngine
+    from elephas_tpu_torch.streaming import list_to_params
+
+    rid = eng.submit(prompt, max_new)
+    for _ in range(n_steps_cap):
+        if eng.result(rid, pop=False) is not None:
+            break
+        eng.step()
+    fin = eng.result(rid)
+    require(fin is not None and fin.finish_reason == "length", "probe did not finish")
+    published = list_to_params(weights, template)
+    fresh = ServingEngine(model, published, n_slots=1, paged=eng._paged, page_size=16,
+                          device="cuda")
+    fid = fresh.submit(prompt, max_new)
+    want = fresh.drain()[fid].tokens
+    compared = _agree("stream probe", model, published, [prompt], [fin.tokens], [want])[0]
+    return fin, compared
+
+
+def stream(card):
+    """``SparkModel.fit_stream`` with the port's LM train step at
+    GPT-2-small's width (``STREAM_LAYERS`` of its 12 layers) as
+    ``train_fn``, over a socket parameter server, publishing every commit
+    through ``engine_sink`` into a live paged engine that keeps serving
+    between commits; a poisoned update is rolled back by the eval gate; then
+    the same through ``router_sink`` into a two-partition fleet."""
+    from elephas_tpu_torch import SparkModel
+    from elephas_tpu_torch.fleet import FleetRouter, SimClock, TraceRequest, router_sink
+    from elephas_tpu_torch.serving import ServingEngine
+    from elephas_tpu_torch.streaming import engine_sink
+
+    L, V = STREAM_LAYERS, GPT2_SMALL["vocab"]
+    model, p0 = _stream_model()
+    gen = np.random.default_rng(SEED + 52)
+    B, T = 4, 512
+    batches = [_lm_batch(gen, B, T, V) for _ in range(3)]
+    eval_fn = _stream_eval_fn(model, p0, _lm_batch(gen, B, T, V))
+    probe = gen.integers(0, V, size=80).astype(np.int32)
+
+    def run(sink, stream_batches):
+        counts = {}
+        sm = SparkModel(_ParamsHolder(p0), mode="asynchronous",
+                        parameter_server_mode="socket", port=0, device="cuda")
+        t0 = time.perf_counter()
+        summary = sm.fit_stream(stream_batches, _stream_train_fn(model, p0, counts),
+                                sink=sink, publish_every=1, eval_fn=eval_fn,
+                                regression_margin=0.5)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = counts.pop("steps")
+        want = {**{k: L * steps for k in ("flash_attention_fwd", "flash_attention_dq",
+                                            "flash_attention_dkv")},
+                "layer_norm_bwd": (2 * L + 1) * steps}
+        for name, n in want.items():
+            require(counts[name] == n, f"stream: train_fn launched {name} {counts[name]} "
+                                       f"times, want {n} ({steps} steps of L {L})")
+        return summary, {k: v for k, v in counts.items() if v}, steps, wall, sm
+
+    # a live paged engine: three long requests decode across every commit
+    eng = ServingEngine(model, p0, n_slots=8, paged=True, page_size=16, device="cuda")
+    live = [eng.submit(gen.integers(0, V, size=n).astype(np.int32), 400)
+            for n in (96, 160, 64)]
+    for _ in range(8):
+        eng.step()
+    log = []
+
+    def sink(weights, version):
+        engine_sink(eng, p0)(weights, version)
+        require(eng.weights_version == version,
+                f"stream: engine at version {eng.weights_version}, published {version}")
+        for _ in range(8):                   # serving between commits
+            eng.step()
+        fin, compared = _probe(eng, model, weights, p0, probe, 16)
+        require(set(fin.token_versions) == {version},
+                f"stream: probe tokens under versions {set(fin.token_versions)}")
+        log.append({"version": version, "probe_compared": compared,
+                    "live_active": eng.kv.active_slots,
+                    "prefix_nodes": eng.kv.memory_stats()["prefix"]["nodes"]})
+
+    summary, counts, steps, wall, sm = run(sink, [batches[0], batches[1], "poison", "cure",
+                                                  batches[2]])
+    pub = summary["publisher"]
+    events = [r["event"] for r in pub["history"]]
+    require(summary["commits"] == 5, f"stream: {summary['commits']} commits for 5 batches")
+    require(events == ["publish", "publish", "rollback", "publish", "publish"],
+            f"stream: publisher history {events}")
+    require([r["version"] for r in pub["history"]] == [1, 2, 2, 4, 5]
+            and pub["history"][2]["rejected_version"] == 3,
+            f"stream: versions {pub['history']}")
+    require([x["version"] for x in log] == [1, 2, 4, 5], f"stream: sink saw {log}")
+    require(eng.kv.active_slots >= 1 and any(eng.result(r, pop=False) is None for r in live),
+            "stream: the live requests stopped decoding")
+    emit({"phase": "stream", "model": f"gpt2-small width, {L} of 12 layers (depth cut; "
+                                      f"random weights, seed {SEED + 51})",
+          "batch": [B, T], "server": "socket", "commits": summary["commits"],
+          "train_steps": steps, "publisher": {k: pub[k] for k in
+                                               ("published", "rollbacks", "serving_version")},
+          "history": pub["history"], "sink": log, "train_fn_launches": counts,
+          "wall_s": wall, "s_per_commit": wall / summary["commits"],
+          "weights_mb": sum(w.nbytes for w in sm.master_network.get_weights()) / 1e6,
+          "card": card})
+
+    # the same through router_sink into a two-partition fleet
+    clock = SimClock()
+    router = FleetRouter(lambda pid: ServingEngine(model, p0, n_slots=8, paged=True,
+                                                   page_size=16, clock=clock,
+                                                   perf_clock=clock, device="cuda"),
+                         2, clock=clock)
+    for i in range(4):
+        router.submit(TraceRequest(f"s{i}", 0.0, i % 2,
+                                   gen.integers(0, V, size=64).tolist(), 300))
+    for _ in range(6):
+        router.step()
+    flog = []
+
+    def fleet_sink(weights, version):
+        router_sink(router, p0)(weights, version)
+        versions = [router._engines[p].weights_version for p in router.partition_ids()]
+        require(versions == [version] * 2, f"stream_fleet: partitions at {versions}")
+        for _ in range(6):
+            router.step()
+        fin, compared = _probe(router._engines[router.partition_ids()[0]], model, weights,
+                               p0, probe, 16)
+        flog.append({"version": version, "partition_versions": versions,
+                     "probe_compared": compared})
+
+    fsummary, fcounts, fsteps, fwall, _ = run(fleet_sink, batches[:2])
+    require(fsummary["commits"] == 2 and [x["version"] for x in flog] == [1, 2],
+            f"stream_fleet: {fsummary['commits']} commits, sink saw {flog}")
+    emit({"phase": "stream_fleet", "partitions": 2, "commits": fsummary["commits"],
+          "sink": flog, "train_fn_launches": fcounts, "wall_s": fwall, "card": card})
+    return counts
+
+
+RES_FIT = dict(samples=8192, batch=128, workers=2, epochs=2, validation_split=0.1)
+
+
+def _host_fault_fit(what, sm, x, y, want_fwd, want_bwd):
+    """One host-path fit under resilience options, the launch counts set to
+    0 just before and read just after: exact K1 counts (from the worker
+    threads), no other kernel, finite weights."""
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    c = RES_FIT
+    rdd = to_simple_rdd(SparkContext(f"local[{c['workers']}]"), x, y,
+                        num_slices=c["workers"])
+    torch.cuda.synchronize()
+    _zero_counters()
+    t0 = time.perf_counter()
+    sm.fit(rdd, epochs=c["epochs"], batch_size=c["batch"],
+           validation_split=c["validation_split"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counters()
+    want = {"fused_xent_fwd": want_fwd, "fused_xent_bwd": want_bwd}
+    for name, n in want.items():
+        require(counts[name] == n, f"{what}: {name} launched {counts[name]} times, want {n}")
+    others = {k: v for k, v in counts.items() if k not in want and v}
+    require(not others, f"{what}: other kernels launched: {others}")
+    for w in sm.master_network.get_weights():
+        require(bool(np.isfinite(w).all()) and float(np.abs(w).max()) < 1e3,
+                f"{what}: non-finite or runaway weights")
+    return wall, counts
+
+
+def resilience_fit(card):
+    """The MLP fit on the card under the resilience options: (a) the host
+    path under a ``FaultPlan`` (dropped pushes, partition 1 crashed after
+    its first push, partition 0 a straggler) with a ``RetryPolicy``; (b) a
+    hot standby on the socket server with the primary killed mid-fit; (c) a
+    ``HeartbeatRegistry`` quorum on the compiled path, one worker expired."""
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.resilience import (FaultPlan, HeartbeatRegistry,
+                                              QuorumLostError, RetryPolicy)
+    from elephas_tpu_torch.resilience.faults import _unit
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    c = RES_FIT
+    (x, y), _ = mnist_like(c["samples"], 16)
+    W, E = c["workers"], c["epochs"]
+    S, Sv = _host_steps(len(x), W, c["batch"], c["validation_split"], "epoch")
+    retry = RetryPolicy(max_attempts=4, base_delay_s=0.01, max_delay_s=0.05)
+    out = {}
+
+    # (a) partition 1 crashes at its second push (after two epochs' work)
+    # and its retry trains E epochs again: (W E + E) epochs of K1
+    rate, opportunities = 0.25, W * E + 1
+    seed = next(s for s in range(100)
+                if sum(_unit(s, "drop_push", n) < rate for n in range(opportunities)) >= 1)
+    drops = sum(_unit(seed, "drop_push", n) < rate for n in range(opportunities))
+    plan = FaultPlan(seed, drop_push=rate, crash_partition=1, crash_after_pushes=1,
+                     straggler_stalls={0: 0.5})
+    sm = _mlp_model(num_workers=W, port=0, parameter_server_mode="socket",
+                    fault_plan=plan, retry_policy=retry)
+    wall, counts = _host_fault_fit("resilience_fit host", sm, x, y, (W * E + E) * (S + Sv),
+                                   (W * E + E) * S)
+    ps = sm.membership_snapshot()["parameter_servers"]["primary"]
+    require("crash-partition-1" in plan.fired and "straggle-partition-0" in plan.fired,
+            f"resilience_fit host: fired {plan.fired}")
+    # every push that was not dropped applied exactly once, none twice
+    require(ps["version"] == opportunities - drops and ps["rejected_stale"] == 0,
+            f"resilience_fit host: server version {ps['version']}, want "
+            f"{opportunities} pushes - {drops} dropped")
+    out["host"] = {"wall_s": wall, "launches": counts, "fired": plan.fired,
+                   "server": ps, "drops": drops, "pushes": opportunities}
+
+    # (b) hot standby, the primary killed at its 9th request
+    plan = FaultPlan(seed=5, crash_sites={"kill-primary": 8})
+    registry = HeartbeatRegistry(lease_s=120.0)
+    sm = _mlp_model(num_workers=W, port=0, parameter_server_mode="socket",
+                    fault_plan=plan, retry_policy=retry, hot_standby=True,
+                    membership=registry)
+    wall, counts_b = _host_fault_fit("resilience_fit standby", sm, x, y,
+                                     W * E * (S + Sv), W * E * S)
+    snap = sm.membership_snapshot()
+    ps = snap["parameter_servers"]
+    require("kill-primary" in plan.fired and snap["counters"].get("failovers", 0) >= 1,
+            f"resilience_fit standby: fired {plan.fired}, counters {snap['counters']}")
+    require(ps["standby"]["version"] >= ps["primary"]["version"] > 0
+            and ps["primary"]["replication_errors"] == 0,
+            f"resilience_fit standby: servers {ps}")
+    out["standby"] = {"wall_s": wall, "launches": counts_b, "servers": ps,
+                      "failovers": snap["counters"]["failovers"]}
+
+    # (c) the compiled path, worker 3 of 4 expired: masked out of the merges
+    registry = HeartbeatRegistry(lease_s=120.0, clock=lambda: 0.0)
+    Wc = 4
+    rdd = to_simple_rdd(SparkContext(f"local[{Wc}]"), x, y, num_slices=Wc)
+    Sc, Svc = _mlp_steps(len(x), Wc, c["batch"], c["validation_split"])
+    plain = _mlp_model(mode="synchronous", num_workers=Wc, dropout=False)
+    w0 = plain.master_network.get_weights()
+    plain.fit(rdd, epochs=E, batch_size=c["batch"], validation_split=c["validation_split"])
+    sm = _mlp_model(mode="synchronous", num_workers=Wc, dropout=False,
+                    membership=registry, quorum=3)
+    sm.master_network.set_weights(w0)
+    registry.join("partition-3")
+    registry.expire("partition-3")
+    require(sm._membership_mask(Wc) == [1.0, 1.0, 1.0, 0.0],
+            f"resilience_fit quorum: mask {sm._membership_mask(Wc)}")
+    wall, counts_c, hist = _compiled_fit("resilience_fit quorum", sm, rdd, E, c["batch"],
+                                         c["validation_split"], Sc, Svc)
+    moved = max(float(np.abs(a - b).max()) for a, b in
+                zip(sm.master_network.get_weights(), plain.master_network.get_weights()))
+    require(moved > 0, "resilience_fit quorum: the excluded worker changed nothing")
+    registry.join("partition-2")
+    registry.expire("partition-2")
+    try:
+        sm._membership_mask(Wc)
+        require(False, "resilience_fit quorum: 2 of 4 live passed quorum 3")
+    except QuorumLostError:
+        pass
+    out["quorum"] = {"wall_s": wall, "launches": counts_c, "mask": [1, 1, 1, 0],
+                     "max_weight_diff_vs_all_workers": moved, "loss": hist["loss"]}
+    emit({"phase": "resilience_fit", "samples": c["samples"], "workers": W, "epochs": E,
+          "S": S, "Sv": Sv, **out, "card": card})
+    return {"resilience_fit_host": counts, "resilience_fit_standby": counts_b,
+            "resilience_fit_quorum": counts_c}
+
+
+def soak(card):
+    """``run_soak`` on the card: five seeded schedules, one of each stack
+    (the synchronous fit with a killed worker, the asynchronous and hogwild
+    fits under the wire and logical storm, ``fit_stream`` twice for the
+    replay's bit-identity, the paged fleet replay with a kill and a join)."""
+    from elephas_tpu_torch.resilience import run_soak
+
+    t0 = time.perf_counter()
+    report = run_soak(n_schedules=5, base_seed=0, device="cuda")
+    wall = time.perf_counter() - t0
+    require(not report["failures"], f"soak: {report['failures']}")
+    require(report["completed"] + report["typed_failures"] == 5, f"soak: {report}")
+    emit({"phase": "soak", "schedules": 5, "completed": report["completed"],
+          "typed_failures": report["typed_failures"],
+          "runs": [{k: r.get(k) for k in ("scenario", "seed", "outcome", "fired",
+                                          "wire_caught", "migrations", "error")}
+                   for r in report["runs"]], "wall_s": wall, "card": card})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script drives the "
@@ -5742,6 +6364,19 @@ def main() -> int:
         ml_pipeline_lstm(card)
         ml_persist(card, ml_est, ml_tr, ml_xt)
         hyper_counts = hyperparam(card)
+        fleet_model, fleet_trace, fleet_base, fleet_chaos, fleet_counts = _walled(
+            "fleet", fleet, card, params)
+        fleet_pbase, fleet_pchaos, fleet_paged_counts = _walled(
+            "fleet_paged", fleet_paged, card, fleet_model, params, fleet_trace)
+        _walled("fleet_cross_check", fleet_cross_check, card, fleet_model, params,
+                fleet_trace, {"dense": (fleet_base, fleet_chaos),
+                              "paged": (fleet_pbase, fleet_pchaos)})
+        del fleet_base, fleet_chaos, fleet_pbase, fleet_pchaos
+        torch.cuda.empty_cache()
+        stream_counts = _walled("stream", stream, card)
+        torch.cuda.empty_cache()
+        resilience_counts = _walled("resilience_fit", resilience_fit, card)
+        _walled("soak", soak, card)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5759,7 +6394,10 @@ def main() -> int:
     # generate_spec: of its four runs) and the LoRA paths' (the
     # multi-tenant serving runs' K5, the per-adapter drafter's K4, the LoRA
     # train step's rope K2); K5-chunk and K3-fwd carry their times at the
-    # verify's shapes under verify_shapes
+    # verify's shapes under verify_shapes; the fleet's chaos runs (dense:
+    # K3-fwd and K4; paged: K5), fit_stream's train_fn (K2 and K3-bwd) and
+    # the resilience fits (K1, from the worker threads on the host paths)
+    # are under launches_by_path
     rows = [ln_fwd, ln_bwd, decode, *attn_rows, *paged_rows, *gmm_rows, *xent_rows,
             *rope_rows]
     paths = {"serve": serve_counts, "train_5_steps": train_counts,
@@ -5775,7 +6413,9 @@ def main() -> int:
              "serve_window": serve_window_counts,
              "serve_window_paged": serve_window_paged_counts, "beam": beam_counts,
              "serve_multi_tenant": mt_counts, "multi_tenant_prefix": mt_prefix_counts,
-             "serve_multi_tenant_spec": mt_spec_counts, "train_lora_3_steps": lora_counts}
+             "serve_multi_tenant_spec": mt_spec_counts, "train_lora_3_steps": lora_counts,
+             "fleet": fleet_counts, "fleet_paged": fleet_paged_counts,
+             "stream_train_fn": stream_counts, **resilience_counts}
     main_paths = {"layer_norm_fwd": "serve", "flash_decode_lse": "serve",
                   "paged_flash_decode_lse": "serve_paged",
                   "paged_flash_chunk": "serve_paged", "gmm": "serve_moe",

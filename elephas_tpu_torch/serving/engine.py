@@ -63,12 +63,17 @@ the card the chunk and the step attend through other kernels, so there the
 two agree up to near ties. Speculation stands down to the sequential step
 on the conditions that stop fusion, and while a :class:`ModelDrafter`'s
 weights are stale. A :class:`ModelDrafter` over a ``MultiTenantLM`` drafts
-each row under the row's adapter. Meshes and fault injection are later
-slices of the port and raise ``NotImplementedError``.
+each row under the row's adapter. Meshes are a later slice of the port and
+raise ``NotImplementedError``.
 
 Time is injectable (``clock=``): latency tests pin exact TTFT/queue-wait
 numbers with a fake clock. The latency histograms read a separate
-``perf_clock`` (``time.perf_counter`` by default).
+``perf_clock`` (``time.perf_counter`` by default). A
+:class:`~elephas_tpu_torch.resilience.faults.FaultPlan` (``fault_plan=``)
+injects deterministic clock stalls by step index: they accumulate into a
+skew that every deadline check and timing stamp reads (:meth:`_now`), and
+while a plan is set the fused and speculative windows stand down, so each
+stall lands on its own step.
 """
 
 from __future__ import annotations
@@ -239,10 +244,6 @@ class ServingEngine:
             raise NotImplementedError(
                 "mesh serving is not ported yet (ROADMAP.md queue 1 item 6, "
                 "second half, 'Speculation and sharding')")
-        if fault_plan is not None:
-            raise NotImplementedError(
-                "fault injection is not ported yet (ROADMAP.md queue 1, "
-                "'Resilience, streaming and fleet')")
         if max_finished < 1:
             raise ValueError(f"max_finished must be >= 1, got {max_finished}")
         if fuse_k < 1:
@@ -266,6 +267,12 @@ class ServingEngine:
         self.model = model
         self.params = params
         self.clock = clock
+        # resilience.FaultPlan (duck-typed): serving_stall(step_index)
+        # seconds accumulate into _skew, which every engine-side clock read
+        # adds (_now), so an injected stall ages every request consistently
+        self.fault_plan = fault_plan
+        self._skew = 0.0
+        self._step_index = 0
         # latency-histogram clock (ITL / dispatch / chunk stalls), separate
         # from ``clock`` so fake lifecycle clocks never see extra reads
         self._perf = perf_clock
@@ -338,6 +345,12 @@ class ServingEngine:
                 raise ValueError(f"param {k!r} is on {v.device}, engine on "
                                  f"{self.device}")
 
+    # -- time ------------------------------------------------------------
+    def _now(self) -> float:
+        """Engine time: the injected clock plus the accumulated injected
+        stall skew (every deadline check and timing stamp reads this)."""
+        return self.clock() + self._skew
+
     # -- submission ------------------------------------------------------
     def submit(self, prompt, max_new: int, temperature: float = 0.0,
                eos_id: Optional[int] = None, priority: int = 0,
@@ -400,7 +413,7 @@ class ServingEngine:
                     f"prompt {T0} + max_new {max_new} cannot fit the page "
                     f"pool even alone ({self.kv.pages_per_partition - 1} "
                     f"usable pages of {self.kv.page} tokens)")
-            submitted_at = self.clock()
+            submitted_at = self._now()
             req = ServingRequest(
                 request_id=rid, prompt=prompt, max_new=int(max_new),
                 temperature=float(temperature), eos_id=eos_id,
@@ -424,7 +437,11 @@ class ServingEngine:
         """Run ONE scheduler action — ``"prefill"``, ``"prefill_chunk"``,
         ``"decode"`` or ``"idle"`` — and return which one ran. Expired
         deadlines are reaped first, so a timed-out request frees its slot
-        before this step's work is chosen."""
+        before this step's work is chosen. A fault plan's stall for this
+        step index is added to the engine's clock skew first."""
+        if self.fault_plan is not None:
+            self._skew += self.fault_plan.serving_stall(self._step_index)
+        self._step_index += 1
         self._shed_unmeetable()
         self._reap_expired()
         free_pages, need_pages = self._admission_budget()
@@ -536,13 +553,13 @@ class ServingEngine:
     def _shed_unmeetable(self) -> None:
         """Shed QUEUED requests that provably cannot meet their deadline
         (``"shed"``: dropped before they cost a slot)."""
-        for req in self.scheduler.unmeetable(self.clock(),
+        for req in self.scheduler.unmeetable(self._now(),
                                              self.itl_estimate_s):
             self._finish_early(req, "shed")
 
     def _reap_expired(self) -> None:
         """Reap ADMITTED requests whose deadline passed (``"deadline"``)."""
-        now = self.clock()
+        now = self._now()
         for req in list(self._requests.values()):
             if (req.slot is not None and req.deadline_at is not None
                     and now >= req.deadline_at):
@@ -561,7 +578,7 @@ class ServingEngine:
             self.kv.release(slot)
             self._park(slot)
         self._requests.pop(req.request_id, None)
-        req.timing.finished_at = self.clock()
+        req.timing.finished_at = self._now()
         req.timing.generated_tokens = len(req.generated)
         req.timing.finish_reason = reason
         self.metrics.observe_cancel(reason, adapter_id=req.adapter_id,
@@ -641,7 +658,7 @@ class ServingEngine:
 
     def _do_prefill(self, req: ServingRequest) -> None:
         slot = self.kv.allocate()
-        req.timing.admitted_at = self.clock()
+        req.timing.admitted_at = self._now()
         req.slot = slot
         req.prefill_version = self.weights_version
         req.prefill_pos = 0
@@ -701,7 +718,7 @@ class ServingEngine:
             torch.tensor([req.seed], device=dev),
             sampled=req.temperature > 0)[0])
         if req.timing.first_token_at is None:   # a resume keeps its TTFT
-            req.timing.first_token_at = self.clock()
+            req.timing.first_token_at = self._now()
         if self._paged and req.prefill_version == self.weights_version:
             # publish the complete prompt pages for later prefix hits; a
             # chunked prefill that spanned a swap holds mixed-version K/V
@@ -799,11 +816,12 @@ class ServingEngine:
         """How many decode steps the next decode block may run before the
         host reads its tokens (1 = single step). Fusion is bypassed
         whenever it could change OBSERVABLE behavior beyond latency: an
-        open chunk train, any live deadline, or — when work is queued —
-        any active EOS-able request. The window is clamped to the smallest
-        remaining token budget."""
+        open chunk train, any live deadline, a fault plan (its stalls are
+        per step), or — when work is queued — any active EOS-able request.
+        The window is clamped to the smallest remaining token budget."""
         K = self.fuse_k
-        if K < 2 or self._partial is not None or not self._slot_req:
+        if (K < 2 or self.fault_plan is not None or self._partial is not None
+                or not self._slot_req):
             return 1
         if any(r.deadline_at is not None for r in self._requests.values()):
             return 1
@@ -817,15 +835,16 @@ class ServingEngine:
     def _spec_window(self) -> int:
         """How many tokens the next decode action may DRAFT (0 = stand down
         to sequential steps): 0 on the conditions that stop fusion (an
-        open chunk train, any live deadline, queued work behind an
-        EOS-able active request) and while a model drafter is stale; else
+        open chunk train, any live deadline, a fault plan, queued work
+        behind an EOS-able active request) and while a model drafter is
+        stale; else
         the smallest remaining budget minus one (a verify emits up to
         ``drafts + 1``), capped at ``speculate_k - 1``. The clamp also keeps
         every chunk write inside the cache (``pos + W <= capacity - 1``),
         which ``decode_chunk``'s in-place row update requires."""
         K = self.speculate_k
-        if (K < 2 or self._drafter_stale or self._partial is not None
-                or not self._slot_req):
+        if (K < 2 or self.fault_plan is not None or self._drafter_stale
+                or self._partial is not None or not self._slot_req):
             return 0
         if any(r.deadline_at is not None for r in self._requests.values()):
             return 0
@@ -936,7 +955,7 @@ class ServingEngine:
             req.on_token(req.request_id, tok, done)
         if not done:
             return   # the device carry already holds `tok`
-        req.timing.finished_at = self.clock()
+        req.timing.finished_at = self._now()
         req.timing.generated_tokens = len(req.generated)
         req.timing.finish_reason = "eos" if done_eos else "length"
         self.metrics.observe_finish(req.timing, adapter_id=req.adapter_id)

@@ -7,8 +7,11 @@ model's JSON (a string or its dict), ``model_to_dict``'s ``{'model',
 'weights'}``, the port's
 :class:`~elephas_tpu_torch.models.adapters.KerasModelAdapter`, or any
 object with ``to_json()`` and ``get_weights()`` (a Keras model, read
-duck-typed). ``master_network`` is the adapter; it holds the trained
-weights (``get_weights()``).
+duck-typed); an object with ``get_weights()`` and ``set_weights()`` but no
+``to_json()`` is kept as it is, a holder of another model's PS wire-order
+weights for :meth:`SparkModel.fit_stream` (an LM's sorted-key params).
+``master_network`` is the adapter; it holds the trained weights
+(``get_weights()``).
 
 Two paths, selected as the reference selects them:
 
@@ -36,11 +39,26 @@ partition, in partition order), as the synchronous ones are.
 
 ``save(path)`` writes an npz at ``path`` holding the model's JSON
 (``model``) and its weights (``w0…``) instead of a Keras file, beside the
-reference's ``path + '.elephas.json'`` sidecar. Not ported yet, each raising
-:class:`NotImplementedError` with its ROADMAP item: fault plans, retry
-policies, membership, quorum, hot standby, elastic hosts and
-``fit_stream`` (item 10); ``profile_dir``; and ``evaluate`` with metrics
-other than accuracy, which the reference hands to Keras.
+reference's ``path + '.elephas.json'`` sidecar.
+
+Resilience, as the reference wires it (:mod:`elephas_tpu_torch.resilience`):
+a seeded ``fault_plan`` reaches the workers (straggler stalls, partition
+crashes), the clients (dropped, duplicated and failed pushes, the wire's
+byte-level sites) and the servers (dropped applies, injected kills), and
+ticks once per compiled fit chunk; ``retry_policy`` routes host-PS traffic
+through backoff; ``membership`` (a
+:class:`~elephas_tpu_torch.resilience.membership.HeartbeatRegistry`) runs
+the host paths' rounds K-of-N (``quorum``, ``round_deadline_s``, straggler
+backups) and masks expired workers out of the compiled path's merges;
+``hot_standby`` replicates the http or socket server to a standby the
+clients fail over to. :meth:`SparkModel.fit_stream` is the streaming
+train-to-serve loop over the host parameter server
+(:mod:`elephas_tpu_torch.streaming`).
+
+Not ported yet, each raising :class:`NotImplementedError` with its ROADMAP
+item: elastic host pools (``elastic=``, item 10's second part);
+``profile_dir``; and ``evaluate`` with metrics other than accuracy, which
+the reference hands to Keras.
 """
 
 from __future__ import annotations
@@ -63,7 +81,8 @@ from .parameter.server import HttpServer, SocketServer
 from .utils.rdd_utils import lp_to_simple_rdd
 from .worker import AsynchronousSparkWorker, SparkWorker
 
-RESILIENCE_ITEM = "ROADMAP queue 1 item 10 (resilience, streaming and fleet)"
+ELASTIC_ITEM = ("ROADMAP queue 1 item 10, second part (elastic hosts, emulation, "
+                "NativeBatchLoader)")
 METRICS_ITEM = "ROADMAP queue 1 item 13 (Keras metrics beyond accuracy)"
 
 
@@ -124,14 +143,40 @@ class SparkModel:
             from .parameter.compression import make_codec
 
             make_codec(compression)  # validate the spec eagerly
-        for name, value in (("fault_plan", fault_plan), ("retry_policy", retry_policy),
-                            ("membership", membership), ("quorum", quorum),
-                            ("round_deadline_s", round_deadline_s),
-                            ("elastic", elastic)):
-            if value is not None:
-                raise _not_ported(f"{name}=", RESILIENCE_ITEM)
-        if hot_standby:
-            raise _not_ported("hot_standby=True", RESILIENCE_ITEM)
+        if elastic is not None:
+            raise _not_ported("elastic=", ELASTIC_ITEM)
+        # Elastic-membership options: a HeartbeatRegistry drives K-of-N
+        # quorum rounds with straggler backups on the host paths and masks
+        # expired workers out of the compiled path's merges; hot_standby
+        # adds a replicated standby server the clients fail over to.
+        self.quorum = None if quorum is None else int(quorum)
+        if self.quorum is not None and self.quorum < 1:
+            raise ValueError("quorum must be >= 1")
+        if self.quorum is not None and membership is None:
+            raise ValueError(
+                "quorum requires a membership registry "
+                "(membership=HeartbeatRegistry(...))"
+            )
+        self.hot_standby = bool(hot_standby)
+        if self.hot_standby:
+            if comm != "host" or mode == "synchronous":
+                raise ValueError(
+                    "hot_standby needs a live parameter server: use an "
+                    "asynchronous/hogwild mode with comm='host' "
+                    f"(got mode={mode!r}, comm={comm!r})"
+                )
+            if parameter_server_mode not in ("http", "socket"):
+                raise ValueError(
+                    "hot_standby supports the http/socket parameter servers "
+                    f"(got {parameter_server_mode!r})"
+                )
+        self.membership = membership
+        self.round_deadline_s = round_deadline_s
+        self.backup_stragglers = bool(backup_stragglers)
+        # a seeded FaultPlan injects failures into workers, clients and
+        # servers; a RetryPolicy routes host-PS traffic through backoff
+        self.fault_plan = fault_plan
+        self.retry_policy = retry_policy
         self.mode = mode
         self.frequency = frequency
         self.parameter_server_mode = parameter_server_mode
@@ -159,12 +204,21 @@ class SparkModel:
         self._trainer_model = None
         self.ps_bind_host = str(kwargs.pop("ps_bind_host", "127.0.0.1"))
         self._server = None
+        self._standby_server = None
         self._server_port: Optional[int] = None
         self._ps_stats: Dict[str, Any] = {}
         self._fit_kwargs: Dict[str, Any] = {}
         self._checkpoint = (None, 1, False)
 
     def _adapter(self, model) -> KerasModelAdapter:
+        if (not isinstance(model, (str, dict, KerasModelAdapter))
+                and not hasattr(model, "to_json")
+                and hasattr(model, "get_weights") and hasattr(model, "set_weights")):
+            # a holder of a non-Keras model's wire-order weights (an LM's
+            # sorted-key params for fit_stream): the host servers and
+            # fit_stream read and write it, as the reference's duck-typed
+            # master network; the Keras fit paths do not take it
+            return model
         if isinstance(model, KerasModelAdapter):
             if model.device != self.mesh.device:
                 raise ValueError(f"the model is on {model.device}, the mesh on "
@@ -267,6 +321,26 @@ class SparkModel:
             self._trainer_model = self._master_network
         return self._trainer
 
+    def _membership_mask(self, n: int):
+        """K-of-N mask for the compiled path: ``worker_valid`` floats for
+        :meth:`CompiledTrainer.fit`, or ``None`` when every worker is live.
+        Membership here models external liveness (workers the registry saw
+        die between chunks); unknown members default to live."""
+        if self.membership is None:
+            return None
+        from .resilience.membership import QuorumLostError, member_id_for
+
+        self.membership.sweep()
+        mask = [1.0 if self.membership.is_live(member_id_for(i), default=True)
+                else 0.0 for i in range(n)]
+        live = int(sum(mask))
+        if self.quorum is not None and live < self.quorum:
+            raise QuorumLostError(
+                f"{live} of {n} workers live, quorum is {self.quorum}")
+        if live == n:
+            return None
+        return mask
+
     # -- compiled path: every replica as one stack on the device ---------
     def _fit_jax(self, rdd, epochs, batch_size, verbose, validation_split):
         blocks = self._partition_blocks(rdd, batch_size)
@@ -277,9 +351,12 @@ class SparkModel:
         trainer = self._get_trainer()
         checkpoint_dir, checkpoint_frequency, resume = self._checkpoint
         if checkpoint_dir is None:
+            if self.fault_plan is not None:
+                self.fault_plan.tick("fit_chunk")
             result = trainer.fit(
                 blocks, epochs=epochs, batch_size=batch_size,
-                validation_split=validation_split, verbose=verbose)
+                validation_split=validation_split, verbose=verbose,
+                worker_valid=self._membership_mask(len(blocks)))
             self.training_histories.append(result.history)
             self.timings.append(result.timings)
             return
@@ -329,6 +406,10 @@ class SparkModel:
         epoch = start_epoch
         while epoch < epochs:
             chunk = min(checkpoint_frequency, epochs - epoch)
+            if self.fault_plan is not None:
+                # one crash opportunity per chunk, after the previous
+                # chunk's checkpoint is durable (the supervisor's resume)
+                self.fault_plan.tick("fit_chunk")
             if sync_faithful:
                 # seed stays 0 and the GLOBAL epoch index drives the orders
                 # and dropout masks, as in the uninterrupted fit
@@ -337,13 +418,15 @@ class SparkModel:
                     validation_split=validation_split, verbose=verbose,
                     seed=0, epoch_offset=epoch, opt_state=opt_state,
                     keep_opt_state=True, worker_state=worker_state,
-                    keep_worker_state=True)
+                    keep_worker_state=True,
+                    worker_valid=self._membership_mask(len(blocks)))
                 worker_state = result.worker_state
             else:
                 result = trainer.fit(
                     blocks, epochs=chunk, batch_size=batch_size,
                     validation_split=validation_split, verbose=verbose,
-                    seed=epoch, opt_state=opt_state, keep_opt_state=True)
+                    seed=epoch, opt_state=opt_state, keep_opt_state=True,
+                    worker_valid=self._membership_mask(len(blocks)))
             opt_state = result.opt_state
             for k, v in result.history.items():
                 merged.setdefault(k, []).extend(v)
@@ -379,8 +462,17 @@ class SparkModel:
         worker = SparkWorker(
             json_config, parameters,
             self._train_config(epochs, batch_size, verbose, validation_split),
-            opt, loss, metrics, self.custom_objects, device=self.mesh.device)
-        results = rdd.mapPartitions(worker.train).collect()
+            opt, loss, metrics, self.custom_objects, fault_plan=self.fault_plan,
+            device=self.mesh.device)
+        if self.membership is not None:
+            # K-of-N round with straggler backups; the mean below is over
+            # the RECEIVED deltas only
+            committed = self._quorum_runner(rdd).run(
+                rdd.partitions(), worker.train,
+                stage_id=rdd.context._next_stage_id())
+            results = [item for pid in sorted(committed) for item in committed[pid]]
+        else:
+            results = rdd.mapPartitions(worker.train).collect()
         deltas = [r[0] for r in results]
         self.training_histories.extend(r[1] for r in results if r[1])
         if not deltas:
@@ -396,6 +488,15 @@ class SparkModel:
             ]
         model.set_weights(new_parameters)
 
+    def _quorum_runner(self, rdd):
+        from .resilience.membership import QuorumRunner
+
+        return QuorumRunner(
+            self.membership, quorum=self.quorum,
+            round_deadline_s=self.round_deadline_s,
+            backup_stragglers=self.backup_stragglers,
+            max_failures=rdd.context.maxTaskFailures)
+
     # -- host path: reference-shaped async/hogwild against a live PS -----
     def start_server(self) -> None:
         weights = self._master_network.get_weights()
@@ -410,12 +511,22 @@ class SparkModel:
         server_kwargs = {}
         if cls is SocketServer and self.wire_stall_timeout_s is not None:
             server_kwargs["stall_timeout_s"] = self.wire_stall_timeout_s
-        self._server = cls(weights, mode=self.mode, port=self.port, name="primary",
+        self._server = cls(weights, mode=self.mode, port=self.port,
+                           fault_plan=self.fault_plan, name="primary",
                            host=self.ps_bind_host, **server_kwargs)
         self._server.start()
         # the port it bound (port=0 resolves to the OS's); self.port stays
         # the one asked for, so the next fit binds afresh
         self._server_port = self._server.port
+        if self.hot_standby:
+            # the standby gets NO fault plan: it is the recovery target, and
+            # the primary's plan would re-consult server-side drops on
+            # replicated deltas
+            self._standby_server = cls(weights, mode=self.mode, port=0,
+                                       name="standby", host=self.ps_bind_host,
+                                       **server_kwargs)
+            self._standby_server.start()
+            self._server.attach_standby(self._standby_server)
 
     def _make_client(self) -> BaseParameterClient:
         if self.parameter_server_mode == "native":
@@ -425,29 +536,67 @@ class SparkModel:
             weights = self._master_network.get_weights()
             # fresh codec per client: top-k error-feedback residual is
             # per-worker state
-            return NativeClient([w.shape for w in weights], [w.dtype for w in weights],
-                                self._server_port, codec=make_codec(self.compression))
-        client = BaseParameterClient.get_client(
-            self.parameter_server_mode, self._server_port, host="127.0.0.1",
-            timeout=self.ps_timeout, stall_timeout_s=self.wire_stall_timeout_s)
-        if self.compression:
-            from .parameter.compression import CompressingClient, make_codec
+            client = NativeClient([w.shape for w in weights],
+                                  [w.dtype for w in weights], self._server_port,
+                                  codec=make_codec(self.compression))
+        else:
+            # the fault plan goes in twice, as in the reference: here it
+            # corrupts the bytes on the wire (socket transport only), and
+            # FaultyClient below injects at the logical request level
+            client = BaseParameterClient.get_client(
+                self.parameter_server_mode, self._server_port, host="127.0.0.1",
+                timeout=self.ps_timeout, fault_plan=self.fault_plan,
+                stall_timeout_s=self.wire_stall_timeout_s)
+            if self._standby_server is not None:
+                from .resilience.policy import FailoverClient
 
-            client = CompressingClient(client, make_codec(self.compression))
+                # bottom of the stack: transport selection, so injected
+                # faults (FaultyClient, above) stay retryable without
+                # tripping a failover; only genuine endpoint death does
+                standby = BaseParameterClient.get_client(
+                    self.parameter_server_mode, self._standby_server.port,
+                    host="127.0.0.1", timeout=self.ps_timeout,
+                    fault_plan=self.fault_plan,
+                    stall_timeout_s=self.wire_stall_timeout_s)
+                client = FailoverClient([client, standby], registry=self.membership)
+            if self.fault_plan is not None:
+                from .resilience.faults import FaultyClient
+
+                client = FaultyClient(client, self.fault_plan)
+            if self.compression:
+                from .parameter.compression import CompressingClient, make_codec
+
+                client = CompressingClient(client, make_codec(self.compression))
+        if self.retry_policy is not None:
+            from .resilience.policy import ResilientClient
+
+            client = ResilientClient(client, policy=self.retry_policy)
         return client
 
     def stop_server(self) -> None:
         if self._server is not None:
-            server = self._server
-            self._ps_stats = {"primary": {
-                "version": int(getattr(server, "version", -1)),
-                "pulls": int(getattr(server, "pulls", -1)),
-                "rejected_stale": int(getattr(server, "rejected_stale", 0)),
-                "applied_tagged": {k: int(v) for k, v in
-                                   getattr(server, "applied_tagged", {}).items()},
-            }}
-            server.stop()
+            if self._standby_server is not None:
+                # let in-flight replication land before reading counters
+                self._server.flush_replication()
+            self._ps_stats = {
+                name: {
+                    "version": int(getattr(server, "version", -1)),
+                    "pulls": int(getattr(server, "pulls", -1)),
+                    "rejected_stale": int(getattr(server, "rejected_stale", 0)),
+                    "replication_errors": int(
+                        getattr(server, "replication_errors", 0)),
+                    "applied_tagged": {k: int(v) for k, v in
+                                       getattr(server, "applied_tagged", {}).items()},
+                }
+                for name, server in (("primary", self._server),
+                                     ("standby", self._standby_server))
+                if server is not None
+            }
+            self._server.stop()
             self._server = None
+        if self._standby_server is not None:
+            self._standby_server.stop()
+            self._standby_server = None
 
     def _fit_host_async(self, rdd, epochs, batch_size, verbose, validation_split):
         model = self._master_network
@@ -464,6 +613,7 @@ class SparkModel:
                     worker = AsynchronousSparkWorker(
                         json_config, client, train_config, self.frequency,
                         opt, loss, metrics, self.custom_objects,
+                        fault_plan=self.fault_plan, registry=self.membership,
                         device=self.mesh.device)
                     yield from worker.train(iterator)
                     if worker.history:
@@ -473,7 +623,24 @@ class SparkModel:
                     # leak its TCP connection until GC
                     client.close()
 
-            rdd.mapPartitions(run).collect()
+            if self.membership is not None:
+                # K-of-N round: "reporting" means the worker finished its
+                # pushes; partitions abandoned at the deadline get their
+                # task fenced at the server (a superseding register rolls
+                # back their uncommitted pushes and rejects later ones)
+                runner = self._quorum_runner(rdd)
+                stage_id = rdd.context._next_stage_id()
+                runner.run(rdd.partitions(), run, stage_id=stage_id)
+                if runner.abandoned:
+                    fencer = self._make_client()
+                    try:
+                        for pid in runner.abandoned:
+                            fencer.register_attempt(
+                                f"stage-{stage_id}-partition-{pid}", 1 << 20)
+                    finally:
+                        fencer.close()
+            else:
+                rdd.mapPartitions(run).collect()
             client = self._make_client()
             try:
                 new_parameters = client.get_parameters()
@@ -485,14 +652,91 @@ class SparkModel:
         self.training_histories.extend(histories[p] for p in sorted(histories))
 
     def membership_snapshot(self) -> Dict[str, Any]:
-        """The last fit's parameter-server counters (version, pulls,
-        fencing) under ``parameter_servers``; the registry's fields of the
-        reference wait for item 10 and stay empty."""
-        return {"membership": None, "counters": {}, "rounds": [], "events": [],
-                "parameter_servers": dict(self._ps_stats)}
+        """JSON-able membership observability: the registry's snapshot
+        (joins, expiries, epochs, backups, failovers, per-round shortfall)
+        plus the last fit's parameter-server counters (version, pulls,
+        fencing, replication) under ``parameter_servers``."""
+        snap: Dict[str, Any] = {
+            "membership": None, "counters": {}, "rounds": [], "events": [],
+        }
+        if self.membership is not None:
+            snap = self.membership.snapshot()
+        snap["parameter_servers"] = dict(self._ps_stats)
+        return snap
 
-    def fit_stream(self, *args, **kwargs):
-        raise _not_ported("fit_stream", RESILIENCE_ITEM)
+    # -- streaming train-to-serve ----------------------------------------
+    def fit_stream(self, batches, train_fn, *, sink=None,
+                   publish_every: int = 1,
+                   max_interval_s: Optional[float] = None,
+                   eval_fn=None, eval_batch=None,
+                   regression_margin: float = 0.0, ring_size: int = 4,
+                   checkpoint_dir: Optional[str] = None,
+                   checkpoint_every: int = 1) -> Dict[str, Any]:
+        """Streaming ingest with live weight publication (host PS path).
+
+        Drains ``batches`` through a
+        :class:`~elephas_tpu_torch.streaming.trainer.StreamTrainer` against
+        this model's own parameter server, started and stopped as
+        ``fit``'s asynchronous host path does (standby replication and the
+        client wrapper stack included). ``train_fn(weights, batch) ->
+        (new_weights, loss)`` runs in the calling process in PS wire order.
+        With ``sink`` (e.g. :func:`~elephas_tpu_torch.streaming.publisher.
+        engine_sink` over a live engine) a
+        :class:`~elephas_tpu_torch.streaming.publisher.WeightPublisher`
+        publishes every ``publish_every`` commits / ``max_interval_s``
+        seconds behind the optional eval gate. With ``checkpoint_dir`` the
+        stream runs under a
+        :class:`~elephas_tpu_torch.resilience.supervisor.TrainingSupervisor`
+        (a checkpoint every ``checkpoint_every`` commits, crash resume with
+        exactly-once batch consumption).
+
+        Returns a JSON-able summary (commit count, publisher history); the
+        master network ends holding the final PS weights."""
+        from .streaming import StreamTrainer, WeightPublisher
+
+        if self.mode not in ("asynchronous", "hogwild"):
+            raise ValueError(
+                "fit_stream needs a live parameter server "
+                f"(mode 'asynchronous' or 'hogwild', got {self.mode!r})")
+        if self.parameter_server_mode not in ("http", "socket", "native"):
+            raise ValueError(
+                "fit_stream runs against the host parameter servers "
+                f"(http/socket/native, got {self.parameter_server_mode!r})")
+        self.start_server()
+        try:
+            client = self._make_client()
+            try:
+                trainer = StreamTrainer(client, train_fn)
+                publisher = None
+                if sink is not None:
+                    publisher = WeightPublisher(
+                        client, sink, publish_every=publish_every,
+                        max_interval_s=max_interval_s, eval_fn=eval_fn,
+                        eval_batch=eval_batch,
+                        regression_margin=regression_margin,
+                        ring_size=ring_size)
+                if checkpoint_dir is not None:
+                    from .resilience.supervisor import TrainingSupervisor
+
+                    TrainingSupervisor(
+                        self, checkpoint_dir,
+                        checkpoint_frequency=checkpoint_every,
+                    ).fit_stream(batches, trainer, publisher=publisher)
+                else:
+                    trainer.run(batches, publisher=publisher)
+                self._master_network.set_weights(client.get_parameters())
+                summary: Dict[str, Any] = {
+                    "commits": trainer.commits,
+                    "last_loss": trainer.last_loss,
+                    "last_version": int(getattr(client, "last_seen_version", -1)),
+                }
+                if publisher is not None:
+                    summary["publisher"] = publisher.state_dict()
+                return summary
+            finally:
+                client.close()
+        finally:
+            self.stop_server()
 
     # -- inference -------------------------------------------------------
     def predict(self, data, batch_size: Optional[int] = None):

@@ -8,6 +8,7 @@ cache a rolling buffer whose rows move with their beams) at beam sizes 3
 and 4, with EOS and a length penalty: sequences exactly, scores within
 1e-4."""
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import itertools
 
 import jax.numpy as jnp

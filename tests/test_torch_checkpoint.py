@@ -16,6 +16,7 @@ package's.
   sidecar carries the reference's keys.
 """
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import json
 import os
 import warnings

@@ -23,6 +23,7 @@ test, never at import). This file imports no JAX, so it runs on a machine
 with only PyTorch: ``python -m pytest tests/test_torch_cuda.py -q``.
 """
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import numpy as np
 import pytest
 import torch
@@ -1276,7 +1277,10 @@ def test_host_fit_launches_k1_exactly_from_worker_threads(cuda, frequency):
     rng = np.random.default_rng(3)
     n, W, E, B, split = 1000, 2, 2, 64, 0.1
     x = rng.random((n, 784)).astype(np.float32)
-    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, size=n)]
+    # labels a balanced function of the rows: with random labels (or one
+    # dominant class) the summed merge of two asynchronous workers leaves
+    # an epoch's loss free to rise
+    y = np.eye(10, dtype=np.float32)[((x - 0.5) @ rng.normal(size=(784, 10))).argmax(1)]
     sm = SparkModel(path.read_text(), frequency=frequency, num_workers=W, port=0,
                     device="cuda")
     fused_xent_fwd.launches = fused_xent_bwd.launches = 0
@@ -1744,3 +1748,214 @@ def test_lora_train_step_on_card_matches_cpu(cuda):
     for k_, w in out["cpu"][1].items():
         err = float((out["cuda"][1][k_] - w).abs().max())
         assert err <= 1e-3 * max(float(w.abs().max()), 1e-6), k_
+
+
+# -- resilience, streaming and the serving fleet ------------------------------
+
+FLEET_LM = dict(vocab=97, d_model=64, n_heads=4, n_layers=2, d_ff=128, max_len=128)
+
+
+def _gaps(model, params, prompt, tokens, temperature=0.0, seed=0):
+    """Top-1 minus top-2 at each generated position from one teacher-forced
+    pass (for a sampled row, of the scaled logits plus the engine's
+    (seed, position) Gumbel noise)."""
+    from elephas_tpu_torch.models.transformer import _gumbel
+
+    seq = np.concatenate([prompt, np.asarray(tokens[:-1], np.int32)]).astype(np.int64)
+    dev = params["tok"].device
+    with torch.no_grad():
+        logits, _ = model.decode_chunk(params, torch.from_numpy(seq)[None].to(dev), 0,
+                                       model.init_cache(1, len(seq)))
+        scores = logits[0, len(prompt) - 1:].float()
+        if temperature > 0:
+            n = scores.shape[0]
+            pos = torch.arange(len(prompt), len(prompt) + n, device=dev)
+            scores = scores / temperature + _gumbel(
+                torch.full((n,), seed, dtype=torch.int64, device=dev), pos, scores.shape[-1])
+        top = torch.topk(scores, 2, dim=-1).values.cpu()
+    return (top[:, 0] - top[:, 1]).tolist()
+
+
+def _equal_up_to_near_ties(a, b, gaps):
+    n = 0
+    while n < len(b) and gaps[n] > 1e-3:
+        assert a[n] == b[n], (n, a, b)
+        n += 1
+    return n
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_fleet_kill_join_on_card_matches_undisturbed_and_cpu(cuda, paged):
+    """Two partitions on the card, the reference chaos scenario's trace
+    (seed 3, half sampled) at this model's vocabulary: partition 0 killed
+    at 2.0 s, a replacement joining at 2.5 s. Every request terminal, the
+    same placements, migrations and finish times as the same fleet on the
+    CPU, ``kv.check()`` after every fleet step when paged, and every stream
+    (migrated or not) equal to the undisturbed card run's up to its first
+    near tie."""
+    from elephas_tpu_torch.fleet import FleetRouter, SimClock, TrafficModel
+
+    model = TransformerLM(**FLEET_LM, device=cuda)
+    params = model.init(4)
+    trace = TrafficModel(seed=3, base_rps=4.0, duration_s=6.0, n_tenants=4,
+                         sampled_frac=0.5, burst_amp=2.0, vocab=97).generate()
+    chaos = [{"t": 2.0, "op": "kill", "pid": 0}, {"t": 2.5, "op": "join"}]
+
+    def replay(m, p, dev, events):
+        clock = SimClock()
+        router = FleetRouter(lambda pid: ServingEngine(m, p, n_slots=4, paged=paged,
+                                                       page_size=8, clock=clock,
+                                                       perf_clock=clock, device=dev),
+                             2, clock=clock, lease_s=0.5)
+        pending, i, e = list(trace), 0, 0
+        while True:
+            while e < len(events) and events[e]["t"] <= clock():
+                ev = events[e]
+                e += 1
+                (router.kill_partition(ev["pid"]) if ev["op"] == "kill"
+                 else router.join_partition())
+            while i < len(pending) and pending[i].arrival_s <= clock():
+                router.submit(pending[i])
+                i += 1
+            router.step()
+            if paged:
+                for pid in router.partition_ids():
+                    router._engines[pid].kv.check()
+            if i == len(pending) and e == len(events) and not router.active:
+                return router
+            clock.advance(0.05)
+
+    base = replay(model, params, cuda, [])
+    card = replay(model, params, cuda, chaos)
+    cpu_model = TransformerLM(**FLEET_LM, device="cpu")
+    cpu = replay(cpu_model, {k: v.cpu() for k, v in params.items()}, "cpu", chaos)
+    got, want, ref = card.results(), base.results(), cpu.results()
+    assert len(got) == len(trace) and card.migrations == cpu.migrations >= 1
+    for r in trace:
+        st = got[r.request_id]
+        assert (st.partition, st.migrations, st.finish_reason, st.finished_at) == (
+            ref[r.request_id].partition, ref[r.request_id].migrations,
+            ref[r.request_id].finish_reason, ref[r.request_id].finished_at)
+        gaps = _gaps(model, params, np.asarray(r.prompt, np.int32),
+                     want[r.request_id].tokens, r.temperature, r.seed)
+        _equal_up_to_near_ties(st.tokens, want[r.request_id].tokens, gaps)
+
+
+def test_fit_stream_into_paged_engine_on_card(cuda):
+    """``SparkModel.fit_stream`` over a socket server with the LM train
+    step (``attn="flash"``) as ``train_fn``, publishing each commit into a
+    live paged engine on the card: the engine's version follows each
+    publish, a probe after each swap equals a fresh engine on the published
+    weights up to near ties, and each train step launched L of each flash
+    attention kernel and 2L+1 K3-bwd."""
+    from elephas_tpu_torch import SparkModel
+    from elephas_tpu_torch.streaming import engine_sink, list_to_params, params_to_list
+
+    model = TransformerLM(**FLEET_LM, device=cuda)
+    p0 = model.init(6)
+    L = FLEET_LM["n_layers"]
+    step, opt_init = build_lm_train_step(model, None, adam(1e-2), attn="flash")
+    state, launches = {}, []
+    kernels = (flash_attention_fwd, flash_attention_dq, flash_attention_dkv,
+               fused_layer_norm_bwd)
+
+    def train_fn(weights, batch):
+        for k in kernels:
+            k.launches = 0
+        params = list_to_params(weights, p0)
+        state.setdefault("opt", opt_init(params))
+        new, state["opt"], loss = step(params, state["opt"], *batch)
+        launches.append([k.launches for k in kernels])
+        return params_to_list(new), float(loss)
+
+    class Holder:
+        def __init__(self, params):
+            self.params = params
+
+        def get_weights(self):
+            return params_to_list(self.params)
+
+        def set_weights(self, weights):
+            self.params = list_to_params(weights, self.params)
+
+    rng = np.random.default_rng(1)
+    batches = [tuple(torch.from_numpy(a).to(cuda) for a in
+                     make_lm_batches(rng.integers(0, 97, size=(4, 65)).astype(np.int32)))
+               for _ in range(3)]
+    eng = ServingEngine(model, p0, n_slots=4, paged=True, page_size=8, device=cuda)
+    live = eng.submit(rng.integers(0, 97, size=20).astype(np.int32), 60)
+    eng.step()
+    probe = rng.integers(0, 97, size=12).astype(np.int32)
+    seen = []
+
+    def sink(weights, version):
+        engine_sink(eng, p0)(weights, version)
+        assert eng.weights_version == version
+        rid = eng.submit(probe, 8)
+        while eng.result(rid, pop=False) is None:
+            eng.step()
+        got = eng.result(rid).tokens
+        published = list_to_params(weights, p0)
+        fresh = ServingEngine(model, published, n_slots=1, paged=True, page_size=8,
+                              device=cuda)
+        fid = fresh.submit(probe, 8)
+        want = fresh.drain()[fid].tokens
+        seen.append((version, _equal_up_to_near_ties(got, want,
+                                                     _gaps(model, published, probe, want))))
+
+    sm = SparkModel(Holder(p0), mode="asynchronous", parameter_server_mode="socket",
+                    port=0, device=cuda)
+    summary = sm.fit_stream(batches, train_fn, sink=sink, publish_every=1)
+    assert summary["commits"] == 3 and [v for v, _ in seen] == [1, 2, 3]
+    assert launches == [[L, L, L, 2 * L + 1]] * 3
+    eng.drain()
+    assert eng.result(live) is not None
+
+
+def test_fault_injected_host_fit_launches_k1_exactly(cuda):
+    """The MNIST MLP's JSON through the host path over a socket server
+    under a fault plan: partition 1 crashes at its second push (after two
+    epochs) and its retry trains again, pushes are dropped at a rate, a
+    retry policy wraps the client. K1 launched exactly for every epoch
+    trained (the crashed attempt's included), no other kernel, and the
+    server applied every push that was not dropped exactly once."""
+    import json
+    import math
+    from pathlib import Path
+
+    from elephas_tpu_torch import SparkModel
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.ops.fused_xent import fused_xent_bwd, fused_xent_fwd
+    from elephas_tpu_torch.resilience import FaultPlan, RetryPolicy
+    from elephas_tpu_torch.resilience.faults import _unit
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    path = Path(__file__).resolve().parents[1] / "elephas_tpu_torch" / "configs" / \
+        "mnist_mlp_logits.json"
+    rng = np.random.default_rng(3)
+    n, W, E, B, split = 1000, 2, 2, 64, 0.1
+    x = rng.random((n, 784)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[((x - 0.5) @ rng.normal(size=(784, 10))).argmax(1)]
+    pushes, rate = W * E + 1, 0.3
+    seed = next(s for s in range(100)
+                if any(_unit(s, "drop_push", i) < rate for i in range(pushes)))
+    drops = sum(_unit(seed, "drop_push", i) < rate for i in range(pushes))
+    plan = FaultPlan(seed, drop_push=rate, crash_partition=1, crash_after_pushes=1)
+    sm = SparkModel(path.read_text(), num_workers=W, port=0, device=cuda,
+                    parameter_server_mode="socket", fault_plan=plan,
+                    retry_policy=RetryPolicy(max_attempts=3, base_delay_s=0.0, jitter=0.0))
+    fused_xent_fwd.launches = fused_xent_bwd.launches = 0
+    sm.fit(to_simple_rdd(SparkContext(f"local[{W}]"), x, y), epochs=E, batch_size=B,
+           validation_split=split)
+    per = n // W
+    n_train = math.floor(per * (1 - split))
+    s, sv = -(-n_train // B), -(-(per - n_train) // B)
+    epochs = W * E + E
+    assert "crash-partition-1" in plan.fired
+    assert fused_xent_bwd.launches == epochs * s
+    assert fused_xent_fwd.launches == epochs * (s + sv)
+    ps = sm.membership_snapshot()["parameter_servers"]["primary"]
+    assert ps["version"] == pushes - drops and ps["rejected_stale"] == 0
+    for w in sm.master_network.get_weights():
+        assert np.isfinite(w).all()
+    json.dumps(plan.fired)

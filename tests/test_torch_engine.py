@@ -14,6 +14,7 @@ devices run in other orders, which moves results by a few ulps per step
 (the largest difference seen over these fits is 2.4e-7).
 """
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import jax
 import keras
 import numpy as np

@@ -13,16 +13,18 @@ so does a gap that a later change closes without taking it off the table.
 fault 5) are held to the reference's on a dense and a paged cache.
 """
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import importlib
 
 import numpy as np
 import pytest
 
 PACKAGES = ["", ".data", ".ml", ".mllib", ".models", ".ops", ".parallel",
-            ".parameter", ".serving", ".utils"]
+            ".parameter", ".serving", ".utils", ".resilience", ".streaming", ".fleet"]
 
 ITEM_6_SHARD = "ROADMAP queue 1 item 6, second half (sharding on torch.distributed)"
-ITEM_10 = "ROADMAP queue 1 item 10 (resilience, streaming and fleet)"
+ITEM_10 = ("ROADMAP queue 1 item 10, second part (elastic hosts, emulation, "
+           "NativeBatchLoader)")
 ITEM_12 = "ROADMAP queue 1 item 12 (quantization, Hugging Face import)"
 DEPARTURE_OPTAX = "ROADMAP §3 departure: to_optax is to_torch_optimizer"
 
@@ -88,6 +90,12 @@ def test_package_exports_match_reference(pkg):
         want, got = getattr(ref, name), getattr(port, name)
         if callable(want):
             assert _is_port_object(got), (name, got)
+        elif isinstance(want, dict) and all(map(callable, want.values())):
+            # a table of functions (the soak's SCENARIOS): the same keys,
+            # each the port's function of the reference's name
+            assert list(got) == list(want), name
+            assert all(_is_port_object(got[k]) and got[k].__name__ == want[k].__name__
+                       for k in want), name
         else:
             assert got == want, name
         if isinstance(want, type) and isinstance(got, type):

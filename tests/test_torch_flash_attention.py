@@ -5,6 +5,7 @@ packages' dense ``attention_reference``, forward and gradients, on the same
 numpy inputs. Tolerances are the reference's own for its kernels
 (``tests/ops/test_pallas_flash.py``): 2e-5 in float32, 2e-2 in bfloat16."""
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -65,22 +66,28 @@ def test_forward_and_grads_match_pallas_kernel_and_dense(b, t, h, hkv, dh,
     def kernel(q, k, v):
         return flash_attention_tpu(q, k, v, causal, BLOCK, BLOCK, True, window)
 
-    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
-    want, vjp = jax.vjp(kernel, jq, jk, jv)
+    @jax.jit
+    def both(q, k, v, g):
+        # the kernel's and the dense oracle's forward and vjp as one compiled
+        # program (eager dispatch of the interpret-mode grid costs more)
+        want, vjp = jax.vjp(kernel, q, k, v)
+        jdense, jvjp = jax.vjp(
+            lambda q, k, v: jax_attention_reference(q, k, v, causal, window), q, k, v)
+        return want, vjp(g), jdense, jvjp(g)
+
+    want, want_grads, jdense, jdense_grads = both(
+        *(jnp.asarray(a) for a in (q, k, v, g)))
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
-    for name, a, w in zip(("dq", "dk", "dv"), got_grads, vjp(jnp.asarray(g))):
+    for name, a, w in zip(("dq", "dk", "dv"), got_grads, want_grads):
         np.testing.assert_allclose(a, np.asarray(w), **TOL, err_msg=name)
 
     # the dense oracles of both packages, gradients included
     (dense,), dense_grads = _port_vjp(
         lambda q, k, v: attention_reference(q, k, v, causal, window), q, k, v, (g,))
-    jdense, jvjp = jax.vjp(
-        lambda q, k, v: jax_attention_reference(q, k, v, causal, window),
-        jq, jk, jv)
     np.testing.assert_allclose(dense, np.asarray(jdense), **TOL)
     np.testing.assert_allclose(got, dense, **TOL)
     for name, a, w, jw in zip(("dq", "dk", "dv"), got_grads, dense_grads,
-                              jvjp(jnp.asarray(g))):
+                              jdense_grads):
         np.testing.assert_allclose(a, w, **TOL, err_msg=name)
         np.testing.assert_allclose(w, np.asarray(jw), **TOL, err_msg=name)
 

@@ -3,12 +3,15 @@ JAX package's flash-decode Pallas kernel in interpret mode, on the same
 numpy inputs: GQA group sizes, scalar and per-row positions, sliding
 windows, rolling (ring) caches and bfloat16 caches."""
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import importlib
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from tests.test_torch_paged_attention import _combine, _online_softmax, _tile_grid
 
 # the modules, not the functions of the same name that both packages' ops
 # export
@@ -156,48 +159,21 @@ def _emulated_k4(q, k, v, pos, window, ring, n_split, bt=32, warps=4):
     with its own online softmax (running max m, denominator l,
     unnormalised accumulator); the warps merged once in warp order, then
     the combine over the splits: M = max over non-empty splits, L = sum
-    l_i exp(m_i - M), out = sum exp(m_i - M) acc_i / L, lse = M + log L."""
+    l_i exp(m_i - M), out = sum exp(m_i - M) acc_i / L, lse = M + log L.
+    Every row's every (split, warp) runs as one lane of the paged test's
+    :func:`_online_softmax` (rows taken mod T on a ring)."""
     B, Hkv, G, Dh = q.shape
     T = k.shape[2]
-    scale = Dh ** -0.5
-    kpw = bt // warps
-    out, lse = torch.empty(B, Hkv, G, Dh), torch.empty(B, Hkv, G)
-    for b in range(B):
-        parts = []
-        for a, e in fd.decode_pieces(int(pos[b]), T, n_split, T, window, ring):
-            if e <= a:   # an empty piece: its block exits with an empty partial
-                parts.append((torch.full((Hkv, G), -torch.inf), torch.zeros(Hkv, G),
-                              torch.zeros(Hkv, G, Dh)))
-                continue
-            ws = []
-            for w in range(warps):
-                m = torch.full((Hkv, G), -torch.inf)
-                l_ = torch.zeros(Hkv, G)
-                acc = torch.zeros(Hkv, G, Dh)
-                for t0 in range(a, e, bt):
-                    j0 = t0 + w * kpw
-                    j = torch.arange(j0, max(j0, min(e, j0 + kpw)))
-                    if len(j) == 0:
-                        continue
-                    slot = j % T if ring else j
-                    sc = torch.einsum("hgd,hjd->hgj", q[b], k[b][:, slot]) * scale
-                    m_new = torch.maximum(m, sc.amax(-1))
-                    alpha = torch.exp(m - m_new)
-                    pr = torch.exp(sc - m_new[..., None])
-                    l_ = alpha * l_ + pr.sum(-1)
-                    acc = alpha[..., None] * acc + torch.einsum("hgj,hjd->hgd", pr, v[b][:, slot])
-                    m = m_new
-                ws.append((m, l_, acc))
-            M = torch.stack([m for m, _, _ in ws]).amax(0)
-            wt = [torch.exp(m - M) for m, _, _ in ws]
-            parts.append((M, sum(x * l_ for x, (_, l_, _) in zip(wt, ws)),
-                          sum(x[..., None] * acc for x, (_, _, acc) in zip(wt, ws))))
-        M = torch.stack([m for m, l_, _ in parts]).amax(0)
-        w = [torch.where(l_ > 0, torch.exp(m - M), torch.zeros(())) for m, l_, _ in parts]
-        L = sum(wi * l_ for wi, (_, l_, _) in zip(w, parts))
-        out[b] = sum(wi[..., None] * acc for wi, (_, _, acc) in zip(w, parts)) / L[..., None]
-        lse[b] = M + torch.log(L)
-    return out, lse
+    pieces = [fd.decode_pieces(int(p), T, n_split, T, window, ring) for p in pos]
+    j, valid = _tile_grid(pieces, bt, bt // warps, warps)
+    if ring:
+        j = j % T
+    m, l_, acc = _online_softmax(q, k, v, j, valid, Dh ** -0.5)
+    # the warps' merge per piece; an empty piece stays (-inf, 0, 0)
+    m, l_, acc = (x.reshape(B, n_split, warps, *x.shape[2:]) for x in (m, l_, acc))
+    M = m.amax(2)
+    wt = torch.where(M[:, :, None] > -torch.inf, torch.exp(m - M[:, :, None]), 0.0)
+    return _combine(M, (wt * l_).sum(2), (wt[..., None] * acc).sum(2))
 
 
 @pytest.mark.parametrize("mode", ["plain", "window", "ring", "window_past_T"])

@@ -23,6 +23,7 @@ with and without rope on load. bf16 rounds ``p`` to bf16 only for ``p.v``
 (the reference's ``p.astype(v.dtype)``) while ``l`` sums it unrounded.
 """
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import numpy as np
 import pytest
 import torch

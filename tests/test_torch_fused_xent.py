@@ -14,6 +14,7 @@ sides widen the same bf16 values to float32) and one bf16 ulp (2**-8
 relative) for the gradient, which both sides round to bf16 once.
 """
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,6 +7,7 @@ depend on its batch neighbours. The draws themselves differ from
 ``jax.random``'s by design, so sampled tokens are not compared across the
 packages."""
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -25,6 +25,7 @@ MoE training step) and 9216 (every row on one expert); and for bf16 inputs
 with a float32 output, exact products, each 16-deep step added toward zero,
 a fresh accumulator for each 64-row stage, held to the same float32 pin."""
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import inspect
 
 import jax

@@ -23,6 +23,7 @@
 Every server binds port 0.
 """
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import json
 import random
 

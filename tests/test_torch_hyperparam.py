@@ -12,6 +12,7 @@
   whose predictions match the trained Keras model's (1e-5).
 """
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import contextlib
 import math
 import random

@@ -1,9 +1,10 @@
 """The port stands alone: importing it (the host parameter-server path,
-checkpoints and sockets, the Spark-ML skin, the search and the
-package-level exports included) loads neither JAX, Keras nor any
+checkpoints and sockets, the Spark-ML skin, the search, the resilience,
+streaming and fleet packages and the package-level exports included) loads neither JAX, Keras nor any
 module of the JAX package, and without CUDA its entry points refuse to run
 unless the CPU is asked for (no quiet fallback), as does ``chip_smoke.py``."""
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import shutil
 import subprocess
 import sys
@@ -43,6 +44,14 @@ from elephas_tpu_torch.models.transformer import spec_round_accept, spec_verify_
 from elephas_tpu_torch.models.transformer import write_prompt_cache
 from elephas_tpu_torch.models import build_lm_train_phases, generate_beam
 import elephas_tpu_torch.models.beam
+import elephas_tpu_torch.resilience, elephas_tpu_torch.streaming, elephas_tpu_torch.fleet
+import elephas_tpu_torch.resilience.soak, elephas_tpu_torch.resilience.supervisor
+from elephas_tpu_torch.resilience import FaultPlan, TrainingSupervisor, run_soak
+from elephas_tpu_torch.streaming import WeightPublisher, engine_sink, list_to_params
+from elephas_tpu_torch.fleet import FleetRouter, TrafficModel, Autoscaler
+for obj in (FaultPlan, TrainingSupervisor, run_soak, WeightPublisher, engine_sink,
+            list_to_params, FleetRouter, TrafficModel, Autoscaler):
+    assert obj.__module__.split(".")[0] == "elephas_tpu_torch", obj
 for obj in (load_spark_model, ElephasEstimator, ElephasTransformer, load_ml_estimator,
             load_ml_transformer, HyperParamModel, save_checkpoint, DataFrame, Row,
             SparkSession, Pipeline, ModelDrafter, NgramDrafter, spec_round_accept,

@@ -12,6 +12,7 @@ read by the port through ``get_weights()``. Tolerance: atol = rtol = 1e-5,
 float32 on both sides (convolutions and matmuls sum in other orders).
 """
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import json
 from pathlib import Path
 

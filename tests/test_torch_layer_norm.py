@@ -8,6 +8,7 @@ warp a row: the lane-column map, the row mean summed in double by each lane
 and then by a butterfly, the centred variance in float32) emulated in numpy
 against a float64 oracle at the card tests' 1e-5 pin."""
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import inspect
 
 import jax

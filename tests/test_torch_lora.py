@@ -11,6 +11,7 @@ within ``tests/test_torch_train.py``'s rtol 5e-3, and ``save_lora`` files
 loading across the packages. The reference runs on a 1x1 ``build_mesh_sp``
 with ``attn="dense"``."""
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import os
 
 import jax.numpy as jnp

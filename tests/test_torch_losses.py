@@ -13,6 +13,7 @@ moments within 1e-3 (both sides round the moments to bf16 each step, and a
 rounding that differs in one ulp moves the update by up to 2**-8 of it).
 """
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import warnings
 
 import jax

@@ -26,6 +26,7 @@ The reference fits run once per module (``fits``), since each JAX
 ``SparkModel`` fit compiles its schedule.
 """
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import contextlib
 import json
 import random

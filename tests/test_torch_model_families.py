@@ -27,6 +27,7 @@ host test's atol 1e-6 + rtol 1e-5, and the resumed fit at the reference
 checkpoint test's rtol 1e-5 / atol 1e-6.
 """
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import jax
 import keras
 import numpy as np

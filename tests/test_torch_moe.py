@@ -21,6 +21,7 @@ last bit, so the end-to-end cases use seeds whose gates have no near tie
 at the capacity or top-k boundary (the assertions would show one as a
 token or loss mismatch far beyond these tolerances)."""
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -15,6 +15,7 @@ changes a tenant's tokens; no prefix page is shared across adapters; a
 preempted tenant resumes under its adapter; per-adapter drafting accepts
 every greedy self-draft."""
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import contextlib
 import sys
 

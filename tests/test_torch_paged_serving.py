@@ -9,6 +9,7 @@ snapshot; prefix flush on a weight swap — and one mix against the JAX
 package's paged engine: the same greedy tokens and the same integer memory
 counters, since the host bookkeeping is the same algorithm."""
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import json
 
 import jax.numpy as jnp

@@ -15,6 +15,7 @@
 Every server binds port 0; every client operation has a 10 s timeout.
 """
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import time
 
 import numpy as np

@@ -10,6 +10,7 @@ test_window_attention.py``: 1e-4 with a window). Then the model's routing
 repaired signature and of ``flash_attention_tpu``, the reference's Pallas
 entry, in both packages."""
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import importlib
 import inspect
 
@@ -104,16 +105,23 @@ def test_rope_flash_matches_pallas_kernel_and_prerotated_oracle(hkv, dh, t):
 
     jc2, js2 = jax_make_rope_tables(jnp.asarray(cos), jnp.asarray(sin))
     cos4, sin4 = jnp.asarray(cos)[:, :, None], jnp.asarray(sin)[:, :, None]
-    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
-    want, vjp = jax.vjp(lambda q, k, v: jax_flash_attention_rope(
-        q, k, v, jc2, js2, True, 128, 128, True), jq, jk, jv)
-    oracle, ovjp = jax.vjp(lambda q, k, v: jax_attention_reference(
-        jt._rope_rotate(q, cos4, sin4), jt._rope_rotate(k, cos4, sin4), v,
-        causal=True), jq, jk, jv)
+    jq, jk, jv, jg = (jnp.asarray(a) for a in (q, k, v, g))
+
+    @jax.jit
+    def both(q, k, v, g):
+        # one compiled program for the kernel's and the oracle's forward and
+        # vjp (eager dispatch of the interpret-mode grid costs twice as much)
+        want, vjp = jax.vjp(lambda q, k, v: jax_flash_attention_rope(
+            q, k, v, jc2, js2, True, 128, 128, True), q, k, v)
+        oracle, ovjp = jax.vjp(lambda q, k, v: jax_attention_reference(
+            jt._rope_rotate(q, cos4, sin4), jt._rope_rotate(k, cos4, sin4), v,
+            causal=True), q, k, v)
+        return want, oracle, vjp(g), ovjp(g)
+
+    want, oracle, want_grads, oracle_grads = both(jq, jk, jv, jg)
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
     np.testing.assert_allclose(got, np.asarray(oracle), **TOL)
-    for name, a, w, o in zip(("dq", "dk", "dv"), got_grads, vjp(jnp.asarray(g)),
-                             ovjp(jnp.asarray(g))):
+    for name, a, w, o in zip(("dq", "dk", "dv"), got_grads, want_grads, oracle_grads):
         np.testing.assert_allclose(a, np.asarray(w), **TOL, err_msg=name)
         np.testing.assert_allclose(a, np.asarray(o), **TOL, err_msg=name)
 

@@ -6,6 +6,7 @@ reasons, streaming, EOS, cancel, deadlines and shedding, fake-clock timing,
 result retention, sampled-stream independence — plus the fused-decode and
 chunked-prefill fast paths, all on the CPU path."""
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import itertools
 
 import jax.numpy as jnp
@@ -401,9 +402,17 @@ def test_swap_params_attributes_tokens_to_versions():
 
 
 def test_later_slices_raise_not_implemented():
+    """Meshes stay a later slice; ``fault_plan`` is ported (the engine
+    keeps the plan and reads its stalls by step index)."""
+    from elephas_tpu_torch.resilience import FaultPlan
+
     model = _model()
     params = _params(model)
-    for kw in (dict(mesh=object()), dict(fault_plan=object()),
-               dict(paged=True, mesh=object())):
+    for kw in (dict(mesh=object()), dict(paged=True, mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _engine(model, params, **kw)
+    plan = FaultPlan(seed=0, serving_stalls={1: 5.0})
+    eng = _engine(model, params, fault_plan=plan, clock=lambda: 0.0)
+    assert eng.fault_plan is plan
+    eng.step(), eng.step()
+    assert eng._now() == 5.0

@@ -13,6 +13,10 @@ defaults of every parameter equal the reference's.
   names import from the port's modules of the same path. The absences are
   the ones ROADMAP queues (``ring_attention``, ``ulysses_attention``: item
   6) or logs as departures (``is_tpu_backend``, ``tileable``).
+- The resilience, streaming and fleet packages (every public function and
+  class of their modules, each public method, the soak runners' trailing
+  ``device="cuda"`` taken out), ``ServingEngine.__init__``'s ``fault_plan``
+  and ``SparkModel``'s resilience options and ``fit_stream``.
 - The host path's modules (PR 14) and the API skins' (``ml_model``,
   ``ml/*``, ``data/dataframe``, ``hyperparam``, ``dl4j``): every public
   function and class, and each public method of a class, with the
@@ -21,6 +25,7 @@ defaults of every parameter equal the reference's.
 The kernel entries of ``ops`` have their positional tests beside their
 modules' other tests."""
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import importlib
 import inspect
 import re
@@ -46,9 +51,12 @@ from elephas_tpu_torch.serving import cache as tc
 
 def _default(d):
     """A default as compared across the packages: a dtype by its name
-    (``jnp.float32`` and ``torch.float32`` are both ``"float32"``)."""
+    (``jnp.float32`` and ``torch.float32`` are both ``"float32"``), a
+    function by its qualified name."""
     if isinstance(d, torch.dtype):
         return str(d).removeprefix("torch.")
+    if inspect.isfunction(d):     # a default function: each package has its own
+        return d.__qualname__
     if isinstance(d, type) and hasattr(d, "dtype"):   # a jnp scalar type
         return d.__name__
     return d
@@ -308,8 +316,6 @@ def test_host_path_names_match_reference(mod, name):
         return
     methods = [m for m, f in vars(ref).items() if callable(f)
                and (m == "__init__" or not m.startswith("_"))]
-    if name == "SparkModel":    # item 10's reference-only methods stay queued
-        methods = [m for m in methods if m not in ("fit_stream",)]
     for m in methods:
         assert hasattr(port, m), (name, m)
         assert _params_sans_device(getattr(port, m)) == _params(getattr(ref, m)), (name, m)
@@ -493,3 +499,62 @@ def test_lora_names_match_reference(name):
 ], ids=lambda x: x.split(":")[1])
 def test_multi_tenant_signature_matches_reference(port, ref):
     assert _params(_resolve(*port.split(":"))) == _params(_resolve(*ref.split(":")))
+
+
+# -- resilience, streaming and the serving fleet ---------------------------------
+
+# every public function and class of each module, and each public method of a
+# class, with the reference's parameters; the soak's runners (and
+# ``_classifier``, which builds the port's adapter) take the port's trailing
+# ``device="cuda"``
+ITEM10_MODULES = ["resilience.faults", "resilience.policy", "resilience.membership",
+                  "resilience.supervisor", "resilience.soak", "streaming.bridge",
+                  "streaming.publisher", "streaming.trainer", "fleet.traffic",
+                  "fleet.policy", "fleet.router", "fleet.autoscaler"]
+ITEM10_NAMES = [(mod, name) for mod in ITEM10_MODULES
+                for name, obj in sorted(vars(importlib.import_module(
+                    f"elephas_tpu.{mod}")).items())
+                if not name.startswith("_") and callable(obj)
+                and getattr(obj, "__module__", None) == f"elephas_tpu.{mod}"]
+ITEM10_NAMES += [("resilience.faults", "_unit"), ("resilience.soak", "_toy_data"),
+                 ("resilience.soak", "_wire_ledger_check"), ("fleet.router", "_percentile"),
+                 ("serving.engine", "ServingEngine")]
+
+
+@pytest.mark.parametrize("mod,name", ITEM10_NAMES, ids=lambda x: x)
+def test_resilience_streaming_fleet_names_match_reference(mod, name):
+    ref = getattr(importlib.import_module(f"elephas_tpu.{mod}"), name)
+    port = getattr(importlib.import_module(f"elephas_tpu_torch.{mod}"), name)
+    assert _is_port(port), (mod, name)
+    fns = ([(None, ref, port)] if not isinstance(ref, type) else
+           [(m, f, getattr(port, m, None)) for m, f in vars(ref).items()
+            if callable(f) and (m == "__init__" or not m.startswith("_"))])
+    if name == "ServingEngine":    # the engine's methods have rows of their own
+        fns = [f for f in fns if f[0] == "__init__"]
+    for m, want, got in fns:
+        assert got is not None, (name, m)
+        got, want = getattr(got, "__func__", got), getattr(want, "__func__", want)
+        if mod == "resilience.soak" or (name, m) == ("ServingEngine", "__init__"):
+            assert _params_sans_device(got) == _params(want), (name, m)
+        else:
+            assert _params(got) == _params(want), (name, m)
+    if (mod, name) == ("serving.engine", "ServingEngine"):
+        assert ("fault_plan", None) in _params(port.__init__)
+
+
+def _is_port(obj) -> bool:
+    return (getattr(obj, "__module__", None) or "").split(".")[0] == "elephas_tpu_torch"
+
+
+def test_spark_model_resilience_options_and_fit_stream_match_reference():
+    from elephas_tpu.spark_model import SparkModel as J
+    from elephas_tpu_torch.spark_model import SparkModel as T
+
+    want = dict(_params(J.__init__))
+    got = dict(_params_sans_device(T.__init__))
+    for name in ("fault_plan", "retry_policy", "membership", "quorum",
+                 "round_deadline_s", "backup_stragglers", "hot_standby", "elastic",
+                 "wire_stall_timeout_s"):
+        assert got[name] == want[name], name
+    assert _params(T.fit_stream) == _params(J.fit_stream)
+    assert _params(T._membership_mask) == _params(J._membership_mask)

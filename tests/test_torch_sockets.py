@@ -6,6 +6,7 @@ the other's frames, and the cheap cases of ``tests/utils/test_wire_fuzz.py``
 classes in both; and the port's socket server quarantining a garbage
 connection. Every receive has a 10 s socket timeout."""
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import pickle
 import socket
 import struct

@@ -10,6 +10,7 @@ and activations in another library); after a fit, atol = rtol = 1e-5 as
 in ``tests/test_torch_engine.py``.
 """
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import json
 from pathlib import Path
 
@@ -289,15 +290,44 @@ def test_partitions_not_above_the_batch_size_are_skipped():
 # -- what the port refuses ------------------------------------------------------
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(mode="synchronous", fault_plan=object()), "item 10"),
-    (dict(mode="synchronous", membership=object()), "item 10"),
-    (dict(mode="synchronous", elastic=object()), "item 10"),
-    (dict(mode="synchronous", hot_standby=True), "item 10"),
+def _resilience_case(name):
+    """Constructor options of the resilience slice, built per test (the
+    registry and the plan are stateful)."""
+    from elephas_tpu_torch.resilience import FaultPlan, HeartbeatRegistry
+
+    return {"fault_plan": dict(mode="synchronous", fault_plan=FaultPlan(seed=0), quorum=2),
+            "membership": dict(mode="synchronous", membership=HeartbeatRegistry(), quorum=0),
+            "elastic": dict(mode="synchronous", elastic=object()),
+            "hot_standby": dict(mode="synchronous", hot_standby=True)}[name]
+
+
+@pytest.mark.parametrize("case,match", [
+    ("fault_plan", "requires a membership registry"),
+    ("membership", "quorum must be >= 1"),
+    ("elastic", "item 10"),
+    ("hot_standby", "needs a live parameter server"),
 ])
-def test_unported_constructor_options_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_unported_constructor_options_raise(case, match):
+    """``elastic=`` stays refused, naming item 10's second part; the other
+    options are ported and hold the reference's validation: a quorum
+    without a membership registry or below 1, and a hot standby without a
+    live server, raise the reference's ``ValueError`` in both packages, and
+    without the invalid quorum the options construct and are kept."""
+    kw = _resilience_case(case)
+    if case == "elastic":
+        with pytest.raises(NotImplementedError, match=match):
+            SparkModel(_toy(), device="cpu", **kw)
+        return
+    with pytest.raises(ValueError, match=match):
         SparkModel(_toy(), device="cpu", **kw)
+    with pytest.raises(ValueError, match=match):
+        JSparkModel(_toy(), **kw)
+    kept = {k: v for k, v in kw.items() if k != "quorum"}
+    if case == "hot_standby":
+        kept.update(mode="asynchronous", parameter_server_mode="socket")
+    sm = SparkModel(_toy(), device="cpu", **kept)
+    for k, v in kept.items():
+        assert getattr(sm, k) is v or getattr(sm, k) == v, k
 
 
 def test_unported_calls_raise(tmp_path):
@@ -306,8 +336,12 @@ def test_unported_calls_raise(tmp_path):
     sm = SparkModel(_toy(), mode="synchronous", num_workers=2, device="cpu")
     with pytest.raises(NotImplementedError, match="profile"):
         sm.fit(rdd, epochs=1, batch_size=8, profile_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # fit_stream is ported: a mode without a live server is the reference's
+    # ValueError (test_fit_stream_rejects_modes_without_live_ps)
+    with pytest.raises(ValueError, match="fit_stream needs a live parameter server"):
         sm.fit_stream([], None)
+    with pytest.raises(ValueError, match="fit_stream needs a live parameter server"):
+        JSparkModel(_toy(), mode="synchronous").fit_stream([], None)
     mae = SparkModel(_toy(metrics=("mae",)), mode="synchronous", device="cpu")
     with pytest.raises(NotImplementedError, match="mae"):
         mae.evaluate(x, y)

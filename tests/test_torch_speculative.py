@@ -26,6 +26,7 @@ the top-2 gaps of these seeds are far above that, so the streams are
 compared without a tolerance; the residuals of ``spec_round_accept`` are
 held within 1e-6."""
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 from pathlib import Path
 
 import jax

@@ -7,6 +7,7 @@ step's update bit for bit, for each knob the phases share with the step.
 Tolerances: losses rtol 1e-5, gradients and params 1e-4 of scale (float32
 sums in another framework)."""
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -5,6 +5,7 @@ logits and KV caches of ``decode_chunk``, ``decode_step`` and
 tolerance, atol/rtol 1e-4, allows float32 sums taken in another order
 across layers."""
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -19,6 +19,7 @@ Tolerances are the reference tests' (``tests/models/test_mixed_window.py``,
 ``test_architectures.py``): logits and caches within 1e-4 across the two
 frameworks, tokens exactly where every top-2 logit gap exceeds 1e-3."""
 
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import jax
 import jax.numpy as jnp
 import numpy as np
