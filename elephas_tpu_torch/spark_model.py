@@ -53,12 +53,15 @@ backups) and masks expired workers out of the compiled path's merges;
 ``hot_standby`` replicates the http or socket server to a standby the
 clients fail over to. :meth:`SparkModel.fit_stream` is the streaming
 train-to-serve loop over the host parameter server
-(:mod:`elephas_tpu_torch.streaming`).
+(:mod:`elephas_tpu_torch.streaming`). ``elastic`` (an
+:class:`~elephas_tpu_torch.parallel.elastic.ElasticConfig`) routes ``fit``
+through an :class:`~elephas_tpu_torch.parallel.elastic.ElasticHostPool` of
+real host processes, each training a
+:class:`~elephas_tpu_torch.worker.KerasReplica` on ``device``.
 
-Not ported yet, each raising :class:`NotImplementedError` with its ROADMAP
-item: elastic host pools (``elastic=``, item 10's second part);
-``profile_dir``; and ``evaluate`` with metrics other than accuracy, which
-the reference hands to Keras.
+Not ported yet, each raising :class:`NotImplementedError`: ``profile_dir``
+(the reference writes a ``jax.profiler`` trace); and ``evaluate`` with
+metrics other than accuracy, which the reference hands to Keras.
 """
 
 from __future__ import annotations
@@ -81,13 +84,7 @@ from .parameter.server import HttpServer, SocketServer
 from .utils.rdd_utils import lp_to_simple_rdd
 from .worker import AsynchronousSparkWorker, SparkWorker
 
-ELASTIC_ITEM = ("ROADMAP queue 1 item 10, second part (elastic hosts, emulation, "
-                "NativeBatchLoader)")
 METRICS_ITEM = "ROADMAP queue 1 item 13 (Keras metrics beyond accuracy)"
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} waits for {item}")
 
 
 class SparkModel:
@@ -143,8 +140,6 @@ class SparkModel:
             from .parameter.compression import make_codec
 
             make_codec(compression)  # validate the spec eagerly
-        if elastic is not None:
-            raise _not_ported("elastic=", ELASTIC_ITEM)
         # Elastic-membership options: a HeartbeatRegistry drives K-of-N
         # quorum rounds with straggler backups on the host paths and masks
         # expired workers out of the compiled path's merges; hot_standby
@@ -171,6 +166,12 @@ class SparkModel:
                     f"(got {parameter_server_mode!r})"
                 )
         self.membership = membership
+        # Elastic HOST training (parallel/elastic.py): an ElasticConfig
+        # routes fit through a pool of real worker processes leasing
+        # membership from this process; orthogonal to `membership`, which
+        # governs the thread-level partitions of one host.
+        self.elastic = elastic
+        self._elastic_pool = None
         self.round_deadline_s = round_deadline_s
         self.backup_stragglers = bool(backup_stragglers)
         # a seeded FaultPlan injects failures into workers, clients and
@@ -306,7 +307,9 @@ class SparkModel:
 
     def _fit(self, rdd: RDD, epochs: int, batch_size: int, verbose: int,
              validation_split: float) -> None:
-        if self.comm == "jax":
+        if self.elastic is not None:
+            self._fit_elastic(rdd, epochs, batch_size, verbose)
+        elif self.comm == "jax":
             self._fit_jax(rdd, epochs, batch_size, verbose, validation_split)
         elif self.mode == "synchronous":
             self._fit_host_sync(rdd, epochs, batch_size, verbose, validation_split)
@@ -497,6 +500,54 @@ class SparkModel:
             backup_stragglers=self.backup_stragglers,
             max_failures=rdd.context.maxTaskFailures)
 
+    # -- elastic host path: this process as control plane over hosts ----
+    def _fit_elastic(self, rdd, epochs, batch_size, verbose) -> None:
+        """Train over an elastic pool of real host processes.
+
+        One elastic round = one global pass over the densified data: the
+        pool recuts the batch over the CURRENT host formation each round,
+        every host runs one local ``fit`` epoch of its
+        :class:`~elephas_tpu_torch.worker.KerasReplica` on its shard (on
+        this model's device), and the sample-weighted merged delta commits
+        through the versioned, epoch-fenced parameter store. ``epochs``
+        maps to rounds; ``validation_split`` is not consumed (hosts see
+        training shards only)."""
+        from .parallel.elastic import ElasticHostPool
+
+        model = self._master_network
+        blocks = self._partition_blocks(rdd, batch_size)
+        if not blocks:
+            raise ValueError(
+                "All partitions were skipped (each needs > batch_size samples)"
+            )
+        x = np.concatenate([b[0] for b in blocks])
+        y = np.concatenate([b[1] for b in blocks])
+        json_config, opt, loss, metrics = self._worker_model_args()
+        task_config = {
+            "model_json": json_config,
+            "optimizer": opt,
+            "loss": loss,
+            "metrics": metrics or [],
+            "local_epochs": 1,
+            "batch_size": batch_size,
+            "device": str(self.mesh.device),
+        }
+        pool = ElasticHostPool(
+            model.get_weights(), self.elastic,
+            task={"builtin": "keras_fit_task"},
+            task_config=task_config,
+            fault_plan=self.fault_plan,
+        )
+        self._elastic_pool = pool
+        weights = pool.fit(x, y, rounds=epochs)
+        model.set_weights(weights)
+        self.training_histories.append({
+            "mode": "elastic",
+            "loss": list(pool.history["loss"]),
+            "rounds_committed": int(pool.stats["rounds_committed"]),
+            "reformations": int(pool.stats["reformations"]),
+        })
+
     # -- host path: reference-shaped async/hogwild against a live PS -----
     def start_server(self) -> None:
         weights = self._master_network.get_weights()
@@ -655,13 +706,17 @@ class SparkModel:
         """JSON-able membership observability: the registry's snapshot
         (joins, expiries, epochs, backups, failovers, per-round shortfall)
         plus the last fit's parameter-server counters (version, pulls,
-        fencing, replication) under ``parameter_servers``."""
+        fencing, replication) under ``parameter_servers``, and the last
+        elastic fit's host-level control plane (epochs, commits, mesh
+        formations) under ``elastic``."""
         snap: Dict[str, Any] = {
             "membership": None, "counters": {}, "rounds": [], "events": [],
         }
         if self.membership is not None:
             snap = self.membership.snapshot()
         snap["parameter_servers"] = dict(self._ps_stats)
+        if self._elastic_pool is not None:
+            snap["elastic"] = self._elastic_pool.snapshot()
         return snap
 
     # -- streaming train-to-serve ----------------------------------------

@@ -16,7 +16,9 @@ BatchNormalization, Reshape, Embedding, LSTM) and a BatchNormalization
 CNN's fit on the card against the CPU, and the Embedding's range check;
 the Spark-ML estimator's K1 launches and the search's pinning to a card;
 multi-tenant LoRA serving (plain and speculative) and the LoRA train step
-on the card against the merged oracles and the CPU.
+on the card against the merged oracles and the CPU; elastic host processes
+training on the card with exact K1 launches, and int8-quantized decoding
+equal to the dequantized weights'.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside the
 test, never at import). This file imports no JAX, so it runs on a machine
@@ -1959,3 +1961,96 @@ def test_fault_injected_host_fit_launches_k1_exactly(cuda):
     for w in sm.master_network.get_weights():
         assert np.isfinite(w).all()
     json.dumps(plan.fired)
+
+
+# imports inside the task: a host resolves its task at adoption, before it
+# reads its first round, so a slow import there would stall the driver
+COUNTED_TASK = '''
+import sys
+
+
+def counted(weights, shard, config):
+    if {root!r} not in sys.path:
+        sys.path.insert(0, {root!r})
+    import torch
+    from elephas_tpu_torch.ops.fused_xent import fused_xent_bwd, fused_xent_fwd
+    from elephas_tpu_torch.parallel import emulation
+
+    before = fused_xent_fwd.launches, fused_xent_bwd.launches
+    delta, metrics = emulation.keras_fit_task(weights, shard, config)
+    torch.cuda.synchronize()
+    (replica,) = emulation._KERAS_CACHE.values()
+    metrics["k1"] = [fused_xent_fwd.launches - before[0], fused_xent_bwd.launches - before[1]]
+    metrics["device"] = str(replica.device)
+    return delta, metrics
+'''
+
+
+def test_elastic_keras_task_hosts_launch_k1_exactly(cuda, tmp_path):
+    """Two host processes, two rounds of the MNIST MLP's JSON (its logits
+    head and ``from_logits`` loss) through the port's ``keras_fit_task`` on
+    the card (wrapped by a ``{"file", "fn"}``
+    task that reads each host's launch counts): every contribution ran on
+    ``cuda`` and launched K1-fwd and K1-bwd once a step of its shard, the
+    pool committed both rounds, and the loss fell."""
+    import json
+    from pathlib import Path
+
+    from elephas_tpu_torch import SparkModel
+    from elephas_tpu_torch.parallel import ElasticConfig, ElasticHostPool, EmulationBackend
+
+    root = Path(__file__).resolve().parents[1]
+    task = tmp_path / "counted_task.py"
+    task.write_text(COUNTED_TASK.format(root=str(root)))
+    config = (root / "elephas_tpu_torch" / "configs" / "mnist_mlp_logits.json").read_text()
+    rng = np.random.default_rng(5)
+    n, B = 1000, 128
+    x = rng.random((n, 784)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[((x - 0.5) @ rng.normal(size=(784, 10))).argmax(1)]
+    weights = SparkModel(config, device=cuda).master_network.get_weights()
+    pool = ElasticHostPool(
+        weights, ElasticConfig(initial_hosts=2, rounds=2, lease_s=30.0, beat_interval_s=0.2),
+        task={"file": str(task), "fn": "counted"},
+        task_config={"model_json": config, "optimizer": "adam",
+                     "loss": json.loads(config)["compile_config"]["loss"],
+                     "local_epochs": 1, "batch_size": B, "device": "cuda"},
+        backend=EmulationBackend(quiet=False))
+    seen, handle = [], pool._handle_contrib
+    pool._handle_contrib = lambda host, msg: (seen.append(msg["metrics"]), handle(host, msg))
+    pool.fit(x, y)
+    assert [c["contributors"] for c in pool.commit_log] == [[0, 1], [0, 1]]
+    assert len(seen) == 4
+    for m in seen:
+        steps = -(-m["samples"] // B)
+        assert m["device"].startswith("cuda") and m["k1"] == [steps, steps], m
+    assert pool.history["loss"][-1] < pool.history["loss"][0]
+
+
+def test_quantized_decode_equals_dequantized_on_card(cuda):
+    """int8 weights on the card: ``generate`` and the serving engine (dense
+    and paged) give the dequantized params' tokens bit for bit, for a
+    rotary GQA LM and a MoE LM on the grouped-matmul kernels."""
+    from elephas_tpu_torch.models import dequantize_params, quantize_lm_params
+
+    cfg = dict(vocab=512, d_model=256, n_heads=4, n_kv_heads=2, n_layers=2, d_ff=512,
+               max_len=256, pos_encoding="rotary", activation="swiglu", norm="rmsnorm",
+               ffn_bias=False)
+    for model in (TransformerLM(**cfg, device=cuda),
+                  MoETransformerLM(**cfg, n_experts=4, k=2, moe_dispatch="gmm",
+                                   device=cuda)):
+        q = quantize_lm_params(model.init(3))
+        dq = dequantize_params(q)
+        prompt = torch.tensor(np.random.default_rng(1).integers(0, 512, size=(2, 20)),
+                              device=cuda)
+        assert torch.equal(model.generate(q, prompt, 16), model.generate(dq, prompt, 16))
+        for paged in (False, True):
+            streams = []
+            for params in (q, dq):
+                eng = ServingEngine(model, params, n_slots=4, device=cuda,
+                                    **(dict(paged=True, page_size=16) if paged else {}))
+                rng = np.random.default_rng(2)
+                ids = [eng.submit(rng.integers(0, 512, size=n).tolist(), 12)
+                       for n in (5, 40, 17)]
+                done = eng.drain()
+                streams.append([done[i].tokens for i in ids])
+            assert streams[0] == streams[1], (type(model).__name__, paged)

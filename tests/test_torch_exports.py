@@ -23,14 +23,10 @@ PACKAGES = ["", ".data", ".ml", ".mllib", ".models", ".ops", ".parallel",
             ".parameter", ".serving", ".utils", ".resilience", ".streaming", ".fleet"]
 
 ITEM_6_SHARD = "ROADMAP queue 1 item 6, second half (sharding on torch.distributed)"
-ITEM_10 = ("ROADMAP queue 1 item 10, second part (elastic hosts, emulation, "
-           "NativeBatchLoader)")
-ITEM_12 = "ROADMAP queue 1 item 12 (quantization, Hugging Face import)"
 DEPARTURE_OPTAX = "ROADMAP §3 departure: to_optax is to_torch_optimizer"
 
 # reference name absent from the port's package → why
 ABSENT = {
-    ".data": {"NativeBatchLoader": ITEM_10},
     ".models": {
         **dict.fromkeys(["LMFsdpLayout", "build_lm_fsdp_train_step",
                          "build_lm_pp_train_step", "build_lm_pp_tp_train_step",
@@ -40,8 +36,6 @@ ABSENT = {
                          "build_lm_tp_generate", "build_lm_tp_train_step",
                          "build_mesh_tp", "shard_tp_params", "tp_specs", "SEQ_AXIS",
                          "build_mesh_sp", "ring_psum", "shard_lm_batch"], ITEM_6_SHARD),
-        **dict.fromkeys(["QuantizedTensor", "dequantize_params", "quantize_lm_params",
-                         "quantized_nbytes", "lm_from_hf", "load_hf_lm"], ITEM_12),
         "to_optax": DEPARTURE_OPTAX,
     },
     ".ops": dict.fromkeys(["ring_attention", "ulysses_attention"], ITEM_6_SHARD),
@@ -53,7 +47,6 @@ ABSENT = {
                          "build_fsdp_train_step", "build_mesh_pp", "PipelineDenseStack",
                          "build_pp_train_step", "pipeline_apply", "initialize_cluster",
                          "global_mesh", "hybrid_mesh", "JaxPodBackend"], ITEM_6_SHARD),
-        **dict.fromkeys(["ElasticConfig", "ElasticHostPool", "EmulationBackend"], ITEM_10),
     },
 }
 
@@ -106,7 +99,7 @@ def test_package_exports_match_reference(pkg):
 def test_every_absence_names_a_queued_item_or_a_departure():
     reasons = {r for table in (ABSENT, ABSENT_METHODS) for d in table.values()
                for r in d.values()}
-    assert reasons == {ITEM_6_SHARD, ITEM_10, ITEM_12, DEPARTURE_OPTAX}
+    assert reasons == {ITEM_6_SHARD, DEPARTURE_OPTAX}
 
 
 CFG = dict(vocab=17, d_model=16, n_heads=4, n_layers=2, d_ff=32, max_len=64)

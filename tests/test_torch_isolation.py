@@ -1,8 +1,10 @@
 """The port stands alone: importing it (the host parameter-server path,
 checkpoints and sockets, the Spark-ML skin, the search, the resilience,
-streaming and fleet packages and the package-level exports included) loads neither JAX, Keras nor any
-module of the JAX package, and without CUDA its entry points refuse to run
-unless the CPU is asked for (no quiet fallback), as does ``chip_smoke.py``."""
+streaming and fleet packages, the elastic hosts, the native loader,
+quantization, the Hugging Face import and the package-level exports
+included) loads neither JAX, Keras, ``transformers`` nor any module of the
+JAX package, and without CUDA its entry points refuse to run unless the
+CPU is asked for (no quiet fallback), as does ``chip_smoke.py``."""
 
 from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
 import shutil
@@ -49,8 +51,16 @@ import elephas_tpu_torch.resilience.soak, elephas_tpu_torch.resilience.superviso
 from elephas_tpu_torch.resilience import FaultPlan, TrainingSupervisor, run_soak
 from elephas_tpu_torch.streaming import WeightPublisher, engine_sink, list_to_params
 from elephas_tpu_torch.fleet import FleetRouter, TrafficModel, Autoscaler
+import elephas_tpu_torch.parallel.elastic, elephas_tpu_torch.parallel.emulation
+import elephas_tpu_torch.data.native_loader, elephas_tpu_torch.models.quantize
+import elephas_tpu_torch.models.hf_import
+from elephas_tpu_torch.parallel import ElasticConfig, ElasticHostPool, EmulationBackend
+from elephas_tpu_torch.data import NativeBatchLoader
+from elephas_tpu_torch.models import QuantizedTensor, quantize_lm_params, lm_from_hf
 for obj in (FaultPlan, TrainingSupervisor, run_soak, WeightPublisher, engine_sink,
-            list_to_params, FleetRouter, TrafficModel, Autoscaler):
+            list_to_params, FleetRouter, TrafficModel, Autoscaler, ElasticConfig,
+            ElasticHostPool, EmulationBackend, NativeBatchLoader, QuantizedTensor,
+            quantize_lm_params, lm_from_hf):
     assert obj.__module__.split(".")[0] == "elephas_tpu_torch", obj
 for obj in (load_spark_model, ElephasEstimator, ElephasTransformer, load_ml_estimator,
             load_ml_transformer, HyperParamModel, save_checkpoint, DataFrame, Row,
@@ -60,8 +70,8 @@ for obj in (load_spark_model, ElephasEstimator, ElephasTransformer, load_ml_esti
     assert obj.__module__.split(".")[0] == "elephas_tpu_torch", obj
 assert EXPERT_AXIS == "expert"
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "keras", "elephas_tpu")
-             or m.startswith(("jax.", "keras.", "elephas_tpu.")))
+             if m in ("jax", "keras", "elephas_tpu", "transformers")
+             or m.startswith(("jax.", "keras.", "elephas_tpu.", "transformers.")))
 print(",".join(bad))
 """
 
@@ -119,6 +129,33 @@ def test_mlp_fit_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
         KerasModelAdapter(config)
     sm = SparkModel(config, mode="synchronous", device="cpu")     # asked for: fine
     assert sm.master_network.get_weights()[0].shape == (784, 128)
+
+
+def test_elastic_and_import_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
+    """An elastic host's Keras-replica task, an elastic ``SparkModel`` and
+    the Hugging Face import default to the card and raise without it."""
+    import types
+
+    from elephas_tpu_torch import SparkModel
+    from elephas_tpu_torch.models import lm_from_hf
+    from elephas_tpu_torch.parallel import ElasticConfig
+    from elephas_tpu_torch.parallel.emulation import keras_fit_task
+
+    config = (ROOT / "elephas_tpu_torch" / "configs" / "mnist_mlp_logits.json").read_text()
+    task = {"model_json": config, "loss": "categorical_crossentropy", "optimizer": "sgd"}
+    shard = (np.zeros((4, 784), np.float32), np.zeros((4, 10), np.float32))
+    weights = SparkModel(config, device="cpu").master_network.get_weights()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        keras_fit_task(weights, shard, task)
+    delta, metrics = keras_fit_task(weights, shard, {**task, "device": "cpu"})
+    assert metrics["samples"] == 4 and len(delta) == len(weights)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SparkModel(config, elastic=ElasticConfig())
+    gpt2 = types.SimpleNamespace(
+        model_type="gpt2", activation_function="gelu_new", n_layer=1, n_embd=8,
+        n_head=2, n_inner=None, n_positions=16, vocab_size=11, layer_norm_epsilon=1e-5)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm_from_hf(types.SimpleNamespace(config=gpt2, state_dict=dict))
 
 
 def test_chip_smoke_refuses_without_cuda(no_cuda, tmp_path):

@@ -189,11 +189,33 @@ EXAMPLES = [("mnist_cnn_logits.json", lambda: _mnist_cnn()),
             ("imdb_lstm.json", _imdb_lstm)]
 
 
+def _head_sum_scale(adapter, x):
+    """``(S, n)``: ``S[b, k] = sum_j |h_bj W_jk| + |b_k|`` of the model's last
+    Dense, ``h`` its input from a float64 forward through the port's layers,
+    and ``n`` the Dense's fan-in: the magnitude and length of the float32
+    sum that rounds last before the output."""
+    tv, ntv = adapter.state_values()
+    p64 = {k: v.double()[None] for k, v in {**tv, **ntv}.items()}
+    *body, head = adapter.layers
+    h = torch.as_tensor(np.asarray(x, np.float64))[None]
+    with torch.no_grad():
+        for op in body:
+            h = op(p64, h, False, None, None)
+    kernel, bias = (p64[s.name][0] for s in head.weight_shapes())
+    return (h[0].abs() @ kernel.abs() + bias.abs()).numpy(), kernel.shape[0]
+
+
 @pytest.mark.parametrize("name,make", EXAMPLES, ids=[e[0] for e in EXAMPLES])
 def test_committed_example_models_match_keras(name, make):
     """The committed JSON of each model the card drives is the example's
     model (layers, options, loss, optimizer); read with Keras's weights, the
-    port's forward equals Keras ``predict`` on 16 samples."""
+    port's forward equals Keras ``predict`` on 16 samples at 1, 2, 3, 4, 6
+    and 8 intra-op threads, each output within twice the float32 error of
+    the head's sum, ``2 sqrt(n) eps32 S`` (two float32 evaluations of a sum
+    of ``n`` terms whose magnitudes add up to ``S``, ``_head_sum_scale``):
+    the logits are ~100 and sums of ~100-sized terms, so a fixed 1e-5 pins
+    a near-zero logit below the rounding of its own sum, and the order of
+    the sums changes with the thread count."""
     m = make()
     committed = json.loads((CONFIGS / name).read_text())
     assert _layer_kinds(committed) == _layer_kinds(json.loads(m.to_json()))
@@ -202,9 +224,19 @@ def test_committed_example_models_match_keras(name, make):
     rng = np.random.default_rng(7)
     x = (rng.integers(0, 2000, size=(16, 80)).astype("float64") if "lstm" in name
          else rng.uniform(0, 1, size=(16, 784)).astype("float32"))
-    got = KerasModelAdapter((CONFIGS / name).read_text(), weights=m.get_weights(),
-                            device="cpu").predict(x, batch_size=8)
-    np.testing.assert_allclose(got, m.predict(x, verbose=0), atol=TOL, rtol=TOL)
+    adapter = KerasModelAdapter((CONFIGS / name).read_text(), weights=m.get_weights(),
+                                device="cpu")
+    want = m.predict(x, verbose=0)
+    scale, n = _head_sum_scale(adapter, x)
+    atol = 2 * np.sqrt(n) * np.finfo(np.float32).eps * scale
+    threads = torch.get_num_threads()
+    try:
+        for t in (1, 2, 3, 4, 6, 8):
+            torch.set_num_threads(t)
+            err = np.abs(adapter.predict(x, batch_size=8) - want)
+            assert np.all(err <= atol), (t, float((err / atol).max()))
+    finally:
+        torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("layer,shape,match", [

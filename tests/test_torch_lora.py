@@ -124,9 +124,12 @@ def test_training_moves_only_adapters_and_learns(attn):
 
 
 def test_merge_reproduces_adapted_model():
-    """The merged dict reproduces the adapted model within 1e-5. (The
-    reference also quantizes the merged weights: quantization is ROADMAP
-    queue 1 item 12, not ported yet.)"""
+    """The merged dict reproduces the adapted model within 1e-5, and the
+    merged weights quantize like any others (the reference's deployment
+    composition): finite logits, equal to the dequantized weights' bit for
+    bit; an unmerged dict is refused."""
+    from elephas_tpu_torch.models import dequantize_params, quantize_lm_params
+
     model = _model()
     lparams, _, _ = _train(model, apply_lora(model.init(2), rank=4), 3, seed=3)
     merged = merge_lora(lparams)
@@ -135,6 +138,12 @@ def test_merge_reproduces_adapted_model():
     torch.testing.assert_close(model.apply(merged, tokens, positions),
                                model.apply(lparams, tokens, positions),
                                rtol=1e-5, atol=1e-5)
+    q = quantize_lm_params(merged)
+    lq = model.apply(q, tokens, positions)
+    assert torch.isfinite(lq).all()
+    assert torch.equal(lq, model.apply(dequantize_params(q), tokens, positions))
+    with pytest.raises(ValueError, match="merge_lora"):
+        quantize_lm_params(lparams)
 
 
 def test_lora_mask_protects_base_from_weight_decay():

@@ -21,6 +21,10 @@ defaults of every parameter equal the reference's.
   ``ml/*``, ``data/dataframe``, ``hyperparam``, ``dl4j``): every public
   function and class, and each public method of a class, with the
   reference's parameters but for the port's trailing ``device="cuda"``.
+- The elastic hosts, the native loader, quantization and the Hugging Face
+  import (every public function and class, each public method), and
+  ``KerasModelAdapter.__init__``: the reference's five parameters in place,
+  then the port's ``weights``, ``seed`` and ``device``.
 
 The kernel entries of ``ops`` have their positional tests beside their
 modules' other tests."""
@@ -558,3 +562,46 @@ def test_spark_model_resilience_options_and_fit_stream_match_reference():
         assert got[name] == want[name], name
     assert _params(T.fit_stream) == _params(J.fit_stream)
     assert _params(T._membership_mask) == _params(J._membership_mask)
+
+
+def test_adapter_constructor_keeps_the_reference_positions():
+    """``KerasModelAdapter(model, loss, optimizer, metrics, custom_objects)``
+    by the reference's positions; the port's trailing ``weights``, ``seed``
+    and ``device`` are the logged departure (the Keras-free fit: the
+    weights come with the JSON, or are drawn from ``seed``, on
+    ``device``)."""
+    want = _params(ja.KerasModelAdapter.__init__)
+    got = _params(ta.KerasModelAdapter.__init__)
+    assert got[:len(want)] == want
+    assert got[len(want):] == [("weights", None), ("seed", 0), ("device", "cuda")]
+
+
+# every public function and class of the elastic-host, native-loader,
+# quantization and import modules, and each public method of a class, with
+# the reference's parameters; ``lm_from_hf`` and ``load_hf_lm`` take the
+# port's ``device="cuda"``; ``JaxPodBackend`` waits for item 6
+LATE_MODULES = ["parallel.elastic", "parallel.emulation", "data.native_loader",
+                "models.quantize", "models.hf_import"]
+LATE_NAMES = [(mod, name) for mod in LATE_MODULES
+              for name, obj in sorted(vars(importlib.import_module(
+                  f"elephas_tpu.{mod}")).items())
+              if not name.startswith("_") and callable(obj) and name != "JaxPodBackend"
+              and getattr(obj, "__module__", None) == f"elephas_tpu.{mod}"]
+LATE_NAMES += [("parallel.emulation", "_resolve_task"), ("parallel.emulation", "_main")]
+
+
+@pytest.mark.parametrize("mod,name", LATE_NAMES, ids=lambda x: x)
+def test_elastic_quantize_and_import_names_match_reference(mod, name):
+    ref = getattr(importlib.import_module(f"elephas_tpu.{mod}"), name)
+    port = getattr(importlib.import_module(f"elephas_tpu_torch.{mod}"), name)
+    assert _is_port(port), (mod, name)
+    fns = ([(None, ref, port)] if not isinstance(ref, type) else
+           [(m, f, getattr(port, m, None)) for m, f in vars(ref).items()
+            if callable(f) and (m == "__init__" or not m.startswith("_"))])
+    for m, want, got in fns:
+        assert got is not None, (name, m)
+        got, want = getattr(got, "__func__", got), getattr(want, "__func__", want)
+        if mod == "models.hf_import":
+            assert _params_sans_device(got) == _params(want), (name, m)
+        else:
+            assert _params(got) == _params(want), (name, m)

@@ -297,26 +297,32 @@ def _resilience_case(name):
 
     return {"fault_plan": dict(mode="synchronous", fault_plan=FaultPlan(seed=0), quorum=2),
             "membership": dict(mode="synchronous", membership=HeartbeatRegistry(), quorum=0),
-            "elastic": dict(mode="synchronous", elastic=object()),
+            "elastic": dict(mode="synchronous"),
             "hot_standby": dict(mode="synchronous", hot_standby=True)}[name]
 
 
 @pytest.mark.parametrize("case,match", [
     ("fault_plan", "requires a membership registry"),
     ("membership", "quorum must be >= 1"),
-    ("elastic", "item 10"),
+    ("elastic", "kept"),
     ("hot_standby", "needs a live parameter server"),
 ])
 def test_unported_constructor_options_raise(case, match):
-    """``elastic=`` stays refused, naming item 10's second part; the other
-    options are ported and hold the reference's validation: a quorum
+    """The resilience options hold the reference's validation: a quorum
     without a membership registry or below 1, and a hot standby without a
     live server, raise the reference's ``ValueError`` in both packages, and
-    without the invalid quorum the options construct and are kept."""
+    without the invalid quorum the options construct and are kept. An
+    ``ElasticConfig`` (each package's own) constructs in both and is kept."""
     kw = _resilience_case(case)
     if case == "elastic":
-        with pytest.raises(NotImplementedError, match=match):
-            SparkModel(_toy(), device="cpu", **kw)
+        from elephas_tpu.parallel.elastic import ElasticConfig as JElasticConfig
+        from elephas_tpu_torch.parallel.elastic import ElasticConfig
+
+        for cls, cfg, extra in ((SparkModel, ElasticConfig(initial_hosts=3), {"device": "cpu"}),
+                                (JSparkModel, JElasticConfig(initial_hosts=3), {})):
+            sm = cls(_toy(), **{**kw, "elastic": cfg}, **extra)
+            assert sm.elastic is cfg and sm._elastic_pool is None
+            assert "elastic" not in sm.membership_snapshot()
         return
     with pytest.raises(ValueError, match=match):
         SparkModel(_toy(), device="cpu", **kw)
