@@ -291,7 +291,7 @@ non-zero:
     32) -> LSTM(32) -> Dense(1, sigmoid) (``imdb_lstm.json``) on 8192
     sequences of 80 ids, batch 32, 8 workers, synchronous, 2 epochs:
     falling loss, no kernel of the port launched (a sigmoid head), ms a
-    step and the device's busy share of a profiled epoch over 2048 of the
+    step and the device's busy share of a profiled epoch over 1024 of the
     sequences.
 32. ``fit_layers_cross_check``: each of the three models fitted on the card
     and on ``device="cpu"`` from the same weights and order: histories and
@@ -302,6 +302,25 @@ non-zero:
     weights and order, both predicting 1024 held-out rows: the largest
     softmax-probability difference and the argmax agreement on rows whose
     top-2 logit margin exceeds 1e-3.
+32a. ``fit_resnet``: ``examples/resnet50_spark.py``'s ResNet-50 (the
+    committed Functional JSON, 32x32 inputs, 10 logits) through
+    ``SparkModel(json, mode="synchronous", remat=...)``: 1024 images at 1
+    worker and 2048 at 4, batch 16, 2 epochs, each without and with ``remat``:
+    exact K1 counts (E S each way; E 2S K1-fwd under remat), falling
+    losses, ms a step, samples/s and peak device memory of each; a
+    profiled epoch of 1 worker with remat; K1 timed at [16 W, 10].
+32b. ``fit_resnet_cross_check``: two steps, each from the same weights on
+    every side: remat against plain on the card, every array within 1e-4
+    of its scale; the card against the CPU, the loss, the moved statistics
+    and the head within 1e-4, every array within 4 times the CPU's own
+    distance to the float64 step.
+32c. ``fit_recurrent``: the IMDB model with a masked GRU (4096 padded
+    sequences, 4 workers, 2 epochs), no kernel launched, then card against
+    CPU.
+32d. ``fit_options``: an MNIST-shaped CNN with conv ``groups``,
+    channels_first, BatchNormalization on axis 1, a frozen one and
+    ``Dropout(noise_shape)``: exact K1 counts, the frozen arrays unchanged,
+    then card against CPU.
 33. ``ml_mlp``: ``examples/ml_mlp.py`` through the port without Keras: a
     DataFrame of 8192 MNIST-shaped rows, ``ElephasEstimator`` over the
     committed logits-head JSON (8 workers, synchronous, batch 64, 3 epochs,
@@ -321,7 +340,7 @@ non-zero:
 36. ``hyperparam``: ``examples/hyperparam_optimization.py``'s search,
     ``HyperParamModel(sc, num_workers=4).minimize`` (3 evaluations each, the
     first Dense's units and the first Dropout's rate searched, each trial a
-    ``SparkModel`` fit of the MNIST MLP on 4096 rows), then
+    ``SparkModel`` fit of the MNIST MLP on 2048 rows), then
     ``best_models(2)``: 12 trials within their spaces, each recording its
     card, scored by held-out cross-entropy, not all equal; exact K1 counts
     over every trial, counted from the 4 worker threads; the rebuilt best
@@ -413,6 +432,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import inspect
 import json
 import os
@@ -3055,7 +3075,7 @@ def check_fused_xent(card):
         require(same, f"fused_xent {name}: a second run gave other bits")
         worst["fwd"], worst["bwd"] = max(worst["fwd"], err_f), max(worst["bwd"], err_b)
 
-        n_iter = 200 if B * C < 1e6 else 20
+        n_iter = 100 if B * C < 1e6 else 20
         xs = x.element_size()
         f_ms = device_ms(lambda x, y, g: fused_xent_fwd(x, y), sets, n_iter)
         f_plain = device_ms(lambda x, y, g: fused_xent_fwd_reference(x, y), sets, n_iter)
@@ -5106,11 +5126,12 @@ def _json_model(path, device="cuda", **kw):
         return SparkModel(f.read(), device=device, **kw)
 
 
-def _compiled_fit(what, sm, rdd, epochs, batch, split, S, Sv, k1=True):
+def _compiled_fit(what, sm, rdd, epochs, batch, split, S, Sv, k1=True, remat=False):
     """One compiled-path fit with the launch counts set to 0 just before and
     read just after: ``(wall s, counts, history)``, after checking finite,
     falling losses and exactly E (S + Sv) K1-fwd and E S K1-bwd launches
-    (``k1``; a sigmoid head launches no kernel of the port: none at all)."""
+    (E (2S + Sv) K1-fwd under ``remat``: the backward runs the loss again;
+    ``k1``; a sigmoid head launches no kernel of the port: none at all)."""
     torch.cuda.synchronize()
     _zero_counters()
     t0 = time.perf_counter()
@@ -5121,8 +5142,8 @@ def _compiled_fit(what, sm, rdd, epochs, batch, split, S, Sv, k1=True):
     hist = sm.training_histories[-1]
     require(all(np.isfinite(v).all() for v in hist.values()), f"{what}: non-finite {hist}")
     require(hist["loss"][-1] < hist["loss"][0], f"{what}: loss did not fall: {hist['loss']}")
-    want = ({"fused_xent_fwd": epochs * (S + Sv), "fused_xent_bwd": epochs * S}
-            if k1 else {})
+    want = ({"fused_xent_fwd": epochs * ((2 if remat else 1) * S + Sv),
+             "fused_xent_bwd": epochs * S} if k1 else {})
     for name, n in want.items():
         require(counts[name] == n, f"{what}: {name} launched {counts[name]} times, want "
                                    f"{n} (E {epochs}, S {S}, Sv {Sv})")
@@ -5274,13 +5295,13 @@ def fit_lstm(card):
     sm.fit(rdd, epochs=E, batch_size=B, validation_split=0.0)
     torch.cuda.synchronize()
     wall2 = time.perf_counter() - t0
-    # the profiled epoch over a quarter of the rows (its 8 steps are the fit's
+    # the profiled epoch over an eighth of the rows (its 4 steps are the fit's
     # steps; the profiler's trace of ~2,600 launches a step is what takes time)
-    quarter = to_simple_rdd(SparkContext(f"local[{W}]"), x[:len(x) // 4], y[:len(y) // 4],
-                            num_slices=W)
-    prof = profiled(lambda: sm.fit(quarter, epochs=1, batch_size=B, validation_split=0.0),
+    part = to_simple_rdd(SparkContext(f"local[{W}]"), x[:len(x) // 8], y[:len(y) // 8],
+                         num_slices=W)
+    prof = profiled(lambda: sm.fit(part, epochs=1, batch_size=B, validation_split=0.0),
                     1, top_n=10)
-    prof["steps_per_epoch"] = _mlp_steps(len(x) // 4, W, B, 0.0)[0]
+    prof["steps_per_epoch"] = _mlp_steps(len(x) // 8, W, B, 0.0)[0]
     emit({"phase": "fit_lstm", "config": LSTM_JSON, **c, "steps_per_epoch": S,
           "first_fit_s": wall, "history": hist, "fit_s": wall2,
           "ms_per_step": wall2 * 1e3 / (E * S),
@@ -5399,18 +5420,375 @@ def fit_layers_cross_check(card):
           "bn_grad_sync_held_out": held_out, "card": card})
 
 
+# -- phases 50 to 53: Functional graphs, remat, the recurrent layers and options ----
+
+# keras.applications.ResNet50(weights=None, input_shape=(32, 32, 3), classes=10,
+# classifier_activation=None) compiled with SGD and cross-entropy from logits
+# (examples/resnet50_spark.py's model at its published widths and depth, with a
+# logits head so the fit reaches K1; its 224x224 ImageNet input cut to 32x32
+# and its 1000 classes to 10); examples/ml_pipeline_imdb_lstm.py's model with a
+# GRU and Embedding(mask_zero=True); an MNIST-shaped CNN through the small
+# options (groups, channels_first, BatchNormalization on axis 1, a frozen one,
+# Dropout(noise_shape)). The committed JSON of each, written once with Keras.
+# The one-worker ResNet-50 fits run 1024 images (64 steps an epoch): a step is
+# host-bound (~100-200 ms in the whole script), and four fits of 2048 took
+# 85-115 s of the script's limit; the four-worker fits keep 2048 (32 steps an
+# epoch a worker: at 16 their loss did not fall over 2 epochs).
+RESNET_JSON = "elephas_tpu_torch/configs/resnet50_logits.json"
+GRU_JSON = "elephas_tpu_torch/configs/imdb_gru_masked.json"
+OPTIONS_JSON = "elephas_tpu_torch/configs/mnist_cnn_options.json"
+RESNET_FIT = dict(fits=((1, 1024), (4, 2048)), batch=16, epochs=2, profiled_rows=64)
+RECURRENT_FIT = dict(samples=4096, batch=32, workers=4, epochs=2, vocab=2000, maxlen=80)
+OPTIONS_FIT = dict(samples=8192, batch=64, workers=4, epochs=2)
+
+
+def cifar_like(n: int, seed: int = 0):
+    """Uniform 32x32x3 images, labelled by which of 10 fixed random
+    projections of the image is largest (one-hot)."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 1, size=(n, 32, 32, 3)).astype(np.float32)
+    proj = np.random.default_rng(SEED + 50).normal(size=(32 * 32 * 3, 10)).astype(np.float32)
+    return x, np.eye(10, dtype=np.float32)[(x.reshape(n, -1) @ proj).argmax(1)]
+
+
+def padded_ids(n: int, vocab: int, maxlen: int, seed: int = 0):
+    """Sequences of random lengths in [maxlen / 4, maxlen], right-padded with
+    zeros (the masked steps), labelled 1 where their mean id is under
+    ``vocab / 2``; float64, as the example feeds its ids."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(1, vocab, size=(n, maxlen))
+    lengths = rng.integers(maxlen // 4, maxlen + 1, size=n)
+    x[np.arange(maxlen)[None, :] >= lengths[:, None]] = 0
+    y = (np.where(x > 0, x, 0).sum(1) / lengths < vocab / 2).astype(np.float32)[:, None]
+    return x.astype(np.float64), y
+
+
+def _weights_within(what, got, want, tol=1e-4):
+    """Each array of ``got`` within ``tol`` of the largest entry of its
+    ``want``; a failure names the array, the count of elements past the
+    pin and the worst element's two values. The per-array errors."""
+    errs = [float(np.abs(a - b).max()) / float(np.abs(b).max() or 1.0)
+            for a, b in zip(got, want)]
+    if errs and max(errs) > tol:
+        i = int(np.argmax(errs))
+        a, b = got[i], want[i]
+        d = np.abs(a - b)
+        j = np.unravel_index(d.argmax(), d.shape)
+        require(False, f"{what}: weights differ by {errs[i]} of scale: array {i} {a.shape}, "
+                       f"{int((d > tol * np.abs(b).max()).sum())} elements over the pin, "
+                       f"the worst at {j}: {a[j]} vs {b[j]}")
+    return errs
+
+
+def _k1_at(shapes):
+    """K1-fwd and K1-bwd timed at the fit's ``[B, 10]`` shapes (float32,
+    one-hot rows) beside their plain versions and ``F.cross_entropy``, with
+    the bound: ``{row name: [{shape, ms, plain_ms, library_ms, bound_ms,
+    bound_by, max_abs_err}]}``."""
+    from elephas_tpu_torch.ops.fused_xent import (fused_xent_bwd, fused_xent_bwd_reference,
+                                                  fused_xent_fwd, fused_xent_fwd_reference)
+
+    F = torch.nn.functional
+    gen = np.random.default_rng(SEED + 51)
+    out = {"fused_xent_fwd": [], "fused_xent_bwd": []}
+    for B in shapes:
+        sets = [_xent_inputs(gen, B, 10, torch.float32) for _ in range(8)]
+        x, y, g = sets[0]
+        err_f = float((fused_xent_fwd(x, y) - fused_xent_fwd_reference(x, y)).abs().max())
+        err_b = float((fused_xent_bwd(x, y, g) - fused_xent_bwd_reference(x, y, g)).abs().max())
+        require(err_f <= 1e-5 and err_b <= 1e-6, f"K1 at [{B}, 10]: errors {err_f}, {err_b}")
+        graphs = []
+        for xi, yi, gi in sets:
+            xl = xi.detach().requires_grad_()
+            graphs.append((F.cross_entropy(xl, yi, reduction="none"), xl, gi))
+        for name, fn, plain, lib, inputs, n_bytes, n_ops, err in (
+                ("fused_xent_fwd", lambda x, y, g: fused_xent_fwd(x, y),
+                 lambda x, y, g: fused_xent_fwd_reference(x, y),
+                 lambda x, y, g: F.cross_entropy(x, y, reduction="none"), sets,
+                 B * 10 * 8 + 4 * B, 5 * B * 10, err_f),
+                ("fused_xent_bwd", fused_xent_bwd, fused_xent_bwd_reference,
+                 lambda o, xl, gi: torch.autograd.grad(o, xl, gi, retain_graph=True), graphs,
+                 B * 10 * 12 + 4 * B, 6 * B * 10, err_b)):
+            bms, by = bound_ms(n_bytes, n_ops)
+            out[name].append({"shape": [B, 10], "ms": device_ms(fn, sets, 200),
+                              "plain_ms": device_ms(plain, sets, 200),
+                              "library_ms": device_ms(lib, inputs, 200), "bound_ms": bms,
+                              "bound_by": by, "max_abs_err": err})
+    return out
+
+
+def fit_resnet(card):
+    """The committed ResNet-50 through ``SparkModel(json, mode="synchronous",
+    remat=...)`` at 1 worker (``examples/resnet50_spark.py`` on one card)
+    and at 4, each without and with ``remat``: 1024 images at 1 worker and
+    2048 at 4, batch 16, epoch frequency, 2 epochs, no validation. Finite, falling losses; exactly E S
+    K1-bwd and E S K1-fwd launches, E 2S under remat (the recompute runs
+    the loss again), no other kernel; ms a step, samples/s and
+    ``torch.cuda.max_memory_allocated`` (reset before each fit, read
+    against what was allocated before it) of each;
+    one profiled epoch of the example's configuration (1 worker, remat)
+    over 64 rows (the profiler's processing of ~5,000 launches a step is
+    what takes time); K1 timed at the fits' [16 W, 10]."""
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    c = RESNET_FIT
+    x, y = cifar_like(max(n for _, n in c["fits"]))
+    E, B = c["epochs"], c["batch"]
+    # warm-up: cuDNN's handles and each layer's first launches, at both widths
+    for W, _ in c["fits"]:
+        sm = _json_model(RESNET_JSON, mode="synchronous", num_workers=W)
+        sm.fit(to_simple_rdd(SparkContext(f"local[{W}]"), x[:2 * B * W], y[:2 * B * W],
+                             num_slices=W), epochs=1, batch_size=B, validation_split=0.0)
+    runs, main_counts = [], None
+    for W, n in c["fits"]:
+        rdd = to_simple_rdd(SparkContext(f"local[{W}]"), x[:n], y[:n], num_slices=W)
+        S, Sv = _mlp_steps(n, W, B, 0.0)
+        for remat in (False, True):
+            sm = _json_model(RESNET_JSON, mode="synchronous", frequency="epoch",
+                             parameter_server_mode="jax", num_workers=W, remat=remat)
+            # what earlier phases left in reference cycles would be freed
+            # mid-fit and move the baseline the peak is read against
+            gc.collect()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            wall, counts, hist = _compiled_fit(f"fit_resnet W{W} remat={remat}", sm, rdd, E,
+                                               B, 0.0, S, Sv, remat=remat)
+            peak = torch.cuda.max_memory_allocated()
+            if W == 1 and not remat:
+                main_counts = counts
+            run = {"workers": W, "samples": n, "remat": remat, "steps_per_epoch": S,
+                   "fit_s": wall, "ms_per_step": wall * 1e3 / (E * S),
+                   "samples_per_s": W * (n // W) * E / wall, "history": hist,
+                   "launches": {k: v for k, v in counts.items() if v},
+                   "allocated_before_bytes": before, "max_allocated_bytes": peak,
+                   "fit_peak_bytes": peak - before}
+            if W == 1 and remat:
+                rows = c["profiled_rows"]
+                part = to_simple_rdd(SparkContext("local[1]"), x[:rows], y[:rows], num_slices=1)
+                run["profiled_fit_1_epoch"] = profiled(
+                    lambda: sm.fit(part, epochs=1, batch_size=B, validation_split=0.0), 1,
+                    top_n=10)
+                run["profiled_fit_1_epoch"]["steps"] = rows // B
+            runs.append(run)
+            del sm
+            torch.cuda.empty_cache()
+    peaks = {f"W{r['workers']}_remat_{r['remat']}": r["fit_peak_bytes"] for r in runs}
+    shapes = _k1_at([B * W for W, _ in c["fits"]])
+    emit({"phase": "fit_resnet", "config": RESNET_JSON, "batch": B, "epochs": E,
+          "profiled_rows": c["profiled_rows"], "fits": runs, "fit_peak_bytes": peaks,
+          "k1_at_fit_shapes": shapes, "card": card})
+    return main_counts, shapes
+
+
+def _resnet_weights(seed: int):
+    """The config's initial weights (the adapter's seed 0) with every 1-D
+    array drawn anew from ``seed``: biases in [-0.1, 0.1], BatchNormalization
+    gammas and variances in [0.5, 1.5], betas and means in [-0.1, 0.1]. (A
+    convolution's bias before a BatchNormalization has a zero gradient, so
+    left at zero it would hold only rounding after a step, and 1e-4 of its
+    scale would pin rounding.)"""
+    from elephas_tpu_torch.models import KerasModelAdapter
+
+    with open(RESNET_JSON) as f:
+        ws = KerasModelAdapter(f.read(), device="cpu").get_weights()
+    rng = np.random.default_rng(seed)
+    return [w if w.ndim != 1 else
+            (rng.uniform(0.5, 1.5, w.shape) if np.all(w == 1.0)
+             else rng.uniform(-0.1, 0.1, w.shape)).astype(np.float32) for w in ws]
+
+
+def _resnet_step64(text, w, x, y):
+    """One SGD step of the ResNet-50 config in float64 on the CPU from the
+    weights ``w`` over the rows ``x``, ``y`` (the train step's arithmetic,
+    the loss's softmax in float32 as the plain K1 computes it): the
+    weights after it, in ``get_weights()`` order."""
+    from elephas_tpu_torch.models import KerasModelAdapter
+
+    a = KerasModelAdapter(text, device="cpu")
+    part = {True: {}, False: {}}
+    for spec, arr in zip(a._specs, w):
+        part[spec.trainable][spec.name] = torch.from_numpy(np.asarray(arr, np.float64))[None]
+    opt = a.make_optimizer()
+    tv, ntv = part[True], part[False]
+    tv2, ntv2, _, _ = a.build_train_step(opt)(
+        tv, ntv, opt.init(tv, count_shape=(1,)), torch.from_numpy(x.astype(np.float64))[None],
+        torch.from_numpy(y.astype(np.float64))[None], torch.ones(1, len(x), dtype=torch.float64),
+        None)
+    return [(tv2 if s.trainable else ntv2)[s.name][0].numpy() for s in a._specs]
+
+
+def fit_resnet_cross_check(card):
+    """Two steps of the ResNet-50 fit (1 worker, batch 16: a one-batch
+    epoch of the engine's ``CompiledTrainer.fit`` a step), each from the
+    same weights and rows on every side (the CPU's weights after the step
+    before; the first from :func:`_resnet_weights`). Remat against plain on
+    the card: every array within 1e-4 of its scale. The card against
+    ``device="cpu"``: the loss within rtol 1e-4, the moved statistics and
+    the head's kernel and bias (which the forward's values decide) within
+    1e-4 of their scale, and every array's distance to the same step in
+    float64 at most 4 times the CPU float32 step's largest. (A step's
+    other arrays are not continuous in its inputs at float32's rounding: a
+    ReLU or a max-pool whose input lies within rounding of its kink routes
+    a whole unit's gradient, and in the last stage a kernel's gradient
+    sums only 16 positions, so two float32 steps that sum in other orders
+    part by percents of an array's scale, as each parts from the float64
+    step; a second step from weights that differ so amplifies it again.)"""
+    from elephas_tpu_torch.models import KerasModelAdapter
+    from elephas_tpu_torch.parallel import CompiledTrainer
+
+    x, y = cifar_like(32, seed=1)
+    w = _resnet_weights(SEED + 52)
+    with open(RESNET_JSON) as f:
+        text = f.read()
+    sides = {(dev, remat): CompiledTrainer(KerasModelAdapter(text, device=dev),
+                                           mode="synchronous", remat=remat)
+             for dev, remat in (("cuda", False), ("cuda", True), ("cpu", False))}
+    specs = sides[("cpu", False)].adapter._specs
+    smooth = [i for i, sp in enumerate(specs)
+              if not sp.trainable or sp.name.startswith("predictions/")]
+    checks = []
+    for step in range(2):
+        rows = slice(16 * step, 16 * (step + 1))
+        out = {}
+        for key, trainer in sides.items():
+            trainer.adapter.set_weights(w)
+            res = trainer.fit([(x[rows], y[rows])], epochs=1, batch_size=16)
+            out[key] = (res.history["loss"][0], res.weights)
+        oracle = _resnet_step64(text, w, x[rows], y[rows])
+        gpu, remat, cpu = out[("cuda", False)], out[("cuda", True)], out[("cpu", False)]
+        what = f"fit_resnet_cross_check step {step + 1}"
+        remat_errs = _weights_within(f"{what}: card remat vs plain", remat[1], gpu[1])
+        loss_rel = abs(gpu[0] - cpu[0]) / abs(cpu[0])
+        require(loss_rel <= 1e-4, f"{what}: loss {gpu[0]} (card) vs {cpu[0]} (CPU)")
+        smooth_errs = _weights_within(f"{what}: card vs CPU, statistics and head",
+                                      [gpu[1][i] for i in smooth], [cpu[1][i] for i in smooth])
+
+        def to_oracle(ws):
+            return [float(np.abs(a - o).max()) / float(np.abs(o).max() or 1.0)
+                    for a, o in zip(ws, oracle)]
+
+        card_o, cpu_o = to_oracle(gpu[1]), to_oracle(cpu[1])
+        i = int(np.argmax(card_o))
+        require(card_o[i] <= 4 * max(cpu_o),
+                f"{what}: the card's step lies {card_o[i]} of scale from the float64 step "
+                f"({specs[i].name}), the CPU's at most {max(cpu_o)}")
+        checks.append({"step": step + 1, "loss_card": gpu[0], "loss_cpu": cpu[0],
+                       "loss_rel_err": loss_rel, "remat_vs_plain_err": max(remat_errs),
+                       "stats_and_head_err": max(smooth_errs),
+                       "card_to_float64_err": card_o[i], "card_worst": specs[i].name,
+                       "cpu_to_float64_err": max(cpu_o),
+                       "card_vs_cpu_err": max(float(np.abs(p - q).max()) /
+                                              float(np.abs(q).max() or 1.0)
+                                              for p, q in zip(gpu[1], cpu[1])),
+                       "tol": 1e-4})
+        w = cpu[1]
+    emit({"phase": "fit_resnet_cross_check", "steps": 2, "batch": 16, "checks": checks,
+          "card": card})
+
+
+def _layers_cross_check(what, path, x, y, W, B, **kw):
+    """A 2-epoch synchronous fit of the committed JSON on the card and on
+    ``device="cpu"`` from the same weights and order: histories within
+    rtol 1e-4, every array within 1e-4 of its scale."""
+    from elephas_tpu_torch import SparkModel
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        with open(path) as f:
+            cfg = json.load(f)
+        for layer in cfg["config"]["layers"]:       # the devices draw other masks
+            if layer["class_name"] == "Dropout":
+                layer["config"]["rate"] = 0.0
+        sm = SparkModel(json.dumps(cfg), device=dev, mode="synchronous", num_workers=W, **kw)
+        sm.fit(to_simple_rdd(SparkContext(f"local[{W}]"), x, y, num_slices=W), epochs=2,
+               batch_size=B, validation_split=0.1)
+        out[dev] = (sm.training_histories[-1], sm.master_network.get_weights())
+    hist_err = max(abs(a - b) / max(abs(b), 1e-6) for k in out["cpu"][0]
+                   for a, b in zip(out["cuda"][0][k], out["cpu"][0][k]))
+    require(hist_err <= 1e-4, f"{what}: histories differ by {hist_err}: {out['cuda'][0]} "
+                              f"vs {out['cpu'][0]}")
+    errs = _weights_within(what, out["cuda"][1], out["cpu"][1])
+    return {"workers": W, "epochs": 2, "samples": len(x), "history_rel_err": hist_err,
+            "weight_err_rel_to_scale": max(errs), "tol": 1e-4,
+            "history_gpu": out["cuda"][0], "history_cpu": out["cpu"][0]}
+
+
+def fit_recurrent(card):
+    """The masked GRU (the IMDB example's model with a GRU and
+    ``mask_zero=True``) at full width through ``SparkModel.fit``: 4096
+    right-padded sequences of lengths 20-80, batch 32, 4 workers,
+    synchronous, 2 epochs. Falling loss; no kernel of the port launched (a
+    sigmoid head); ms a step; then the card against the CPU (512
+    sequences)."""
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    c = RECURRENT_FIT
+    x, y = padded_ids(c["samples"], c["vocab"], c["maxlen"])
+    W, E, B = c["workers"], c["epochs"], c["batch"]
+    S, Sv = _mlp_steps(c["samples"], W, B, 0.0)
+    sm = _json_model(GRU_JSON, mode="synchronous", num_workers=W)
+    wall, counts, hist = _compiled_fit("fit_recurrent", sm,
+                                       to_simple_rdd(SparkContext(f"local[{W}]"), x, y,
+                                                     num_slices=W), E, B, 0.0, S, Sv, k1=False)
+    xc, yc = padded_ids(512, c["vocab"], c["maxlen"], seed=1)
+    check = _layers_cross_check("fit_recurrent cross-check", GRU_JSON, xc, yc, 4, B)
+    emit({"phase": "fit_recurrent", "config": GRU_JSON, **c, "steps_per_epoch": S,
+          "fit_s": wall, "ms_per_step": wall * 1e3 / (E * S),
+          "samples_per_s": W * (c["samples"] // W) * E / wall, "history": hist,
+          "cross_check": check, "card": card})
+
+
+def fit_options(card):
+    """The options CNN (``mnist_cnn_options.json``) through
+    ``SparkModel.fit``: 8192 MNIST-shaped samples, batch 64, 4 workers,
+    synchronous, 2 epochs, no validation; exact K1 counts, falling loss, the
+    frozen BatchNormalization's four arrays unchanged and the trainable
+    one's statistics moved; then the card against the CPU (1024 samples,
+    dropout off)."""
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    c = OPTIONS_FIT
+    (x, y), _ = mnist_like(c["samples"], 0)
+    W, E, B = c["workers"], c["epochs"], c["batch"]
+    S, Sv = _mlp_steps(c["samples"], W, B, 0.0)
+    sm = _json_model(OPTIONS_JSON, mode="synchronous", num_workers=W)
+    frozen = [s.name for s in sm.master_network._specs if not s.trainable]
+    before = {k: v.cpu() for k, v in sm.master_network.state_values()[1].items()}
+    wall, counts, hist = _compiled_fit("fit_options", sm,
+                                       to_simple_rdd(SparkContext(f"local[{W}]"), x, y,
+                                                     num_slices=W), E, B, 0.0, S, Sv)
+    after = {k: v.cpu() for k, v in sm.master_network.state_values()[1].items()}
+    moved = sorted(k for k in after if not torch.equal(after[k], before[k]))
+    require(len(frozen) == 6 and len(moved) == 2 and all(k in frozen[:2] for k in moved),
+            f"fit_options: non-trainable {frozen}, moved {moved}")
+    check = _layers_cross_check("fit_options cross-check", OPTIONS_JSON,
+                                *mnist_like(1024, 0)[0], 4, B)
+    emit({"phase": "fit_options", "config": OPTIONS_JSON, **c, "steps_per_epoch": S,
+          "fit_s": wall, "ms_per_step": wall * 1e3 / (E * S),
+          "samples_per_s": W * (c["samples"] // W) * E / wall, "history": hist,
+          "launches": {k: v for k, v in counts.items() if v}, "moved": moved,
+          "cross_check": check, "card": card})
+    return counts
+
+
 # -- phases 33 to 36: the API skins around SparkModel ------------------------------
 
 # examples/ml_mlp.py (8192 MNIST-shaped rows, 1024 held out, batch 64, 3 epochs,
 # validation 0.1, synchronous, "jax", 8 workers) over the committed logits-head
 # JSON; examples/ml_pipeline_imdb_lstm.py's pipeline (batch 64, 2 epochs, no
 # validation) on LSTM_FIT's 8192 sequences; examples/hyperparam_optimization.py's
-# search (4 workers, 3 evaluations each, 4096 rows, batch 128, 2 epochs). Widths
-# and schedules are the examples'; nothing is cut.
+# search (4 workers, 3 evaluations each, batch 128, 2 epochs) on 2048 rows (its
+# rows cut for the script's time limit). Widths and schedules are the examples'.
 ML_MLP = dict(samples=8192, held_out=1024, batch=64, workers=8, epochs=3,
               validation_split=0.1)
 ML_LSTM = dict(held_out=1024, batch=64, workers=8, epochs=2)
-HYPER = dict(samples=4096, held_out=1024, batch=128, epochs=2, validation_split=0.1,
+HYPER = dict(samples=2048, held_out=1024, batch=128, epochs=2, validation_split=0.1,
              workers=4, max_evals=3, best=2)
 
 
@@ -7057,6 +7435,11 @@ def main() -> int:
         bn_counts = _walled("fit_bn", fit_bn, card)
         _walled("fit_lstm", fit_lstm, card)
         _walled("fit_layers_cross_check", fit_layers_cross_check, card)
+        torch.cuda.empty_cache()
+        resnet_counts, resnet_k1 = _walled("fit_resnet", fit_resnet, card)
+        _walled("fit_resnet_cross_check", fit_resnet_cross_check, card)
+        _walled("fit_recurrent", fit_recurrent, card)
+        options_counts = _walled("fit_options", fit_options, card)
         ml_counts, ml_est, ml_tr, ml_xt = _walled("ml_mlp", ml_mlp, card)
         _walled("ml_pipeline_lstm", ml_pipeline_lstm, card)
         _walled("ml_persist", ml_persist, card, ml_est, ml_tr, ml_xt)
@@ -7107,7 +7490,9 @@ def main() -> int:
     # the supervised fit_stream's train_fn (K2, K3-bwd), the round-option
     # host fits' (K1), the elastic hosts' (K1, counted in the host processes
     # over the committed contributions), quantized serving's (K4, K5, K6-gmm)
-    # and the imported GPT-2's (K3-fwd, K4)
+    # and the imported GPT-2's (K3-fwd, K4); the ResNet-50 fit's K1 (one
+    # worker, no remat) and the options CNN's are under launches_by_path, K1's
+    # times at the ResNet fits' [16 W, 10] under resnet_fit_shapes
     rows = [ln_fwd, ln_bwd, decode, *attn_rows, *paged_rows, *gmm_rows, *xent_rows,
             *rope_rows]
     paths = {"serve": serve_counts, "train_5_steps": train_counts,
@@ -7128,7 +7513,8 @@ def main() -> int:
              "stream_train_fn": stream_counts, **resilience_counts,
              "fleet_autoscaler": autoscaler_counts,
              "stream_supervised_train_fn": supervised_counts, **round_counts,
-             "fit_elastic_hosts": elastic_counts, **quant_counts, "hf_import": hf_counts}
+             "fit_elastic_hosts": elastic_counts, **quant_counts, "hf_import": hf_counts,
+             "fit_resnet": resnet_counts, "fit_options": options_counts}
     main_paths = {"layer_norm_fwd": "serve", "flash_decode_lse": "serve",
                   "paged_flash_decode_lse": "serve_paged",
                   "paged_flash_chunk": "serve_paged", "gmm": "serve_moe",
@@ -7147,6 +7533,8 @@ def main() -> int:
             row["verify_shapes"] = spec_shapes[name]
         if name in window_rows:
             row["window_shapes"] = window_rows[name]
+        if name in resnet_k1:
+            row["resnet_fit_shapes"] = resnet_k1[name]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

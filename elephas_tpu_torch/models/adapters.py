@@ -13,21 +13,31 @@ override them as in the reference. An object with ``to_json()`` (and
 ``get_weights()``) is read duck-typed, so a caller may hand over a Keras
 model without the port importing Keras.
 
-What it interprets: a ``Sequential`` of ``InputLayer``, ``Dense`` (the
-activations Keras names), ``Dropout``, ``Activation``, ``Flatten``,
-``Reshape``, ``Conv1D`` and ``Conv2D`` (channels_last; ``valid``,
-``same`` and, for Conv1D, ``causal`` padding; strides and dilation),
-``MaxPooling2D``, ``BatchNormalization`` (over the last axis),
-``Embedding`` and ``LSTM``, with Keras's weight order and layouts
-(kernel ``[in, out]`` / ``[*kernel_size, in, out]``, then bias; gamma,
-beta, moving mean, moving variance; LSTM gates i, f, c, o). Anything else
-raises :class:`NotImplementedError` naming the layer or option and the
-ROADMAP item it waits for. As in the reference's ``stateless_call`` path,
-regularizers and constraints play no part in training. Without weights it
-initialises from the config's initializers (the VarianceScaling family,
-Orthogonal, the constants, LSTM's ``unit_forget_bias``) with an explicit
-``torch.Generator``, as ``model_from_json`` would (same distributions,
-other bits).
+What it interprets: a ``Sequential`` model, or a ``Functional`` one of one
+input and one output (a graph walked node by node; a layer called at
+several nodes runs each call with its one set of weights), of
+``InputLayer``, ``Dense`` (the activations Keras names), ``Dropout``
+(``noise_shape`` too), ``Activation``, ``Flatten``, ``Reshape``,
+``Conv1D`` and ``Conv2D`` (``valid``, ``same`` and, for Conv1D,
+``causal`` padding; strides, dilation, ``groups``), the max and average
+poolings and the global ones (1-D and 2-D), ``ZeroPadding1D`` and
+``ZeroPadding2D`` (convolutions, poolings and paddings in either
+``data_format``), ``BatchNormalization`` (over any one axis; frozen, it
+runs in inference mode), the merges ``Add``, ``Subtract``, ``Multiply``,
+``Average``, ``Maximum``, ``Minimum`` and ``Concatenate``, ``Embedding``
+(``mask_zero`` too) and the recurrent ``LSTM``, ``GRU`` (both
+``reset_after``) and ``SimpleRNN`` (``go_backwards``, ``return_sequences``,
+an ``Embedding``'s mask), with Keras's weight order and layouts (kernel
+``[in, out]`` / ``[*kernel_size, in / groups, out]``, then bias; gamma,
+beta, moving mean, moving variance; LSTM gates i, f, c, o; GRU gates z, r,
+h). A layer with ``trainable=False`` keeps its weights out of training, as
+Keras does. Anything else raises :class:`NotImplementedError` naming the
+layer or option and the ROADMAP item it waits for. As in the reference's
+``stateless_call`` path, regularizers and constraints play no part in
+training. Without weights it initialises from the config's initializers
+(the VarianceScaling family, Orthogonal, the constants, LSTM's
+``unit_forget_bias``) with an explicit ``torch.Generator``, as
+``model_from_json`` would (same distributions, other bits).
 
 State is the reference's pair ``(tv, ntv)``: the trainable parameters and
 the non-trainable ones (BatchNormalization's moving statistics), each a
@@ -59,6 +69,7 @@ from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Sequence,
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from .. import resolve_device
 from .losses import resolve_accuracy, resolve_per_sample_loss
@@ -67,7 +78,8 @@ from .optimizers import _lead, to_torch_optimizer
 Params = Dict[str, torch.Tensor]
 
 # the ROADMAP item each refused part of a Keras model waits for
-LAYERS_ITEM = "ROADMAP queue 1 item 13 (Keras layers beyond the MLP)"
+LAYERS_ITEM = ("ROADMAP queue 1 item 13 (Keras models beyond the layers, graphs and "
+               "options the port interprets)")
 
 _ACTIVATIONS: Dict[str, Callable] = {
     "linear": lambda h: h,
@@ -205,7 +217,11 @@ def _initial_value(spec, shape: Tuple[int, ...], gen: torch.Generator) -> torch.
 # ``out_feat``. ``op(p, h, training, gen, ntv_out)`` maps ``h`` ``[L, B,
 # *feat]`` to ``[L, B, *out_feat]`` with the parameters ``p`` (trainable and
 # non-trainable, ``[L, ...]``, by name); a layer with state writes its new
-# statistics into ``ntv_out`` when that is a dict.
+# statistics into ``ntv_out`` when that is a dict. A merge layer takes a
+# list of such tensors. ``mask_role`` says what an op does with an
+# Embedding's mask: ``"pass"`` hands it on (elementwise layers, as Keras),
+# ``"consume"`` takes it as ``mask=`` (the recurrent layers); any other op
+# refuses it.
 
 
 class _Spec(NamedTuple):
@@ -213,6 +229,17 @@ class _Spec(NamedTuple):
     shape: Tuple[int, ...]
     init: Any
     trainable: bool = True
+
+
+class _Op:
+    """No weights, no mask handling, one input."""
+    mask_role: Optional[str] = None
+    makes_mask = False
+    merge = False
+    out_feat = None
+
+    def weight_shapes(self):
+        return []
 
 
 def _ints(v, n: int) -> Tuple[int, ...]:
@@ -245,12 +272,42 @@ def _need_feat(cls: str, cfg: dict, feat, rank: Optional[int] = None):
     return list(feat)
 
 
-def _channels_last(cls: str, cfg: dict) -> None:
-    if cfg.get("data_format") not in (None, "channels_last"):
-        raise _refuse(f"{cls} data_format={cfg['data_format']!r}")
+def _channels_first(cls: str, cfg: dict) -> bool:
+    fmt = cfg.get("data_format") or "channels_last"
+    if fmt not in ("channels_last", "channels_first"):
+        raise ValueError(f"{cls} {cfg.get('name')!r}: data_format {fmt!r}")
+    return fmt == "channels_first"
 
 
-class _Dense:
+def _split_channels(feat, first: bool) -> Tuple[int, List[int]]:
+    """``(channels, spatial sizes)`` of a feature shape."""
+    return (int(feat[0]), list(feat[1:])) if first else (int(feat[-1]), list(feat[:-1]))
+
+
+def _join_channels(c: int, spatial, first: bool) -> List[int]:
+    return [c] + list(spatial) if first else list(spatial) + [c]
+
+
+def _to_ncs(h, rank: int, first: bool):
+    """``[L, B, *feat]`` → ``[L * B, C, *S]``."""
+    x = h.reshape((h.shape[0] * h.shape[1],) + tuple(h.shape[2:]))
+    return x if first else x.permute((0, rank + 1) + tuple(range(1, rank + 1)))
+
+
+def _from_ncs(y, L: int, B: int, rank: int, first: bool):
+    """``[L * B, C, *S]`` → ``[L, B, *feat]``."""
+    if not first:
+        y = y.permute((0,) + tuple(range(2, rank + 2)) + (1,))
+    return y.reshape((L, B) + tuple(y.shape[1:]))
+
+
+def _flat_pad(pads) -> List[int]:
+    """Per-axis ``(before, after)`` pairs as ``F.pad`` takes them (last axis
+    first)."""
+    return [v for pair in reversed(pads) for v in pair]
+
+
+class _Dense(_Op):
     def __init__(self, cfg: dict, in_dim: int):
         self.name = cfg["name"]
         self.units = int(cfg["units"])
@@ -274,46 +331,60 @@ class _Dense:
         return self.act(out.reshape(h.shape[:-1] + (self.units,)))
 
 
-class _Dropout:
+class _Dropout(_Op):
+    """Inverted dropout, as ``keras.random.dropout``: keep ``1 - rate``, scale
+    the kept values by ``1 / (1 - rate)``. One draw over the whole replica
+    stack, so every replica gets its own mask; with ``noise_shape`` the
+    mask is drawn at that shape (``None`` axes take the input's size) and
+    broadcast over the others, per replica."""
+    mask_role = "pass"
+
     def __init__(self, cfg: dict):
         self.rate = float(cfg.get("rate", 0.0))
-        if cfg.get("noise_shape") is not None:
-            raise _refuse("Dropout noise_shape")
-
-    def weight_shapes(self):
-        return []
+        ns = cfg.get("noise_shape")
+        self.noise_shape = None if ns is None else tuple(None if v is None else int(v)
+                                                         for v in ns)
 
     def __call__(self, p, h, training, gen, ntv_out):
         if not training or self.rate <= 0.0:
             return h
-        # inverted dropout, as keras.random.dropout: keep 1 - rate, scale
-        # the kept values by 1 / (1 - rate); one draw over the whole
-        # replica stack, so every replica gets its own mask
         keep = 1.0 - self.rate
-        mask = torch.rand(h.shape, generator=gen, device=h.device) < keep
+        shape = h.shape
+        if self.noise_shape is not None:
+            if len(self.noise_shape) != h.dim() - 1:
+                raise ValueError(f"Dropout noise_shape {self.noise_shape} for inputs of "
+                                 f"{h.dim() - 1} axes")
+            shape = (h.shape[0],) + tuple(h.shape[i + 1] if v is None else v
+                                          for i, v in enumerate(self.noise_shape))
+        mask = torch.rand(shape, generator=gen, device=h.device) < keep
         return torch.where(mask, h / keep, torch.zeros_like(h))
 
 
-class _Activation:
+class _Activation(_Op):
+    mask_role = "pass"
+
     def __init__(self, cfg: dict):
         self.act = _activation(cfg.get("activation"))
-
-    def weight_shapes(self):
-        return []
 
     def __call__(self, p, h, training, gen, ntv_out):
         return self.act(h)
 
 
-class _Flatten:
-    def weight_shapes(self):
-        return []
+class _Flatten(_Op):
+    """Every feature axis in one; ``channels_first`` moves the channels last
+    first, as Keras does."""
+
+    def __init__(self, cfg: dict, feat=None):
+        self.first = _channels_first("Flatten", cfg)
+        self.out_feat = None if feat is None else [int(np.prod(feat))]
 
     def __call__(self, p, h, training, gen, ntv_out):
+        if self.first and h.dim() > 3:
+            h = h.permute((0, 1) + tuple(range(3, h.dim())) + (2,))
         return h.reshape(h.shape[0], h.shape[1], -1)
 
 
-class _Reshape:
+class _Reshape(_Op):
     def __init__(self, cfg: dict, feat):
         target = [int(v) for v in cfg["target_shape"]]
         if target.count(-1) > 1:
@@ -325,24 +396,20 @@ class _Reshape:
         self.target = tuple(target)
         self.out_feat = list(target) if -1 not in target else None
 
-    def weight_shapes(self):
-        return []
-
     def __call__(self, p, h, training, gen, ntv_out):
         return h.reshape(tuple(h.shape[:2]) + self.target)
 
 
-class _Conv:
-    """Conv1D (``rank`` 1) and Conv2D (``rank`` 2), channels_last, kernel
-    ``[*kernel_size, in, filters]``. The replicas run as one grouped
-    convolution: replica ``l``'s channels are group ``l``."""
+class _Conv(_Op):
+    """Conv1D (``rank`` 1) and Conv2D (``rank`` 2), kernel ``[*kernel_size,
+    in / groups, filters]``. The replicas run as one grouped convolution:
+    replica ``l``'s group ``g`` is group ``l * groups + g``."""
 
     def __init__(self, cfg: dict, feat, rank: int):
         cls = f"Conv{rank}D"
-        _channels_last(cls, cfg)
-        if int(cfg.get("groups", 1)) != 1:
-            raise _refuse(f"{cls} groups={cfg['groups']}")
+        self.first = _channels_first(cls, cfg)
         self.name, self.rank = cfg["name"], rank
+        self.groups = int(cfg.get("groups", 1))
         self.filters = int(cfg["filters"])
         self.kernel_size = _ints(cfg["kernel_size"], rank)
         self.strides = _ints(cfg.get("strides", 1), rank)
@@ -354,22 +421,25 @@ class _Conv:
         self.act = _activation(cfg.get("activation"))
         self.kernel_init = cfg.get("kernel_initializer", "GlorotUniform")
         self.bias_init = cfg.get("bias_initializer", "Zeros")
-        feat = _need_feat(cls, cfg, feat, rank + 1)
-        self.cin = int(feat[-1])
+        self.cin, spatial = _split_channels(_need_feat(cls, cfg, feat, rank + 1), self.first)
+        if self.cin % self.groups or self.filters % self.groups:
+            raise ValueError(f"{cls} {self.name!r}: groups {self.groups} does not divide "
+                             f"{self.cin} input channels and {self.filters} filters")
         self.pads = []
-        for size, k, s, d in zip(feat[:-1], self.kernel_size, self.strides, self.dilation):
+        for size, k, s, d in zip(spatial, self.kernel_size, self.strides, self.dilation):
             if padding == "same":
                 self.pads.append(_same_pads(size, k, s, d))
             elif padding == "causal":          # Keras pads the start, then "valid"
                 self.pads.append(((k - 1) * d, 0))
             else:
                 self.pads.append((0, 0))
-        self.out_feat = [_out_size(size, k, s, d, pd) for size, k, s, d, pd in
-                         zip(feat[:-1], self.kernel_size, self.strides, self.dilation,
-                             self.pads)] + [self.filters]
+        out = [_out_size(size, k, s, d, pd) for size, k, s, d, pd in
+               zip(spatial, self.kernel_size, self.strides, self.dilation, self.pads)]
+        self.out_feat = _join_channels(self.filters, out, self.first)
 
     def weight_shapes(self):
-        shapes = [_Spec(f"{self.name}/kernel", self.kernel_size + (self.cin, self.filters),
+        shapes = [_Spec(f"{self.name}/kernel",
+                        self.kernel_size + (self.cin // self.groups, self.filters),
                         self.kernel_init)]
         if self.use_bias:
             shapes.append(_Spec(f"{self.name}/bias", (self.filters,), self.bias_init))
@@ -377,74 +447,189 @@ class _Conv:
 
     def __call__(self, p, h, training, gen, ntv_out):
         L, B, r = h.shape[0], h.shape[1], self.rank
-        # [L, B, *S, C] -> [B, L * C, *S]
-        x = h.permute((1, 0, r + 2) + tuple(range(2, r + 2)))
-        x = x.reshape((B, L * self.cin) + tuple(h.shape[2:2 + r]))
-        pad = [v for pair in reversed(self.pads) for v in pair]   # F.pad: last axis first
+        # [L, B, *S, C] (or [L, B, C, *S]) -> [B, L * C, *S]
+        if self.first:
+            x = h.transpose(0, 1)
+            spatial = tuple(h.shape[3:3 + r])
+        else:
+            x = h.permute((1, 0, r + 2) + tuple(range(2, r + 2)))
+            spatial = tuple(h.shape[2:2 + r])
+        x = x.reshape((B, L * self.cin) + spatial)
+        pad = _flat_pad(self.pads)
         if any(pad):
             x = F.pad(x, pad)
-        # [L, *k, C, F] -> [L * F, C, *k]
+        # [L, *k, C / g, F] -> [L * F, C / g, *k]
         w = p[f"{self.name}/kernel"].permute((0, r + 2, r + 1) + tuple(range(1, r + 1)))
-        w = w.reshape((L * self.filters, self.cin) + self.kernel_size)
+        w = w.reshape((L * self.filters, self.cin // self.groups) + self.kernel_size)
         b = p[f"{self.name}/bias"].reshape(L * self.filters) if self.use_bias else None
         conv = F.conv2d if r == 2 else F.conv1d
-        y = conv(x, w, b, self.strides, 0, self.dilation, L)
-        # [B, L * F, *S'] -> [L, B, *S', F]
+        y = conv(x, w, b, self.strides, 0, self.dilation, L * self.groups)
+        # [B, L * F, *S'] -> [L, B, *S', F] (or [L, B, F, *S'])
         y = y.reshape((B, L, self.filters) + tuple(y.shape[2:]))
+        if self.first:
+            return self.act(y.transpose(0, 1))
         return self.act(y.permute((1, 0) + tuple(range(3, r + 3)) + (2,)))
 
 
-class _MaxPool2D:
-    def __init__(self, cfg: dict, feat):
-        _channels_last("MaxPooling2D", cfg)
-        self.pool = _ints(cfg.get("pool_size", 2), 2)
-        self.strides = _ints(cfg.get("strides") or self.pool, 2)
+class _Pool(_Op):
+    """MaxPooling1D/2D and AveragePooling1D/2D. ``"same"`` padding as XLA's
+    windows: a max over the cells inside the image (``-inf`` padding), an
+    average over the cells inside the image only (the window's sum over
+    its count of real cells)."""
+
+    def __init__(self, cfg: dict, feat, rank: int, kind: str):
+        cls = f"{'Max' if kind == 'max' else 'Average'}Pooling{rank}D"
+        self.first, self.rank, self.kind = _channels_first(cls, cfg), rank, kind
+        self.pool = _ints(cfg.get("pool_size", 2), rank)
+        self.strides = _ints(cfg.get("strides") or self.pool, rank)
         padding = str(cfg.get("padding", "valid")).lower()
         if padding not in ("valid", "same"):
-            raise ValueError(f"MaxPooling2D {cfg.get('name')!r}: padding {padding!r}")
-        feat = _need_feat("MaxPooling2D", cfg, feat, 3)
+            raise ValueError(f"{cls} {cfg.get('name')!r}: padding {padding!r}")
+        c, spatial = _split_channels(_need_feat(cls, cfg, feat, rank + 1), self.first)
         self.pads = [_same_pads(size, k, s, 1) if padding == "same" else (0, 0)
-                     for size, k, s in zip(feat[:2], self.pool, self.strides)]
-        self.out_feat = [_out_size(size, k, s, 1, pd) for size, k, s, pd in
-                         zip(feat[:2], self.pool, self.strides, self.pads)] + [feat[2]]
-
-    def weight_shapes(self):
-        return []
+                     for size, k, s in zip(spatial, self.pool, self.strides)]
+        out = [_out_size(size, k, s, 1, pd) for size, k, s, pd in
+               zip(spatial, self.pool, self.strides, self.pads)]
+        self.out_feat = _join_channels(c, out, self.first)
 
     def __call__(self, p, h, training, gen, ntv_out):
         L, B = h.shape[:2]
-        x = h.reshape((L * B,) + tuple(h.shape[2:])).permute(0, 3, 1, 2)
-        pad = [v for pair in reversed(self.pads) for v in pair]
-        if any(pad):       # XLA's "SAME" window pads with -inf
-            x = F.pad(x, pad, value=float("-inf"))
-        y = F.max_pool2d(x, self.pool, self.strides)
-        return y.permute(0, 2, 3, 1).reshape((L, B) + tuple(self.out_feat))
+        x = _to_ncs(h, self.rank, self.first)
+        # 1-D windows run as 2-D ones over a unit height
+        pool, strides, pads = self.pool, self.strides, self.pads
+        if self.rank == 1:
+            x, pool, strides, pads = x[:, :, None], (1,) + pool, (1,) + strides, [(0, 0)] + pads
+        pad = _flat_pad(pads)
+        if self.kind == "max":
+            if any(pad):
+                x = F.pad(x, pad, value=float("-inf"))
+            y = F.max_pool2d(x, pool, strides)
+        elif any(pad):
+            total = F.avg_pool2d(F.pad(x, pad), pool, strides, divisor_override=1)
+            ones = F.pad(torch.ones_like(x[:1, :1]), pad)
+            y = total / F.avg_pool2d(ones, pool, strides, divisor_override=1)
+        else:
+            y = F.avg_pool2d(x, pool, strides)
+        if self.rank == 1:
+            y = y[:, :, 0]
+        return _from_ncs(y, L, B, self.rank, self.first)
 
 
-class _BatchNorm:
-    """BatchNormalization over the last axis. In training it normalises by
-    the batch's moments (the biased variance, as Keras) and moves the
-    statistics ``m * momentum + batch * (1 - momentum)``; in inference it
-    normalises by the moving statistics."""
+class _GlobalPool(_Op):
+    """GlobalAveragePooling1D/2D and GlobalMaxPooling1D/2D (``keepdims``)."""
+
+    def __init__(self, cfg: dict, feat, rank: int, kind: str):
+        cls = f"Global{'Max' if kind == 'max' else 'Average'}Pooling{rank}D"
+        self.first, self.kind = _channels_first(cls, cfg), kind
+        self.keepdims = bool(cfg.get("keepdims", False))
+        c, _ = _split_channels(_need_feat(cls, cfg, feat, rank + 1), self.first)
+        self.axes = tuple(range(3, rank + 3)) if self.first else tuple(range(2, rank + 2))
+        self.out_feat = (_join_channels(c, [1] * rank, self.first) if self.keepdims
+                         else [c])
+
+    def __call__(self, p, h, training, gen, ntv_out):
+        if self.kind == "max":
+            return torch.amax(h, dim=self.axes, keepdim=self.keepdims)
+        return torch.mean(h, dim=self.axes, keepdim=self.keepdims)
+
+
+def _pad_pairs(padding, rank: int) -> List[Tuple[int, int]]:
+    """A ZeroPadding layer's ``padding`` as ``(before, after)`` per axis."""
+    if isinstance(padding, int):
+        return [(padding, padding)] * rank
+    padding = list(padding)
+    if rank == 1:
+        return [(int(padding[0]), int(padding[1]))]
+    return [(int(v), int(v)) if isinstance(v, int) else (int(v[0]), int(v[1]))
+            for v in padding]
+
+
+class _ZeroPad(_Op):
+    """ZeroPadding1D/2D: zeros around the spatial axes."""
+
+    def __init__(self, cfg: dict, feat, rank: int):
+        cls = f"ZeroPadding{rank}D"
+        first = _channels_first(cls, cfg)
+        self.pairs = _pad_pairs(cfg.get("padding", 1), rank)
+        c, spatial = _split_channels(_need_feat(cls, cfg, feat, rank + 1), first)
+        self.out_feat = _join_channels(
+            c, [s + a + b for s, (a, b) in zip(spatial, self.pairs)], first)
+        # F.pad's list, last axis first; the channels axis (last) unpadded
+        self.pad = _flat_pad(self.pairs) if first else [0, 0] + _flat_pad(self.pairs)
+
+    def __call__(self, p, h, training, gen, ntv_out):
+        return F.pad(h, self.pad)
+
+
+class _Merge(_Op):
+    """Add, Subtract, Multiply, Average, Maximum and Minimum over a list of
+    inputs of one shape, folded left to right as Keras folds them."""
+    merge = True
+
+    def __init__(self, cls: str, cfg: dict, feats):
+        if feats and len({len(f) for f in feats if f is not None}) > 1:
+            raise _refuse(f"{cls} {cfg.get('name')!r} over inputs of different ranks "
+                          f"{feats}")
+        self.cls = cls
+
+    def __call__(self, p, hs, training, gen, ntv_out):
+        if self.cls == "Subtract":
+            if len(hs) != 2:
+                raise ValueError(f"Subtract takes 2 inputs, got {len(hs)}")
+            return hs[0] - hs[1]
+        fold = {"Add": torch.add, "Average": torch.add, "Multiply": torch.mul,
+                "Maximum": torch.maximum, "Minimum": torch.minimum}[self.cls]
+        out = hs[0]
+        for h in hs[1:]:
+            out = fold(out, h)
+        return out / len(hs) if self.cls == "Average" else out
+
+
+class _Concatenate(_Op):
+    """Concatenate along Keras's ``axis`` (counted with the batch axis): a
+    non-negative axis ``k`` is axis ``k + 1`` of the replica stack."""
+    merge = True
+
+    def __init__(self, cfg: dict):
+        axis = int(cfg.get("axis", -1))
+        if axis == 0:
+            raise ValueError(f"Concatenate {cfg.get('name')!r}: axis 0 is the batch")
+        self.axis = axis + 1 if axis > 0 else axis
+
+    def __call__(self, p, hs, training, gen, ntv_out):
+        return torch.cat(list(hs), dim=self.axis)
+
+
+class _BatchNorm(_Op):
+    """BatchNormalization over one axis (Keras's ``axis``, counted with the
+    batch axis). In training it normalises by the batch's moments over
+    every other axis (the biased variance, as Keras) and moves the
+    statistics ``m * momentum + batch * (1 - momentum)``; in inference, and
+    always when frozen (``trainable=False``, as Keras 3), it normalises by
+    the moving statistics."""
 
     def __init__(self, cfg: dict, feat):
         self.name = cfg["name"]
         feat = _need_feat("BatchNormalization", cfg, feat)
         axis = cfg.get("axis", -1)
         if isinstance(axis, (list, tuple)):
-            axis = axis[0] if len(axis) == 1 else None
-        if axis not in (-1, len(feat)):
-            raise _refuse(f"BatchNormalization axis={cfg.get('axis')!r} (the port "
-                          f"normalises over the last axis)")
+            if len(axis) != 1:
+                raise _refuse(f"BatchNormalization axis={axis!r} (more than one axis)")
+            axis = axis[0]
+        ndim = len(feat) + 1
+        axis = int(axis) + ndim if int(axis) < 0 else int(axis)
+        if not 1 <= axis < ndim:
+            raise ValueError(f"BatchNormalization {self.name!r}: axis {cfg.get('axis')!r} "
+                             f"for inputs of {ndim} axes")
         if cfg.get("synchronized"):
             raise _refuse("BatchNormalization synchronized=True")
-        if not cfg.get("trainable", True):
-            raise _refuse("a frozen BatchNormalization (trainable=False)")
+        self.frozen = not cfg.get("trainable", True)
         self.momentum = float(cfg.get("momentum", 0.99))
         self.epsilon = float(cfg.get("epsilon", 1e-3))
         self.center = bool(cfg.get("center", True))
         self.scale = bool(cfg.get("scale", True))
-        self.channels = int(feat[-1])
+        self.channels = int(feat[axis - 1])
+        self.axis = axis + 1                  # in the replica stack [L, B, *feat]
         self.inits = {k: cfg.get(f"{k}_initializer", d) for k, d in (
             ("gamma", "Ones"), ("beta", "Zeros"), ("moving_mean", "Zeros"),
             ("moving_variance", "Ones"))}
@@ -461,9 +646,13 @@ class _BatchNorm:
 
     def __call__(self, p, h, training, gen, ntv_out):
         n = self.name
-        mm, mv = p[f"{n}/moving_mean"], p[f"{n}/moving_variance"]
-        if training:
-            var, mean = torch.var_mean(h, dim=tuple(range(1, h.dim() - 1)), correction=0)
+        # a layer called twice reads the statistics its first call moved
+        moved = ntv_out if ntv_out is not None else {}
+        mm = moved.get(f"{n}/moving_mean", p[f"{n}/moving_mean"])
+        mv = moved.get(f"{n}/moving_variance", p[f"{n}/moving_variance"])
+        if training and not self.frozen:
+            dims = tuple(d for d in range(1, h.dim()) if d != self.axis)
+            var, mean = torch.var_mean(h, dim=dims, correction=0)
             if ntv_out is not None:
                 ntv_out[f"{n}/moving_mean"] = (mm * self.momentum
                                                + mean.detach() * (1.0 - self.momentum))
@@ -478,21 +667,22 @@ class _BatchNorm:
         res = -mean * inv
         if self.center:
             res = res + p[f"{n}/beta"]
-        shape = (h.shape[0],) + (1,) * (h.dim() - 2) + (self.channels,)
+        shape = [h.shape[0]] + [1] * (h.dim() - 1)
+        shape[self.axis] = self.channels
         return h * inv.reshape(shape) + res.reshape(shape)
 
 
-class _Embedding:
+class _Embedding(_Op):
     """``[input_dim, output_dim]`` rows gathered by id. Float ids (the engine
     stages ``x`` as float32) are truncated to integers, as Keras casts
     them; an id outside ``[0, input_dim)`` raises :class:`ValueError`,
     where the reference's gather reads no row (a departure: on the card such
-    an index would fault the device)."""
+    an index would fault the device). With ``mask_zero`` it makes Keras's
+    mask, ``ids != 0`` on the ids as given."""
 
     def __init__(self, cfg: dict, feat):
-        if cfg.get("mask_zero"):
-            raise _refuse("Embedding mask_zero=True")
         self.name = cfg["name"]
+        self.makes_mask = bool(cfg.get("mask_zero"))
         self.input_dim, self.output_dim = int(cfg["input_dim"]), int(cfg["output_dim"])
         self.init = cfg.get("embeddings_initializer", "RandomUniform")
         self.out_feat = None if feat is None else list(feat) + [self.output_dim]
@@ -500,6 +690,10 @@ class _Embedding:
     def weight_shapes(self):
         return [_Spec(f"{self.name}/embeddings", (self.input_dim, self.output_dim),
                       self.init)]
+
+    @staticmethod
+    def compute_mask(h):
+        return h != 0
 
     def __call__(self, p, h, training, gen, ntv_out):
         ids = h.long()
@@ -515,90 +709,275 @@ class _Embedding:
             L * V, self.output_dim))
 
 
-class _LSTM:
-    """Keras 3's LSTM: ``z = x @ kernel + h @ recurrent_kernel + bias``, gates
-    i, f, c, o in that order, ``c = f * c + i * act(z_c)``, ``h = o *
-    act(c)``, ``recurrent_activation`` on i, f and o; zero initial state;
-    the last ``h`` or, with ``return_sequences``, every step's."""
+class _Recurrent(_Op):
+    """The recurrent layers' common loop: the input projection ``x @ kernel
+    (+ bias)`` for every step at once, then one ``step`` a time step from a
+    zero state, backwards over time with ``go_backwards`` (the outputs then
+    in that order, as Keras returns them). A masked step (an Embedding's
+    ``mask_zero``) keeps the state and outputs the previous output (zeros
+    with ``zero_output_for_mask``), as Keras's JAX backend does; the last
+    output, or with ``return_sequences`` every step's."""
+    mask_role = "consume"
+    n_gates = 1
+    n_states = 1
 
-    def __init__(self, cfg: dict, feat):
+    def __init__(self, cls: str, cfg: dict, feat):
         for key in ("dropout", "recurrent_dropout"):
             if float(cfg.get(key) or 0.0) > 0.0:
-                raise _refuse(f"LSTM {key}={cfg[key]}")
-        for key in ("return_state", "go_backwards", "stateful"):
+                raise _refuse(f"{cls} {key}={cfg[key]}")
+        for key in ("return_state", "stateful"):
             if cfg.get(key):
-                raise _refuse(f"LSTM {key}=True")
+                raise _refuse(f"{cls} {key}=True")
         self.name = cfg["name"]
         self.units = int(cfg["units"])
         self.act = _activation(cfg.get("activation", "tanh"))
         self.rec_act = _activation(cfg.get("recurrent_activation", "sigmoid"))
         self.use_bias = bool(cfg.get("use_bias", True))
         self.return_sequences = bool(cfg.get("return_sequences", False))
-        feat = _need_feat("LSTM", cfg, feat, 2)
+        self.go_backwards = bool(cfg.get("go_backwards", False))
+        self.zero_masked = bool(cfg.get("zero_output_for_mask", False))
+        feat = _need_feat(cls, cfg, feat, 2)
         self.in_dim = int(feat[-1])
         self.out_feat = ([feat[0], self.units] if self.return_sequences
                          else [self.units])
         self.kernel_init = cfg.get("kernel_initializer", "GlorotUniform")
         self.rec_init = cfg.get("recurrent_initializer", "Orthogonal")
-        bias_init = cfg.get("bias_initializer", "Zeros")
+        self.bias_init = cfg.get("bias_initializer", "Zeros")
+
+    def bias_shape(self):
+        return (self.n_gates * self.units,)
+
+    def weight_shapes(self):
+        g = self.n_gates * self.units
+        shapes = [_Spec(f"{self.name}/kernel", (self.in_dim, g), self.kernel_init),
+                  _Spec(f"{self.name}/recurrent_kernel", (self.units, g), self.rec_init)]
+        if self.use_bias:
+            shapes.append(_Spec(f"{self.name}/bias", self.bias_shape(), self.bias_init))
+        return shapes
+
+    def input_bias(self, p):
+        return p[f"{self.name}/bias"]
+
+    def __call__(self, p, h, training, gen, ntv_out, mask=None):
+        L, B, T = h.shape[:3]
+        g = self.n_gates * self.units
+        xz = torch.bmm(h.reshape(L, B * T, self.in_dim), p[f"{self.name}/kernel"])
+        if self.use_bias:
+            xz = xz + self.input_bias(p)[:, None, :]
+        xz = xz.reshape(L, B, T, g)
+        state = tuple(h.new_zeros((L, B, self.units)) for _ in range(self.n_states))
+        outs, out = [], None
+        for t in (range(T - 1, -1, -1) if self.go_backwards else range(T)):
+            new = self.step(p, xz[:, :, t], state)
+            out = new[0]
+            if mask is not None:
+                m = mask[:, :, t, None]
+                out = torch.where(m, out, torch.zeros_like(out) if self.zero_masked
+                                  else state[0])
+                new = tuple(torch.where(m, n, s) for n, s in zip(new, state))
+            state = new
+            if self.return_sequences:
+                outs.append(out)
+        return torch.stack(outs, dim=2) if self.return_sequences else out
+
+
+class _LSTM(_Recurrent):
+    """Keras 3's LSTM: ``z = x @ kernel + h @ recurrent_kernel + bias``, gates
+    i, f, c, o in that order, ``c = f * c + i * act(z_c)``, ``h = o *
+    act(c)``, ``recurrent_activation`` on i, f and o."""
+    n_gates, n_states = 4, 2
+
+    def __init__(self, cfg: dict, feat):
+        super().__init__("LSTM", cfg, feat)
         if cfg.get("unit_forget_bias", True):
+            bias_init = self.bias_init
+
             def forget_ones(shape, gen, u=self.units):
                 # Keras: bias_init for i, ones for f, bias_init for c and o
                 return torch.cat([_initial_value(bias_init, (u,), gen), torch.ones(u),
                                   _initial_value(bias_init, (2 * u,), gen)])
             self.bias_init = forget_ones
-        else:
-            self.bias_init = bias_init
 
-    def weight_shapes(self):
-        u4 = 4 * self.units
-        shapes = [_Spec(f"{self.name}/kernel", (self.in_dim, u4), self.kernel_init),
-                  _Spec(f"{self.name}/recurrent_kernel", (self.units, u4), self.rec_init)]
-        if self.use_bias:
-            shapes.append(_Spec(f"{self.name}/bias", (u4,), self.bias_init))
-        return shapes
-
-    def __call__(self, p, h, training, gen, ntv_out):
-        L, B, T = h.shape[:3]
+    def step(self, p, xz_t, state):
+        hs, cs = state
         u = self.units
-        xz = torch.bmm(h.reshape(L, B * T, self.in_dim), p[f"{self.name}/kernel"])
-        if self.use_bias:
-            xz = xz + p[f"{self.name}/bias"][:, None, :]
-        xz = xz.reshape(L, B, T, 4 * u)
+        z = torch.baddbmm(xz_t, hs, p[f"{self.name}/recurrent_kernel"])
+        gates = self.rec_act(z)            # i, f and o (c's quarter unused)
+        cs = gates[..., u:2 * u] * cs + gates[..., :u] * self.act(z[..., 2 * u:3 * u])
+        return gates[..., 3 * u:] * self.act(cs), cs
+
+
+class _GRU(_Recurrent):
+    """Keras 3's GRU, gates z, r, h: ``z = ra(x_z + h @ rk_z)``, ``r = ra(x_r +
+    h @ rk_r)``, ``hh = act(x_h + r * (h @ rk_h + rb_h))`` with
+    ``reset_after`` (bias ``[2, 3 units]``: the input bias, then the
+    recurrent one) or ``act(x_h + (r * h) @ rk_h)`` without (bias ``[3
+    units]``), ``h = z * h + (1 - z) * hh``."""
+    n_gates = 3
+
+    def __init__(self, cfg: dict, feat):
+        super().__init__("GRU", cfg, feat)
+        self.reset_after = bool(cfg.get("reset_after", True))
+
+    def bias_shape(self):
+        g = 3 * self.units
+        return (2, g) if self.reset_after else (g,)
+
+    def input_bias(self, p):
+        b = p[f"{self.name}/bias"]
+        return b[:, 0] if self.reset_after else b
+
+    def step(self, p, xz_t, state):
+        hs, = state
+        u = self.units
         rk = p[f"{self.name}/recurrent_kernel"]
-        hs = h.new_zeros((L, B, u))
-        cs = h.new_zeros((L, B, u))
-        outs = []
-        for t in range(T):
-            z = torch.baddbmm(xz[:, :, t], hs, rk)
-            gates = self.rec_act(z)            # i, f and o (c's quarter unused)
-            cs = gates[..., u:2 * u] * cs + gates[..., :u] * self.act(z[..., 2 * u:3 * u])
-            hs = gates[..., 3 * u:] * self.act(cs)
-            if self.return_sequences:
-                outs.append(hs)
-        return torch.stack(outs, dim=2) if self.return_sequences else hs
+        if self.reset_after:
+            rec = torch.bmm(hs, rk)
+            if self.use_bias:
+                rec = rec + p[f"{self.name}/bias"][:, 1, None, :]
+        else:
+            rec = torch.bmm(hs, rk[..., :2 * u])
+        z = self.rec_act(xz_t[..., :u] + rec[..., :u])
+        r = self.rec_act(xz_t[..., u:2 * u] + rec[..., u:2 * u])
+        if self.reset_after:
+            rec_h = r * rec[..., 2 * u:]
+        else:
+            rec_h = torch.bmm(r * hs, rk[..., 2 * u:])
+        hh = self.act(xz_t[..., 2 * u:] + rec_h)
+        return (z * hs + (1 - z) * hh,)
 
 
-def _parse_sequential(arch: dict, weight_shapes: Optional[List[Tuple[int, ...]]]):
-    """The layer ops of a Keras-3 Sequential config. Input shapes come from
-    the config (InputLayer, build shapes, each layer's ``build_config``) or,
-    for a Dense layer failing those, from the kernels' shapes in
-    ``weight_shapes``."""
-    if arch.get("class_name") != "Sequential":
-        raise NotImplementedError(
-            f"model class {arch.get('class_name')!r}: the port interprets Sequential "
-            f"models; Functional models wait for {LAYERS_ITEM}")
-    cfg = arch.get("config", {})
+class _SimpleRNN(_Recurrent):
+    """Keras 3's SimpleRNN: ``h = act(x @ kernel + bias + h @ recurrent_kernel)``."""
+
+    def __init__(self, cfg: dict, feat):
+        super().__init__("SimpleRNN", cfg, feat)
+
+    def step(self, p, xz_t, state):
+        hs, = state
+        return (self.act(xz_t + torch.bmm(hs, p[f"{self.name}/recurrent_kernel"])),)
+
+
+def _check_policy(cfg: dict) -> None:
     policy = cfg.get("dtype")
     if isinstance(policy, dict):
         policy = (policy.get("config") or {}).get("name")
     if policy not in (None, "float32"):
         raise _refuse(f"dtype policy {policy!r}")
+
+
+_RECURRENT = {"LSTM": _LSTM, "GRU": _GRU, "SimpleRNN": _SimpleRNN}
+_MERGES = ("Add", "Subtract", "Multiply", "Average", "Maximum", "Minimum")
+
+
+def _make_op(cls: str, cfg: dict, feat, in_dim: Optional[int] = None):
+    """The op of one layer config at input feature shape ``feat`` (a list of
+    them for a merge layer). ``in_dim`` is a Dense layer's fan-in where the
+    config gives no shape."""
+    _check_policy(cfg)
+    if cls == "Dense":
+        if feat is None and in_dim is None:
+            raise ValueError(f"Dense layer {cfg.get('name')!r}: the config has no input "
+                             f"shape and no weights were given")
+        op = _Dense(cfg, int(feat[-1]) if feat is not None else in_dim)
+        op.out_feat = (list(feat[:-1]) if feat is not None else []) + [op.units]
+        return op
+    if cls in _MERGES:
+        return _Merge(cls, cfg, feat)
+    if cls == "Concatenate":
+        return _Concatenate(cfg)
+    if cls == "Dropout":
+        op = _Dropout(cfg)
+    elif cls == "Activation":
+        op = _Activation(cfg)
+    elif cls == "Flatten":
+        return _Flatten(cfg, feat)
+    elif cls == "BatchNormalization":
+        op = _BatchNorm(cfg, feat)
+    elif cls in ("Conv1D", "Conv2D"):
+        return _Conv(cfg, feat, int(cls[4]))
+    elif cls in ("MaxPooling1D", "MaxPooling2D", "AveragePooling1D", "AveragePooling2D"):
+        return _Pool(cfg, feat, int(cls[-2]), "max" if cls.startswith("Max") else "avg")
+    elif cls in ("GlobalMaxPooling1D", "GlobalMaxPooling2D", "GlobalAveragePooling1D",
+                 "GlobalAveragePooling2D"):
+        return _GlobalPool(cfg, feat, int(cls[-2]),
+                           "max" if cls.startswith("GlobalMax") else "avg")
+    elif cls in ("ZeroPadding1D", "ZeroPadding2D"):
+        return _ZeroPad(cfg, feat, int(cls[-2]))
+    elif cls == "Reshape":
+        return _Reshape(cfg, feat)
+    elif cls == "Embedding":
+        return _Embedding(cfg, feat)
+    elif cls in _RECURRENT:
+        return _RECURRENT[cls](cfg, feat)
+    elif cls in ("Sequential", "Functional", "Model"):
+        raise _refuse(f"a model nested as a layer ({cls} {cfg.get('name')!r})")
+    else:
+        raise _refuse(f"layer {cls!r}")
+    op.out_feat = None if feat is None else list(feat)    # shape-keeping ops
+    return op
+
+
+class _Node(NamedTuple):
+    """One call of a layer (``label``, its class and name): ``op`` over the
+    values ``inputs`` (keys), its result stored as ``output``; ``free`` are
+    the keys no later node reads."""
+    op: Any
+    inputs: Tuple[Any, ...]
+    output: Any
+    label: str
+    free: Tuple[Any, ...] = ()
+
+
+def _layer_specs(op, layer_cfg: dict, model_trainable: bool) -> List[_Spec]:
+    """The op's weights; a frozen layer's (or a frozen model's) all
+    non-trainable, as Keras keeps them out of ``trainable_variables``."""
+    specs = op.weight_shapes()
+    if layer_cfg.get("trainable", True) and model_trainable:
+        return specs
+    return [s._replace(trainable=False) for s in specs]
+
+
+def _finish_graph(nodes: List[_Node], first, last) -> List[_Node]:
+    """Check where an Embedding's mask goes, and mark each value's last
+    reader so the walk frees it there. A mask may reach a recurrent layer
+    (through Dropout or Activation); reaching any other layer, a merge or
+    the model's output (the loss) it raises."""
+    masked = set()
+    for node in nodes:
+        op = node.op
+        fed = [k for k in node.inputs if k in masked]
+        if fed and op.mask_role is None:
+            raise _refuse(f"an Embedding's mask (mask_zero=True) reaching {node.label}, "
+                          f"which does not consume it")
+        if op.makes_mask or (fed and (op.mask_role == "pass" or getattr(
+                op, "return_sequences", False))):
+            masked.add(node.output)
+    if last in masked:
+        raise _refuse("an Embedding's mask (mask_zero=True) reaching the model's output "
+                      "(the loss)")
+    last_read = {}
+    for i, node in enumerate(nodes):
+        for k in node.inputs:
+            last_read[k] = i
+    return [n._replace(free=tuple(k for k in set(n.inputs)
+                                  if last_read[k] == i and k not in (first, last)))
+            for i, n in enumerate(nodes)]
+
+
+def _parse_sequential(arch: dict, weight_shapes: Optional[List[Tuple[int, ...]]]):
+    """``(nodes, specs, input key, output key)`` of a Keras-3 Sequential
+    config: a chain. Input shapes come from the config (InputLayer, build
+    shapes, each layer's ``build_config``) or, for a Dense layer failing
+    those, from the kernels' shapes in ``weight_shapes``."""
+    cfg = arch.get("config", {})
+    _check_policy(cfg)
+    trainable = cfg.get("trainable", True)
     shape = cfg.get("build_input_shape") or (arch.get("build_config") or {}).get("input_shape")
     feat = list(shape[1:]) if shape else None
     # the Dense kernels' input widths, in order (biases are the 1-D arrays)
     kernel_in = iter([s[0] for s in weight_shapes or [] if len(s) == 2])
-    ops = []
+    nodes, specs = [], []
     for layer in cfg.get("layers", []):
         cls, lcfg = layer.get("class_name"), layer.get("config", {})
         if cls == "InputLayer":
@@ -609,35 +988,93 @@ def _parse_sequential(arch: dict, weight_shapes: Optional[List[Tuple[int, ...]]]
         build = (layer.get("build_config") or {}).get("input_shape")
         if build:
             feat = list(build[1:])
-        if cls == "Dense":
-            in_dim = next(kernel_in, None)
-            if feat is None:
-                if in_dim is None:
-                    raise ValueError(f"Dense layer {lcfg.get('name')!r}: the config has "
-                                     f"no input shape and no weights were given")
-                feat = [in_dim]
-            op = _Dense(lcfg, int(feat[-1]))
-            feat = feat[:-1] + [op.units]
-        elif cls == "Dropout":
-            op = _Dropout(lcfg)
-        elif cls == "Activation":
-            op = _Activation(lcfg)
-        elif cls == "Flatten":
-            op = _Flatten()
-            if feat is not None:
-                feat = [int(np.prod(feat))]
-        elif cls in ("Reshape", "Conv1D", "Conv2D", "MaxPooling2D", "Embedding", "LSTM"):
-            op = {"Reshape": _Reshape, "MaxPooling2D": _MaxPool2D,
-                  "Embedding": _Embedding, "LSTM": _LSTM,
-                  "Conv1D": lambda c, f: _Conv(c, f, 1),
-                  "Conv2D": lambda c, f: _Conv(c, f, 2)}[cls](lcfg, feat)
-            feat = op.out_feat
-        elif cls == "BatchNormalization":
-            op = _BatchNorm(lcfg, feat)
-        else:
-            raise _refuse(f"layer {cls!r}")
-        ops.append(op)
-    return ops
+        if cls in _MERGES or cls == "Concatenate":
+            raise ValueError(f"{cls} in a Sequential model takes one input")
+        op = _make_op(cls, lcfg, feat, next(kernel_in, None) if cls == "Dense" else None)
+        feat = op.out_feat
+        specs += _layer_specs(op, lcfg, trainable)
+        nodes.append(_Node(op, (len(nodes),), len(nodes) + 1, f"{cls} {lcfg.get('name')!r}"))
+    return _finish_graph(nodes, 0, len(nodes)), specs, 0, len(nodes)
+
+
+def _tensor_ref(arg) -> Tuple[str, int]:
+    """``(layer, node)`` of a ``__keras_tensor__`` argument."""
+    if not (isinstance(arg, dict) and arg.get("class_name") == "__keras_tensor__"):
+        raise _refuse(f"a layer argument that is not a tensor ({str(arg)[:80]})")
+    layer, node, index = arg["config"]["keras_history"]
+    if int(index) != 0:
+        raise _refuse(f"output {index} of layer {layer!r} (layers of several outputs)")
+    return layer, int(node)
+
+
+def _one_io(refs, what: str):
+    """The single ``[layer, node, tensor]`` of ``input_layers`` /
+    ``output_layers`` (a list of one is one too)."""
+    if refs and isinstance(refs[0], (list, tuple)):
+        if len(refs) != 1:
+            raise _refuse(f"a Functional model of {len(refs)} {what}s (the engine's x and y "
+                          f"are single arrays)")
+        refs = refs[0]
+    if isinstance(refs, dict):
+        raise _refuse(f"a Functional model whose {what}s are a dict")
+    if int(refs[2]) != 0:
+        raise _refuse(f"output {refs[2]} of layer {refs[0]!r} as the model's {what}")
+    return refs[0], int(refs[1])
+
+
+def _parse_functional(arch: dict, weight_shapes=None):
+    """``(nodes, specs, input key, output key)`` of a Keras-3 Functional
+    config of one input and one output. Each layer's ``inbound_nodes`` are
+    its calls; an argument ``__keras_tensor__`` names the ``(layer, node)``
+    that made it and carries its shape. The calls run in the config's
+    order, a call whose inputs are not made yet put off until they are (a
+    shared layer's second call may read a later layer, as Keras's own
+    ``from_config`` allows); ``specs`` follow the layers' order, which is
+    ``get_weights()``'s."""
+    cfg = arch.get("config", {})
+    _check_policy(cfg)
+    trainable = cfg.get("trainable", True)
+    first = _one_io(cfg.get("input_layers"), "input")
+    last = _one_io(cfg.get("output_layers"), "output")
+    pending, specs, has_weights = [], [], set()
+    for layer in cfg.get("layers", []):
+        cls, lcfg = layer.get("class_name"), layer.get("config", {})
+        name = layer.get("name", lcfg.get("name"))
+        if cls == "InputLayer":
+            continue
+        for i, node in enumerate(layer.get("inbound_nodes", [])):
+            args = node.get("args", [])
+            extra = {k: v for k, v in (node.get("kwargs") or {}).items() if v is not None}
+            if len(args) != 1 or extra:
+                raise _refuse(f"a call of layer {name!r} with arguments "
+                              f"{str(args[1:])[:60]} {extra}")
+            merge = cls in _MERGES or cls == "Concatenate"
+            tensors = list(args[0]) if merge else [args[0]]
+            shapes = [t["config"].get("shape") for t in tensors]
+            feat = [list(s[1:]) for s in shapes] if merge else (
+                list(shapes[0][1:]) if shapes[0] is not None else None)
+            op = _make_op(cls, lcfg, feat)
+            if name not in has_weights:          # a shared layer's weights once
+                specs += _layer_specs(op, lcfg, trainable)
+                has_weights.add(name)
+            pending.append(_Node(op, tuple(_tensor_ref(t) for t in tensors), (name, i),
+                                 f"{cls} {name!r}"))
+    nodes, made = [], {first}
+    while pending:
+        ready = [n for n in pending if all(k in made for k in n.inputs)]
+        if not ready:
+            raise ValueError(f"the graph's calls {[n.output for n in pending][:4]} read "
+                             f"values no call makes")
+        for n in ready:
+            nodes.append(n)
+            made.add(n.output)
+        pending = [n for n in pending if n.output not in made]
+    if last not in made:
+        raise ValueError(f"the model's output {last} is made by no call")
+    return _finish_graph(nodes, first, last), specs, first, last
+
+
+_PARSERS = {"Sequential": _parse_sequential, "Functional": _parse_functional}
 
 
 def _tree_map(fn, *trees):
@@ -679,17 +1116,9 @@ def _read_model(model) -> Tuple[dict, Optional[List[np.ndarray]]]:
                     f"Keras JSON, a config dict, or an object with to_json()")
 
 
-def refuse_remat(remat: bool) -> None:
-    """``remat=True`` (the reference's ``jax.checkpoint`` around the step)
-    is not ported yet: raise, naming its ROADMAP item."""
-    if remat:
-        raise NotImplementedError(
-            "remat=True (activation recomputation for deep Keras models) waits "
-            "for ROADMAP queue 1 item 13 (Keras models beyond the MLP)")
-
-
 class KerasModelAdapter:
-    """Functional view over a Keras-3 Sequential model's JSON and weights."""
+    """Functional view over a Keras-3 Sequential or Functional model's JSON
+    and weights."""
 
     def __init__(self, model, loss: Any = None, optimizer: Any = None,
                  metrics: Optional[Sequence[str]] = None,
@@ -710,8 +1139,13 @@ class KerasModelAdapter:
                                else self.compile_config.get("optimizer")) or "sgd"
         self.metrics = list(metrics) if metrics is not None else self._infer_metrics()
         shapes = None if weights is None else [np.shape(w) for w in weights]
-        self.layers = _parse_sequential(arch, shapes)
-        self._specs = [s for op in self.layers for s in op.weight_shapes()]
+        kind = arch.get("class_name")
+        if kind not in _PARSERS:
+            raise _refuse(f"model class {kind!r} (the port interprets Sequential and "
+                          f"Functional models)")
+        self._nodes, self._specs, self._input, self._output = _PARSERS[kind](arch, shapes)
+        # the ops in the order they run (a shared layer once a call)
+        self.layers = [n.op for n in self._nodes]
         if weights is None:
             gen = torch.Generator().manual_seed(int(seed))
             weights = [_initial_value(s.init, s.shape, gen) for s in self._specs]
@@ -796,10 +1230,30 @@ class KerasModelAdapter:
 
     # -- the model -------------------------------------------------------
     def _forward(self, params: Params, x, training: bool, generator, ntv_out):
-        h = x
-        for op in self.layers:
-            h = op(params, h, training, generator, ntv_out)
-        return h
+        """The graph's calls in order, each value kept by key until its last
+        reader has run; an Embedding's mask travels beside its values."""
+        vals, masks = {self._input: x}, {}
+        for node in self._nodes:
+            op = node.op
+            if op.merge:
+                h = op(params, [vals[k] for k in node.inputs], training, generator, ntv_out)
+            else:
+                k = node.inputs[0]
+                m = masks.get(k)
+                if m is not None and op.mask_role == "consume":
+                    h = op(params, vals[k], training, generator, ntv_out, mask=m)
+                else:
+                    h = op(params, vals[k], training, generator, ntv_out)
+                if op.makes_mask:
+                    masks[node.output] = op.compute_mask(vals[k])
+                elif m is not None and (op.mask_role == "pass"
+                                        or getattr(op, "return_sequences", False)):
+                    masks[node.output] = m
+            vals[node.output] = h
+            for k in node.free:
+                vals.pop(k, None)
+                masks.pop(k, None)
+        return vals[self._output]
 
     def apply(self, params: Params, x, training: bool = False,
               generator: Optional[torch.Generator] = None):
@@ -858,29 +1312,60 @@ class KerasModelAdapter:
 
         return per_and_acc
 
+    @staticmethod
+    def _region_grads(region, leaves: Params, remat: bool, gen, *args):
+        """``(outputs, grads)``: ``region(leaves, *args, gen, gen_state)``'s
+        outputs, the first a loss ``[L]``, and the gradients of its sum by
+        leaf. With ``remat`` the region runs under
+        ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``
+        around its ``_loss``): nothing inside it is kept for the backward,
+        which runs it again whole. The dropout generator ``gen`` is not one
+        that ``preserve_rng_state`` saves, so the region sets it to the
+        step's starting state on every run and it is left, after the
+        backward, where the first run left it; the values leaving the
+        region (the moved statistics) are the first run's."""
+        with torch.enable_grad():
+            if not remat:
+                out = region(leaves, *args, gen, None)
+            else:
+                start = None if gen is None else gen.get_state()
+                with torch.utils.checkpoint.set_checkpoint_early_stop(False):
+                    out = torch.utils.checkpoint.checkpoint(
+                        region, leaves, *args, gen, start, use_reentrant=False,
+                        preserve_rng_state=gen is None)
+                after = None if gen is None else gen.get_state()
+            grads = torch.autograd.grad(out[0].sum(), list(leaves.values()))
+        if remat and gen is not None:
+            gen.set_state(after)
+        return out, grads
+
     def build_train_step(self, optimizer, remat: bool = False) -> Callable:
         """``(tv, ntv, opt_state, x, y, sw, gen) → (tv, ntv, opt_state,
         stats)`` over ``L`` replicas: ``tv`` and ``ntv`` ``[L, ...]``, ``x``
         ``[L, B, ...]``, ``sw`` ``[L, B]``. ``stats`` is
         ``(loss_weighted_sum, acc_weighted_sum, weight_sum)``, each ``[L]``.
         A replica whose batch is all padding keeps its parameters,
-        statistics and optimizer state. ``remat`` is the reference's
-        ``jax.checkpoint`` switch, accepted in its place; as in
-        ``CompiledTrainer``, ``True`` is not ported yet and raises."""
-        refuse_remat(remat)
+        statistics and optimizer state. ``remat=True`` recomputes the
+        model and the loss in the backward instead of keeping their
+        activations (:meth:`_region_grads`)."""
         per_and_acc = self._loss_parts()
+
+        def region(leaves, ntv, x, y, sw, gen, gen_state):
+            if gen_state is not None:
+                gen.set_state(gen_state)
+            y_pred, ntv2 = self.stateless_call(leaves, ntv, x, True, gen)
+            per, acc = per_and_acc(y, y_pred, sw)
+            loss = (per * sw).sum(dim=1) / torch.clamp(sw.sum(dim=1), min=1e-9)
+            return loss, ntv2, acc
 
         def train_step(tv, ntv, opt_state, x, y, sw, gen):
             leaves = {k: t.detach().requires_grad_() for k, t in tv.items()}
-            with torch.enable_grad():
-                y_pred, ntv2 = self.stateless_call(leaves, ntv, x, True, gen)
-                per, acc = per_and_acc(y, y_pred, sw)
-                wsum = sw.sum(dim=1)
-                loss = (per * sw).sum(dim=1) / torch.clamp(wsum, min=1e-9)
-                # the replicas share nothing, so the gradient of the sum is
-                # each replica's own gradient
-                grads = torch.autograd.grad(loss.sum(), list(leaves.values()))
+            # the replicas share nothing, so the gradient of the sum is each
+            # replica's own gradient
+            (loss, ntv2, acc), grads = self._region_grads(region, leaves, remat, gen,
+                                                          ntv, x, y, sw)
             with torch.no_grad():
+                loss, wsum = loss.detach(), sw.sum(dim=1)
                 grads = dict(zip(leaves, grads))
                 updates, opt2 = optimizer.update(grads, opt_state, tv)
                 tv2 = {k: tv[k] + updates[k] for k in tv}
@@ -902,28 +1387,31 @@ class KerasModelAdapter:
         ``B`` rows and moves its own statistics, as the reference's
         ``vmap`` of the step over workers does; a replica whose batch is all
         padding keeps them. ``remat`` as in :meth:`build_train_step`."""
-        refuse_remat(remat)
         per_and_acc = self._loss_parts()
         keep_replicas = any(not s.trainable for s in self._specs)
 
-        def grad_step(tv, ntv, x, y, sw, gen):
+        def region(leaves, ntv, x, y, sw, gen, gen_state):
+            if gen_state is not None:
+                gen.set_state(gen_state)
             L, B = sw.shape
+            if keep_replicas:
+                stacked = {k: v[None].expand((L,) + tuple(v.shape))
+                           for k, v in leaves.items()}
+                y_pred, ntv2 = self.stateless_call(stacked, ntv, x, True, gen)
+            else:
+                # no layer couples rows: one replica of L * B rows, the
+                # same rows and masks, one matmul a layer
+                flat = x.reshape((1, L * B) + tuple(x.shape[2:]))
+                y_pred, ntv2 = self.stateless_call(
+                    {k: v[None] for k, v in leaves.items()}, {}, flat, True, gen)
+                y_pred = y_pred.reshape((L, B) + tuple(y_pred.shape[2:]))
+            per, acc = per_and_acc(y, y_pred, sw)
+            return (per * sw).sum(dim=1), ntv2, acc
+
+        def grad_step(tv, ntv, x, y, sw, gen):
             leaves = {k: t.detach().requires_grad_() for k, t in tv.items()}
-            with torch.enable_grad():
-                if keep_replicas:
-                    stacked = {k: v[None].expand((L,) + tuple(v.shape))
-                               for k, v in leaves.items()}
-                    y_pred, ntv2 = self.stateless_call(stacked, ntv, x, True, gen)
-                else:
-                    # no layer couples rows: one replica of L * B rows, the
-                    # same rows and masks, one matmul a layer
-                    flat = x.reshape((1, L * B) + tuple(x.shape[2:]))
-                    y_pred, ntv2 = self.stateless_call(
-                        {k: v[None] for k, v in leaves.items()}, {}, flat, True, gen)
-                    y_pred = y_pred.reshape((L, B) + tuple(y_pred.shape[2:]))
-                per, acc = per_and_acc(y, y_pred, sw)
-                loss_wsum = (per * sw).sum(dim=1)
-                grads = torch.autograd.grad(loss_wsum.sum(), list(leaves.values()))
+            (loss_wsum, ntv2, acc), grads = self._region_grads(region, leaves, remat, gen,
+                                                               ntv, x, y, sw)
             wsum = sw.sum(dim=1)
             ntv2 = _tree_where(wsum > 0, ntv2, ntv) if keep_replicas else ntv
             return dict(zip(leaves, grads)), ntv2, (loss_wsum.detach(), acc, wsum)

@@ -47,6 +47,11 @@ gradient-synchronous schedule keeps each replica's statistics for the
 whole fit and averages them once at its end. Each replica's validation
 runs with its own statistics.
 
+``remat=True`` builds every training step with the adapter's
+recomputation (the reference's ``jax.checkpoint`` around the model and
+the loss): the backward runs the forward again instead of keeping its
+activations, so K1's forward launches twice a training step.
+
 Merge-faithful chunking (synchronous + epoch only, as in the reference):
 ``keep_worker_state=True`` returns the replica stacks un-merged
 (``FitResult.worker_state``: ``tv_stack`` and ``ntv_stack`` and the
@@ -66,7 +71,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..models.adapters import KerasModelAdapter, _tree_map, refuse_remat
+from ..models.adapters import KerasModelAdapter, _tree_map
 from ..models.optimizers import _lead
 from .mesh import DeviceMesh, build_mesh
 
@@ -150,7 +155,6 @@ class CompiledTrainer:
         if self.mesh.device != adapter.device:
             raise ValueError(f"the adapter's weights are on {adapter.device}, the "
                              f"mesh on {self.mesh.device}")
-        refuse_remat(remat)
         self.mode = mode
         self.frequency = frequency
         self.remat = remat
@@ -352,7 +356,7 @@ class CompiledTrainer:
         history, worker_state)``; synchronous+epoch continues
         ``worker_state``'s stacks when given, and its merge is then a
         preview against their base."""
-        train_step = self.adapter.build_train_step(self.optimizer)
+        train_step = self.adapter.build_train_step(self.optimizer, self.remat)
         eval_step = self.adapter.build_eval_step()
         merge_every_epoch = self.mode != "synchronous" and self.frequency == "epoch"
         merge_every_batch = self.mode != "synchronous" and self.frequency == "batch"
@@ -406,7 +410,7 @@ class CompiledTrainer:
         weighted loss sum over the global weight sum, one step. Each
         worker keeps its own statistics through the fit; they are averaged
         over the valid workers once at its end."""
-        grad_step = self.adapter.build_grad_step()
+        grad_step = self.adapter.build_grad_step(self.remat)
         eval_step = self.adapter.build_eval_step()
         tv = dict(tv0)
         ntv_stack = _tile(ntv0, W)

@@ -17,8 +17,10 @@ CNN's fit on the card against the CPU, and the Embedding's range check;
 the Spark-ML estimator's K1 launches and the search's pinning to a card;
 multi-tenant LoRA serving (plain and speculative) and the LoRA train step
 on the card against the merged oracles and the CPU; elastic host processes
-training on the card with exact K1 launches, and int8-quantized decoding
-equal to the dequantized weights'.
+training on the card with exact K1 launches, int8-quantized decoding
+equal to the dequantized weights'; the committed ResNet-50 (a Functional
+graph) and masked GRU on the card against the CPU, and ``remat=True``
+against plain steps on the card.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside the
 test, never at import). This file imports no JAX, so it runs on a machine
@@ -2054,3 +2056,148 @@ def test_quantized_decode_equals_dequantized_on_card(cuda):
                 done = eng.drain()
                 streams.append([done[i].tokens for i in ids])
             assert streams[0] == streams[1], (type(model).__name__, paged)
+
+
+# -- Functional graphs, remat and the recurrent layers (the committed JSON) ------------
+
+
+def _config_text(name):
+    from pathlib import Path
+
+    return (Path(__file__).resolve().parents[1] / "elephas_tpu_torch" / "configs" /
+            name).read_text()
+
+
+def _spread_1d(weights, seed):
+    """Every 1-D array drawn anew: BatchNormalization gammas and variances in
+    [0.5, 1.5], biases, betas and means in [-0.1, 0.1] (a bias before a
+    BatchNormalization has a zero gradient: left at zero it would hold
+    only rounding after a step)."""
+    rng = np.random.default_rng(seed)
+    return [w if w.ndim != 1 else
+            (rng.uniform(0.5, 1.5, w.shape) if np.all(w == 1.0)
+             else rng.uniform(-0.1, 0.1, w.shape)).astype(np.float32) for w in weights]
+
+
+def _resnet_steps(text, weights, x, y, dev, dtype):
+    """One train step (SGD) over the replicas of ``x`` and one grad step of
+    the ResNet-50 config from ``weights`` on ``dev`` in ``dtype``: ``{name:
+    tensor}`` of the stepped parameters (``tv/``), moved statistics
+    (``ntv/``), gradients (``grad/``), the grad step's statistics
+    (``gntv/``) and both steps' metrics (``stats``, ``gstats``)."""
+    from elephas_tpu_torch.models import KerasModelAdapter
+
+    a = KerasModelAdapter(text, device="cpu")
+    L, B = x.shape[:2]
+    tv = {s.name: torch.as_tensor(np.asarray(w), dtype=dtype, device=dev)
+          for s, w in zip(a._specs, weights) if s.trainable}
+    ntv = {s.name: torch.as_tensor(np.asarray(w), dtype=dtype, device=dev)
+           for s, w in zip(a._specs, weights) if not s.trainable}
+    stack = {k: v[None].expand((L,) + tuple(v.shape)).clone() for k, v in tv.items()}
+    nstack = {k: v[None].expand((L,) + tuple(v.shape)).clone() for k, v in ntv.items()}
+    xs, ys = (torch.as_tensor(t, dtype=dtype, device=dev) for t in (x, y))
+    sw = torch.ones(L, B, dtype=dtype, device=dev)
+    opt = a.make_optimizer()
+    tv2, ntv2, _, st = a.build_train_step(opt)(
+        stack, nstack, opt.init(stack, count_shape=(L,)), xs, ys, sw, None)
+    grads, gntv, gst = a.build_grad_step()(tv, nstack, xs, ys, sw, None)
+    out = {"stats": torch.stack(st), "gstats": torch.stack(gst)}
+    for prefix, d in (("tv/", tv2), ("ntv/", ntv2), ("grad/", grads), ("gntv/", gntv)):
+        out.update({prefix + k: v for k, v in d.items()})
+    return {k: v.detach().double().cpu() for k, v in out.items()}
+
+
+def test_functional_resnet50_steps_on_card_match_cpu(cuda):
+    """The committed ResNet-50 (a Functional graph: Add, ZeroPadding2D,
+    GlobalAveragePooling2D) on the card against the CPU from the same
+    weights and rows, a train step (SGD) over 2 replicas of 16 images and a
+    grad step: the metrics, the moved statistics and the stepped head
+    (which the forward's values decide) within 1e-4 of their scale; every
+    array's distance to the same steps in float64 (on the CPU) at most 4
+    times the CPU float32 steps' largest. (The other arrays are not
+    continuous in the inputs at float32's rounding: a ReLU or max-pool
+    input within rounding of its kink routes a unit's gradient, and a
+    last-stage kernel's gradient sums 16 positions; two float32 steps part
+    there by percents of an array's scale.)"""
+    from elephas_tpu_torch.models import KerasModelAdapter
+
+    text = _config_text("resnet50_logits.json")
+    weights = _spread_1d(KerasModelAdapter(text, device="cpu").get_weights(), 5)
+    rng = np.random.default_rng(6)
+    x = rng.uniform(0, 1, size=(2, 16, 32, 32, 3)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, size=(2, 16))]
+    gpu = _resnet_steps(text, weights, x, y, cuda, torch.float32)
+    cpu = _resnet_steps(text, weights, x, y, "cpu", torch.float32)
+    f64 = _resnet_steps(text, weights, x, y, "cpu", torch.float64)
+
+    def err(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-6)
+
+    smooth = [k for k in cpu if "stats" in k or k.startswith(("ntv/", "gntv/",
+                                                               "tv/predictions/"))]
+    assert len(smooth) == 4 * 53 + 4
+    for k in smooth:
+        assert err(gpu[k], cpu[k]) <= 1e-4, k
+    cpu_far = max(err(cpu[k], f64[k]) for k in f64)
+    for k in f64:
+        assert err(gpu[k], f64[k]) <= 4 * cpu_far, (k, err(gpu[k], f64[k]), cpu_far)
+
+
+def test_remat_on_card_matches_plain_and_launches_k1_again(cuda):
+    """The options CNN (``mnist_cnn_options.json``: Dropout with a
+    ``noise_shape``, a BatchNormalization, a frozen one) on the card: a
+    train step and a grad step with ``remat=True`` give the ``False``
+    steps' parameters, statistics, metrics and gradients within 1e-6 of
+    scale and leave the card's generator where they leave it; K1-fwd runs
+    twice a remat step, K1-bwd once."""
+    from elephas_tpu_torch.models import KerasModelAdapter
+
+    text = _config_text("mnist_cnn_options.json")
+    x, y = _blobs(3 * 16)
+    L, B = 3, 16
+    out, counts = {}, {}
+    for remat in (False, True):
+        a = KerasModelAdapter(text, device=cuda)
+        tv, ntv = a.state_values()
+        stack = {k: v[None].expand((L,) + tuple(v.shape)).clone() for k, v in tv.items()}
+        nstack = {k: v[None].expand((L,) + tuple(v.shape)).clone() for k, v in ntv.items()}
+        xs = torch.from_numpy(x.reshape(L, B, 784)).to(cuda)
+        ys = torch.from_numpy(y.reshape(L, B, 10)).to(cuda)
+        sw = torch.ones(L, B, device=cuda)
+        opt = a.make_optimizer()
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        fused_xent_fwd.launches = fused_xent_bwd.launches = 0
+        tv2, ntv2, _, st = a.build_train_step(opt, remat)(
+            stack, nstack, opt.init(stack, count_shape=(L,)), xs, ys, sw, gen)
+        counts[remat] = (fused_xent_fwd.launches, fused_xent_bwd.launches)
+        grads, gntv, gst = a.build_grad_step(remat)(tv, nstack, xs, ys, sw, gen)
+        out[remat] = ([t.cpu() for t in (*tv2.values(), *ntv2.values(), *st, *grads.values(),
+                                         *gntv.values(), *gst)], gen.get_state())
+    assert counts == {False: (1, 1), True: (2, 1)}
+    for got, want in zip(out[True][0], out[False][0]):
+        assert (got - want).abs().max() <= 1e-6 * max(want.abs().max(), 1e-6)
+    assert torch.equal(out[True][1], out[False][1])
+
+
+def test_masked_gru_forward_on_card_matches_cpu(cuda):
+    """The committed masked GRU (``imdb_gru_masked.json``) on right-padded,
+    left-padded and holed id rows: ``predict`` on the card against the CPU
+    within 1e-5, and a train step's gradients within 1e-5 of scale."""
+    from elephas_tpu_torch.models import KerasModelAdapter
+
+    text = _config_text("imdb_gru_masked.json")
+    rng = np.random.default_rng(9)
+    x = rng.integers(1, 2000, size=(6, 80))
+    x[0, 30:], x[1, :50], x[2, 10:20] = 0, 0, 0
+    x = x.astype(np.float32)
+    y = rng.integers(0, 2, size=(6, 1)).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        a = KerasModelAdapter(text, device=dev)
+        grads = a.build_grad_step()(a.state_values()[0], {}, torch.from_numpy(x)[None].to(dev),
+                                    torch.from_numpy(y)[None].to(dev),
+                                    torch.ones(1, 6, device=dev), None)[0]
+        out[dev] = (a.predict(x), {k: g.cpu() for k, g in grads.items()})
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], atol=1e-5, rtol=1e-5)
+    for k, want in out["cpu"][1].items():
+        assert (out["cuda"][1][k] - want).abs().max() <= 1e-5 * max(want.abs().max(), 1e-6), k

@@ -188,5 +188,8 @@ def test_bad_schedules_raise():
         CompiledTrainer(adapter, mode="synchronous", frequency="batch", merge="sum")
     with pytest.raises(ValueError, match="No worker data"):
         CompiledTrainer(adapter).fit([], epochs=1, batch_size=8)
+    assert CompiledTrainer(adapter, remat=True).remat is True
+    inp = keras.Input((8,))
+    two_out = keras.Model(inp, [keras.layers.Dense(4)(inp), keras.layers.Dense(4)(inp)])
     with pytest.raises(NotImplementedError, match="item 13"):
-        CompiledTrainer(adapter, remat=True)
+        CompiledTrainer(KerasModelAdapter(two_out, device="cpu"))

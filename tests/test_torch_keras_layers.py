@@ -242,10 +242,10 @@ def test_committed_example_models_match_keras(name, make):
 @pytest.mark.parametrize("layer,shape,match", [
     (lambda: keras.layers.LSTM(2, dropout=0.1), (5, 3), "dropout"),
     (lambda: keras.layers.LSTM(2, recurrent_dropout=0.1), (5, 3), "recurrent_dropout"),
-    (lambda: keras.layers.LSTM(2, go_backwards=True), (5, 3), "go_backwards"),
-    (lambda: keras.layers.Conv2D(4, 3, groups=2), (6, 6, 4), "groups"),
-    (lambda: keras.layers.Conv1D(2, 3, data_format="channels_first"), (4, 6), "channels_first"),
-    (lambda: keras.layers.BatchNormalization(axis=1), (5, 4, 3), "axis"),
+    (lambda: keras.layers.LSTM(2, return_state=True), (5, 3), "return_state"),
+    (lambda: keras.layers.GRU(2, dropout=0.1), (5, 3), "dropout"),
+    (lambda: keras.layers.Dense(2, dtype="mixed_float16"), (4,), "mixed_float16"),
+    (lambda: keras.layers.SimpleRNN(2, recurrent_dropout=0.1), (5, 3), "recurrent_dropout"),
 ])
 def test_unported_layer_options_raise_naming_their_item(layer, shape, match):
     m = keras.Sequential([keras.layers.Input(shape), layer()])

@@ -1,0 +1,223 @@
+"""The recurrent layers and masks of the port's adapter
+(``elephas_tpu_torch/models/adapters.py``) against Keras's own: GRU with
+and without ``reset_after``, SimpleRNN, ``go_backwards`` on LSTM, GRU and
+SimpleRNN, and an ``Embedding(mask_zero=True)`` mask consumed by each
+(through Dropout, stacked, ``zero_output_for_mask``), forward against
+``model.predict`` and each returned sequence against Keras's own
+intermediate output; the masks the port refuses (reaching a layer that
+does not consume them, or the loss); a masked GRU's 2-worker synchronous
+fit against ``elephas_tpu.SparkModel``'s; the committed
+``configs/imdb_gru_masked.json`` against its builder.
+
+Ids and inputs come from numpy with a seed, zeros (masked steps) at the
+end, the start and inside the sequences; the weights are Keras's, drawn
+anew and read by the port through ``get_weights()``. Tolerance: atol =
+rtol = 1e-5, float32 on both sides.
+"""
+
+from . import _torch_threads  # noqa: F401  (two intra-op threads a process)
+import json
+from pathlib import Path
+
+import keras
+import numpy as np
+import pytest
+import torch
+
+from elephas_tpu import SparkModel as JSparkModel
+from elephas_tpu.data import SparkContext as JSparkContext
+from elephas_tpu.utils import to_simple_rdd as j_to_simple_rdd
+from elephas_tpu_torch import SparkModel
+from elephas_tpu_torch.data import SparkContext
+from elephas_tpu_torch.models import KerasModelAdapter
+from elephas_tpu_torch.parallel import engine as port_engine
+from elephas_tpu_torch.utils import to_simple_rdd
+
+from .test_torch_functional import _randomise, assert_same_fit, jax_permutation
+
+ROOT = Path(__file__).resolve().parents[1]
+CONFIGS = ROOT / "elephas_tpu_torch" / "configs"
+TOL = 1e-5
+L = keras.layers
+
+
+def _seq(layers, input_shape, x):
+    keras.utils.set_random_seed(0)
+    m = keras.Sequential([keras.Input(input_shape)] + layers)
+    _randomise(m)
+    want = m.predict(x, verbose=0)
+    adapter = KerasModelAdapter(m, device="cpu")
+    got = adapter.predict(x, batch_size=len(x))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
+    return m, adapter
+
+
+def _steps(n=5, t=8, d=3, seed=6):
+    return np.random.default_rng(seed).normal(size=(n, t, d)).astype("float32")
+
+
+def ids(n=6, t=9, vocab=12, seed=3):
+    """Ids in [1, vocab) with zeros: a right-padded row, a left-padded one,
+    one with a hole, an all-zero row and rows without zeros."""
+    x = np.random.default_rng(seed).integers(1, vocab, size=(n, t))
+    x[0, 5:] = 0
+    x[1, :3] = 0
+    x[2, 4] = 0
+    x[3] = 0
+    return x.astype("float64")
+
+
+GRU = [dict(), dict(reset_after=False), dict(use_bias=False),
+       dict(reset_after=False, use_bias=False),
+       dict(activation="relu", recurrent_activation="hard_sigmoid")]
+
+
+@pytest.mark.parametrize("return_sequences", [False, True])
+@pytest.mark.parametrize("kw", GRU, ids=str)
+def test_gru_matches_keras(return_sequences, kw):
+    """Gates z, r, h; ``reset_after`` (the default: bias ``[2, 3u]``, the
+    reset gate on the recurrent projection) and without it (``[3u]``, the
+    reset gate on the state before the projection)."""
+    _, adapter = _seq([L.GRU(4, return_sequences=return_sequences, **kw)], (8, 3), _steps())
+    if kw.get("use_bias", True):
+        want = (2, 12) if kw.get("reset_after", True) else (12,)
+        assert adapter.get_weights()[-1].shape == want
+
+
+@pytest.mark.parametrize("return_sequences", [False, True])
+@pytest.mark.parametrize("kw", [dict(), dict(use_bias=False), dict(activation="relu")],
+                         ids=str)
+def test_simple_rnn_matches_keras(return_sequences, kw):
+    _seq([L.SimpleRNN(4, return_sequences=return_sequences, **kw)], (8, 3), _steps())
+
+
+@pytest.mark.parametrize("return_sequences", [False, True])
+@pytest.mark.parametrize("cls", ["LSTM", "GRU", "SimpleRNN"])
+def test_go_backwards_matches_keras(cls, return_sequences):
+    """The sequence read from its end; the returned sequence in the order
+    the steps ran (Keras does not flip it back)."""
+    _seq([getattr(L, cls)(4, go_backwards=True, return_sequences=return_sequences)], (8, 3),
+         _steps())
+
+
+MASKED = [(cls, back) for cls in ("LSTM", "GRU", "SimpleRNN") for back in (False, True)]
+
+
+@pytest.mark.parametrize("cls,go_backwards", MASKED,
+                         ids=[f"{c}-{'back' if b else 'fwd'}" for c, b in MASKED])
+def test_masked_recurrent_matches_keras(cls, go_backwards):
+    """``Embedding(mask_zero=True)``, Dropout (which hands the mask on), a
+    masked layer returning its sequence, a second masked layer, a Dense:
+    a masked step keeps the state and repeats the previous output. The
+    first layer's sequence is held to Keras's own output of that layer."""
+    layer = getattr(L, cls)
+    x = ids()
+    m, adapter = _seq([L.Embedding(12, 5, mask_zero=True), L.Dropout(0.3),
+                       layer(4, return_sequences=True, go_backwards=go_backwards),
+                       layer(3, go_backwards=go_backwards), L.Dense(2)], (9,), x)
+    want = keras.Model(m.inputs, m.layers[2].output).predict(x, verbose=0)
+    tv, ntv = adapter.state_values()
+    p = {k: v[None] for k, v in {**tv, **ntv}.items()}
+    h = torch.from_numpy(x.astype(np.float32))[None]
+    emb, _, rnn = adapter.layers[:3]
+    with torch.no_grad():
+        got = rnn(p, emb(p, h, False, None, None), False, None, None,
+                  mask=emb.compute_mask(h))
+    np.testing.assert_allclose(got[0].numpy(), want, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("cls", ["GRU", "SimpleRNN"])
+def test_zero_output_for_mask_matches_keras(cls):
+    """``zero_output_for_mask=True``: a masked step outputs zeros, the state
+    still carried."""
+    x = ids(seed=4)
+    m, adapter = _seq([L.Embedding(12, 5, mask_zero=True),
+                       getattr(L, cls)(4, return_sequences=True, zero_output_for_mask=True),
+                       L.GRU(3)], (9,), x)
+    want = keras.Model(m.inputs, m.layers[1].output).predict(x, verbose=0)
+    assert (want[0, 5:] == 0).all()
+    tv, _ = adapter.state_values()
+    p = {k: v[None] for k, v in tv.items()}
+    h = torch.from_numpy(x.astype(np.float32))[None]
+    emb, rnn = adapter.layers[:2]
+    with torch.no_grad():
+        got = rnn(p, emb(p, h, False, None, None), False, None, None,
+                  mask=emb.compute_mask(h))
+    np.testing.assert_allclose(got[0].numpy(), want, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("layers,match", [
+    (lambda: [L.Embedding(12, 4, mask_zero=True), L.GRU(3, return_sequences=True)],
+     "the loss"),
+    (lambda: [L.Embedding(12, 4, mask_zero=True), L.GRU(3, return_sequences=True),
+              L.Dense(2)], "Dense"),
+    (lambda: [L.Embedding(12, 4, mask_zero=True), L.GlobalAveragePooling1D()],
+     "GlobalAveragePooling1D"),
+    (lambda: [L.GRU(3, stateful=True)], "stateful"),
+])
+def test_masks_and_options_still_queued_raise(layers, match):
+    """A mask reaching the loss or a layer that does not consume it, and
+    the recurrent options still queued, raise naming item 13."""
+    shape = (9, 3) if match == "stateful" else (9,)
+    m = keras.Sequential([keras.Input(shape, batch_size=4)] + layers())
+    with pytest.raises(NotImplementedError, match=match) as err:
+        KerasModelAdapter(m, device="cpu")
+    assert "item 13" in str(err.value)
+
+
+def imdb_gru_masked(vocab=2000, maxlen=80, units=32):
+    """``examples/ml_pipeline_imdb_lstm.py``'s model with a GRU in place of
+    its LSTM and a mask on the ids' zeros."""
+    keras.utils.set_random_seed(0)
+    m = keras.Sequential([L.Embedding(vocab, units, mask_zero=True), L.GRU(units),
+                          L.Dense(1, activation="sigmoid")])
+    m.build((None, maxlen))
+    m.compile(optimizer="adam", loss="binary_crossentropy", metrics=["accuracy"])
+    return m
+
+
+def padded_ids(n, vocab, maxlen, seed=0):
+    """Sequences of random lengths in [maxlen / 4, maxlen], right-padded with
+    zeros, labelled by whether their mean id is under ``vocab / 2``."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(1, vocab, size=(n, maxlen))
+    lengths = rng.integers(maxlen // 4, maxlen + 1, size=n)
+    x[np.arange(maxlen)[None, :] >= lengths[:, None]] = 0
+    y = np.array([x[i, :lengths[i]].mean() < vocab / 2 for i in range(n)], np.float32)
+    return x.astype(np.float64), y[:, None]
+
+
+def test_masked_gru_fit_matches_jax_spark_model(monkeypatch):
+    """2 workers, synchronous, epoch frequency, 2 epochs, validation 0.25:
+    the port's ``SparkModel`` against ``elephas_tpu.SparkModel`` with the
+    JAX engine's order put in."""
+    monkeypatch.setattr(port_engine, "epoch_permutation", jax_permutation)
+    x, y = padded_ids(64, 30, 12)
+    kw = dict(mode="synchronous", parameter_server_mode="jax", num_workers=2)
+    fit = dict(epochs=2, batch_size=8, validation_split=0.25)
+    jsm = JSparkModel(imdb_gru_masked(30, 12, 8), **kw)
+    jsm.fit(j_to_simple_rdd(JSparkContext("local[2]"), x, y), **fit)
+    tsm = SparkModel(imdb_gru_masked(30, 12, 8), device="cpu", **kw)
+    tsm.fit(to_simple_rdd(SparkContext("local[2]"), x, y), **fit)
+    assert_same_fit(tsm, jsm)
+
+
+def test_committed_imdb_gru_masked_matches_keras():
+    """The committed JSON is :func:`imdb_gru_masked`'s model (layers,
+    options, loss); read with Keras's weights its forward is Keras's on
+    padded ids."""
+    m = imdb_gru_masked()
+    committed = json.loads((CONFIGS / "imdb_gru_masked.json").read_text())
+    strip = lambda arch: [(layer["class_name"], {  # noqa: E731
+        k: v for k, v in layer["config"].items() if k not in ("name", "dtype")
+        and "initializer" not in k}) for layer in arch["config"]["layers"]]
+    arch = json.loads(m.to_json())
+    assert strip(committed) == strip(arch)
+    assert committed["compile_config"]["loss"] == arch["compile_config"]["loss"]
+    _randomise(m)
+    x, _ = padded_ids(8, 2000, 80, seed=2)
+    adapter = KerasModelAdapter((CONFIGS / "imdb_gru_masked.json").read_text(),
+                                weights=m.get_weights(), device="cpu")
+    np.testing.assert_allclose(adapter.predict(x, batch_size=8), m.predict(x, verbose=0),
+                               atol=TOL, rtol=TOL)

@@ -147,9 +147,11 @@ def test_slot_cache_takes_a_cache_made_elsewhere():
 
 def test_adapter_steps_take_remat_in_place():
     """``build_train_step(optimizer, remat)`` and ``build_grad_step(remat)``
-    by position: ``False`` builds the step; ``True`` raises as
-    ``CompiledTrainer(remat=True)`` does, naming its ROADMAP item."""
+    by position: both build with ``False`` and with ``True`` (the
+    reference's ``jax.checkpoint`` switch, ``torch.utils.checkpoint`` in
+    the port), and the ``True`` steps run."""
     import keras
+    import torch
 
     from elephas_tpu_torch.models.optimizers import to_torch_optimizer
 
@@ -158,12 +160,17 @@ def test_adapter_steps_take_remat_in_place():
     m.compile("sgd", "mse")
     adapter = ta.KerasModelAdapter(m, device="cpu")
     opt = to_torch_optimizer({"class_name": "SGD", "config": {"learning_rate": 0.1}})
-    assert callable(adapter.build_train_step(opt, False))
-    assert callable(adapter.build_grad_step(False))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        adapter.build_train_step(opt, True)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        adapter.build_grad_step(True)
+    for remat in (False, True):
+        assert callable(adapter.build_train_step(opt, remat))
+        assert callable(adapter.build_grad_step(remat))
+    tv, ntv = adapter.state_values()
+    x, y, sw = torch.ones(1, 2, 8), torch.zeros(1, 2, 4), torch.ones(1, 2)
+    grads, _, stats = adapter.build_grad_step(True)(tv, ntv, x, y, sw, None)
+    assert set(grads) == set(tv) and float(stats[2].sum()) == 2.0
+    stack = {k: v[None] for k, v in tv.items()}
+    tv2, _, _, _ = adapter.build_train_step(opt, True)(
+        stack, {}, opt.init(stack, count_shape=(1,)), x, y, sw, None)
+    assert set(tv2) == set(tv)
 
 
 STATE = ["state_values", "weights_to_state", "state_to_weights", "install_state"]

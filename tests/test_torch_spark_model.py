@@ -354,15 +354,16 @@ def test_unported_calls_raise(tmp_path):
 
 
 @pytest.mark.parametrize("layers,match", [
-    (lambda: [keras.layers.GRU(2)], "GRU"),
-    (lambda: [keras.layers.Embedding(10, 2, mask_zero=True)], "mask_zero"),
-    (lambda: [keras.layers.Dense(4), keras.layers.Dropout(0.5, noise_shape=(None, 1))],
-     "noise_shape"),
+    (lambda: [keras.layers.LSTM(2, return_state=True)], "return_state"),
+    (lambda: [keras.layers.Embedding(10, 2, mask_zero=True), keras.layers.Flatten(),
+              keras.layers.Dense(2)], "mask_zero"),
+    (lambda: [keras.layers.Dense(4), keras.layers.Dense(2, dtype="mixed_float16")],
+     "mixed_float16"),
     (lambda: [keras.layers.Dense(4, activation="relu6"),
               keras.layers.Activation(keras.activations.celu)], "celu"),
 ])
 def test_unported_layers_raise_naming_their_item(layers, match):
-    m = keras.Sequential([keras.layers.Input((8, 3)) if match == "GRU"
+    m = keras.Sequential([keras.layers.Input((8, 3)) if match == "return_state"
                           else keras.layers.Input((8,))] + layers())
     with pytest.raises(NotImplementedError, match=match) as err:
         KerasModelAdapter(m, device="cpu")
@@ -370,10 +371,18 @@ def test_unported_layers_raise_naming_their_item(layers, match):
 
 
 def test_functional_models_and_meshes_raise():
+    """A Functional model of two outputs, and one nested as a layer, wait
+    for item 13 (one input and one output are ported); meshes for item 6."""
     inp = keras.Input((4,))
-    functional = keras.Model(inp, keras.layers.Dense(2)(inp))
-    with pytest.raises(NotImplementedError, match="Functional"):
-        KerasModelAdapter(functional, device="cpu")
+    two_out = keras.Model(inp, [keras.layers.Dense(2)(inp), keras.layers.Dense(3)(inp)])
+    with pytest.raises(NotImplementedError, match="2 outputs") as err:
+        KerasModelAdapter(two_out, device="cpu")
+    assert "item 13" in str(err.value)
+    inner = keras.Sequential([keras.layers.Dense(3)])
+    nested = keras.Model(inp, keras.layers.Dense(2)(inner(inp)))
+    with pytest.raises(NotImplementedError, match="nested") as err:
+        KerasModelAdapter(nested, device="cpu")
+    assert "item 13" in str(err.value)
     with pytest.raises(NotImplementedError, match="item 6"):
         build_mesh(devices=["cpu", "cpu"])
     with pytest.raises(NotImplementedError, match="item 6"):
