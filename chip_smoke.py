@@ -316,11 +316,32 @@ non-zero:
     distance to the float64 step.
 32c. ``fit_recurrent``: the IMDB model with a masked GRU (4096 padded
     sequences, 4 workers, 2 epochs), no kernel launched, then card against
-    CPU.
+    CPU; then the IMDB LSTM with ``dropout`` and ``recurrent_dropout`` 0.2:
+    a falling loss, and its inference equal to the dropout-free forward
+    from the same weights.
 32d. ``fit_options``: an MNIST-shaped CNN with conv ``groups``,
     channels_first, BatchNormalization on axis 1, a frozen one and
     ``Dropout(noise_shape)``: exact K1 counts, the frozen arrays unchanged,
     then card against CPU.
+32e. ``kernel`` ``fused_xent_fp16``: K1-fwd and K1-bwd on float16 logits
+    against their plain versions (dx within one fp16 ulp of each element)
+    at the mixed fits' shapes and [4096, 50257], timed beside the plain versions and ``F.cross_entropy`` in
+    float16, with the bound in bytes.
+32f. ``fit_mixed``: ResNet-50 under ``mixed_bfloat16`` (batch 16, 1 epoch
+    on 1024 images at 1 worker and at 4) and the MNIST MLP under
+    ``mixed_float16`` (4 workers): exact K1 counts, each launch on bf16
+    (fp16) logits, no other kernel; ms a step and peak memory beside
+    ``fit_resnet``'s float32 figures; a profiled epoch of each ResNet-50
+    config at 1 worker.
+32g. ``fit_mixed_cross_check``: one mixed_bfloat16 ResNet-50 step and a
+    mixed_float16 MLP fit, card against CPU by their updates: the loss at
+    the bf16 pin 2e-2, the moved statistics against the CPU's
+    bf16-to-float32 distance, the trained arrays' norms, the MLP's
+    updates within 2e-2 of their scale.
+32h. ``fit_losses_metrics``: compiled MLP fits with ``KLDivergence()``
+    and ``"poisson"``, Keras ``evaluate`` with three metrics, and a host
+    fit with ``class_weight``, a patience callback and ``validation_freq``,
+    each against the CPU.
 33. ``ml_mlp``: ``examples/ml_mlp.py`` through the port without Keras: a
     DataFrame of 8192 MNIST-shaped rows, ``ElephasEstimator`` over the
     committed logits-head JSON (8 workers, synchronous, batch 64, 3 epochs,
@@ -5579,7 +5600,7 @@ def fit_resnet(card):
     emit({"phase": "fit_resnet", "config": RESNET_JSON, "batch": B, "epochs": E,
           "profiled_rows": c["profiled_rows"], "fits": runs, "fit_peak_bytes": peaks,
           "k1_at_fit_shapes": shapes, "card": card})
-    return main_counts, shapes
+    return main_counts, shapes, runs
 
 
 def _resnet_weights(seed: int):
@@ -5737,10 +5758,52 @@ def fit_recurrent(card):
                                                      num_slices=W), E, B, 0.0, S, Sv, k1=False)
     xc, yc = padded_ids(512, c["vocab"], c["maxlen"], seed=1)
     check = _layers_cross_check("fit_recurrent cross-check", GRU_JSON, xc, yc, 4, B)
+    dropout = _lstm_dropout_fit(c)
     emit({"phase": "fit_recurrent", "config": GRU_JSON, **c, "steps_per_epoch": S,
           "fit_s": wall, "ms_per_step": wall * 1e3 / (E * S),
           "samples_per_s": W * (c["samples"] // W) * E / wall, "history": hist,
-          "cross_check": check, "card": card})
+          "cross_check": check, "lstm_dropout": dropout, "card": card})
+
+
+def _lstm_dropout_fit(c, samples=2048, rate=0.2):
+    """The IMDB LSTM (the committed config) with ``dropout`` and
+    ``recurrent_dropout`` 0.2 (Keras's implementation 1: a mask a gate,
+    fixed over the 80 steps): a 4-worker synchronous fit of 2 epochs on
+    2048 sequences, batch 32, with a falling loss and no kernel; then its
+    inference against the dropout-free config's forward from the same
+    weights, within rtol 1e-5 (the per-gate projections sum in another
+    grouping)."""
+    from elephas_tpu_torch import SparkModel
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.models import KerasModelAdapter
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    with open(LSTM_JSON) as f:
+        plain = f.read()
+    cfg = json.loads(plain)
+    lstm = next(l for l in cfg["config"]["layers"] if l["class_name"] == "LSTM")
+    lstm["config"].update(dropout=rate, recurrent_dropout=rate)
+    text = json.dumps(cfg)
+    x, y = imdb_like(samples, c["vocab"], c["maxlen"], seed=2)
+    W, E, B = c["workers"], c["epochs"], c["batch"]
+    S, Sv = _mlp_steps(samples, W, B, 0.0)
+    sm = SparkModel(text, device="cuda", mode="synchronous", num_workers=W)
+    require(sm.master_network.layers[1].per_gate, "fit_recurrent: the LSTM's dropout "
+                                                  "does not run a mask a gate")
+    wall, _, hist = _compiled_fit("fit_recurrent lstm dropout", sm,
+                                  to_simple_rdd(SparkContext(f"local[{W}]"), x, y,
+                                                num_slices=W), E, B, 0.0, S, Sv, k1=False)
+    weights = sm.master_network.get_weights()
+    got = sm.master_network.predict(x[:256], batch_size=64)
+    want = KerasModelAdapter(plain, weights=weights, device="cuda").predict(x[:256],
+                                                                           batch_size=64)
+    err = float(np.abs(got - want).max() / max(float(np.abs(want).max()), 1e-6))
+    require(err <= 1e-5, f"fit_recurrent lstm dropout: inference differs from the "
+                         f"dropout-free forward by {err} of scale")
+    return {"config": LSTM_JSON, "dropout": rate, "recurrent_dropout": rate,
+            "samples": samples, "steps_per_epoch": S, "fit_s": wall,
+            "ms_per_step": wall * 1e3 / (E * S), "history": hist,
+            "inference_rel_err": err}
 
 
 def fit_options(card):
@@ -5775,6 +5838,573 @@ def fit_options(card):
           "launches": {k: v for k, v in counts.items() if v}, "moved": moved,
           "cross_check": check, "card": card})
     return counts
+
+
+# -- phases 32a to 32e: mixed precision, Keras losses, metrics and fit options --
+
+RESNET_MIXED_JSON = "elephas_tpu_torch/configs/resnet50_logits_mixed_bf16.json"
+MLP_MIXED_JSON = "elephas_tpu_torch/configs/mnist_mlp_logits_mixed_f16.json"
+# ResNet-50 under mixed_bfloat16 at fit_resnet's batch on 1024 images, 1 epoch,
+# at 1 worker and at 4; the MLP under mixed_float16 at ml_mlp's batch, 4
+# workers; the loss and metric fits at fit_options' scale
+MIXED_FIT = dict(resnet_fits=((1, 1024), (4, 1024)), batch=16, epochs=1, profiled_rows=64,
+                 mlp_samples=16384, mlp_batch=64, mlp_workers=4, mlp_epochs=2)
+LOSSES_FIT = dict(samples=8192, batch=64, workers=4, epochs=2, eval_rows=1000,
+                  host_samples=2048, host_batch=128, host_epochs=6)
+BF16_PIN = 2e-2
+K1_FP16_SHAPES = (("resnet_w1", 16, 10), ("mlp_w4", 256, 10), ("resnet_w4", 64, 10),
+                  ("wide", 4096, 50257))
+
+
+def check_fused_xent_fp16(card):
+    """K1-fwd and K1-bwd on float16 logits (new in this slice) against their
+    plain versions: the loss within atol = rtol = 1e-5 (float32 sums in
+    another order), dx within one fp16 ulp of each element (rtol 2**-10,
+    atol 2**-24, the subnormals' step: both round nearly the same float32
+    value; at [4096, 50257] most of dx is subnormal), each run twice for the same bits,
+    at the mixed fits' shapes ([16, 10] for ResNet-50 at one worker, [64,
+    10] at four, [256, 10] for the MLP's four workers) and at [4096,
+    50257]; timed beside the plain versions and ``F.cross_entropy`` on
+    float16 logits and probability targets (and its autograd backward),
+    with the bound in bytes: the forward reads 2 + 4 bytes an element and
+    writes 4 a row, the backward reads 2 + 4 and writes 2 an element."""
+    from elephas_tpu_torch.ops.fused_xent import (ROUTES, _vec_max, fused_xent_bwd,
+                                                  fused_xent_bwd_reference, fused_xent_fwd,
+                                                  fused_xent_fwd_reference, xent_plan)
+
+    F = torch.nn.functional
+    gen = np.random.default_rng(SEED + 60)
+    f16 = torch.float16
+    out, worst, rows = {"fwd": [], "bwd": []}, {"fwd": 0.0, "bwd": 0.0}, {}
+    for name, B, C in K1_FP16_SHAPES:
+        sets = [_xent_inputs(gen, B, C, f16)]
+        sets += [_xent_inputs(gen, B, C, f16)
+                 for _ in range(l2_sets(sum(t.nbytes for t in sets[0])) - 1)]
+        lib_sets = [(xi, yi.to(f16), gi) for xi, yi, gi in sets]
+        x, y, g = sets[0]
+        plan = xent_plan(C, 2, _vec_max(x, y))
+        fwd, bwd = fused_xent_fwd(x, y), fused_xent_bwd(x, y, g)
+        same = torch.equal(fwd, fused_xent_fwd(x, y)) and \
+            torch.equal(bwd, fused_xent_bwd(x, y, g))
+        require(bwd.dtype == f16 and fwd.dtype == torch.float32,
+                f"fused_xent fp16 {name}: dtypes {fwd.dtype}, {bwd.dtype}")
+        err_f, ok_f = _allclose_err(fwd, fused_xent_fwd_reference(x, y), 1e-5)
+        want_b = fused_xent_bwd_reference(x, y, g).double()
+        diff_b = (bwd.double() - want_b).abs()
+        err_b = float(diff_b.max())
+        ok_b = bool((diff_b <= 2.0 ** -24 + 2.0 ** -10 * want_b.abs()).all())
+        require(bool(torch.isfinite(fwd).all() and torch.isfinite(bwd.float()).all()),
+                f"fused_xent fp16 {name}: not finite")
+        require(ok_f and float(fwd[0]) == 0.0,
+                f"fused_xent_fwd fp16 {name}: max abs err {err_f} beyond 1e-5")
+        require(ok_b, f"fused_xent_bwd fp16 {name}: max abs err {err_b}, an element "
+                      f"beyond one fp16 ulp (2**-24 + 2**-10 |dx|)")
+        require(same, f"fused_xent fp16 {name}: a second run gave other bits")
+        worst["fwd"], worst["bwd"] = max(worst["fwd"], err_f), max(worst["bwd"], err_b)
+        n_iter = 200 if B * C < 1e6 else 20
+        f_ms = device_ms(lambda x, y, g: fused_xent_fwd(x, y), sets, n_iter)
+        f_plain = device_ms(lambda x, y, g: fused_xent_fwd_reference(x, y), sets, n_iter)
+        f_lib = device_ms(lambda x, y, g: F.cross_entropy(x, y, reduction="none"), lib_sets,
+                          n_iter)
+        b_ms = device_ms(fused_xent_bwd, sets, n_iter)
+        b_plain = device_ms(fused_xent_bwd_reference, sets, n_iter)
+        graphs = []
+        for xi, yi, gi in lib_sets:
+            xl = xi.detach().requires_grad_()
+            graphs.append((F.cross_entropy(xl, yi, reduction="none"), xl, gi))
+        b_lib = device_ms(lambda o, xl, gi: torch.autograd.grad(o, xl, gi, retain_graph=True),
+                          graphs, n_iter)
+        del graphs
+        fb, fby = bound_ms(B * C * (2 + 4) + 4 * B, 5 * B * C)
+        bb, bby = bound_ms(B * C * (2 * 2 + 4) + 4 * B, 6 * B * C)
+        route = {"route": ROUTES[plan[0]], "vec": plan[1], "cluster": plan[2],
+                 "slice": plan[3], "sets": len(sets)}
+        for kind, ms, plain, lib, bms, by, err in (
+                ("fwd", f_ms, f_plain, f_lib, fb, fby, err_f),
+                ("bwd", b_ms, b_plain, b_lib, bb, bby, err_b)):
+            out[kind].append({"case": name, "shape": [B, C], "dtype": "float16", **route,
+                              "max_abs_err": err, "same_bits": same, "ms": ms,
+                              "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
+                              "bound_by": by, "bound_share": bms / ms})
+            if name == "mlp_w4":
+                rows[kind] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                              "bound_ms": bms, "bound_by": by}
+        del sets, lib_sets, x, y, g, fwd, bwd
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel", "kernel": "fused_xent_fp16", "fwd": out["fwd"],
+          "bwd": out["bwd"], "card": card})
+    lines = {"fwd": ("fused_xent_fwd", "elephas_tpu/ops/pallas_ops.py:99",
+                     "F.cross_entropy(x, y, reduction='none') on float16 logits and "
+                     "probability targets"),
+             "bwd": ("fused_xent_bwd", "elephas_tpu/ops/pallas_ops.py:113",
+                     "autograd backward of that F.cross_entropy")}
+    return [{"name": lines[k][0] + "_fp16", "counter": lines[k][0], "route": "cuda",
+             "source": "elephas_tpu_torch/ops/csrc/fused_xent.cu", "replaces": lines[k][1],
+             "max_abs_err": worst[k], **rows[k], "library": lines[k][2],
+             "timed_shape": [256, 10], "logits_dtype": "float16",
+             "shapes": out[k]} for k in ("fwd", "bwd")]
+
+
+class _K1Dtypes:
+    """Inside a ``with``: the logits dtype of every K1 launch, by wrapper
+    (``fused_xent_fwd`` / ``fused_xent_bwd``), counted as the wrapper counts
+    its launches (``_launch`` is where it launches)."""
+
+    def __enter__(self):
+        from elephas_tpu_torch.ops import fused_xent as X
+
+        self.X, self.real, self.seen = X, X._launch, {}
+
+        def launch(entry, x, *args, **kw):
+            key = (entry, str(x.dtype).removeprefix("torch."))
+            self.seen[key] = self.seen.get(key, 0) + 1
+            return self.real(entry, x, *args, **kw)
+
+        X._launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        self.X._launch = self.real
+
+    def by_dtype(self):
+        return {f"{e}:{d}": n for (e, d), n in sorted(self.seen.items())}
+
+
+def _mixed_fit(what, sm, rdd, E, B, S, dtype, falls=True):
+    """A compiled fit with the counters set to 0 just before and read just
+    after: finite losses (falling, with ``falls``), exactly E S launches of
+    each K1 wrapper, every one on ``dtype`` logits, no other kernel;
+    ``(wall s, counts, history, dtypes, peak bytes over the start)``."""
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters()
+    with _K1Dtypes() as seen:
+        t0 = time.perf_counter()
+        sm.fit(rdd, epochs=E, batch_size=B, validation_split=0.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = _read_counters()
+    peak = torch.cuda.max_memory_allocated() - before
+    hist = sm.training_histories[-1]
+    require(all(np.isfinite(v).all() for v in hist.values()), f"{what}: non-finite {hist}")
+    if falls:
+        require(hist["loss"][-1] < hist["loss"][0], f"{what}: loss did not fall: {hist}")
+    for name in ("fused_xent_fwd", "fused_xent_bwd"):
+        require(counts[name] == E * S, f"{what}: {name} launched {counts[name]} times, "
+                                       f"want {E * S} (E {E}, S {S})")
+    want = {f"fused_xent_fwd:{dtype}": E * S, f"fused_xent_bwd:{dtype}": E * S}
+    require(seen.by_dtype() == want, f"{what}: K1 launches by dtype {seen.by_dtype()}, "
+                                     f"want {want}")
+    others = {k: v for k, v in counts.items() if not k.startswith("fused_xent") and v}
+    require(not others, f"{what}: other kernels launched: {others}")
+    return wall, counts, hist, seen.by_dtype(), peak
+
+
+def _per_epoch_loss(sm, rdd, E, B):
+    """The losses of E one-epoch fits, each from where the last left off."""
+    out = []
+    for _ in range(E):
+        sm.fit(rdd, epochs=1, batch_size=B, validation_split=0.0)
+        out.append(sm.training_histories[-1]["loss"][0])
+    return out
+
+
+def _mlp_mixed_text(dropout=True):
+    with open(MLP_MIXED_JSON) as f:
+        cfg = json.load(f)
+    if not dropout:
+        for layer in cfg["config"]["layers"]:
+            if layer["class_name"] == "Dropout":
+                layer["config"]["rate"] = 0.0
+    return json.dumps(cfg)
+
+
+def fit_mixed(card, resnet_f32_runs):
+    """ResNet-50 under ``mixed_bfloat16`` (the committed config) through
+    ``SparkModel(json, mode="synchronous")``: batch 16, 1 epoch on 1024
+    images at 1 worker and at 4; then the MNIST MLP under ``mixed_float16``
+    at 4 workers, batch 64, 2 epochs on 16384 samples (its compiled path
+    runs the reference's SGD fall-back at 0.001 without loss scaling, since
+    Keras wraps its Adam in a LossScaleOptimizer: its loss falls slowly and
+    is judged against the CPU in ``fit_mixed_cross_check``). Each: finite
+    losses, falling for ResNet-50; exactly E S K1 launches each way, every
+    one on bf16 (fp16) logits; no other kernel; ms a step, samples/s and
+    the fit's peak memory beside ``fit_resnet``'s float32 figures; one
+    profiled epoch of 64 rows at 1 worker of the bf16 config and of the
+    float32 one (device ms a step, busy share, the kernels that take the
+    most)."""
+    from elephas_tpu_torch import SparkModel
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    c = MIXED_FIT
+    x, y = cifar_like(max(n for _, n in c["resnet_fits"]))
+    E, B = c["epochs"], c["batch"]
+    f32 = {r["workers"]: r for r in resnet_f32_runs if not r["remat"]}
+    for W, _ in c["resnet_fits"]:                   # warm-up at each width
+        sm = _json_model(RESNET_MIXED_JSON, mode="synchronous", num_workers=W)
+        sm.fit(to_simple_rdd(SparkContext(f"local[{W}]"), x[:2 * B * W], y[:2 * B * W],
+                             num_slices=W), epochs=1, batch_size=B, validation_split=0.0)
+    runs, counts_main = [], None
+    for W, n in c["resnet_fits"]:
+        rdd = to_simple_rdd(SparkContext(f"local[{W}]"), x[:n], y[:n], num_slices=W)
+        S, _ = _mlp_steps(n, W, B, 0.0)
+        sm = _json_model(RESNET_MIXED_JSON, mode="synchronous", frequency="epoch",
+                         parameter_server_mode="jax", num_workers=W)
+        require(sm.master_network.layers[1].dtype == torch.bfloat16,
+                "fit_mixed: the ResNet's convolutions do not compute in bf16")
+        wall, counts, hist, dtypes, peak = _mixed_fit(
+            f"fit_mixed resnet50 W{W}", sm, rdd, E, B, S, "bfloat16", falls=False)
+        hist = dict(hist)
+        if W == 1:
+            counts_main = counts
+        ms = wall * 1e3 / (E * S)
+        ref = f32.get(W, {})
+        runs.append({"model": "resnet50_mixed_bfloat16", "workers": W, "samples": n,
+                     "steps_per_epoch": S, "fit_s": wall, "ms_per_step": ms,
+                     "samples_per_s": W * (n // W) * E / wall, "history": hist,
+                     "k1_by_dtype": dtypes, "fit_peak_bytes": peak,
+                     "float32_ms_per_step": ref.get("ms_per_step"),
+                     "float32_fit_peak_bytes": ref.get("fit_peak_bytes"),
+                     "bf16_over_f32_step": ms / ref["ms_per_step"] if ref else None})
+        # a second epoch from the fitted weights: at 1 worker (plain SGD) its
+        # loss falls below the first's; at 4 (16 steps a replica between
+        # merges) the float32 config runs the same two epochs beside it
+        before = hist["loss"][0]
+        after = _per_epoch_loss(sm, rdd, 1, B)[0]
+        require(np.isfinite(after) and (W > 1 or after < before),
+                f"fit_mixed resnet50 W{W}: loss {before} then {after}")
+        runs[-1]["second_epoch_loss"] = after
+        del sm
+        torch.cuda.empty_cache()
+        if W > 1:
+            f32_sm = _json_model(RESNET_JSON, mode="synchronous", frequency="epoch",
+                                 parameter_server_mode="jax", num_workers=W)
+            runs[-1]["float32_same_schedule_losses"] = _per_epoch_loss(f32_sm, rdd, 2, B)
+            del f32_sm
+            torch.cuda.empty_cache()
+    # where a step's time goes: one epoch over 64 rows at 1 worker under the
+    # profiler, the bf16 config and the float32 one in the same process
+    rows = c["profiled_rows"]
+    part = to_simple_rdd(SparkContext("local[1]"), x[:rows], y[:rows], num_slices=1)
+    profiles = {}
+    for label, path in (("mixed_bfloat16", RESNET_MIXED_JSON), ("float32", RESNET_JSON)):
+        psm = _json_model(path, mode="synchronous", frequency="epoch",
+                          parameter_server_mode="jax", num_workers=1)
+        psm.fit(part, epochs=1, batch_size=B, validation_split=0.0)
+        prof = profiled(lambda: psm.fit(part, epochs=1, batch_size=B, validation_split=0.0),
+                        1, top_n=8)
+        steps = rows // B
+        profiles[label] = {**prof, "steps": steps,
+                           "wall_ms_per_train_step": prof["wall_ms_per_step"] / steps,
+                           "device_ms_per_train_step": prof["device_ms_per_step"] / steps}
+        del psm
+        torch.cuda.empty_cache()
+    (xm, ym), _ = mnist_like(c["mlp_samples"], 0)
+    W, Bm, Em = c["mlp_workers"], c["mlp_batch"], c["mlp_epochs"]
+    S, _ = _mlp_steps(c["mlp_samples"], W, Bm, 0.0)
+    rdd = to_simple_rdd(SparkContext(f"local[{W}]"), xm, ym, num_slices=W)
+    warm = SparkModel(_mlp_mixed_text(), device="cuda", mode="synchronous", num_workers=W)
+    warm.fit(to_simple_rdd(SparkContext(f"local[{W}]"), xm[:2 * Bm * W], ym[:2 * Bm * W],
+                           num_slices=W), epochs=1, batch_size=Bm, validation_split=0.0)
+    sm = SparkModel(_mlp_mixed_text(), device="cuda", mode="synchronous", num_workers=W)
+    spec = sm.master_network.optimizer_spec
+    require(isinstance(spec, dict) and spec["class_name"] == "LossScaleOptimizer",
+            f"fit_mixed: the mixed_float16 MLP's optimizer {spec}")
+    wall, mlp_counts, hist, dtypes, peak = _mixed_fit(
+        "fit_mixed mlp", sm, rdd, Em, Bm, S, "float16", falls=False)
+    runs.append({"model": "mnist_mlp_mixed_float16", "workers": W,
+                 "samples": c["mlp_samples"], "steps_per_epoch": S, "fit_s": wall,
+                 "ms_per_step": wall * 1e3 / (Em * S),
+                 "samples_per_s": c["mlp_samples"] * Em / wall, "history": dict(hist),
+                 "k1_by_dtype": dtypes, "fit_peak_bytes": peak,
+                 "optimizer": "SGD(lr=0.001), the reference's fall-back"})
+    emit({"phase": "fit_mixed", **c, "fits": runs, "profiled_fit_1_epoch": profiles,
+          "card": card})
+    return counts_main, mlp_counts
+
+
+def fit_mixed_cross_check(card):
+    """The card against ``device="cpu"`` from the same weights and order.
+    ResNet-50 under ``mixed_bfloat16``, one synchronous step at batch 16
+    from the config's initial weights (the adapter's seed 0; with every 1-D
+    array drawn wide, as :func:`_resnet_weights` draws them, the bf16
+    forward's loss parts by 11% between an H100 and the CPU), beside the
+    float32 config's step on the CPU and its float64 step
+    (:func:`_resnet_step64`): the loss within the bf16 pin 2e-2, and each
+    array's update (the weights after the step less before) checked by
+    what bf16 keeps of it. Arrays whose float64 update is under float32's
+    resolution of the step's largest (2**-23 of it: the convolutions'
+    biases before a BatchNormalization, whose exact gradient is 0) are
+    left out. The moved statistics, which the forward decides: the card's
+    update no farther from the CPU's bf16 update (relative L2) than 4
+    times the CPU's from its float32 update. The trainable arrays: a bf16
+    step's direction is rounding's at these weights (the CPU's bf16 update
+    lies about 1.3 of its norm from the float32 one, median over the
+    arrays, as far as two unrelated vectors), so each update's norm is
+    held instead: its log ratio to the CPU's bf16 norm within twice the
+    largest the CPU's bf16 and float32 norms part by (two bf16 steps part
+    by up to about 1.4 times one's distance from float32; a step skipped,
+    halved or doubled fails). The ``mixed_float16`` MLP (dropout off), 2
+    workers, 2 epochs on 2048 samples from the same weights: histories
+    within 2e-2, each array's update within 2e-2 of the CPU update's
+    scale. A failure names the array and its figures (for the MLP, the
+    count of elements past the pin and the worst element's two values)."""
+    from elephas_tpu_torch import SparkModel
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.models import KerasModelAdapter
+    from elephas_tpu_torch.parallel import CompiledTrainer
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    x, y = cifar_like(16, seed=3)
+    with open(RESNET_JSON) as f:
+        text32 = f.read()
+    w = KerasModelAdapter(text32, device="cpu").get_weights()
+    out = {}
+    for key, path, dev in (("cuda", RESNET_MIXED_JSON, "cuda"),
+                           ("cpu", RESNET_MIXED_JSON, "cpu"), ("cpu_f32", RESNET_JSON, "cpu")):
+        with open(path) as f:
+            adapter = KerasModelAdapter(f.read(), weights=w, device=dev)
+        res = CompiledTrainer(adapter, mode="synchronous").fit([(x, y)], epochs=1,
+                                                               batch_size=16)
+        out[key] = (res.history["loss"][0],
+                    [np.asarray(a, np.float64) - w0 for a, w0 in zip(res.weights, w)])
+    specs = adapter._specs
+    u64 = [np.asarray(a, np.float64) - w0 for a, w0 in zip(_resnet_step64(text32, w, x, y), w)]
+    loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    require(loss_rel <= BF16_PIN, f"fit_mixed_cross_check resnet50: loss "
+                                  f"{out['cuda'][0]} (card) vs {out['cpu'][0]} (CPU)")
+    top = max(float(np.abs(u).max()) for u in u64)
+    kept = [i for i, u in enumerate(u64) if float(np.abs(u).max()) >= 2.0 ** -23 * top]
+
+    def rel_l2(a, b):
+        return float(np.linalg.norm(a - b) / (np.linalg.norm(b) or 1.0))
+
+    def log_norm(a, b):
+        return float(np.log(np.linalg.norm(a) / np.linalg.norm(b)))
+
+    card_u, cpu_u, f32_u = out["cuda"][1], out["cpu"][1], out["cpu_f32"][1]
+    stats = [i for i in kept if not specs[i].trainable]
+    trained = [i for i in kept if specs[i].trainable]
+    stat_rows = [(rel_l2(card_u[i], cpu_u[i]), rel_l2(cpu_u[i], f32_u[i]), i) for i in stats]
+    for card_d, cpu_d, i in stat_rows:
+        require(card_d <= 4 * cpu_d,
+                f"fit_mixed_cross_check resnet50: statistic {specs[i].name} "
+                f"{card_u[i].shape}: the card's update lies {card_d} (relative L2) from "
+                f"the CPU's bf16 update, which lies {cpu_d} from the float32 one")
+    spread = max(abs(log_norm(cpu_u[i], f32_u[i])) for i in trained)
+    norm_rows = [(abs(log_norm(card_u[i], cpu_u[i])), i) for i in trained]
+    for card_d, i in norm_rows:
+        require(card_d <= 2 * spread,
+                f"fit_mixed_cross_check resnet50: array {specs[i].name} "
+                f"{card_u[i].shape}: the card's update norm {np.linalg.norm(card_u[i])} vs "
+                f"the CPU's bf16 {np.linalg.norm(cpu_u[i])} (log ratio {card_d}, the CPU's "
+                f"bf16 and float32 norms part by at most {spread})")
+    worst_stat = max(stat_rows, key=lambda r: r[0] / max(r[1], 1e-30))
+    worst_norm = max(norm_rows)
+    (xm, ym), _ = mnist_like(2048, 0)
+    mlp, w0 = {}, None
+    for dev in ("cuda", "cpu"):
+        sm = SparkModel(_mlp_mixed_text(dropout=False), device=dev, mode="synchronous",
+                        num_workers=2)
+        if w0 is None:
+            w0 = sm.master_network.get_weights()
+        sm.master_network.set_weights(w0)
+        sm.fit(to_simple_rdd(SparkContext("local[2]"), xm, ym, num_slices=2), epochs=2,
+               batch_size=64, validation_split=0.1)
+        mlp[dev] = (sm.training_histories[-1],
+                    [np.asarray(a, np.float64) - b for a, b in
+                     zip(sm.master_network.get_weights(), w0)])
+    hist_err = max(abs(a - b) / max(abs(b), 1e-6) for k in mlp["cpu"][0]
+                   for a, b in zip(mlp["cuda"][0][k], mlp["cpu"][0][k]))
+    require(hist_err <= BF16_PIN, f"fit_mixed_cross_check mlp: histories differ by "
+                                  f"{hist_err}: {mlp['cuda'][0]} vs {mlp['cpu'][0]}")
+    m_errs = _weights_within("fit_mixed_cross_check mlp updates", mlp["cuda"][1],
+                             mlp["cpu"][1], BF16_PIN)
+    emit({"phase": "fit_mixed_cross_check", "tol": BF16_PIN,
+          "resnet50": {"loss_card": out["cuda"][0], "loss_cpu": out["cpu"][0],
+                       "loss_cpu_float32": out["cpu_f32"][0], "loss_rel_err": loss_rel,
+                       "arrays_kept": len(kept), "arrays": len(specs),
+                       "stats_card_to_cpu_l2_median": float(np.median([r[0] for r in stat_rows])),
+                       "stats_cpu_to_float32_l2_median": float(np.median([r[1] for r in
+                                                                          stat_rows])),
+                       "stats_worst": {"name": specs[worst_stat[2]].name,
+                                       "card_to_cpu_l2": worst_stat[0],
+                                       "cpu_to_float32_l2": worst_stat[1]},
+                       "trained_cpu_to_float32_l2_median": float(np.median(
+                           [rel_l2(cpu_u[i], f32_u[i]) for i in trained])),
+                       "trained_card_to_cpu_l2_median": float(np.median(
+                           [rel_l2(card_u[i], cpu_u[i]) for i in trained])),
+                       "norm_log_ratio_worst": {"name": specs[worst_norm[1]].name,
+                                                "card_to_cpu": worst_norm[0],
+                                                "cpu_to_float32_spread": spread}},
+          "mlp": {"history_rel_err": hist_err, "update_err_rel_to_scale": max(m_errs),
+                  "history_gpu": mlp["cuda"][0], "history_cpu": mlp["cpu"][0]},
+          "card": card})
+
+
+def _histories_within(what, got, want, rtol=1e-4, atol=1e-6):
+    """Each history value within ``rtol`` of the CPU's plus ``atol`` (a
+    loss that falls near 0 keeps float32's absolute rounding); the largest
+    relative difference."""
+    pairs = [(k, a, b) for k in want for a, b in zip(got[k], want[k])]
+    bad = [(k, a, b) for k, a, b in pairs if abs(a - b) > rtol * abs(b) + atol]
+    require(set(got) == set(want) and not bad,
+            f"{what}: histories differ: {bad[:3]} ({sorted(got)} vs {sorted(want)})")
+    return max(abs(a - b) / max(abs(b), 1e-6) for _, a, b in pairs)
+
+
+class PatienceStop:
+    """Keras's ``EarlyStopping(monitor, min_delta, patience)`` in mode
+    "min", written against the callback protocol (the card has no Keras):
+    ``stopped_epoch`` the epoch after which it stopped the fit."""
+
+    def __init__(self, monitor="val_loss", min_delta=0.0, patience=0):
+        self.monitor, self.min_delta, self.patience = monitor, abs(min_delta), patience
+        self.model, self.stopped_epoch, self.epochs_seen = None, 0, []
+
+    def set_model(self, model):
+        self.model = model
+
+    def on_train_begin(self, logs=None):
+        self.best, self.wait, self.stopped_epoch = float("inf"), 0, 0
+
+    def on_epoch_end(self, epoch, logs=None):
+        value = logs.get(self.monitor)
+        self.epochs_seen.append(epoch)
+        if value is None:
+            return
+        if value + self.min_delta < self.best:       # a fall of more than min_delta
+            self.best, self.wait = value, 0
+            return
+        self.wait += 1
+        if self.wait >= self.patience:
+            self.stopped_epoch = epoch
+            self.model.stop_training = True
+
+
+def fit_losses_metrics(card):
+    """The MLP (its head a softmax) through ``SparkModel``'s compiled path
+    with the losses the reference hands to Keras, ``KLDivergence()`` (its
+    serialized object: one scalar a replica's batch) and ``"poisson"`` (the
+    function: per-sample values), 4 workers, batch 64, 2 epochs on 8192
+    samples: no kernel (no cross-entropy), falling losses; ``evaluate``
+    with ``["accuracy", "mae", "top_k_categorical_accuracy"]`` (Keras's
+    fall-back, batches of 32, 1000 rows); a host-path fit (synchronous,
+    ``comm="host"``, one worker) with ``class_weight``, a patience
+    callback on ``val_loss`` and ``validation_freq=2`` (2048 samples, batch
+    128, 6 epochs, stopped after the fourth): K1 E S forward and backward on
+    the training batches and forward on the validations, the stop epoch.
+    Each against ``device="cpu"`` from the same weights and order (dropout
+    off): histories within rtol
+    1e-4 plus 1e-6 (the host fit's loss falls to about 1e-3), evaluations
+    within rtol 1e-4, the arrays within 1e-4 of their scale."""
+    from elephas_tpu_torch import SparkModel
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    c = LOSSES_FIT
+    with open(MNIST_JSON) as f:
+        cfg = json.load(f)
+    for layer in cfg["config"]["layers"]:
+        if layer["class_name"] == "Dropout":
+            layer["config"]["rate"] = 0.0
+    cfg["config"]["layers"][-1]["config"]["activation"] = "softmax"
+    cfg["compile_config"]["metrics"] = ["accuracy", "mae", "top_k_categorical_accuracy"]
+    text = json.dumps(cfg)
+    (x, y), (xe, ye) = mnist_like(c["samples"], c["eval_rows"])
+    W, B, E = c["workers"], c["batch"], c["epochs"]
+    S, _ = _mlp_steps(c["samples"], W, B, 0.0)
+    kld = {"module": "keras.losses", "class_name": "KLDivergence",
+           "config": {"name": "kl_divergence", "reduction": "sum_over_batch_size"}}
+    fits, evals = {}, {}
+    for loss_name, loss in (("kl_divergence_object", kld), ("poisson", "poisson")):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            n = c["samples"] if dev == "cuda" else 1024
+            sm = SparkModel(text, device=dev, mode="synchronous", num_workers=W,
+                            master_loss=loss)
+            rdd = to_simple_rdd(SparkContext(f"local[{W}]"), x[:n], y[:n], num_slices=W)
+            if dev == "cuda":
+                wall, counts, hist = _compiled_fit(f"fit_losses_metrics {loss_name}", sm,
+                                                   rdd, E, B, 0.0, S, 0, k1=False)
+                fits[loss_name] = {"fit_s": wall, "ms_per_step": wall * 1e3 / (E * S),
+                                   "history": hist}
+                sm = SparkModel(text, device=dev, mode="synchronous", num_workers=W,
+                                master_loss=loss)
+                rdd = to_simple_rdd(SparkContext(f"local[{W}]"), x[:1024], y[:1024],
+                                    num_slices=W)
+            sm.fit(rdd, epochs=E, batch_size=B, validation_split=0.0)
+            got[dev] = (sm.training_histories[-1], sm.master_network.get_weights(),
+                        sm.evaluate(xe, ye))
+        hist_err = _histories_within(f"fit_losses_metrics {loss_name}", got["cuda"][0],
+                                     got["cpu"][0])
+        errs = _weights_within(f"fit_losses_metrics {loss_name}", got["cuda"][1],
+                               got["cpu"][1])
+        ev_card, ev_cpu = got["cuda"][2], got["cpu"][2]
+        require(isinstance(ev_card, list) and len(ev_card) == 4,
+                f"fit_losses_metrics {loss_name}: evaluate gave {ev_card}")
+        ev_err = max(abs(a - b) / max(abs(b), 1e-6) for a, b in zip(ev_card, ev_cpu))
+        require(ev_err <= 1e-4, f"fit_losses_metrics {loss_name}: evaluate {ev_card} vs "
+                                f"{ev_cpu}")
+        fits[loss_name].update({"history_rel_err": hist_err,
+                                "weight_err_rel_to_scale": max(errs)})
+        evals[loss_name] = {"card": ev_card, "cpu": ev_cpu, "rel_err": ev_err,
+                            "names": ["loss", "accuracy", "mae",
+                                      "top_k_categorical_accuracy"]}
+    cfg["config"]["layers"][-1]["config"]["activation"] = None
+    cfg["compile_config"]["metrics"] = ["accuracy"]
+    host_text = json.dumps(cfg)
+    (xh, yh), _ = mnist_like(c["host_samples"], 0)
+    Bh, Eh = c["host_batch"], c["host_epochs"]
+    n_train = int(np.floor(c["host_samples"] * 0.9))
+    Sh = -(-n_train // Bh)
+    host = {}
+    for dev in ("cuda", "cpu"):
+        # val_loss at epochs 2 and 4: no gain of 1.0 at the second, so the
+        # fit stops after its fourth epoch of six
+        stop = PatienceStop("val_loss", min_delta=1.0, patience=1)
+        sm = SparkModel(host_text, device=dev, mode="synchronous", comm="host",
+                        num_workers=1, port=0, master_metrics=["accuracy", "mae"])
+        np.random.seed(SEED + 61)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            _zero_counters()
+        t0 = time.perf_counter()
+        sm.fit(to_simple_rdd(SparkContext("local[1]"), xh, yh, num_slices=1), epochs=Eh,
+               batch_size=Bh, validation_split=0.1, class_weight={0: 2.0, 3: 0.5, 7: 1.5},
+               callbacks=[stop], validation_freq=2)
+        wall = time.perf_counter() - t0
+        host[dev] = (sm.training_histories[-1], sm.master_network.get_weights(), stop,
+                     _read_counters() if dev == "cuda" else None, wall)
+    hist_c, w_c, stop_c, counts, wall = host["cuda"]
+    hist_p, w_p, stop_p, _, _ = host["cpu"]
+    ran = len(hist_c["loss"])
+    require(stop_c.epochs_seen == stop_p.epochs_seen == [0, 1, 2, 3] and
+            stop_c.stopped_epoch == 3 and ran == len(hist_p["loss"]),
+            f"fit_losses_metrics host: epochs {stop_c.epochs_seen} (card) vs "
+            f"{stop_p.epochs_seen} (CPU), stopped after {stop_c.stopped_epoch}")
+    require(set(hist_c) == {"loss", "accuracy", "mae", "val_loss", "val_accuracy", "val_mae"}
+            and len(hist_c["val_loss"]) == ran // 2,
+            f"fit_losses_metrics host: history keys {sorted(hist_c)}")
+    hist_err = _histories_within("fit_losses_metrics host", hist_c, hist_p)
+    h_errs = _weights_within("fit_losses_metrics host", w_c, w_p)
+    want = {"fused_xent_fwd": ran * Sh + (ran // 2) * -(-(c["host_samples"] - n_train) // Bh),
+            "fused_xent_bwd": ran * Sh}
+    for name, n in want.items():
+        require(counts[name] == n, f"fit_losses_metrics host: {name} launched "
+                                   f"{counts[name]} times, want {n}")
+    others = {k: v for k, v in counts.items() if not k.startswith("fused_xent") and v}
+    require(not others, f"fit_losses_metrics host: other kernels launched: {others}")
+    emit({"phase": "fit_losses_metrics", **c, "compiled_fits": fits, "evaluate": evals,
+          "host": {"epochs_run": ran, "stopped_epoch": stop_c.stopped_epoch,
+                   "history_gpu": hist_c, "history_rel_err": hist_err,
+                   "weight_err_rel_to_scale": max(h_errs), "fit_s": wall,
+                   "launches": {k: v for k, v in counts.items() if v}},
+          "card": card})
+    return {"fit_losses_metrics_host": counts}
 
 
 # -- phases 33 to 36: the API skins around SparkModel ------------------------------
@@ -7436,10 +8066,17 @@ def main() -> int:
         _walled("fit_lstm", fit_lstm, card)
         _walled("fit_layers_cross_check", fit_layers_cross_check, card)
         torch.cuda.empty_cache()
-        resnet_counts, resnet_k1 = _walled("fit_resnet", fit_resnet, card)
+        resnet_counts, resnet_k1, resnet_runs = _walled("fit_resnet", fit_resnet, card)
         _walled("fit_resnet_cross_check", fit_resnet_cross_check, card)
         _walled("fit_recurrent", fit_recurrent, card)
         options_counts = _walled("fit_options", fit_options, card)
+        torch.cuda.empty_cache()
+        xent16_rows = _walled("fused_xent_fp16_shapes", check_fused_xent_fp16, card)
+        mixed_resnet_counts, mixed_mlp_counts = _walled("fit_mixed", fit_mixed, card,
+                                                        resnet_runs)
+        _walled("fit_mixed_cross_check", fit_mixed_cross_check, card)
+        losses_counts = _walled("fit_losses_metrics", fit_losses_metrics, card)
+        torch.cuda.empty_cache()
         ml_counts, ml_est, ml_tr, ml_xt = _walled("ml_mlp", ml_mlp, card)
         _walled("ml_pipeline_lstm", ml_pipeline_lstm, card)
         _walled("ml_persist", ml_persist, card, ml_est, ml_tr, ml_xt)
@@ -7492,9 +8129,13 @@ def main() -> int:
     # over the committed contributions), quantized serving's (K4, K5, K6-gmm)
     # and the imported GPT-2's (K3-fwd, K4); the ResNet-50 fit's K1 (one
     # worker, no remat) and the options CNN's are under launches_by_path, K1's
-    # times at the ResNet fits' [16 W, 10] under resnet_fit_shapes
+    # times at the ResNet fits' [16 W, 10] under resnet_fit_shapes; K1's
+    # float16 rows are their own (their main path the mixed_float16 MLP fit,
+    # their times at its [256, 10] and the other shapes under shapes), the
+    # mixed_bfloat16 ResNet-50 fit's K1 (one worker) and the loss and metric
+    # phase's host fit's are under launches_by_path
     rows = [ln_fwd, ln_bwd, decode, *attn_rows, *paged_rows, *gmm_rows, *xent_rows,
-            *rope_rows]
+            *rope_rows, *xent16_rows]
     paths = {"serve": serve_counts, "train_5_steps": train_counts,
              "generate": gen_counts, "serve_paged": paged_counts,
              "serve_moe": moe_counts, "serve_moe_paged": moe_paged_counts,
@@ -7514,13 +8155,17 @@ def main() -> int:
              "fleet_autoscaler": autoscaler_counts,
              "stream_supervised_train_fn": supervised_counts, **round_counts,
              "fit_elastic_hosts": elastic_counts, **quant_counts, "hf_import": hf_counts,
-             "fit_resnet": resnet_counts, "fit_options": options_counts}
+             "fit_resnet": resnet_counts, "fit_options": options_counts,
+             "fit_mixed_resnet50_bf16": mixed_resnet_counts,
+             "fit_mixed_mlp_fp16": mixed_mlp_counts, **losses_counts}
     main_paths = {"layer_norm_fwd": "serve", "flash_decode_lse": "serve",
                   "paged_flash_decode_lse": "serve_paged",
                   "paged_flash_chunk": "serve_paged", "gmm": "serve_moe",
                   "gmm_train": "train_moe_3_steps",
                   "gmm_t": "train_moe_3_steps", "tgmm": "train_moe_3_steps",
                   "fused_xent_fwd": "fit_mlp", "fused_xent_bwd": "fit_mlp",
+                  "fused_xent_fwd_fp16": "fit_mixed_mlp_fp16",
+                  "fused_xent_bwd_fp16": "fit_mixed_mlp_fp16",
                   **{r: "train_llama_3_steps" for r in ROPE_ROWS}}
     for row in rows:
         name = row["name"]

@@ -57,7 +57,12 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     port never carries on on the CPU unless the caller asked for it. On the
     card, float32 matmuls are pinned to full float32 (no TF32): the JAX
     reference runs them at ``Precision.HIGHEST``, and TF32 keeps only about
-    three decimal digits."""
+    three decimal digits. bf16 and fp16 matmuls (the mixed dtype policies)
+    are pinned to float32 accumulation with one rounding at the end:
+    ``allow_bf16_reduced_precision_reduction`` and
+    ``allow_fp16_reduced_precision_reduction`` are turned off, so cuBLAS may
+    not reduce split-K partial sums in the 16-bit type, as XLA accumulates a
+    bf16 dot in float32."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -66,6 +71,8 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
                 f"pass device='cpu' to run the plain PyTorch path")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
         if dev.index is None:   # "cuda" and "cuda:0" must compare equal
             dev = torch.device("cuda", torch.cuda.current_device())
     elif dev.type != "cpu":

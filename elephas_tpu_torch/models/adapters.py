@@ -72,8 +72,9 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from .. import resolve_device
-from .losses import resolve_accuracy, resolve_per_sample_loss
-from .optimizers import _lead, to_torch_optimizer
+from .losses import (metric_name, metric_sums, resolve_accuracy, resolve_metric,
+                     resolve_per_sample_loss)
+from .optimizers import _tree_where, loss_scale_spec, to_torch_optimizer
 
 Params = Dict[str, torch.Tensor]
 
@@ -102,7 +103,32 @@ _ACTIVATIONS: Dict[str, Callable] = {
     "exponential": torch.exp,
     "softmax": lambda h: torch.softmax(h, dim=-1),
     "log_softmax": lambda h: torch.log_softmax(h, dim=-1),
+    "celu": F.celu,
+    "glu": lambda h: F.glu(h, dim=-1),
+    "hard_shrink": lambda h: F.hardshrink(h, 0.5),
+    "hard_tanh": F.hardtanh,
+    "log_sigmoid": F.logsigmoid,
+    "soft_shrink": lambda h: F.softshrink(h, 0.5),
+    "sparse_plus": lambda h: torch.where(h <= -1.0, torch.zeros_like(h), torch.where(
+        h >= 1.0, h, torch.square(h + 1.0) / 4)),
+    "sparse_sigmoid": lambda h: 0.5 * torch.clamp(h + 1.0, 0.0, 2.0),
+    "sparsemax": lambda h: _sparsemax(h),
+    "squareplus": lambda h: (h + torch.sqrt(torch.square(h) + 4)) / 2,
+    "tanh_shrink": lambda h: h - torch.tanh(h),
 }
+
+
+def _sparsemax(h):
+    """Keras's sparsemax over the last axis: the projection onto the
+    simplex, ``max(h - tau, 0)`` with ``tau`` from the sorted values'
+    running sums."""
+    z = torch.sort(h, dim=-1, descending=True).values
+    cum = torch.cumsum(z, dim=-1)
+    r = torch.arange(1, h.shape[-1] + 1, device=h.device, dtype=h.dtype)
+    support = z - (cum - 1) / r > 0
+    k = support.sum(dim=-1, keepdim=True).to(h.dtype)
+    tau = (torch.where(support, cum, torch.zeros_like(cum)).sum(dim=-1, keepdim=True) - 1) / k
+    return torch.clamp(h - tau, min=0.0)
 
 
 def _activation(spec) -> Callable:
@@ -138,6 +164,7 @@ _INIT_ALIASES = {
     "lecun_normal": "LecunNormal", "random_normal": "RandomNormal",
     "random_uniform": "RandomUniform", "truncated_normal": "TruncatedNormal",
     "uniform": "RandomUniform", "normal": "RandomNormal", "orthogonal": "Orthogonal",
+    "identity": "Identity", "IdentityInitializer": "Identity",
 }
 
 
@@ -170,6 +197,10 @@ def _initial_value(spec, shape: Tuple[int, ...], gen: torch.Generator) -> torch.
         return out.fill_(1.0)
     if cls == "Constant":
         return out.fill_(float(cfg.get("value", 0.0)))
+    if cls == "Identity":
+        if len(shape) != 2:
+            raise ValueError(f"the Identity initializer takes a 2-D shape, got {shape}")
+        return float(cfg.get("gain", 1.0)) * torch.eye(*shape, dtype=torch.float32)
     if cls == "RandomNormal":
         return out.normal_(float(cfg.get("mean", 0.0)), float(cfg.get("stddev", 0.05)),
                            generator=gen)
@@ -221,7 +252,10 @@ def _initial_value(spec, shape: Tuple[int, ...], gen: torch.Generator) -> torch.
 # list of such tensors. ``mask_role`` says what an op does with an
 # Embedding's mask: ``"pass"`` hands it on (elementwise layers, as Keras),
 # ``"consume"`` takes it as ``mask=`` (the recurrent layers); any other op
-# refuses it.
+# refuses it. ``dtype`` is the compute dtype of the layer's dtype policy:
+# under a mixed policy the model casts an op's floating inputs to it
+# (``autocast``) and its weights (``cast_weights``) before the call, as
+# Keras's layer call and its autocast scope do.
 
 
 class _Spec(NamedTuple):
@@ -237,6 +271,9 @@ class _Op:
     makes_mask = False
     merge = False
     out_feat = None
+    dtype = torch.float32
+    autocast = True
+    cast_weights = True
 
     def weight_shapes(self):
         return []
@@ -606,7 +643,9 @@ class _BatchNorm(_Op):
     every other axis (the biased variance, as Keras) and moves the
     statistics ``m * momentum + batch * (1 - momentum)``; in inference, and
     always when frozen (``trainable=False``, as Keras 3), it normalises by
-    the moving statistics."""
+    the moving statistics. Under a mixed policy it computes in float32 from
+    its float32 weights and returns the compute dtype, as Keras does."""
+    cast_weights = False
 
     def __init__(self, cfg: dict, feat):
         self.name = cfg["name"]
@@ -646,6 +685,8 @@ class _BatchNorm(_Op):
 
     def __call__(self, p, h, training, gen, ntv_out):
         n = self.name
+        # Keras: result_type(inputs, float32), float32 for a 16-bit input
+        out_dtype, h = h.dtype, h.to(torch.promote_types(h.dtype, torch.float32))
         # a layer called twice reads the statistics its first call moved
         moved = ntv_out if ntv_out is not None else {}
         mm = moved.get(f"{n}/moving_mean", p[f"{n}/moving_mean"])
@@ -669,7 +710,7 @@ class _BatchNorm(_Op):
             res = res + p[f"{n}/beta"]
         shape = [h.shape[0]] + [1] * (h.dim() - 1)
         shape[self.axis] = self.channels
-        return h * inv.reshape(shape) + res.reshape(shape)
+        return (h * inv.reshape(shape) + res.reshape(shape)).to(out_dtype)
 
 
 class _Embedding(_Op):
@@ -678,7 +719,11 @@ class _Embedding(_Op):
     them; an id outside ``[0, input_dim)`` raises :class:`ValueError`,
     where the reference's gather reads no row (a departure: on the card such
     an index would fault the device). With ``mask_zero`` it makes Keras's
-    mask, ``ids != 0`` on the ids as given."""
+    mask, ``ids != 0`` on the ids as given. Its ids are not cast to the
+    compute dtype (Keras's Embedding does not autocast); its rows are
+    gathered in float32 and cast to it."""
+    autocast = False
+    cast_weights = False
 
     def __init__(self, cfg: dict, feat):
         self.name = cfg["name"]
@@ -705,8 +750,9 @@ class _Embedding(_Op):
         L, V = h.shape[0], self.input_dim
         # replica l's rows follow replica l - 1's in one [L * V, D] table
         offsets = torch.arange(L, device=h.device).reshape((L,) + (1,) * (h.dim() - 1))
-        return F.embedding(ids + offsets * V, p[f"{self.name}/embeddings"].reshape(
+        out = F.embedding(ids + offsets * V, p[f"{self.name}/embeddings"].reshape(
             L * V, self.output_dim))
+        return out if self.dtype == torch.float32 else out.to(self.dtype)
 
 
 class _Recurrent(_Op):
@@ -716,20 +762,31 @@ class _Recurrent(_Op):
     in that order, as Keras returns them). A masked step (an Embedding's
     ``mask_zero``) keeps the state and outputs the previous output (zeros
     with ``zero_output_for_mask``), as Keras's JAX backend does; the last
-    output, or with ``return_sequences`` every step's."""
+    output, or with ``return_sequences`` every step's.
+
+    ``dropout`` and ``recurrent_dropout`` act in training only, as Keras
+    3.13's cells apply them: :meth:`draw_masks` draws the masks once a call
+    (inverted dropout, values 0 and ``1 / (1 - rate)`` in the compute
+    dtype), fixed over the time steps. With ``recurrent_dropout`` LSTM and
+    GRU run Keras's ``implementation=1``: one input mask and one recurrent
+    mask a gate, each gate's projection from its own masked copy; without
+    it one input mask for every gate. SimpleRNN has one of each. The masks
+    come from the adapter's generator (other bits than Keras's)."""
     mask_role = "consume"
     n_gates = 1
     n_states = 1
 
     def __init__(self, cls: str, cfg: dict, feat):
-        for key in ("dropout", "recurrent_dropout"):
-            if float(cfg.get(key) or 0.0) > 0.0:
-                raise _refuse(f"{cls} {key}={cfg[key]}")
         for key in ("return_state", "stateful"):
             if cfg.get(key):
                 raise _refuse(f"{cls} {key}=True")
         self.name = cfg["name"]
         self.units = int(cfg["units"])
+        self.dropout = min(1.0, max(0.0, float(cfg.get("dropout") or 0.0)))
+        self.recurrent_dropout = min(1.0, max(0.0, float(cfg.get("recurrent_dropout")
+                                                         or 0.0)))
+        # Keras's implementation 1: a mask a gate
+        self.per_gate = self.n_gates > 1 and self.recurrent_dropout > 0.0
         self.act = _activation(cfg.get("activation", "tanh"))
         self.rec_act = _activation(cfg.get("recurrent_activation", "sigmoid"))
         self.use_bias = bool(cfg.get("use_bias", True))
@@ -758,17 +815,59 @@ class _Recurrent(_Op):
     def input_bias(self, p):
         return p[f"{self.name}/bias"]
 
-    def __call__(self, p, h, training, gen, ntv_out, mask=None):
+    def draw_masks(self, L: int, B: int, like, gen):
+        """``(input masks, recurrent masks)`` of one training call, each a
+        list (a mask a gate, or one) of ``[L, B, width]`` tensors of 0 and
+        ``1 / (1 - rate)`` in ``like``'s dtype, or None where the rate is 0
+        (or 1, where Keras's LSTM and GRU cells apply none)."""
+        def draw(rate, width):
+            if not 0.0 < rate < 1.0:
+                return None
+            keep = 1.0 - rate
+            ones = torch.ones((L, B, width), dtype=like.dtype, device=like.device)
+            return [torch.where(torch.rand((L, B, width), generator=gen,
+                                           device=like.device) < keep,
+                                ones / keep, torch.zeros_like(ones))
+                    for _ in range(self.n_gates if self.per_gate else 1)]
+
+        return draw(self.dropout, self.in_dim), draw(self.recurrent_dropout, self.units)
+
+    def _project(self, p, h, in_masks):
+        """``x @ kernel (+ bias)`` for every step, ``[L, B, T, gates * units]``;
+        with input masks each gate's slice from its own masked input."""
         L, B, T = h.shape[:3]
-        g = self.n_gates * self.units
-        xz = torch.bmm(h.reshape(L, B * T, self.in_dim), p[f"{self.name}/kernel"])
+        kernel = p[f"{self.name}/kernel"]
+        if in_masks is None or len(in_masks) == 1:
+            x = h if in_masks is None else h * in_masks[0][:, :, None]
+            xz = torch.bmm(x.reshape(L, B * T, self.in_dim), kernel)
+        else:
+            u = self.units
+            xz = torch.cat([torch.bmm((h * m[:, :, None]).reshape(L, B * T, self.in_dim),
+                                      kernel[..., g * u:(g + 1) * u])
+                            for g, m in enumerate(in_masks)], dim=-1)
         if self.use_bias:
             xz = xz + self.input_bias(p)[:, None, :]
-        xz = xz.reshape(L, B, T, g)
+        return xz.reshape(L, B, T, self.n_gates * self.units)
+
+    def _recurrent(self, hs, rk, rmasks, gates):
+        """``h @ recurrent_kernel`` over the gate indices ``gates``, each
+        gate's product from ``h`` times its own recurrent mask."""
+        u = self.units
+        if rmasks is None or len(rmasks) == 1:
+            h = hs if rmasks is None else hs * rmasks[0]
+            return torch.bmm(h, rk[..., gates[0] * u:(gates[-1] + 1) * u])
+        return torch.cat([torch.bmm(hs * rmasks[g], rk[..., g * u:(g + 1) * u])
+                          for g in gates], dim=-1)
+
+    def __call__(self, p, h, training, gen, ntv_out, mask=None):
+        L, B, T = h.shape[:3]
+        in_masks, rmasks = (self.draw_masks(L, B, h, gen) if training
+                            else (None, None))
+        xz = self._project(p, h, in_masks)
         state = tuple(h.new_zeros((L, B, self.units)) for _ in range(self.n_states))
         outs, out = [], None
         for t in (range(T - 1, -1, -1) if self.go_backwards else range(T)):
-            new = self.step(p, xz[:, :, t], state)
+            new = self.step(p, xz[:, :, t], state, rmasks)
             out = new[0]
             if mask is not None:
                 m = mask[:, :, t, None]
@@ -798,10 +897,14 @@ class _LSTM(_Recurrent):
                                   _initial_value(bias_init, (2 * u,), gen)])
             self.bias_init = forget_ones
 
-    def step(self, p, xz_t, state):
+    def step(self, p, xz_t, state, rmasks=None):
         hs, cs = state
         u = self.units
-        z = torch.baddbmm(xz_t, hs, p[f"{self.name}/recurrent_kernel"])
+        rk = p[f"{self.name}/recurrent_kernel"]
+        if rmasks is None:
+            z = torch.baddbmm(xz_t, hs, rk)
+        else:
+            z = xz_t + self._recurrent(hs, rk, rmasks, (0, 1, 2, 3))
         gates = self.rec_act(z)            # i, f and o (c's quarter unused)
         cs = gates[..., u:2 * u] * cs + gates[..., :u] * self.act(z[..., 2 * u:3 * u])
         return gates[..., 3 * u:] * self.act(cs), cs
@@ -812,7 +915,7 @@ class _GRU(_Recurrent):
     h @ rk_r)``, ``hh = act(x_h + r * (h @ rk_h + rb_h))`` with
     ``reset_after`` (bias ``[2, 3 units]``: the input bias, then the
     recurrent one) or ``act(x_h + (r * h) @ rk_h)`` without (bias ``[3
-    units]``), ``h = z * h + (1 - z) * hh``."""
+    units]``), ``h = z * h + (1 - z) * hh`` (the unmasked ``h``)."""
     n_gates = 3
 
     def __init__(self, cfg: dict, feat):
@@ -827,22 +930,23 @@ class _GRU(_Recurrent):
         b = p[f"{self.name}/bias"]
         return b[:, 0] if self.reset_after else b
 
-    def step(self, p, xz_t, state):
+    def step(self, p, xz_t, state, rmasks=None):
         hs, = state
         u = self.units
         rk = p[f"{self.name}/recurrent_kernel"]
         if self.reset_after:
-            rec = torch.bmm(hs, rk)
+            rec = self._recurrent(hs, rk, rmasks, (0, 1, 2))
             if self.use_bias:
                 rec = rec + p[f"{self.name}/bias"][:, 1, None, :]
         else:
-            rec = torch.bmm(hs, rk[..., :2 * u])
+            rec = self._recurrent(hs, rk, rmasks, (0, 1))
         z = self.rec_act(xz_t[..., :u] + rec[..., :u])
         r = self.rec_act(xz_t[..., u:2 * u] + rec[..., u:2 * u])
         if self.reset_after:
             rec_h = r * rec[..., 2 * u:]
         else:
-            rec_h = torch.bmm(r * hs, rk[..., 2 * u:])
+            h_h = hs if rmasks is None else hs * rmasks[-1]
+            rec_h = torch.bmm(r * h_h, rk[..., 2 * u:])
         hh = self.act(xz_t[..., 2 * u:] + rec_h)
         return (z * hs + (1 - z) * hh,)
 
@@ -853,17 +957,53 @@ class _SimpleRNN(_Recurrent):
     def __init__(self, cfg: dict, feat):
         super().__init__("SimpleRNN", cfg, feat)
 
-    def step(self, p, xz_t, state):
+    def step(self, p, xz_t, state, rmasks=None):
         hs, = state
-        return (self.act(xz_t + torch.bmm(hs, p[f"{self.name}/recurrent_kernel"])),)
+        return (self.act(xz_t + self._recurrent(hs, p[f"{self.name}/recurrent_kernel"],
+                                                rmasks, (0,))),)
 
 
-def _check_policy(cfg: dict) -> None:
+# the dtype policies the port runs, by their compute dtype: variables stay
+# float32 under each (``weights_to_state``)
+_POLICIES = {"float32": torch.float32, "mixed_bfloat16": torch.bfloat16,
+             "mixed_float16": torch.float16}
+
+
+def _policy_name(cfg: dict) -> str:
+    """A layer's or a model's dtype policy by name (``"float32"`` when the
+    config names none)."""
     policy = cfg.get("dtype")
     if isinstance(policy, dict):
         policy = (policy.get("config") or {}).get("name")
-    if policy not in (None, "float32"):
-        raise _refuse(f"dtype policy {policy!r}")
+    return "float32" if policy is None else str(policy)
+
+
+def _model_policy(model, arch: dict) -> Optional[str]:
+    """A model's dtype policy: a live model's ``dtype_policy`` (read
+    duck-typed), else its config's (a Sequential model writes one), else
+    the one policy every layer of it shares (a Functional model's JSON
+    names none; Keras gives it the global policy it was built under), else
+    None: the JSON does not say (its layers' policies differ, as in a
+    ``mixed_float16`` model with a float32 head)."""
+    live = getattr(getattr(model, "dtype_policy", None), "name", None)
+    if isinstance(live, str):
+        return live
+    cfg = arch.get("config") or {}
+    if "dtype" in cfg:
+        return _policy_name(cfg)
+    names = {_policy_name(layer.get("config") or {}) for layer in cfg.get("layers", [])
+             if layer.get("class_name") != "InputLayer"}
+    return names.pop() if len(names) == 1 else None
+
+
+def _compute_dtype(cfg: dict) -> torch.dtype:
+    """The compute dtype of a config's policy. The pure ``bfloat16`` and
+    ``float16`` policies (16-bit variables) and any other raise."""
+    name = _policy_name(cfg)
+    if name not in _POLICIES:
+        raise _refuse(f"dtype policy {name!r} (the port runs float32, mixed_bfloat16 "
+                      f"and mixed_float16)")
+    return _POLICIES[name]
 
 
 _RECURRENT = {"LSTM": _LSTM, "GRU": _GRU, "SimpleRNN": _SimpleRNN}
@@ -872,9 +1012,15 @@ _MERGES = ("Add", "Subtract", "Multiply", "Average", "Maximum", "Minimum")
 
 def _make_op(cls: str, cfg: dict, feat, in_dim: Optional[int] = None):
     """The op of one layer config at input feature shape ``feat`` (a list of
-    them for a merge layer). ``in_dim`` is a Dense layer's fan-in where the
-    config gives no shape."""
-    _check_policy(cfg)
+    them for a merge layer), computing in its policy's dtype. ``in_dim`` is
+    a Dense layer's fan-in where the config gives no shape."""
+    dtype = _compute_dtype(cfg)
+    op = _layer_op(cls, cfg, feat, in_dim)
+    op.dtype = dtype
+    return op
+
+
+def _layer_op(cls: str, cfg: dict, feat, in_dim: Optional[int]):
     if cls == "Dense":
         if feat is None and in_dim is None:
             raise ValueError(f"Dense layer {cfg.get('name')!r}: the config has no input "
@@ -971,7 +1117,7 @@ def _parse_sequential(arch: dict, weight_shapes: Optional[List[Tuple[int, ...]]]
     shapes, each layer's ``build_config``) or, for a Dense layer failing
     those, from the kernels' shapes in ``weight_shapes``."""
     cfg = arch.get("config", {})
-    _check_policy(cfg)
+    _compute_dtype(cfg)
     trainable = cfg.get("trainable", True)
     shape = cfg.get("build_input_shape") or (arch.get("build_config") or {}).get("input_shape")
     feat = list(shape[1:]) if shape else None
@@ -1032,7 +1178,7 @@ def _parse_functional(arch: dict, weight_shapes=None):
     ``from_config`` allows); ``specs`` follow the layers' order, which is
     ``get_weights()``'s."""
     cfg = arch.get("config", {})
-    _check_policy(cfg)
+    _compute_dtype(cfg)
     trainable = cfg.get("trainable", True)
     first = _one_io(cfg.get("input_layers"), "input")
     last = _one_io(cfg.get("output_layers"), "output")
@@ -1077,25 +1223,36 @@ def _parse_functional(arch: dict, weight_shapes=None):
 _PARSERS = {"Sequential": _parse_sequential, "Functional": _parse_functional}
 
 
-def _tree_map(fn, *trees):
-    """``fn`` over matching leaves of tensors, dicts and NamedTuples."""
-    t0 = trees[0]
-    if isinstance(t0, torch.Tensor):
-        return fn(*trees)
-    if isinstance(t0, dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
-    if isinstance(t0, tuple):
-        return type(t0)(*(_tree_map(fn, *parts) for parts in zip(*trees)))
-    return t0
-
-
-def _tree_where(valid, new, old):
-    """Per replica: ``new`` where ``valid`` (``[L]``), else ``old``."""
-    return _tree_map(lambda a, b: torch.where(_lead(valid, a), a, b), new, old)
-
-
 def _is_accuracy_name(name) -> bool:
     return "accuracy" in str(name) or str(name) == "acc"
+
+
+def _flat_metric_specs(spec) -> list:
+    """The metrics of a ``compile(metrics=...)`` argument, in order."""
+    if spec is None:
+        return []
+    if isinstance(spec, dict) and "class_name" not in spec:
+        return [m for s in spec.values() for m in _flat_metric_specs(s)]
+    if isinstance(spec, (list, tuple)):
+        return [m for s in spec for m in _flat_metric_specs(s)]
+    return [spec]
+
+
+def compile_metric_names(model) -> Tuple[List[str], List[str]]:
+    """``(metric_names, weighted_metric_names)`` from ``model.compile(...)``:
+    the compile config of a :class:`KerasModelAdapter`, of a model's JSON
+    (a string, a config dict, ``model_to_dict``'s dict), or of an object
+    with ``to_json()`` (a compiled Keras model, read duck-typed). The one
+    reading of the compiled metrics, which the adapter's metric inference
+    and ``SparkModel.evaluate``'s gate share."""
+    if isinstance(model, KerasModelAdapter):
+        cc = model.compile_config
+    elif hasattr(model, "to_json") and not isinstance(model, (str, dict)):
+        cc = json.loads(model.to_json()).get("compile_config") or {}
+    else:
+        cc = _read_model(model)[0].get("compile_config") or {}
+    return tuple([metric_name(m) for m in _flat_metric_specs(cc.get(k))]
+                 for k in ("metrics", "weighted_metrics"))
 
 
 def _read_model(model) -> Tuple[dict, Optional[List[np.ndarray]]]:
@@ -1114,6 +1271,15 @@ def _read_model(model) -> Tuple[dict, Optional[List[np.ndarray]]]:
         return json.loads(model.to_json()), weights
     raise TypeError(f"cannot read a model from {type(model).__name__}: pass its "
                     f"Keras JSON, a config dict, or an object with to_json()")
+
+
+def stats_row(stats) -> torch.Tensor:
+    """One replica's ``[loss * B, B, *metric sums, *metric counts]`` from
+    the stats of a step :meth:`KerasModelAdapter.build_metric_steps`
+    builds, on the device: the sums Keras's ``fit`` and ``evaluate`` add
+    up over batches."""
+    loss, _, count, msum, mcount = stats
+    return torch.cat([loss, count, msum[0], mcount[0]])
 
 
 class KerasModelAdapter:
@@ -1135,8 +1301,6 @@ class KerasModelAdapter:
         # Loss may be absent (inference-only use: predict needs none); the
         # step builders raise when they need it.
         self.loss_spec = loss if loss is not None else self.compile_config.get("loss")
-        self.optimizer_spec = (optimizer if optimizer is not None
-                               else self.compile_config.get("optimizer")) or "sgd"
         self.metrics = list(metrics) if metrics is not None else self._infer_metrics()
         shapes = None if weights is None else [np.shape(w) for w in weights]
         kind = arch.get("class_name")
@@ -1146,6 +1310,27 @@ class KerasModelAdapter:
         self._nodes, self._specs, self._input, self._output = _PARSERS[kind](arch, shapes)
         # the ops in the order they run (a shared layer once a call)
         self.layers = [n.op for n in self._nodes]
+        # the model's dtype policy (None: its JSON does not say); Keras's
+        # compile wraps the optimizer of a mixed_float16 model in a
+        # LossScaleOptimizer, which the JSON's compile_config does not name
+        self.policy = _model_policy(model, arch)
+        opt = optimizer if optimizer is not None else self.compile_config.get("optimizer")
+        if optimizer is None and opt is not None:
+            if self.policy is None and any(op.dtype == torch.float16 for op in self.layers):
+                raise _refuse("a Functional model's JSON with mixed_float16 layers whose "
+                              "policies differ (it names no model policy, so whether "
+                              "Keras wraps the optimizer in a LossScaleOptimizer is "
+                              "unknown): pass the live Keras model, or optimizer=")
+            if self.policy == "mixed_float16":
+                opt = loss_scale_spec(opt)
+        self.optimizer_spec = opt or "sgd"
+        # under a mixed policy: the compute dtype of each weight that its
+        # layer reads cast (BatchNormalization's and Embedding's are read
+        # as float32)
+        self._mixed = any(op.dtype != torch.float32 for op in self.layers)
+        self._weight_dtypes = {spec.name: op.dtype for op in self.layers
+                               if op.cast_weights and op.dtype != torch.float32
+                               for spec in op.weight_shapes()}
         if weights is None:
             gen = torch.Generator().manual_seed(int(seed))
             weights = [_initial_value(s.init, s.shape, gen) for s in self._specs]
@@ -1153,20 +1338,9 @@ class KerasModelAdapter:
 
     # -- introspection ---------------------------------------------------
     def compile_metric_names(self) -> Tuple[List[str], List[str]]:
-        """``(metric_names, weighted_metric_names)`` of the compile config."""
-        def names(spec):
-            if spec is None:
-                return []
-            if isinstance(spec, dict) and "class_name" not in spec:
-                return [n for s in spec.values() for n in names(s)]
-            if isinstance(spec, (list, tuple)):
-                return [n for s in spec for n in names(s)]
-            if isinstance(spec, dict):
-                return [str((spec.get("config") or {}).get("name", spec["class_name"]))]
-            return [spec if isinstance(spec, str) else str(getattr(spec, "name", spec))]
-
-        return (names(self.compile_config.get("metrics")),
-                names(self.compile_config.get("weighted_metrics")))
+        """``(metric_names, weighted_metric_names)`` of the compile config
+        (:func:`compile_metric_names`)."""
+        return compile_metric_names(self)
 
     def _infer_metrics(self) -> List[str]:
         names, weighted = self.compile_metric_names()
@@ -1233,17 +1407,27 @@ class KerasModelAdapter:
         """The graph's calls in order, each value kept by key until its last
         reader has run; an Embedding's mask travels beside its values."""
         vals, masks = {self._input: x}, {}
+        if self._weight_dtypes:
+            params = {**params, **{k: params[k].to(dt)
+                                   for k, dt in self._weight_dtypes.items()}}
+
+        def cast(h, op):
+            if self._mixed and op.autocast and h.is_floating_point():
+                return h.to(op.dtype)
+            return h
+
         for node in self._nodes:
             op = node.op
             if op.merge:
-                h = op(params, [vals[k] for k in node.inputs], training, generator, ntv_out)
+                h = op(params, [cast(vals[k], op) for k in node.inputs], training,
+                       generator, ntv_out)
             else:
                 k = node.inputs[0]
                 m = masks.get(k)
                 if m is not None and op.mask_role == "consume":
-                    h = op(params, vals[k], training, generator, ntv_out, mask=m)
+                    h = op(params, cast(vals[k], op), training, generator, ntv_out, mask=m)
                 else:
-                    h = op(params, vals[k], training, generator, ntv_out)
+                    h = op(params, cast(vals[k], op), training, generator, ntv_out)
                 if op.makes_mask:
                     masks[node.output] = op.compute_mask(vals[k])
                 elif m is not None and (op.mask_role == "pass"
@@ -1272,15 +1456,50 @@ class KerasModelAdapter:
 
     def predict(self, x, batch_size: int = 32, verbose: int = 0) -> np.ndarray:
         """Keras ``model.predict``: the current weights over ``x`` in batches
-        of ``batch_size`` rows on the adapter's device."""
+        of ``batch_size`` rows on the adapter's device, in the output
+        layer's compute dtype as Keras returns it; a bfloat16 output comes
+        back widened exactly to float32 (numpy has no bfloat16 without
+        ``ml_dtypes``)."""
         predict_fn = self.build_predict_fn()
         tv, ntv = ({k: v[None] for k, v in d.items()} for d in self.state_values())
         x = np.asarray(x, dtype=np.float32)
         outs = []
         for i in range(0, x.shape[0], int(batch_size)):
             xb = torch.as_tensor(x[i:i + int(batch_size)]).to(self.device)
-            outs.append(predict_fn(tv, ntv, xb[None])[0].cpu().numpy())
+            out = predict_fn(tv, ntv, xb[None])[0].cpu()
+            outs.append((out.float() if out.dtype == torch.bfloat16 else out).numpy())
         return np.concatenate(outs) if outs else np.zeros((0,), np.float32)
+
+    def keras_evaluate(self, x, y, batch_size: int = 32):
+        """Keras ``model.evaluate`` of the compiled model, as the reference's
+        fall-back runs it: batches of ``batch_size`` rows (Keras's 32 when
+        the caller names none) through the host path's Keras evaluate step
+        (:meth:`build_metric_steps`), with the compile config's loss (its
+        batch values averaged over the rows, a loss object's scalar for the
+        whole batch) and each of its ``metrics`` then ``weighted_metrics``
+        (no sample weights: the weighted ones take the same values)
+        averaged as Keras's ``Mean`` does, summed on the device and read
+        once. Returns the loss alone, or ``[loss, *metrics]``."""
+        specs = [m for k in ("metrics", "weighted_metrics")
+                 for m in _flat_metric_specs(self.compile_config.get(k))]
+        eval_step = self._eval_step([resolve_metric(m)[1] for m in specs],
+                                    self.compile_config.get("loss"))
+        tv, ntv = ({k: v[None] for k, v in d.items()} for d in self.state_values())
+        x = torch.as_tensor(np.asarray(x, np.float32))
+        y = torch.as_tensor(np.asarray(y))
+        if y.is_floating_point():
+            y = y.to(torch.float32)
+        tot = torch.zeros(2 + 2 * len(specs), device=self.device)
+        for i in range(0, x.shape[0], int(batch_size)):
+            xb, yb = (t[i:i + int(batch_size)].to(self.device) for t in (x, y))
+            sw = torch.ones((1, xb.shape[0]), device=self.device)
+            tot += stats_row(eval_step(tv, ntv, xb[None], yb[None], sw))
+        vals = tot.cpu().tolist()
+        loss = vals[0] / max(vals[1], 1.0)
+        if not specs:
+            return loss
+        M = len(specs)
+        return [loss] + [vals[2 + j] / max(vals[2 + M + j], 1.0) for j in range(M)]
 
     # -- step builders ---------------------------------------------------
     def _require_loss(self):
@@ -1293,22 +1512,46 @@ class KerasModelAdapter:
     def make_optimizer(self):
         return to_torch_optimizer(self.optimizer_spec)
 
-    def _loss_parts(self):
-        per_sample_loss = resolve_per_sample_loss(self._require_loss())
+    def _loss_parts(self, metric_fns: Optional[Sequence[Callable]] = None, loss_spec=None):
+        """The per-sample loss, accuracy and metric sums of a batch. With
+        ``metric_fns`` (a list, empty too) the steps are Keras's own
+        ``fit`` / ``evaluate`` (the host path's workers, the reference's
+        evaluate fall-back), whose ``Loss`` casts ``y_pred`` to float32;
+        without, the reference's compiled loss, in ``y_pred``'s dtype.
+        ``loss_spec`` overrides the adapter's."""
+        per_sample_loss = resolve_per_sample_loss(
+            loss_spec if loss_spec is not None else self._require_loss())
+        # a loss the reference hands to Keras: its scalar is each replica's
+        grouped = getattr(per_sample_loss, "grouped", None)
         acc_fn = resolve_accuracy(self.loss_spec) if self.wants_accuracy else None
+        keras_loss = metric_fns is not None
 
         def per_and_acc(y, y_pred, sw, with_acc=True):
             """Per-sample losses ``[L, B]`` over the flattened rows (one call
-            for every replica) and the weighted accuracy sums ``[L]``."""
+            for every replica) and the weighted accuracy sums ``[L]``; with
+            ``metric_fns``, also each metric's Keras ``Mean`` sums and
+            counts, ``[L, M]`` each."""
             L, B = sw.shape
             yf = y.reshape((L * B,) + tuple(y.shape[2:]))
             pf = y_pred.reshape((L * B,) + tuple(y_pred.shape[2:]))
-            per = per_sample_loss(yf, pf).reshape(L, B)
+            lp = y_pred.to(torch.float32) if keras_loss else y_pred
+            per = grouped(y, lp) if grouped is not None else \
+                per_sample_loss(yf, lp.reshape(pf.shape)).reshape(L, B)
             if acc_fn is None or not with_acc:
-                return per, torch.zeros(L, dtype=torch.float32, device=sw.device)
+                acc = torch.zeros(L, dtype=torch.float32, device=sw.device)
+            else:
+                with torch.no_grad():
+                    acc = (acc_fn(yf, pf.detach()).reshape(L, B) * sw).sum(dim=1)
+            if metric_fns is None:
+                return per, acc
             with torch.no_grad():
-                acc = (acc_fn(yf, pf.detach()).reshape(L, B) * sw).sum(dim=1)
-            return per, acc
+                parts = [[metric_sums(fn(y[l], y_pred[l].detach())) for fn in metric_fns]
+                         for l in range(L)]
+                msum = torch.stack([torch.stack([v for v, _ in row]) for row in parts]) \
+                    if metric_fns else torch.zeros((L, 0), device=sw.device)
+                mcount = torch.tensor([[float(c) for _, c in row] for row in parts],
+                                      device=sw.device).reshape(L, len(metric_fns))
+            return per, acc, msum, mcount
 
         return per_and_acc
 
@@ -1343,27 +1586,53 @@ class KerasModelAdapter:
         """``(tv, ntv, opt_state, x, y, sw, gen) → (tv, ntv, opt_state,
         stats)`` over ``L`` replicas: ``tv`` and ``ntv`` ``[L, ...]``, ``x``
         ``[L, B, ...]``, ``sw`` ``[L, B]``. ``stats`` is
-        ``(loss_weighted_sum, acc_weighted_sum, weight_sum)``, each ``[L]``.
-        A replica whose batch is all padding keeps its parameters,
-        statistics and optimizer state. ``remat=True`` recomputes the
-        model and the loss in the backward instead of keeping their
-        activations (:meth:`_region_grads`)."""
-        per_and_acc = self._loss_parts()
+        ``(loss_weighted_sum, acc_weighted_sum, weight_sum)``, each ``[L]``
+        (:meth:`build_metric_steps` adds Keras metrics). A replica whose
+        batch is all padding keeps its parameters, statistics and optimizer
+        state. ``remat=True`` recomputes the model and the loss in the
+        backward instead of keeping their activations
+        (:meth:`_region_grads`). An optimizer with a ``loss_scale``
+        (:func:`~elephas_tpu_torch.models.optimizers.keras_loss_scale`) has
+        the gradients of the loss times its scale; it unscales them.
 
-        def region(leaves, ntv, x, y, sw, gen, gen_state):
+        ``denom`` (``[L]``, optional) divides the weighted loss sum in place
+        of the weight sum, as Keras's ``sum_over_batch_size`` divides a
+        class-weighted batch's by its rows; the stats then count ``denom``
+        where they count the weight sum."""
+        return self._train_step(optimizer, remat, None)
+
+    def build_metric_steps(self, optimizer, metric_fns: Sequence[Callable]):
+        """``(train_step, eval_step)`` as :meth:`build_train_step` and
+        :meth:`build_eval_step` build them, whose stats also carry each
+        Keras metric function's (``metric_fns``,
+        :func:`~elephas_tpu_torch.models.losses.resolve_metric`) sums and
+        counts ``[L, M]``, on the training batch in the train step: what the
+        host path's ``model.fit`` logs."""
+        return self._train_step(optimizer, False, list(metric_fns)), \
+            self._eval_step(list(metric_fns))
+
+    def _train_step(self, optimizer, remat, metric_fns):
+        per_and_acc = self._loss_parts(metric_fns)
+        loss_scale = getattr(optimizer, "loss_scale", None)
+
+        def region(leaves, ntv, x, y, sw, scale, denom, gen, gen_state):
             if gen_state is not None:
                 gen.set_state(gen_state)
             y_pred, ntv2 = self.stateless_call(leaves, ntv, x, True, gen)
-            per, acc = per_and_acc(y, y_pred, sw)
-            loss = (per * sw).sum(dim=1) / torch.clamp(sw.sum(dim=1), min=1e-9)
-            return loss, ntv2, acc
+            per, *rest = per_and_acc(y, y_pred, sw)
+            if denom is None:
+                denom = torch.clamp(sw.sum(dim=1), min=1e-9)
+            loss = (per * sw).sum(dim=1) / denom
+            scaled = loss if scale is None else loss * scale
+            return (scaled, ntv2, loss, *rest)
 
-        def train_step(tv, ntv, opt_state, x, y, sw, gen):
+        def train_step(tv, ntv, opt_state, x, y, sw, gen, denom=None):
             leaves = {k: t.detach().requires_grad_() for k, t in tv.items()}
+            scale = None if loss_scale is None else loss_scale(opt_state)
             # the replicas share nothing, so the gradient of the sum is each
             # replica's own gradient
-            (loss, ntv2, acc), grads = self._region_grads(region, leaves, remat, gen,
-                                                          ntv, x, y, sw)
+            (_, ntv2, loss, acc, *mstats), grads = self._region_grads(
+                region, leaves, remat, gen, ntv, x, y, sw, scale, denom)
             with torch.no_grad():
                 loss, wsum = loss.detach(), sw.sum(dim=1)
                 grads = dict(zip(leaves, grads))
@@ -1373,7 +1642,8 @@ class KerasModelAdapter:
                 tv2 = _tree_where(valid, tv2, tv)
                 ntv2 = _tree_where(valid, ntv2, ntv)
                 opt2 = _tree_where(valid, opt2, opt_state)
-                stats = (torch.where(valid, loss * wsum, 0.0), acc, wsum)
+                count = wsum if denom is None else denom
+                stats = (torch.where(valid, loss * count, 0.0), acc, count, *mstats)
             return tv2, ntv2, opt2, stats
 
         return train_step
@@ -1390,7 +1660,7 @@ class KerasModelAdapter:
         per_and_acc = self._loss_parts()
         keep_replicas = any(not s.trainable for s in self._specs)
 
-        def region(leaves, ntv, x, y, sw, gen, gen_state):
+        def region(leaves, ntv, x, y, sw, scale, gen, gen_state):
             if gen_state is not None:
                 gen.set_state(gen_state)
             L, B = sw.shape
@@ -1411,7 +1681,7 @@ class KerasModelAdapter:
         def grad_step(tv, ntv, x, y, sw, gen):
             leaves = {k: t.detach().requires_grad_() for k, t in tv.items()}
             (loss_wsum, ntv2, acc), grads = self._region_grads(region, leaves, remat, gen,
-                                                               ntv, x, y, sw)
+                                                               ntv, x, y, sw, None)
             wsum = sw.sum(dim=1)
             ntv2 = _tree_where(wsum > 0, ntv2, ntv) if keep_replicas else ntv
             return dict(zip(leaves, grads)), ntv2, (loss_wsum.detach(), acc, wsum)
@@ -1420,13 +1690,16 @@ class KerasModelAdapter:
 
     def build_eval_step(self) -> Callable:
         """``(tv, ntv, x, y, sw) → (loss_wsum, acc_wsum, wsum)``, each ``[L]``."""
-        per_and_acc = self._loss_parts()
+        return self._eval_step(None)
+
+    def _eval_step(self, metric_fns, loss_spec=None):
+        per_and_acc = self._loss_parts(metric_fns, loss_spec)
 
         @torch.no_grad()
         def eval_step(tv, ntv, x, y, sw):
             y_pred, _ = self.stateless_call(tv, ntv, x, False)
-            per, acc = per_and_acc(y, y_pred, sw)
-            return (per * sw).sum(dim=1), acc, sw.sum(dim=1)
+            per, acc, *mstats = per_and_acc(y, y_pred, sw)
+            return ((per * sw).sum(dim=1), acc, sw.sum(dim=1), *mstats)
 
         return eval_step
 

@@ -549,10 +549,107 @@ def keras_adam(learning_rate: float = 0.001, beta_1: float = 0.9,
     return GradientTransformation(init, update)
 
 
+class LossScaleState(NamedTuple):
+    """Keras ``LossScaleOptimizer``'s slots: the dynamic scale (float32),
+    the count of finite steps since it last changed, and the inner
+    optimizer's state; each 0-d or ``[L]``."""
+
+    scale: torch.Tensor
+    counter: torch.Tensor
+    inner: Any
+
+
+class LossScaleTransformation(NamedTuple):
+    """A :class:`GradientTransformation` whose gradients are those of the
+    loss times ``loss_scale(state)``."""
+
+    init: Callable
+    update: Callable
+    loss_scale: Callable
+
+
+# a LossScaleOptimizer by its class (a serialized spec) or its config's name
+_LOSS_SCALE_NAMES = ("lossscaleoptimizer", "loss_scale_optimizer")
+
+
+def loss_scale_spec(inner_spec) -> dict:
+    """The spec of the ``LossScaleOptimizer`` that Keras's ``compile``
+    wraps around ``inner_spec`` for a ``mixed_float16`` model, with Keras's
+    defaults (an initial scale of 2**15, doubled after 2000 finite steps).
+    A spec that is one already is returned as it is."""
+    if _normalize(inner_spec)[0] in _LOSS_SCALE_NAMES:
+        return inner_spec
+    return {"class_name": "LossScaleOptimizer",
+            "config": {"name": "loss_scale_optimizer", "inner_optimizer": inner_spec,
+                       "initial_scale": 2.0 ** 15, "dynamic_growth_steps": 2000}}
+
+
+def keras_loss_scale(inner: GradientTransformation, initial_scale: float = 2.0 ** 15,
+                     dynamic_growth_steps: int = 2000) -> LossScaleTransformation:
+    """Keras 3.13's ``LossScaleOptimizer`` over ``inner``: the gradients,
+    of the loss times the scale, are checked (every one finite, per
+    replica); a finite step divides them by the scale and steps ``inner``,
+    and the scale doubles once ``dynamic_growth_steps`` finite steps have
+    run since it last changed; a step with a non-finite gradient leaves
+    the variables and ``inner``'s state (its step count too) as they were
+    and halves the scale."""
+    growth = int(dynamic_growth_steps)
+
+    def init(params: Params, count_shape=()):
+        dev = next(iter(params.values())).device if params else None
+        return LossScaleState(
+            torch.full(tuple(count_shape), float(initial_scale), dtype=torch.float32,
+                       device=dev),
+            _zero_count(params, count_shape), inner.init(params, count_shape=count_shape))
+
+    def update(grads: Params, state: LossScaleState, params=None):
+        finite = None
+        for g in grads.values():
+            f = torch.isfinite(g).reshape(state.scale.shape + (-1,)).all(dim=-1)
+            finite = f if finite is None else finite & f
+        unscaled = {k: g / _lead(state.scale, g) for k, g in grads.items()}
+        upd, inner2 = inner.update(unscaled, state.inner, params)
+        upd = {k: torch.where(_lead(finite, u), u, torch.zeros_like(u))
+               for k, u in upd.items()}
+        inner2 = _tree_where(finite, inner2, state.inner)
+        grow = state.counter == growth - 1
+        counter = torch.where(finite & ~grow, state.counter + 1,
+                              torch.zeros_like(state.counter))
+        scale = torch.where(finite, torch.where(grow, state.scale * 2.0, state.scale),
+                            state.scale * 0.5)
+        return upd, LossScaleState(scale, counter, inner2)
+
+    return LossScaleTransformation(init, update, lambda state: state.scale)
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over matching leaves of tensors, dicts and NamedTuples."""
+    t0 = trees[0]
+    if isinstance(t0, torch.Tensor):
+        return fn(*trees)
+    if isinstance(t0, dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, tuple):
+        return type(t0)(*(_tree_map(fn, *parts) for parts in zip(*trees)))
+    return t0
+
+
+def _tree_where(valid, new, old):
+    """Per replica: ``new`` where ``valid`` (0-d or ``[L]``), else ``old``."""
+    return _tree_map(lambda a, b: torch.where(_lead(valid, a), a, b), new, old)
+
+
 def to_keras_optimizer(optimizer_spec: Any):
     """The optimizer of a Keras spec with Keras's own update rule, for the
-    host path's workers: :func:`keras_sgd` and :func:`keras_adam`; any other
-    optimizer takes :func:`to_torch_optimizer`'s (optax's) rule."""
+    host path's workers: :func:`keras_sgd` and :func:`keras_adam`, a
+    ``LossScaleOptimizer`` (a ``mixed_float16`` model's) as
+    :func:`keras_loss_scale` over its inner optimizer; any other optimizer
+    takes :func:`to_torch_optimizer`'s (optax's) rule."""
+    name, cfg = _normalize(optimizer_spec)
+    if name in _LOSS_SCALE_NAMES:
+        return keras_loss_scale(to_keras_optimizer(cfg.get("inner_optimizer", "sgd")),
+                                float(cfg.get("initial_scale", 2.0 ** 15)),
+                                int(cfg.get("dynamic_growth_steps", 2000)))
     name, cfg = _normalize(keras_compiled_spec(optimizer_spec))
     lr = _extract_lr(cfg)
     if name == "sgd":

@@ -5,9 +5,9 @@
 // Pallas `_fwd_kernel`: per row, out = sum_j y_j * (lse(x) - x_j) with
 // lse = log(sum_j exp(x_j - max x)) + max x) and its VJP `_fused_bwd` (the
 // Pallas `_bwd_kernel`: dx = (softmax(x) - y) * g, the softmax recomputed
-// from x alone). Logits are float32 or bf16 and every operation runs in
-// float32; labels and g are float32; the forward writes float32 [B], the
-// backward dx in the logits' type. Note the forward is the kernel's
+// from x alone). Logits are float32, bf16 or fp16 and every operation runs
+// in float32 (a 16-bit logit widens exactly); labels and g are float32; the
+// forward writes float32 [B], the backward dx in the logits' type. Note the forward is the kernel's
 // sum_j y_j * (lse - x_j), not lse - <y, x>: the two differ on rows whose
 // labels do not sum to 1, and the backward is the latter's gradient. Both
 // are kept as the TPU kernels have them.
@@ -72,6 +72,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -95,27 +96,45 @@ constexpr int kSmemBudget = 231424;
 
 enum Route { kWarp = 0, kCluster = 1, kStream = 2 };
 
+// the logits' type, as the wrapper codes it
+enum XType { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
 // bf16 to float is exact: the bits shifted up
 __device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
 __device__ __forceinline__ uint32_t bf16_bits(float v) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(v)));
 }
+// fp16 to float is exact too; back, rounded to nearest even
+__device__ __forceinline__ float f16_lo(uint32_t u) {
+  return __half2float(__ushort_as_half(static_cast<unsigned short>(u & 0xffffu)));
+}
+__device__ __forceinline__ float f16_hi(uint32_t u) {
+  return __half2float(__ushort_as_half(static_cast<unsigned short>(u >> 16)));
+}
+__device__ __forceinline__ uint32_t f16_bits(float v) {
+  return static_cast<uint32_t>(__half_as_ushort(__float2half_rn(v)));
+}
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void store1(__half* p, float v) { *p = __float2half_rn(v); }
 
 // four consecutive elements at p (16-byte aligned for float32, 8 for
-// bf16) widened to float, and back
+// bf16 and fp16) widened to float, and back
 template <typename T>
 __device__ __forceinline__ void load4(const T* __restrict__ p, float* v) {
   if constexpr (std::is_same<T, float>::value) {
     const float4 t = *reinterpret_cast<const float4*>(p);
     v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
-  } else {
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     const uint2 t = *reinterpret_cast<const uint2*>(p);
     v[0] = bf16_lo(t.x), v[1] = bf16_hi(t.x), v[2] = bf16_lo(t.y), v[3] = bf16_hi(t.y);
+  } else {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    v[0] = f16_lo(t.x), v[1] = f16_hi(t.x), v[2] = f16_lo(t.y), v[3] = f16_hi(t.y);
   }
 }
 
@@ -123,9 +142,12 @@ template <typename T>
 __device__ __forceinline__ void store4(T* __restrict__ p, const float* v) {
   if constexpr (std::is_same<T, float>::value) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     *reinterpret_cast<uint2*>(p) = make_uint2(bf16_bits(v[0]) | bf16_bits(v[1]) << 16,
                                               bf16_bits(v[2]) | bf16_bits(v[3]) << 16);
+  } else {
+    *reinterpret_cast<uint2*>(p) = make_uint2(f16_bits(v[0]) | f16_bits(v[1]) << 16,
+                                              f16_bits(v[2]) | f16_bits(v[3]) << 16);
   }
 }
 
@@ -564,50 +586,62 @@ cudaError_t launch(const Args<T>& a, int route, int vec, int n, int slice, cudaS
 
 template <bool BWD>
 int dispatch(const void* x, const void* y, const void* g, float* out, void* dx, int b, int c,
-             int x_bf16, int route, int vec, int n, int slice, void* stream) {
+             int x_type, int route, int vec, int n, int slice, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* yf = static_cast<const float*>(y);
   const float* gf = static_cast<const float*>(g);
-  if (x_bf16) {
-    const Args<__nv_bfloat16> a{static_cast<const __nv_bfloat16*>(x), yf, gf, out,
-                                static_cast<__nv_bfloat16*>(dx), b, c};
-    return static_cast<int>(launch<__nv_bfloat16, BWD>(a, route, vec, n, slice, st));
+  switch (x_type) {
+    case kF32: {
+      const Args<float> a{static_cast<const float*>(x), yf, gf, out, static_cast<float*>(dx),
+                          b, c};
+      return static_cast<int>(launch<float, BWD>(a, route, vec, n, slice, st));
+    }
+    case kBF16: {
+      const Args<__nv_bfloat16> a{static_cast<const __nv_bfloat16*>(x), yf, gf, out,
+                                  static_cast<__nv_bfloat16*>(dx), b, c};
+      return static_cast<int>(launch<__nv_bfloat16, BWD>(a, route, vec, n, slice, st));
+    }
+    case kF16: {
+      const Args<__half> a{static_cast<const __half*>(x), yf, gf, out, static_cast<__half*>(dx),
+                           b, c};
+      return static_cast<int>(launch<__half, BWD>(a, route, vec, n, slice, st));
+    }
   }
-  const Args<float> a{static_cast<const float*>(x), yf, gf, out, static_cast<float*>(dx), b, c};
-  return static_cast<int>(launch<float, BWD>(a, route, vec, n, slice, st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 extern "C" {
 
-// logits x [b, c] (float32, or bf16 when x_bf16), labels y [b, c] float32,
+// logits x [b, c] of x_type (0 float32, 1 bf16, 2 fp16), labels y [b, c] float32,
 // out [b] float32; all contiguous on one device, b >= 1, c >= 1. route:
 // 0 warp (vec 1 or 4 elements a load), 1 cluster (n CTAs a row, each
 // `slice` elements), 2 stream; the wrapper's `xent_plan` chooses them.
 // Returns a cudaError_t: cudaErrorInvalidValue for parameters the route
 // does not take.
-int fused_xent_fwd(const void* x, const void* y, void* out, int b, int c, int x_bf16, int route,
+int fused_xent_fwd(const void* x, const void* y, void* out, int b, int c, int x_type, int route,
                    int vec, int n, int slice, void* stream) {
-  return dispatch<false>(x, y, nullptr, static_cast<float*>(out), nullptr, b, c, x_bf16, route,
+  return dispatch<false>(x, y, nullptr, static_cast<float*>(out), nullptr, b, c, x_type, route,
                          vec, n, slice, stream);
 }
 
 // As the forward, plus the cotangent g [b] float32 and dx [b, c] in the
 // logits' type.
 int fused_xent_bwd(const void* x, const void* y, const void* g, void* dx, int b, int c,
-                   int x_bf16, int route, int vec, int n, int slice, void* stream) {
-  return dispatch<true>(x, y, g, nullptr, dx, b, c, x_bf16, route, vec, n, slice, stream);
+                   int x_type, int route, int vec, int n, int slice, void* stream) {
+  return dispatch<true>(x, y, g, nullptr, dx, b, c, x_type, route, vec, n, slice, stream);
 }
 
 // The launch a plan makes, without launching: shape[0] blocks of shape[1]
 // threads, each with shape[2] bytes of dynamic shared memory. Returns the
 // entry points' cudaErrorInvalidValue for a plan they refuse (alignment,
 // which depends on the pointers, aside).
-int fused_xent_launch_shape(int b, int c, int x_bf16, int route, int vec, int n, int slice,
+int fused_xent_launch_shape(int b, int c, int x_type, int route, int vec, int n, int slice,
                             int* shape) {
   Shape s;
-  const cudaError_t err = shape_of(b, c, x_bf16 ? 2 : 4, route, vec, n, slice, &s);
+  if (x_type < kF32 || x_type > kF16) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = shape_of(b, c, x_type == kF32 ? 4 : 2, route, vec, n, slice, &s);
   if (err == cudaSuccess) shape[0] = s.blocks, shape[1] = s.threads, shape[2] = s.smem;
   return static_cast<int>(err);
 }

@@ -16,7 +16,8 @@ distributions): a row of zero labels gives 0 here and ``lse(x)`` there.
 The backward is the oracle's gradient on every row. The fit's padded
 samples have zero labels and zero weight, so no fit sees the difference.
 
-Logits ``[B, C]`` are float32 or bf16 and every operation runs in float32;
+Logits ``[B, C]`` are float32, bf16 or fp16 and every operation runs in
+float32 (a 16-bit logit widens exactly);
 labels ``[B, C]``; the loss is float32 ``[B]`` and the logits' gradient
 comes back in the logits' dtype. Nothing is padded: the TPU padded B to 8
 rows and C to 128 lanes with -1e30 logits, the CUDA kernels mask the
@@ -66,6 +67,8 @@ def _source_constants(path: Path) -> dict:
 # classes; a cluster of at most kMaxCluster CTAs, each slice a multiple of
 # kSliceUnit elements in at most kSmemBudget bytes of shared memory
 ROUTES = ("warp", "cluster", "stream")
+# the logits' types the kernels take, in the order of the .cu's `enum XType`
+X_TYPES = (torch.float32, torch.bfloat16, torch.float16)
 _CU = _source_constants(_build.CSRC / "fused_xent.cu")
 _WARP_MAX, _CLUSTER_MAX, _SLICE_UNIT, _SMEM_BUDGET = (
     _CU[k] for k in ("kWarpMax", "kMaxCluster", "kSliceUnit", "kSmemBudget"))
@@ -88,7 +91,7 @@ def _cluster_smem(slice_: int, itemsize: int) -> int:
 
 def xent_plan(C: int, itemsize: int, vec_max: int = 4):
     """``(route, vec, cluster, slice)`` of a K1 launch over rows of ``C``
-    classes with ``itemsize``-byte logits (4 float32, 2 bf16) whose x, y
+    classes with ``itemsize``-byte logits (4 float32, 2 bf16 or fp16) whose x, y
     and dx pointers all allow vector loads of ``vec_max`` elements (4, 2 or
     1, :func:`_vec_max`): ``route`` indexes :data:`ROUTES`; ``vec`` is the
     elements a load on the warp route (4 or 1; 1 on the others);
@@ -127,7 +130,7 @@ def launch_shape(B: int, C: int, dtype, plan):
     the C entry points refuse."""
     lib = _build.load("fused_xent", _SIGNATURES)
     shape = (ctypes.c_int * 3)()
-    err = lib.fused_xent_launch_shape(B, C, int(dtype == torch.bfloat16), *plan, shape)
+    err = lib.fused_xent_launch_shape(B, C, X_TYPES.index(dtype), *plan, shape)
     _build.check(lib, err, "fused_xent_launch_shape")
     return tuple(shape)
 
@@ -135,7 +138,7 @@ def launch_shape(B: int, C: int, dtype, plan):
 def _vec_max(*tensors) -> int:
     """The most elements (4, 2 or 1) a vector load or store may take at
     every tensor's data pointer: 4 v-byte alignment for float32, 2 v for
-    bf16."""
+    bf16 and fp16."""
     v = 4
     while any(t.data_ptr() % (v * t.element_size()) for t in tensors):
         v //= 2
@@ -180,8 +183,8 @@ def _check(logits, labels, what: str):
                          f"{tuple(logits.shape)} and {tuple(labels.shape)}")
     if labels.device != logits.device:
         raise ValueError(f"{what}: logits and labels must be on one device")
-    if logits.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"{what}: logits must be float32 or bfloat16, got "
+    if logits.dtype not in X_TYPES:
+        raise ValueError(f"{what}: logits must be float32, bfloat16 or float16, got "
                          f"{logits.dtype}")
     B, C = logits.shape
     if C < 1:
@@ -204,14 +207,14 @@ def _launch(entry, x, y, g, out, plan=None):
     lib = _build.load("fused_xent", _SIGNATURES)
     with torch.cuda.device(x.device):
         err = getattr(lib, entry)(*(t.data_ptr() for t in ptrs), B, C,
-                                  int(x.dtype == torch.bfloat16), *plan,
+                                  X_TYPES.index(x.dtype), *plan,
                                   torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, entry)
     _build.count_launch(_WRAPPERS[entry])
 
 
 def fused_xent_fwd(logits, labels):
-    """K1-fwd, the CUDA kernel: ``logits`` ``[B, C]`` (float32 or bf16) and
+    """K1-fwd, the CUDA kernel: ``logits`` ``[B, C]`` (float32, bf16 or fp16) and
     ``labels`` ``[B, C]`` on one CUDA device; returns the float32 ``[B]``
     per-row ``sum(y * (lse - x))``. Raises on anything the kernel does not
     take; counts each launch in ``fused_xent_fwd.launches``."""

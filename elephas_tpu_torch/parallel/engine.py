@@ -71,8 +71,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..models.adapters import KerasModelAdapter, _tree_map
-from ..models.optimizers import _lead
+from ..models.adapters import KerasModelAdapter
+from ..models.optimizers import _lead, _tree_map
 from .mesh import DeviceMesh, build_mesh
 
 def _pad_block(arr: np.ndarray, target_rows: int) -> np.ndarray:

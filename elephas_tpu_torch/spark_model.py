@@ -59,9 +59,10 @@ through an :class:`~elephas_tpu_torch.parallel.elastic.ElasticHostPool` of
 real host processes, each training a
 :class:`~elephas_tpu_torch.worker.KerasReplica` on ``device``.
 
-Not ported yet, each raising :class:`NotImplementedError`: ``profile_dir``
-(the reference writes a ``jax.profiler`` trace); and ``evaluate`` with
-metrics other than accuracy, which the reference hands to Keras.
+Not ported yet, raising :class:`NotImplementedError`: ``profile_dir`` (the
+reference writes a ``jax.profiler`` trace). ``evaluate`` with metrics other
+than accuracy runs the port's Keras fall-back, as the reference hands it to
+Keras.
 """
 
 from __future__ import annotations
@@ -76,15 +77,13 @@ from . import DeviceLike
 from .data.rdd import RDD, TaskContext
 from .mllib.adapter import from_matrix, from_vector, to_matrix, to_vector
 from .mllib.linalg import DenseMatrix, DenseVector
-from .models.adapters import KerasModelAdapter, _is_accuracy_name
+from .models.adapters import KerasModelAdapter, _is_accuracy_name, compile_metric_names
 from .parallel.engine import CompiledTrainer
 from .parallel.mesh import build_mesh
 from .parameter.client import BaseParameterClient
 from .parameter.server import HttpServer, SocketServer
 from .utils.rdd_utils import lp_to_simple_rdd
 from .worker import AsynchronousSparkWorker, SparkWorker
-
-METRICS_ITEM = "ROADMAP queue 1 item 13 (Keras metrics beyond accuracy)"
 
 
 class SparkModel:
@@ -812,22 +811,32 @@ class SparkModel:
             return RDD(out_parts, data.context)
         return trainer.predict(np.asarray(data), batch_size=batch_size)
 
+    def _compiled_eval_representable(self) -> bool:
+        """True when the compiled evaluation returns what Keras ``evaluate``
+        would: the loss plus (only) an accuracy metric. Weighted metrics,
+        other metrics, or a ``master_metrics`` override that disagrees with
+        the compiled ones go to the Keras fall-back, as in the reference."""
+        names, weighted = compile_metric_names(self._master_network)
+        if weighted or not all(_is_accuracy_name(n) for n in names):
+            return False
+        return self._get_trainer().adapter.wants_accuracy == bool(names)
+
     def evaluate(self, x, y, **kwargs):
         """Loss (and accuracy) on held-out data: a scalar loss, or ``[loss,
         accuracy]`` when an accuracy metric is compiled in, as Keras
-        returns it. Other metrics raise: the reference evaluates them
-        through Keras."""
-        names, weighted = self._master_network.compile_metric_names()
-        if weighted or not all(_is_accuracy_name(n) for n in names):
-            raise NotImplementedError(
-                f"evaluate with metrics {names + weighted}: the reference hands "
-                f"metrics other than accuracy to Keras ({METRICS_ITEM})")
-        res = self._get_trainer().evaluate(
-            np.asarray(x), np.asarray(y),
-            batch_size=kwargs.get("batch_size", self.batch_size))
-        if "accuracy" in res:
-            return [res["loss"], res["accuracy"]]
-        return res["loss"]
+        returns it. Where the reference hands evaluation to Keras (the host
+        path, or metrics the compiled path does not compute) it is Keras's
+        ``evaluate`` as the adapter runs it
+        (:meth:`~elephas_tpu_torch.models.adapters.KerasModelAdapter.keras_evaluate`):
+        ``[loss, *metrics, *weighted_metrics]`` over batches of 32."""
+        if self.comm == "jax" and self._compiled_eval_representable():
+            res = self._get_trainer().evaluate(
+                np.asarray(x), np.asarray(y),
+                batch_size=kwargs.get("batch_size", self.batch_size))
+            if "accuracy" in res:
+                return [res["loss"], res["accuracy"]]
+            return res["loss"]
+        return self._master_network.keras_evaluate(np.asarray(x), np.asarray(y))
 
     # -- persistence -----------------------------------------------------
     def save(self, path: str) -> None:

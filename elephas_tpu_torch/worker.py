@@ -59,7 +59,8 @@ import torch
 
 from . import DeviceLike
 from .data.rdd import TaskContext
-from .models.adapters import KerasModelAdapter
+from .models.adapters import KerasModelAdapter, stats_row
+from .models.losses import resolve_metric
 from .models.optimizers import to_keras_optimizer
 from .parameter.client import BaseParameterClient
 from .utils.functional_utils import subtract_params_np
@@ -116,33 +117,80 @@ def _task_generator(ctx, device: DeviceLike) -> torch.Generator:
 
 class History:
     """What Keras's ``model.fit`` returns, as far as the workers read it:
-    ``history`` (metric name → one value per epoch) and ``epoch``."""
+    ``history`` (metric name → one value per epoch) and ``epoch`` (the
+    epochs run)."""
 
-    def __init__(self, history: Dict[str, List[float]], epochs: int):
+    def __init__(self, history: Dict[str, List[float]], epochs: List[int]):
         self.history = history
-        self.epoch = list(range(epochs))
+        self.epoch = list(epochs)
+
+
+# the model.fit options the workers take beyond the reference's own
+FIT_OPTIONS = ("class_weight", "callbacks", "initial_epoch", "validation_freq",
+               "validation_batch_size", "steps_per_epoch")
+
+
+def class_weights(y: np.ndarray, class_weight: Dict[int, float]) -> np.ndarray:
+    """Keras's per-sample weights for ``class_weight``: each row's class is
+    the argmax of a one-hot ``y``, else its (rounded) id; a class the dict
+    does not name weighs 1."""
+    y = np.asarray(y)
+    if y.ndim > 1:
+        y = np.argmax(y, axis=-1) if y.shape[-1] != 1 else np.squeeze(y, axis=-1)
+    y = np.round(y).astype(np.int32)
+    return np.array([class_weight.get(int(c), 1.0) for c in y], dtype=np.float32)
+
+
+def _should_eval(epoch: int, validation_freq) -> bool:
+    """Keras's rule: validate after epoch ``epoch`` (0-based) when its
+    number is a multiple of an int ``validation_freq`` or in a list of
+    them."""
+    if isinstance(validation_freq, int):
+        return (epoch + 1) % validation_freq == 0
+    return (epoch + 1) in validation_freq
+
+
+def _call(callbacks, hook: str, *args, **kwargs) -> None:
+    """Each callback's ``hook`` (read duck-typed; a missing one is Keras's
+    no-op), called as Keras's ``CallbackList`` calls it: the batch hooks
+    take ``logs`` by keyword, the others by position; no logs are ``{}``."""
+    for cb in callbacks:
+        fn = getattr(cb, hook, None)
+        if fn is not None:
+            fn(*args, **kwargs)
 
 
 class KerasReplica:
     """One worker's model: the adapter over the model's JSON on ``device``,
     trained with Keras ``model.fit`` / ``train_on_batch``'s contract and
     Keras's optimizer rule (see the module docstring). The optimizer state
-    is created at the first step and kept for the replica's life."""
+    is created at the first step and kept for the replica's life.
+
+    ``metrics`` are the compiled ones (the reference's workers compile with
+    ``master_metrics``): each is computed as Keras computes it
+    (:func:`~elephas_tpu_torch.models.losses.resolve_metric`) on every
+    training batch, and logged under its name, with a ``val_`` copy under
+    validation. The replica is the ``model`` its callbacks see:
+    ``get_weights``, ``set_weights`` and ``stop_training``."""
 
     def __init__(self, json_config: str, weights, optimizer, loss, metrics,
                  custom_objects: Optional[dict] = None, device: DeviceLike = "cuda",
                  generator: Optional[torch.Generator] = None):
         self.adapter = KerasModelAdapter(
-            json_config, loss=loss, optimizer=optimizer, metrics=list(metrics or []),
+            json_config, loss=loss, optimizer=optimizer, metrics=[],
             custom_objects=custom_objects, weights=weights, device=device)
         self.device = self.adapter.device
         self.optimizer = to_keras_optimizer(self.adapter.optimizer_spec)
         self.generator = generator if generator is not None else \
             _task_generator(None, self.device)
-        self._train_step = self.adapter.build_train_step(self.optimizer)
-        self._eval_step = self.adapter.build_eval_step()
+        resolved = [resolve_metric(m) for m in (metrics or [])]
+        self.metric_names = [name for name, _ in resolved]
+        fns = [fn for _, fn in resolved]
+        self._train_step, self._eval_step = self.adapter.build_metric_steps(self.optimizer,
+                                                                            fns)
         self._opt_state = None
         self._peeked = False
+        self.stop_training = False
 
     def get_weights(self) -> List[np.ndarray]:
         return self.adapter.get_weights()
@@ -154,48 +202,78 @@ class KerasReplica:
         """``(tv, ntv)`` as one-replica stacks."""
         return tuple({k: v[None] for k, v in d.items()} for d in self.adapter.state_values())
 
-    def _step(self, x: torch.Tensor, y: torch.Tensor):
+    def _step(self, x: torch.Tensor, y: torch.Tensor, cw: Optional[torch.Tensor] = None):
         """One optimizer step on the batch ``x`` ``[B, ...]`` (a short last
         batch as it is, unpadded, as Keras trains it), moving the
-        BatchNormalization statistics: ``(loss_wsum, acc_wsum, B)`` as device
-        tensors ``[1]``."""
+        BatchNormalization statistics; ``cw`` the rows' class weights, the
+        loss then ``sum(l * w) / B`` as Keras's. Returns ``[loss * B, B,
+        *metric sums, *metric counts]`` on the device."""
         tv, ntv = self._stacked()
         if self._opt_state is None:
             self._opt_state = self.optimizer.init(tv, count_shape=(1,))
-        sw = torch.ones((1, x.shape[0]), device=self.device)
+        n = x.shape[0]
+        sw = torch.ones((1, n), device=self.device) if cw is None else cw[None]
+        denom = None if cw is None else torch.full((1,), float(n), device=self.device)
         with torch.no_grad():
             tv, ntv, self._opt_state, stats = self._train_step(
-                tv, ntv, self._opt_state, x[None], y[None], sw, self.generator)
+                tv, ntv, self._opt_state, x[None], y[None], sw, self.generator, denom)
         self.adapter.install_state(*({k: v[0] for k, v in d.items()} for d in (tv, ntv)))
-        return stats
+        return stats_row(stats)
 
-    def _evaluate(self, x: torch.Tensor, y: torch.Tensor, batch_size: int):
+    def _evaluate(self, x: torch.Tensor, y: torch.Tensor, batch_size: int,
+                  callbacks=()):
+        """Keras ``evaluate`` inside ``fit``: the sums over ``x`` in batches,
+        each batch's test hooks called."""
         tv, ntv = self._stacked()
-        tot = torch.zeros(3, device=self.device)
-        for i in range(0, x.shape[0], batch_size):
+        tot = None
+        _call(callbacks, "on_test_begin", {})
+        for step, i in enumerate(range(0, x.shape[0], batch_size)):
+            _call(callbacks, "on_test_batch_begin", step, logs={})
             xb, yb = x[i:i + batch_size], y[i:i + batch_size]
             sw = torch.ones((1, xb.shape[0]), device=self.device)
-            tot += torch.cat(self._eval_step(tv, ntv, xb[None], yb[None], sw))
+            row = stats_row(self._eval_step(tv, ntv, xb[None], yb[None], sw))
+            tot = row if tot is None else tot + row
+            if callbacks:
+                _call(callbacks, "on_test_batch_end", step, logs=self._floats(self._logs(tot)))
+        if callbacks:
+            _call(callbacks, "on_test_end", self._floats(self._logs(tot)))
         return tot
 
     def _logs(self, tot: torch.Tensor, prefix: str = "") -> Dict[str, torch.Tensor]:
-        logs = {prefix + "loss": tot[0] / tot[2]}
-        if self.adapter.wants_accuracy:
-            logs[prefix + "accuracy"] = tot[1] / tot[2]
+        """Keras's logs from the summed row: the loss, then each metric."""
+        M = len(self.metric_names)
+        logs = {prefix + "loss": tot[0] / tot[1]}
+        for j, name in enumerate(self.metric_names):
+            logs[prefix + name] = tot[2 + j] / tot[2 + M + j]
         return logs
+
+    @staticmethod
+    def _floats(logs: Dict[str, torch.Tensor]) -> Dict[str, float]:
+        if not logs:
+            return {}
+        values = torch.stack(list(logs.values())).cpu().tolist()
+        return dict(zip(logs, values))
 
     def fit(self, x, y, batch_size: Optional[int] = None, epochs: int = 1,
             verbose="auto", validation_split: float = 0.0, shuffle=True,
-            **kwargs) -> History:
+            class_weight: Optional[Dict[int, float]] = None, callbacks=None,
+            initial_epoch: int = 0, validation_freq=1,
+            validation_batch_size: Optional[int] = None,
+            steps_per_epoch: Optional[int] = None, **kwargs) -> History:
         """Keras ``model.fit`` on numpy ``x``, ``y`` (see the module
-        docstring). Options that Keras takes and the port does not
-        interpret raise :class:`NotImplementedError` unless ``None``."""
+        docstring), with Keras 3.13's ``class_weight``, ``callbacks``,
+        ``initial_epoch`` (epochs run from it to ``epochs``),
+        ``validation_freq``, ``validation_batch_size`` and
+        ``steps_per_epoch`` (an epoch of that many batches; the order runs
+        on across epochs and a new one is drawn when it is used up, an
+        epoch cut short there). Other options Keras takes raise
+        :class:`NotImplementedError` unless ``None``."""
         unknown = sorted(k for k, v in kwargs.items() if v is not None)
         if unknown:
             raise NotImplementedError(
                 f"model.fit options {unknown} are not interpreted by the port's "
-                f"workers (epochs, batch_size, verbose, validation_split and "
-                f"shuffle are)")
+                f"workers (epochs, batch_size, verbose, validation_split, shuffle "
+                f"and {', '.join(FIT_OPTIONS)} are)")
         if shuffle not in (True, False, "batch"):
             raise ValueError(f"shuffle must be True, False or 'batch', got {shuffle!r}")
         B = 32 if batch_size is None else int(batch_size)
@@ -204,47 +282,92 @@ class KerasReplica:
         n_train = int(math.floor(n * (1.0 - validation_split))) if validation_split else n
         xt, yt = _on_device(x[:n_train], self.device), _on_device(y[:n_train], self.device)
         xv, yv = _on_device(x[n_train:], self.device), _on_device(y[n_train:], self.device)
+        cw = (None if not class_weight else
+              torch.from_numpy(class_weights(y[:n_train], class_weight)).to(self.device))
+        n_batches = -(-n_train // B)
+        steps = int(steps_per_epoch) if steps_per_epoch else n_batches
+        callbacks = list(callbacks or [])
+        _call(callbacks, "set_model", self)
+        _call(callbacks, "set_params", {"verbose": verbose, "epochs": int(epochs),
+                                        "steps": steps})
         rows: List[Dict[str, torch.Tensor]] = []
         if shuffle is True and not self._peeked:
             np.random.permutation(n_train)      # Keras's peek (module docstring)
         self._peeked = True
-        for epoch in range(int(epochs)):
-            order = np.random.permutation(n_train) if shuffle is True else None
-            tot = torch.zeros(3, device=self.device)
-            for start in range(0, n_train, B):
+        self.stop_training = False
+        _call(callbacks, "on_train_begin", {})
+        order, seen = None, n_batches           # the batch order runs on across epochs
+        ran, training_logs = [], None
+        for epoch in range(int(initial_epoch), int(epochs)):
+            _call(callbacks, "on_epoch_begin", epoch, {})
+            tot = None
+            for step in range(steps):
+                if seen >= n_batches:
+                    if steps_per_epoch and step:
+                        break                    # Keras: the data ran out
+                    order = np.random.permutation(n_train) if shuffle is True else None
+                    seen = 0
+                start = seen * B
                 stop = min(start + B, n_train)
+                seen += 1
                 if order is not None:
                     idx = order[start:stop]
                 elif shuffle == "batch":
                     idx = np.random.permutation(stop - start) + start
                 else:
                     idx = None
+                _call(callbacks, "on_train_batch_begin", step, logs={})
                 if idx is None:
                     xb, yb = xt[start:stop], yt[start:stop]
+                    cb_ = None if cw is None else cw[start:stop]
                 else:
                     sel = torch.from_numpy(idx).to(self.device)
                     xb, yb = xt[sel], yt[sel]
-                tot += torch.cat(self._step(xb, yb))
+                    cb_ = None if cw is None else cw[sel]
+                row = self._step(xb, yb) if cb_ is None else self._step(xb, yb, cb_)
+                tot = row if tot is None else tot + row
+                if callbacks:
+                    _call(callbacks, "on_train_batch_end", step,
+                          logs=self._floats(self._logs(tot)))
+                    if self.stop_training:
+                        break
             logs = self._logs(tot)
-            if n - n_train:
-                logs.update(self._logs(self._evaluate(xv, yv, B), "val_"))
+            if n - n_train and _should_eval(epoch, validation_freq):
+                vb = B if validation_batch_size is None else int(validation_batch_size)
+                logs.update(self._logs(self._evaluate(xv, yv, vb, callbacks), "val_"))
             rows.append(logs)
+            ran.append(epoch)
+            if callbacks:
+                training_logs = self._floats(logs)
+                _call(callbacks, "on_epoch_end", epoch, training_logs)
             if verbose:
                 print(f"epoch {epoch + 1}/{epochs} - " + " - ".join(
                     f"{k}: {float(v):.4f}" for k, v in logs.items()))
-        # one transfer for every metric of every epoch
-        keys = list(rows[0]) if rows else ["loss"]
-        values = (torch.stack([torch.stack([r[k] for k in keys]) for r in rows])
-                  .cpu().tolist() if rows else [])
-        return History({k: [v[i] for v in values] for i, k in enumerate(keys)},
-                       int(epochs))
+            if self.stop_training:
+                break
+        _call(callbacks, "on_train_end", training_logs or {})
+        # one transfer for every metric of every epoch; a key missing from
+        # an epoch (val_ under validation_freq) is left out of it, as
+        # Keras's History leaves it
+        history: Dict[str, List[float]] = {}
+        if rows:
+            keys = list(dict.fromkeys(k for r in rows for k in r))
+            flat = torch.stack([r[k] for r in rows for k in r]).cpu().tolist()
+            it = iter(flat)
+            for r in rows:
+                for k in r:
+                    history.setdefault(k, []).append(next(it))
+            history = {k: history[k] for k in keys}
+        else:
+            history = {"loss": []}
+        return History(history, ran)
 
     def train_on_batch(self, x, y):
         """Keras ``train_on_batch``: one step on the batch; the batch's loss,
-        or ``[loss, accuracy]`` with an accuracy metric compiled in."""
-        tot = torch.cat(self._step(_on_device(np.asarray(x), self.device),
-                                   _on_device(np.asarray(y), self.device)))
-        out = [float(v) for v in torch.stack(list(self._logs(tot).values())).cpu()]
+        or ``[loss, *metrics]`` with metrics compiled in."""
+        row = self._step(_on_device(np.asarray(x), self.device),
+                         _on_device(np.asarray(y), self.device))
+        out = [float(v) for v in torch.stack(list(self._logs(row).values())).cpu()]
         return out if len(out) > 1 else out[0]
 
 

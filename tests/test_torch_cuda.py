@@ -1000,8 +1000,8 @@ def test_fused_xent_wrappers_refuse_bad_input(cuda):
         fused_xent_bwd(x.cpu(), y.cpu(), g.cpu())
     with pytest.raises(ValueError, match="one device"):
         fused_xent_fwd(x, y.cpu())
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        fused_xent_fwd(x.half(), y)
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        fused_xent_fwd(x.double(), y)
     with pytest.raises(ValueError, match=r"\[B, C\]"):
         fused_xent_fwd(x[None], y[None])
     with pytest.raises(ValueError, match="cotangent"):
@@ -1011,19 +1011,26 @@ def test_fused_xent_wrappers_refuse_bad_input(cuda):
 
 
 # the widest rows the cluster route holds (tests/test_torch_fused_xent.py)
-XENT_CLUSTER_CAP = {torch.float32: 8 * 28920, torch.bfloat16: 8 * 38560}
+XENT_CLUSTER_CAP = {torch.float32: 8 * 28920, torch.bfloat16: 8 * 38560,
+                    torch.float16: 8 * 38560}
+# dx against the plain version, (atol, rtol): float32 sums in another order;
+# one ulp of a bf16 value up to 1 (both round the same float32 value); one
+# fp16 ulp of each element (2**-24 the subnormals' step: K1's dx at a wide
+# row is mostly subnormal in fp16)
+XENT_DX_TOL = {torch.float32: (1e-6, 1e-6), torch.bfloat16: (2 ** -8, 2 ** -8),
+               torch.float16: (2 ** -24, 2 ** -10)}
 
 
 @pytest.mark.parametrize("C", [1, 10, 16, 17, 32, 33, 128, 129, 999, 1000, 1024, 1025, 12800,
                                12801, 50257, "cap", "cap+1"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_fused_xent_routes_at_their_boundaries(cuda, C, dtype):
     """K1 on each route at and across its boundaries (the warp route's
     division up to 128, warp / cluster at 1024, one CTA / two at 12800,
     cluster / stream at the cluster's capacity),
     ragged B (a part-filled last block), zero and soft label rows: the
-    plain version's pins (loss 1e-5, dx 1e-6 float32 / 2**-8 bf16), the
-    zero-label row exactly 0, and the same bits on a second run."""
+    plain version's pins (loss 1e-5, dx 1e-6 float32 / 2**-8 bf16 / one
+    ulp fp16), the zero-label row exactly 0, and the same bits on a second run."""
     from elephas_tpu_torch.ops.fused_xent import ROUTES, xent_plan
 
     cap = XENT_CLUSTER_CAP[dtype]
@@ -1036,15 +1043,16 @@ def test_fused_xent_routes_at_their_boundaries(cuda, C, dtype):
     got, dx = fused_xent_fwd(x, y), fused_xent_bwd(x, y, g)
     torch.testing.assert_close(got, fused_xent_fwd_reference(x, y), atol=1e-5, rtol=1e-5)
     assert got[0].item() == 0.0
-    tol = 1e-6 if dtype == torch.float32 else 2 ** -8
+    assert dx.dtype == dtype
+    atol, rtol = XENT_DX_TOL[dtype]
     torch.testing.assert_close(dx.float(), fused_xent_bwd_reference(x, y, g).float(),
-                               atol=tol, rtol=tol)
+                               atol=atol, rtol=rtol)
     assert torch.equal(got, fused_xent_fwd(x, y))
     assert torch.equal(dx, fused_xent_bwd(x, y, g))
 
 
 @pytest.mark.parametrize("C", [10, 16, 1000, 4096, 50257])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_fused_xent_misaligned_rows_match_plain(cuda, C, dtype):
     """Logits one element past an aligned address (and labels one past
     theirs): the warp route falls back to scalar loads, the cluster's bulk
@@ -1058,9 +1066,9 @@ def test_fused_xent_misaligned_rows_match_plain(cuda, C, dtype):
     y = ybuf[1:].view(B, C).copy_(y0)
     torch.testing.assert_close(fused_xent_fwd(x, y), fused_xent_fwd_reference(x, y),
                                atol=1e-5, rtol=1e-5)
-    tol = 1e-6 if dtype == torch.float32 else 2 ** -8
+    atol, rtol = XENT_DX_TOL[dtype]
     torch.testing.assert_close(fused_xent_bwd(x, y, g).float(),
-                               fused_xent_bwd_reference(x, y, g).float(), atol=tol, rtol=tol)
+                               fused_xent_bwd_reference(x, y, g).float(), atol=atol, rtol=rtol)
 
 
 @pytest.mark.parametrize("B,C", [(1024, 10), (64, 130), (3, 50257)])
@@ -1133,7 +1141,7 @@ def test_fused_xent_masked_slice_matches_plain(cuda, C):
 
 
 @pytest.mark.parametrize("C", [10, 129, 1024, 1025, 50257, "cap", "cap+1"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_fused_xent_launch_shape_matches_plan(cuda, C, dtype):
     """The launch the library reports for each plan: one warp a row, four
     rows a block; a cluster's CTAs with the shared memory the plan's
@@ -2201,3 +2209,99 @@ def test_masked_gru_forward_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], atol=1e-5, rtol=1e-5)
     for k, want in out["cpu"][1].items():
         assert (out["cuda"][1][k] - want).abs().max() <= 1e-5 * max(want.abs().max(), 1e-6), k
+
+
+# -- mixed precision (the dtype policies): K1 on float16, a bf16 step -----------
+
+
+@pytest.mark.parametrize("B,C", [(16, 10), (64, 10), (256, 10), (4096, 50257)])
+def test_fused_xent_fp16_matches_plain_at_the_mixed_fits_shapes(cuda, B, C):
+    """K1 on float16 logits at the mixed fits' shapes (ResNet-50 at 1 and
+    4 workers, the MLP at 4) and the wide [4096, 50257]: the loss float32
+    within 1e-5 of the plain version, dx float16 within one fp16 ulp of
+    each element (most of the wide row's dx is subnormal), the
+    autograd pair's gradient float16."""
+    from elephas_tpu_torch.ops.fused_xent import categorical_crossentropy_from_logits
+
+    rng = np.random.default_rng(B + C)
+    x, y, g = _xent_case(rng, B, C, torch.float16)
+    torch.testing.assert_close(fused_xent_fwd(x, y), fused_xent_fwd_reference(x, y),
+                               atol=1e-5, rtol=1e-5)
+    dx = fused_xent_bwd(x, y, g)
+    assert dx.dtype == torch.float16
+    torch.testing.assert_close(dx.float(), fused_xent_bwd_reference(x, y, g).float(),
+                               atol=2 ** -24, rtol=2 ** -10)
+    xl = x.clone().requires_grad_()
+    loss = categorical_crossentropy_from_logits(xl, y)
+    (grad,) = torch.autograd.grad(loss, xl, g)
+    assert loss.dtype == torch.float32 and grad.dtype == torch.float16
+    assert torch.equal(grad, dx)
+
+
+def test_resolve_device_pins_full_precision_reductions(cuda):
+    """``resolve_device`` leaves float32 matmuls and convolutions in full
+    float32 (no TF32) and bf16 / fp16 matmuls accumulating in float32 with
+    no reduced-precision split-K reductions, as XLA accumulates a bf16 dot."""
+    from elephas_tpu_torch import resolve_device
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = True
+    resolve_device("cuda")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction is False
+    assert torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction is False
+
+
+def _mixed_mlp_text(policy):
+    import json
+
+    cfg = json.loads(_config_text("mnist_mlp_logits_mixed_f16.json").replace(
+        "mixed_float16", policy))
+    for layer in cfg["config"]["layers"]:
+        if layer["class_name"] == "Dropout":
+            layer["config"]["rate"] = 0.0
+    return json.dumps(cfg)
+
+
+@pytest.mark.parametrize("policy", ["mixed_bfloat16", "mixed_float16"])
+def test_mixed_policy_train_step_on_card_matches_cpu(cuda, policy):
+    """One train step of the MNIST MLP under a mixed policy (bf16 or fp16
+    compute, float32 variables), 2 replicas of 64 rows, SGD at 0.1 (an
+    update the gradient's own), on the card against the CPU from the same
+    weights: the loss within the bf16 pin 2e-2, and each array's update
+    (the weights after the step less before) no farther from the CPU's,
+    relative to the CPU update's scale, than 4 times the CPU update's
+    distance from the same step under float32; the K1 pair launched once
+    each, the weights float32 after the step."""
+    from elephas_tpu_torch.models import KerasModelAdapter
+
+    rng = np.random.default_rng(23)
+    x = rng.uniform(0, 1, size=(2, 64, 784)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, size=(2, 64))]
+    w = KerasModelAdapter(_mixed_mlp_text(policy), device="cpu").get_weights()
+    sgd = {"class_name": "SGD", "config": {"learning_rate": 0.1}}
+
+    def step(pol, dev):
+        a = KerasModelAdapter(_mixed_mlp_text(pol), weights=w, optimizer=sgd, device=dev)
+        opt = a.make_optimizer()
+        tv, ntv = ({k: torch.stack([v, v]) for k, v in d.items()} for d in a.state_values())
+        before = {k: v.cpu().double() for k, v in tv.items()}
+        fwd, bwd = fused_xent_fwd.launches, fused_xent_bwd.launches
+        tv2, _, _, stats = a.build_train_step(opt)(
+            tv, ntv, opt.init(tv, count_shape=(2,)), torch.from_numpy(x).to(dev),
+            torch.from_numpy(y).to(dev), torch.ones(2, 64, device=dev), None)
+        if dev == "cuda":
+            assert (fused_xent_fwd.launches - fwd, fused_xent_bwd.launches - bwd) == (1, 1)
+        assert all(v.dtype == torch.float32 for v in tv2.values())
+        return ((stats[0] / stats[2]).cpu().numpy(),
+                {k: v.cpu().double() - before[k] for k, v in tv2.items()})
+
+    card, cpu, f32 = step(policy, "cuda"), step(policy, "cpu"), step("float32", "cpu")
+    np.testing.assert_allclose(card[0], cpu[0], rtol=2e-2)
+
+    def dist(u, ref):
+        return float((u - ref).abs().max() / ref.abs().max().clamp(min=1e-30))
+
+    for k, want in cpu[1].items():
+        assert dist(card[1][k], want) <= 4 * dist(want, f32[1][k]), k

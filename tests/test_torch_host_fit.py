@@ -195,8 +195,8 @@ def test_replica_fit_follows_keras_fit(shuffle):
         np.testing.assert_allclose(got[k], want[k], atol=ATOL, rtol=RTOL)
     for a, b in zip(replica.get_weights(), km.get_weights()):
         np.testing.assert_allclose(a, np.asarray(b), atol=ATOL, rtol=RTOL)
-    with pytest.raises(NotImplementedError, match="class_weight"):
-        replica.fit(x, y, class_weight={0: 1.0})
+    with pytest.raises(NotImplementedError, match="validation_data"):
+        replica.fit(x, y, validation_data=(x, y))
 
 
 # -- the schedule, failures and defaults ----------------------------------------------

@@ -240,15 +240,49 @@ def test_committed_example_models_match_keras(name, make):
 
 
 @pytest.mark.parametrize("layer,shape,match", [
-    (lambda: keras.layers.LSTM(2, dropout=0.1), (5, 3), "dropout"),
-    (lambda: keras.layers.LSTM(2, recurrent_dropout=0.1), (5, 3), "recurrent_dropout"),
+    (lambda: keras.layers.LSTM(2, go_backwards=True, return_state=True), (5, 3),
+     "return_state"),
+    (lambda: keras.layers.GRU(2, return_state=True), (5, 3), "return_state"),
     (lambda: keras.layers.LSTM(2, return_state=True), (5, 3), "return_state"),
-    (lambda: keras.layers.GRU(2, dropout=0.1), (5, 3), "dropout"),
-    (lambda: keras.layers.Dense(2, dtype="mixed_float16"), (4,), "mixed_float16"),
-    (lambda: keras.layers.SimpleRNN(2, recurrent_dropout=0.1), (5, 3), "recurrent_dropout"),
+    (lambda: keras.layers.SimpleRNN(2, return_state=True), (5, 3), "return_state"),
+    (lambda: keras.layers.Dense(2, dtype="bfloat16"), (4,), "'bfloat16'"),
+    (lambda: keras.layers.Dense(2, dtype="float16"), (4,), "'float16'"),
 ])
 def test_unported_layer_options_raise_naming_their_item(layer, shape, match):
     m = keras.Sequential([keras.layers.Input(shape), layer()])
     with pytest.raises(NotImplementedError, match=match) as err:
         KerasModelAdapter(m, device="cpu")
     assert "item 13" in str(err.value)
+
+
+NEW_ACTIVATIONS = ["celu", "glu", "hard_shrink", "hard_tanh", "log_sigmoid", "soft_shrink",
+                   "sparse_plus", "sparse_sigmoid", "sparsemax", "squareplus", "tanh_shrink"]
+
+
+@pytest.mark.parametrize("name", NEW_ACTIVATIONS)
+def test_keras_activations_match_keras(name):
+    """The activations Keras 3.13 has beyond the first ported set, on a
+    Dense layer and as an Activation layer, against Keras's ``predict``
+    over inputs spread across every branch (|x| past 1 and inside it)."""
+    keras.utils.set_random_seed(0)
+    m = keras.Sequential([keras.Input((6,)), keras.layers.Dense(8, activation=name),
+                          keras.layers.Activation(name)])
+    rng = np.random.default_rng(len(name))
+    m.set_weights([w + rng.normal(size=w.shape).astype(np.float32) for w in m.get_weights()])
+    x = (rng.normal(size=(16, 6)) * 2).astype(np.float32)
+    got = KerasModelAdapter(m, device="cpu").predict(x)
+    np.testing.assert_allclose(got, m.predict(x, verbose=0), atol=TOL, rtol=TOL)
+
+
+def test_identity_initializer_matches_keras():
+    """``Identity(gain)``: ``gain`` times the identity of the kernel's 2-D
+    shape, as ``model_from_json`` draws it (Keras 3.13 leaves ``gain`` out of
+    the initializer's config, so the JSON's kernels take gain 1)."""
+    m = keras.Sequential([keras.Input((5,)), keras.layers.Dense(
+        7, kernel_initializer=keras.initializers.Identity(gain=0.5)),
+        keras.layers.Dense(5, kernel_initializer="identity")])
+    adapter = KerasModelAdapter(m.to_json(), device="cpu")
+    rebuilt = keras.models.model_from_json(m.to_json())
+    for a, b in zip(adapter.get_weights(), rebuilt.get_weights()):
+        np.testing.assert_array_equal(a, b)
+    assert float(adapter.get_weights()[0][0, 0]) == 1.0

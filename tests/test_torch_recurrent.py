@@ -221,3 +221,115 @@ def test_committed_imdb_gru_masked_matches_keras():
                                 weights=m.get_weights(), device="cpu")
     np.testing.assert_allclose(adapter.predict(x, batch_size=8), m.predict(x, verbose=0),
                                atol=TOL, rtol=TOL)
+
+
+# -- dropout and recurrent_dropout ------------------------------------------------
+
+DROPOUT = [("LSTM", dict(dropout=0.3)), ("LSTM", dict(dropout=0.3, recurrent_dropout=0.2)),
+           ("LSTM", dict(recurrent_dropout=0.4)),
+           ("GRU", dict(dropout=0.3)), ("GRU", dict(dropout=0.3, recurrent_dropout=0.2)),
+           ("GRU", dict(dropout=0.2, recurrent_dropout=0.3, reset_after=False)),
+           ("SimpleRNN", dict(dropout=0.3, recurrent_dropout=0.2))]
+DROPOUT_IDS = [f"{c}-{kw}" for c, kw in DROPOUT]
+
+
+@pytest.mark.parametrize("cls,kw", DROPOUT, ids=DROPOUT_IDS)
+def test_dropout_off_in_inference_matches_keras(cls, kw):
+    """``dropout`` and ``recurrent_dropout`` act in training only: the
+    forward equals Keras's ``predict`` (Keras's implementation 1, a matmul
+    a gate, when ``recurrent_dropout`` is set)."""
+    _seq([getattr(L, cls)(4, return_sequences=True, **kw), L.Flatten(), L.Dense(2)],
+         (8, 3), _steps())
+
+
+def _op(cls, kw, units=4):
+    m = keras.Sequential([keras.Input((8, 3)), getattr(L, cls)(units, **kw)])
+    return m, KerasModelAdapter(m, device="cpu")
+
+
+@pytest.mark.parametrize("cls,kw", DROPOUT, ids=DROPOUT_IDS)
+def test_dropout_masks_fixed_over_time_and_keep_rate(cls, kw):
+    """One training call draws its masks once (none carry a time axis): a
+    mask a gate with ``recurrent_dropout`` on LSTM and GRU, else one; values
+    0 and ``1 / (1 - rate)``; over 20,000 entries the kept share within 3
+    sigma of ``1 - rate``. A second call draws new masks."""
+    _, adapter = _seq([getattr(L, cls)(4, **kw)], (8, 3), _steps())
+    op = adapter.layers[0]
+    drawn = []
+    real = op.draw_masks
+
+    def spy(*a):
+        drawn.append(real(*a))
+        return drawn[-1]
+
+    op.draw_masks = spy
+    tv, ntv = ({k: v[None] for k, v in d.items()} for d in adapter.state_values())
+    x = torch.from_numpy(_steps())[None]
+    gen = torch.Generator().manual_seed(0)
+    adapter.stateless_call(tv, ntv, x, True, gen)
+    adapter.stateless_call(tv, ntv, x, True, gen)
+    assert len(drawn) == 2
+    per_gate = cls != "SimpleRNN" and kw.get("recurrent_dropout", 0) > 0
+    n_masks = {"LSTM": 4, "GRU": 3}.get(cls, 1) if per_gate else 1
+    for (ins, recs), (ins2, _) in zip(drawn[:1], drawn[1:]):
+        for masks, rate, width in ((ins, kw.get("dropout", 0), 3),
+                                   (recs, kw.get("recurrent_dropout", 0), 4)):
+            if not rate:
+                assert masks is None
+                continue
+            assert len(masks) == n_masks
+            for m_ in masks:
+                assert tuple(m_.shape) == (1, 5, width)
+                vals = set(np.unique(m_.numpy()).tolist())
+                assert vals <= {0.0, np.float32(1 / (1 - rate))}
+        if ins is not None:
+            assert not torch.equal(ins[0], ins2[0])
+    rate = kw.get("dropout") or kw.get("recurrent_dropout")
+    big = op.draw_masks(1, 2000, torch.zeros(1, dtype=torch.float32), gen)
+    m_ = (big[0] if kw.get("dropout") else big[1])[0]
+    kept = float((m_ > 0).float().mean())
+    sigma = np.sqrt(rate * (1 - rate) / m_.numel())
+    assert abs(kept - (1 - rate)) < 3 * sigma
+
+
+@pytest.mark.parametrize("cls,kw", DROPOUT, ids=DROPOUT_IDS)
+def test_dropout_training_step_matches_keras_cell(cls, kw):
+    """With the masks fixed, a training call equals Keras's own cell given
+    the same masks (each cell caches its masks for a call: they are put in
+    its cache before the call), every step of the returned sequence."""
+    import jax.numpy as jnp
+
+    keras.utils.set_random_seed(0)
+    layer = getattr(L, cls)(4, return_sequences=True, **kw)
+    m = keras.Sequential([keras.Input((8, 3)), layer])
+    _randomise(m)
+    adapter = KerasModelAdapter(m, device="cpu")
+    op = adapter.layers[0]
+    rng = np.random.default_rng(9)
+    per_gate = cls != "SimpleRNN" and kw.get("recurrent_dropout", 0) > 0
+    n = {"LSTM": 4, "GRU": 3}.get(cls, 1) if per_gate else 1
+
+    def masks(rate, width):
+        if not rate:
+            return None
+        keep = 1 - rate
+        return [(rng.random((5, width)) < keep).astype(np.float32) / np.float32(keep)
+                for _ in range(n)]
+
+    ins, recs = masks(kw.get("dropout", 0), 3), masks(kw.get("recurrent_dropout", 0), 4)
+    op.draw_masks = lambda *a: tuple(None if ms is None else
+                                     [torch.from_numpy(v)[None] for v in ms]
+                                     for ms in (ins, recs))
+    tv, ntv = ({k: v[None] for k, v in d.items()} for d in adapter.state_values())
+    x = _steps()
+    got = adapter.stateless_call(tv, ntv, torch.from_numpy(x)[None], True, None)[0][0]
+
+    def keras_masks(ms):
+        if ms is None:
+            return None
+        return [jnp.asarray(v) for v in ms] if per_gate else jnp.asarray(ms[0])
+
+    layer.cell._dropout_mask = keras_masks(ins)
+    layer.cell._recurrent_dropout_mask = keras_masks(recs)
+    want = np.asarray(layer(x, training=True))
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)

@@ -78,6 +78,7 @@ REPAIRED = [
     (tc.SlotKVCache.__init__, jc.SlotKVCache.__init__),
     (ta.KerasModelAdapter.build_train_step, ja.KerasModelAdapter.build_train_step),
     (ta.KerasModelAdapter.build_grad_step, ja.KerasModelAdapter.build_grad_step),
+    (ta.compile_metric_names, ja.compile_metric_names),
 ]
 
 
