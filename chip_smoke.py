@@ -342,6 +342,20 @@ non-zero:
     and ``"poisson"``, Keras ``evaluate`` with three metrics, and a host
     fit with ``class_weight``, a patience callback and ``validation_freq``,
     each against the CPU.
+32i. ``fit_transfer``: Keras's transfer-learning recipe on the ResNet-50
+    base (the committed ``resnet50_transfer_logits.json`` and
+    ``resnet50_finetune_logits.json``), each stage at 1 worker, batch 16, 2
+    epochs on 1024 images: exactly E S K1 launches each way; the frozen
+    stage keeps the base bit for bit and calls no convolution backward,
+    the fine-tuning stage moves the base and its statistics; ms a step,
+    device ms, launches a step and peak memory beside ``fit_resnet``'s.
+32j. ``fit_transfer_cross_check``: the frozen stage's fit and a
+    fine-tuning step, card against CPU.
+32k. ``fit_graph_options``: the small models of
+    ``configs/graph_options.json`` (``return_state`` / ``initial_state``
+    LSTMs, a masked classifier, a ``stateful`` LSTM on both paths, a
+    ``ctc`` tagger, an MLP with AUC, Precision and F1Score in a host fit's
+    history and in ``evaluate``), card against CPU.
 33. ``ml_mlp``: ``examples/ml_mlp.py`` through the port without Keras: a
     DataFrame of 8192 MNIST-shaped rows, ``ElephasEstimator`` over the
     committed logits-head JSON (8 workers, synchronous, batch 64, 3 epochs,
@@ -1533,11 +1547,12 @@ def cross_check(card, params, prompts, gpu_tokens):
     emit({"phase": "cross_check", "requests": rows, "card": card})
 
 
-def profiled(run, n_steps: int, top_n: int = 12):
+def profiled(run, n_steps: int, top_n: int = 12, ops=()):
     """``run()`` ``n_steps`` times under ``torch.profiler``: wall ms and
     device ms per step, the device's busy share of the window (the
-    profiler's own host cost inflates the wall time) and the kernels that
-    took the most device time."""
+    profiler's own host cost inflates the wall time), the kernels that
+    took the most device time and, for each name in ``ops``, how often the
+    host called that operator (``"aten::convolution_backward"``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1552,12 +1567,16 @@ def profiled(run, n_steps: int, top_n: int = 12):
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top_n]
-    return {"wall_ms_per_step": wall * 1e3 / n_steps,
-            "device_ms_per_step": busy_us / 1e3 / n_steps,
-            "device_busy_share": busy_us / 1e6 / wall if busy_us else None,
-            "top_kernels": [{"name": e.key[:90], "count": e.count,
-                             "us_per_step": e.self_device_time_total / n_steps}
-                            for e in top]}
+    out = {"wall_ms_per_step": wall * 1e3 / n_steps,
+           "device_ms_per_step": busy_us / 1e3 / n_steps,
+           "device_busy_share": busy_us / 1e6 / wall if busy_us else None,
+           "top_kernels": [{"name": e.key[:90], "count": e.count,
+                            "us_per_step": e.self_device_time_total / n_steps}
+                           for e in top]}
+    if ops:
+        events = prof.key_averages()
+        out["op_counts"] = {op: sum(e.count for e in events if e.key == op) for op in ops}
+    return out
 
 
 def profile_decode(card, params, prompts):
@@ -5147,12 +5166,14 @@ def _json_model(path, device="cuda", **kw):
         return SparkModel(f.read(), device=device, **kw)
 
 
-def _compiled_fit(what, sm, rdd, epochs, batch, split, S, Sv, k1=True, remat=False):
+def _compiled_fit(what, sm, rdd, epochs, batch, split, S, Sv, k1=True, remat=False,
+                  falls=True):
     """One compiled-path fit with the launch counts set to 0 just before and
-    read just after: ``(wall s, counts, history)``, after checking finite,
-    falling losses and exactly E (S + Sv) K1-fwd and E S K1-bwd launches
-    (E (2S + Sv) K1-fwd under ``remat``: the backward runs the loss again;
-    ``k1``; a sigmoid head launches no kernel of the port: none at all)."""
+    read just after: ``(wall s, counts, history)``, after checking finite
+    losses (falling, with ``falls``) and exactly E (S + Sv) K1-fwd and E S
+    K1-bwd launches (E (2S + Sv) K1-fwd under ``remat``: the backward runs
+    the loss again; ``k1``; a sigmoid head launches no kernel of the port:
+    none at all)."""
     torch.cuda.synchronize()
     _zero_counters()
     t0 = time.perf_counter()
@@ -5162,7 +5183,8 @@ def _compiled_fit(what, sm, rdd, epochs, batch, split, S, Sv, k1=True, remat=Fal
     counts = _read_counters()
     hist = sm.training_histories[-1]
     require(all(np.isfinite(v).all() for v in hist.values()), f"{what}: non-finite {hist}")
-    require(hist["loss"][-1] < hist["loss"][0], f"{what}: loss did not fall: {hist['loss']}")
+    require(not falls or hist["loss"][-1] < hist["loss"][0],
+            f"{what}: loss did not fall: {hist['loss']}")
     want = ({"fused_xent_fwd": epochs * ((2 if remat else 1) * S + Sv),
              "fused_xent_bwd": epochs * S} if k1 else {})
     for name, n in want.items():
@@ -6405,6 +6427,368 @@ def fit_losses_metrics(card):
                    "launches": {k: v for k, v in counts.items() if v}},
           "card": card})
     return {"fit_losses_metrics_host": counts}
+
+
+# -- phases 54 to 56: nested models, graph options, stateful metrics, ctc ---------
+
+# Keras's transfer-learning recipe on examples/resnet50_spark.py's ResNet-50: the
+# committed JSONs, written once with Keras from keras.applications.ResNet50(
+# include_top=False, weights=None, input_shape=(32, 32, 3)) nested under
+# GlobalAveragePooling2D and a Dense(10) logits head and called with
+# training=False; the base frozen (SGD 0.01), then made trainable again (SGD
+# 1e-5). Each stage as fit_resnet's one-worker float32 run: 1024 CIFAR-shaped
+# images, batch 16, 2 epochs. The small models of configs/graph_options.json
+# (widths 8 to 32, written once with Keras) for the graph options, the stateful
+# metric classes and ctc: 1024 samples at 2 workers on the compiled path, 512 on
+# the host path, batch 32, 2 epochs.
+TRANSFER_JSON = "elephas_tpu_torch/configs/resnet50_transfer_logits.json"
+FINETUNE_JSON = "elephas_tpu_torch/configs/resnet50_finetune_logits.json"
+GRAPH_OPTIONS_JSON = "elephas_tpu_torch/configs/graph_options.json"
+TRANSFER_FIT = dict(samples=1024, batch=16, epochs=2, profiled_rows=64, cross_rows=64)
+GRAPH_FIT = dict(samples=1024, host_samples=512, batch=32, workers=2, epochs=2,
+                 eval_rows=200)
+
+
+def _fit_peak(fit):
+    """``fit()`` with the peak of allocated memory read over what was
+    allocated before it: ``(fit's result, peak bytes)``."""
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fit()
+    return out, torch.cuda.max_memory_allocated() - before
+
+
+def fit_transfer(card, resnet_runs):
+    """The two stages of the recipe through ``SparkModel(json,
+    mode="synchronous")`` at 1 worker, the fine-tuning stage from the frozen
+    stage's fitted weights. Each: finite losses (falling in the frozen
+    stage; at SGD 1e-5 two epochs of the fine-tuning stage move its loss
+    by less than its batches' spread), exactly E S K1-fwd and K1-bwd
+    launches and no other kernel; ms a step, the fit's peak memory, the
+    launches a step; a profiled epoch over 64 rows (device ms a step, the
+    host's calls of the convolution backward). The frozen stage leaves
+    every base array bit for bit (weights and moving statistics) and moves
+    the head, and its profiled epoch calls no convolution backward: no
+    gradient flows through the base. The fine-tuning stage moves the base's
+    kernels, gammas and betas, and moves its moving statistics: Keras 3.13
+    runs a nested model's layers in the step's training mode, over the
+    ``training=False`` saved with its call, as the reference's
+    ``stateless_call`` and Keras's ``fit`` do. Beside fit_resnet's
+    one-worker float32 run and a profiled epoch of its config."""
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    c = TRANSFER_FIT
+    x, y = cifar_like(c["samples"])
+    E, B, rows = c["epochs"], c["batch"], c["profiled_rows"]
+    S, _ = _mlp_steps(c["samples"], 1, B, 0.0)
+    rdd = to_simple_rdd(SparkContext("local[1]"), x, y, num_slices=1)
+    part = to_simple_rdd(SparkContext("local[1]"), x[:rows], y[:rows], num_slices=1)
+    conv_bwd = "aten::convolution_backward"
+    stages, counts_by, weights = {}, {}, None
+    for stage, path in (("frozen", TRANSFER_JSON), ("finetune", FINETUNE_JSON)):
+        warm = _json_model(path, mode="synchronous", num_workers=1)
+        warm.fit(to_simple_rdd(SparkContext("local[1]"), x[:2 * B], y[:2 * B], num_slices=1),
+                 epochs=1, batch_size=B, validation_split=0.0)
+        del warm
+        sm = _json_model(path, mode="synchronous", frequency="epoch",
+                         parameter_server_mode="jax", num_workers=1)
+        if weights is not None:
+            sm.master_network.set_weights(weights)
+        specs = sm.master_network._specs
+        w0 = sm.master_network.get_weights()
+        (wall, counts, hist), peak = _fit_peak(lambda: _compiled_fit(
+            f"fit_transfer {stage}", sm, rdd, E, B, 0.0, S, 0, falls=stage == "frozen"))
+        w1 = sm.master_network.get_weights()
+        same = [np.array_equal(a, b) for a, b in zip(w0, w1)]
+        head = [i for i, s in enumerate(specs) if s.name.startswith("predictions/")]
+        require(len(specs) == 320 and len(head) == 2,
+                f"fit_transfer {stage}: {len(specs)} arrays, head {head}")
+        require(not any(same[i] for i in head), f"fit_transfer {stage}: the head kept")
+        base = [i for i in range(len(specs)) if i not in head]
+        stats = [i for i in base if not specs[i].trainable and "moving_" in specs[i].name]
+        if stage == "frozen":
+            moved = [specs[i].name for i in base if not same[i]]
+            require(not moved, f"fit_transfer frozen: base arrays moved: {moved[:4]} "
+                               f"({len(moved)})")
+            require(sum(s.trainable for s in specs) == 2,
+                    f"fit_transfer frozen: {sum(s.trainable for s in specs)} trainable")
+        else:
+            learn = [i for i in base if specs[i].trainable and
+                     specs[i].name.endswith(("/kernel", "/gamma", "/beta"))]
+            kept = [specs[i].name for i in learn + stats if same[i]]
+            require(not kept and len(learn) == 53 + 2 * 53,
+                    f"fit_transfer finetune: {len(learn)} kernels, gammas and betas; kept "
+                    f"{kept[:4]} ({len(kept)})")
+        weights = w1
+        prof = profiled(lambda: sm.fit(part, epochs=1, batch_size=B, validation_split=0.0),
+                        1, top_n=8, ops=(conv_bwd,))
+        steps = rows // B
+        n_bwd = prof["op_counts"][conv_bwd]
+        require((n_bwd == 0) == (stage == "frozen"),
+                f"fit_transfer {stage}: {n_bwd} convolution backward calls in {steps} steps")
+        stages[stage] = {
+            "config": path, "trainable_arrays": sum(s.trainable for s in specs),
+            "steps_per_epoch": S, "fit_s": wall, "ms_per_step": wall * 1e3 / (E * S),
+            "samples_per_s": c["samples"] * E / wall, "history": hist,
+            "launches": {k: v for k, v in counts.items() if v},
+            "launches_per_step": {k: v / (E * S) for k, v in counts.items() if v},
+            "fit_peak_bytes": peak,
+            "base_arrays_moved": sum(not same[i] for i in base),
+            "moving_statistics_moved": sum(not same[i] for i in stats),
+            "profiled_fit_1_epoch": {**prof, "steps": steps,
+                                     "device_ms_per_train_step":
+                                         prof["device_ms_per_step"] / steps,
+                                     "wall_ms_per_train_step": prof["wall_ms_per_step"] / steps,
+                                     "conv_backward_calls_per_step": n_bwd / steps}}
+        counts_by[f"fit_transfer_{stage}"] = counts
+        del sm
+        torch.cuda.empty_cache()
+    # the float32 ResNet-50 of fit_resnet, profiled the same way in this process
+    psm = _json_model(RESNET_JSON, mode="synchronous", frequency="epoch",
+                      parameter_server_mode="jax", num_workers=1)
+    psm.fit(part, epochs=1, batch_size=B, validation_split=0.0)
+    prof = profiled(lambda: psm.fit(part, epochs=1, batch_size=B, validation_split=0.0), 1,
+                    top_n=8, ops=(conv_bwd,))
+    del psm
+    torch.cuda.empty_cache()
+    f32 = next(r for r in resnet_runs if r["workers"] == 1 and not r["remat"])
+    emit({"phase": "fit_transfer", **c, "stages": stages,
+          "fit_resnet_1_worker_float32": {
+              "ms_per_step": f32["ms_per_step"], "fit_peak_bytes": f32["fit_peak_bytes"],
+              "launches_per_step": {k: v / (E * f32["steps_per_epoch"])
+                                    for k, v in f32["launches"].items()},
+              "device_ms_per_train_step": prof["device_ms_per_step"] / (rows // B),
+              "conv_backward_calls_per_step": prof["op_counts"][conv_bwd] / (rows // B)},
+          "card": card})
+    return counts_by
+
+
+def fit_transfer_cross_check(card):
+    """The card against ``device="cpu"`` from the same weights and order.
+    The frozen stage: 2 epochs of 64 images at 1 worker (batch 16) from the
+    config's weights with every 1-D array drawn wide (:func:`_resnet_weights`,
+    so that the frozen BatchNormalization normalises): histories within
+    rtol 1e-4 plus 1e-6, the head's arrays within 1e-4 of their scale, the
+    base bit for bit on both. The fine-tuning stage under
+    ``fit_resnet_cross_check``'s rules, one step of 16 images: the loss
+    within rtol 1e-4, the moved statistics and the head within 1e-4 of
+    their scale, each array's distance to the float64 step at most 4 times
+    the CPU float32 step's largest; its statistics moved on both."""
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.models import KerasModelAdapter
+    from elephas_tpu_torch.parallel import CompiledTrainer
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    c = TRANSFER_FIT
+    x, y = cifar_like(c["cross_rows"], seed=4)
+    w = _resnet_weights(SEED + 53)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        sm = _json_model(TRANSFER_JSON, device=dev, mode="synchronous", frequency="epoch",
+                         parameter_server_mode="jax", num_workers=1)
+        sm.master_network.set_weights(w)
+        sm.fit(to_simple_rdd(SparkContext("local[1]"), x, y, num_slices=1),
+               epochs=c["epochs"], batch_size=c["batch"], validation_split=0.0)
+        got[dev] = (sm.training_histories[-1], sm.master_network.get_weights())
+        specs = sm.master_network._specs
+    head = [i for i, s in enumerate(specs) if s.name.startswith("predictions/")]
+    for dev in got:
+        moved = [specs[i].name for i, (a, b) in enumerate(zip(got[dev][1], w))
+                 if i not in head and not np.array_equal(a, b)]
+        require(not moved, f"fit_transfer_cross_check frozen ({dev}): base moved {moved[:4]}")
+    hist_err = _histories_within("fit_transfer_cross_check frozen", got["cuda"][0],
+                                 got["cpu"][0])
+    head_errs = _weights_within("fit_transfer_cross_check frozen head",
+                                [got["cuda"][1][i] for i in head],
+                                [got["cpu"][1][i] for i in head])
+    with open(FINETUNE_JSON) as f:
+        text = f.read()
+    w = _resnet_weights(SEED + 54)
+    xs, ys = cifar_like(16, seed=5)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        trainer = CompiledTrainer(KerasModelAdapter(text, device=dev), mode="synchronous")
+        trainer.adapter.set_weights(w)
+        res = trainer.fit([(xs, ys)], epochs=1, batch_size=16)
+        out[dev] = (res.history["loss"][0], res.weights)
+    specs = trainer.adapter._specs
+    oracle = _resnet_step64(text, w, xs, ys)
+    loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    require(loss_rel <= 1e-4, f"fit_transfer_cross_check finetune: loss {out['cuda'][0]} "
+                              f"(card) vs {out['cpu'][0]} (CPU)")
+    stats = [i for i, s in enumerate(specs) if not s.trainable]
+    for dev in out:
+        kept = [specs[i].name for i in stats if np.array_equal(out[dev][1][i], w[i])]
+        require(not kept, f"fit_transfer_cross_check finetune ({dev}): statistics kept "
+                          f"{kept[:4]}")
+    smooth = stats + [i for i, s in enumerate(specs) if s.name.startswith("predictions/")]
+    smooth_errs = _weights_within("fit_transfer_cross_check finetune: statistics and head",
+                                  [out["cuda"][1][i] for i in smooth],
+                                  [out["cpu"][1][i] for i in smooth])
+
+    def to_oracle(ws):
+        return [float(np.abs(a - o).max()) / float(np.abs(o).max() or 1.0)
+                for a, o in zip(ws, oracle)]
+
+    card_o, cpu_o = to_oracle(out["cuda"][1]), to_oracle(out["cpu"][1])
+    i = int(np.argmax(card_o))
+    require(card_o[i] <= 4 * max(cpu_o),
+            f"fit_transfer_cross_check finetune: the card's step lies {card_o[i]} of scale "
+            f"from the float64 step ({specs[i].name}), the CPU's at most {max(cpu_o)}")
+    emit({"phase": "fit_transfer_cross_check",
+          "frozen": {"history_rel_err": hist_err, "head_err_rel_to_scale": max(head_errs),
+                     "history_gpu": got["cuda"][0], "history_cpu": got["cpu"][0],
+                     "base_bit_for_bit": True},
+          "finetune": {"loss_card": out["cuda"][0], "loss_cpu": out["cpu"][0],
+                       "loss_rel_err": loss_rel, "stats_and_head_err": max(smooth_errs),
+                       "card_to_float64_max": card_o[i], "cpu_to_float64_max": max(cpu_o)},
+          "card": card})
+
+
+def _graph_data(name: str, n: int, seed: int):
+    """Seeded rows for each small model of ``graph_options.json``."""
+    rng = np.random.default_rng(seed)
+    if name in ("lstm_states", "stateful_lstm"):
+        x = rng.normal(size=(n, 12, 8)).astype(np.float32)
+        proj = np.random.default_rng(SEED + 71).normal(size=(8, 10))
+        return x, np.eye(10, dtype=np.float32)[(x.mean(1) @ proj).argmax(1)]
+    if name == "masked_classifier":
+        x, y1 = padded_ids(n, 500, 20, seed)
+        return x.astype(np.float32), np.concatenate([1 - y1, y1], axis=1)
+    if name == "ctc":
+        x = rng.normal(size=(n, 16, 8)).astype(np.float32)
+        proj = np.random.default_rng(SEED + 72).normal(size=(8, 5))
+        labels = (x[:, ::4] @ proj).argmax(-1) + 1
+        labels[np.arange(4)[None, :] >= rng.integers(1, 5, size=n)[:, None]] = 0
+        return x, labels.astype(np.float32)
+    x = rng.normal(size=(n, 32)).astype(np.float32)
+    proj = np.random.default_rng(SEED + 73).normal(size=(32, 4))
+    return x, np.eye(4, dtype=np.float32)[(x @ proj).argmax(1)]
+
+
+def _results_within(what, got, want, rtol=1e-4, atol=1e-6):
+    """Evaluate results (floats or arrays) within ``rtol`` plus ``atol``;
+    the largest relative difference."""
+    errs = []
+    for a, b in zip(got, want):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        require(a.shape == b.shape and np.all(np.abs(a - b) <= rtol * np.abs(b) + atol),
+                f"{what}: {got} vs {want}")
+        errs.append(float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-6))))
+    return max(errs)
+
+
+def fit_graph_options(card):
+    """The small models of ``configs/graph_options.json``, the card against
+    ``device="cpu"`` from the same weights and order. Compiled path (2
+    workers, synchronous, 1024 samples, batch 32, 2 epochs): the
+    encoder-decoder LSTMs (``return_state``, ``initial_state``), the masked
+    bag-of-embeddings classifier, the ``stateful`` LSTM and the ``ctc``
+    tagger (``CTC()``: its forward recursion is deterministic, so its
+    gradients take the same 1e-4). Host path (``comm="host"``, one worker,
+    512 samples, seeded ``np.random``): the ``stateful`` LSTM, and the MLP
+    compiled with ``AUC(from_logits=True)``, ``Precision()`` and
+    ``F1Score()`` (a vector result), with validation 0.25, its history's
+    metrics and their ``val_`` copies; then ``SparkModel.evaluate`` (the
+    fall-back, batches of 32, 200 rows). Histories and evaluations within
+    rtol 1e-4 plus 1e-6, the arrays within 1e-4 of their scale; K1 exactly
+    E S each way on each logits head's compiled fit (E S and E Sv
+    forward on the host fits), no kernel for ``ctc``."""
+    from elephas_tpu_torch import SparkModel
+    from elephas_tpu_torch.data import SparkContext
+    from elephas_tpu_torch.utils import to_simple_rdd
+
+    c = GRAPH_FIT
+    with open(GRAPH_OPTIONS_JSON) as f:
+        models = json.load(f)
+    W, B, E = c["workers"], c["batch"], c["epochs"]
+    report, counts_by = {}, {}
+    for i, name in enumerate(("lstm_states", "masked_classifier", "stateful_lstm", "ctc")):
+        x, y = _graph_data(name, c["samples"], SEED + 74 + i)
+        S, _ = _mlp_steps(c["samples"], W, B, 0.0)
+        got, w0 = {}, None
+        for dev in ("cuda", "cpu"):
+            sm = SparkModel(models[name], device=dev, mode="synchronous", num_workers=W)
+            if w0 is None:
+                w0 = sm.master_network.get_weights()
+            sm.master_network.set_weights(w0)
+            rdd = to_simple_rdd(SparkContext(f"local[{W}]"), x, y, num_slices=W)
+            if dev == "cuda":
+                wall, counts, _ = _compiled_fit(f"fit_graph_options {name}", sm, rdd, E, B,
+                                                0.0, S, 0, k1=name != "ctc")
+                counts_by[f"fit_graph_options_{name}"] = counts
+                report[name] = {"fit_s": wall, "ms_per_step": wall * 1e3 / (E * S)}
+            else:
+                sm.fit(rdd, epochs=E, batch_size=B, validation_split=0.0)
+            got[dev] = (sm.training_histories[-1], sm.master_network.get_weights())
+        report[name].update({
+            "history_gpu": got["cuda"][0],
+            "history_rel_err": _histories_within(f"fit_graph_options {name}", got["cuda"][0],
+                                                 got["cpu"][0]),
+            "weight_err_rel_to_scale": max(_weights_within(f"fit_graph_options {name}",
+                                                           got["cuda"][1], got["cpu"][1]))})
+    n = c["host_samples"]
+    for name, split in (("stateful_lstm", 0.0), ("metrics_mlp", 0.25)):
+        x, y = _graph_data(name, n, SEED + 80)
+        xe, ye = _graph_data(name, c["eval_rows"], SEED + 81)
+        n_train = int(np.floor(n * (1.0 - split)))
+        S, Sv = -(-n_train // B), -(-(n - n_train) // B)
+        got, w0 = {}, None
+        # the host path's workers compile with master_metrics (none by
+        # default, as the reference's): the config's own metrics, passed
+        metrics = json.loads(models[name])["compile_config"]["metrics"] \
+            if name == "metrics_mlp" else None
+        for dev in ("cuda", "cpu"):
+            sm = SparkModel(models[name], device=dev, mode="synchronous", comm="host",
+                            num_workers=1, port=0, master_metrics=metrics)
+            if w0 is None:
+                w0 = sm.master_network.get_weights()
+            sm.master_network.set_weights(w0)
+            np.random.seed(SEED + 82)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                _zero_counters()
+            t0 = time.perf_counter()
+            sm.fit(to_simple_rdd(SparkContext("local[1]"), x, y, num_slices=1), epochs=E,
+                   batch_size=B, validation_split=split)
+            wall = time.perf_counter() - t0
+            counts = _read_counters() if dev == "cuda" else None
+            ev = sm.evaluate(xe, ye) if name == "metrics_mlp" else None
+            got[dev] = (sm.training_histories[-1], sm.master_network.get_weights(), counts,
+                        ev, wall)
+        hist_c, w_c, counts, ev_c, wall = got["cuda"]
+        hist_p, w_p, _, ev_p, _ = got["cpu"]
+        what = f"fit_graph_options host {name}"
+        want = {"fused_xent_fwd": E * (S + (Sv if split else 0)), "fused_xent_bwd": E * S}
+        for k, v in want.items():
+            require(counts[k] == v, f"{what}: {k} launched {counts[k]} times, want {v}")
+        others = {k: v for k, v in counts.items() if not k.startswith("fused_xent") and v}
+        require(not others, f"{what}: other kernels launched: {others}")
+        counts_by[f"fit_graph_options_host_{name}"] = counts
+        require(set(hist_c) == set(hist_p), f"{what}: history keys {sorted(hist_c)}")
+        keys = ({"loss"} if name == "stateful_lstm" else
+                {p + k for p in ("", "val_") for k in ("loss", "auc", "precision", "f1_score")})
+        require(set(hist_c) == keys, f"{what}: history keys {sorted(hist_c)}, want "
+                                     f"{sorted(keys)}")
+        errs = [_results_within(f"{what} {k}", hist_c[k], hist_p[k]) for k in hist_p]
+        w_errs = _weights_within(what, w_c, w_p)
+        entry = {"fit_s": wall, "ms_per_step": wall * 1e3 / (E * S),
+                 "history_gpu": {k: [np.asarray(v).tolist() for v in vs]
+                                 for k, vs in hist_c.items()},
+                 "history_rel_err": max(errs), "weight_err_rel_to_scale": max(w_errs),
+                 "launches": {k: v for k, v in counts.items() if v}}
+        if ev_c is not None:
+            require(isinstance(ev_c, list) and len(ev_c) == 4 and np.shape(ev_c[3]) == (4,),
+                    f"{what}: evaluate gave {ev_c}")
+            entry["evaluate"] = {"names": ["loss", "auc", "precision", "f1_score"],
+                                 "card": [np.asarray(v).tolist() for v in ev_c],
+                                 "rel_err": _results_within(f"{what} evaluate", ev_c, ev_p)}
+        report[f"host_{name}"] = entry
+    emit({"phase": "fit_graph_options", **c, "fits": report, "card": card})
+    return counts_by
 
 
 # -- phases 33 to 36: the API skins around SparkModel ------------------------------
@@ -8077,6 +8461,10 @@ def main() -> int:
         _walled("fit_mixed_cross_check", fit_mixed_cross_check, card)
         losses_counts = _walled("fit_losses_metrics", fit_losses_metrics, card)
         torch.cuda.empty_cache()
+        transfer_counts = _walled("fit_transfer", fit_transfer, card, resnet_runs)
+        _walled("fit_transfer_cross_check", fit_transfer_cross_check, card)
+        graph_counts = _walled("fit_graph_options", fit_graph_options, card)
+        torch.cuda.empty_cache()
         ml_counts, ml_est, ml_tr, ml_xt = _walled("ml_mlp", ml_mlp, card)
         _walled("ml_pipeline_lstm", ml_pipeline_lstm, card)
         _walled("ml_persist", ml_persist, card, ml_est, ml_tr, ml_xt)
@@ -8133,7 +8521,9 @@ def main() -> int:
     # float16 rows are their own (their main path the mixed_float16 MLP fit,
     # their times at its [256, 10] and the other shapes under shapes), the
     # mixed_bfloat16 ResNet-50 fit's K1 (one worker) and the loss and metric
-    # phase's host fit's are under launches_by_path
+    # phase's host fit's are under launches_by_path, as are the transfer
+    # recipe's two ResNet-50 stages' (fit_transfer_frozen, fit_transfer_finetune)
+    # and the graph options' small models' (compiled and host fits)
     rows = [ln_fwd, ln_bwd, decode, *attn_rows, *paged_rows, *gmm_rows, *xent_rows,
             *rope_rows, *xent16_rows]
     paths = {"serve": serve_counts, "train_5_steps": train_counts,
@@ -8157,7 +8547,8 @@ def main() -> int:
              "fit_elastic_hosts": elastic_counts, **quant_counts, "hf_import": hf_counts,
              "fit_resnet": resnet_counts, "fit_options": options_counts,
              "fit_mixed_resnet50_bf16": mixed_resnet_counts,
-             "fit_mixed_mlp_fp16": mixed_mlp_counts, **losses_counts}
+             "fit_mixed_mlp_fp16": mixed_mlp_counts, **losses_counts, **transfer_counts,
+             **graph_counts}
     main_paths = {"layer_norm_fwd": "serve", "flash_decode_lse": "serve",
                   "paged_flash_decode_lse": "serve_paged",
                   "paged_flash_chunk": "serve_paged", "gmm": "serve_moe",

@@ -15,7 +15,10 @@ model without the port importing Keras.
 
 What it interprets: a ``Sequential`` model, or a ``Functional`` one of one
 input and one output (a graph walked node by node; a layer called at
-several nodes runs each call with its one set of weights), of
+several nodes runs each call with its one set of weights; a model nested
+as a layer of either, to any depth, its calls walked in its caller's
+graph; a layer's outputs past the first, a recurrent layer's
+``initial_state``), of
 ``InputLayer``, ``Dense`` (the activations Keras names), ``Dropout``
 (``noise_shape`` too), ``Activation``, ``Flatten``, ``Reshape``,
 ``Conv1D`` and ``Conv2D`` (``valid``, ``same`` and, for Conv1D,
@@ -27,12 +30,15 @@ runs in inference mode), the merges ``Add``, ``Subtract``, ``Multiply``,
 ``Average``, ``Maximum``, ``Minimum`` and ``Concatenate``, ``Embedding``
 (``mask_zero`` too) and the recurrent ``LSTM``, ``GRU`` (both
 ``reset_after``) and ``SimpleRNN`` (``go_backwards``, ``return_sequences``,
-an ``Embedding``'s mask), with Keras's weight order and layouts (kernel
+``return_state``, ``stateful``), masks handed on as Keras 3.13 hands them,
+with Keras's weight order and layouts (kernel
 ``[in, out]`` / ``[*kernel_size, in / groups, out]``, then bias; gamma,
 beta, moving mean, moving variance; LSTM gates i, f, c, o; GRU gates z, r,
 h). A layer with ``trainable=False`` keeps its weights out of training, as
 Keras does. Anything else raises :class:`NotImplementedError` naming the
-layer or option and the ROADMAP item it waits for. As in the reference's
+layer or option and the ROADMAP item it waits for (a model of several
+inputs or outputs: that the reference's entry points do not take one
+either). As in the reference's
 ``stateless_call`` path, regularizers and constraints play no part in
 training. Without weights it initialises from the config's initializers
 (the VarianceScaling family, Orthogonal, the constants, LSTM's
@@ -72,8 +78,9 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from .. import resolve_device
-from .losses import (metric_name, metric_sums, resolve_accuracy, resolve_metric,
-                     resolve_per_sample_loss)
+from .losses import (metric_name, metric_results, metric_state, resolve_accuracy,
+                     resolve_metric, resolve_per_sample_loss)
+from .stateful_metrics import result_value
 from .optimizers import _tree_where, loss_scale_spec, to_torch_optimizer
 
 Params = Dict[str, torch.Tensor]
@@ -249,13 +256,17 @@ def _initial_value(spec, shape: Tuple[int, ...], gen: torch.Generator) -> torch.
 # *feat]`` to ``[L, B, *out_feat]`` with the parameters ``p`` (trainable and
 # non-trainable, ``[L, ...]``, by name); a layer with state writes its new
 # statistics into ``ntv_out`` when that is a dict. A merge layer takes a
-# list of such tensors. ``mask_role`` says what an op does with an
-# Embedding's mask: ``"pass"`` hands it on (elementwise layers, as Keras),
-# ``"consume"`` takes it as ``mask=`` (the recurrent layers); any other op
-# refuses it. ``dtype`` is the compute dtype of the layer's dtype policy:
-# under a mixed policy the model casts an op's floating inputs to it
-# (``autocast``) and its weights (``cast_weights``) before the call, as
-# Keras's layer call and its autocast scope do.
+# list of such tensors. A layer of several outputs (a recurrent layer with
+# ``return_state``) returns a tuple, ``n_outputs`` long, whose feature
+# shapes are ``out_feats``. Masks follow Keras 3.13: an op with
+# ``uses_mask`` takes its input's mask (a merge: the list of them) as
+# ``mask=``; :meth:`_Op.output_masks` is Keras's ``compute_mask``, which
+# hands the mask on in a layer that ``supports_masking`` and drops it in
+# any other (Keras warns there and goes on). ``dtype`` is the compute
+# dtype of the layer's dtype policy: under a mixed policy the model casts
+# an op's floating inputs to it (``autocast``) and its weights
+# (``cast_weights``) before the call, as Keras's layer call and its
+# autocast scope do.
 
 
 class _Spec(NamedTuple):
@@ -266,17 +277,27 @@ class _Spec(NamedTuple):
 
 
 class _Op:
-    """No weights, no mask handling, one input."""
-    mask_role: Optional[str] = None
-    makes_mask = False
+    """No weights, one input, one output; a mask dropped."""
+    supports_masking = False
+    uses_mask = False
     merge = False
+    n_outputs = 1
     out_feat = None
     dtype = torch.float32
     autocast = True
     cast_weights = True
 
+    @property
+    def out_feats(self):
+        return [self.out_feat]
+
     def weight_shapes(self):
         return []
+
+    def output_masks(self, hs, masks) -> list:
+        """Keras's ``compute_mask``: the mask of each output, from the
+        inputs ``hs`` and their masks (None where unmasked)."""
+        return [masks[0] if self.supports_masking else None]
 
 
 def _ints(v, n: int) -> Tuple[int, ...]:
@@ -345,6 +366,8 @@ def _flat_pad(pads) -> List[int]:
 
 
 class _Dense(_Op):
+    supports_masking = True
+
     def __init__(self, cfg: dict, in_dim: int):
         self.name = cfg["name"]
         self.units = int(cfg["units"])
@@ -374,7 +397,7 @@ class _Dropout(_Op):
     stack, so every replica gets its own mask; with ``noise_shape`` the
     mask is drawn at that shape (``None`` axes take the input's size) and
     broadcast over the others, per replica."""
-    mask_role = "pass"
+    supports_masking = True
 
     def __init__(self, cfg: dict):
         self.rate = float(cfg.get("rate", 0.0))
@@ -398,7 +421,7 @@ class _Dropout(_Op):
 
 
 class _Activation(_Op):
-    mask_role = "pass"
+    supports_masking = True
 
     def __init__(self, cfg: dict):
         self.act = _activation(cfg.get("activation"))
@@ -553,21 +576,33 @@ class _Pool(_Op):
 
 
 class _GlobalPool(_Op):
-    """GlobalAveragePooling1D/2D and GlobalMaxPooling1D/2D (``keepdims``)."""
+    """GlobalAveragePooling1D/2D and GlobalMaxPooling1D/2D (``keepdims``).
+    GlobalAveragePooling1D takes a mask as Keras does, a mean over the
+    unmasked steps, and makes none; the others drop it (Keras's plain max
+    or mean over every step)."""
 
     def __init__(self, cfg: dict, feat, rank: int, kind: str):
         cls = f"Global{'Max' if kind == 'max' else 'Average'}Pooling{rank}D"
         self.first, self.kind = _channels_first(cls, cfg), kind
+        self.uses_mask = self.supports_masking = kind == "avg" and rank == 1
         self.keepdims = bool(cfg.get("keepdims", False))
         c, _ = _split_channels(_need_feat(cls, cfg, feat, rank + 1), self.first)
         self.axes = tuple(range(3, rank + 3)) if self.first else tuple(range(2, rank + 2))
         self.out_feat = (_join_channels(c, [1] * rank, self.first) if self.keepdims
                          else [c])
 
-    def __call__(self, p, h, training, gen, ntv_out):
+    def output_masks(self, hs, masks):
+        return [None]
+
+    def __call__(self, p, h, training, gen, ntv_out, mask=None):
         if self.kind == "max":
             return torch.amax(h, dim=self.axes, keepdim=self.keepdims)
-        return torch.mean(h, dim=self.axes, keepdim=self.keepdims)
+        if mask is None:
+            return torch.mean(h, dim=self.axes, keepdim=self.keepdims)
+        # Keras: inputs * mask summed over the steps, over the mask's sum
+        m = mask.to(h.dtype).unsqueeze(2 if self.first else 3)
+        return (torch.sum(h * m, dim=self.axes, keepdim=self.keepdims)
+                / torch.sum(m, dim=self.axes, keepdim=self.keepdims))
 
 
 def _pad_pairs(padding, rank: int) -> List[Tuple[int, int]]:
@@ -598,10 +633,27 @@ class _ZeroPad(_Op):
         return F.pad(h, self.pad)
 
 
+def _or_masks(masks):
+    """The merges' ``compute_mask``: the masks OR-ed, None unless every
+    input has one."""
+    if any(m is None for m in masks):
+        return None
+    out = masks[0]
+    for m in masks[1:]:
+        out = out | m
+    return out
+
+
 class _Merge(_Op):
     """Add, Subtract, Multiply, Average, Maximum and Minimum over a list of
-    inputs of one shape, folded left to right as Keras folds them."""
+    inputs of one shape, folded left to right as Keras folds them. With
+    masks: Maximum and Minimum fold each masked input's step in only where
+    it is unmasked (Keras's ``_apply_merge_op_and_or_mask``), Multiply
+    takes 1 for a masked step and, when every input has a mask, 0 where
+    none is set; the output's mask is the inputs' OR-ed when every input
+    has one."""
     merge = True
+    supports_masking = uses_mask = True
 
     def __init__(self, cls: str, cfg: dict, feats):
         if feats and len({len(f) for f in feats if f is not None}) > 1:
@@ -609,11 +661,37 @@ class _Merge(_Op):
                           f"{feats}")
         self.cls = cls
 
-    def __call__(self, p, hs, training, gen, ntv_out):
+    def output_masks(self, hs, masks):
+        return [_or_masks(masks)]
+
+    def __call__(self, p, hs, training, gen, ntv_out, mask=None):
+        masks = [None] * len(hs) if mask is None else [
+            None if m is None else m[..., None].expand(h.shape) for m, h in zip(mask, hs)]
         if self.cls == "Subtract":
             if len(hs) != 2:
                 raise ValueError(f"Subtract takes 2 inputs, got {len(hs)}")
             return hs[0] - hs[1]
+        if self.cls in ("Maximum", "Minimum") and any(m is not None for m in masks):
+            fold = torch.maximum if self.cls == "Maximum" else torch.minimum
+            out, out_mask = hs[0], masks[0]
+            for h, m in zip(hs[1:], masks[1:]):
+                if m is not None:
+                    h = torch.where(m, h, out)
+                if out_mask is not None:
+                    out = torch.where(out_mask, out, h)
+                out_mask = out_mask | m if m is not None and out_mask is not None else None
+                out = fold(out, h)
+            return out
+        if self.cls == "Multiply" and any(m is not None for m in masks):
+            out, out_mask = None, None
+            every = all(m is not None for m in masks)
+            for h, m in zip(hs, masks):
+                if m is not None:
+                    h = torch.where(m, h, torch.ones_like(h))
+                    if every:
+                        out_mask = m if out_mask is None else out_mask | m
+                out = h if out is None else out * h
+            return torch.where(out_mask, out, torch.zeros_like(out)) if every else out
         fold = {"Add": torch.add, "Average": torch.add, "Multiply": torch.mul,
                 "Maximum": torch.maximum, "Minimum": torch.minimum}[self.cls]
         out = hs[0]
@@ -624,8 +702,20 @@ class _Merge(_Op):
 
 class _Concatenate(_Op):
     """Concatenate along Keras's ``axis`` (counted with the batch axis): a
-    non-negative axis ``k`` is axis ``k + 1`` of the replica stack."""
+    non-negative axis ``k`` is axis ``k + 1`` of the replica stack. Its
+    mask is Keras's: each input's mask (all set where it has none)
+    broadcast to the input's shape, concatenated along the axis, any over
+    the last axis."""
     merge = True
+    supports_masking = True
+
+    def output_masks(self, hs, masks):
+        if all(m is None for m in masks):
+            return [None]
+        full = [torch.ones_like(h, dtype=torch.bool) if m is None else
+                (m[..., None] | torch.zeros_like(h, dtype=torch.bool))
+                if m.dim() < h.dim() else m for h, m in zip(hs, masks)]
+        return [torch.cat(full, dim=self.axis).any(dim=-1)]
 
     def __init__(self, cfg: dict):
         axis = int(cfg.get("axis", -1))
@@ -644,8 +734,11 @@ class _BatchNorm(_Op):
     statistics ``m * momentum + batch * (1 - momentum)``; in inference, and
     always when frozen (``trainable=False``, as Keras 3), it normalises by
     the moving statistics. Under a mixed policy it computes in float32 from
-    its float32 weights and returns the compute dtype, as Keras does."""
+    its float32 weights and returns the compute dtype, as Keras does. A
+    mask (one axis fewer than the input) weights the batch's moments as
+    Keras's ``_moments`` weights them and is handed on."""
     cast_weights = False
+    supports_masking = uses_mask = True
 
     def __init__(self, cfg: dict, feat):
         self.name = cfg["name"]
@@ -653,7 +746,10 @@ class _BatchNorm(_Op):
         axis = cfg.get("axis", -1)
         if isinstance(axis, (list, tuple)):
             if len(axis) != 1:
-                raise _refuse(f"BatchNormalization axis={axis!r} (more than one axis)")
+                raise NotImplementedError(
+                    f"BatchNormalization axis={axis!r}: Keras's constructor refuses a list "
+                    f"axis of more than one (it takes int(axis)), so no Keras JSON carries "
+                    f"one and the reference's entry points do not take it either")
             axis = axis[0]
         ndim = len(feat) + 1
         axis = int(axis) + ndim if int(axis) < 0 else int(axis)
@@ -683,7 +779,22 @@ class _BatchNorm(_Op):
         return shapes + [_Spec(f"{self.name}/{k}", c, self.inits[k], False)
                          for k in ("moving_mean", "moving_variance")]
 
-    def __call__(self, p, h, training, gen, ntv_out):
+    def _masked_moments(self, h, mask, dims):
+        """Keras's ``_moments`` with a mask: the mask broadcast over the
+        last axis, a weighted mean and variance (of the weighted inputs
+        about it) over the weights' sum plus Keras's epsilon."""
+        if mask.dim() != h.dim() - 1:
+            raise ValueError(f"BatchNormalization {self.name!r}: the mask provided should "
+                             f"be one dimension less than the inputs")
+        w = mask.to(h.dtype)[..., None].expand(h.shape)
+        wx = w * h
+        total = torch.sum(w, dim=dims, keepdim=True) + 1e-7
+        mean = torch.sum(wx, dim=dims, keepdim=True) / total
+        var = torch.sum(w * torch.square(wx - mean), dim=dims, keepdim=True) / total
+        shape = (h.shape[0], self.channels)
+        return var.reshape(shape), mean.reshape(shape)
+
+    def __call__(self, p, h, training, gen, ntv_out, mask=None):
         n = self.name
         # Keras: result_type(inputs, float32), float32 for a 16-bit input
         out_dtype, h = h.dtype, h.to(torch.promote_types(h.dtype, torch.float32))
@@ -693,7 +804,8 @@ class _BatchNorm(_Op):
         mv = moved.get(f"{n}/moving_variance", p[f"{n}/moving_variance"])
         if training and not self.frozen:
             dims = tuple(d for d in range(1, h.dim()) if d != self.axis)
-            var, mean = torch.var_mean(h, dim=dims, correction=0)
+            var, mean = (torch.var_mean(h, dim=dims, correction=0) if mask is None
+                         else self._masked_moments(h, mask, dims))
             if ntv_out is not None:
                 ntv_out[f"{n}/moving_mean"] = (mm * self.momentum
                                                + mean.detach() * (1.0 - self.momentum))
@@ -727,7 +839,7 @@ class _Embedding(_Op):
 
     def __init__(self, cfg: dict, feat):
         self.name = cfg["name"]
-        self.makes_mask = bool(cfg.get("mask_zero"))
+        self.mask_zero = bool(cfg.get("mask_zero"))
         self.input_dim, self.output_dim = int(cfg["input_dim"]), int(cfg["output_dim"])
         self.init = cfg.get("embeddings_initializer", "RandomUniform")
         self.out_feat = None if feat is None else list(feat) + [self.output_dim]
@@ -739,6 +851,9 @@ class _Embedding(_Op):
     @staticmethod
     def compute_mask(h):
         return h != 0
+
+    def output_masks(self, hs, masks):
+        return [self.compute_mask(hs[0]) if self.mask_zero else None]
 
     def __call__(self, p, h, training, gen, ntv_out):
         ids = h.long()
@@ -758,11 +873,22 @@ class _Embedding(_Op):
 class _Recurrent(_Op):
     """The recurrent layers' common loop: the input projection ``x @ kernel
     (+ bias)`` for every step at once, then one ``step`` a time step from a
-    zero state, backwards over time with ``go_backwards`` (the outputs then
-    in that order, as Keras returns them). A masked step (an Embedding's
-    ``mask_zero``) keeps the state and outputs the previous output (zeros
-    with ``zero_output_for_mask``), as Keras's JAX backend does; the last
-    output, or with ``return_sequences`` every step's.
+    zero state (or ``initial_state``, tensors of the graph), backwards over
+    time with ``go_backwards`` (the outputs then in that order, as Keras
+    returns them). A masked step (an Embedding's ``mask_zero``) keeps the
+    state and outputs the previous output (zeros with
+    ``zero_output_for_mask``), as Keras's JAX backend does; the last
+    output, or with ``return_sequences`` every step's, and with
+    ``return_state`` the final states after it (``h`` and ``c`` for LSTM,
+    ``h`` for GRU and SimpleRNN). The output's mask is the input's with
+    ``return_sequences``, else none; the states have none.
+
+    ``stateful=True`` runs as the reference runs it: Keras 3.13 keeps a
+    stateful layer's states in variables outside ``non_trainable_variables``
+    (and outside ``get_weights()``), so its ``stateless_call`` and the JAX
+    backend's ``fit``, ``evaluate`` and ``predict`` start every batch from
+    zeros, as without the option. What stays of it is Keras's check that
+    every batch has the batch size the model was built with.
 
     ``dropout`` and ``recurrent_dropout`` act in training only, as Keras
     3.13's cells apply them: :meth:`draw_masks` draws the masks once a call
@@ -772,16 +898,21 @@ class _Recurrent(_Op):
     mask a gate, each gate's projection from its own masked copy; without
     it one input mask for every gate. SimpleRNN has one of each. The masks
     come from the adapter's generator (other bits than Keras's)."""
-    mask_role = "consume"
+    supports_masking = uses_mask = True
     n_gates = 1
     n_states = 1
 
-    def __init__(self, cls: str, cfg: dict, feat):
-        for key in ("return_state", "stateful"):
-            if cfg.get(key):
-                raise _refuse(f"{cls} {key}=True")
+    def __init__(self, cls: str, cfg: dict, feat, batch: Optional[int] = None):
         self.name = cfg["name"]
         self.units = int(cfg["units"])
+        self.return_state = bool(cfg.get("return_state", False))
+        self.n_outputs = 1 + self.n_states if self.return_state else 1
+        self.batch = None
+        if cfg.get("stateful"):
+            if batch is None:
+                raise ValueError(f"{cls} {self.name!r}: when using `stateful=True` in a "
+                                 f"RNN, the batch size must be static")
+            self.batch = int(batch)
         self.dropout = min(1.0, max(0.0, float(cfg.get("dropout") or 0.0)))
         self.recurrent_dropout = min(1.0, max(0.0, float(cfg.get("recurrent_dropout")
                                                          or 0.0)))
@@ -800,6 +931,14 @@ class _Recurrent(_Op):
         self.kernel_init = cfg.get("kernel_initializer", "GlorotUniform")
         self.rec_init = cfg.get("recurrent_initializer", "Orthogonal")
         self.bias_init = cfg.get("bias_initializer", "Zeros")
+
+    @property
+    def out_feats(self):
+        return [self.out_feat] + [[self.units]] * (self.n_outputs - 1)
+
+    def output_masks(self, hs, masks):
+        out = masks[0] if self.return_sequences else None
+        return [out] + [None] * (self.n_outputs - 1)
 
     def bias_shape(self):
         return (self.n_gates * self.units,)
@@ -859,12 +998,23 @@ class _Recurrent(_Op):
         return torch.cat([torch.bmm(hs * rmasks[g], rk[..., g * u:(g + 1) * u])
                           for g in gates], dim=-1)
 
-    def __call__(self, p, h, training, gen, ntv_out, mask=None):
+    def __call__(self, p, h, training, gen, ntv_out, mask=None, initial_state=None):
         L, B, T = h.shape[:3]
+        if self.batch is not None and B != self.batch:
+            raise ValueError(
+                f"If an RNN is stateful, the batch size of the input sequences must be "
+                f"the same as the batch size of the initial state (layer {self.name!r}: "
+                f"expected batch size {self.batch}, received {B})")
         in_masks, rmasks = (self.draw_masks(L, B, h, gen) if training
                             else (None, None))
         xz = self._project(p, h, in_masks)
-        state = tuple(h.new_zeros((L, B, self.units)) for _ in range(self.n_states))
+        if initial_state is None:
+            state = tuple(h.new_zeros((L, B, self.units)) for _ in range(self.n_states))
+        else:
+            if len(initial_state) != self.n_states:
+                raise ValueError(f"{self.name!r}: initial_state has {len(initial_state)} "
+                                 f"tensors, the layer {self.n_states} states")
+            state = tuple(s.to(h.dtype) for s in initial_state)
         outs, out = [], None
         for t in (range(T - 1, -1, -1) if self.go_backwards else range(T)):
             new = self.step(p, xz[:, :, t], state, rmasks)
@@ -877,7 +1027,8 @@ class _Recurrent(_Op):
             state = new
             if self.return_sequences:
                 outs.append(out)
-        return torch.stack(outs, dim=2) if self.return_sequences else out
+        out = torch.stack(outs, dim=2) if self.return_sequences else out
+        return (out,) + tuple(state) if self.return_state else out
 
 
 class _LSTM(_Recurrent):
@@ -886,8 +1037,8 @@ class _LSTM(_Recurrent):
     act(c)``, ``recurrent_activation`` on i, f and o."""
     n_gates, n_states = 4, 2
 
-    def __init__(self, cfg: dict, feat):
-        super().__init__("LSTM", cfg, feat)
+    def __init__(self, cfg: dict, feat, batch=None):
+        super().__init__("LSTM", cfg, feat, batch)
         if cfg.get("unit_forget_bias", True):
             bias_init = self.bias_init
 
@@ -918,8 +1069,8 @@ class _GRU(_Recurrent):
     units]``), ``h = z * h + (1 - z) * hh`` (the unmasked ``h``)."""
     n_gates = 3
 
-    def __init__(self, cfg: dict, feat):
-        super().__init__("GRU", cfg, feat)
+    def __init__(self, cfg: dict, feat, batch=None):
+        super().__init__("GRU", cfg, feat, batch)
         self.reset_after = bool(cfg.get("reset_after", True))
 
     def bias_shape(self):
@@ -954,8 +1105,8 @@ class _GRU(_Recurrent):
 class _SimpleRNN(_Recurrent):
     """Keras 3's SimpleRNN: ``h = act(x @ kernel + bias + h @ recurrent_kernel)``."""
 
-    def __init__(self, cfg: dict, feat):
-        super().__init__("SimpleRNN", cfg, feat)
+    def __init__(self, cfg: dict, feat, batch=None):
+        super().__init__("SimpleRNN", cfg, feat, batch)
 
     def step(self, p, xz_t, state, rmasks=None):
         hs, = state
@@ -1010,17 +1161,19 @@ _RECURRENT = {"LSTM": _LSTM, "GRU": _GRU, "SimpleRNN": _SimpleRNN}
 _MERGES = ("Add", "Subtract", "Multiply", "Average", "Maximum", "Minimum")
 
 
-def _make_op(cls: str, cfg: dict, feat, in_dim: Optional[int] = None):
+def _make_op(cls: str, cfg: dict, feat, in_dim: Optional[int] = None,
+             batch: Optional[int] = None):
     """The op of one layer config at input feature shape ``feat`` (a list of
     them for a merge layer), computing in its policy's dtype. ``in_dim`` is
-    a Dense layer's fan-in where the config gives no shape."""
+    a Dense layer's fan-in where the config gives no shape; ``batch`` the
+    input's static batch size, if any (a stateful recurrent layer's)."""
     dtype = _compute_dtype(cfg)
-    op = _layer_op(cls, cfg, feat, in_dim)
+    op = _layer_op(cls, cfg, feat, in_dim, batch)
     op.dtype = dtype
     return op
 
 
-def _layer_op(cls: str, cfg: dict, feat, in_dim: Optional[int]):
+def _layer_op(cls: str, cfg: dict, feat, in_dim: Optional[int], batch: Optional[int]):
     if cls == "Dense":
         if feat is None and in_dim is None:
             raise ValueError(f"Dense layer {cfg.get('name')!r}: the config has no input "
@@ -1055,172 +1208,293 @@ def _layer_op(cls: str, cfg: dict, feat, in_dim: Optional[int]):
     elif cls == "Embedding":
         return _Embedding(cfg, feat)
     elif cls in _RECURRENT:
-        return _RECURRENT[cls](cfg, feat)
-    elif cls in ("Sequential", "Functional", "Model"):
-        raise _refuse(f"a model nested as a layer ({cls} {cfg.get('name')!r})")
+        return _RECURRENT[cls](cfg, feat, batch)
     else:
         raise _refuse(f"layer {cls!r}")
     op.out_feat = None if feat is None else list(feat)    # shape-keeping ops
     return op
 
 
+_MODELS = ("Sequential", "Functional", "Model")
+# the Keras ops a Functional config holds where Keras computed a layer's
+# mask on its symbolic tensors (an Embedding's ``not_equal``, a merge's
+# ``logical_or``, Concatenate's broadcast, concatenation and ``any``) and
+# handed it to a layer as ``mask=``: the walk computes the same masks
+# itself (:meth:`_Op.output_masks`)
+_MASK_OPS = ("NotEqual", "ExpandDims", "ZerosLike", "OnesLike", "LogicalOr", "LogicalAnd",
+             "Concatenate", "Any", "All", "BroadcastTo", "Cast")
+
+
+def _is_mask_op(layer: dict) -> bool:
+    return (str(layer.get("module", "")).startswith("keras.src.ops")
+            and layer.get("class_name") in _MASK_OPS)
+
+
 class _Node(NamedTuple):
     """One call of a layer (``label``, its class and name): ``op`` over the
-    values ``inputs`` (keys), its result stored as ``output``; ``free`` are
-    the keys no later node reads."""
+    values ``inputs`` (keys; a merge's list of them) and, for a recurrent
+    layer's ``initial_state``, ``states``; its results stored as
+    ``outputs`` (one key an output); ``free`` are the keys no later node
+    reads."""
     op: Any
     inputs: Tuple[Any, ...]
-    output: Any
+    outputs: Tuple[Any, ...]
     label: str
+    states: Tuple[Any, ...] = ()
     free: Tuple[Any, ...] = ()
+    # Keras hands a call its input's mask when it has one tensor argument
+    # or names ``mask=``; a recurrent call with ``initial_state`` gets none
+    takes_mask: bool = True
 
 
-def _layer_specs(op, layer_cfg: dict, model_trainable: bool) -> List[_Spec]:
-    """The op's weights; a frozen layer's (or a frozen model's) all
-    non-trainable, as Keras keeps them out of ``trainable_variables``."""
-    specs = op.weight_shapes()
-    if layer_cfg.get("trainable", True) and model_trainable:
-        return specs
-    return [s._replace(trainable=False) for s in specs]
+def _several(n: int, what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"a model of {n} {what}s: the reference's entry points do not take one either "
+        f"(its SparkModel.fit stacks each partition into one x array and one y array, "
+        f"and its predict, evaluate and ML skins read one array each)")
 
 
-def _finish_graph(nodes: List[_Node], first, last) -> List[_Node]:
-    """Check where an Embedding's mask goes, and mark each value's last
-    reader so the walk frees it there. A mask may reach a recurrent layer
-    (through Dropout or Activation); reaching any other layer, a merge or
-    the model's output (the loss) it raises."""
-    masked = set()
-    for node in nodes:
-        op = node.op
-        fed = [k for k in node.inputs if k in masked]
-        if fed and op.mask_role is None:
-            raise _refuse(f"an Embedding's mask (mask_zero=True) reaching {node.label}, "
-                          f"which does not consume it")
-        if op.makes_mask or (fed and (op.mask_role == "pass" or getattr(
-                op, "return_sequences", False))):
-            masked.add(node.output)
-    if last in masked:
-        raise _refuse("an Embedding's mask (mask_zero=True) reaching the model's output "
-                      "(the loss)")
-    last_read = {}
-    for i, node in enumerate(nodes):
-        for k in node.inputs:
-            last_read[k] = i
-    return [n._replace(free=tuple(k for k in set(n.inputs)
-                                  if last_read[k] == i and k not in (first, last)))
-            for i, n in enumerate(nodes)]
-
-
-def _parse_sequential(arch: dict, weight_shapes: Optional[List[Tuple[int, ...]]]):
-    """``(nodes, specs, input key, output key)`` of a Keras-3 Sequential
-    config: a chain. Input shapes come from the config (InputLayer, build
-    shapes, each layer's ``build_config``) or, for a Dense layer failing
-    those, from the kernels' shapes in ``weight_shapes``."""
-    cfg = arch.get("config", {})
-    _compute_dtype(cfg)
-    trainable = cfg.get("trainable", True)
-    shape = cfg.get("build_input_shape") or (arch.get("build_config") or {}).get("input_shape")
-    feat = list(shape[1:]) if shape else None
-    # the Dense kernels' input widths, in order (biases are the 1-D arrays)
-    kernel_in = iter([s[0] for s in weight_shapes or [] if len(s) == 2])
-    nodes, specs = [], []
-    for layer in cfg.get("layers", []):
-        cls, lcfg = layer.get("class_name"), layer.get("config", {})
-        if cls == "InputLayer":
-            bs = lcfg.get("batch_shape") or lcfg.get("batch_input_shape")
-            if bs:
-                feat = list(bs[1:])
-            continue
-        build = (layer.get("build_config") or {}).get("input_shape")
-        if build:
-            feat = list(build[1:])
-        if cls in _MERGES or cls == "Concatenate":
-            raise ValueError(f"{cls} in a Sequential model takes one input")
-        op = _make_op(cls, lcfg, feat, next(kernel_in, None) if cls == "Dense" else None)
-        feat = op.out_feat
-        specs += _layer_specs(op, lcfg, trainable)
-        nodes.append(_Node(op, (len(nodes),), len(nodes) + 1, f"{cls} {lcfg.get('name')!r}"))
-    return _finish_graph(nodes, 0, len(nodes)), specs, 0, len(nodes)
-
-
-def _tensor_ref(arg) -> Tuple[str, int]:
-    """``(layer, node)`` of a ``__keras_tensor__`` argument."""
+def _tensor_ref(arg) -> Tuple[str, int, int]:
+    """``(layer, node, output index)`` of a ``__keras_tensor__`` argument."""
     if not (isinstance(arg, dict) and arg.get("class_name") == "__keras_tensor__"):
         raise _refuse(f"a layer argument that is not a tensor ({str(arg)[:80]})")
     layer, node, index = arg["config"]["keras_history"]
-    if int(index) != 0:
-        raise _refuse(f"output {index} of layer {layer!r} (layers of several outputs)")
-    return layer, int(node)
+    return layer, int(node), int(index)
 
 
-def _one_io(refs, what: str):
+def _one_io(refs, what: str) -> Tuple[str, int, int]:
     """The single ``[layer, node, tensor]`` of ``input_layers`` /
     ``output_layers`` (a list of one is one too)."""
+    if isinstance(refs, dict):
+        raise _several(len(refs), what)
     if refs and isinstance(refs[0], (list, tuple)):
         if len(refs) != 1:
-            raise _refuse(f"a Functional model of {len(refs)} {what}s (the engine's x and y "
-                          f"are single arrays)")
+            raise _several(len(refs), what)
         refs = refs[0]
-    if isinstance(refs, dict):
-        raise _refuse(f"a Functional model whose {what}s are a dict")
-    if int(refs[2]) != 0:
-        raise _refuse(f"output {refs[2]} of layer {refs[0]!r} as the model's {what}")
-    return refs[0], int(refs[1])
+    return refs[0], int(refs[1]), int(refs[2])
 
 
-def _parse_functional(arch: dict, weight_shapes=None):
-    """``(nodes, specs, input key, output key)`` of a Keras-3 Functional
-    config of one input and one output. Each layer's ``inbound_nodes`` are
-    its calls; an argument ``__keras_tensor__`` names the ``(layer, node)``
-    that made it and carries its shape. The calls run in the config's
-    order, a call whose inputs are not made yet put off until they are (a
-    shared layer's second call may read a later layer, as Keras's own
-    ``from_config`` allows); ``specs`` follow the layers' order, which is
-    ``get_weights()``'s."""
-    cfg = arch.get("config", {})
-    _compute_dtype(cfg)
-    trainable = cfg.get("trainable", True)
-    first = _one_io(cfg.get("input_layers"), "input")
-    last = _one_io(cfg.get("output_layers"), "output")
-    pending, specs, has_weights = [], [], set()
-    for layer in cfg.get("layers", []):
-        cls, lcfg = layer.get("class_name"), layer.get("config", {})
-        name = layer.get("name", lcfg.get("name"))
-        if cls == "InputLayer":
-            continue
-        for i, node in enumerate(layer.get("inbound_nodes", [])):
-            args = node.get("args", [])
-            extra = {k: v for k, v in (node.get("kwargs") or {}).items() if v is not None}
-            if len(args) != 1 or extra:
-                raise _refuse(f"a call of layer {name!r} with arguments "
-                              f"{str(args[1:])[:60]} {extra}")
-            merge = cls in _MERGES or cls == "Concatenate"
-            tensors = list(args[0]) if merge else [args[0]]
-            shapes = [t["config"].get("shape") for t in tensors]
-            feat = [list(s[1:]) for s in shapes] if merge else (
-                list(shapes[0][1:]) if shapes[0] is not None else None)
-            op = _make_op(cls, lcfg, feat)
-            if name not in has_weights:          # a shared layer's weights once
-                specs += _layer_specs(op, lcfg, trainable)
-                has_weights.add(name)
-            pending.append(_Node(op, tuple(_tensor_ref(t) for t in tensors), (name, i),
-                                 f"{cls} {name!r}"))
-    nodes, made = [], {first}
+def _call_arguments(cls: str, name: str, node: dict, mask_ops=()):
+    """``(tensor arguments, initial_state arguments)`` of one call in a
+    Functional config. Keras 3.13 writes ``training`` and ``mask`` into
+    some calls; a ``training`` the caller gave is read as Keras reads it
+    inside a model: the model's own call (every step of the reference and
+    of Keras's ``fit``, ``evaluate`` and ``predict`` names its mode) passes
+    its ``training`` down to every layer, nested models included, and that
+    overrides the value saved with the call (``functional.operation_fn``),
+    so a base called with ``training=False`` trains its BatchNormalization
+    in a fit unless the layer is frozen, and ``Dropout(x, training=True)``
+    is off in ``predict``. A recurrent layer's ``initial_state`` (by
+    keyword or second argument) is read; a ``mask`` that the ops
+    ``mask_ops`` made is the one the walk hands the layer; any other
+    argument raises. Returns ``(tensor argument, initial_state arguments,
+    whether a mask was named)``."""
+    args = list(node.get("args", []))
+    kwargs = dict(node.get("kwargs") or {})
+    training = kwargs.pop("training", None)
+    if training not in (None, True, False):
+        raise ValueError(f"layer {name!r}: training={training!r}")
+    mask = kwargs.get("mask")
+    named_mask = mask is not None
+    if mask is None or (isinstance(mask, dict) and mask.get("class_name") == "__keras_tensor__"
+                        and _tensor_ref(mask)[0] in mask_ops):
+        kwargs.pop("mask", None)
+    states = kwargs.pop("initial_state", None)
+    if cls in _RECURRENT and states is None and len(args) > 1:
+        states = args.pop(1)
+    extra = {k: v for k, v in kwargs.items() if v is not None}
+    if len(args) != 1 or extra:
+        raise _refuse(f"a call of layer {name!r} with arguments {str(args[1:])[:60]} "
+                      f"{str(extra)[:80]}")
+    if states is not None and cls not in _RECURRENT:
+        raise _refuse(f"initial_state on layer {name!r} ({cls})")
+    if states is not None and not isinstance(states, (list, tuple)):
+        states = [states]
+    return args[0], [] if states is None else list(states), named_mask
+
+
+class _GraphBuilder:
+    """Reads a model config into nodes and weight specs. A model nested as a
+    layer (a Sequential or Functional config, in either, to any depth) is
+    read in its caller's place: its calls become nodes of the caller's
+    graph, its input bound to the call's argument and its output to the
+    call's result, its weights named under the model's name (Keras's
+    variable paths, ``"base/conv1/kernel"``) in the nested layer's place in
+    the weight order, once however often it is called. A frozen model
+    (``trainable: false``) freezes every layer in it, as Keras does."""
+
+    def __init__(self, weight_shapes):
+        self.specs: List[_Spec] = []
+        self._seen = set()
+        # the Dense kernels' input widths, in order (biases are the 1-D arrays)
+        self._kernel_in = iter([s[0] for s in weight_shapes or [] if len(s) == 2])
+
+    def _op(self, cls, lcfg, prefix, trainable, feat, batch=None):
+        """The op of a layer whose weights are named under ``prefix``; its
+        weights join the specs the first time the layer is met."""
+        lcfg = dict(lcfg, name=prefix + str(lcfg.get("name")))
+        if not trainable:
+            lcfg["trainable"] = False
+        in_dim = next(self._kernel_in, None) if cls == "Dense" and feat is None else None
+        op = _make_op(cls, lcfg, feat, in_dim, batch)
+        frozen = not lcfg.get("trainable", True)
+        for spec in op.weight_shapes():
+            if spec.name not in self._seen:
+                self._seen.add(spec.name)
+                self.specs.append(spec._replace(trainable=False) if frozen else spec)
+        return op
+
+    def model(self, arch: dict, scope: tuple, prefix: str, trainable: bool,
+              bind_in=None, bind_out=None, feat=None):
+        """``(nodes, input key, output key, output feature shape)`` of a
+        model config; keys are tuples under ``scope``, the input renamed
+        ``bind_in`` and the output ``bind_out`` where given."""
+        cfg = arch.get("config", {})
+        _compute_dtype(cfg)
+        trainable = trainable and cfg.get("trainable", True)
+        kind = arch.get("class_name")
+        if kind == "Sequential":
+            return self._sequential(arch, cfg, scope, prefix, trainable, bind_in, bind_out,
+                                    feat)
+        if kind in ("Functional", "Model") and "layers" in cfg:
+            return self._functional(cfg, scope, prefix, trainable, bind_in, bind_out)
+        raise _refuse(f"model class {kind!r} (the port interprets Sequential and "
+                      f"Functional models)")
+
+    def _sequential(self, arch, cfg, scope, prefix, trainable, bind_in, bind_out, feat):
+        """A chain. Input shapes come from the config (InputLayer, build
+        shapes, each layer's ``build_config``) or, for a Dense layer failing
+        those, from the kernels' shapes in the weights."""
+        shape = cfg.get("build_input_shape") or (arch.get("build_config") or {}).get(
+            "input_shape")
+        batch = shape[0] if shape else None
+        if shape:
+            feat = list(shape[1:])
+        layers = cfg.get("layers", [])
+        calls = [layer for layer in layers if layer.get("class_name") != "InputLayer"]
+        first, last = scope + (0,), scope + (len(calls),)
+
+        def key(i):
+            k = scope + (i,)
+            return (bind_in if k == first and bind_in is not None else
+                    bind_out if k == last and bind_out is not None else k)
+
+        nodes, i, n_out = [], 0, 1
+        for layer in layers:
+            cls, lcfg = layer.get("class_name"), layer.get("config", {})
+            if cls == "InputLayer":
+                bs = lcfg.get("batch_shape") or lcfg.get("batch_input_shape")
+                if bs:
+                    batch, feat = bs[0], list(bs[1:])
+                continue
+            name = lcfg.get("name")
+            if n_out > 1:
+                # Keras hands the tuple on, and the layer refuses it
+                raise ValueError(f"Layer {name!r} expects 1 input(s), but it received "
+                                 f"{n_out} input tensors")
+            build = (layer.get("build_config") or {}).get("input_shape")
+            if build:
+                batch, feat = build[0], list(build[1:])
+            if cls in _MERGES or cls == "Concatenate":
+                raise ValueError(f"{cls} in a Sequential model takes one input")
+            if cls in _MODELS:
+                inner, _, _, feat = self.model(layer, scope + ((name, 0),),
+                                               f"{prefix}{name}/", trainable,
+                                               key(i), key(i + 1), feat)
+                nodes += inner
+            else:
+                op = self._op(cls, lcfg, prefix, trainable, feat, batch)
+                n_out, feat = op.n_outputs, op.out_feat
+                nodes.append(_Node(op, (key(i),), (key(i + 1),) + tuple(
+                    scope + (i + 1, j) for j in range(1, n_out)), f"{cls} {name!r}"))
+            i += 1
+        if n_out > 1:
+            raise _several(n_out, "output")
+        return nodes, key(0), key(len(calls)), feat
+
+    def _functional(self, cfg, scope, prefix, trainable, bind_in, bind_out):
+        """A graph of one input and one output. Each layer's
+        ``inbound_nodes`` are its calls; an argument ``__keras_tensor__``
+        names the ``(layer, node, output)`` that made it and carries its
+        shape; ``specs`` follow the layers' order, which is
+        ``get_weights()``'s."""
+        first = scope + _one_io(cfg.get("input_layers"), "input")
+        last = scope + _one_io(cfg.get("output_layers"), "output")
+
+        def key(ref):
+            k = scope + tuple(ref)
+            return (bind_in if k == first and bind_in is not None else
+                    bind_out if k == last and bind_out is not None else k)
+
+        nodes, out_feat = [], None
+        mask_ops = {layer.get("name", layer.get("config", {}).get("name"))
+                    for layer in cfg.get("layers", []) if _is_mask_op(layer)}
+        for layer in cfg.get("layers", []):
+            cls, lcfg = layer.get("class_name"), layer.get("config", {})
+            name = layer.get("name", lcfg.get("name"))
+            if cls == "InputLayer" or name in mask_ops:
+                continue
+            for i, node in enumerate(layer.get("inbound_nodes", [])):
+                arg, states, named_mask = _call_arguments(cls, name, node, mask_ops)
+                merge = cls in _MERGES or cls == "Concatenate"
+                tensors = list(arg) if merge else [arg]
+                shapes = [t["config"].get("shape") for t in tensors]
+                feat = [list(s[1:]) for s in shapes] if merge else (
+                    list(shapes[0][1:]) if shapes[0] is not None else None)
+                ins = tuple(key(_tensor_ref(t)) for t in tensors)
+                if cls in _MODELS:
+                    inner, _, _, f = self.model(layer, scope + ((name, i),),
+                                                f"{prefix}{name}/", trainable, ins[0],
+                                                key((name, i, 0)), feat)
+                    nodes += inner
+                    outs = [(key((name, i, 0)), f)]
+                else:
+                    batch = None if merge or shapes[0] is None else shapes[0][0]
+                    op = self._op(cls, lcfg, prefix, trainable, feat, batch)
+                    outs = [(key((name, i, j)), f) for j, f in enumerate(op.out_feats)]
+                    nodes.append(_Node(op, ins, tuple(k for k, _ in outs), f"{cls} {name!r}",
+                                       tuple(key(_tensor_ref(t)) for t in states),
+                                       takes_mask=named_mask or not states))
+                for k, f in outs:
+                    if k == key(last[len(scope):]):
+                        out_feat = f
+        return nodes, key(first[len(scope):]), key(last[len(scope):]), out_feat
+
+
+def _in_order(nodes: List[_Node], first, last) -> List[_Node]:
+    """The calls in the config's order, a call whose inputs are not made yet
+    put off until they are (a shared layer's second call may read a later
+    layer, as Keras's own ``from_config`` allows)."""
+    order, made, pending = [], {first}, list(nodes)
     while pending:
-        ready = [n for n in pending if all(k in made for k in n.inputs)]
+        ready = [n for n in pending if all(k in made for k in n.inputs + n.states)]
         if not ready:
-            raise ValueError(f"the graph's calls {[n.output for n in pending][:4]} read "
+            raise ValueError(f"the graph's calls {[n.outputs[0] for n in pending][:4]} read "
                              f"values no call makes")
         for n in ready:
-            nodes.append(n)
-            made.add(n.output)
-        pending = [n for n in pending if n.output not in made]
+            order.append(n)
+            made.update(n.outputs)
+        pending = [n for n in pending if n.outputs[0] not in made]
     if last not in made:
         raise ValueError(f"the model's output {last} is made by no call")
-    return _finish_graph(nodes, first, last), specs, first, last
+    return order
 
 
-_PARSERS = {"Sequential": _parse_sequential, "Functional": _parse_functional}
+def _parse(arch: dict, weight_shapes=None):
+    """``(nodes, specs, input key, output key)`` of a Keras-3 Sequential or
+    Functional config (:class:`_GraphBuilder`); the nodes in an order that
+    runs, each marking the values it reads last so the walk frees them."""
+    builder = _GraphBuilder(weight_shapes)
+    nodes, first, last, _ = builder.model(arch, (), "", True)
+    nodes = _in_order(nodes, first, last)
+    last_read = {}
+    for i, node in enumerate(nodes):
+        for k in node.inputs + node.states:
+            last_read[k] = i
+    nodes = [n._replace(free=tuple(k for k in set(n.inputs + n.states)
+                                   if last_read[k] == i and k not in (first, last)))
+             for i, n in enumerate(nodes)]
+    return nodes, builder.specs, first, last
 
 
 def _is_accuracy_name(name) -> bool:
@@ -1274,12 +1548,13 @@ def _read_model(model) -> Tuple[dict, Optional[List[np.ndarray]]]:
 
 
 def stats_row(stats) -> torch.Tensor:
-    """One replica's ``[loss * B, B, *metric sums, *metric counts]`` from
-    the stats of a step :meth:`KerasModelAdapter.build_metric_steps`
-    builds, on the device: the sums Keras's ``fit`` and ``evaluate`` add
-    up over batches."""
-    loss, _, count, msum, mcount = stats
-    return torch.cat([loss, count, msum[0], mcount[0]])
+    """One replica's ``[loss * B, B, *metric states]`` from the stats of a
+    step :meth:`KerasModelAdapter.build_metric_steps` builds, on the
+    device: what Keras's ``fit`` and ``evaluate`` add up over batches (a
+    mean metric's sum and count, a stateful class's vector), read with
+    :func:`~elephas_tpu_torch.models.losses.metric_results`."""
+    loss, _, count, states = stats
+    return torch.cat([loss, count, states[0]])
 
 
 class KerasModelAdapter:
@@ -1303,11 +1578,7 @@ class KerasModelAdapter:
         self.loss_spec = loss if loss is not None else self.compile_config.get("loss")
         self.metrics = list(metrics) if metrics is not None else self._infer_metrics()
         shapes = None if weights is None else [np.shape(w) for w in weights]
-        kind = arch.get("class_name")
-        if kind not in _PARSERS:
-            raise _refuse(f"model class {kind!r} (the port interprets Sequential and "
-                          f"Functional models)")
-        self._nodes, self._specs, self._input, self._output = _PARSERS[kind](arch, shapes)
+        self._nodes, self._specs, self._input, self._output = _parse(arch, shapes)
         # the ops in the order they run (a shared layer once a call)
         self.layers = [n.op for n in self._nodes]
         # the model's dtype policy (None: its JSON does not say); Keras's
@@ -1403,9 +1674,12 @@ class KerasModelAdapter:
         self._ntv = {s.name: ntv[s.name] for s in self._specs if not s.trainable}
 
     # -- the model -------------------------------------------------------
-    def _forward(self, params: Params, x, training: bool, generator, ntv_out):
+    def _forward(self, params: Params, x, training: bool, generator, ntv_out,
+                 with_mask: bool = False):
         """The graph's calls in order, each value kept by key until its last
-        reader has run; an Embedding's mask travels beside its values."""
+        reader has run; a mask travels beside its values as Keras 3.13
+        hands it on (:meth:`_Op.output_masks`). With ``with_mask`` returns
+        ``(output, its mask or None)``."""
         vals, masks = {self._input: x}, {}
         if self._weight_dtypes:
             params = {**params, **{k: params[k].to(dt)
@@ -1418,25 +1692,25 @@ class KerasModelAdapter:
 
         for node in self._nodes:
             op = node.op
-            if op.merge:
-                h = op(params, [cast(vals[k], op) for k in node.inputs], training,
-                       generator, ntv_out)
-            else:
-                k = node.inputs[0]
-                m = masks.get(k)
-                if m is not None and op.mask_role == "consume":
-                    h = op(params, cast(vals[k], op), training, generator, ntv_out, mask=m)
-                else:
-                    h = op(params, cast(vals[k], op), training, generator, ntv_out)
-                if op.makes_mask:
-                    masks[node.output] = op.compute_mask(vals[k])
-                elif m is not None and (op.mask_role == "pass"
-                                        or getattr(op, "return_sequences", False)):
-                    masks[node.output] = m
-            vals[node.output] = h
+            hs = [vals[k] for k in node.inputs]
+            in_masks = [masks.get(k) for k in node.inputs]
+            kw = {}
+            if op.uses_mask and node.takes_mask and any(m is not None for m in in_masks):
+                kw["mask"] = in_masks if op.merge else in_masks[0]
+            if node.states:
+                kw["initial_state"] = [cast(vals[k], op) for k in node.states]
+            arg = [cast(h, op) for h in hs] if op.merge else cast(hs[0], op)
+            out = op(params, arg, training, generator, ntv_out, **kw)
+            outs = out if isinstance(out, tuple) else (out,)
+            for k, h, m in zip(node.outputs, outs, op.output_masks(hs, in_masks)):
+                vals[k] = h
+                if m is not None:
+                    masks[k] = m
             for k in node.free:
                 vals.pop(k, None)
                 masks.pop(k, None)
+        if with_mask:
+            return vals[self._output], masks.get(self._output)
         return vals[self._output]
 
     def apply(self, params: Params, x, training: bool = False,
@@ -1447,12 +1721,14 @@ class KerasModelAdapter:
         return self._forward(params, x, training, generator, None)
 
     def stateless_call(self, tv: Params, ntv: Params, x, training: bool = False,
-                       generator: Optional[torch.Generator] = None):
+                       generator: Optional[torch.Generator] = None, with_mask: bool = False):
         """Keras's ``stateless_call`` over a replica stack: ``(y, ntv2)``,
-        ``ntv2`` the statistics that training moved (``ntv`` otherwise)."""
+        ``ntv2`` the statistics that training moved (``ntv`` otherwise);
+        with ``with_mask``, ``(y, ntv2, y's mask or None)``."""
         ntv2 = dict(ntv)
-        y = self._forward({**tv, **ntv}, x, training, generator, ntv2 if training else None)
-        return y, ntv2
+        out = self._forward({**tv, **ntv}, x, training, generator, ntv2 if training else None,
+                            with_mask)
+        return (out[0], ntv2, out[1]) if with_mask else (out, ntv2)
 
     def predict(self, x, batch_size: int = 32, verbose: int = 0) -> np.ndarray:
         """Keras ``model.predict``: the current weights over ``x`` in batches
@@ -1477,29 +1753,32 @@ class KerasModelAdapter:
         (:meth:`build_metric_steps`), with the compile config's loss (its
         batch values averaged over the rows, a loss object's scalar for the
         whole batch) and each of its ``metrics`` then ``weighted_metrics``
-        (no sample weights: the weighted ones take the same values)
-        averaged as Keras's ``Mean`` does, summed on the device and read
-        once. Returns the loss alone, or ``[loss, *metrics]``."""
+        (no sample weights: the weighted ones take the same values), each
+        metric's state summed on the device over the batches and read once
+        (a mean metric's sum and count, a stateful class's vector, reset for
+        each call as Keras resets it). Returns the loss alone, or ``[loss,
+        *metrics]``, a metric whose result is a vector as a float32 array."""
         specs = [m for k in ("metrics", "weighted_metrics")
                  for m in _flat_metric_specs(self.compile_config.get(k))]
-        eval_step = self._eval_step([resolve_metric(m)[1] for m in specs],
-                                    self.compile_config.get("loss"))
+        fns = [resolve_metric(m)[1] for m in specs]
+        eval_step = self._eval_step(fns, self.compile_config.get("loss"))
         tv, ntv = ({k: v[None] for k, v in d.items()} for d in self.state_values())
         x = torch.as_tensor(np.asarray(x, np.float32))
         y = torch.as_tensor(np.asarray(y))
         if y.is_floating_point():
             y = y.to(torch.float32)
-        tot = torch.zeros(2 + 2 * len(specs), device=self.device)
+        tot = None
         for i in range(0, x.shape[0], int(batch_size)):
             xb, yb = (t[i:i + int(batch_size)].to(self.device) for t in (x, y))
             sw = torch.ones((1, xb.shape[0]), device=self.device)
-            tot += stats_row(eval_step(tv, ntv, xb[None], yb[None], sw))
-        vals = tot.cpu().tolist()
-        loss = vals[0] / max(vals[1], 1.0)
+            row = stats_row(eval_step(tv, ntv, xb[None], yb[None], sw))
+            tot = row if tot is None else tot + row
+        if tot is None:
+            return 0.0 if not specs else [0.0] * (1 + len(specs))
+        loss = float(tot[0] / torch.clamp(tot[1], min=1.0))
         if not specs:
             return loss
-        M = len(specs)
-        return [loss] + [vals[2 + j] / max(vals[2 + M + j], 1.0) for j in range(M)]
+        return [loss] + [result_value(r) for r in metric_results(fns, tot[2:])]
 
     # -- step builders ---------------------------------------------------
     def _require_loss(self):
@@ -1526,17 +1805,27 @@ class KerasModelAdapter:
         acc_fn = resolve_accuracy(self.loss_spec) if self.wants_accuracy else None
         keras_loss = metric_fns is not None
 
-        def per_and_acc(y, y_pred, sw, with_acc=True):
+        def per_and_acc(y, y_pred, sw, with_acc=True, mask=None, mask_metrics=True):
             """Per-sample losses ``[L, B]`` over the flattened rows (one call
             for every replica) and the weighted accuracy sums ``[L]``; with
-            ``metric_fns``, also each metric's Keras ``Mean`` sums and
-            counts, ``[L, M]`` each."""
+            ``metric_fns``, also each metric's state, ``[L, S]`` (the
+            metrics' states side by side: a mean metric's sum and count, a
+            stateful class's vector). ``mask`` is the output's mask, which
+            only Keras's own steps read (:meth:`_masked_loss`); its metrics
+            read it with ``mask_metrics`` (Keras's JAX ``fit`` hands the
+            metrics a ``y_pred`` that left ``jax.value_and_grad`` and lost its
+            mask there; ``evaluate`` keeps it)."""
             L, B = sw.shape
             yf = y.reshape((L * B,) + tuple(y.shape[2:]))
             pf = y_pred.reshape((L * B,) + tuple(y_pred.shape[2:]))
             lp = y_pred.to(torch.float32) if keras_loss else y_pred
-            per = grouped(y, lp) if grouped is not None else \
-                per_sample_loss(yf, lp.reshape(pf.shape)).reshape(L, B)
+            if keras_loss and mask is not None:
+                if grouped is not None:
+                    raise _refuse("a mask reaching a loss the reference hands to Keras")
+                per = self._masked_loss(per_sample_loss, y, lp, mask)
+            else:
+                per = grouped(y, lp) if grouped is not None else \
+                    per_sample_loss(yf, lp.reshape(pf.shape)).reshape(L, B)
             if acc_fn is None or not with_acc:
                 acc = torch.zeros(L, dtype=torch.float32, device=sw.device)
             else:
@@ -1545,15 +1834,32 @@ class KerasModelAdapter:
             if metric_fns is None:
                 return per, acc
             with torch.no_grad():
-                parts = [[metric_sums(fn(y[l], y_pred[l].detach())) for fn in metric_fns]
-                         for l in range(L)]
-                msum = torch.stack([torch.stack([v for v, _ in row]) for row in parts]) \
-                    if metric_fns else torch.zeros((L, 0), device=sw.device)
-                mcount = torch.tensor([[float(c) for _, c in row] for row in parts],
-                                      device=sw.device).reshape(L, len(metric_fns))
-            return per, acc, msum, mcount
+                states = [torch.cat([metric_state(fn, y[l], y_pred[l].detach(),
+                                                  None if mask is None or not mask_metrics
+                                                  else mask[l])
+                                     for fn in metric_fns])
+                          if metric_fns else torch.zeros(0, device=sw.device)
+                          for l in range(L)]
+            return per, acc, torch.stack(states)
 
         return per_and_acc
+
+    @staticmethod
+    def _masked_loss(per_sample_loss, y, y_pred, mask):
+        """Keras's ``Loss`` over an output with a mask ``[L, B, *A]``: the
+        loss's values at each masked position (its rows flattened over the
+        mask's axes), weighted ``total / valid`` where set and 0 elsewhere
+        (``apply_mask``), then each row's mean: ``[L, B]``, whose mean over
+        the batch is ``sum(values * mask) / valid``."""
+        L, B = mask.shape[:2]
+        n = mask.dim()
+        rows = int(np.prod(mask.shape))
+        values = per_sample_loss(y.reshape((rows,) + tuple(y.shape[n:])),
+                                 y_pred.reshape((rows,) + tuple(y_pred.shape[n:])))
+        w = mask.reshape(L, -1).to(values.dtype)
+        valid = w.sum(dim=1, keepdim=True)
+        w = w * torch.where(valid == 0, torch.zeros_like(valid), w.shape[1] / valid)
+        return (values.reshape(L, -1) * w).reshape(L, B, -1).mean(dim=-1)
 
     @staticmethod
     def _region_grads(region, leaves: Params, remat: bool, gen, *args):
@@ -1618,8 +1924,8 @@ class KerasModelAdapter:
         def region(leaves, ntv, x, y, sw, scale, denom, gen, gen_state):
             if gen_state is not None:
                 gen.set_state(gen_state)
-            y_pred, ntv2 = self.stateless_call(leaves, ntv, x, True, gen)
-            per, *rest = per_and_acc(y, y_pred, sw)
+            y_pred, ntv2, mask = self.stateless_call(leaves, ntv, x, True, gen, with_mask=True)
+            per, *rest = per_and_acc(y, y_pred, sw, mask=mask, mask_metrics=False)
             if denom is None:
                 denom = torch.clamp(sw.sum(dim=1), min=1e-9)
             loss = (per * sw).sum(dim=1) / denom
@@ -1658,7 +1964,9 @@ class KerasModelAdapter:
         ``vmap`` of the step over workers does; a replica whose batch is all
         padding keeps them. ``remat`` as in :meth:`build_train_step`."""
         per_and_acc = self._loss_parts()
-        keep_replicas = any(not s.trainable for s in self._specs)
+        # a stateful recurrent layer checks each replica's batch size
+        keep_replicas = any(not s.trainable for s in self._specs) or any(
+            getattr(op, "batch", None) is not None for op in self.layers)
 
         def region(leaves, ntv, x, y, sw, scale, gen, gen_state):
             if gen_state is not None:
@@ -1697,8 +2005,8 @@ class KerasModelAdapter:
 
         @torch.no_grad()
         def eval_step(tv, ntv, x, y, sw):
-            y_pred, _ = self.stateless_call(tv, ntv, x, False)
-            per, acc, *mstats = per_and_acc(y, y_pred, sw)
+            y_pred, _, mask = self.stateless_call(tv, ntv, x, False, with_mask=True)
+            per, acc, *mstats = per_and_acc(y, y_pred, sw, mask=mask)
             return ((per * sw).sum(dim=1), acc, sw.sum(dim=1), *mstats)
 
         return eval_step

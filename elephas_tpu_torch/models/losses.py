@@ -34,34 +34,42 @@ has beyond those seven are ported here as Keras computes them
   scalar, as they do in the reference.
 
 Those scalars belong to one replica's batch: :class:`KerasFallbackLoss`
-takes them per replica over a replica stack (:meth:`~KerasFallbackLoss.grouped`).
-``ctc`` and ``circle`` raise :class:`NotImplementedError`: they need inputs
-the engine's ``(x, y)`` does not carry.
+takes them per replica over a replica stack (:meth:`~KerasFallbackLoss.grouped`),
+as it takes the functions whose values couple a batch's rows (``dice``,
+``tversky``, ``circle``). Keras 3.13's ``ctc(y_true, y_pred)`` and
+``circle(y_true, y_pred)`` take only the two tensors the engine carries:
+``ctc`` integer labels and per-step logits, ``circle`` integer labels and
+embeddings, its pairs formed across each replica's padded batch, padded
+rows included, as the reference's fall-back receives that batch.
 
 The metrics section ports what Keras ``compile(metrics=...)`` resolves from a
-name or a mean-metric config (:func:`resolve_metric`): the functions of
+name or a config (:func:`resolve_metric`): the functions of
 ``keras.metrics`` and their aliases, per-sample values that Keras's
 ``MeanMetricWrapper`` averages; ``"accuracy"`` resolves from the shapes of
-``y_true`` and ``y_pred`` as Keras resolves it. Stateful metric classes
-(``AUC``, ``Precision``, ...) raise :class:`NotImplementedError`.
+``y_true`` and ``y_pred`` as Keras resolves it; and the stateful classes
+(``AUC``, ``Precision``, ``F1Score``, the IoU family, ...) of
+:mod:`.stateful_metrics`, whose state is a vector summed over the batches.
 """
 
 from __future__ import annotations
 
 import math
 import re
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..ops.fused_xent import categorical_crossentropy_from_logits
+from .stateful_metrics import STATEFUL_METRICS, StatefulMetric, build_stateful
 
 _EPS = 1e-7
 
 # the ROADMAP item the refused losses and metrics wait for
 LOSSES_ITEM = ("ROADMAP queue 1 item 13 (Keras losses and metrics beyond those the port "
                "interprets)")
+# the metrics still to port: part four of that item
+METRICS_ITEM = "ROADMAP queue 1 item 13, part four (the metric classes left)"
 
 
 def _mean_rest(per):
@@ -425,6 +433,81 @@ def _k_tversky(y_true, y_pred, alpha=0.5, beta=0.5, axis=None):
     return 1 - inter / (inter + fp * alpha + fn * beta + _EPS)
 
 
+_LOG_EPSILON = -1e5        # the log of "impossible" in Keras's JAX ctc_loss
+
+
+def _log_add(a, b):
+    return torch.logaddexp(a, b)
+
+
+def _k_ctc(y_true, y_pred):
+    """Keras's ``ctc``: integer labels ``[B, max_len]`` (0 the blank and the
+    padding; the label length the count of non-zero labels), logits ``[B,
+    T, C]`` over every step, the loss per sample. Computed as Keras's JAX
+    backend computes ``ops.ctc_loss`` (optax's forward recursion in log
+    space, ``log_softmax`` in at least float32, ``-1e5`` for an impossible
+    transition): a label sequence that no alignment of T steps can emit
+    costs a large finite value, not ``inf``."""
+    if y_true.dim() != 2:
+        raise ValueError(f"Targets `y_true` are expected to be a tensor of shape "
+                         f"`(batch_size, max_length)` in integer format. Received: "
+                         f"y_true.shape={tuple(y_true.shape)}")
+    if y_pred.dim() != 3:
+        raise ValueError(f"Logits `y_pred` are expected to be a tensor of shape "
+                         f"`(batch_size, max_length, num_classes)`. Received: "
+                         f"y_pred.shape={tuple(y_pred.shape)}")
+    target = y_true.to(torch.int64)
+    B, T, C = y_pred.shape
+    N = target.shape[1]
+    label_len = (target != 0).sum(dim=-1)
+    logp = torch.log_softmax(y_pred.to(torch.promote_types(y_pred.dtype, torch.float32)),
+                             dim=-1)
+    repeat = F.pad((target[:, :-1] == target[:, 1:]).to(logp.dtype), (0, 1))
+    phi_step = logp[:, :, 0:1].transpose(0, 1)                              # [T, B, 1]
+    emit_step = torch.einsum("btk,bnk->btn", logp,
+                             F.one_hot(target, C).to(logp.dtype)).transpose(0, 1)
+    phi = torch.full((B, N + 1), _LOG_EPSILON, dtype=logp.dtype, device=logp.device)
+    phi = torch.cat([torch.zeros_like(phi[:, :1]), phi[:, 1:]], dim=1)
+    emit = torch.full((B, N), _LOG_EPSILON, dtype=logp.dtype, device=logp.device)
+
+    def add_to_phi(p, score):
+        return torch.cat([p[:, :1], _log_add(p[:, 1:], score)], dim=1)
+
+    for t in range(T):
+        prev_phi = add_to_phi(phi, emit + _LOG_EPSILON * repeat)
+        next_emit = _log_add(prev_phi[:, :-1] + emit_step[t], emit + emit_step[t])
+        next_phi = add_to_phi(prev_phi + phi_step[t],
+                              emit + phi_step[t] + _LOG_EPSILON * (1.0 - repeat))
+        phi, emit = next_phi, next_emit
+    last = add_to_phi(phi, emit)
+    return -torch.gather(last, 1, label_len[:, None])[:, 0]
+
+
+def _k_circle(y_true, y_pred, ref_labels=None, ref_embeddings=None, remove_diagonal=True,
+              gamma=80, margin=0.4):
+    """Keras's ``circle``: each row's loss over its pairs with every row of
+    the batch (cosine distances of the embeddings, positives those of the
+    same integer label, the row itself left out with ``remove_diagonal``).
+    Its rows with a zero loss are masked out of a Loss object's reduction
+    (:meth:`KerasFallbackLoss._value`)."""
+    y = y_true.to(torch.int32).reshape(-1, 1)
+    ref = y_pred if ref_embeddings is None else ref_embeddings
+    ref_y = y if ref_labels is None else ref_labels.to(torch.int32).reshape(-1, 1)
+    dist = torch.clamp(1 - y_pred @ ref.transpose(0, 1), min=0.0)
+    pos = y == ref_y.transpose(0, 1)
+    neg = ~pos
+    if remove_diagonal:
+        pos = pos & ~torch.eye(y.shape[0], ref_y.shape[0], dtype=torch.bool, device=y.device)
+    pos_w = torch.clamp((margin + dist) * pos.to(dist.dtype), min=0.0)
+    neg_w = torch.clamp((1 + margin - dist) * neg.to(dist.dtype), min=0.0)
+    pos_d = -1 * gamma * pos_w * (margin - dist)
+    neg_d = gamma * neg_w * ((1 - margin) - dist)
+    inf = torch.tensor(float("-inf"), dtype=dist.dtype, device=dist.device)
+    p_loss = torch.logsumexp(torch.where(pos, pos_d, inf), dim=1)
+    n_loss = torch.logsumexp(torch.where(neg, neg_d, inf), dim=1)
+    return F.softplus(p_loss + n_loss)
+
+
 class _KerasLoss(NamedTuple):
     """One Keras loss: its function, the options its Loss class passes to
     the function, and that class's name."""
@@ -456,13 +539,14 @@ KERAS_LOSSES: Dict[str, _KerasLoss] = {
         "CategoricalGeneralizedCrossEntropy"),
     "dice": _KerasLoss(_k_dice, ("axis",), "Dice"),
     "tversky": _KerasLoss(_k_tversky, ("alpha", "beta", "axis"), "Tversky"),
+    "ctc": _KerasLoss(_k_ctc, (), "CTC"),
+    "circle": _KerasLoss(_k_circle, ("gamma", "margin", "remove_diagonal"), "Circle"),
 }
 # Keras's names for them: its aliases and the Loss classes
 _LOSS_NAMES = {**{k: k for k in KERAS_LOSSES}, "kld": "kl_divergence",
                "mape": "mean_absolute_percentage_error",
                "msle": "mean_squared_logarithmic_error",
                **{v.cls: k for k, v in KERAS_LOSSES.items()}}
-_UNPORTED_LOSSES = ("ctc", "CTC", "circle", "Circle")
 
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                    "float16": torch.float16, "mixed_bfloat16": torch.bfloat16,
@@ -509,10 +593,6 @@ def _loss_form(loss_spec) -> Tuple[str, bool, dict]:
         if key not in _LOSS_NAMES:
             key = str(cfg.get("name") or getattr(loss_spec, "name", key))
         is_object = True
-    if key in _UNPORTED_LOSSES or key.lower() in _UNPORTED_LOSSES:
-        raise NotImplementedError(
-            f"loss {key!r}: its inputs are not the engine's (x, y); it waits for "
-            f"{LOSSES_ITEM}")
     name = _LOSS_NAMES.get(key, _LOSS_NAMES.get(key.lower()))
     if name is None:
         raise NotImplementedError(
@@ -524,8 +604,9 @@ def _loss_form(loss_spec) -> Tuple[str, bool, dict]:
     return name, is_object, cfg
 
 
-# the functions that reduce over every axis (``axis=None``): one value a call
-_OVER_EVERY_AXIS = ("dice", "tversky")
+# the functions whose values couple a batch's rows (``dice`` and ``tversky``
+# sum over every axis, ``circle`` pairs the rows): each replica's batch apart
+_PER_REPLICA = ("dice", "tversky", "circle")
 _REDUCTIONS = (None, "none", "sum", "sum_over_batch_size", "mean", "mean_with_sample_weight")
 
 
@@ -553,6 +634,17 @@ class KerasFallbackLoss:
             return self.fn(y_true, y_pred, **self.kwargs)
         t, p = _same_rank(y_true.to(self.dtype), y_pred.to(self.dtype))
         values = self.fn(t, p, **self.kwargs)
+        if self.name == "circle":
+            # circle masks its zero losses; Keras's Loss weights the others
+            # total / valid under a mean (apply_mask), by the mask otherwise
+            mask = (values > 0).to(values.dtype)
+            if self.reduction in ("sum_over_batch_size", "mean"):
+                valid = mask.sum()
+                mask = mask * torch.where(valid == 0, torch.zeros_like(valid),
+                                          values.numel() / valid)
+            values = values * mask
+            if self.reduction == "mean_with_sample_weight":
+                return values.sum() / mask.sum()
         if self.reduction in (None, "none") or values.dim() == 0 or values.numel() == 0:
             return values
         total = values.sum()
@@ -567,7 +659,7 @@ class KerasFallbackLoss:
 
     def grouped(self, y_true, y_pred):
         L, B = y_pred.shape[:2]
-        if not self.object_form and self.name not in _OVER_EVERY_AXIS:
+        if not self.object_form and self.name not in _PER_REPLICA:
             # per-row values: one call over every replica's rows
             flat = self(y_true.reshape((L * B,) + tuple(y_true.shape[2:])),
                         y_pred.reshape((L * B,) + tuple(y_pred.shape[2:])))
@@ -749,6 +841,9 @@ def _snake_class(cls: str) -> str:
     return re.sub(r"([a-z])([A-Z])", r"\1_\2", name).lower()
 
 
+_STATEFUL_BY_SNAKE = {_snake_class(c): c for c in STATEFUL_METRICS}
+
+
 def _metric_entry(key: str, function: bool) -> Optional[_KerasMetric]:
     """A metric by Keras's names: a function by its name; a string as
     ``keras.metrics.get`` resolves it, by a class's name, its snake-case
@@ -789,8 +884,10 @@ def _accuracy_by_shape(y_true, y_pred):
 def resolve_metric(spec) -> Tuple[str, Callable]:
     """``(name, fn)`` of a compiled metric as Keras resolves it: ``fn(y_true,
     y_pred)`` gives the values Keras's ``MeanMetricWrapper`` averages (see
-    :func:`metric_sums`). Raises :class:`NotImplementedError` for a
-    stateful metric class or any other metric the port does not have."""
+    :func:`metric_sums`), or, for a stateful class, ``fn`` is a
+    :class:`~.stateful_metrics.StatefulMetric` (:func:`metric_state`,
+    :func:`metric_result` read either kind). Raises
+    :class:`NotImplementedError` for any other metric."""
     name = metric_name(spec)
     if isinstance(spec, str) and spec.lower() in ("accuracy", "acc"):
         return name, _accuracy_by_shape
@@ -812,6 +909,12 @@ def resolve_metric(spec) -> Tuple[str, Callable]:
             cfg = dict(spec.get_config() or {})
         except Exception:
             cfg = {}
+    stateful = key if key in STATEFUL_METRICS else _STATEFUL_BY_SNAKE.get(key.lower())
+    if stateful is not None and not function:
+        # a class keeps the compiled name (a string's own, a config's name)
+        if isinstance(spec, str):
+            cfg = dict(cfg, name=name)
+        return name, build_stateful(stateful, cfg)
     entry = _metric_entry(key, function)
     if entry is None and isinstance(spec, str) and key in KERAS_METRICS:
         # a function of keras.metrics without a class: Keras resolves it
@@ -820,7 +923,8 @@ def resolve_metric(spec) -> Tuple[str, Callable]:
     if entry is None:
         raise NotImplementedError(
             f"metric {key!r} is not one the port computes (the mean metrics of "
-            f"keras.metrics); stateful metric classes wait for {LOSSES_ITEM}")
+            f"keras.metrics and the stateful classes {sorted(STATEFUL_METRICS)}); it waits "
+            f"for {METRICS_ITEM}")
     kwargs = {k: cfg[k] for k in entry.options if k in cfg}
 
     def fn(y_true, y_pred):
@@ -829,13 +933,60 @@ def resolve_metric(spec) -> Tuple[str, Callable]:
     return name, fn
 
 
-def metric_sums(values) -> Tuple[torch.Tensor, int]:
+def metric_sums(values, mask=None) -> Tuple[torch.Tensor, Any]:
     """``(sum, count)`` that Keras's ``Mean`` adds for one batch's metric
     values: float32, each sample's values averaged over their other axes;
-    a single value counts as one sample."""
+    a single value counts as one sample. With ``mask`` (the output's mask,
+    the values' leading axes) it is ``MeanMetricWrapper``'s sample weight:
+    each sample adds the mean of its masked values and counts the mean of
+    its mask."""
     values = values.to(torch.float32)
+    if mask is not None:
+        w = mask.to(torch.float32)
+        while w.dim() < values.dim():
+            w = w[..., None]
+        w = torch.broadcast_to(w, values.shape) if w.dim() == values.dim() else w
+        v = (values * w).reshape(values.shape[0], -1).mean(dim=-1)
+        return v.sum(), w.reshape(values.shape[0], -1).mean(dim=-1).sum()
     if values.dim() == 0:
         return values, 1
     if values.dim() > 1:
         values = values.reshape(values.shape[0], -1).mean(dim=-1)
     return values.sum(), int(values.shape[0])
+
+
+def metric_state(fn, y_true, y_pred, mask=None) -> torch.Tensor:
+    """One batch's state of a resolved metric (:func:`resolve_metric`), a
+    float32 vector on ``y_pred``'s device: a stateful class's own, a mean
+    metric's ``[sum, count]``."""
+    if isinstance(fn, StatefulMetric):
+        return fn.update(y_true, y_pred)
+    total, count = metric_sums(fn(y_true, y_pred), mask)
+    count = torch.as_tensor(count, dtype=torch.float32, device=y_pred.device)
+    return torch.stack([total.to(y_pred.device), count])
+
+
+def metric_state_size(fn) -> Optional[int]:
+    """The length of a resolved metric's state (None for a stateful class
+    that has not seen a batch yet)."""
+    return fn.size if isinstance(fn, StatefulMetric) else 2
+
+
+def metric_result(fn, state: torch.Tensor) -> torch.Tensor:
+    """A resolved metric's result from its summed state: Keras's
+    ``result()``; a mean metric's ``sum / count`` (0 for no count)."""
+    if isinstance(fn, StatefulMetric):
+        return fn.result(state)
+    return torch.where(state[1] == 0, torch.zeros_like(state[0]),
+                       state[0] / torch.where(state[1] == 0, torch.ones_like(state[1]),
+                                              state[1]))
+
+
+def metric_results(fns, states: torch.Tensor) -> list:
+    """Each metric's result from their states, concatenated in order."""
+    out, at = [], 0
+    for fn in fns:
+        n = metric_state_size(fn)
+        out.append(metric_result(fn, states[at:at + n]))
+        at += n
+    return out

@@ -60,7 +60,8 @@ import torch
 from . import DeviceLike
 from .data.rdd import TaskContext
 from .models.adapters import KerasModelAdapter, stats_row
-from .models.losses import resolve_metric
+from .models.losses import metric_results, resolve_metric
+from .models.stateful_metrics import result_value
 from .models.optimizers import to_keras_optimizer
 from .parameter.client import BaseParameterClient
 from .utils.functional_utils import subtract_params_np
@@ -185,9 +186,9 @@ class KerasReplica:
             _task_generator(None, self.device)
         resolved = [resolve_metric(m) for m in (metrics or [])]
         self.metric_names = [name for name, _ in resolved]
-        fns = [fn for _, fn in resolved]
-        self._train_step, self._eval_step = self.adapter.build_metric_steps(self.optimizer,
-                                                                            fns)
+        self._metric_fns = [fn for _, fn in resolved]
+        self._train_step, self._eval_step = self.adapter.build_metric_steps(
+            self.optimizer, self._metric_fns)
         self._opt_state = None
         self._peeked = False
         self.stop_training = False
@@ -207,7 +208,7 @@ class KerasReplica:
         batch as it is, unpadded, as Keras trains it), moving the
         BatchNormalization statistics; ``cw`` the rows' class weights, the
         loss then ``sum(l * w) / B`` as Keras's. Returns ``[loss * B, B,
-        *metric sums, *metric counts]`` on the device."""
+        *metric states]`` on the device (:func:`stats_row`)."""
         tv, ntv = self._stacked()
         if self._opt_state is None:
             self._opt_state = self.optimizer.init(tv, count_shape=(1,))
@@ -240,19 +241,26 @@ class KerasReplica:
         return tot
 
     def _logs(self, tot: torch.Tensor, prefix: str = "") -> Dict[str, torch.Tensor]:
-        """Keras's logs from the summed row: the loss, then each metric."""
-        M = len(self.metric_names)
+        """Keras's logs from the summed row: the loss, then each metric's
+        result from its summed state (a vector where Keras's is one)."""
         logs = {prefix + "loss": tot[0] / tot[1]}
-        for j, name in enumerate(self.metric_names):
-            logs[prefix + name] = tot[2 + j] / tot[2 + M + j]
+        for name, value in zip(self.metric_names, metric_results(self._metric_fns, tot[2:])):
+            logs[prefix + name] = value
         return logs
 
     @staticmethod
-    def _floats(logs: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    def _floats(logs: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        """The logs read in one transfer: floats, a vector result as a
+        float32 array (as Keras logs it)."""
         if not logs:
             return {}
-        values = torch.stack(list(logs.values())).cpu().tolist()
-        return dict(zip(logs, values))
+        flat = torch.cat([v.reshape(-1) for v in logs.values()]).cpu()
+        out, at = {}, 0
+        for k, v in logs.items():
+            n = v.numel()
+            out[k] = result_value(flat[at:at + n].reshape(v.shape))
+            at += n
+        return out
 
     def fit(self, x, y, batch_size: Optional[int] = None, epochs: int = 1,
             verbose="auto", validation_split: float = 0.0, shuffle=True,
@@ -342,21 +350,19 @@ class KerasReplica:
                 _call(callbacks, "on_epoch_end", epoch, training_logs)
             if verbose:
                 print(f"epoch {epoch + 1}/{epochs} - " + " - ".join(
-                    f"{k}: {float(v):.4f}" for k, v in logs.items()))
+                    f"{k}: {v}" for k, v in self._floats(logs).items()))
             if self.stop_training:
                 break
         _call(callbacks, "on_train_end", training_logs or {})
         # one transfer for every metric of every epoch; a key missing from
         # an epoch (val_ under validation_freq) is left out of it, as
         # Keras's History leaves it
-        history: Dict[str, List[float]] = {}
+        history: Dict[str, List[Any]] = {}
         if rows:
             keys = list(dict.fromkeys(k for r in rows for k in r))
-            flat = torch.stack([r[k] for r in rows for k in r]).cpu().tolist()
-            it = iter(flat)
-            for r in rows:
-                for k in r:
-                    history.setdefault(k, []).append(next(it))
+            flat = self._floats({(i, k): v for i, r in enumerate(rows) for k, v in r.items()})
+            for (_, k), v in flat.items():
+                history.setdefault(k, []).append(v)
             history = {k: history[k] for k in keys}
         else:
             history = {"loss": []}
@@ -367,7 +373,7 @@ class KerasReplica:
         or ``[loss, *metrics]`` with metrics compiled in."""
         row = self._step(_on_device(np.asarray(x), self.device),
                          _on_device(np.asarray(y), self.device))
-        out = [float(v) for v in torch.stack(list(self._logs(row).values())).cpu()]
+        out = list(self._floats(self._logs(row)).values())
         return out if len(out) > 1 else out[0]
 
 

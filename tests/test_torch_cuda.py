@@ -2305,3 +2305,100 @@ def test_mixed_policy_train_step_on_card_matches_cpu(cuda, policy):
 
     for k, want in cpu[1].items():
         assert dist(card[1][k], want) <= 4 * dist(want, f32[1][k]), k
+
+
+# -- nested models, ctc and the stateful metric tallies ---------------------------
+
+
+def test_frozen_nested_base_on_card_runs_no_convolution_backward(cuda):
+    """The committed ``resnet50_transfer_logits.json`` (the ResNet-50 base
+    frozen, nested under a logits head): one train step on the card calls
+    no convolution backward (no gradient flows through the base), launches
+    K1 once each way, keeps every base array bit for bit and moves the
+    head; the fine-tuning config's step calls the convolutions' backward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from elephas_tpu_torch.models import KerasModelAdapter
+
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.uniform(0, 1, size=(1, 16, 32, 32, 3)).astype(np.float32))
+    y = torch.from_numpy(np.eye(10, dtype=np.float32)[rng.integers(0, 10, 16)][None])
+    for name, want in (("resnet50_transfer_logits.json", 0),
+                       ("resnet50_finetune_logits.json", 53)):
+        a = KerasModelAdapter(_config_text(name), device="cuda")
+        tv, ntv = ({k: v[None] for k, v in d.items()} for d in a.state_values())
+        opt = a.make_optimizer()
+        step = a.build_train_step(opt)
+        state = opt.init(tv, count_shape=(1,))
+        fused_xent_fwd.launches = fused_xent_bwd.launches = 0
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            tv2, ntv2, _, _ = step(tv, ntv, state, x.cuda(), y.cuda(),
+                                   torch.ones(1, 16, device="cuda"), None)
+            torch.cuda.synchronize()
+        calls = sum(e.count for e in prof.key_averages()
+                    if e.key == "aten::convolution_backward")
+        assert calls == want, (name, calls)
+        assert fused_xent_fwd.launches == fused_xent_bwd.launches == 1
+        if want == 0:
+            assert set(tv2) == {"predictions/kernel", "predictions/bias"}
+            for k in ntv:
+                assert torch.equal(ntv2[k], ntv[k]), k
+            for k in tv:
+                assert not torch.equal(tv2[k], tv[k]), k
+
+
+def test_ctc_on_card_matches_cpu(cuda):
+    """``CTC()`` over per-step logits with zero-padded labels (a label
+    sequence too long for its steps included): the loss and its gradient
+    on the card against the CPU within 1e-5 (the recursion runs the same
+    operations in the same order on both)."""
+    from elephas_tpu_torch.models.losses import resolve_per_sample_loss
+
+    rng = np.random.default_rng(13)
+    logits = rng.normal(size=(8, 16, 6)).astype(np.float32)
+    labels = rng.integers(1, 6, size=(8, 4)).astype(np.float32)
+    labels[0, 2:], labels[1, 1:] = 0, 0
+    labels[2] = [1, 1, 1, 1]
+    short = rng.normal(size=(8, 3, 6)).astype(np.float32)
+    fn = resolve_per_sample_loss({"class_name": "CTC", "config": {
+        "name": "ctc", "reduction": "none"}})
+    for p in (logits, short):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            pt = torch.from_numpy(p).to(dev).requires_grad_()
+            loss = fn(torch.from_numpy(labels).to(dev), pt)
+            loss.sum().backward()
+            out[dev] = (loss.detach().cpu(), pt.grad.cpu())
+        torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-5, atol=1e-6)
+
+
+def test_stateful_metric_tallies_on_card_match_cpu(cuda):
+    """AUC, Precision, F1Score and MeanIoU states summed over four batches
+    on the card against the CPU: the counts equal, the results within
+    1e-6."""
+    from elephas_tpu_torch.models.losses import metric_result, metric_state, resolve_metric
+
+    rng = np.random.default_rng(14)
+    y = np.eye(4, dtype=np.float32)[rng.integers(0, 4, 200)]
+    p = rng.uniform(size=(200, 4)).astype(np.float32)
+    specs = [{"class_name": "AUC", "config": {"name": "auc"}},
+             {"class_name": "Precision", "config": {"name": "precision"}},
+             {"class_name": "F1Score", "config": {"name": "f1_score", "average": None}},
+             {"class_name": "MeanIoU", "config": {"name": "mean_io_u", "num_classes": 4,
+                                                  "sparse_y_true": False,
+                                                  "sparse_y_pred": False}}]
+    for spec in specs:
+        states, results = {}, {}
+        for dev in ("cuda", "cpu"):
+            _, fn = resolve_metric(spec)
+            tot = None
+            for i in range(0, 200, 64):
+                s = metric_state(fn, torch.from_numpy(y[i:i + 64]).to(dev),
+                                 torch.from_numpy(p[i:i + 64]).to(dev))
+                assert s.device.type == dev
+                tot = s if tot is None else tot + s
+            states[dev], results[dev] = tot.cpu(), metric_result(fn, tot).cpu()
+        if spec["class_name"] != "F1Score":
+            assert torch.equal(states["cuda"], states["cpu"]), spec["class_name"]
+        torch.testing.assert_close(results["cuda"], results["cpu"], rtol=1e-6, atol=1e-6)

@@ -138,10 +138,35 @@ def test_metric_matches_keras(spec, kind):
                          ids=["AUC", "Precision", "Recall", "F1Score", "MeanIoU", "R2Score",
                               "RootMeanSquaredError"])
 def test_stateful_metric_classes_raise_naming_item_13(spec):
+    """The stateful classes this test once found refused are ported: each,
+    as an object and from its serialized dict, resolves to a metric whose
+    state summed over three batches gives Keras's result after the same
+    three ``update_state`` calls, within 1e-6 (``tests/test_torch_stateful_metrics.py``
+    holds every class and option). A class still unported raises naming
+    part four of item 13."""
+    rng = np.random.default_rng(5)
     obj = spec()
+    if isinstance(obj, (keras.metrics.F1Score, keras.metrics.R2Score,
+                        keras.metrics.RootMeanSquaredError)):
+        yt = rng.normal(size=(40, 3)).astype(np.float32)
+        if isinstance(obj, keras.metrics.F1Score):
+            yt = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 40)]
+        yp = rng.uniform(size=(40, 3)).astype(np.float32)
+    else:
+        yt = rng.integers(0, 2, size=(40, 1)).astype(np.float32)
+        yp = rng.uniform(size=(40, 1)).astype(np.float32)
+    for i in range(0, 40, 16):
+        obj.update_state(yt[i:i + 16], yp[i:i + 16])
+    want = np.asarray(obj.result())
     for form in (obj, keras.metrics.serialize(obj)):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            TL.resolve_metric(form)
+        name, fn = TL.resolve_metric(form)
+        assert name == obj.name
+        tot = sum(TL.metric_state(fn, torch.from_numpy(yt[i:i + 16]),
+                                  torch.from_numpy(yp[i:i + 16])) for i in range(0, 40, 16))
+        np.testing.assert_allclose(TL.metric_result(fn, tot).numpy(), want, atol=1e-6,
+                                   rtol=1e-6)
+    with pytest.raises(NotImplementedError, match="item 13, part four"):
+        TL.resolve_metric(keras.metrics.Sum())
 
 
 def test_function_only_metric_names_do_not_resolve():

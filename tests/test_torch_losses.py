@@ -254,14 +254,104 @@ def test_generalized_cross_entropy_string_does_not_resolve():
 
 
 def test_loss_without_an_implementation_raises():
-    """CTC and Circle need inputs the engine's (x, y) does not carry: they
-    still raise, naming item 13 (the reference hands them to Keras)."""
-    with pytest.raises(NotImplementedError, match="ctc") as err:
-        TL.resolve_per_sample_loss(keras.losses.CTC())
-    assert "item 13" in str(err.value)
-    with pytest.raises(NotImplementedError, match="circle") as err:
-        TL.resolve_per_sample_loss("circle")
-    assert "item 13" in str(err.value)
+    """CTC and Circle, which this test once found refused, take only the
+    engine's two tensors in Keras 3.13: each form resolves and holds the
+    reference's fall-back at 1e-5 (``test_ctc_and_circle_match_the_reference``
+    holds them over padded batches and replica stacks); a loss Keras does
+    not have still raises."""
+    rng = np.random.default_rng(9)
+    labels = rng.integers(1, 5, size=(4, 3)).astype(np.float32)
+    logits = rng.normal(size=(4, 8, 5)).astype(np.float32)
+    for spec in (keras.losses.CTC(), "ctc"):
+        want = np.asarray(JL.resolve_per_sample_loss(spec)(jnp.asarray(labels),
+                                                          jnp.asarray(logits)))
+        got = TL.resolve_per_sample_loss(spec)(torch.from_numpy(labels),
+                                               torch.from_numpy(logits))
+        np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+    emb = rng.normal(size=(6, 4)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    ids = rng.integers(0, 2, size=6).astype(np.float32)
+    want = np.asarray(JL.resolve_per_sample_loss("circle")(jnp.asarray(ids), jnp.asarray(emb)))
+    got = TL.resolve_per_sample_loss("circle")(torch.from_numpy(ids), torch.from_numpy(emb))
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+    with pytest.raises(NotImplementedError, match="not_a_loss"):
+        TL.resolve_per_sample_loss("not_a_loss")
+
+
+CTC_CIRCLE = [
+    ("ctc", "string", lambda: "ctc"),
+    ("ctc", "object", lambda: keras.losses.CTC()),
+    ("ctc", "json", lambda: keras.losses.serialize(keras.losses.CTC())),
+    ("ctc", "object-sum", lambda: keras.losses.CTC(reduction="sum")),
+    ("circle", "string", lambda: "circle"),
+    ("circle", "object", lambda: keras.losses.Circle()),
+    ("circle", "json-options", lambda: keras.losses.serialize(
+        keras.losses.Circle(gamma=20.0, margin=0.3, remove_diagonal=False))),
+    ("circle", "object-sum", lambda: keras.losses.Circle(reduction="sum")),
+    ("circle", "object-weighted-mean",
+     lambda: keras.losses.Circle(reduction="mean_with_sample_weight")),
+    ("circle", "object-none", lambda: keras.losses.Circle(reduction=None)),
+]
+
+
+def _ctc_circle_data(name, rng, B=12):
+    if name == "ctc":
+        labels = rng.integers(1, 5, size=(B, 4)).astype(np.float32)
+        labels[0, 2:], labels[1, 1:] = 0, 0
+        labels[2] = [3, 3, 3, 3]        # repeats: needs 7 of the 8 steps
+        return labels, rng.normal(size=(B, 8, 5)).astype(np.float32)
+    emb = rng.normal(size=(B, 6)).astype(np.float32)
+    return (rng.integers(0, 3, size=B).astype(np.float32),
+            emb / np.linalg.norm(emb, axis=1, keepdims=True))
+
+
+@pytest.mark.parametrize("name,form,make", CTC_CIRCLE,
+                         ids=[f"{n}-{f}" for n, f, _ in CTC_CIRCLE])
+def test_ctc_and_circle_match_the_reference(name, form, make):
+    """``ctc`` and ``circle`` in each form against the reference's
+    fall-back: a batch, a padded one (zero rows appended, as the engine
+    pads: they enter circle's pairs and a Loss object's scalar on both
+    sides), and a replica stack, each replica's batch its own (circle
+    pairs within a replica, never across the stack)."""
+    spec = make()
+    rng = np.random.default_rng(21)
+    yt, yp = _ctc_circle_data(name, rng)
+    port = TL.resolve_per_sample_loss(spec)
+    ref = JL.resolve_per_sample_loss(spec)
+    pad = [(yt, yp), (np.concatenate([yt, np.zeros((4,) + yt.shape[1:], yt.dtype)]),
+                      np.concatenate([yp, np.zeros((4,) + yp.shape[1:], yp.dtype) + 0.5]))]
+    for t, p in pad:
+        want = np.asarray(ref(jnp.asarray(t), jnp.asarray(p)))
+        got = port(torch.from_numpy(t), torch.from_numpy(p))
+        assert tuple(got.shape) == want.shape == (t.shape[0],)
+        np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+    second = (pad[1][0][-12:], pad[1][1][-12:])
+    stack = port.grouped(torch.from_numpy(np.stack([yt, second[0]])),
+                         torch.from_numpy(np.stack([yp, second[1]])))
+    for l, (t, p) in enumerate(((yt, yp), second)):
+        np.testing.assert_allclose(stack[l].numpy(), np.asarray(ref(jnp.asarray(t),
+                                                                    jnp.asarray(p))),
+                                   atol=TOL, rtol=TOL)
+
+
+def test_ctc_gradient_and_infeasible_labels_match_the_reference():
+    """The gradient of ``ctc`` through the reference's JAX fall-back and the
+    port's recursion; labels that 3 steps cannot emit cost Keras's large
+    finite value (its ``-1e5`` for an impossible transition), not ``inf``."""
+    rng = np.random.default_rng(22)
+    labels, logits = _ctc_circle_data("ctc", rng)
+    ref = JL.resolve_per_sample_loss("ctc")
+    want = np.asarray(jax.grad(lambda p: jnp.sum(ref(jnp.asarray(labels), p)))(
+        jnp.asarray(logits)))
+    pt = torch.from_numpy(logits).requires_grad_()
+    TL.resolve_per_sample_loss("ctc")(torch.from_numpy(labels), pt).sum().backward()
+    np.testing.assert_allclose(pt.grad.numpy(), want, atol=TOL, rtol=TOL)
+    short = rng.normal(size=(12, 3, 5)).astype(np.float32)
+    got = TL.resolve_per_sample_loss("ctc")(torch.from_numpy(labels), torch.from_numpy(short))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref(jnp.asarray(labels),
+                                                           jnp.asarray(short))),
+                               atol=TOL, rtol=TOL)
+    assert np.isfinite(got.numpy()).all() and float(got.max()) > 1e4
 
 
 # -- optimizers ---------------------------------------------------------------

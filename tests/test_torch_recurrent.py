@@ -157,13 +157,29 @@ def test_zero_output_for_mask_matches_keras(cls):
     (lambda: [L.GRU(3, stateful=True)], "stateful"),
 ])
 def test_masks_and_options_still_queued_raise(layers, match):
-    """A mask reaching the loss or a layer that does not consume it, and
-    the recurrent options still queued, raise naming item 13."""
-    shape = (9, 3) if match == "stateful" else (9,)
+    """Each case this test once found refused runs as Keras 3.13 runs it,
+    within 1e-5 of ``model.predict``: a mask reaching the model's output
+    (``tests/test_torch_graph_options.py`` holds what the loss does with
+    it), a mask handed on by Dense, GlobalAveragePooling1D's masked mean
+    (NaN on the all-masked row, as Keras's 0 / 0), and ``stateful=True``,
+    which starts every batch from zeros as the reference's
+    ``stateless_call`` does and refuses a batch of another size as Keras
+    does."""
+    stateful = match == "stateful"
+    shape = (9, 3) if stateful else (9,)
+    keras.utils.set_random_seed(0)
     m = keras.Sequential([keras.Input(shape, batch_size=4)] + layers())
-    with pytest.raises(NotImplementedError, match=match) as err:
-        KerasModelAdapter(m, device="cpu")
-    assert "item 13" in str(err.value)
+    _randomise(m)
+    x = _steps(4, 9, 3) if stateful else ids(4)
+    want = m.predict(x, batch_size=4, verbose=0)
+    adapter = KerasModelAdapter(m, device="cpu")
+    got = adapter.predict(x, batch_size=4)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
+    if stateful:
+        np.testing.assert_allclose(adapter.predict(x, batch_size=4), got, atol=0, rtol=0)
+        with pytest.raises(ValueError, match="stateful"):
+            adapter.predict(x[:3], batch_size=3)
 
 
 def imdb_gru_masked(vocab=2000, maxlen=80, units=32):
